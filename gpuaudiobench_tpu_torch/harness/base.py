@@ -1,0 +1,145 @@
+"""Benchmark base class: the plugin API of the suite.
+
+PyTorch counterpart of ``gpuaudiobench_tpu/harness/base.py``. The
+reference's four override points (setupBenchmark / runKernel /
+performBenchmarkIteration / validate) map to:
+
+* ``setup()``      -- generate seeded host data, place it on the device,
+                      compute the NumPy golden.
+* ``iterate()``    -- ONE measured iteration: device compute plus the
+                      output's copy back to the host (which waits for the
+                      device). This is the hot path timed by the runner.
+* ``device_iterate()`` -- device compute on resident buffers, waited for.
+* ``validate()``   -- compare the last iteration's host output against
+                      the golden with the benchmark's tolerance/metric.
+
+Every benchmark holds the ``torch.device`` it runs on; nothing uses a
+global default device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from gpuaudiobench_tpu_torch.config import BenchConfig
+from gpuaudiobench_tpu_torch.harness.statistics import LatencyStats
+from gpuaudiobench_tpu_torch.harness.validation import ValidationData
+
+
+@dataclasses.dataclass
+class BenchmarkResult:
+    benchmark_name: str = ""
+    buffer_size: int = 0
+    track_count: int = 0
+    iterations: int = 0
+    latencies: List[float] = dataclasses.field(default_factory=list)
+    statistics: LatencyStats = dataclasses.field(default_factory=LatencyStats)
+    # Derived performance metrics (cuda/bench_base.cu:110-115).
+    bytes_processed: int = 0
+    mean_latency_ms: float = 0.0
+    throughput_gbps: float = 0.0
+    samples_per_sec: float = 0.0
+    # Validation outcome + per-benchmark metadata.
+    validation: Optional[ValidationData] = None
+    metadata: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Saturated/streaming pass (pipeline_depth): wall per block with
+    # ``depth`` blocks chained between two host synchronisations.
+    pipeline_depth: int = 0
+    saturated_latencies: List[float] = dataclasses.field(default_factory=list)
+    saturated_statistics: Optional[LatencyStats] = None
+    # Marginal tier: depth-differenced per-block cost, with every
+    # depth-independent cost (launch queue fill, the probe read) cancelled.
+    saturated_lo_depth: int = 0
+    saturated_marginal_latencies: List[float] = dataclasses.field(
+        default_factory=list)
+    saturated_marginal_statistics: Optional[LatencyStats] = None
+
+
+class Benchmark:
+    """Base class for all benchmark workloads."""
+
+    name: str = "Benchmark"
+
+    def __init__(self, cfg: BenchConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.buffer_size = cfg.buffer_size
+        self.track_count = cfg.n_tracks
+        self._allocations: Dict[str, int] = {}
+
+    def resolve_impl(self) -> str:
+        """``"cuda-kernel"`` (the hand kernel) exactly on a CUDA device,
+        ``"torch-plain"`` (the plain PyTorch twin) on the CPU. Impl xla
+        on a CUDA device raises: the plain twin never runs the main path
+        on the card."""
+        if self.device.type == "cpu":
+            return "torch-plain"
+        if self.device.type != "cuda":
+            raise ValueError(f"{self.name}: no implementation for {self.device}")
+        if self.cfg.impl == "xla":
+            raise ValueError(
+                f"{self.name}: impl 'xla' (the plain PyTorch twin) does not "
+                "run on a CUDA device; call the twin directly to A/B it")
+        return "cuda-kernel"
+
+    # -- allocation tracking (BufferManager.totalMemoryAllocated analog) --
+    def track_alloc(self, name: str, nbytes: int) -> None:
+        self._allocations[name] = int(nbytes)
+
+    def memory_report(self) -> Dict[str, int]:
+        if not self._allocations:
+            return {}
+        report = dict(self._allocations)
+        report["totalBytes"] = sum(self._allocations.values())
+        return report
+
+    # -- lifecycle ---------------------------------------------------------
+    def setup(self) -> None:
+        raise NotImplementedError
+
+    def iterate(self) -> None:
+        raise NotImplementedError
+
+    def device_iterate(self) -> None:
+        """Device-only compute on resident buffers, waited for."""
+        raise NotImplementedError
+
+    def stream_body(self):
+        """Optional streaming hook (pipeline_depth): return
+        ``(step_fn, carry)`` where ``step_fn(carry) -> (carry', probe)``
+        runs ONE block on device-resident data, carrying state where the
+        benchmark has it, and ``probe`` is a (1,) tensor
+        (``streaming.probe``). None = unsupported."""
+        return None
+
+    def validate(self) -> ValidationData:
+        raise NotImplementedError
+
+    def metadata(self) -> Dict[str, Any]:
+        return {}
+
+    def cost_model(self):
+        """Algorithmic per-block cost: {"flops", "hbm_bytes", "unit"} or
+        None. flops = required arithmetic; hbm_bytes = minimum device
+        memory traffic assuming perfect on-chip reuse."""
+        return None
+
+    def transfer_model(self) -> Dict[str, int]:
+        """Per-iteration host<->device traffic of one ``iterate()``.
+        Default = the standard in/out buffer pair."""
+        n4 = self.total_elements() * 4
+        return {"h2d_bytes": n4, "d2h_bytes": n4}
+
+    def cleanup(self) -> None:
+        pass
+
+    # -- metrics helpers ---------------------------------------------------
+    def total_elements(self) -> int:
+        return self.buffer_size * self.track_count
+
+    def bytes_processed(self) -> int:
+        """Bytes counted for throughput (bench_base.cu:110-111)."""
+        return self.total_elements() * 4

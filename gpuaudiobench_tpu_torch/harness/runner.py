@@ -1,0 +1,122 @@
+"""Iteration runner: warmup -> timed loop -> saturated pass -> statistics
+-> validation.
+
+PyTorch counterpart of ``gpuaudiobench_tpu/harness/runner.py`` (port of
+GPUABenchmark::runWithIteration, cuda/bench_base.cu:59-118). Timing is
+wall clock around one iteration that ends in a copy of the output to
+the host, which waits for the device: the reference's measurement
+boundary around transfer, launch, sync and transfer back.
+
+On CUDA, warmup also absorbs the kernels' build and first load.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+from gpuaudiobench_tpu_torch.config import BenchConfig
+from gpuaudiobench_tpu_torch.harness.base import Benchmark, BenchmarkResult
+from gpuaudiobench_tpu_torch.harness.statistics import calculate_statistics
+from gpuaudiobench_tpu_torch.harness.streaming import (
+    measure_saturated,
+    measure_saturated_marginal,
+)
+
+
+def _refuse_unported(cfg: BenchConfig) -> None:
+    """Tiers of the reference runner that this package does not have
+    yet: asking for one raises instead of skipping it silently."""
+    unported = [
+        (cfg.device_timing, "device timing (device_timing)",
+         "queue 1, item 4"),
+        (cfg.capture, "profiler capture (capture)", "queue 1, item 4"),
+        (cfg.dawsim, "DAW-sim pacing (dawsim)", "queue 1, item 5"),
+        (cfg.overlap_depth > 1, "overlapped infeed (overlap_depth)",
+         "queue 1, item 5"),
+        (cfg.data_parallel > 1, "data-parallel sharding (data_parallel)",
+         "queue 1, item 18"),
+    ]
+    for asked, tier, item in unported:
+        if asked:
+            raise NotImplementedError(
+                f"{tier} is not ported to the PyTorch runner yet; "
+                f"see ROADMAP.md {item}")
+
+
+def run_benchmark(
+    benchmark: Benchmark,
+    cfg: Optional[BenchConfig] = None,
+    verbose: bool = True,
+) -> BenchmarkResult:
+    cfg = cfg or benchmark.cfg
+    _refuse_unported(cfg)
+    result = BenchmarkResult(
+        benchmark_name=benchmark.name,
+        buffer_size=benchmark.buffer_size,
+        track_count=benchmark.track_count,
+        iterations=cfg.n_runs,
+    )
+
+    # Warmup (bench_base.cu:70-81). An exception here propagates: a
+    # failing iteration is a fault, not noise to be timed around.
+    if cfg.warmup > 0:
+        if verbose:
+            print(f"Running {cfg.warmup} warmup iterations...")
+        for _ in range(cfg.warmup):
+            benchmark.iterate()
+        if verbose:
+            print("Warmup complete, starting timed iterations...")
+
+    # Timed iterations (bench_base.cu:89-94).
+    latencies = []
+    for _ in range(cfg.n_runs):
+        t0 = time.perf_counter()
+        benchmark.iterate()
+        latencies.append((time.perf_counter() - t0) * 1000.0)
+    result.latencies = latencies
+    result.statistics = calculate_statistics(latencies)
+
+    # Saturated/streaming pass: per-block cost with the launch queue kept
+    # full (pipeline_depth chained blocks, state carried).
+    if cfg.pipeline_depth > 1:
+        body = benchmark.stream_body()
+        if body is None:
+            if verbose:
+                print(f"Note: {benchmark.name} has no streaming mode "
+                      "(round-trip is the workload); skipping saturated pass.")
+        else:
+            step_fn, carry = body
+            result.pipeline_depth = cfg.pipeline_depth
+            if cfg.saturated_marginal and cfg.pipeline_depth >= 4:
+                sat, marg, lo = measure_saturated_marginal(
+                    step_fn, carry, cfg.pipeline_depth, cfg.saturated_reps,
+                )
+                result.saturated_lo_depth = lo
+                result.saturated_marginal_latencies = marg
+                result.saturated_marginal_statistics = (
+                    calculate_statistics(marg))
+            else:
+                sat = measure_saturated(
+                    step_fn, carry, cfg.pipeline_depth, cfg.saturated_reps,
+                )
+            result.saturated_latencies = sat
+            result.saturated_statistics = calculate_statistics(sat)
+
+    # Derived metrics (bench_base.cu:110-115).
+    result.bytes_processed = benchmark.bytes_processed()
+    result.mean_latency_ms = result.statistics.mean
+    if result.mean_latency_ms > 0:
+        mean_sec = result.mean_latency_ms / 1000.0
+        result.throughput_gbps = (result.bytes_processed / (1024.0**3)) / mean_sec
+        result.samples_per_sec = benchmark.total_elements() / mean_sec
+
+    result.validation = benchmark.validate()
+    result.metadata = benchmark.metadata()
+    # Roofline accounting against the H100's peaks is queue 1, item 16;
+    # the reference's co-located projection exists only for its relay
+    # and is not ported.
+    mem = benchmark.memory_report()
+    if mem:
+        result.metadata["memory"] = mem
+    return result

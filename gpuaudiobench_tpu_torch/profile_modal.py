@@ -1,0 +1,144 @@
+"""Where the time of the ModalFilterBank main cell goes, on one GPU.
+
+    python -m gpuaudiobench_tpu_torch.profile_modal
+
+Sets up the main cell of ``bench`` (1,048,576 modes, 512-sample blocks,
+32 tracks; validation off, so the host golden is skipped) and prints one
+JSON line with:
+
+* ``card``: nvidia-smi's name and power limit, and its SM clock and power
+  draw sampled while a long chain of blocks runs;
+* ``chain_wall_ms_per_block``: the unprofiled wall per block of a
+  ``DEPTH``-block chain (median of 3), as the saturated tier times it;
+* ``chain`` and ``roundtrip``: per-kernel device time per block from
+  ``torch.profiler`` over ``TRACE_BLOCKS`` chained blocks and over
+  ``ROUNDTRIPS`` round trips, the device-busy time per block (the union
+  of the kernels' and copies' intervals), and the device's idle share of
+  the traced window (first device event to last).
+
+Needs a CUDA device; raises without one.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import threading
+import time
+from typing import Dict, List, Tuple
+
+import torch
+
+from gpuaudiobench_tpu_torch.config import BenchConfig
+from gpuaudiobench_tpu_torch.harness.streaming import run_chained
+from gpuaudiobench_tpu_torch.registry import create_benchmark
+from gpuaudiobench_tpu_torch.utils import device as dev
+
+DEPTH = 2048
+TRACE_BLOCKS = 128
+ROUNDTRIPS = 20
+
+
+def _smi(query: str) -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else ""
+
+
+def _sample_under_load(step, carry, blocks: int, delay_s: float) -> str:
+    """SM clock and power draw, read by nvidia-smi from another thread
+    ``delay_s`` into a chain of ``blocks`` blocks."""
+    reading: List[str] = []
+
+    def sample():
+        time.sleep(delay_s)
+        reading.append(_smi("clocks.sm,power.draw"))
+
+    th = threading.Thread(target=sample)
+    th.start()
+    run_chained(step, carry, blocks)
+    th.join()
+    return reading[0]
+
+
+def _device_events(prof) -> List[Tuple[str, float, float]]:
+    """(name, start_us, end_us) of every event the profiler saw on the
+    device (kernels and copies)."""
+    out = []
+    for e in prof.events():
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            out.append((e.name, e.time_range.start, e.time_range.end))
+    return out
+
+
+def _summarize(events, blocks: int) -> Dict[str, object]:
+    if not events:
+        return {"error": "the profiler saw no device time"}
+    per_kernel: Dict[str, float] = {}
+    for name, a, b in events:
+        per_kernel[name] = per_kernel.get(name, 0.0) + (b - a)
+    busy, cur_a, cur_b = 0.0, None, None
+    for _, a, b in sorted(events, key=lambda x: x[1]):
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    window = max(b for _, _, b in events) - min(a for _, a, _ in events)
+    return {
+        "blocks": blocks,
+        "kernel_us_per_block": {
+            k: v / blocks for k, v in sorted(per_kernel.items(),
+                                             key=lambda kv: -kv[1])},
+        "device_busy_us_per_block": busy / blocks,
+        "window_us_per_block": window / blocks,
+        "device_idle_share": 1.0 - busy / window if window > 0 else 0.0,
+    }
+
+
+def main() -> int:
+    from torch.profiler import ProfilerActivity, profile
+
+    device = dev.device("cuda")
+    cfg = BenchConfig(n_tracks=1024, buffer_size=512, verification="none",
+                      device_timing=False)
+    bench = create_benchmark("ModalFilterBank", cfg, device)
+    bench.setup()  # builds the kernel and runs one round trip
+    step, carry = bench.stream_body()
+    run_chained(step, carry, 16)
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_chained(step, carry, DEPTH)
+        walls.append((time.perf_counter() - t0) * 1000.0 / DEPTH)
+    under_load = _sample_under_load(step, carry, 4 * DEPTH, 1.0)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_chained(step, carry, TRACE_BLOCKS)
+    chain = _summarize(_device_events(prof), TRACE_BLOCKS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ROUNDTRIPS):
+            bench.iterate()
+    roundtrip = _summarize(_device_events(prof), ROUNDTRIPS)
+
+    print(json.dumps({
+        "card": {"name_power_limit": _smi("name,power.limit"),
+                 "sm_clock_power_draw_under_load": under_load},
+        "depth": DEPTH,
+        "chain_wall_ms_per_block": statistics.median(walls),
+        "chain_wall_ms_per_block_reps": walls,
+        "chain": chain,
+        "roundtrip": roundtrip,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,93 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+Each ``.cu`` file under ``gpuaudiobench_tpu_torch/csrc/`` exposes a plain
+C interface (no PyTorch headers), so ``nvcc`` builds it into a shared
+library in seconds:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so <name>.cu
+
+The build runs at first use, into ``build/torch_kernels/`` at the root of
+the checkout. The file name carries a hash of the sources and the flags,
+so an edited source or a changed flag never loads a stale library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``CUDA_HOME``, then ``/usr/local/cuda/bin``, then
+    ``PATH``; raises ``RuntimeError`` when none has it."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed on the source and flags."""
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its keyed library exists.
+    Raises ``RuntimeError`` with nvcc's output when the build fails."""
+    lib = library_path(name)
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Build to a temporary name and rename, so a concurrent or cut-off
+    # build never leaves a half-written library under the final name.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu ({proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; one load per process."""
+    if name not in _LOADED:
+        _LOADED[name] = ctypes.CDLL(str(build(name)))
+    return _LOADED[name]

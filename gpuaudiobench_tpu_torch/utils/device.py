@@ -1,0 +1,73 @@
+"""Device selection and host<->device transfer helpers.
+
+PyTorch counterpart of ``gpuaudiobench_tpu/utils/device.py``. The device
+is an explicit ``torch.device`` that callers thread through; nothing here
+sets a global default. A request for the GPU never falls back to the
+CPU: the CPU is used only when a caller names it.
+"""
+
+from __future__ import annotations
+
+import subprocess
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+def device(name: str = "cuda") -> torch.device:
+    """``torch.device("cuda:0")`` for ``"cuda"``; ``"cpu"`` only when
+    asked for by name. Raises ``RuntimeError`` when CUDA is asked for and
+    ``torch.cuda.is_available()`` is False."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if name != "cuda":
+        raise ValueError(f"unsupported device {name!r} (use 'cuda' or 'cpu')")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA requested but torch.cuda.is_available() is False")
+    return torch.device("cuda:0")
+
+
+def to_device(host_array: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host -> device copy (cudaMemcpy H2D)."""
+    return torch.from_numpy(np.ascontiguousarray(host_array)).to(dev)
+
+
+def from_device(t: torch.Tensor) -> np.ndarray:
+    """Device -> host copy (cudaMemcpy D2H); waits for the device."""
+    return t.cpu().numpy()
+
+
+def block(dev: torch.device) -> None:
+    """Wait until the device has finished all queued work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def nvidia_smi_identity() -> Optional[str]:
+    """The card's ``name, power.limit`` line from nvidia-smi, or None
+    where nvidia-smi is missing or fails."""
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if proc.returncode != 0:
+        return None
+    return proc.stdout.strip().splitlines()[0] if proc.stdout.strip() else None
+
+
+def gpu_identity(dev: torch.device) -> Dict[str, Optional[str]]:
+    """Name and power limit of the card behind ``dev``:
+    ``torch.cuda.get_device_name`` and the power limit from nvidia-smi's
+    ``name, power.limit`` line. On the CPU: "cpu" and None."""
+    if dev.type != "cuda":
+        return {"device_name": "cpu", "power_limit": None}
+    line = nvidia_smi_identity()
+    return {
+        "device_name": torch.cuda.get_device_name(dev),
+        "power_limit": line.split(",")[-1].strip() if line else None,
+    }

@@ -1,0 +1,183 @@
+"""Guards of the PyTorch port: it never imports jax or the JAX package
+(``gpuaudiobench_tpu``), never falls back
+from the GPU to the CPU or from the kernel to its plain twin, rejects
+what its kernel does not take, and raises for what is not ported."""
+
+import dataclasses
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from gpuaudiobench_tpu import registry as jax_registry
+from gpuaudiobench_tpu_torch import bench, registry
+from gpuaudiobench_tpu_torch.config import BenchConfig
+from gpuaudiobench_tpu_torch.harness.base import Benchmark
+from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
+from gpuaudiobench_tpu_torch.ops import modal as tops
+from gpuaudiobench_tpu_torch.utils import device as dev
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "gpuaudiobench_tpu_torch"
+CPU = torch.device("cpu")
+
+BLOCKED_JAX = textwrap.dedent("""
+    import importlib, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "gpuaudiobench_tpu")
+
+    class BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, BlockJax())
+    import gpuaudiobench_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke  # noqa: F401
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+
+    import torch
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
+    from gpuaudiobench_tpu_torch.registry import create_benchmark
+
+    cfg = BenchConfig(n_tracks=8, buffer_size=64, n_runs=2, warmup=1,
+                      device_timing=False, pipeline_depth=4, saturated_reps=2)
+    b = create_benchmark("ModalFilterBank", cfg, torch.device("cpu"))
+    b.setup()
+    res = run_benchmark(b, cfg, verbose=False)
+    assert res.validation.passed
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+    print("OK", len(names))
+""")
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", BLOCKED_JAX], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert r.stdout.split()[0] == "OK" and int(r.stdout.split()[1]) >= 12
+
+
+def test_no_source_mentions_jax():
+    files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for f in files:
+        for line in f.read_text().splitlines():
+            words = line.replace(",", " ").split()
+            if words[:1] in (["import"], ["from"]):
+                assert not any(
+                    w.split(".")[0] in ("jax", "jaxlib", "gpuaudiobench_tpu")
+                    for w in words[1:2]), f"{f}: {line}"
+
+
+@pytest.fixture
+def port_cfg(small_cfg):
+    return BenchConfig(**{f.name: getattr(small_cfg, f.name)
+                          for f in dataclasses.fields(BenchConfig)})
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_device_cuda_raises_without_cuda(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="is_available"):
+        dev.device("cuda")
+
+
+def test_bench_main_cuda_raises_without_cuda(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="is_available"):
+        bench.main(n_tracks=8, n_runs=1, warmup=0, pipeline_depth=0,
+                   device="cuda")
+
+
+def _tables(m=256, dtype=torch.float32):
+    return [torch.ones(m, dtype=dtype) for _ in range(5)]
+
+
+@pytest.mark.parametrize("fn", ["modal_bank", "modal_folded_step"])
+def test_wrappers_reject_bad_input(fn):
+    wrapper = getattr(tops, fn)
+    n = 5 if fn == "modal_bank" else 4
+    with pytest.raises(TypeError, match="float32"):
+        wrapper(*_tables(dtype=torch.float64)[:n], 32, 32)
+    strided = [torch.ones(512)[::2] for _ in range(n)]
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(*strided, 32, 32)
+    uneven = _tables()[:n - 1] + [torch.ones(128)]
+    with pytest.raises(ValueError, match="equal-length"):
+        wrapper(*uneven, 32, 32)
+    with pytest.raises(ValueError, match="multiple of output_tracks"):
+        wrapper(*_tables(m=100)[:n], 32, 32)
+
+
+@pytest.mark.parametrize("fn", ["modal_bank", "modal_folded_step"])
+def test_wrappers_raise_on_a_device_without_a_kernel(fn):
+    """Only a CPU tensor takes the plain twin; any other device gets the
+    kernel or an error, never the twin."""
+    n = 5 if fn == "modal_bank" else 4
+    meta = [torch.empty(256, device="meta") for _ in range(n)]
+    with pytest.raises(ValueError, match="no kernel"):
+        getattr(tops, fn)(*meta, 32, 32)
+
+
+class _FailingWarmup(Benchmark):
+    name = "FailingWarmup"
+
+    def iterate(self):
+        raise RuntimeError("iteration failed")
+
+
+def test_runner_propagates_warmup_exception(port_cfg):
+    b = _FailingWarmup(port_cfg, CPU)
+    with pytest.raises(RuntimeError, match="iteration failed"):
+        run_benchmark(b, port_cfg, verbose=False)
+
+
+def test_registry_names_mirror_the_reference():
+    assert registry.BENCHMARK_NAMES == jax_registry.BENCHMARK_NAMES
+    assert registry.EXTENSION_NAMES == jax_registry.EXTENSION_NAMES
+    assert registry.list_benchmarks() == jax_registry.list_benchmarks()
+
+
+@pytest.mark.parametrize(
+    "name", [n for n in jax_registry.list_benchmarks() if n != "ModalFilterBank"])
+def test_unported_benchmarks_raise(port_cfg, name):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        registry.create_benchmark(name, port_cfg, CPU)
+
+
+def test_unknown_benchmark_raises(port_cfg):
+    with pytest.raises(KeyError):
+        registry.create_benchmark("NoSuchBenchmark", port_cfg, CPU)
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    env = dict(os.environ, PYTHONPATH="")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ, PYTHONPATH="")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
