@@ -1,0 +1,316 @@
+"""Command-line interface of the PyTorch port.
+
+    python -m gpuaudiobench_tpu_torch.cli --benchmark IIRFilter --nTracks 65536 \\
+        --pipelineDepth 512 --json
+
+A cut-down counterpart of ``gpuaudiobench_tpu/cli.py`` with the same
+``parse_args`` / ``run`` / ``main`` shape and the flags the ported
+benchmarks read. A flag the reference knows but the port has not ported
+yet exits 1 with a message that names its ROADMAP item, as does
+``--outputfile`` without ``--json`` (the CSV writer is not ported). The
+run is on the GPU: ``main(argv)`` takes ``device="cuda"``; only a caller
+that passes ``device="cpu"`` (the tests) gets the CPU. A benchmark that
+raises is reported and the suite goes on, but the exit code is 1.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import traceback
+from typing import List, Optional
+
+from gpuaudiobench_tpu_torch.config import BenchConfig
+from gpuaudiobench_tpu_torch.registry import (
+    BENCHMARK_DESCRIPTIONS,
+    BENCHMARK_NAMES,
+    EXTENSION_NAMES,
+    create_benchmark,
+    list_benchmarks,
+    ported_benchmarks,
+)
+
+DEFAULT_BENCHMARK = "RndMemRead"  # cuda/main.cu:239
+
+VALUE_FLAGS = {
+    "--benchmark": ("benchmark", str),
+    "--fs": ("fs", int),
+    "--bufferSize": ("buffer_size", int),
+    "--nTracks": ("n_tracks", int),
+    "--nRuns": ("n_runs", int),
+    "--warmup": ("warmup", int),
+    "--outputfile": ("output_file", str),
+    "--verification": ("verification", str),
+    "--impl": ("impl", str),
+    "--iirForm": ("iir_form", str),
+    "--iirBlockM": ("iir_block_m", int),
+    "--modalModes": ("modal_num_modes", int),
+    "--pipelineDepth": ("pipeline_depth", int),
+    "--saturatedReps": ("saturated_reps", int),
+    "--seed": ("seed", int),
+}
+SWITCHES = {
+    "--json": ("json_output", True),
+    "--quiet": ("quiet", True),
+    "--no-device-timing": ("device_timing", False),
+    "--noSaturatedMarginal": ("saturated_marginal", False),
+    "--modalRenorm": ("modal_renorm", True),
+}
+# Flags of the reference's CLI that the port has not ported, with the
+# ROADMAP.md item that ports them.
+UNPORTED_FLAGS = {
+    "--category": "queue 1, item 17",
+    "--dawsim": "queue 1, item 5",
+    "--dawsim-mode": "queue 1, item 5",
+    "--dawsim-jitter-us": "queue 1, item 5",
+    "--overlapDepth": "queue 1, item 5",
+    "--overlapReps": "queue 1, item 5",
+    "--transferMiB": "queue 1, item 5",
+    "--capture": "queue 1, item 4",
+    "--captureDir": "queue 1, item 4",
+    "--irLength": "queue 1, item 7",
+    "--convEdgeMode": "queue 1, item 7",
+    "--dwgMinLen": "queue 1, item 9",
+    "--dwgMaxLen": "queue 1, item 9",
+    "--fdtdRoom": "queue 1, item 10",
+    "--fdtdPerTrackReceivers": "queue 1, item 10",
+    "--poolMiB": "queue 1, item 11",
+    "--partconvForm": "queue 1, item 13",
+    "--partconvTailChunk": "queue 1, item 13",
+    "--partconvHDtype": "queue 1, item 13",
+    "--sessionEqStages": "queue 1, item 14",
+    "--neuralampChannels": "queue 1, item 15",
+    "--neuralampLayers": "queue 1, item 15",
+    "--neuralampDtype": "queue 1, item 15",
+    "--solFmaK": "queue 1, item 16",
+    "--solFmaMiB": "queue 1, item 16",
+    "--solVmemMiB": "queue 1, item 16",
+    "--solStreamMiB": "queue 1, item 16",
+    "--solMatmulDim": "queue 1, item 16",
+    "--csvSchema": "queue 1, item 17",
+    "--latenciesFile": "queue 1, item 17",
+    "--dataParallel": "queue 1, item 18",
+    "--mesh": "queue 1, item 18",
+    "--compilationCacheDir": "'Not ported' (XLA only)",
+    "--no-compilationCache": "'Not ported' (XLA only)",
+}
+
+
+def print_help() -> None:
+    print("GPU Audio Benchmark Suite, PyTorch / CUDA port")
+    print("==============================================")
+    print("Real-time GPU audio processing benchmarks\n")
+    print("Usage: python -m gpuaudiobench_tpu_torch.cli [options]\n")
+    print("Options:")
+    print("  --help                   Print this help message")
+    print("  --list                   List all benchmark names")
+    print("  --benchmark [name]       Run specific benchmark (see list below)")
+    print("  --benchmarkFilter [pat]  Run all benchmarks matching substring or /regex/")
+    print("                           (repeatable / comma separated)")
+    print("  --fs [rate]              Set sampling rate (default: 48000)")
+    print("  --bufferSize [size]      Set buffer size (default: 512)")
+    print("  --nTracks [count]        Set number of tracks (default: 128)")
+    print("  --nRuns [count]          Set number of iterations (default: 100)")
+    print("  --warmup [count]         Set warmup iterations (default: 3)")
+    print("  --json                   Output results in JSON format")
+    print("  --outputfile [file]      With --json: write the JSON to a file")
+    print("                           (the CSV writer is not ported yet)")
+    print("  --verification [mode]    none | spot | full (default: full)")
+    print("  --impl [which]           auto | pallas (the CUDA kernel) | xla")
+    print("                           (the plain twin; refused on the GPU)")
+    print("  --iirForm [f]            scan | blockstate (IIRFilter "
+          "recurrence form; default scan)")
+    print("  --iirBlockM [m]          blockstate samples per step (default 0 "
+          "= auto: 128 on the kernel, clamped to a bufferSize divisor)")
+    print("  --modalModes [n]         ModalFilterBank mode count")
+    print("  --modalRenorm            Streaming: renormalize phasor magnitudes")
+    print("  --pipelineDepth [n]      Also measure saturated throughput:")
+    print("                           n chained blocks, state carried")
+    print("  --saturatedReps [n]      Saturated-tier repetitions (default: 21)")
+    print("  --noSaturatedMarginal    Skip the depth-differenced marginal tier")
+    print("  --seed [n]               Test-data seed (default: 42)")
+    print("  --no-device-timing       Skip the device tier (CUDA events)")
+    print("  --quiet                  Suppress progress output (results only)")
+    print()
+    print("Benchmarks (* = ported; the rest exit 1, see ROADMAP.md):")
+    ported = ported_benchmarks()
+    for name in list_benchmarks():
+        mark = "*" if name in ported else " "
+        print(f" {mark}{name:<16} - {BENCHMARK_DESCRIPTIONS[name]}")
+    print()
+    print("Examples:")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark IIRFilter "
+          "--nTracks 65536 --pipelineDepth 512 --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark BiquadChain")
+
+
+def print_list() -> None:
+    print("Available benchmarks:")
+    for name in list_benchmarks():
+        print(name)
+
+
+def matches_filter(name: str, patterns: List[str]) -> bool:
+    """The reference's filter tiers: /regex/, =exact, else substring,
+    all case-insensitive (``gpuaudiobench_tpu/config.py:287``)."""
+    import re
+
+    for pat in patterns:
+        if len(pat) > 2 and pat.startswith("/") and pat.endswith("/"):
+            try:
+                if re.search(pat[1:-1], name, flags=re.IGNORECASE):
+                    return True
+            except re.error as e:
+                print(f"Invalid regex pattern: {pat} -> {e}")
+        elif pat.startswith("=") and len(pat) > 1:
+            if pat[1:].lower() == name.lower():
+                return True
+        elif pat.lower() in name.lower():
+            return True
+    return False
+
+
+def parse_args(argv: List[str]):
+    """Returns (cfg, benchmark_names, error_message)."""
+    benchmark: Optional[str] = None
+    filters: List[str] = []
+    updates = {}
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg == "--help":
+            return None, ["--help"], None
+        if arg == "--list":
+            return None, ["--list"], None
+        if arg in SWITCHES:
+            key, val = SWITCHES[arg]
+            updates[key] = val
+        elif arg in UNPORTED_FLAGS:
+            return None, [], (
+                f"Error: {arg} is not ported to the PyTorch CLI yet; see "
+                f"ROADMAP.md {UNPORTED_FLAGS[arg]}")
+        elif arg == "--benchmarkFilter" or arg in VALUE_FLAGS:
+            if i + 1 >= len(argv):
+                return None, [], f"Error: {arg} requires an argument"
+            i += 1
+            v = argv[i]
+            if arg == "--benchmarkFilter":
+                filters.extend(p for p in v.split(",") if p)
+            else:
+                key, typ = VALUE_FLAGS[arg]
+                try:
+                    val = typ(v)
+                except ValueError:
+                    return None, [], f"Error: invalid value for {arg}: {v}"
+                if key == "benchmark":
+                    benchmark = val
+                else:
+                    updates[key] = val
+        else:
+            return None, [], f"Error: unknown argument: {arg} (see --help)"
+        i += 1
+
+    cfg = BenchConfig().replace(**updates)
+    try:
+        cfg.validate()
+    except ValueError as e:
+        return None, [], f"Error: {e}"
+    if cfg.output_file and not cfg.json_output:
+        return None, [], (
+            "Error: --outputfile writes CSV, which the PyTorch CLI does not "
+            "write yet (see ROADMAP.md queue 1, item 17); add --json to "
+            "write the JSON result to the file")
+
+    if filters:
+        names = [n for n in BENCHMARK_NAMES + EXTENSION_NAMES
+                 if matches_filter(n, filters)]
+        if benchmark and benchmark not in names:
+            names.append(benchmark)
+        if not names:
+            return None, [], "Error: no benchmarks match the given filter"
+    else:
+        names = [benchmark or DEFAULT_BENCHMARK]
+    return cfg, names, None
+
+
+def run(cfg: BenchConfig, names: List[str], device: str = "cuda") -> int:
+    from gpuaudiobench_tpu_torch.harness.output import (
+        generate_json_results,
+        print_results,
+    )
+    from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
+    from gpuaudiobench_tpu_torch.utils import device as dev
+
+    torch_dev = dev.device(device)
+    ident = dev.gpu_identity(torch_dev)
+    print("GPU Audio Benchmark (PyTorch port)")
+    print(f"Device: {ident['device_name']} [{torch_dev.type}], "
+          f"power limit {ident['power_limit']}")
+
+    exit_code = 0
+    json_results = []
+    for name in names:
+        try:
+            bench = create_benchmark(name, cfg, torch_dev)
+        except KeyError:
+            print(f"Error: Unknown benchmark '{name}'")
+            print("Use --list to see available benchmarks.")
+            return 1
+        except (NotImplementedError, ValueError) as e:
+            print(f"Benchmark {name} failed: {e}")
+            exit_code = 1
+            continue
+        # One failing benchmark does not stop the suite, but the run
+        # exits 1 (main.swift:261-341).
+        try:
+            if not cfg.quiet:
+                print(f"Setting up {name} benchmark...")
+            bench.setup()
+            if not cfg.quiet:
+                print(f"Running {name} benchmark ({cfg.n_runs} iterations "
+                      f"with {cfg.warmup} warmup)...")
+            result = run_benchmark(bench, cfg, verbose=not cfg.quiet)
+            if result.validation is not None and not result.validation.passed:
+                exit_code = 1
+            if cfg.json_output:
+                json_results.append(
+                    generate_json_results(result, cfg, torch_dev))
+            else:
+                print_results(result, cfg)
+            bench.cleanup()
+        except Exception as e:  # noqa: BLE001 - suite resilience
+            traceback.print_exc()
+            print(f"Benchmark {name} failed: {type(e).__name__}: {e}")
+            exit_code = 1
+
+    if cfg.json_output and json_results:
+        payload = json.dumps(
+            json_results[0] if len(json_results) == 1 else json_results,
+            indent=2)
+        if cfg.output_file:
+            with open(cfg.output_file, "w") as f:
+                f.write(payload)
+            print(f"JSON results saved to: {cfg.output_file}")
+        else:
+            print(payload)
+    print("Done")
+    return exit_code
+
+
+def main(argv: Optional[List[str]] = None, device: str = "cuda") -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    cfg, names, err = parse_args(argv)
+    if err:
+        print(err)
+        return 1
+    if names == ["--help"]:
+        print_help()
+        return 0
+    if names == ["--list"]:
+        print_list()
+        return 0
+    return run(cfg, names, device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,9 @@ performBenchmarkIteration / validate) map to:
 * ``iterate()``    -- ONE measured iteration: device compute plus the
                       output's copy back to the host (which waits for the
                       device). This is the hot path timed by the runner.
-* ``device_iterate()`` -- device compute on resident buffers, waited for.
+* ``device_iterate()`` -- device compute on resident buffers, enqueued
+                      on the current stream; the caller waits (the
+                      device tier records CUDA events around it).
 * ``validate()``   -- compare the last iteration's host output against
                       the golden with the benchmark's tolerance/metric.
 
@@ -37,6 +39,12 @@ class BenchmarkResult:
     iterations: int = 0
     latencies: List[float] = dataclasses.field(default_factory=list)
     statistics: LatencyStats = dataclasses.field(default_factory=LatencyStats)
+    # Device tier (harness/device_timing.py): per-run device times and
+    # how they were taken ("cuda-events", "pipeline-slope", or "wall" on
+    # the CPU).
+    device_latencies: List[float] = dataclasses.field(default_factory=list)
+    device_statistics: Optional[LatencyStats] = None
+    device_timing_method: str = ""
     # Derived performance metrics (cuda/bench_base.cu:110-115).
     bytes_processed: int = 0
     mean_latency_ms: float = 0.0
@@ -104,7 +112,8 @@ class Benchmark:
         raise NotImplementedError
 
     def device_iterate(self) -> None:
-        """Device-only compute on resident buffers, waited for."""
+        """Device-only compute on resident buffers, enqueued on the
+        current stream without waiting (the caller synchronises)."""
         raise NotImplementedError
 
     def stream_body(self):

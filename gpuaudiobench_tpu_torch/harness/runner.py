@@ -1,5 +1,5 @@
-"""Iteration runner: warmup -> timed loop -> saturated pass -> statistics
--> validation.
+"""Iteration runner: warmup -> timed loop -> device tier -> saturated
+pass -> statistics -> validation.
 
 PyTorch counterpart of ``gpuaudiobench_tpu/harness/runner.py`` (port of
 GPUABenchmark::runWithIteration, cuda/bench_base.cu:59-118). Timing is
@@ -17,6 +17,7 @@ from typing import Optional
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.harness.base import Benchmark, BenchmarkResult
+from gpuaudiobench_tpu_torch.harness.device_timing import measure_device_times
 from gpuaudiobench_tpu_torch.harness.statistics import calculate_statistics
 from gpuaudiobench_tpu_torch.harness.streaming import (
     measure_saturated,
@@ -28,8 +29,6 @@ def _refuse_unported(cfg: BenchConfig) -> None:
     """Tiers of the reference runner that this package does not have
     yet: asking for one raises instead of skipping it silently."""
     unported = [
-        (cfg.device_timing, "device timing (device_timing)",
-         "queue 1, item 4"),
         (cfg.capture, "profiler capture (capture)", "queue 1, item 4"),
         (cfg.dawsim, "DAW-sim pacing (dawsim)", "queue 1, item 5"),
         (cfg.overlap_depth > 1, "overlapped infeed (overlap_depth)",
@@ -76,6 +75,15 @@ def run_benchmark(
         latencies.append((time.perf_counter() - t0) * 1000.0)
     result.latencies = latencies
     result.statistics = calculate_statistics(latencies)
+
+    # Device tier: CUDA events around device_iterate() on resident
+    # buffers (harness/device_timing.py).
+    if cfg.device_timing:
+        dev_latencies, method = measure_device_times(benchmark, cfg)
+        if dev_latencies:
+            result.device_latencies = dev_latencies
+            result.device_statistics = calculate_statistics(dev_latencies)
+            result.device_timing_method = method
 
     # Saturated/streaming pass: per-block cost with the launch queue kept
     # full (pipeline_depth chained blocks, state carried).

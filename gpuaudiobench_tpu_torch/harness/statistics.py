@@ -4,8 +4,10 @@ A copy of ``calculate_statistics`` from
 ``gpuaudiobench_tpu/harness/statistics.py`` (the reference's
 cuda/bench_utils.cu:358-414): mean, median (mid-pair average for even
 n), sample std-dev (n-1), min/max, and linearly interpolated p95/p99
-over (n-1)-scaled indices. Kept here so the port never imports the
-reference package; ``tests/test_torch_harness.py`` holds the two equal.
+over (n-1)-scaled indices; and of the JSON writer's ``csv_percentile``,
+``detect_outliers`` and ``stability_rating``. Kept here so the port
+never imports the reference package; ``tests/test_torch_harness.py``
+and ``tests/test_torch_cli.py`` hold them equal.
 """
 
 from __future__ import annotations
@@ -39,6 +41,39 @@ def interpolated_percentile(sorted_vals: Sequence[float], p: float) -> float:
         return sorted_vals[lower]
     weight = index - lower
     return sorted_vals[lower] * (1.0 - weight) + sorted_vals[upper] * weight
+
+
+def csv_percentile(sorted_vals: Sequence[float], p: float) -> float:
+    """Truncated-index percentile of the JSON writer
+    (cuda/globals.cu:86-88): sorted[int(n*p)], clamped to the last."""
+    n = len(sorted_vals)
+    if n == 0:
+        return 0.0
+    return sorted_vals[min(int(n * p), n - 1)]
+
+
+def detect_outliers(values: Sequence[float], k: float = 1.5):
+    """IQR outliers: (outliers, low_fence, high_fence)."""
+    if len(values) < 4:
+        return [], 0.0, 0.0
+    s = sorted(values)
+    q1 = interpolated_percentile(s, 25.0)
+    q3 = interpolated_percentile(s, 75.0)
+    lo, hi = q1 - k * (q3 - q1), q3 + k * (q3 - q1)
+    return [v for v in values if v < lo or v > hi], lo, hi
+
+
+def stability_rating(values: Sequence[float]):
+    """(coefficient of variation %, rating): < 5 excellent, < 15 good,
+    < 30 fair, else poor."""
+    stats = calculate_statistics(values)
+    if stats.mean == 0:
+        return 0.0, "n/a"
+    cv = stats.std_dev / stats.mean * 100.0
+    for limit, rating in ((5.0, "excellent"), (15.0, "good"), (30.0, "fair")):
+        if cv < limit:
+            return cv, rating
+    return cv, "poor"
 
 
 def calculate_statistics(latencies: Sequence[float]) -> LatencyStats:

@@ -1,10 +1,11 @@
-"""Golden-case validation: the relative-error check.
+"""Golden-case validation: the absolute- and relative-error checks.
 
-A copy of ``compare_rel`` and ``ValidationData`` from
-``gpuaudiobench_tpu/harness/validation.py`` (the reference's
-GPUABenchmark.swift:527-601 and cuda/bench_conv1d_accel.cu:310-330), so
-the port never imports the reference package;
-``tests/test_torch_harness.py`` holds the two equal. Verification modes
+A copy of ``compare_abs``, ``compare_rel`` and ``ValidationData`` (with
+``merge_failure``) from ``gpuaudiobench_tpu/harness/validation.py`` (the
+reference's cuda/bench_base.cu:181-225, GPUABenchmark.swift:527-601 and
+cuda/bench_conv1d_accel.cu:310-330), so the port never imports the
+reference package; ``tests/test_torch_harness.py`` and
+``tests/test_torch_iir_bench.py`` hold each copy equal. Verification modes
 full / spot / none; spot = a strided sample of <= limit indices plus the
 final element.
 """
@@ -33,6 +34,15 @@ class ValidationData:
     error_count: int = 0
     samples_checked: int = 0
     messages: List[str] = dataclasses.field(default_factory=list)
+
+    def merge_failure(self, other: "ValidationData") -> None:
+        """Fold a secondary check (a filter state) into this one."""
+        self.max_error = max(self.max_error, other.max_error)
+        self.samples_checked += other.samples_checked
+        self.error_count += other.error_count
+        if other.status == ValidationStatus.FAILURE:
+            self.status = ValidationStatus.FAILURE
+        self.messages.extend(other.messages)
 
     @property
     def passed(self) -> bool:
@@ -81,6 +91,30 @@ def _finish(v: ValidationData, err: np.ndarray, tolerance: float,
             f"exceeded tolerance {tolerance:g}",
         )
     return v
+
+
+def compare_abs(
+    out: np.ndarray,
+    ref: np.ndarray,
+    tolerance: float,
+    mode: str = "full",
+    limit: int = 1024,
+    label: str = "validation",
+) -> ValidationData:
+    """Absolute-error comparison (cuda/bench_base.cu:181-225)."""
+    v = ValidationData()
+    if mode == "none":
+        v.status = ValidationStatus.SKIPPED
+        return v
+    sel = _select(out, ref, mode, limit)
+    if sel is None:
+        v.status = ValidationStatus.FATAL
+        v.messages.append(
+            f"{label}: shape mismatch {np.shape(out)} vs {np.shape(ref)}")
+        return v
+    o, r = sel
+    err = np.abs(o.astype(np.float64) - r.astype(np.float64))
+    return _finish(v, err, tolerance, label)
 
 
 def compare_rel(

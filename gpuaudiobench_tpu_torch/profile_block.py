@@ -1,20 +1,26 @@
-"""Where the time of the ModalFilterBank main cell goes, on one GPU.
+"""Where the time of one block of a ported benchmark goes, on one GPU.
 
-    python -m gpuaudiobench_tpu_torch.profile_modal
+    python -m gpuaudiobench_tpu_torch.profile_block
+    python -m gpuaudiobench_tpu_torch.profile_block --benchmark IIRFilter \
+        --nTracks 65536 [--iirForm blockstate]
 
-Sets up the main cell of ``bench`` (1,048,576 modes, 512-sample blocks,
-32 tracks; validation off, so the host golden is skipped) and prints one
-JSON line with:
+With no arguments it profiles the main cell of ``bench`` (ModalFilterBank,
+1,048,576 modes, 512-sample blocks, 32 tracks). The flags are the CLI's
+(``--benchmark``, ``--nTracks``, ``--bufferSize``, ``--iirForm``,
+``--iirBlockM``, ``--modalModes``). Validation is off, so the host golden
+is skipped. Prints one JSON line with:
 
 * ``card``: nvidia-smi's name and power limit, and its SM clock and power
   draw sampled while a long chain of blocks runs;
 * ``chain_wall_ms_per_block``: the unprofiled wall per block of a
   ``DEPTH``-block chain (median of 3), as the saturated tier times it;
-* ``chain`` and ``roundtrip``: per-kernel device time per block from
-  ``torch.profiler`` over ``TRACE_BLOCKS`` chained blocks and over
-  ``ROUNDTRIPS`` round trips, the device-busy time per block (the union
-  of the kernels' and copies' intervals), and the device's idle share of
-  the traced window (first device event to last).
+* ``roundtrip_wall_ms``: the unprofiled wall of one round trip
+  (``iterate()``: upload, kernels, copy back), median of ``ROUNDTRIPS``;
+* ``chain`` and ``roundtrip``: per-kernel and per-copy device time per
+  block from ``torch.profiler`` over ``TRACE_BLOCKS`` chained blocks and
+  over ``ROUNDTRIPS`` round trips, the device-busy time per block (the
+  union of the kernels' and copies' intervals), and the device's idle
+  share of the traced window (first device event to last).
 
 Needs a CUDA device; raises without one.
 """
@@ -26,7 +32,7 @@ import statistics
 import subprocess
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -100,14 +106,38 @@ def _summarize(events, blocks: int) -> Dict[str, object]:
     }
 
 
-def main() -> int:
+FLAGS = {
+    "--benchmark": ("benchmark", str),
+    "--nTracks": ("n_tracks", int),
+    "--bufferSize": ("buffer_size", int),
+    "--iirForm": ("iir_form", str),
+    "--iirBlockM": ("iir_block_m", int),
+    "--modalModes": ("modal_num_modes", int),
+}
+
+
+def _parse(argv: List[str]) -> Tuple[str, BenchConfig]:
+    knobs = {"benchmark": "ModalFilterBank", "n_tracks": 1024}
+    if len(argv) % 2 or any(a not in FLAGS for a in argv[::2]):
+        raise SystemExit(f"usage: profile_block [{' N] ['.join(FLAGS)} N]")
+    for flag, value in zip(argv[::2], argv[1::2]):
+        key, typ = FLAGS[flag]
+        knobs[key] = typ(value)
+    name = knobs.pop("benchmark")
+    cfg = BenchConfig(verification="none", device_timing=False, **knobs)
+    cfg.validate()
+    return name, cfg
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import sys
+
     from torch.profiler import ProfilerActivity, profile
 
+    name, cfg = _parse(sys.argv[1:] if argv is None else argv)
     device = dev.device("cuda")
-    cfg = BenchConfig(n_tracks=1024, buffer_size=512, verification="none",
-                      device_timing=False)
-    bench = create_benchmark("ModalFilterBank", cfg, device)
-    bench.setup()  # builds the kernel and runs one round trip
+    bench = create_benchmark(name, cfg, device)
+    bench.setup()  # builds the kernels and runs one round trip
     step, carry = bench.stream_body()
     run_chained(step, carry, 16)
 
@@ -117,6 +147,11 @@ def main() -> int:
         run_chained(step, carry, DEPTH)
         walls.append((time.perf_counter() - t0) * 1000.0 / DEPTH)
     under_load = _sample_under_load(step, carry, 4 * DEPTH, 1.0)
+    trips = []
+    for _ in range(ROUNDTRIPS):
+        t0 = time.perf_counter()
+        bench.iterate()
+        trips.append((time.perf_counter() - t0) * 1000.0)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -129,11 +164,14 @@ def main() -> int:
     roundtrip = _summarize(_device_events(prof), ROUNDTRIPS)
 
     print(json.dumps({
+        "benchmark": name,
+        "n_tracks": cfg.n_tracks,
         "card": {"name_power_limit": _smi("name,power.limit"),
                  "sm_clock_power_draw_under_load": under_load},
         "depth": DEPTH,
         "chain_wall_ms_per_block": statistics.median(walls),
         "chain_wall_ms_per_block_reps": walls,
+        "roundtrip_wall_ms": statistics.median(trips),
         "chain": chain,
         "roundtrip": roundtrip,
     }))

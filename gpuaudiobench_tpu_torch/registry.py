@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``gpuaudiobench_tpu/registry.py`` (registration
 order of cuda/main.cu:84-100). Only the ported benchmarks have a
-factory; every other name raises ``NotImplementedError``.
+factory; every other name raises ``NotImplementedError``. The
+descriptions are the reference's, for ``--help``.
 """
 
 from __future__ import annotations
@@ -30,10 +31,58 @@ EXTENSION_NAMES: List[str] = [
 ]
 
 
+BENCHMARK_DESCRIPTIONS = {
+    "NoOp": "No-operation baseline (dispatch overhead)",
+    "gain": "Simple gain/volume control",
+    "GainStats": "Gain with statistical analysis",
+    "datacopy0199": "1% input, 99% output transfer",
+    "datacopy2080": "20% input, 80% output transfer",
+    "datacopy5050": "50% input, 50% output transfer",
+    "datacopy8020": "80% input, 20% output transfer",
+    "datacopy9901": "99% input, 1% output transfer",
+    "FFT1D": "1D Fast Fourier Transform",
+    "IIRFilter": "Infinite Impulse Response filter",
+    "Conv1D": "1D convolution",
+    "Conv1D_accel": "Accelerated 1D convolution",
+    "ModalFilterBank": "Modal synthesis filter bank",
+    "DWG1DNaive": "1D Digital Waveguide (naive)",
+    "DWG1DAccel": "1D Digital Waveguide (accelerated)",
+    "FDTD3D": "3D Finite Difference Time Domain",
+    "RndMemRead": "Random memory access pattern",
+    "BiquadChain": "Serial 10-stage biquad cascade (extension)",
+    "PartConv": "Partitioned streaming convolution reverb (extension)",
+    "NeuralAmp": "Streaming neural amp-model (TCN) inference on the MXU "
+                 "(extension)",
+    "NeuralAmpLSTM": "Streaming LSTM amp-model inference (per-sample "
+                     "recurrence; extension)",
+    "DAWSessionMix": "Full mixing-session graph: per-track EQ cascade -> "
+                     "reverb send bus -> stereo mixdown (extension)",
+    "MultiChipSuite": "Sharded dp/tp/sp/pp pipeline over --mesh (extension)",
+    "ICIBandwidth": "Interconnect ring ppermute + psum (extension)",
+    "SOL_VPU": "Speed-of-light: VPU f32 FMA throughput (measured peak)",
+    "SOL_VMEM": "Speed-of-light: VMEM round-trip pass rate (measured peak)",
+    "SOL_HBM": "Speed-of-light: HBM stream bandwidth (measured peak)",
+    "SOL_MXU_bf16": "Speed-of-light: MXU bf16 matmul (measured peak)",
+    "SOL_MXU_f32": "Speed-of-light: delivered f32 matmul (measured peak)",
+    "SOL_MXU_int8": "Speed-of-light: MXU s8xs8->s32 matmul (measured peak)",
+}
+
+
 def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
+    from gpuaudiobench_tpu_torch.models.biquad_chain import BiquadChainBenchmark
+    from gpuaudiobench_tpu_torch.models.iir import IIRBenchmark
     from gpuaudiobench_tpu_torch.models.modal import ModalFilterBankBenchmark
 
-    return {"ModalFilterBank": ModalFilterBankBenchmark}
+    return {
+        "IIRFilter": IIRBenchmark,
+        "ModalFilterBank": ModalFilterBankBenchmark,
+        "BiquadChain": BiquadChainBenchmark,
+    }
+
+
+def ported_benchmarks() -> List[str]:
+    """The names with a factory here, in registry order."""
+    return [n for n in list_benchmarks() if n in _factories()]
 
 
 def create_benchmark(name: str, cfg: BenchConfig,

@@ -20,8 +20,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -84,6 +85,14 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build_all(names: List[str]) -> List[Path]:
+    """``build`` every name at once: one nvcc process per source, all
+    started together (each waits in ``subprocess.run``, which releases
+    the interpreter)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

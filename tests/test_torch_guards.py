@@ -52,10 +52,26 @@ BLOCKED_JAX = textwrap.dedent("""
 
     cfg = BenchConfig(n_tracks=8, buffer_size=64, n_runs=2, warmup=1,
                       device_timing=False, pipeline_depth=4, saturated_reps=2)
-    b = create_benchmark("ModalFilterBank", cfg, torch.device("cpu"))
-    b.setup()
-    res = run_benchmark(b, cfg, verbose=False)
-    assert res.validation.passed
+    for name, knobs in [("ModalFilterBank", {}), ("IIRFilter", {}),
+                        ("IIRFilter", {"iir_form": "blockstate"}),
+                        ("BiquadChain", {"device_timing": True})]:
+        c = cfg.replace(**knobs)
+        b = create_benchmark(name, c, torch.device("cpu"))
+        b.setup()
+        res = run_benchmark(b, c, verbose=False)
+        assert res.validation.passed, (name, res.validation.messages[:3])
+
+    import contextlib, io, json
+    from gpuaudiobench_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--benchmark", "IIRFilter", "--nTracks", "8",
+                       "--bufferSize", "64", "--nRuns", "2", "--json"],
+                      device="cpu")
+    lines = buf.getvalue().splitlines()
+    assert rc == 0, lines[-10:]
+    rec = json.loads("\\n".join(lines[lines.index("{"):-1]))
+    assert rec["validation"]["status"] == "SUCCESS"
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("OK", len(names))
 """)
@@ -66,7 +82,7 @@ def test_port_runs_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", BLOCKED_JAX], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
-    assert r.stdout.split()[0] == "OK" and int(r.stdout.split()[1]) >= 12
+    assert r.stdout.split()[-2] == "OK" and int(r.stdout.split()[-1]) >= 21
 
 
 def test_no_source_mentions_jax():
@@ -153,7 +169,8 @@ def test_registry_names_mirror_the_reference():
 
 
 @pytest.mark.parametrize(
-    "name", [n for n in jax_registry.list_benchmarks() if n != "ModalFilterBank"])
+    "name", [n for n in jax_registry.list_benchmarks()
+             if n not in registry.ported_benchmarks()])
 def test_unported_benchmarks_raise(port_cfg, name):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         registry.create_benchmark(name, port_cfg, CPU)
@@ -181,3 +198,80 @@ def test_chip_smoke_fails_alone(tmp_path):
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("name", ["IIRFilter", "BiquadChain"])
+def test_iir_models_refuse_impl_xla_on_cuda(port_cfg, name):
+    """On a CUDA device the IIR models run only the kernels: impl xla
+    (the plain twin) raises. A device descriptor needs no GPU."""
+    with pytest.raises(ValueError, match="xla"):
+        registry.create_benchmark(name, port_cfg.replace(impl="xla"),
+                                  torch.device("cuda:0"))
+
+
+@pytest.mark.parametrize("kind", ["iir_biquad", "iir_biquad_blockstate",
+                                  "iir_cascade", "iir_cascade_chain"])
+def test_iir_wrappers_raise_on_a_device_without_a_kernel(kind):
+    """Only a CPU tensor takes the plain twin; any other device gets the
+    kernel or an error."""
+    from gpuaudiobench_tpu_torch.ops import iir as iops
+
+    x = torch.empty((8, 64), device="meta")
+    if kind.startswith("iir_cascade"):
+        args = (x, torch.empty((3, 5), device="meta"),
+                torch.empty((3, 8, 2), device="meta"))
+    elif kind == "iir_biquad":
+        args = (x, torch.empty(5, device="meta"),
+                torch.empty((8, 2), device="meta"))
+    else:
+        args = (x, torch.empty(5, device="meta"),
+                torch.empty((16, 16), device="meta"),
+                torch.empty((16, 2), device="meta"),
+                torch.empty((8, 2), device="meta"))
+    launches = dict(iops.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="no kernel"):
+        getattr(iops, kind)(*args)
+    assert iops.KERNEL_LAUNCHES == launches
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    return chip_smoke
+
+
+def test_chip_smoke_bounds():
+    """The bounds of the kernels line: bytes over 3.35 TB/s against FP32
+    FLOP over 67 TFLOP/s, at the main shapes."""
+    cs = _chip_smoke()
+    ms, by = cs.modal_bound()
+    m, s, t = cs.MAIN_SHAPE
+    assert by == "operations" and ms == pytest.approx(7 * m * s / 67e9)
+    bounds = cs.iir_bounds(128)
+    tracks, s = cs.IIR_FULL
+    io_ms = 8 * tracks * s / 3.35e9
+    assert set(bounds) == set(cs.IIR_REPLACES)
+    for name, (b_ms, b_by) in bounds.items():
+        assert b_by == "bytes" and io_ms < b_ms < 1.05 * io_ms, name
+    # the triangular blockstate product: 138 FLOP a sample at m = 128,
+    # under the bytes; dense (265 FLOP) it would be operations-bound.
+    assert (128 + 10) * tracks * s / 67e9 < io_ms < 265 * tracks * s / 67e9
+
+
+def test_chip_smoke_counts_twin_calls_and_restores_them():
+    from gpuaudiobench_tpu_torch.ops import iir as iops
+
+    cs = _chip_smoke()
+    originals = {n: getattr(iops, n) for n in cs.TwinCalls.NAMES["iir"]}
+    x = torch.zeros((4, 8))
+    with cs.TwinCalls({"modal": tops, "iir": iops}) as twins:
+        iops.iir_cascade(x, torch.zeros((2, 5)), torch.zeros((2, 4, 2)))
+    assert twins.calls == 3  # the cascade twin and its two stages
+    assert {n: getattr(iops, n) for n in originals} == originals
+    iops.KERNEL_LAUNCHES["iir_biquad"] += 1
+    cs.reset_counts(tops, iops)
+    assert tops.KERNEL_LAUNCHES == 0
+    assert not any(iops.KERNEL_LAUNCHES.values())

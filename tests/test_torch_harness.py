@@ -13,7 +13,7 @@ from gpuaudiobench_tpu import config as jax_config
 from gpuaudiobench_tpu.harness import statistics as jax_statistics
 from gpuaudiobench_tpu.harness import validation as jax_validation
 from gpuaudiobench_tpu_torch import config as tconfig
-from gpuaudiobench_tpu_torch import profile_modal
+from gpuaudiobench_tpu_torch import profile_block
 from gpuaudiobench_tpu_torch.harness import statistics as tstatistics
 from gpuaudiobench_tpu_torch.harness import streaming
 from gpuaudiobench_tpu_torch.harness import validation as tvalidation
@@ -173,7 +173,7 @@ def test_run_benchmark_single_depth_when_marginal_off(modal, port_cfg):
 
 
 @pytest.mark.parametrize("knob", [
-    {"device_timing": True},
+    {"overlap_depth": 2},
     {"capture": True},
     {"dawsim": True},
     {"overlap_depth": 4},
@@ -225,18 +225,18 @@ def test_device_helpers_on_cpu():
 
 def test_profile_summary_takes_the_union_of_device_intervals():
     events = [("k1", 0.0, 10.0), ("k2", 5.0, 12.0), ("k1", 20.0, 30.0)]
-    s = profile_modal._summarize(events, blocks=2)
+    s = profile_block._summarize(events, blocks=2)
     assert s["kernel_us_per_block"] == {"k1": 10.0, "k2": 3.5}
     assert s["device_busy_us_per_block"] == 11.0  # (12 + 10) / 2
     assert s["window_us_per_block"] == 15.0
     assert s["device_idle_share"] == pytest.approx(8.0 / 30.0)
-    assert "error" in profile_modal._summarize([], blocks=2)
+    assert "error" in profile_block._summarize([], blocks=2)
 
 
 def test_profile_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
-        profile_modal.main()
+        profile_block.main([])
 
 
 def test_library_path_is_keyed_on_sources_and_flags(monkeypatch):
@@ -263,3 +263,59 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
+
+
+# -- the device tier (harness/device_timing.py) ---------------------------
+
+class _StreamOnly(Benchmark):
+    """A benchmark with a stream body and no device_iterate."""
+    name = "StreamOnly"
+
+    def stream_body(self):
+        def step(carry):
+            return carry, torch.ones(1)
+        return step, 0
+
+
+def test_device_tier_on_cpu_is_labelled_wall(modal, port_cfg):
+    from gpuaudiobench_tpu_torch.harness import device_timing
+
+    times, method = device_timing.measure_device_times(
+        modal, port_cfg.replace(n_runs=3))
+    assert method == "wall" and len(times) == 3
+    assert all(t > 0 for t in times)
+
+
+def test_device_tier_caps_the_runs(modal, port_cfg):
+    from gpuaudiobench_tpu_torch.harness import device_timing
+
+    times, _ = device_timing.measure_device_times(
+        modal, port_cfg.replace(n_runs=50))
+    assert len(times) == device_timing.MAX_RUNS == 20
+
+
+def test_device_tier_falls_back_to_the_pipeline_slope(port_cfg):
+    from gpuaudiobench_tpu_torch.harness import device_timing
+
+    times, method = device_timing.measure_device_times(
+        _StreamOnly(port_cfg, CPU), port_cfg.replace(saturated_reps=3))
+    assert method == "pipeline-slope" and len(times) == 3
+    assert all(t >= 0 for t in times)
+
+
+def test_device_tier_without_a_body_is_unsupported(port_cfg):
+    from gpuaudiobench_tpu_torch.harness import device_timing
+
+    class Bare(Benchmark):
+        name = "Bare"
+
+    assert device_timing.measure_device_times(
+        Bare(port_cfg, CPU), port_cfg) == (None, "unsupported")
+
+
+def test_runner_fills_the_device_tier(modal, port_cfg):
+    res = run_benchmark(modal, port_cfg.replace(device_timing=True),
+                        verbose=False)
+    assert res.device_timing_method == "wall"
+    assert len(res.device_latencies) == port_cfg.n_runs
+    assert res.device_statistics.count == port_cfg.n_runs
