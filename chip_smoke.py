@@ -12,23 +12,36 @@ nonzero:
    nvidia-smi name and power limit.
 2. Build: the CUDA kernels from ``gpuaudiobench_tpu_torch/csrc``, one
    nvcc per source, all started together.
-3. Modal kernel vs plain twin on the card, under both contracts of the
-   modal bank, with the states chained over 2 blocks, at four shapes up
-   to the main path's (1,048,576 modes, 512 samples, 32 tracks);
-   CUDA-event times of the kernel and the twin at the main shape.
+3. The two modal kernels (rotation and Gordon-Smith resonator) vs their
+   plain twins on the card, under every contract of the modal bank, with
+   the states chained over 2 blocks, at seven shapes up to the main
+   path's (1,048,576 modes, 512 samples, 32 tracks), three of them with
+   T_out not dividing 32 (12 and 3; 12,288 x 512 x 12 is the CLI path's
+   own); CUDA-event times of each kernel and its twin at the main shape.
 4. The four IIR kernels vs their plain twins, states chained over 3
    blocks, at 8 x 64, 640 x 128 and 65,536 x 512 (tracks x samples), the
    blockstate kernel at m = 16 and m = 128, and the systolic cascade vs
    the chain cascade at 1e-6; CUDA-event times of each kernel and twin at
    65,536 x 512, and of ``torch.matmul`` on the blockstate chunk products
    as a yardstick.
-5. Main paths, each with every launch count reset just before and read
+5. The Conv1D FIR kernel vs its plain twin in both edge modes at five
+   (tracks, samples, taps) shapes up to the main path's 19,456 x 512 x
+   1,024, among them each CLI path's own and one with L - 1 > S in
+   bleed, on N(0, 0.1^2) IRs within 1e-5 absolute; at the main shape
+   also on the benchmark's own IR bank within 1e-5 of the twin's peak;
+   CUDA-event times of the kernel, the twin and
+   ``torch.nn.functional.conv1d`` (cuDNN, TF32 off) at the main shape.
+6. Main paths, each with every launch count reset just before and read
    just after, and the plain twins counted (none may run):
-   ``gpuaudiobench_tpu_torch.bench.main()`` at its defaults, then the
-   CLI on IIRFilter (scan and blockstate) and BiquadChain at 65,536
-   tracks and on IIRFilter at the CLI's default 128 tracks; each
-   validates against the NumPy golden.
-6. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+   ``gpuaudiobench_tpu_torch.bench.main()`` at its defaults; 512 chained
+   resonator blocks at the main modal shape, the first checked against
+   ``modal_reference_gs`` on spot tracks; then the CLI on IIRFilter (scan
+   and blockstate) and BiquadChain at 65,536 tracks, IIRFilter at the
+   CLI's default 128 tracks, ModalFilterBank at 12 tracks (T_out 12),
+   Conv1D at 19,456 tracks (clamp) and 128 (bleed), Conv1D_accel at
+   19,456, and FFT1D, gain, GainStats and NoOp at 65,536; each validates
+   against the NumPy golden.
+7. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -45,12 +58,36 @@ import sys
 import time
 
 MAIN_SHAPE = (1048576, 512, 32)
-SHAPES = [(4096, 32, 32), (960, 64, 32), (256, 32, 8), MAIN_SHAPE]
+# (12288, 512, 12) is ModalFilterBank's CLI path at 12 tracks.
+SHAPES = [(4096, 32, 32), (960, 64, 32), (256, 32, 8), (3000, 64, 12),
+          (999, 32, 3), (12288, 512, 12), MAIN_SHAPE]
 OUT_RTOL = 1e-5  # max|kernel - plain| <= OUT_RTOL * max|plain|
 STATE_ATOL = 1e-4
 TIMING_REPS = 20
 KERNEL_SOURCE = "gpuaudiobench_tpu_torch/csrc/modal_bank.cu"
 REPLACES = "gpuaudiobench_tpu/ops/modal_pallas.py:55"
+RES_REPLACES = "gpuaudiobench_tpu/ops/modal_pallas.py:104"
+# The resonator path: blocks chained at MAIN_SHAPE, and the tracks whose
+# first block is held against modal_reference_gs at 1e-5 of its peak
+# (the reference's bar, tests/test_pallas_ops.py:432).
+RES_BLOCKS = 512
+RES_SPOT_TRACKS = (0, 13, 31)
+RES_GS_RTOL = 1e-5
+
+# The Conv1D FIR kernel (csrc/conv1d.cu), (tracks, samples, taps): kernel
+# vs twin within 1e-5 absolute in both edge modes, on N(0, 0.1^2) IRs
+# whose outputs are of unit scale (FMA contraction, ~1e-7 there);
+# (6, 16, 40) has L - 1 > S, and (128, 512, 1024) is the CLI's bleed path.
+# The benchmark's own IR bank (windowed sinc over L) gives outputs near
+# 1e-3 rms, where 1e-5 absolute would pass a TF32 kernel; at CONV_FULL it
+# is held within 1e-5 of the twin's peak instead.
+CONV_FULL = (19456, 512, 1024)
+CONV_SHAPES = [(130, 48, 16), (8, 64, 7), (6, 16, 40), (128, 512, 1024),
+               CONV_FULL]
+CONV_ATOL = 1e-5
+CONV_BANK_RTOL = 1e-5
+CONV_SOURCE = "gpuaudiobench_tpu_torch/csrc/conv1d.cu"
+CONV_REPLACES = "gpuaudiobench_tpu/ops/conv_pallas.py:40"
 
 # The IIR kernels (csrc/iir.cu), (tracks, samples) shapes. Kernel vs twin:
 # 1e-5 absolute, outputs and states (FMA contraction and the blockstate
@@ -90,7 +127,21 @@ CLI_RUNS = [
     ("IIRFilter scan, 128 tracks",
      ["--benchmark", "IIRFilter"] + CLI_COMMON,
      ["iir_biquad"]),
-]
+    ("ModalFilterBank, 12 tracks (T_out 12)",
+     ["--benchmark", "ModalFilterBank", "--nTracks", "12"] + CLI_COMMON,
+     ["modal_bank"]),
+    ("Conv1D clamp, 19456 tracks",
+     ["--benchmark", "Conv1D", "--nTracks", "19456"] + CLI_COMMON,
+     ["conv1d"]),
+    ("Conv1D bleed, 128 tracks",
+     ["--benchmark", "Conv1D", "--convEdgeMode", "bleed"] + CLI_COMMON,
+     ["conv1d"]),
+    ("Conv1D_accel, 19456 tracks",
+     ["--benchmark", "Conv1D_accel", "--nTracks", "19456"] + CLI_COMMON,
+     []),
+] + [(f"{name}, 65536 tracks",
+      ["--benchmark", name, "--nTracks", "65536"] + CLI_COMMON, [])
+     for name in ("FFT1D", "gain", "GainStats", "NoOp")]
 
 
 def fail(msg: str) -> None:
@@ -133,16 +184,15 @@ def make_inputs(torch, m: int, seed: int, device):
     return {k: torch.from_numpy(v).to(device) for k, v in tabs.items()}
 
 
-def compare(torch, ops, shape, device) -> float:
-    """Both contracts, 2 chained blocks; returns max |kernel - plain| of
-    the outputs."""
+def compare(torch, ops, shape, device):
+    """Every contract of both kernels, 2 chained blocks; returns max
+    |kernel - plain| of the outputs, (rotation, resonator)."""
     m, s, t = shape
     x = make_inputs(torch, m, seed=m + s + t, device=device)
-    before = ops.KERNEL_LAUNCHES
-    worst = 0.0
+    before = dict(ops.KERNEL_LAUNCHES)
+    worst = {"rotation": 0.0, "res": 0.0}
 
-    def check_out(name, got, want):
-        nonlocal worst
+    def check_out(name, got, want, form="rotation"):
         if tuple(got.shape) != tuple(want.shape):
             fail(f"{shape} {name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
         if not torch.isfinite(got).all():
@@ -151,7 +201,7 @@ def compare(torch, ops, shape, device) -> float:
         peak = want.abs().max().item()
         if err > OUT_RTOL * peak:
             fail(f"{shape} {name}: max|d| {err:.3g} > {OUT_RTOL:g} * {peak:.4g}")
-        worst = max(worst, err)
+        worst[form] = max(worst[form], err)
         return err / peak
 
     # Streaming contract: rotated states carried from block to block.
@@ -179,13 +229,34 @@ def compare(torch, ops, shape, device) -> float:
         out_p, _, _ = ops.modal_bank_plain(
             x["amp"], x["cos_w"], x["sin_w"], sre, sim, s, t)
         rel.append(check_out(f"bank block {blk}", out_k, out_p))
+
+    # The resonator: its streaming step chained, then the round trip.
+    eps, yk, qk = ops.res_init(x["cos_w"], x["sin_w"], x["amp"] * x["re"],
+                               x["amp"] * x["im"])
+    yp, qp = yk, qk
+    for blk in range(2):
+        out_k, yk, qk = ops.modal_res_step(eps, yk, qk, s, t)
+        out_p, yp, qp = ops.modal_res_step_plain(eps, yp, qp, s, t)
+        rel.append(check_out(f"res block {blk}", out_k, out_p, "res"))
+    rerr = max((yk - yp).abs().max().item(), (qk - qp).abs().max().item())
+    if not rerr <= STATE_ATOL:
+        fail(f"{shape} resonator states: max|d| {rerr:.3g} > {STATE_ATOL:g}")
+    out_k, sre2, _ = ops.modal_bank(x["amp"], x["cos_w"], x["sin_w"], sre,
+                                    sim, s, t, algorithm="res")
+    out_p, _, _ = ops.modal_bank_plain(x["amp"], x["cos_w"], x["sin_w"],
+                                       sre, sim, s, t, algorithm="res")
+    if sre2 is not sre:
+        fail(f"{shape} modal_bank res did not return its input states")
+    rel.append(check_out("res bank", out_k, out_p, "res"))
     torch.cuda.synchronize()
-    if ops.KERNEL_LAUNCHES - before != 4:
-        fail(f"{shape}: {ops.KERNEL_LAUNCHES - before} kernel launches, "
-             "expected 4")
+    launched = tuple(ops.KERNEL_LAUNCHES[k] - before[k]
+                     for k in ("modal_bank", "modal_res"))
+    if launched != (4, 3):
+        fail(f"{shape}: {launched} (rotation, resonator) kernel launches, "
+             "expected (4, 3)")
     print(f"compare M={m} S={s} T_out={t}: ok  max rel-to-peak "
-          f"{max(rel):.3g}  state max|d| {serr:.3g}")
-    return worst
+          f"{max(rel):.3g}  state max|d| {max(serr, rerr):.3g}")
+    return worst["rotation"], worst["res"]
 
 
 def median_ms(torch, fn, reps: int, calls: int) -> float:
@@ -213,7 +284,7 @@ def time_main_shape(torch, ops, device):
     x = make_inputs(torch, m, seed=1, device=device)
     re_f, im_f = x["amp"] * x["re"], x["amp"] * x["im"]
     args = (x["cos_w"], x["sin_w"], re_f, im_f, s, t)
-    before = ops.KERNEL_LAUNCHES
+    before = dict(ops.KERNEL_LAUNCHES)
 
     def plain():
         return ops.modal_folded_step_plain(*args)
@@ -229,13 +300,26 @@ def time_main_shape(torch, ops, device):
     bank = median_ms(torch, lambda: ops.modal_bank(
         x["amp"], x["cos_w"], x["sin_w"], x["re"], x["im"], s, t),
         TIMING_REPS, 10)
-    if ops.KERNEL_LAUNCHES == before:
-        fail("timing launched no kernel")
+    res_args = (*ops.res_init(x["cos_w"], x["sin_w"], re_f, im_f), s, t)
+    res_p1 = median_ms(torch, lambda: ops.modal_res_step_plain(*res_args),
+                       TIMING_REPS // 2, 1)
+    res_k1 = median_ms(torch, lambda: ops.modal_res_step(*res_args),
+                       TIMING_REPS, 10)
+    res_k2 = median_ms(torch, lambda: ops.modal_res_step(*res_args),
+                       TIMING_REPS, 10)
+    res_p2 = median_ms(torch, lambda: ops.modal_res_step_plain(*res_args),
+                       TIMING_REPS // 2, 1)
+    for k in ("modal_bank", "modal_res"):
+        if ops.KERNEL_LAUNCHES[k] == before[k]:
+            fail(f"timing launched no {k} kernel")
     kern, plain = min(kern1, kern2), min(plain1, plain2)
     print(f"time M={m} S={s} T_out={t} (CUDA events, median of reps): "
           f"folded-step kernel {kern1:.4f} / {kern2:.4f} ms, plain twin "
-          f"{plain1:.3f} / {plain2:.3f} ms; modal_bank kernel {bank:.4f} ms")
-    return kern, plain
+          f"{plain1:.3f} / {plain2:.3f} ms; modal_bank kernel {bank:.4f} ms; "
+          f"resonator step kernel {res_k1:.4f} / {res_k2:.4f} ms, plain "
+          f"twin {res_p1:.3f} / {res_p2:.3f} ms")
+    return {"modal_bank": (kern, plain),
+            "modal_res": (min(res_k1, res_k2), min(res_p1, res_p2))}
 
 
 def bound(bytes_moved: float, flops: float):
@@ -252,6 +336,21 @@ def modal_bound():
     multiplies and 2 adds, and the fold's add)."""
     m, s, t = MAIN_SHAPE
     return bound(4 * (6 * m + s * t), 7 * m * s)
+
+
+def res_bound():
+    """modal_res_step at the main shape: eps, y, q read, y', q' written,
+    (S, T_out) out; 5 FLOP per mode-sample (2 multiplies, a subtraction
+    and an add for the shears, and the fold's add)."""
+    m, s, t = MAIN_SHAPE
+    return bound(4 * (5 * m + s * t), 5 * m * s)
+
+
+def conv_bound():
+    """conv1d_direct at CONV_FULL: x and the IRs read, out written;
+    2 FLOP (a multiply and an add) per output and tap."""
+    tracks, s, l = CONV_FULL
+    return bound(4 * (2 * tracks * s + tracks * l), 2 * tracks * s * l)
 
 
 def iir_bounds(block_m: int):
@@ -416,14 +515,144 @@ def time_iir(torch, iops, device):
     return out
 
 
+def res_path(torch, ops, models_modal, device):
+    """The resonator's main path: RES_BLOCKS chained modal_res_step blocks
+    at MAIN_SHAPE from res_init of the seeded bank. The first block is
+    held against modal_reference_gs on RES_SPOT_TRACKS at RES_GS_RTOL of
+    the golden's peak; every block must be finite. Returns the first
+    block's max |kernel - golden| relative to the peak."""
+    import numpy as np
+
+    m, s, t = MAIN_SHAPE
+    x = make_inputs(torch, m, seed=1, device=device)
+    eps, y, q = ops.res_init(x["cos_w"], x["sin_w"], x["amp"] * x["re"],
+                             x["amp"] * x["im"])
+    outs = []
+    for _ in range(RES_BLOCKS):
+        out, y, q = ops.modal_res_step(eps, y, q, s, t)
+        outs.append(out[:, list(RES_SPOT_TRACKS)])
+    first = outs[0].cpu().numpy()
+    if not (torch.isfinite(torch.stack(outs)).all()
+            and torch.isfinite(y).all() and torch.isfinite(q).all()):
+        fail("resonator path: non-finite output or state")
+    # The golden on the spot tracks' modes only: mode j of the subset
+    # folds onto j mod len(RES_SPOT_TRACKS), the position of its track.
+    idx = np.stack([np.arange(k, m, t) for k in RES_SPOT_TRACKS],
+                   axis=1).ravel()
+    tabs = {k: v.cpu().numpy()[idx] for k, v in x.items()}
+    gold = models_modal.modal_reference_gs(
+        tabs["amp"], tabs["cos_w"], tabs["sin_w"], tabs["re"], tabs["im"],
+        s, len(RES_SPOT_TRACKS)).T
+    peak = float(np.abs(gold).max())
+    rel = float(np.abs(first.astype(np.float64) - gold).max()) / peak
+    if not rel <= RES_GS_RTOL:
+        fail(f"resonator path: first block {rel:.3g} of the peak from "
+             f"modal_reference_gs > {RES_GS_RTOL:g}")
+    return rel
+
+
+def conv_inputs(torch, tracks, s, l, device, bank=False, seed=5):
+    """Seeded x (tracks, s) in [-1, 1) and N(0, 0.1^2) IRs, as the
+    reference's kernel test draws them (tests/test_pallas_ops.py:248), or
+    with ``bank`` the benchmark's windowed-sinc IR bank."""
+    import numpy as np
+
+    from gpuaudiobench_tpu_torch.utils.data import conv1d_impulse_responses
+
+    g = np.random.Generator(np.random.MT19937(seed))
+    x = (g.random((tracks, s), dtype=np.float32) * 2 - 1).astype(np.float32)
+    if bank:
+        ir = conv1d_impulse_responses(tracks, l)
+    else:
+        ir = (g.standard_normal((tracks, l), dtype=np.float32)
+              * 0.1).astype(np.float32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(ir).to(device)
+
+
+def compare_conv(torch, cops, shape, device) -> float:
+    """The FIR kernel vs its twin in both edge modes on N(0, 0.1^2) IRs,
+    within CONV_ATOL; at CONV_FULL also on the benchmark's IR bank, within
+    CONV_BANK_RTOL of the twin's peak. Returns max |kernel - twin| on the
+    N(0, 0.1^2) IRs."""
+    tracks, s, l = shape
+    banks = (False, True) if shape == CONV_FULL else (False,)
+    before = cops.KERNEL_LAUNCHES["conv1d"]
+    worst = 0.0
+    bank_rel = None
+    for bank in banks:
+        x, ir = conv_inputs(torch, tracks, s, l, device, bank=bank)
+        for mode in ("clamp", "bleed"):
+            got = cops.conv1d_direct(x, ir, mode)
+            want = cops.conv1d_direct_plain(x, ir, mode)
+            if (tuple(got.shape) != (tracks, s)
+                    or not torch.isfinite(got).all()):
+                fail(f"conv1d {shape} {mode}: shape {tuple(got.shape)} or "
+                     "non-finite output")
+            err = (got - want).abs().max().item()
+            if bank:
+                peak = want.abs().max().item()
+                if not err <= CONV_BANK_RTOL * peak:
+                    fail(f"conv1d {shape} {mode}, IR bank: max|kernel - "
+                         f"twin| {err:.3g} > {CONV_BANK_RTOL:g} * {peak:.4g}")
+                bank_rel = max(bank_rel or 0.0, err / peak)
+                continue
+            if not err <= CONV_ATOL:
+                fail(f"conv1d {shape} {mode}: max|kernel - twin| {err:.3g} > "
+                     f"{CONV_ATOL:g}")
+            worst = max(worst, err)
+    torch.cuda.synchronize()
+    launched = cops.KERNEL_LAUNCHES["conv1d"] - before
+    if launched != 2 * len(banks):
+        fail(f"conv1d {shape}: {launched} launches, expected "
+             f"{2 * len(banks)}")
+    print(f"compare conv1d T={tracks} S={s} L={l}: ok  max|d| {worst:.3g} "
+          "(clamp and bleed)" + ("" if bank_rel is None else
+                                 f"; IR bank max|d| {bank_rel:.3g} of the "
+                                 "twin's peak"))
+    return worst
+
+
+def time_conv(torch, cops, device):
+    """CUDA-event times (ms) at CONV_FULL, clamp: the kernel, the twin and
+    one ``torch.nn.functional.conv1d`` call on the padded window with
+    groups = tracks (cuDNN, TF32 off as the port's FP32 needs; the
+    flipped IRs make its correlation a convolution). Returns
+    (ms, plain_ms, library_ms)."""
+    import torch.nn.functional as F
+
+    tracks, s, l = CONV_FULL
+    x, ir = conv_inputs(torch, tracks, s, l, device, bank=True)
+    xp = cops.padded_window(x, l, "clamp").unsqueeze(0).contiguous()
+    w = ir.flip(1).unsqueeze(1).contiguous()
+    p1 = median_ms(torch, lambda: cops.conv1d_direct_plain(x, ir), 3, 1)
+    k1 = median_ms(torch, lambda: cops.conv1d_direct(x, ir), TIMING_REPS, 10)
+    k2 = median_ms(torch, lambda: cops.conv1d_direct(x, ir), TIMING_REPS, 10)
+    p2 = median_ms(torch, lambda: cops.conv1d_direct_plain(x, ir), 3, 1)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib_out = F.conv1d(xp, w, groups=tracks)[0]
+        lib_err = (lib_out - cops.conv1d_direct(x, ir)).abs().max().item()
+        lib = median_ms(torch, lambda: F.conv1d(xp, w, groups=tracks), 5, 2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"time conv1d {tracks}x{s}x{l} clamp (CUDA events, median of "
+          f"reps): kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.2f} / "
+          f"{p2:.2f} ms, F.conv1d (cuDNN, TF32 off) {lib:.4f} ms "
+          f"(max|F.conv1d - kernel| {lib_err:.3g})")
+    return min(k1, k2), min(p1, p2), lib
+
+
 class TwinCalls:
     """Counts calls of every plain twin while the main paths run (none may
     run on the card): wraps the module functions, which the wrappers look
     up by name."""
 
-    NAMES = {"modal": ("modal_bank_plain", "modal_folded_step_plain"),
+    NAMES = {"modal": ("modal_bank_plain", "modal_folded_step_plain",
+                       "modal_res_step_plain"),
              "iir": ("iir_biquad_plain", "iir_biquad_blockstate_plain",
-                     "iir_cascade_plain")}
+                     "iir_cascade_plain"),
+             "conv": ("conv1d_direct_plain",)}
 
     def __init__(self, modules):
         self.modules = modules
@@ -450,23 +679,30 @@ class TwinCalls:
         return False
 
 
-def reset_counts(ops, iops):
-    ops.KERNEL_LAUNCHES = 0
-    for k in iops.KERNEL_LAUNCHES:
-        iops.KERNEL_LAUNCHES[k] = 0
+def launch_counts(*modules):
+    """Every wrapper's launch count, by kernel name (each ops module keeps
+    its counts in a ``KERNEL_LAUNCHES`` dict)."""
+    return {k: n for mod in modules for k, n in mod.KERNEL_LAUNCHES.items()}
 
 
-def cli_path(torch, cli, iops, label, argv, kernels):
+def reset_counts(*modules):
+    for mod in modules:
+        for k in mod.KERNEL_LAUNCHES:
+            mod.KERNEL_LAUNCHES[k] = 0
+
+
+def cli_path(torch, cli, counts, label, argv, kernels):
     """One CLI run in-process, stdout captured; fails unless it exits 0,
     validation passed, the device tier used CUDA events and each of
-    ``kernels`` launched. Returns the launch counts of the run."""
+    ``kernels`` launched. ``counts`` reads the launch counts, which the
+    caller reset. Returns the launch counts of the run."""
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
     lines = buf.getvalue().splitlines()
-    launches = dict(iops.KERNEL_LAUNCHES)
+    launches = counts()
     if rc != 0:
         for ln in lines[-20:]:
             print(f"cli: {ln}")
@@ -508,6 +744,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     try:
         from gpuaudiobench_tpu_torch import bench, cli
+        from gpuaudiobench_tpu_torch.models import modal as models_modal
+        from gpuaudiobench_tpu_torch.ops import conv as cops
         from gpuaudiobench_tpu_torch.ops import iir as iops
         from gpuaudiobench_tpu_torch.ops import modal as ops
         from gpuaudiobench_tpu_torch.utils import build
@@ -523,17 +761,17 @@ def main() -> int:
         fail("TF32 matmuls are on: the blockstate twin needs full FP32")
 
     t0 = time.perf_counter()
-    libs = build.build_all(["modal_bank", "iir"])
+    libs = build.build_all(["modal_bank", "iir", "conv1d"])
     ops._lib()
     iops._lib()
+    cops._lib()
     print(f"build: {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    launches_before = ops.KERNEL_LAUNCHES
-    max_err = max(compare(torch, ops, shape, device) for shape in SHAPES)
-    if ops.KERNEL_LAUNCHES <= launches_before:
-        fail("the comparison launched no kernel")
-    kern_ms, plain_ms = time_main_shape(torch, ops, device)
+    errs = [compare(torch, ops, shape, device) for shape in SHAPES]
+    modal_err = {"modal_bank": max(e[0] for e in errs),
+                 "modal_res": max(e[1] for e in errs)}
+    modal_times = time_main_shape(torch, ops, device)
 
     t0 = time.perf_counter()
     iir_err = {}
@@ -543,17 +781,26 @@ def main() -> int:
     iir_times = time_iir(torch, iops, device)
     print(f"IIR kernels vs twins: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    conv_err = max(compare_conv(torch, cops, shape, device)
+                   for shape in CONV_SHAPES)
+    conv_times = time_conv(torch, cops, device)
+    print(f"conv1d kernel vs twin: {time.perf_counter() - t0:.1f} s")
+
     # Main paths: every count is reset just before each path and read
     # just after; no plain twin may run in any of them.
-    launches = {"modal_bank": 0, **{k: 0 for k in iops.KERNEL_LAUNCHES}}
-    with TwinCalls({"modal": ops, "iir": iops}) as twins:
-        reset_counts(ops, iops)
+    def counts():
+        return launch_counts(ops, iops, cops)
+
+    launches = {k: 0 for k in counts()}
+    with TwinCalls({"modal": ops, "iir": iops, "conv": cops}) as twins:
+        reset_counts(ops, iops, cops)
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = bench.main()
         wall = time.perf_counter() - t0
-        launches["modal_bank"] = ops.KERNEL_LAUNCHES
+        launches["modal_bank"] = ops.KERNEL_LAUNCHES["modal_bank"]
         lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
         for ln in lines:
             print(f"bench: {ln}")
@@ -567,29 +814,45 @@ def main() -> int:
         print(f"main path: {wall:.1f} s, {launches['modal_bank']} kernel "
               "launches, validation passed")
 
+        reset_counts(ops, iops, cops)
+        t0 = time.perf_counter()
+        res_rel = res_path(torch, ops, models_modal, device)
+        launches["modal_res"] = ops.KERNEL_LAUNCHES["modal_res"]
+        if launches["modal_res"] != RES_BLOCKS:
+            fail(f"resonator path: {launches['modal_res']} launches for "
+                 f"{RES_BLOCKS} blocks")
+        print(f"resonator path: {RES_BLOCKS} chained blocks at M={MAIN_SHAPE[0]} "
+              f"in {time.perf_counter() - t0:.1f} s, first block "
+              f"{res_rel:.3g} of the peak from modal_reference_gs on tracks "
+              f"{list(RES_SPOT_TRACKS)}")
+
         for label, argv, kernels in CLI_RUNS:
-            reset_counts(ops, iops)
-            for k, n in cli_path(torch, cli, iops, label, argv,
+            reset_counts(ops, iops, cops)
+            for k, n in cli_path(torch, cli, counts, label, argv,
                                  kernels).items():
                 launches[k] += n
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")
 
-    modal_bound_ms, modal_bound_by = modal_bound()
+    rows = []
+    for name, replaces, (b_ms, b_by) in (
+            ("modal_bank", REPLACES, modal_bound()),
+            ("modal_res", RES_REPLACES, res_bound())):
+        ms, p_ms = modal_times[name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": modal_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
     iir_bound = iir_bounds(128)
-    rows = [{
-        "name": "modal_bank",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches["modal_bank"],
-        "max_abs_err": max_err,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": modal_bound_ms,
-        "bound_by": modal_bound_by,
-        "library_ms": None,
-    }]
     for name, replaces in IIR_REPLACES.items():
         ms, p_ms, lib_ms = iir_times[name]
         b_ms, b_by = iir_bound[name]
@@ -606,6 +869,20 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": lib_ms,
         })
+    b_ms, b_by = conv_bound()
+    rows.append({
+        "name": "conv1d",
+        "route": "cuda",
+        "source": CONV_SOURCE,
+        "replaces": CONV_REPLACES,
+        "launches": launches["conv1d"],
+        "max_abs_err": conv_err,
+        "ms": conv_times[0],
+        "plain_ms": conv_times[1],
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": conv_times[2],
+    })
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -51,11 +51,11 @@ def main(n_tracks: int = 1024, n_runs: int = 30, warmup: int = 5,
         verification="spot",
         pipeline_depth=pipeline_depth,
     )
-    launches0 = modal_ops.KERNEL_LAUNCHES
+    launches0 = modal_ops.KERNEL_LAUNCHES["modal_bank"]
     bench = create_benchmark("ModalFilterBank", cfg, torch_dev)
     bench.setup()
     result = run_benchmark(bench, cfg, verbose=False)
-    launches = modal_ops.KERNEL_LAUNCHES - launches0
+    launches = modal_ops.KERNEL_LAUNCHES["modal_bank"] - launches0
     ident = {
         "backend": "torch-cuda" if torch_dev.type == "cuda" else "torch-cpu",
         "device_name": identity["device_name"],

@@ -45,6 +45,8 @@ VALUE_FLAGS = {
     "--iirForm": ("iir_form", str),
     "--iirBlockM": ("iir_block_m", int),
     "--modalModes": ("modal_num_modes", int),
+    "--irLength": ("ir_length", int),
+    "--convEdgeMode": ("conv_edge_mode", str),
     "--pipelineDepth": ("pipeline_depth", int),
     "--saturatedReps": ("saturated_reps", int),
     "--seed": ("seed", int),
@@ -68,8 +70,6 @@ UNPORTED_FLAGS = {
     "--transferMiB": "queue 1, item 5",
     "--capture": "queue 1, item 4",
     "--captureDir": "queue 1, item 4",
-    "--irLength": "queue 1, item 7",
-    "--convEdgeMode": "queue 1, item 7",
     "--dwgMinLen": "queue 1, item 9",
     "--dwgMaxLen": "queue 1, item 9",
     "--fdtdRoom": "queue 1, item 10",
@@ -123,6 +123,10 @@ def print_help() -> None:
     print("  --iirBlockM [m]          blockstate samples per step (default 0 "
           "= auto: 128 on the kernel, clamped to a bufferSize divisor)")
     print("  --modalModes [n]         ModalFilterBank mode count")
+    print("  --irLength [n]           Conv1D / Conv1D_accel IR length "
+          "(default 1024 / 512)")
+    print("  --convEdgeMode [m]       clamp | bleed (Conv1D window before "
+          "a track's start; default clamp)")
     print("  --modalRenorm            Streaming: renormalize phasor magnitudes")
     print("  --pipelineDepth [n]      Also measure saturated throughput:")
     print("                           n chained blocks, state carried")
@@ -142,6 +146,8 @@ def print_help() -> None:
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark IIRFilter "
           "--nTracks 65536 --pipelineDepth 512 --json")
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark BiquadChain")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark Conv1D "
+          "--nTracks 19456 --pipelineDepth 512 --json")
 
 
 def print_list() -> None:

@@ -62,6 +62,13 @@ class BenchConfig:
     iir_form: str = "scan"
     iir_block_m: int = 0
 
+    # Conv1D / Conv1D_accel: IR length (None = the benchmark's default,
+    # 1024 for Conv1D and 512 for Conv1D_accel) and Conv1D's edge mode,
+    # "clamp" (the window stays in its track) | "bleed" (the flat
+    # track-major buffer, the CUDA reference's indexing).
+    ir_length: Optional[int] = None
+    conv_edge_mode: str = "clamp"
+
     impl: str = "auto"
 
     # Saturated pass: pipeline_depth chained blocks per timing (0/1 =
@@ -89,6 +96,8 @@ class BenchConfig:
             raise ValueError("n_runs must be positive")
         if self.verification not in ("none", "spot", "full"):
             raise ValueError(f"invalid verification mode: {self.verification}")
+        if self.conv_edge_mode not in ("clamp", "bleed"):
+            raise ValueError(f"invalid conv edge mode: {self.conv_edge_mode}")
         if self.iir_form not in ("scan", "blockstate"):
             raise ValueError(f"invalid iir form: {self.iir_form}")
         if self.iir_block_m != 0 and not 2 <= self.iir_block_m <= 128:

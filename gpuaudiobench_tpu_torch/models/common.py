@@ -8,13 +8,14 @@ data-parallel helpers: the port runs on one device.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.harness.base import Benchmark
+from gpuaudiobench_tpu_torch.harness.streaming import probe
 from gpuaudiobench_tpu_torch.harness.validation import (
     ValidationData,
     compare_abs,
@@ -77,16 +78,27 @@ class StandardBufferBenchmark(Benchmark):
     def setup_standard_buffers(self) -> None:
         self.set_input(self.make_input())
 
-    def checked_tracks(self, state_shape) -> Optional[np.ndarray]:
+    def stateless_stream(self, fn: Callable[[torch.Tensor], torch.Tensor]):
+        """``stream_body`` of a benchmark without state: each block runs
+        ``fn`` on the resident input and emits the probe of its output."""
+        def step(x):
+            return x, probe(fn(x))
+
+        return step, self._resident_input
+
+    def checked_tracks(self, state_shape=None) -> Optional[np.ndarray]:
         """The tracks whose output or state samples a spot check reads
         (sorted), or None when the check reads them all. A state has the
-        track axis second to last, ``(..., tracks, 2)``. The goldens are
-        computed for these tracks only: a spot check at full width then
-        replays a few thousand tracks on the host, not every one."""
+        track axis second to last, ``(..., tracks, 2)``; a benchmark
+        without one passes None. The goldens are computed for these
+        tracks only: a spot check at full width then replays a few
+        thousand tracks on the host, not every one."""
         if self.cfg.verification != "spot":
             return None
         limit, s = self.cfg.spot_sample_limit, self.buffer_size
         rows = spot_indices(self.track_count * s, limit) // s
+        if state_shape is None:
+            return np.unique(rows)
         n_state = int(np.prod(state_shape))
         state_rows = (spot_indices(n_state, limit) // 2) % self.track_count
         return np.union1d(rows, state_rows)

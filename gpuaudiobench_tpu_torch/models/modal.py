@@ -82,6 +82,39 @@ def modal_reference(
     return out.astype(np.float32)
 
 
+def modal_reference_gs(
+    amp: np.ndarray,
+    cos_w: np.ndarray,
+    sin_w: np.ndarray,
+    state_re: np.ndarray,
+    state_im: np.ndarray,
+    buffer_size: int,
+    output_tracks: int,
+) -> np.ndarray:
+    """Golden of the Gordon-Smith resonator form (``ops.modal.modal_bank``
+    with ``algorithm="res"``): the same f32 shear sequence as the kernel
+    (``res_init``, then q = q - eps*y, y = y + eps*q per sample),
+    f64-accumulated. A golden of its own, because any recurrence other
+    than the golden's own f32 operator drifts ~1e-4 relative by sample
+    512 (phase quantization)."""
+    m = amp.shape[0]
+    f32 = np.float32
+    ampf = amp.astype(f32)
+    ch = np.sqrt(((1.0 + cos_w) * f32(0.5)).astype(f32)).astype(f32)
+    sh = (sin_w / (f32(2.0) * ch)).astype(f32)
+    eps = (f32(2.0) * sh).astype(f32)
+    y = (ampf * state_re.astype(f32)).astype(f32)
+    q = (sh * (ampf * state_re) - ch * (ampf * state_im)).astype(f32)
+    out = np.zeros((output_tracks, buffer_size), np.float64)
+    groups = m // output_tracks
+    for n in range(buffer_size):
+        q = (q - eps * y).astype(f32)
+        y = (y + eps * q).astype(f32)
+        out[:, n] = y.astype(np.float64).reshape(
+            groups, output_tracks).sum(axis=0)
+    return out.astype(np.float32)
+
+
 def params_from_numpy(params: Dict[str, np.ndarray],
                       device: torch.device) -> Dict[str, torch.Tensor]:
     """The reference benchmark's ``bench.params`` (float32 numpy arrays

@@ -3,11 +3,14 @@
     python -m gpuaudiobench_tpu_torch.profile_block
     python -m gpuaudiobench_tpu_torch.profile_block --benchmark IIRFilter \
         --nTracks 65536 [--iirForm blockstate]
+    python -m gpuaudiobench_tpu_torch.profile_block --benchmark Conv1D \
+        --nTracks 19456
 
 With no arguments it profiles the main cell of ``bench`` (ModalFilterBank,
 1,048,576 modes, 512-sample blocks, 32 tracks). The flags are the CLI's
 (``--benchmark``, ``--nTracks``, ``--bufferSize``, ``--iirForm``,
-``--iirBlockM``, ``--modalModes``). Validation is off, so the host golden
+``--iirBlockM``, ``--modalModes``, ``--irLength``, ``--convEdgeMode``);
+any ported benchmark with a stream body can be profiled. Validation is off, so the host golden
 is skipped. Prints one JSON line with:
 
 * ``card``: nvidia-smi's name and power limit, and its SM clock and power
@@ -113,6 +116,8 @@ FLAGS = {
     "--iirForm": ("iir_form", str),
     "--iirBlockM": ("iir_block_m", int),
     "--modalModes": ("modal_num_modes", int),
+    "--irLength": ("ir_length", int),
+    "--convEdgeMode": ("conv_edge_mode", str),
 }
 
 

@@ -70,11 +70,23 @@ BENCHMARK_DESCRIPTIONS = {
 
 def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
     from gpuaudiobench_tpu_torch.models.biquad_chain import BiquadChainBenchmark
+    from gpuaudiobench_tpu_torch.models.conv1d import Conv1DBenchmark
+    from gpuaudiobench_tpu_torch.models.conv1d_accel import Conv1DAccelBenchmark
+    from gpuaudiobench_tpu_torch.models.fft import FFTBenchmark
+    from gpuaudiobench_tpu_torch.models.gain import GainBenchmark
+    from gpuaudiobench_tpu_torch.models.gainstats import GainStatsBenchmark
     from gpuaudiobench_tpu_torch.models.iir import IIRBenchmark
     from gpuaudiobench_tpu_torch.models.modal import ModalFilterBankBenchmark
+    from gpuaudiobench_tpu_torch.models.noop import NoOpBenchmark
 
     return {
+        "NoOp": NoOpBenchmark,
+        "gain": GainBenchmark,
+        "GainStats": GainStatsBenchmark,
+        "FFT1D": FFTBenchmark,
         "IIRFilter": IIRBenchmark,
+        "Conv1D": Conv1DBenchmark,
+        "Conv1D_accel": Conv1DAccelBenchmark,
         "ModalFilterBank": ModalFilterBankBenchmark,
         "BiquadChain": BiquadChainBenchmark,
     }

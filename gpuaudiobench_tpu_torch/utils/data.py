@@ -11,6 +11,8 @@ bit for bit:
 * ``biquad_lowpass_coefficients``: RBJ/Butterworth lowpass at a
   normalized frequency, Q = 0.707, a0-normalized
   (cuda/bench_iir.cu:199-226).
+* ``conv1d_impulse_responses``: the per-track windowed-sinc IR bank of
+  Conv1D and Conv1D_accel (cuda/bench_conv1d.cu:159-181).
 """
 
 from __future__ import annotations
@@ -26,6 +28,21 @@ def generate_random_audio(n: int, seed: int = 42) -> np.ndarray:
     """Uniform [-1, 1) float32 audio samples."""
     g = _rng(seed)
     return (g.random(n, dtype=np.float32) * 2.0 - 1.0).astype(np.float32)
+
+
+def conv1d_impulse_responses(track_count: int, ir_length: int) -> np.ndarray:
+    """Per-track windowed-sinc IR bank, (tracks, ir_length) float32."""
+    tracks = np.arange(track_count, dtype=np.float32)[:, None]
+    i = np.arange(ir_length, dtype=np.float32)[None, :]
+    freq = 0.1 + 0.05 * tracks / np.float32(track_count)
+    t = i - np.float32(ir_length) / 2.0
+    window = 0.54 - 0.46 * np.cos(
+        2.0 * np.float32(np.pi) * i / np.float32(ir_length - 1)
+    )
+    arg = 2.0 * np.float32(np.pi) * freq * t
+    sinc = np.where(t == 0.0, np.float32(1.0),
+                    np.sin(arg) / np.where(arg == 0.0, 1.0, arg))
+    return (window * sinc / np.float32(ir_length)).astype(np.float32)
 
 
 def biquad_lowpass_coefficients(normalized_frequency: float, q: float = 0.707):

@@ -114,7 +114,7 @@ def test_help_names_every_ported_flag_and_benchmark():
         assert name in text
 
 
-@pytest.mark.parametrize("name", ["gain", "RndMemRead", "FDTD3D"])
+@pytest.mark.parametrize("name", ["DWG1DNaive", "RndMemRead", "FDTD3D"])
 def test_unported_benchmark_exits_1_naming_roadmap(name):
     rc, lines = _run(cli.main, ["--benchmark", name, "--nRuns", "1"],
                      device="cpu")
@@ -152,6 +152,8 @@ def test_every_reference_flag_is_ported_or_refused():
     (["--nTracks", "many"], "invalid value"),
     (["--iirForm", "fir"], "invalid iir form"),
     (["--iirBlockM", "1"], "iir_block_m"),
+    (["--convEdgeMode", "wrap"], "invalid conv edge mode"),
+    (["--irLength", "long"], "invalid value"),
     (["--bogus"], "unknown argument"),
     (["--benchmarkFilter", "/zzz/"], "no benchmarks match"),
 ])
@@ -190,10 +192,10 @@ def test_filter_run_goes_on_past_a_failure_and_exits_1():
     """A filter that selects an unported benchmark and a ported one runs
     the ported one and still exits 1 (the reference's suite
     resilience)."""
-    rc, lines = _run(cli.main, ["--benchmarkFilter", "=gain,=IIRFilter",
+    rc, lines = _run(cli.main, ["--benchmarkFilter", "=FDTD3D,=IIRFilter",
                                 "--no-device-timing"] + TOY, device="cpu")
     assert rc == 1
-    assert any("gain" in ln and "ROADMAP" in ln for ln in lines)
+    assert any("FDTD3D" in ln and "ROADMAP" in ln for ln in lines)
     assert _json(lines)["benchmark"] == "IIRFilter"
 
 
@@ -285,4 +287,41 @@ def test_json_of_a_result_without_tiers_leaves_their_keys_out():
 def test_help_marks_the_ported_benchmarks():
     rc, lines = _run(cli.main, ["--help"])
     marked = {ln.split()[0][1:] for ln in lines if ln.startswith(" *")}
-    assert marked == {"IIRFilter", "ModalFilterBank", "BiquadChain"}
+    assert marked == {"IIRFilter", "ModalFilterBank", "BiquadChain", "NoOp",
+                      "gain", "GainStats", "FFT1D", "Conv1D",
+                      "Conv1D_accel"}
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--benchmark", "Conv1D", "--irLength", "40", "--convEdgeMode",
+      "bleed"], {"irLength": 40, "edgeMode": "bleed"}),
+    (["--benchmark", "Conv1D", "--irLength", "16"],
+     {"irLength": 16, "edgeMode": "clamp"}),
+    (["--benchmark", "Conv1D_accel", "--irLength", "100"],
+     {"irLength": 100, "fftSize": 1024}),
+])
+def test_conv_flags_reach_the_benchmark(argv, want):
+    rc, lines = _run(cli.main, argv + TOY, device="cpu")
+    assert rc == 0, lines[-20:]
+    rec = _json(lines)
+    assert rec["validation"]["status"] == "SUCCESS"
+    for k, v in want.items():
+        assert rec["metadata"][k] == v
+
+
+@pytest.mark.parametrize("name", ["NoOp", "gain", "GainStats", "FFT1D",
+                                  "Conv1D", "Conv1D_accel"])
+def test_new_benchmarks_json_keys_are_a_subset_of_the_reference(name):
+    extra = ["--irLength", "16"] if name.startswith("Conv1D") else []
+    rc, lines = _run(cli.main, ["--benchmark", name] + TOY + extra,
+                     device="cpu")
+    assert rc == 0, lines[-20:]
+    ours = _json(lines)
+    rc_j, jlines = _run(jax_cli.main,
+                        ["--benchmark", name, "--nTracks", "8", "--nRuns",
+                         "3", "--warmup", "1", "--json", "--no-device-timing"]
+                        + extra)
+    assert rc_j == 0, jlines[-20:]
+    theirs = _json(jlines)
+    assert ours["validation"]["status"] == theirs["validation"]["status"]
+    assert ours["benchmark"] == theirs["benchmark"] == name

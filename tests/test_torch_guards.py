@@ -54,7 +54,13 @@ BLOCKED_JAX = textwrap.dedent("""
                       device_timing=False, pipeline_depth=4, saturated_reps=2)
     for name, knobs in [("ModalFilterBank", {}), ("IIRFilter", {}),
                         ("IIRFilter", {"iir_form": "blockstate"}),
-                        ("BiquadChain", {"device_timing": True})]:
+                        ("BiquadChain", {"device_timing": True}),
+                        ("ModalFilterBank", {"n_tracks": 12}),
+                        ("NoOp", {}), ("gain", {}), ("GainStats", {}),
+                        ("FFT1D", {}), ("Conv1D", {"ir_length": 40}),
+                        ("Conv1D", {"ir_length": 100,
+                                    "conv_edge_mode": "bleed"}),
+                        ("Conv1D_accel", {"ir_length": 40})]:
         c = cfg.replace(**knobs)
         b = create_benchmark(name, c, torch.device("cpu"))
         b.setup()
@@ -72,6 +78,10 @@ BLOCKED_JAX = textwrap.dedent("""
     assert rc == 0, lines[-10:]
     rec = json.loads("\\n".join(lines[lines.index("{"):-1]))
     assert rec["validation"]["status"] == "SUCCESS"
+    from gpuaudiobench_tpu_torch.ops import modal as tops
+    tabs = [torch.rand(960) for _ in range(5)]
+    out, _, _ = tops.modal_bank(*tabs, 16, 12, algorithm="res")
+    assert out.shape == (12, 16)
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("OK", len(names))
 """)
@@ -82,7 +92,7 @@ def test_port_runs_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", BLOCKED_JAX], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
-    assert r.stdout.split()[-2] == "OK" and int(r.stdout.split()[-1]) >= 21
+    assert r.stdout.split()[-2] == "OK" and int(r.stdout.split()[-1]) >= 30
 
 
 def test_no_source_mentions_jax():
@@ -250,6 +260,14 @@ def test_chip_smoke_bounds():
     ms, by = cs.modal_bound()
     m, s, t = cs.MAIN_SHAPE
     assert by == "operations" and ms == pytest.approx(7 * m * s / 67e9)
+    ms, by = cs.res_bound()
+    assert by == "operations" and ms == pytest.approx(5 * m * s / 67e9)
+    ms, by = cs.conv_bound()
+    tracks, s_conv, l = cs.CONV_FULL
+    assert (tracks, s_conv, l) == (19456, 512, 1024)
+    assert by == "operations"
+    assert ms == pytest.approx(2 * tracks * s_conv * l / 67e9)
+    assert ms == pytest.approx(0.304, abs=1e-3)  # against 0.048 ms of bytes
     bounds = cs.iir_bounds(128)
     tracks, s = cs.IIR_FULL
     io_ms = 8 * tracks * s / 3.35e9
@@ -262,16 +280,44 @@ def test_chip_smoke_bounds():
 
 
 def test_chip_smoke_counts_twin_calls_and_restores_them():
+    from gpuaudiobench_tpu_torch.ops import conv as cops
     from gpuaudiobench_tpu_torch.ops import iir as iops
 
     cs = _chip_smoke()
-    originals = {n: getattr(iops, n) for n in cs.TwinCalls.NAMES["iir"]}
+    mods = {"modal": tops, "iir": iops, "conv": cops}
+    originals = {(k, n): getattr(mods[k], n)
+                 for k, names in cs.TwinCalls.NAMES.items() for n in names}
     x = torch.zeros((4, 8))
-    with cs.TwinCalls({"modal": tops, "iir": iops}) as twins:
+    with cs.TwinCalls(mods) as twins:
         iops.iir_cascade(x, torch.zeros((2, 5)), torch.zeros((2, 4, 2)))
-    assert twins.calls == 3  # the cascade twin and its two stages
-    assert {n: getattr(iops, n) for n in originals} == originals
+        cops.conv1d_direct(x, torch.zeros((4, 3)), "bleed")
+        eps, y, q = (torch.zeros(64) for _ in range(3))
+        tops.modal_res_step(eps, y, q, 4, 8)
+    assert twins.calls == 5  # the cascade twin and its 2 stages, conv, res
+    assert {k: getattr(mods[k[0]], k[1]) for k in originals} == originals
     iops.KERNEL_LAUNCHES["iir_biquad"] += 1
-    cs.reset_counts(tops, iops)
-    assert tops.KERNEL_LAUNCHES == 0
-    assert not any(iops.KERNEL_LAUNCHES.values())
+    cops.KERNEL_LAUNCHES["conv1d"] += 1
+    tops.KERNEL_LAUNCHES["modal_res"] += 1
+    cs.reset_counts(tops, iops, cops)
+    counts = cs.launch_counts(tops, iops, cops)
+    assert set(counts) == {"modal_bank", "modal_res", "conv1d",
+                           *iops.KERNEL_LAUNCHES}
+    assert not any(counts.values())
+
+
+def test_chip_smoke_lists_every_twin_and_kernel():
+    """Every plain twin of a ported kernel is counted on the main paths,
+    and the kernels line has a row for each of the 7 ported kernels."""
+    from gpuaudiobench_tpu_torch.ops import conv as cops
+    from gpuaudiobench_tpu_torch.ops import iir as iops
+
+    cs = _chip_smoke()
+    for key, mod in {"modal": tops, "iir": iops, "conv": cops}.items():
+        twins = {n for n in dir(mod)
+                 if n.endswith("_plain") and callable(getattr(mod, n))}
+        assert twins == set(cs.TwinCalls.NAMES[key]), key
+    text = (REPO / "chip_smoke.py").read_text()
+    for name in ("modal_bank", "modal_res", "conv1d", *cs.IIR_REPLACES):
+        assert f'"{name}"' in text
+    assert len(set(cs.IIR_REPLACES) | {"modal_bank", "modal_res",
+                                      "conv1d"}) == 7

@@ -101,7 +101,7 @@ def test_folded_step_chained_matches_pallas_interpret(rng, m, t_out):
 def test_folded_wrapper_on_cpu_is_the_plain_twin(rng, m, t_out):
     amp, cw, sw, re, im = _tables(rng, m)
     args = _t(cw, sw, amp * re, amp * im)
-    launches = tops.KERNEL_LAUNCHES
+    launches = dict(tops.KERNEL_LAUNCHES)
     got = tops.modal_folded_step(*args, S, t_out)
     want = tops.modal_folded_step_plain(*args, S, t_out)
     for g, w in zip(got, want):
