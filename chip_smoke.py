@@ -31,7 +31,21 @@ nonzero:
    also on the benchmark's own IR bank within 1e-5 of the twin's peak;
    CUDA-event times of the kernel, the twin and
    ``torch.nn.functional.conv1d`` (cuDNN, TF32 off) at the main shape.
-6. Main paths, each with every launch count reset just before and read
+6. The RndMem gather vs its plain twin, bit for bit, at 21 edge and
+   clamped playheads from a 64 Ki-sample pool and at the main path's
+   65,536 tracks x 512 samples from a 512 MiB pool; CUDA-event times of
+   the kernel, the twin and one advanced-indexing gather.
+7. The DWG block vs its plain twin from random rails U(0, 0.1), chained
+   over 2 blocks (rails within 1e-6 absolute, the mono output within
+   1e-5 of the twin's peak), at 6 x 48 (unaligned lengths), 1,000 x 512
+   and the main path's 32,768 x 512 x Lmax 2,000, with random and
+   power-of-two lengths; CUDA-event times at 32,768 x 512.
+8. The two FDTD kernels vs their twins and the divergence kernel vs the
+   field kernel, fields chained over 2 blocks, each within 1e-5 of the
+   peak, at rooms 8 (64 samples), 50 (512) and 82 (32); the field kernel
+   with 128 per-track receivers at room 50 x 512; CUDA-event times at
+   room 50, 128 tracks x 512 samples, and of the grid-wide barrier alone.
+9. Main paths, each with every launch count reset just before and read
    just after, and the plain twins counted (none may run):
    ``gpuaudiobench_tpu_torch.bench.main()`` at its defaults; 512 chained
    resonator blocks at the main modal shape, the first checked against
@@ -39,10 +53,19 @@ nonzero:
    and blockstate) and BiquadChain at 65,536 tracks, IIRFilter at the
    CLI's default 128 tracks, ModalFilterBank at 12 tracks (T_out 12),
    Conv1D at 19,456 tracks (clamp) and 128 (bleed), Conv1D_accel at
-   19,456, and FFT1D, gain, GainStats and NoOp at 65,536; each validates
-   against the NumPy golden.
-7. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
-   ``{"ok": true, "device": {...}}`` line.
+   19,456, FFT1D, gain, GainStats and NoOp at 65,536, RndMemRead at
+   65,536 tracks and at the CLI's defaults (no ``--benchmark``: 128
+   tracks, 100 runs, full verification), DWG1DNaive and DWG1DAccel at
+   32,768 waveguides, and FDTD3D at room 50 with 128 tracks, with and
+   without ``--fdtdPerTrackReceivers``; each validates against the NumPy
+   golden. The DWG and FDTD paths run fewer round trips and a shallower
+   saturated tier (``DWG_CLI``, ``FDTD_CLI``): a DWG round trip at 32,768
+   waveguides moves ~1 GB of rails through pageable memory and its host
+   golden replays every iteration, and one FDTD block takes milliseconds
+   (1,536 grid-wide barriers), so the default depth of 512 x 21 reps
+   would take minutes.
+10. A ``{"kernels": [...]}`` line (11 kernels), the nvidia-smi line, and
+   last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
 none, or when the port's package is not beside this script.
@@ -106,6 +129,39 @@ IIR_REPLACES = {
     "iir_cascade": "gpuaudiobench_tpu/ops/iir.py:161",
     "iir_cascade_chain": "gpuaudiobench_tpu/ops/iir.py:130",
 }
+# The RndMem gather (csrc/rndmem.cu), bit for bit against its twin: the
+# edge playheads of the reference's test (tests/test_pallas_ops.py:69-71),
+# clamped ones, and the main path's (tracks, samples, pool samples).
+RNDMEM_EDGE_POOL = 64 * 1024
+RNDMEM_EDGE = [0, 1024, 513, 1000, RNDMEM_EDGE_POOL - 512, 2047, 12345, 777,
+               128, 127, 129, RNDMEM_EDGE_POOL - 513, RNDMEM_EDGE_POOL - 640,
+               255, RNDMEM_EDGE_POOL - 768, 511, RNDMEM_EDGE_POOL - 1,
+               RNDMEM_EDGE_POOL + 99, -1, -70000, 2 ** 31 - 1]
+RNDMEM_FULL = (65536, 512, 512 * 1024 * 1024 // 4)
+RNDMEM_SOURCE = "gpuaudiobench_tpu_torch/csrc/rndmem.cu"
+RNDMEM_REPLACES = "gpuaudiobench_tpu/ops/rndmem_pallas.py:62"
+
+# The DWG block (csrc/dwg.cu), (waveguides, samples, Lmax, lengths or None
+# for U[100, Lmax), power-of-two lengths): rails within 1e-6 absolute, the
+# mono output within 1e-5 of the twin's peak, from rails U(0, 0.1).
+DWG_FULL = (32768, 512, 2000)
+DWG_SHAPES = [(6, 48, 40, (5, 8, 12, 16, 33, 40), False),
+              (1000, 512, 2000, None, False), (*DWG_FULL, None, False),
+              (*DWG_FULL, None, True)]
+DWG_RAIL_ATOL = 1e-6
+DWG_OUT_RTOL = 1e-5
+DWG_SOURCE = "gpuaudiobench_tpu_torch/csrc/dwg.cu"
+DWG_REPLACES = "gpuaudiobench_tpu/ops/dwg_pallas.py:40"
+
+# The FDTD kernels (csrc/fdtd3d.cu), (room, samples): outputs and fields
+# within 1e-5 of the peak, kernel vs twin and divergence vs field.
+FDTD_MAIN = (50, 512, 128)  # room, samples, tracks: the CLI path's
+FDTD_SHAPES = [(8, 64), (50, 512), (82, 32)]
+FDTD_RTOL = 1e-5
+FDTD_SOURCE = "gpuaudiobench_tpu_torch/csrc/fdtd3d.cu"
+FDTD_REPLACES = {"fdtd3d_div": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:149",
+                 "fdtd3d_field": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:77"}
+
 # The published H100 SXM peaks the bounds divide by (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -142,6 +198,30 @@ CLI_RUNS = [
 ] + [(f"{name}, 65536 tracks",
       ["--benchmark", name, "--nTracks", "65536"] + CLI_COMMON, [])
      for name in ("FFT1D", "gain", "GainStats", "NoOp")]
+# Fewer round trips and a shallower saturated tier for the DWG and FDTD
+# paths (see the docstring).
+DWG_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
+           "--saturatedReps", "5", "--verification", "spot", "--json"]
+FDTD_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "32",
+            "--saturatedReps", "5", "--verification", "spot", "--json"]
+CLI_RUNS += [
+    ("RndMemRead, 65536 tracks",
+     ["--benchmark", "RndMemRead", "--nTracks", "65536"] + CLI_COMMON,
+     ["rndmem_gather"]),
+    ("RndMemRead, the CLI's defaults (128 tracks)", ["--json"],
+     ["rndmem_gather"]),
+    ("DWG1DNaive, 32768 waveguides",
+     ["--benchmark", "DWG1DNaive", "--nTracks", "32768"] + DWG_CLI,
+     ["dwg_block"]),
+    ("DWG1DAccel, 32768 waveguides",
+     ["--benchmark", "DWG1DAccel", "--nTracks", "32768"] + DWG_CLI,
+     ["dwg_block"]),
+    ("FDTD3D room 50, 128 tracks",
+     ["--benchmark", "FDTD3D"] + FDTD_CLI, ["fdtd3d_div"]),
+    ("FDTD3D room 50, 128 tracks, per-track receivers",
+     ["--benchmark", "FDTD3D", "--fdtdPerTrackReceivers"] + FDTD_CLI,
+     ["fdtd3d_field"]),
+]
 
 
 def fail(msg: str) -> None:
@@ -643,6 +723,306 @@ def time_conv(torch, cops, device):
     return min(k1, k2), min(p1, p2), lib
 
 
+def compare_rndmem(torch, rops, device):
+    """The gather vs its twin, bit for bit, at the edge playheads and at
+    RNDMEM_FULL; returns the full shape's (pool, playheads) and the max
+    |kernel - twin| over both."""
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    tracks, s, pool_len = RNDMEM_FULL
+    edge_pool = torch.rand(RNDMEM_EDGE_POOL, generator=g, device=device)
+    edge_ph = torch.tensor(RNDMEM_EDGE, dtype=torch.int32, device=device)
+    pool = torch.rand(pool_len, generator=g, device=device)
+    ph = torch.randint(0, pool_len - s, (tracks,), generator=g,
+                       device=device, dtype=torch.int32)
+    before = rops.KERNEL_LAUNCHES["rndmem_gather"]
+    worst = 0.0
+    for label, (p, h) in (("edge", (edge_pool, edge_ph)),
+                          ("full", (pool, ph))):
+        got = rops.rndmem_gather(p, h, s)
+        want = rops.rndmem_gather_plain(p, h, s)
+        if tuple(got.shape) != (s, h.shape[0]):
+            fail(f"rndmem_gather {label}: shape {tuple(got.shape)}")
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            fail(f"rndmem_gather {label} {h.shape[0]}x{s}: not bit-equal to "
+                 f"its twin (max|d| {err:.3g})")
+        worst = max(worst, err)
+    torch.cuda.synchronize()
+    if rops.KERNEL_LAUNCHES["rndmem_gather"] - before != 2:
+        fail("rndmem_gather: expected 2 launches")
+    print(f"compare rndmem_gather: ok, bit for bit at {len(RNDMEM_EDGE)} "
+          f"edge and clamped playheads and at {tracks}x{s} from "
+          f"{pool_len * 4 >> 20} MiB")
+    return pool, ph, worst
+
+
+def time_rndmem(torch, rops, pool, ph):
+    """CUDA-event times (ms) at RNDMEM_FULL of the kernel, the twin and one
+    advanced-indexing gather with its (S, T) index built beforehand:
+    (ms, plain_ms, library_ms)."""
+    s = RNDMEM_FULL[1]
+    idx = (rops.clamped_starts(ph, pool.shape[0], s)[None, :]
+           + torch.arange(s, device=pool.device)[:, None])
+    if not torch.equal(pool[idx], rops.rndmem_gather(pool, ph, s)):
+        fail("rndmem_gather: the indexing yardstick differs from the kernel")
+    p1 = median_ms(torch, lambda: rops.rndmem_gather_plain(pool, ph, s), 5, 2)
+    k1 = median_ms(torch, lambda: rops.rndmem_gather(pool, ph, s),
+                   TIMING_REPS, 10)
+    k2 = median_ms(torch, lambda: rops.rndmem_gather(pool, ph, s),
+                   TIMING_REPS, 10)
+    p2 = median_ms(torch, lambda: rops.rndmem_gather_plain(pool, ph, s), 5, 2)
+    lib = median_ms(torch, lambda: pool[idx], TIMING_REPS, 10)
+    print(f"time rndmem_gather {ph.shape[0]}x{s} (CUDA events, median of "
+          f"reps): kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.4f} / "
+          f"{p2:.4f} ms, pool[idx] {lib:.4f} ms")
+    return min(k1, k2), min(p1, p2), lib
+
+
+def rndmem_bound():
+    """Each output sample read once from the pool and written once; the
+    playheads read: no arithmetic."""
+    tracks, s, _ = RNDMEM_FULL
+    return bound(2 * tracks * s * 4 + 4 * tracks, 0)
+
+
+def dwg_inputs(torch, g_count, s, lmax, lengths, pow2, device, seed=11):
+    """(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl, damp) on the
+    card: the benchmark's parameter draws, rails U(0, 0.1)."""
+    import numpy as np
+
+    g = np.random.Generator(np.random.MT19937(seed + g_count))
+    if lengths is None:
+        lengths = 100 + g.integers(0, lmax - 100, g_count)
+    lengths = np.asarray(lengths)
+    if pow2:
+        lengths = 2 ** np.floor(np.log2(lengths))
+    lengths = lengths.astype(np.int32)
+    f32 = np.float32
+    arrays = [
+        (g.random(s, dtype=f32) * 2 - 1).astype(f32),
+        (g.random((g_count, lmax), dtype=f32) * f32(0.1)).astype(f32),
+        (g.random((g_count, lmax), dtype=f32) * f32(0.1)).astype(f32),
+        lengths, (lengths // 4).astype(np.int32),
+        (3 * lengths // 4).astype(np.int32),
+        (0.1 + 0.9 * g.random(g_count, dtype=f32)).astype(f32),
+        (0.99 + 0.01 * (g.random(g_count, dtype=f32) - 0.5)).astype(f32),
+        (0.9999 + 1e-4 * (g.random(g_count, dtype=f32) - 0.5)).astype(f32),
+    ]
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def compare_dwg(torch, dops, shape, device) -> float:
+    """The DWG kernel vs its twin over 2 chained blocks; returns the max
+    |kernel - twin| of the rails."""
+    g_count, s, lmax, lengths, pow2 = shape
+    x, fwd, bwd, *params = dwg_inputs(torch, g_count, s, lmax, lengths, pow2,
+                                      device)
+    fk, bk, fp, bp = fwd.clone(), bwd.clone(), fwd, bwd
+    before = dops.KERNEL_LAUNCHES["dwg_block"]
+    worst, out_rel = 0.0, 0.0
+    for blk in range(2):
+        ok, fk, bk = dops.dwg_block(x, fk, bk, *params)
+        op_, fp, bp = dops.dwg_block_plain(x, fp, bp, *params)
+        rail = max((fk - fp).abs().max().item(), (bk - bp).abs().max().item())
+        if not rail <= DWG_RAIL_ATOL:
+            fail(f"dwg_block {shape[:3]} block {blk}: rails max|d| "
+                 f"{rail:.3g} > {DWG_RAIL_ATOL:g}")
+        peak = op_.abs().max().item()
+        err = (ok - op_).abs().max().item()
+        if not (err <= DWG_OUT_RTOL * peak and peak > 0
+                and torch.isfinite(fk).all()):
+            fail(f"dwg_block {shape[:3]} block {blk}: out max|d| {err:.3g} "
+                 f"against {DWG_OUT_RTOL:g} * {peak:.4g}, or non-finite rails")
+        worst, out_rel = max(worst, rail), max(out_rel, err / peak)
+    torch.cuda.synchronize()
+    if dops.KERNEL_LAUNCHES["dwg_block"] - before != 2:
+        fail("dwg_block: expected 2 launches")
+    print(f"compare dwg_block G={g_count} S={s} Lmax={lmax}"
+          f"{' pow2' if pow2 else ''}: ok  rails max|d| {worst:.3g}, out "
+          f"{out_rel:.3g} of the peak")
+    return worst
+
+
+def time_dwg(torch, dops, device):
+    """CUDA-event times (ms) at DWG_FULL, random lengths, of the kernel and
+    the twin, each updating the rails in place:
+    (ms, plain_ms, touched cell pairs)."""
+    g_count, s, lmax = DWG_FULL
+    args = dwg_inputs(torch, g_count, s, lmax, None, False, device)
+
+    def kernel():
+        dops.dwg_block(*args)
+
+    def plain():
+        dops.dwg_block_plain(*args)
+
+    p1 = median_ms(torch, plain, 2, 1)
+    k1 = median_ms(torch, kernel, TIMING_REPS, 5)
+    k2 = median_ms(torch, kernel, TIMING_REPS, 5)
+    p2 = median_ms(torch, plain, 2, 1)
+    touched = int(torch.clamp(args[3], max=s).sum().item())
+    print(f"time dwg_block {g_count}x{s} Lmax {lmax} (CUDA events, median of "
+          f"reps): kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.2f} / "
+          f"{p2:.2f} ms ({touched} cell pairs touched)")
+    return min(k1, k2), min(p1, p2), touched
+
+
+def dwg_bound(touched: int):
+    """The in-place block at DWG_FULL: each touched fwd and bwd cell read
+    and written once (16 B a cell pair), x read, out written, 24 B of
+    parameters a waveguide; 10 FLOP a waveguide and sample."""
+    g_count, s, _ = DWG_FULL
+    return bound(16 * touched + 8 * s + 24 * g_count, 10 * g_count * s)
+
+
+def fdtd_geometry(fops, room):
+    return fops.grid_n(room), fops.source_pos(room), fops.receiver_pos(room)
+
+
+def fdtd_x(torch, tracks, s, device, seed=3):
+    import numpy as np
+
+    g = np.random.Generator(np.random.MT19937(seed))
+    x = (g.random((tracks, s), dtype=np.float32) * 2 - 1).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def fdtd_check(torch, label, got, want):
+    """max |got - want|; fails above FDTD_RTOL of max |want|."""
+    if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
+        fail(f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+             "or non-finite values")
+    peak = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not err <= FDTD_RTOL * peak:
+        fail(f"{label}: max|d| {err:.3g} > {FDTD_RTOL:g} * {peak:.4g}")
+    return err
+
+
+def compare_fdtd(torch, fops, room, s, device, tracks=4):
+    """Both kernels vs their twins and div vs field over 2 chained blocks;
+    returns {kernel: max |kernel - twin|}."""
+    n, src, rcv = fdtd_geometry(fops, room)
+    x = fdtd_x(torch, tracks, s, device)
+    dk = dp = fops.zero_fields_div(n, device)
+    fk = fp = fops.zero_fields(n, device)
+    before = dict(fops.KERNEL_LAUNCHES)
+    worst = {"fdtd3d_div": 0.0, "fdtd3d_field": 0.0}
+    cross = 0.0
+    for blk in range(2):
+        out_dk, *dk = fops.fdtd3d_block_div(x, *dk, src, rcv)
+        out_dp, *dp = fops.fdtd3d_block_div_plain(x, *dp, src, rcv)
+        out_fk, *fk = fops.fdtd3d_block_field(x, *fk, src, rcv)
+        out_fp, *fp = fops.fdtd3d_block_field_plain(x, *fp, src, rcv)
+        tag = f"room {room} S={s} block {blk}"
+        for kind, pairs in (("fdtd3d_div", [(out_dk, out_dp), *zip(dk, dp)]),
+                            ("fdtd3d_field",
+                             [(out_fk, out_fp), *zip(fk, fp)])):
+            for got, want in pairs:
+                worst[kind] = max(worst[kind],
+                                  fdtd_check(torch, f"{kind} {tag}", got, want))
+        cross = max(cross,
+                    fdtd_check(torch, f"div vs field {tag}", out_dk, out_fk),
+                    fdtd_check(torch, f"div vs field p {tag}", dk[0], fk[0]))
+    if out_dk.abs().max().item() <= 0:
+        fail(f"fdtd room {room}: the receiver heard nothing")
+    torch.cuda.synchronize()
+    for k in worst:
+        if fops.KERNEL_LAUNCHES[k] - before[k] != 2:
+            fail(f"{k}: expected 2 launches")
+    print(f"compare fdtd room {room} S={s}: ok  max|d| div "
+          f"{worst['fdtd3d_div']:.3g}, field {worst['fdtd3d_field']:.3g}, "
+          f"div vs field {cross:.3g}")
+    return worst
+
+
+def fdtd_receivers(torch, fops, n, tracks, device):
+    xs, ys, zs = fops.receiver_line(tracks, n)
+    cells = (xs.astype("int64") * n + ys) * n + zs
+    return torch.from_numpy(cells.astype("int32")).to(device)
+
+
+def compare_fdtd_receivers(torch, fops, device) -> float:
+    """The field kernel with a receiver per track at FDTD_MAIN vs its
+    twin; returns the max |kernel - twin|."""
+    room, s, tracks = FDTD_MAIN
+    n, src, rcv = fdtd_geometry(fops, room)
+    x = fdtd_x(torch, tracks, s, device)
+    cells = fdtd_receivers(torch, fops, n, tracks, device)
+    got = fops.fdtd3d_block_field(x, *fops.zero_fields(n, device), src, rcv,
+                                  receivers=cells)
+    want = fops.fdtd3d_block_field_plain(x, *fops.zero_fields(n, device), src,
+                                         rcv, receivers=cells)
+    rel = max(fdtd_check(torch, f"fdtd3d_field {tracks} receivers", a, b)
+              for a, b in zip(got, want))
+    if len(set(got[0][:, -1].tolist())) < 2:
+        fail("fdtd3d_field receivers: every track read the same value")
+    print(f"compare fdtd3d_field room {room} S={s}, {tracks} per-track "
+          f"receivers: ok  max|d| {rel:.3g}")
+    return rel
+
+
+def time_fdtd(torch, fops, device):
+    """CUDA-event times (ms) at FDTD_MAIN: the divergence kernel (broadcast
+    receiver) and the field kernel (a receiver per track), each against
+    its twin, and the grid-wide barrier alone at the divergence kernel's
+    grid: ({kernel: (ms, plain_ms)}, ms per barrier)."""
+    room, s, tracks = FDTD_MAIN
+    n, src, rcv = fdtd_geometry(fops, room)
+    x = fdtd_x(torch, tracks, s, device)
+    cells = fdtd_receivers(torch, fops, n, tracks, device)
+    zd, zf = fops.zero_fields_div(n, device), fops.zero_fields(n, device)
+    fns = {
+        "fdtd3d_div": (lambda: fops.fdtd3d_block_div(x, *zd, src, rcv),
+                       lambda: fops.fdtd3d_block_div_plain(x, *zd, src, rcv)),
+        "fdtd3d_field": (
+            lambda: fops.fdtd3d_block_field(x, *zf, src, rcv, receivers=cells),
+            lambda: fops.fdtd3d_block_field_plain(x, *zf, src, rcv,
+                                                  receivers=cells)),
+    }
+    out = {}
+    for name, (kern, plain) in fns.items():
+        p1 = median_ms(torch, plain, 1, 1)
+        k1 = median_ms(torch, kern, 5, 2)
+        k2 = median_ms(torch, kern, 5, 2)
+        p2 = median_ms(torch, plain, 1, 1)
+        print(f"time {name} room {room}, {tracks}x{s} (CUDA events, median "
+              f"of reps): kernel {k1:.4f} / {k2:.4f} ms, plain twin "
+              f"{p1:.2f} / {p2:.2f} ms")
+        out[name] = (min(k1, k2), min(p1, p2))
+    syncs = 3 * s
+    one = median_ms(torch, lambda: fops.sync_probe(n, syncs, device), 5, 2)
+    print(f"time grid-wide barrier alone, {syncs} in one launch on "
+          f"{n}^3's grid: {one:.4f} ms, {one / syncs * 1e3:.3f} us each")
+    return out, one / syncs
+
+
+def fdtd_bounds():
+    """At FDTD_MAIN, the operations each form needs per substep: a boundary
+    cell 1 (p * (1 - absorption)); an interior cell of the div form 11 (5
+    adds for the neighbours' sum, 4 for div', 2 for p'); the field form 3
+    for each of the 3 (n-1) n^2 updated faces, then 7 for an interior cell
+    (5 for the divergence, 2 for p'). Per sample and track: the source sum
+    and the receiver's scale, and per sample the injection. Bytes: the
+    input block read, the output written, the carried fields read and
+    written once (p and div, or p, vx, vy, vz), and the receivers read for
+    the field form."""
+    room, s, tracks = FDTD_MAIN
+    n = room + 2
+    cells, faces = n ** 3, (n + 1) * n * n
+    interior = (n - 2) ** 3
+    edge = cells - interior
+    per_block = 2 * tracks * s + 2 * s
+    div_flops = 3 * s * (11 * interior + edge) + per_block
+    field_flops = (3 * s * (9 * (n - 1) * n * n + 7 * interior + edge)
+                   + per_block)
+    io = 2 * tracks * s * 4
+    return {"fdtd3d_div": bound(io + 2 * 2 * cells * 4, div_flops),
+            "fdtd3d_field": bound(io + 2 * (cells + 3 * faces) * 4
+                                  + 4 * tracks, field_flops)}
+
+
 class TwinCalls:
     """Counts calls of every plain twin while the main paths run (none may
     run on the card): wraps the module functions, which the wrappers look
@@ -652,7 +1032,10 @@ class TwinCalls:
                        "modal_res_step_plain"),
              "iir": ("iir_biquad_plain", "iir_biquad_blockstate_plain",
                      "iir_cascade_plain"),
-             "conv": ("conv1d_direct_plain",)}
+             "conv": ("conv1d_direct_plain",),
+             "rndmem": ("rndmem_gather_plain",),
+             "dwg": ("dwg_block_plain",),
+             "fdtd": ("fdtd3d_block_div_plain", "fdtd3d_block_field_plain")}
 
     def __init__(self, modules):
         self.modules = modules
@@ -746,8 +1129,11 @@ def main() -> int:
         from gpuaudiobench_tpu_torch import bench, cli
         from gpuaudiobench_tpu_torch.models import modal as models_modal
         from gpuaudiobench_tpu_torch.ops import conv as cops
+        from gpuaudiobench_tpu_torch.ops import dwg as dops
+        from gpuaudiobench_tpu_torch.ops import fdtd3d as fops
         from gpuaudiobench_tpu_torch.ops import iir as iops
         from gpuaudiobench_tpu_torch.ops import modal as ops
+        from gpuaudiobench_tpu_torch.ops import rndmem as rops
         from gpuaudiobench_tpu_torch.utils import build
         from gpuaudiobench_tpu_torch.utils import device as dev
     except ImportError as e:
@@ -761,10 +1147,10 @@ def main() -> int:
         fail("TF32 matmuls are on: the blockstate twin needs full FP32")
 
     t0 = time.perf_counter()
-    libs = build.build_all(["modal_bank", "iir", "conv1d"])
-    ops._lib()
-    iops._lib()
-    cops._lib()
+    libs = build.build_all(["modal_bank", "iir", "conv1d", "rndmem", "dwg",
+                            "fdtd3d"])
+    for mod in (ops, iops, cops, rops, dops, fops):
+        mod._lib()
     print(f"build: {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -787,14 +1173,39 @@ def main() -> int:
     conv_times = time_conv(torch, cops, device)
     print(f"conv1d kernel vs twin: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    pool, ph, rndmem_err = compare_rndmem(torch, rops, device)
+    rndmem_times = time_rndmem(torch, rops, pool, ph)
+    del pool, ph
+    print(f"rndmem_gather kernel vs twin: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    dwg_err = max(compare_dwg(torch, dops, shape, device)
+                  for shape in DWG_SHAPES)
+    dwg_times = time_dwg(torch, dops, device)
+    print(f"dwg_block kernel vs twin: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    fdtd_err = {"fdtd3d_div": 0.0, "fdtd3d_field": 0.0}
+    for room, s in FDTD_SHAPES:
+        for k, v in compare_fdtd(torch, fops, room, s, device).items():
+            fdtd_err[k] = max(fdtd_err[k], v)
+    fdtd_err["fdtd3d_field"] = max(fdtd_err["fdtd3d_field"],
+                                   compare_fdtd_receivers(torch, fops, device))
+    fdtd_times, _ = time_fdtd(torch, fops, device)
+    print(f"fdtd kernels vs twins: {time.perf_counter() - t0:.1f} s")
+
     # Main paths: every count is reset just before each path and read
     # just after; no plain twin may run in any of them.
+    modules = (ops, iops, cops, rops, dops, fops)
+
     def counts():
-        return launch_counts(ops, iops, cops)
+        return launch_counts(*modules)
 
     launches = {k: 0 for k in counts()}
-    with TwinCalls({"modal": ops, "iir": iops, "conv": cops}) as twins:
-        reset_counts(ops, iops, cops)
+    with TwinCalls({"modal": ops, "iir": iops, "conv": cops, "rndmem": rops,
+                    "dwg": dops, "fdtd": fops}) as twins:
+        reset_counts(*modules)
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -814,7 +1225,7 @@ def main() -> int:
         print(f"main path: {wall:.1f} s, {launches['modal_bank']} kernel "
               "launches, validation passed")
 
-        reset_counts(ops, iops, cops)
+        reset_counts(*modules)
         t0 = time.perf_counter()
         res_rel = res_path(torch, ops, models_modal, device)
         launches["modal_res"] = ops.KERNEL_LAUNCHES["modal_res"]
@@ -827,7 +1238,7 @@ def main() -> int:
               f"{list(RES_SPOT_TRACKS)}")
 
         for label, argv, kernels in CLI_RUNS:
-            reset_counts(ops, iops, cops)
+            reset_counts(*modules)
             for k, n in cli_path(torch, cli, counts, label, argv,
                                  kernels).items():
                 launches[k] += n
@@ -883,6 +1294,30 @@ def main() -> int:
         "bound_by": b_by,
         "library_ms": conv_times[2],
     })
+    slice_rows = [
+        ("rndmem_gather", RNDMEM_SOURCE, RNDMEM_REPLACES, rndmem_err,
+         rndmem_times,
+         rndmem_bound()),
+        ("dwg_block", DWG_SOURCE, DWG_REPLACES, dwg_err,
+         (*dwg_times[:2], None), dwg_bound(dwg_times[2])),
+    ] + [(name, FDTD_SOURCE, FDTD_REPLACES[name], fdtd_err[name],
+          (*fdtd_times[name], None), fdtd_bounds()[name])
+         for name in ("fdtd3d_div", "fdtd3d_field")]
+    for name, source, replaces, err, (ms, p_ms, lib_ms), (b_ms, b_by) in (
+            slice_rows):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib_ms,
+        })
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

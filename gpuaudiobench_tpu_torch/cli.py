@@ -47,6 +47,10 @@ VALUE_FLAGS = {
     "--modalModes": ("modal_num_modes", int),
     "--irLength": ("ir_length", int),
     "--convEdgeMode": ("conv_edge_mode", str),
+    "--poolMiB": ("rndmem_pool_mb", int),
+    "--dwgMinLen": ("dwg_min_length", int),
+    "--dwgMaxLen": ("dwg_max_length", int),
+    "--fdtdRoom": ("fdtd_room", int),
     "--pipelineDepth": ("pipeline_depth", int),
     "--saturatedReps": ("saturated_reps", int),
     "--seed": ("seed", int),
@@ -57,6 +61,7 @@ SWITCHES = {
     "--no-device-timing": ("device_timing", False),
     "--noSaturatedMarginal": ("saturated_marginal", False),
     "--modalRenorm": ("modal_renorm", True),
+    "--fdtdPerTrackReceivers": ("fdtd_per_track_receivers", True),
 }
 # Flags of the reference's CLI that the port has not ported, with the
 # ROADMAP.md item that ports them.
@@ -70,11 +75,6 @@ UNPORTED_FLAGS = {
     "--transferMiB": "queue 1, item 5",
     "--capture": "queue 1, item 4",
     "--captureDir": "queue 1, item 4",
-    "--dwgMinLen": "queue 1, item 9",
-    "--dwgMaxLen": "queue 1, item 9",
-    "--fdtdRoom": "queue 1, item 10",
-    "--fdtdPerTrackReceivers": "queue 1, item 10",
-    "--poolMiB": "queue 1, item 11",
     "--partconvForm": "queue 1, item 13",
     "--partconvTailChunk": "queue 1, item 13",
     "--partconvHDtype": "queue 1, item 13",
@@ -127,6 +127,13 @@ def print_help() -> None:
           "(default 1024 / 512)")
     print("  --convEdgeMode [m]       clamp | bleed (Conv1D window before "
           "a track's start; default clamp)")
+    print("  --poolMiB [n]            RndMemRead pool size (default: 512)")
+    print("  --dwgMinLen/--dwgMaxLen [n]  DWG delay-line length range")
+    print("                           (CUDA default 100-2000; Metal used 64-1024)")
+    print("  --fdtdRoom [n]           FDTD3D room cells per axis "
+          "(default 50, 8-128; grid = n+2)")
+    print("  --fdtdPerTrackReceivers  FDTD3D: one receiver cell per track")
+    print("                           (WebGPU parity; default: broadcast)")
     print("  --modalRenorm            Streaming: renormalize phasor magnitudes")
     print("  --pipelineDepth [n]      Also measure saturated throughput:")
     print("                           n chained blocks, state carried")
@@ -148,6 +155,9 @@ def print_help() -> None:
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark BiquadChain")
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark Conv1D "
           "--nTracks 19456 --pipelineDepth 512 --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark FDTD3D "
+          "--fdtdRoom 50 --pipelineDepth 32 --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli    (RndMemRead, 128 tracks)")
 
 
 def print_list() -> None:

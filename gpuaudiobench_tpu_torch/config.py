@@ -69,6 +69,21 @@ class BenchConfig:
     ir_length: Optional[int] = None
     conv_edge_mode: str = "clamp"
 
+    # RndMemRead: the sample pool in MiB and the per-track loop-length
+    # range (bench_rndmem.cuh: 512 MiB, loop wrap 1000-48000).
+    rndmem_pool_mb: int = 512
+    rndmem_min_loop: int = 1000
+    rndmem_max_loop: int = 48000
+    # DWG1DNaive / DWG1DAccel: delay-line length range (bench_dwg.cuh
+    # defaults 100-2000).
+    dwg_min_length: int = 100
+    dwg_max_length: int = 2000
+    # FDTD3D: one receiver cell per track (default: the single broadcast
+    # receiver), and the room in cells per axis (grid = room + 2 ghost
+    # cells; 50 is the CUDA/Metal reference, bench_fdtd3d.cuh:12-38).
+    fdtd_per_track_receivers: bool = False
+    fdtd_room: int = 50
+
     impl: str = "auto"
 
     # Saturated pass: pipeline_depth chained blocks per timing (0/1 =
@@ -87,7 +102,7 @@ class BenchConfig:
 
     def validate(self) -> None:
         """Raises ``ValueError`` with the reference's messages
-        (``gpuaudiobench_tpu/config.py:212-275``) for the fields here."""
+        (``gpuaudiobench_tpu/config.py:212-284``) for the fields here."""
         if self.buffer_size <= 0 or self.n_tracks <= 0:
             raise ValueError("buffer_size and n_tracks must be positive")
         if self.fs <= 0:
@@ -98,6 +113,9 @@ class BenchConfig:
             raise ValueError(f"invalid verification mode: {self.verification}")
         if self.conv_edge_mode not in ("clamp", "bleed"):
             raise ValueError(f"invalid conv edge mode: {self.conv_edge_mode}")
+        if not 8 <= self.fdtd_room <= 128:
+            raise ValueError(
+                f"fdtd_room must be in [8, 128], got {self.fdtd_room}")
         if self.iir_form not in ("scan", "blockstate"):
             raise ValueError(f"invalid iir form: {self.iir_form}")
         if self.iir_block_m != 0 and not 2 <= self.iir_block_m <= 128:
@@ -114,6 +132,13 @@ class BenchConfig:
                     "use iir_form scan")
         if self.impl not in ("auto", "xla", "pallas"):
             raise ValueError(f"invalid impl: {self.impl}")
+        if self.dwg_min_length < 4:
+            raise ValueError("dwg_min_length must be >= 4")
+        if self.dwg_max_length < self.dwg_min_length:
+            raise ValueError(
+                f"dwg_max_length ({self.dwg_max_length}) must be >= "
+                f"dwg_min_length ({self.dwg_min_length})"
+            )
 
 
 __all__ = ["BenchConfig"]

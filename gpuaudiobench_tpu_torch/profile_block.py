@@ -5,18 +5,26 @@
         --nTracks 65536 [--iirForm blockstate]
     python -m gpuaudiobench_tpu_torch.profile_block --benchmark Conv1D \
         --nTracks 19456
+    python -m gpuaudiobench_tpu_torch.profile_block --benchmark FDTD3D \
+        --nTracks 128 --depth 64
+    python -m gpuaudiobench_tpu_torch.profile_block --benchmark DWG1DNaive \
+        --nTracks 32768 --depth 256
 
 With no arguments it profiles the main cell of ``bench`` (ModalFilterBank,
 1,048,576 modes, 512-sample blocks, 32 tracks). The flags are the CLI's
 (``--benchmark``, ``--nTracks``, ``--bufferSize``, ``--iirForm``,
-``--iirBlockM``, ``--modalModes``, ``--irLength``, ``--convEdgeMode``);
-any ported benchmark with a stream body can be profiled. Validation is off, so the host golden
-is skipped. Prints one JSON line with:
+``--iirBlockM``, ``--modalModes``, ``--irLength``, ``--convEdgeMode``,
+``--fdtdRoom``), and ``--depth`` (default 2,048) sets the chain depth,
+which the slow blocks need cut: any ported benchmark
+with a stream body can be profiled (RndMemRead, DWG1DNaive, DWG1DAccel
+and FDTD3D among them; FDTD3D with the divergence kernel, the CLI's
+default). Validation is off, so the host golden is skipped (FDTD3D still
+computes its golden at setup). Prints one JSON line with:
 
 * ``card``: nvidia-smi's name and power limit, and its SM clock and power
   draw sampled while a long chain of blocks runs;
 * ``chain_wall_ms_per_block``: the unprofiled wall per block of a
-  ``DEPTH``-block chain (median of 3), as the saturated tier times it;
+  ``--depth``-block chain (median of 3), as the saturated tier times it;
 * ``roundtrip_wall_ms``: the unprofiled wall of one round trip
   (``iterate()``: upload, kernels, copy back), median of ``ROUNDTRIPS``;
 * ``chain`` and ``roundtrip``: per-kernel and per-copy device time per
@@ -118,20 +126,26 @@ FLAGS = {
     "--modalModes": ("modal_num_modes", int),
     "--irLength": ("ir_length", int),
     "--convEdgeMode": ("conv_edge_mode", str),
+    "--fdtdRoom": ("fdtd_room", int),
+    "--depth": ("depth", int),
 }
 
 
-def _parse(argv: List[str]) -> Tuple[str, BenchConfig]:
-    knobs = {"benchmark": "ModalFilterBank", "n_tracks": 1024}
+def _parse(argv: List[str]) -> Tuple[str, BenchConfig, int]:
+    knobs = {"benchmark": "ModalFilterBank", "n_tracks": 1024,
+             "depth": DEPTH}
     if len(argv) % 2 or any(a not in FLAGS for a in argv[::2]):
         raise SystemExit(f"usage: profile_block [{' N] ['.join(FLAGS)} N]")
     for flag, value in zip(argv[::2], argv[1::2]):
         key, typ = FLAGS[flag]
         knobs[key] = typ(value)
     name = knobs.pop("benchmark")
+    depth = knobs.pop("depth")
+    if depth < 16:
+        raise SystemExit("profile_block: --depth must be at least 16")
     cfg = BenchConfig(verification="none", device_timing=False, **knobs)
     cfg.validate()
-    return name, cfg
+    return name, cfg, depth
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -139,7 +153,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    name, cfg = _parse(sys.argv[1:] if argv is None else argv)
+    name, cfg, depth = _parse(sys.argv[1:] if argv is None else argv)
     device = dev.device("cuda")
     bench = create_benchmark(name, cfg, device)
     bench.setup()  # builds the kernels and runs one round trip
@@ -149,19 +163,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        run_chained(step, carry, DEPTH)
-        walls.append((time.perf_counter() - t0) * 1000.0 / DEPTH)
-    under_load = _sample_under_load(step, carry, 4 * DEPTH, 1.0)
+        run_chained(step, carry, depth)
+        walls.append((time.perf_counter() - t0) * 1000.0 / depth)
+    under_load = _sample_under_load(step, carry, 4 * depth, 1.0)
     trips = []
     for _ in range(ROUNDTRIPS):
         t0 = time.perf_counter()
         bench.iterate()
         trips.append((time.perf_counter() - t0) * 1000.0)
 
+    trace_blocks = min(TRACE_BLOCKS, depth)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_chained(step, carry, TRACE_BLOCKS)
-    chain = _summarize(_device_events(prof), TRACE_BLOCKS)
+        run_chained(step, carry, trace_blocks)
+    chain = _summarize(_device_events(prof), trace_blocks)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(ROUNDTRIPS):
@@ -173,7 +188,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "n_tracks": cfg.n_tracks,
         "card": {"name_power_limit": _smi("name,power.limit"),
                  "sm_clock_power_draw_under_load": under_load},
-        "depth": DEPTH,
+        "depth": depth,
         "chain_wall_ms_per_block": statistics.median(walls),
         "chain_wall_ms_per_block_reps": walls,
         "roundtrip_wall_ms": statistics.median(trips),

@@ -8,6 +8,7 @@ descriptions are the reference's, for ``--help``.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List
 
 import torch
@@ -72,12 +73,15 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
     from gpuaudiobench_tpu_torch.models.biquad_chain import BiquadChainBenchmark
     from gpuaudiobench_tpu_torch.models.conv1d import Conv1DBenchmark
     from gpuaudiobench_tpu_torch.models.conv1d_accel import Conv1DAccelBenchmark
+    from gpuaudiobench_tpu_torch.models.dwg import DWGBenchmark
+    from gpuaudiobench_tpu_torch.models.fdtd3d import FDTD3DBenchmark
     from gpuaudiobench_tpu_torch.models.fft import FFTBenchmark
     from gpuaudiobench_tpu_torch.models.gain import GainBenchmark
     from gpuaudiobench_tpu_torch.models.gainstats import GainStatsBenchmark
     from gpuaudiobench_tpu_torch.models.iir import IIRBenchmark
     from gpuaudiobench_tpu_torch.models.modal import ModalFilterBankBenchmark
     from gpuaudiobench_tpu_torch.models.noop import NoOpBenchmark
+    from gpuaudiobench_tpu_torch.models.rndmem import RndMemBenchmark
 
     return {
         "NoOp": NoOpBenchmark,
@@ -88,6 +92,10 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
         "Conv1D": Conv1DBenchmark,
         "Conv1D_accel": Conv1DAccelBenchmark,
         "ModalFilterBank": ModalFilterBankBenchmark,
+        "DWG1DNaive": DWGBenchmark,
+        "DWG1DAccel": functools.partial(DWGBenchmark, accelerated=True),
+        "FDTD3D": FDTD3DBenchmark,
+        "RndMemRead": RndMemBenchmark,
         "BiquadChain": BiquadChainBenchmark,
     }
 

@@ -2,12 +2,15 @@
 
 A copy of the pieces of ``gpuaudiobench_tpu/utils/data.py`` that the
 port reads, so it never imports the reference package;
-``tests/test_torch_iir_bench.py`` holds each copy equal to its original,
-bit for bit:
+``tests/test_torch_iir_bench.py``, ``test_torch_conv.py`` and
+``test_torch_rndmem.py`` hold each copy equal to its original, bit for
+bit:
 
 * ``generate_random_audio``: uniform [-1, 1) float32 from NumPy's
   MT19937 stream (the reference's seeded test signal,
   cuda/bench_utils.cu:238-245).
+* ``generate_uniform01``: uniform [0, 1) float32 from the same stream
+  (RndMemRead's sample pool, bench_rndmem.cu:143).
 * ``biquad_lowpass_coefficients``: RBJ/Butterworth lowpass at a
   normalized frequency, Q = 0.707, a0-normalized
   (cuda/bench_iir.cu:199-226).
@@ -28,6 +31,11 @@ def generate_random_audio(n: int, seed: int = 42) -> np.ndarray:
     """Uniform [-1, 1) float32 audio samples."""
     g = _rng(seed)
     return (g.random(n, dtype=np.float32) * 2.0 - 1.0).astype(np.float32)
+
+
+def generate_uniform01(n: int, seed: int = 42) -> np.ndarray:
+    """Uniform [0, 1) float32 samples."""
+    return _rng(seed).random(n, dtype=np.float32)
 
 
 def conv1d_impulse_responses(track_count: int, ir_length: int) -> np.ndarray:

@@ -30,8 +30,9 @@ def device(name: str = "cuda") -> torch.device:
 
 
 def to_device(host_array: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Host -> device copy (cudaMemcpy H2D)."""
-    return torch.from_numpy(np.ascontiguousarray(host_array)).to(dev)
+    """Host -> device copy (cudaMemcpy H2D). On the CPU too it is a copy,
+    so an in-place update of the tensor never writes the host array."""
+    return torch.from_numpy(np.ascontiguousarray(host_array)).to(dev, copy=True)
 
 
 def from_device(t: torch.Tensor) -> np.ndarray:

@@ -114,7 +114,7 @@ def test_help_names_every_ported_flag_and_benchmark():
         assert name in text
 
 
-@pytest.mark.parametrize("name", ["DWG1DNaive", "RndMemRead", "FDTD3D"])
+@pytest.mark.parametrize("name", ["PartConv", "NeuralAmp", "datacopy5050"])
 def test_unported_benchmark_exits_1_naming_roadmap(name):
     rc, lines = _run(cli.main, ["--benchmark", name, "--nRuns", "1"],
                      device="cpu")
@@ -192,10 +192,10 @@ def test_filter_run_goes_on_past_a_failure_and_exits_1():
     """A filter that selects an unported benchmark and a ported one runs
     the ported one and still exits 1 (the reference's suite
     resilience)."""
-    rc, lines = _run(cli.main, ["--benchmarkFilter", "=FDTD3D,=IIRFilter",
+    rc, lines = _run(cli.main, ["--benchmarkFilter", "=PartConv,=IIRFilter",
                                 "--no-device-timing"] + TOY, device="cpu")
     assert rc == 1
-    assert any("FDTD3D" in ln and "ROADMAP" in ln for ln in lines)
+    assert any("PartConv" in ln and "ROADMAP" in ln for ln in lines)
     assert _json(lines)["benchmark"] == "IIRFilter"
 
 
@@ -289,7 +289,8 @@ def test_help_marks_the_ported_benchmarks():
     marked = {ln.split()[0][1:] for ln in lines if ln.startswith(" *")}
     assert marked == {"IIRFilter", "ModalFilterBank", "BiquadChain", "NoOp",
                       "gain", "GainStats", "FFT1D", "Conv1D",
-                      "Conv1D_accel"}
+                      "Conv1D_accel", "DWG1DNaive", "DWG1DAccel", "FDTD3D",
+                      "RndMemRead"}
 
 
 @pytest.mark.parametrize("argv,want", [
@@ -325,3 +326,57 @@ def test_new_benchmarks_json_keys_are_a_subset_of_the_reference(name):
     theirs = _json(jlines)
     assert ours["validation"]["status"] == theirs["validation"]["status"]
     assert ours["benchmark"] == theirs["benchmark"] == name
+
+
+@pytest.mark.parametrize("argv,key", [
+    (["--poolMiB", "64"], "rndmem_pool_mb"),
+    (["--dwgMinLen", "50"], "dwg_min_length"),
+    (["--dwgMaxLen", "900"], "dwg_max_length"),
+    (["--fdtdRoom", "20"], "fdtd_room"),
+    (["--fdtdPerTrackReceivers"], "fdtd_per_track_receivers"),
+])
+def test_slice_flags_parse_like_the_reference(argv, key):
+    cfg, names, err = cli.parse_args(argv)
+    j_cfg, j_names, j_err = jax_cli.parse_args(argv)
+    assert err is None and j_err is None and names == j_names
+    assert getattr(cfg, key) == getattr(j_cfg, key)
+    assert getattr(cfg, key) != getattr(BenchConfig(), key)
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--fdtdRoom", "7"], "fdtd_room must be in [8, 128]"),
+    (["--fdtdRoom", "129"], "fdtd_room must be in [8, 128]"),
+    (["--dwgMinLen", "3"], "dwg_min_length must be >= 4"),
+    (["--dwgMinLen", "300", "--dwgMaxLen", "200"], "dwg_max_length (200)"),
+    (["--poolMiB", "half"], "invalid value"),
+])
+def test_slice_flags_reject_like_the_reference(argv, needle):
+    rc, lines = _run(cli.main, argv, device="cpu")
+    assert rc == 1 and needle in lines[-1]
+    assert jax_cli.parse_args(argv)[2] is not None
+
+
+SLICE_ARGS = {
+    "RndMemRead": ["--poolMiB", "1"],
+    "DWG1DNaive": ["--dwgMinLen", "20", "--dwgMaxLen", "200"],
+    "DWG1DAccel": ["--dwgMinLen", "20", "--dwgMaxLen", "200"],
+    "FDTD3D": ["--fdtdRoom", "8", "--bufferSize", "16"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_ARGS))
+def test_slice_json_keys_are_a_subset_of_the_reference(name):
+    argv = ["--benchmark", name, "--nTracks", "8", "--nRuns", "3",
+            "--warmup", "1", "--json", "--no-device-timing"] + SLICE_ARGS[name]
+    rc, lines = _run(cli.main, argv + ["--pipelineDepth", "8",
+                                       "--saturatedReps", "2"], device="cpu")
+    assert rc == 0, lines[-20:]
+    ours = _json(lines)
+    rc_j, jlines = _run(jax_cli.main, argv)
+    assert rc_j == 0, jlines[-20:]
+    theirs = _json(jlines)
+    assert ours["validation"]["status"] == theirs["validation"]["status"]
+    assert ours["benchmark"] == theirs["benchmark"] == name
+    assert ours["configuration"] == theirs["configuration"]
+    ours.pop("saturated")  # asked of the port only
+    assert _paths(ours) <= _paths(theirs), _paths(ours) - _paths(theirs)

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (the modal bank in its rotation and
-resonator forms, the four IIR kernels and the Conv1D FIR) against their
-plain PyTorch twins, on the GPU. Marked ``cuda``: each test skips where
-there is no CUDA device.
+resonator forms, the four IIR kernels, the Conv1D FIR, the RndMem gather,
+the DWG block and the two FDTD forms) against their plain PyTorch twins,
+on the GPU. Marked ``cuda``: each test skips where there is no CUDA
+device.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -12,7 +13,7 @@ kernel sums modes in another order and contracts the rotation into
 FMAs); states 1e-5 absolute. The resonator kernel rounds like its twin
 mode by mode, so the same bars hold, and 1e-5 of the peak against
 ``modal_reference_gs`` (the reference's bar, tests/test_pallas_ops.py:432).
-The IIR and Conv1D tolerances are stated at their tests below.
+The tolerances of the other kernels are stated at their tests below.
 """
 
 import numpy as np
@@ -20,6 +21,10 @@ import pytest
 import torch
 
 from gpuaudiobench_tpu_torch.models.conv1d import conv1d_reference
+from gpuaudiobench_tpu_torch.models.dwg import dwg_reference
+from gpuaudiobench_tpu_torch.ops import dwg as dops
+from gpuaudiobench_tpu_torch.ops import fdtd3d as fops
+from gpuaudiobench_tpu_torch.ops import rndmem as rops
 from gpuaudiobench_tpu_torch.models.modal import modal_reference_gs
 from gpuaudiobench_tpu_torch.ops import conv as cops
 from gpuaudiobench_tpu_torch.ops import iir as iops
@@ -337,3 +342,201 @@ def test_conv_wrapper_rejects_bad_input(cuda):
         cops.conv1d_direct(x, ir.cpu())
     with pytest.raises(ValueError, match="edge mode"):
         cops.conv1d_direct(x, ir, "wrap")
+
+
+# -- the RndMem gather (csrc/rndmem.cu): bit for bit against its twin ----
+
+RNDMEM_POOL = 64 * 1024
+RNDMEM_EDGE = [0, 1024, 513, 1000, RNDMEM_POOL - 512, 2047, 12345, 777, 128,
+               127, 129, RNDMEM_POOL - 513, RNDMEM_POOL - 640, 255,
+               RNDMEM_POOL - 768, 511,
+               # clamped: past P - S, and negative (counted from the end)
+               RNDMEM_POOL - 1, RNDMEM_POOL + 99, -1, -70000, 2 ** 31 - 1]
+
+
+@pytest.mark.parametrize("tracks,s", [(21, 512), (77, 100), (4096, 512),
+                                      (3, 1)])
+def test_rndmem_kernel_matches_plain_twin(cuda, tracks, s):
+    g = np.random.Generator(np.random.MT19937(tracks + s))
+    pool = torch.from_numpy(g.random(RNDMEM_POOL, dtype=np.float32)).to(cuda)
+    ph = g.integers(0, RNDMEM_POOL - s, tracks).astype(np.int32)
+    ph[:min(tracks, len(RNDMEM_EDGE))] = RNDMEM_EDGE[:tracks]
+    ph = torch.from_numpy(ph).to(cuda)
+    launches = rops.KERNEL_LAUNCHES["rndmem_gather"]
+    got = rops.rndmem_gather(pool, ph, s)
+    want = rops.rndmem_gather_plain(pool, ph, s)
+    torch.cuda.synchronize()
+    assert got.shape == (s, tracks)
+    assert torch.equal(got, want)
+    assert rops.KERNEL_LAUNCHES["rndmem_gather"] == launches + 1
+
+
+def test_rndmem_wrapper_rejects_bad_input(cuda):
+    pool = torch.zeros(1024, device=cuda)
+    ph = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        rops.rndmem_gather(pool, ph.long(), 64)
+    with pytest.raises(ValueError, match="on cpu"):
+        rops.rndmem_gather(pool, ph.cpu(), 64)
+
+
+# -- the DWG block (csrc/dwg.cu) against its twin -----------------------
+#
+# Rails 1e-6 absolute (each cell is the twin's chain of rounded products
+# and sums, so they agree bit for bit unless a step contracts); the mono
+# output 1e-5 of the twin's peak (summed over waveguides in another
+# order). Random rails U(0, 0.1), so the out-tap pairs carry energy.
+
+DWG_SHAPES = [(6, 48, (5, 8, 12, 16, 33, 40)), (1000, 512, None),
+              (333, 64, None), (257, 2000, None)]
+
+
+def _dwg_inputs(g_count, s, lengths, device, pow2=False, lmax=2000):
+    g = np.random.Generator(np.random.MT19937(g_count + s))
+    if lengths is None:
+        lengths = 100 + g.integers(0, lmax - 100, g_count)
+    lengths = np.asarray(lengths)
+    if pow2:
+        lengths = 2 ** np.floor(np.log2(lengths))
+    lengths = lengths.astype(np.int32)
+    lmax = max(lmax if lengths.max() > 64 else 40, int(lengths.max()))
+    params = [lengths, (lengths // 4).astype(np.int32),
+              (3 * lengths // 4).astype(np.int32),
+              (0.1 + 0.9 * g.random(g_count, dtype=np.float32)),
+              (0.99 + 0.01 * (g.random(g_count, dtype=np.float32) - 0.5)),
+              (0.9999 + 1e-4 * (g.random(g_count, dtype=np.float32) - 0.5))]
+    x = (g.random(s, dtype=np.float32) * 2 - 1)
+    fwd = g.random((g_count, lmax), dtype=np.float32) * np.float32(0.1)
+    bwd = g.random((g_count, lmax), dtype=np.float32) * np.float32(0.1)
+    return [torch.from_numpy(np.ascontiguousarray(a, a.dtype)).to(device)
+            for a in [x, fwd, bwd] + [p.astype(p.dtype) for p in params]]
+
+
+@pytest.mark.parametrize("pow2", [False, True])
+@pytest.mark.parametrize("g_count,s,lengths", DWG_SHAPES)
+def test_dwg_kernel_matches_plain_twin(cuda, g_count, s, lengths, pow2):
+    x, fwd, bwd, *params = _dwg_inputs(g_count, s, lengths, cuda, pow2)
+    fk, bk, fp, bp = fwd.clone(), bwd.clone(), fwd, bwd
+    launches = dops.KERNEL_LAUNCHES["dwg_block"]
+    for _ in range(2):
+        ok, fk, bk = dops.dwg_block(x, fk, bk, *params)
+        op_, fp, bp = dops.dwg_block_plain(x, fp, bp, *params)
+        torch.cuda.synchronize()
+        assert (fk - fp).abs().max().item() <= 1e-6
+        assert (bk - bp).abs().max().item() <= 1e-6
+        peak = op_.abs().max().item()
+        # An out tap past the block's last sample is not reached.
+        assert (peak > 0) == (s > int(params[2].min().item()))
+        assert (ok - op_).abs().max().item() <= 1e-5 * peak
+    assert dops.KERNEL_LAUNCHES["dwg_block"] == launches + 2
+
+
+def test_dwg_kernel_meets_the_golden(cuda):
+    args = _dwg_inputs(6, 48, (5, 8, 12, 16, 33, 40), cuda)
+    g_out, g_f, g_b = dwg_reference(*(a.cpu().numpy() for a in args))
+    out, f, b = dops.dwg_block(*args)
+    assert np.array_equal(f.cpu().numpy(), g_f)
+    assert np.array_equal(b.cpu().numpy(), g_b)
+    np.testing.assert_allclose(out.cpu().numpy(), g_out, atol=1e-5, rtol=0)
+
+
+def test_dwg_kernel_is_deterministic_and_in_place(cuda):
+    x, fwd, bwd, *params = _dwg_inputs(1000, 512, None, cuda)
+    a = dops.dwg_block(x, fwd.clone(), bwd.clone(), *params)
+    b = dops.dwg_block(x, fwd.clone(), bwd.clone(), *params)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    _, f, bw = dops.dwg_block(x, fwd, bwd, *params)
+    assert f.data_ptr() == fwd.data_ptr() and torch.equal(f, a[1])
+
+
+# -- the FDTD kernels (csrc/fdtd3d.cu) against their twins --------------
+#
+# Each within 1e-5 of the twin's peak (outputs and fields; the kernels
+# round every step as the twins do, so they should agree bit for bit),
+# fields chained over 2 blocks; and the divergence kernel against the
+# field kernel within 1e-5 of the peak (the reference's cross-check).
+
+
+def _fdtd_x(tracks, s, device, seed=3):
+    g = np.random.Generator(np.random.MT19937(seed))
+    x = (g.random((tracks, s), dtype=np.float32) * 2 - 1).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def _rel(got, want):
+    peak = want.abs().max().item()
+    return (got - want).abs().max().item() / max(peak, 1e-30)
+
+
+@pytest.mark.parametrize("room,s", [(8, 64), (14, 17), (30, 8)])
+def test_fdtd_kernels_match_plain_twins(cuda, room, s):
+    n, src, rcv = (fops.grid_n(room), fops.source_pos(room),
+                   fops.receiver_pos(room))
+    x = _fdtd_x(4, s, cuda)
+    dk = dp = fops.zero_fields_div(n, cuda)
+    fk = fp = fops.zero_fields(n, cuda)
+    before = dict(fops.KERNEL_LAUNCHES)
+    for _ in range(2):
+        out_dk, *dk = fops.fdtd3d_block_div(x, *dk, src, rcv)
+        out_dp, *dp = fops.fdtd3d_block_div_plain(x, *dp, src, rcv)
+        out_fk, *fk = fops.fdtd3d_block_field(x, *fk, src, rcv)
+        out_fp, *fp = fops.fdtd3d_block_field_plain(x, *fp, src, rcv)
+        torch.cuda.synchronize()
+        for got, want in [(out_dk, out_dp), (out_fk, out_fp),
+                          *zip(dk, dp), *zip(fk, fp), (out_dk, out_fk),
+                          (dk[0], fk[0])]:
+            assert got.shape == want.shape
+            assert _rel(got, want) <= 1e-5
+    assert out_dk.abs().max().item() > 0  # heard by the second block
+    assert fops.KERNEL_LAUNCHES["fdtd3d_div"] == before["fdtd3d_div"] + 2
+    assert fops.KERNEL_LAUNCHES["fdtd3d_field"] == before["fdtd3d_field"] + 2
+
+
+@pytest.mark.parametrize("tracks", [1, 7, 128])
+def test_fdtd_per_track_receivers_match_twin(cuda, tracks):
+    room, s = 14, 24
+    n, src, rcv = (fops.grid_n(room), fops.source_pos(room),
+                   fops.receiver_pos(room))
+    xs, ys, zs = fops.receiver_line(tracks, n)
+    cells = torch.from_numpy(
+        ((xs.astype(np.int64) * n + ys) * n + zs).astype(np.int32)).to(cuda)
+    x = _fdtd_x(tracks, s, cuda)
+    got = fops.fdtd3d_block_field(x, *fops.zero_fields(n, cuda), src, rcv,
+                                  receivers=cells)
+    want = fops.fdtd3d_block_field_plain(x, *fops.zero_fields(n, cuda), src,
+                                         rcv, receivers=cells)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-5
+    assert got[0].shape == (tracks, s)
+
+
+def test_fdtd_receiver_on_the_source_cell(cuda):
+    """A receiver on the source cell reads the value before the next
+    sample's injection, as the twin does."""
+    room, s = 8, 12
+    n, src = fops.grid_n(room), fops.source_pos(room)
+    x = _fdtd_x(2, s, cuda)
+    for kern, plain, zero in (
+            (fops.fdtd3d_block_div, fops.fdtd3d_block_div_plain,
+             fops.zero_fields_div),
+            (fops.fdtd3d_block_field, fops.fdtd3d_block_field_plain,
+             fops.zero_fields)):
+        got = kern(x, *zero(n, cuda), src, src)
+        want = plain(x, *zero(n, cuda), src, src)
+        for a, b in zip(got, want):
+            assert _rel(a, b) <= 1e-5
+
+
+def test_fdtd_kernels_are_deterministic(cuda):
+    room = 50
+    n, src, rcv = (fops.grid_n(room), fops.source_pos(room),
+                   fops.receiver_pos(room))
+    x = _fdtd_x(8, 64, cuda)
+    a = fops.fdtd3d_block_div(x, *fops.zero_fields_div(n, cuda), src, rcv)
+    b = fops.fdtd3d_block_div(x, *fops.zero_fields_div(n, cuda), src, rcv)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_fdtd_sync_probe_runs(cuda):
+    fops.sync_probe(52, 64, cuda)
+    torch.cuda.synchronize()

@@ -60,7 +60,14 @@ BLOCKED_JAX = textwrap.dedent("""
                         ("FFT1D", {}), ("Conv1D", {"ir_length": 40}),
                         ("Conv1D", {"ir_length": 100,
                                     "conv_edge_mode": "bleed"}),
-                        ("Conv1D_accel", {"ir_length": 40})]:
+                        ("Conv1D_accel", {"ir_length": 40}),
+                        ("RndMemRead", {"rndmem_pool_mb": 1}),
+                        ("DWG1DNaive", {"dwg_min_length": 20,
+                                        "dwg_max_length": 200}),
+                        ("DWG1DAccel", {"dwg_max_length": 300}),
+                        ("FDTD3D", {"fdtd_room": 8, "buffer_size": 16}),
+                        ("FDTD3D", {"fdtd_room": 8, "buffer_size": 16,
+                                    "fdtd_per_track_receivers": True})]:
         c = cfg.replace(**knobs)
         b = create_benchmark(name, c, torch.device("cpu"))
         b.setup()
@@ -210,10 +217,12 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok"' not in r.stdout
 
 
-@pytest.mark.parametrize("name", ["IIRFilter", "BiquadChain"])
+@pytest.mark.parametrize("name", ["IIRFilter", "BiquadChain", "RndMemRead",
+                                  "DWG1DNaive", "DWG1DAccel", "FDTD3D"])
 def test_iir_models_refuse_impl_xla_on_cuda(port_cfg, name):
-    """On a CUDA device the IIR models run only the kernels: impl xla
-    (the plain twin) raises. A device descriptor needs no GPU."""
+    """On a CUDA device the IIR models (and the other kernel benchmarks)
+    run only the kernels: impl xla (the plain twin) raises. A device
+    descriptor needs no GPU."""
     with pytest.raises(ValueError, match="xla"):
         registry.create_benchmark(name, port_cfg.replace(impl="xla"),
                                   torch.device("cuda:0"))
@@ -277,14 +286,49 @@ def test_chip_smoke_bounds():
     # the triangular blockstate product: 138 FLOP a sample at m = 128,
     # under the bytes; dense (265 FLOP) it would be operations-bound.
     assert (128 + 10) * tracks * s / 67e9 < io_ms < 265 * tracks * s / 67e9
+    # the slice's kernels: RndMem 2 x T x S x 4 B; DWG 16 B a touched cell
+    # pair; FDTD at room 50 (52^3 cells, 50^3 interior, 1,536 substeps):
+    # 11 FLOP an interior cell for div, 3 a face and 7 an interior cell for
+    # field, 1 a boundary cell.
+    tracks, s, _ = cs.RNDMEM_FULL
+    ms, by = cs.rndmem_bound()
+    assert by == "bytes" and ms == pytest.approx(
+        (8 * tracks * s + 4 * tracks) / 3.35e9)
+    g, s, _ = cs.DWG_FULL
+    ms, by = cs.dwg_bound(g * s)
+    assert by == "bytes" and ms == pytest.approx(
+        (16 * g * s + 8 * s + 24 * g) / 3.35e9)
+    bounds = cs.fdtd_bounds()
+    edge = 52 ** 3 - 50 ** 3
+    small = 2 * 128 * 512 + 2 * 512
+    div_ms, by = bounds["fdtd3d_div"]
+    assert by == "operations"
+    assert div_ms == pytest.approx(
+        (1536 * (11 * 50 ** 3 + edge) + small) / 67e9)
+    assert div_ms == pytest.approx(0.0319, abs=1e-4)
+    field_ms, by = bounds["fdtd3d_field"]
+    assert by == "operations"
+    assert field_ms == pytest.approx(
+        (1536 * (9 * 51 * 52 ** 2 + 7 * 50 ** 3 + edge) + small) / 67e9)
+    assert field_ms == pytest.approx(0.0489, abs=1e-4)
+
+
+def _slice_ops():
+    from gpuaudiobench_tpu_torch.ops import conv as cops
+    from gpuaudiobench_tpu_torch.ops import dwg as dops
+    from gpuaudiobench_tpu_torch.ops import fdtd3d as fops
+    from gpuaudiobench_tpu_torch.ops import iir as iops
+    from gpuaudiobench_tpu_torch.ops import rndmem as rops
+
+    return {"modal": tops, "iir": iops, "conv": cops, "rndmem": rops,
+            "dwg": dops, "fdtd": fops}
 
 
 def test_chip_smoke_counts_twin_calls_and_restores_them():
-    from gpuaudiobench_tpu_torch.ops import conv as cops
-    from gpuaudiobench_tpu_torch.ops import iir as iops
-
     cs = _chip_smoke()
-    mods = {"modal": tops, "iir": iops, "conv": cops}
+    mods = _slice_ops()
+    iops, cops, rops = mods["iir"], mods["conv"], mods["rndmem"]
+    dops, fops = mods["dwg"], mods["fdtd"]
     originals = {(k, n): getattr(mods[k], n)
                  for k, names in cs.TwinCalls.NAMES.items() for n in names}
     x = torch.zeros((4, 8))
@@ -293,31 +337,52 @@ def test_chip_smoke_counts_twin_calls_and_restores_them():
         cops.conv1d_direct(x, torch.zeros((4, 3)), "bleed")
         eps, y, q = (torch.zeros(64) for _ in range(3))
         tops.modal_res_step(eps, y, q, 4, 8)
-    assert twins.calls == 5  # the cascade twin and its 2 stages, conv, res
+        rops.rndmem_gather(torch.zeros(64), torch.zeros(2, dtype=torch.int32),
+                           8)
+        g = 2
+        ints = [torch.full((g,), 4, dtype=torch.int32) for _ in range(3)]
+        dops.dwg_block(torch.zeros(4), torch.zeros((g, 4)),
+                       torch.zeros((g, 4)), *ints,
+                       *[torch.ones(g) for _ in range(3)])
+        fops.fdtd3d_block_div(torch.zeros((1, 2)),
+                              *fops.zero_fields_div(5), (2, 2, 2), (1, 2, 3))
+        fops.fdtd3d_block_field(torch.zeros((1, 2)), *fops.zero_fields(5),
+                                (2, 2, 2), (1, 2, 3))
+    # the cascade twin and its 2 stages, conv, res, rndmem, dwg, 2 fdtd
+    assert twins.calls == 9
     assert {k: getattr(mods[k[0]], k[1]) for k in originals} == originals
     iops.KERNEL_LAUNCHES["iir_biquad"] += 1
     cops.KERNEL_LAUNCHES["conv1d"] += 1
     tops.KERNEL_LAUNCHES["modal_res"] += 1
-    cs.reset_counts(tops, iops, cops)
-    counts = cs.launch_counts(tops, iops, cops)
+    fops.KERNEL_LAUNCHES["fdtd3d_div"] += 1
+    modules = list(mods.values())
+    cs.reset_counts(*modules)
+    counts = cs.launch_counts(*modules)
     assert set(counts) == {"modal_bank", "modal_res", "conv1d",
-                           *iops.KERNEL_LAUNCHES}
+                           "rndmem_gather", "dwg_block", "fdtd3d_div",
+                           "fdtd3d_field", *iops.KERNEL_LAUNCHES}
     assert not any(counts.values())
 
 
 def test_chip_smoke_lists_every_twin_and_kernel():
     """Every plain twin of a ported kernel is counted on the main paths,
-    and the kernels line has a row for each of the 7 ported kernels."""
-    from gpuaudiobench_tpu_torch.ops import conv as cops
-    from gpuaudiobench_tpu_torch.ops import iir as iops
-
+    and the kernels line has a row for each of the 11 ported kernels."""
     cs = _chip_smoke()
-    for key, mod in {"modal": tops, "iir": iops, "conv": cops}.items():
+    mods = _slice_ops()
+    assert set(mods) == set(cs.TwinCalls.NAMES)
+    kernels = set()
+    for key, mod in mods.items():
         twins = {n for n in dir(mod)
                  if n.endswith("_plain") and callable(getattr(mod, n))}
         assert twins == set(cs.TwinCalls.NAMES[key]), key
+        kernels |= set(mod.KERNEL_LAUNCHES)
     text = (REPO / "chip_smoke.py").read_text()
-    for name in ("modal_bank", "modal_res", "conv1d", *cs.IIR_REPLACES):
-        assert f'"{name}"' in text
-    assert len(set(cs.IIR_REPLACES) | {"modal_bank", "modal_res",
-                                      "conv1d"}) == 7
+    for name in kernels:
+        assert f'"{name}"' in text, name
+    assert len(kernels) == 11
+    assert set(cs.FDTD_REPLACES) == {"fdtd3d_div", "fdtd3d_field"}
+    for replaces in (cs.RNDMEM_REPLACES, cs.DWG_REPLACES,
+                     *cs.FDTD_REPLACES.values()):
+        path, line = replaces.split(":")
+        src = (REPO / path).read_text().splitlines()[int(line) - 1]
+        assert src.startswith("def _") and "kernel" in src, replaces

@@ -46,10 +46,15 @@ def test_config_fields_match_the_reference():
     """Every knob of the port's BenchConfig is the reference's, with its
     default."""
     ref = {f.name: f for f in dataclasses.fields(jax_config.BenchConfig)}
+    ours = {f.name for f in dataclasses.fields(tconfig.BenchConfig)}
     for f in dataclasses.fields(tconfig.BenchConfig):
         assert f.name in ref, f.name
         assert f.default == ref[f.name].default, f.name
         assert f.type == ref[f.name].type, f.name
+    # the RndMem, DWG and FDTD knobs
+    assert {"rndmem_pool_mb", "rndmem_min_loop", "rndmem_max_loop",
+            "dwg_min_length", "dwg_max_length", "fdtd_per_track_receivers",
+            "fdtd_room"} <= ours
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 7, 21, 30])
@@ -237,6 +242,30 @@ def test_profile_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         profile_block.main([])
+
+
+@pytest.mark.parametrize("argv,name,knobs,depth", [
+    ([], "ModalFilterBank", {"n_tracks": 1024}, profile_block.DEPTH),
+    (["--benchmark", "FDTD3D", "--nTracks", "128", "--fdtdRoom", "30",
+      "--depth", "64"], "FDTD3D", {"n_tracks": 128, "fdtd_room": 30}, 64),
+    (["--benchmark", "DWG1DNaive", "--nTracks", "32768", "--depth", "256"],
+     "DWG1DNaive", {"n_tracks": 32768}, 256),
+    (["--benchmark", "RndMemRead", "--nTracks", "65536"], "RndMemRead",
+     {"n_tracks": 65536}, profile_block.DEPTH),
+])
+def test_profile_parses_its_flags(argv, name, knobs, depth):
+    got_name, cfg, got_depth = profile_block._parse(argv)
+    assert (got_name, got_depth) == (name, depth)
+    assert cfg.verification == "none" and not cfg.device_timing
+    for k, v in knobs.items():
+        assert getattr(cfg, k) == v
+
+
+@pytest.mark.parametrize("argv", [["--depth", "8"], ["--fdtdRoom", "4"],
+                                  ["--bogus", "1"], ["--depth"]])
+def test_profile_rejects_bad_flags(argv):
+    with pytest.raises((SystemExit, ValueError)):
+        profile_block._parse(argv)
 
 
 def test_library_path_is_keyed_on_sources_and_flags(monkeypatch):

@@ -303,6 +303,9 @@ def test_config_fields_of_the_slice_match_the_reference():
     {"impl": "triton"},
     {"iir_form": "blockstate", "buffer_size": 100, "iir_block_m": 16},
     {"iir_form": "scan", "buffer_size": 509},
+    {"fdtd_room": 7}, {"fdtd_room": 129}, {"fdtd_room": 8},
+    {"dwg_min_length": 3}, {"dwg_min_length": 300, "dwg_max_length": 200},
+    {"dwg_min_length": 4, "dwg_max_length": 4},
 ])
 def test_config_validate_raises_the_reference_errors(knobs):
     try:
