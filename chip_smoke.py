@@ -45,7 +45,12 @@ nonzero:
    peak, at rooms 8 (64 samples), 50 (512) and 82 (32); the field kernel
    with 128 per-track receivers at room 50 x 512; CUDA-event times at
    room 50, 128 tracks x 512 samples, and of the grid-wide barrier alone.
-9. Main paths, each with every launch count reset just before and read
+9. The two speed-of-light kernels (``fma_chain``, ``fma_vmem``) vs their
+   plain twin within 1e-4 absolute and vs the closed form within 5e-4, at
+   37 x 1,000 (k = 24), 64 x 1,024 (k = 130) and each SOL benchmark's
+   default shape at k = 512; CUDA-event times of each kernel and the twin
+   at the defaults.
+10. Main paths, each with every launch count reset just before and read
    just after, and the plain twins counted (none may run):
    ``gpuaudiobench_tpu_torch.bench.main()`` at its defaults; 512 chained
    resonator blocks at the main modal shape, the first checked against
@@ -58,13 +63,21 @@ nonzero:
    tracks, 100 runs, full verification), DWG1DNaive and DWG1DAccel at
    32,768 waveguides, and FDTD3D at room 50 with 128 tracks, with and
    without ``--fdtdPerTrackReceivers``; each validates against the NumPy
-   golden. The DWG and FDTD paths run fewer round trips and a shallower
+   golden; then the CLI on the six SOL benchmarks at their defaults
+   (``fma_chain`` must launch on SOL_VPU, ``fma_vmem`` on SOL_VMEM). On
+   every CLI path the JSON's ``metadata.roofline`` must name its
+   ``peak_source`` and ``basis``, and no share of a peak may pass 105 %.
+   The DWG, FDTD and SOL paths run fewer round trips and a shallower
    saturated tier (``DWG_CLI``, ``FDTD_CLI``): a DWG round trip at 32,768
    waveguides moves ~1 GB of rails through pageable memory and its host
    golden replays every iteration, and one FDTD block takes milliseconds
    (1,536 grid-wide barriers), so the default depth of 512 x 21 reps
-   would take minutes.
-10. A ``{"kernels": [...]}`` line (11 kernels), the nvidia-smi line, and
+   would take minutes (``SOL_CLI``: a SOL_MXU_f32 block is ~2.5 ms).
+11. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+   temporary file; fails unless all six peaks are there, none above 105 %
+   of its data-sheet value, and the shared-memory rate not above 105 % of
+   132 x 128 B x nvidia-smi's ``clocks.max.sm``.
+12. A ``{"kernels": [...]}`` line (13 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -162,6 +175,25 @@ FDTD_SOURCE = "gpuaudiobench_tpu_torch/csrc/fdtd3d.cu"
 FDTD_REPLACES = {"fdtd3d_div": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:149",
                  "fdtd3d_field": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:77"}
 
+# The speed-of-light kernels (csrc/speedoflight.cu), (rows, width, k):
+# kernel vs twin within 1e-4 absolute (one rounding a pass against two:
+# at most k * 2^-23 * 2 on O(1) values, 1e-4 at k = 512), kernel vs the
+# closed form within the benchmarks' 5e-4. The default shapes are
+# SOL_VPU's 8 MiB and SOL_VMEM's 2 MiB at k = 512.
+SOL_FMA_FULL = (2048, 1024, 512)
+SOL_VMEM_FULL = (512, 1024, 512)
+SOL_SHAPES = [(37, 1000, 24), (64, 1024, 130), SOL_VMEM_FULL, SOL_FMA_FULL]
+SOL_ATOL = 1e-4
+SOL_GOLDEN_ATOL = 5e-4
+SOL_SOURCE = "gpuaudiobench_tpu_torch/csrc/speedoflight.cu"
+SOL_REPLACES = {"fma_chain": "gpuaudiobench_tpu/ops/speedoflight.py:89",
+                "fma_vmem": "gpuaudiobench_tpu/ops/speedoflight.py:120"}
+SOL_NAMES = ["SOL_VPU", "SOL_VMEM", "SOL_HBM", "SOL_MXU_bf16", "SOL_MXU_f32",
+             "SOL_MXU_int8"]
+# No share of a peak, and no calibrated rate against its data-sheet value,
+# may read above this.
+SHARE_CAP_PCT = 105.0
+
 # The published H100 SXM peaks the bounds divide by (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -204,6 +236,9 @@ DWG_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
            "--saturatedReps", "5", "--verification", "spot", "--json"]
 FDTD_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "32",
             "--saturatedReps", "5", "--verification", "spot", "--json"]
+SOL_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "64",
+           "--saturatedReps", "5", "--verification", "spot", "--json"]
+SOL_KERNELS = {"SOL_VPU": ["fma_chain"], "SOL_VMEM": ["fma_vmem"]}
 CLI_RUNS += [
     ("RndMemRead, 65536 tracks",
      ["--benchmark", "RndMemRead", "--nTracks", "65536"] + CLI_COMMON,
@@ -221,7 +256,8 @@ CLI_RUNS += [
     ("FDTD3D room 50, 128 tracks, per-track receivers",
      ["--benchmark", "FDTD3D", "--fdtdPerTrackReceivers"] + FDTD_CLI,
      ["fdtd3d_field"]),
-]
+] + [(f"{name}, the defaults", ["--benchmark", name] + SOL_CLI,
+      SOL_KERNELS.get(name, [])) for name in SOL_NAMES]
 
 
 def fail(msg: str) -> None:
@@ -779,11 +815,19 @@ def time_rndmem(torch, rops, pool, ph):
     return min(k1, k2), min(p1, p2), lib
 
 
+def cost_bound(cost):
+    """``bound`` of a benchmark's ``cost_model()`` count."""
+    return bound(cost["hbm_bytes"], cost["flops"])
+
+
 def rndmem_bound():
-    """Each output sample read once from the pool and written once; the
-    playheads read: no arithmetic."""
+    """RndMemRead's count at RNDMEM_FULL (``models.rndmem.rndmem_cost``):
+    each output sample read once from the pool and written once, the
+    playheads read; no arithmetic."""
+    from gpuaudiobench_tpu_torch.models.rndmem import rndmem_cost
+
     tracks, s, _ = RNDMEM_FULL
-    return bound(2 * tracks * s * 4 + 4 * tracks, 0)
+    return cost_bound(rndmem_cost(tracks, s))
 
 
 def dwg_inputs(torch, g_count, s, lmax, lengths, pow2, device, seed=11):
@@ -869,11 +913,14 @@ def time_dwg(torch, dops, device):
 
 
 def dwg_bound(touched: int):
-    """The in-place block at DWG_FULL: each touched fwd and bwd cell read
-    and written once (16 B a cell pair), x read, out written, 24 B of
-    parameters a waveguide; 10 FLOP a waveguide and sample."""
+    """The DWG benchmarks' count at DWG_FULL (``models.dwg.dwg_cost``):
+    each touched fwd and bwd cell read and written once (16 B a cell
+    pair), x read, out written, 24 B of parameters a waveguide; 10 FLOP a
+    waveguide and sample."""
+    from gpuaudiobench_tpu_torch.models.dwg import dwg_cost
+
     g_count, s, _ = DWG_FULL
-    return bound(16 * touched + 8 * s + 24 * g_count, 10 * g_count * s)
+    return cost_bound(dwg_cost(g_count, s, touched))
 
 
 def fdtd_geometry(fops, room):
@@ -999,28 +1046,155 @@ def time_fdtd(torch, fops, device):
 
 
 def fdtd_bounds():
-    """At FDTD_MAIN, the operations each form needs per substep: a boundary
-    cell 1 (p * (1 - absorption)); an interior cell of the div form 11 (5
-    adds for the neighbours' sum, 4 for div', 2 for p'); the field form 3
-    for each of the 3 (n-1) n^2 updated faces, then 7 for an interior cell
-    (5 for the divergence, 2 for p'). Per sample and track: the source sum
-    and the receiver's scale, and per sample the injection. Bytes: the
-    input block read, the output written, the carried fields read and
-    written once (p and div, or p, vx, vy, vz), and the receivers read for
-    the field form."""
+    """FDTD3D's count of each form at FDTD_MAIN
+    (``models.fdtd3d.fdtd3d_cost``): a boundary cell 1 FLOP a substep, an
+    interior cell of the div form 11, the field form 3 a face and 7 an
+    interior cell; the source sum, injection and receiver scale; the
+    input and output, the carried fields read and written once, and the
+    field form's receivers."""
+    from gpuaudiobench_tpu_torch.models.fdtd3d import fdtd3d_cost
+
     room, s, tracks = FDTD_MAIN
-    n = room + 2
-    cells, faces = n ** 3, (n + 1) * n * n
-    interior = (n - 2) ** 3
-    edge = cells - interior
-    per_block = 2 * tracks * s + 2 * s
-    div_flops = 3 * s * (11 * interior + edge) + per_block
-    field_flops = (3 * s * (9 * (n - 1) * n * n + 7 * interior + edge)
-                   + per_block)
-    io = 2 * tracks * s * 4
-    return {"fdtd3d_div": bound(io + 2 * 2 * cells * 4, div_flops),
-            "fdtd3d_field": bound(io + 2 * (cells + 3 * faces) * 4
-                                  + 4 * tracks, field_flops)}
+    return {"fdtd3d_div": cost_bound(fdtd3d_cost(room, s, tracks, False)),
+            "fdtd3d_field": cost_bound(fdtd3d_cost(room, s, tracks, True))}
+
+
+def sol_inputs(torch, rows, width, device, seed=13):
+    import numpy as np
+
+    g = np.random.Generator(np.random.MT19937(seed + rows))
+    x = (g.random((rows, width), dtype=np.float32) * 2 - 1).astype(np.float32)
+    return x, torch.from_numpy(x).to(device)
+
+
+def compare_sol(torch, sops, device):
+    """Both FMA kernels vs the twin and the closed form at SOL_SHAPES;
+    returns {kernel: max |kernel - twin|}."""
+    before = dict(sops.KERNEL_LAUNCHES)
+    worst = {"fma_chain": 0.0, "fma_vmem": 0.0}
+    for rows, width, k in SOL_SHAPES:
+        host, x = sol_inputs(torch, rows, width, device)
+        want = sops.fma_chain_plain(x, k)
+        golden = torch.from_numpy(sops.fma_golden(host, k)).to(device)
+        for name in worst:
+            got = getattr(sops, name)(x, k)
+            if tuple(got.shape) != (rows, width) or not torch.isfinite(got).all():
+                fail(f"{name} {rows}x{width} k={k}: shape "
+                     f"{tuple(got.shape)} or non-finite output")
+            err = (got - want).abs().max().item()
+            gerr = (got - golden).abs().max().item()
+            if not (err <= SOL_ATOL and gerr <= SOL_GOLDEN_ATOL):
+                fail(f"{name} {rows}x{width} k={k}: max|kernel - twin| "
+                     f"{err:.3g} (<= {SOL_ATOL:g}), max|kernel - golden| "
+                     f"{gerr:.3g} (<= {SOL_GOLDEN_ATOL:g})")
+            worst[name] = max(worst[name], err)
+        if not torch.equal(sops.fma_chain(x, k), sops.fma_vmem(x, k)):
+            fail(f"fma_chain and fma_vmem differ at {rows}x{width} k={k}")
+    torch.cuda.synchronize()
+    for name in worst:
+        if sops.KERNEL_LAUNCHES[name] - before[name] != 2 * len(SOL_SHAPES):
+            fail(f"{name}: expected {2 * len(SOL_SHAPES)} launches")
+    print("compare fma_chain / fma_vmem at "
+          + ", ".join(f"{r}x{w} k={k}" for r, w, k in SOL_SHAPES)
+          + f": ok  max|kernel - twin| fma_chain {worst['fma_chain']:.3g}, "
+          f"fma_vmem {worst['fma_vmem']:.3g}; the two bit-equal")
+    return worst
+
+
+def time_sol(torch, sops, device):
+    """CUDA-event times (ms) of each FMA kernel and the twin at its
+    benchmark's default shape, in turns (twin, kernel, kernel, twin):
+    {kernel: (ms, plain_ms)}."""
+    out = {}
+    for name, (rows, width, k) in (("fma_chain", SOL_FMA_FULL),
+                                   ("fma_vmem", SOL_VMEM_FULL)):
+        _, x = sol_inputs(torch, rows, width, device)
+        kern = getattr(sops, name)
+        p1 = median_ms(torch, lambda: sops.fma_chain_plain(x, k), 3, 1)
+        k1 = median_ms(torch, lambda: kern(x, k), TIMING_REPS, 20)
+        k2 = median_ms(torch, lambda: kern(x, k), TIMING_REPS, 20)
+        p2 = median_ms(torch, lambda: sops.fma_chain_plain(x, k), 3, 1)
+        print(f"time {name} {rows}x{width} k={k} (CUDA events, median of "
+              f"reps): kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.3f} / "
+              f"{p2:.3f} ms")
+        out[name] = (min(k1, k2), min(p1, p2))
+    return out
+
+
+def sol_bounds():
+    """The FMA kernels at their default shapes: x read and y written once,
+    2 FLOP an element and pass. For fma_vmem this is the contract's bound
+    of the function it computes (the FMAs); the shared-memory traffic its
+    design forces (8 B an element and pass, 0.064 ms at 33.4 TB/s) is the
+    bound of the kernel as built."""
+    out = {}
+    for name, (rows, width, k) in (("fma_chain", SOL_FMA_FULL),
+                                   ("fma_vmem", SOL_VMEM_FULL)):
+        n = rows * width
+        out[name] = bound(2 * n * 4, 2 * k * n)
+    return out
+
+
+def check_roofline(label, rec):
+    """The JSON's roofline section: present, with a peak source and a
+    basis, and no share of a peak above SHARE_CAP_PCT. Returns it."""
+    rl = rec.get("metadata", {}).get("roofline")
+    if not rl or not rl.get("peak_source") or not rl.get("basis"):
+        fail(f"{label}: no metadata.roofline with a peak_source and a basis")
+    for key in ("hbm_pct_of_peak", "flops_pct_of_peak", "vmem_pct_of_peak"):
+        if rl.get(key, 0.0) > SHARE_CAP_PCT:
+            fail(f"{label}: roofline {key} {rl[key]:.1f} % > "
+                 f"{SHARE_CAP_PCT:g} % [{rl['basis']}, {rl['peak_source']}]")
+    return rl
+
+
+def calibrate(cal, roofline, device_name):
+    """Runs the calibration into a temporary file and checks it: all six
+    peaks, none above SHARE_CAP_PCT of its data-sheet value, the
+    shared-memory rate not above SHARE_CAP_PCT of 132 x 128 B x the
+    card's maximum SM clock. Returns the payload."""
+    import os
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cal.main(["--out", path, "--pipelineDepth", "0",
+                           "--nRuns", "5", "--warmup", "1"])
+        for ln in buf.getvalue().splitlines():
+            print(f"calibrate: {ln}")
+        if rc != 0:
+            fail(f"calibrate_peaks returned {rc}")
+        with open(path) as f:
+            payload = json.load(f)
+    finally:
+        os.unlink(path)
+    peaks = payload.get("peaks", {})
+    if set(peaks) != set(roofline.SPEC_PEAK):
+        fail(f"calibration peaks {sorted(peaks)} are not the six of "
+             f"{sorted(roofline.SPEC_PEAK)}")
+    if payload.get("device_kind") != device_name:
+        fail(f"calibration device_kind {payload.get('device_kind')!r}")
+    for key, rate in peaks.items():
+        if rate > SHARE_CAP_PCT / 100 * roofline.SPEC_PEAK[key]:
+            fail(f"calibrated {key} {rate:.4g} is above {SHARE_CAP_PCT:g} % "
+                 f"of the data sheet's {roofline.SPEC_PEAK[key]:.4g}")
+    clock = payload.get("clocks_max_sm") or ""
+    try:
+        mhz = float(clock.split()[0])
+    except (ValueError, IndexError):
+        fail(f"calibration: no maximum SM clock from nvidia-smi ({clock!r})")
+    smem = 132 * 128 * mhz * 1e6
+    if peaks["vmem_bytes_per_sec"] > SHARE_CAP_PCT / 100 * smem:
+        fail(f"calibrated shared-memory rate {peaks['vmem_bytes_per_sec']:.4g}"
+             f" B/s is above {SHARE_CAP_PCT:g} % of 132 x 128 B x {mhz} MHz")
+    print("calibration: " + ", ".join(
+        f"{k} {v:.4g} ({100 * v / roofline.SPEC_PEAK[k]:.1f} % of the data "
+        "sheet)" for k, v in peaks.items())
+        + f"; power limit {payload.get('power_limit')}, max SM clock {clock}")
+    return payload
 
 
 class TwinCalls:
@@ -1035,7 +1209,8 @@ class TwinCalls:
              "conv": ("conv1d_direct_plain",),
              "rndmem": ("rndmem_gather_plain",),
              "dwg": ("dwg_block_plain",),
-             "fdtd": ("fdtd3d_block_div_plain", "fdtd3d_block_field_plain")}
+             "fdtd": ("fdtd3d_block_div_plain", "fdtd3d_block_field_plain"),
+             "sol": ("fma_chain_plain",)}
 
     def __init__(self, modules):
         self.modules = modules
@@ -1105,6 +1280,7 @@ def cli_path(torch, cli, counts, label, argv, kernels):
     for k in kernels:
         if launches[k] <= 0:
             fail(f"{label}: {k} was not launched")
+    rl = check_roofline(label, rec)
     st, sat = rec["statistics"], rec.get("saturated", {})
     marg = sat.get("marginal", {})
     print(f"cli {label}: {wall:.1f} s, round trip p50 {st['p50_ms']:.4f} / "
@@ -1113,7 +1289,11 @@ def cli_path(torch, cli, counts, label, argv, kernels):
           f"marginal p50 {marg.get('p50_ms', 0):.4f} ms "
           f"({sat.get('blocks_per_sec', 0):.1f} blocks/s "
           f"[{sat.get('blocks_per_sec_basis')}]), validation max error "
-          f"{v['max_error']:.3g}, launches "
+          f"{v['max_error']:.3g}, roofline [{rl['basis']}] "
+          + ", ".join(f"{k} {rl[k]:.1f} %" for k in (
+              "hbm_pct_of_peak", "flops_pct_of_peak", "vmem_pct_of_peak")
+              if k in rl)
+          + f" ({rl['bound']}), launches "
           + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
     return launches
 
@@ -1126,7 +1306,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     try:
-        from gpuaudiobench_tpu_torch import bench, cli
+        from gpuaudiobench_tpu_torch import bench, calibrate_peaks, cli
         from gpuaudiobench_tpu_torch.models import modal as models_modal
         from gpuaudiobench_tpu_torch.ops import conv as cops
         from gpuaudiobench_tpu_torch.ops import dwg as dops
@@ -1134,8 +1314,10 @@ def main() -> int:
         from gpuaudiobench_tpu_torch.ops import iir as iops
         from gpuaudiobench_tpu_torch.ops import modal as ops
         from gpuaudiobench_tpu_torch.ops import rndmem as rops
+        from gpuaudiobench_tpu_torch.ops import speedoflight as sops
         from gpuaudiobench_tpu_torch.utils import build
         from gpuaudiobench_tpu_torch.utils import device as dev
+        from gpuaudiobench_tpu_torch.utils import roofline
     except ImportError as e:
         fail(f"the port's package is not importable here ({e}); run from "
              "the root of a checkout")
@@ -1148,8 +1330,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build.build_all(["modal_bank", "iir", "conv1d", "rndmem", "dwg",
-                            "fdtd3d"])
-    for mod in (ops, iops, cops, rops, dops, fops):
+                            "fdtd3d", "speedoflight"])
+    for mod in (ops, iops, cops, rops, dops, fops, sops):
         mod._lib()
     print(f"build: {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1195,16 +1377,25 @@ def main() -> int:
     fdtd_times, _ = time_fdtd(torch, fops, device)
     print(f"fdtd kernels vs twins: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    sol_err = compare_sol(torch, sops, device)
+    sol_times = time_sol(torch, sops, device)
+    print(f"speed-of-light kernels vs twin: {time.perf_counter() - t0:.1f} s")
+
+    card = torch.cuda.get_device_name(0)
+    _, peak_source = roofline.resolve_peaks(card)
+    print(f"roofline peaks for {card}: {peak_source}")
+
     # Main paths: every count is reset just before each path and read
     # just after; no plain twin may run in any of them.
-    modules = (ops, iops, cops, rops, dops, fops)
+    modules = (ops, iops, cops, rops, dops, fops, sops)
 
     def counts():
         return launch_counts(*modules)
 
     launches = {k: 0 for k in counts()}
     with TwinCalls({"modal": ops, "iir": iops, "conv": cops, "rndmem": rops,
-                    "dwg": dops, "fdtd": fops}) as twins:
+                    "dwg": dops, "fdtd": fops, "sol": sops}) as twins:
         reset_counts(*modules)
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -1244,6 +1435,10 @@ def main() -> int:
                 launches[k] += n
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")
+
+    t0 = time.perf_counter()
+    calibrate(calibrate_peaks, roofline, card)
+    print(f"calibration: {time.perf_counter() - t0:.1f} s")
 
     rows = []
     for name, replaces, (b_ms, b_by) in (
@@ -1302,7 +1497,10 @@ def main() -> int:
          (*dwg_times[:2], None), dwg_bound(dwg_times[2])),
     ] + [(name, FDTD_SOURCE, FDTD_REPLACES[name], fdtd_err[name],
           (*fdtd_times[name], None), fdtd_bounds()[name])
-         for name in ("fdtd3d_div", "fdtd3d_field")]
+         for name in ("fdtd3d_div", "fdtd3d_field")
+    ] + [(name, SOL_SOURCE, SOL_REPLACES[name], sol_err[name],
+          (*sol_times[name], None), sol_bounds()[name])
+         for name in ("fma_chain", "fma_vmem")]
     for name, source, replaces, err, (ms, p_ms, lib_ms), (b_ms, b_by) in (
             slice_rows):
         rows.append({

@@ -51,6 +51,11 @@ VALUE_FLAGS = {
     "--dwgMinLen": ("dwg_min_length", int),
     "--dwgMaxLen": ("dwg_max_length", int),
     "--fdtdRoom": ("fdtd_room", int),
+    "--solFmaK": ("sol_fma_k", int),
+    "--solFmaMiB": ("sol_fma_mib", int),
+    "--solVmemMiB": ("sol_vmem_mib", int),
+    "--solStreamMiB": ("sol_stream_mib", int),
+    "--solMatmulDim": ("sol_matmul_dim", int),
     "--pipelineDepth": ("pipeline_depth", int),
     "--saturatedReps": ("saturated_reps", int),
     "--seed": ("seed", int),
@@ -82,11 +87,6 @@ UNPORTED_FLAGS = {
     "--neuralampChannels": "queue 1, item 15",
     "--neuralampLayers": "queue 1, item 15",
     "--neuralampDtype": "queue 1, item 15",
-    "--solFmaK": "queue 1, item 16",
-    "--solFmaMiB": "queue 1, item 16",
-    "--solVmemMiB": "queue 1, item 16",
-    "--solStreamMiB": "queue 1, item 16",
-    "--solMatmulDim": "queue 1, item 16",
     "--csvSchema": "queue 1, item 17",
     "--latenciesFile": "queue 1, item 17",
     "--dataParallel": "queue 1, item 18",
@@ -134,6 +134,11 @@ def print_help() -> None:
           "(default 50, 8-128; grid = n+2)")
     print("  --fdtdPerTrackReceivers  FDTD3D: one receiver cell per track")
     print("                           (WebGPU parity; default: broadcast)")
+    print("  --solMatmulDim [n]       SOL_MXU_* matmul dimension (default: 4096)")
+    print("  --solStreamMiB [n]       SOL_HBM stream size (default: 64)")
+    print("  --solFmaK [n]            SOL_VPU / SOL_VMEM FMA passes (default: 512)")
+    print("  --solFmaMiB [n]          SOL_VPU working set (default: 8)")
+    print("  --solVmemMiB [n]         SOL_VMEM working set (default: 2)")
     print("  --modalRenorm            Streaming: renormalize phasor magnitudes")
     print("  --pipelineDepth [n]      Also measure saturated throughput:")
     print("                           n chained blocks, state carried")
@@ -157,6 +162,7 @@ def print_help() -> None:
           "--nTracks 19456 --pipelineDepth 512 --json")
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark FDTD3D "
           "--fdtdRoom 50 --pipelineDepth 32 --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark SOL_VPU --json")
     print("  python -m gpuaudiobench_tpu_torch.cli    (RndMemRead, 128 tracks)")
 
 

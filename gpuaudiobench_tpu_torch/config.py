@@ -84,6 +84,15 @@ class BenchConfig:
     fdtd_per_track_receivers: bool = False
     fdtd_room: int = 50
 
+    # Speed-of-light benchmarks (SOL_*, models/speedoflight.py): FMA passes
+    # an element, the FMA, stream and shared-memory working sets in MiB, and
+    # the square matmul dimension (the reference's defaults).
+    sol_fma_k: int = 512
+    sol_fma_mib: int = 8
+    sol_stream_mib: int = 64
+    sol_vmem_mib: int = 2
+    sol_matmul_dim: int = 4096
+
     impl: str = "auto"
 
     # Saturated pass: pipeline_depth chained blocks per timing (0/1 =

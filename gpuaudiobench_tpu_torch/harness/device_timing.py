@@ -5,11 +5,14 @@ whose xplane trace method becomes CUDA events. Methods, in order:
 
 1. **cuda-events** (a CUDA device): one event pair on the current stream
    around each ``device_iterate()``, for up to 20 runs after one warm
-   run. The device is idle when the start event is recorded, so the
-   time covers the host's enqueue of the body's launches (the wrappers'
-   checks and allocations, each launch) as well as the kernels on
-   resident buffers: for a body of a few microseconds it reads the
-   launch cost, not the kernel.
+   run. Before the start event a spin kernel (``torch.cuda._sleep``) of
+   ``SPIN_MS`` holds the stream, sized from the SM clock measured once per
+   process: the host enqueues the body's launches (the wrappers' checks
+   and allocations, each launch) while the spin runs, so the body's
+   kernels start back to back behind the start event and the pair
+   brackets device work alone. A body that takes longer than the spin to
+   enqueue, or that waits for the device inside, still shows its host
+   time.
 2. **pipeline-slope**: for a benchmark with a stream body and no
    ``device_iterate``, (wall(d2) - wall(d1)) / (d2 - d1) of two chain
    depths, which cancels every fixed cost.
@@ -28,17 +31,44 @@ import torch
 from gpuaudiobench_tpu_torch.harness.streaming import measure_saturated_multi
 
 MAX_RUNS = 20  # the reference's trace-size guard (device_timing.py:149)
+# The spin that holds the stream while the host enqueues a body: longer
+# than the slowest enqueue of a block seen on the H100 (~0.1 ms).
+SPIN_MS = 1.0
+
+_SPIN_CYCLES_PER_MS = {}
 
 
-def event_device_times(body: Callable[[], None], n_runs: int) -> List[float]:
+def spin_cycles_per_ms() -> int:
+    """Clock cycles of ``torch.cuda._sleep`` per ms on the current card,
+    measured once per process and device with a CUDA event pair."""
+    dev = torch.cuda.current_device()
+    if dev not in _SPIN_CYCLES_PER_MS:
+        cycles = 10_000_000
+        torch.cuda._sleep(cycles // 10)  # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS[dev] = int(cycles / start.elapsed_time(end))
+    return _SPIN_CYCLES_PER_MS[dev]
+
+
+def event_device_times(body: Callable[[], None], n_runs: int,
+                       spin_ms: float = SPIN_MS) -> List[float]:
     """Per-run device times (ms) from a CUDA event pair around each call
-    of ``body``, after one warm call."""
+    of ``body``, after one warm call, each pair behind a ``spin_ms`` spin
+    (``spin_ms=0``: no spin, so the pair also times the enqueue)."""
     body()
     torch.cuda.synchronize()
+    cycles = int(spin_ms * spin_cycles_per_ms()) if spin_ms > 0 else 0
     pairs = []
     for _ in range(n_runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if cycles:
+            torch.cuda._sleep(cycles)
         start.record()
         body()
         end.record()

@@ -5,9 +5,12 @@ PyTorch counterpart of two functions of
 JSON of cuda/globals.cu:137-182 with the reference's extended sections)
 and ``print_results`` (globals.cu:26-67). Every key of the reference's
 JSON whose field the port's ``BenchmarkResult`` has is written under the
-same name; a section the port cannot fill (overlap, roofline, DAW-sim
-miss rate, the co-located projection) is left out, never written as 0.
-The CSV writer is not ported yet (ROADMAP.md queue 1, item 17).
+same name; a section the port cannot fill (overlap, DAW-sim miss rate,
+the co-located projection) is left out, never written as 0. The
+``metadata.roofline`` section (``harness/runner.py``) is there on a CUDA
+device only, and ``print_results`` prints it as the reference's
+``Roofline [...]`` line. The CSV writer is not ported yet (ROADMAP.md
+queue 1, item 17).
 
 One departure: the reference takes the saturated marginal as the
 blocks/s basis whenever it is above 0 (``output.py:89``), so a body
@@ -239,6 +242,24 @@ def print_results(result: BenchmarkResult, cfg: BenchConfig) -> None:
     print(f"Throughput:        {result.throughput_gbps:.3f} GB/s")
     print(f"Samples/sec:       {result.samples_per_sec:.0f}")
     print(f"Bytes processed:   {result.bytes_processed}")
+
+    rl = result.metadata.get("roofline") if result.metadata else None
+    if rl:
+        flops_pct = rl.get("flops_pct_of_peak")
+        flops_part = (
+            f"{rl['achieved_gflops']:.1f} GFLOP/s"
+            + (f" ({flops_pct:.1f}% of {rl['unit']} peak)"
+               if flops_pct is not None else ""))
+        bound = rl["bound"]
+        if bound == "latency" and "nearest_wall" in rl:
+            bound = (f"latency-bound (unsaturated; nearest wall "
+                     f"{rl['nearest_wall']} at {rl['nearest_wall_pct']:.1f}%)")
+        else:
+            bound = f"{bound}-bound"
+        print(f"Roofline [{rl['basis']}]: {flops_part}, "
+              f"{rl['achieved_gbps']:.1f} GB/s HBM "
+              f"({rl['hbm_pct_of_peak']:.1f}% of peak) -> {bound} "
+              f"[{rl['peak_source']}]")
 
     v = result.validation
     if v is not None:

@@ -7,13 +7,16 @@ wall clock around one iteration that ends in a copy of the output to
 the host, which waits for the device: the reference's measurement
 boundary around transfer, launch, sync and transfer back.
 
-On CUDA, warmup also absorbs the kernels' build and first load.
+On CUDA, warmup also absorbs the kernels' build and first load, and the
+metadata gains the ``roofline`` section (``roofline_section``).
 """
 
 from __future__ import annotations
 
 import time
 from typing import Optional
+
+import torch
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.harness.base import Benchmark, BenchmarkResult
@@ -23,6 +26,7 @@ from gpuaudiobench_tpu_torch.harness.streaming import (
     measure_saturated,
     measure_saturated_marginal,
 )
+from gpuaudiobench_tpu_torch.utils.roofline import roofline_metrics
 
 
 def _refuse_unported(cfg: BenchConfig) -> None:
@@ -41,6 +45,40 @@ def _refuse_unported(cfg: BenchConfig) -> None:
             raise NotImplementedError(
                 f"{tier} is not ported to the PyTorch runner yet; "
                 f"see ROADMAP.md {item}")
+
+
+def roofline_section(benchmark: Benchmark, result: BenchmarkResult):
+    """The algorithmic cost over the measured time of a block against the
+    card's peaks (``utils/roofline.py``), or None. The block time is the
+    first above 0 of the device tier (CUDA events behind a spin, or the
+    pipeline slope), the saturated marginal and the saturated amortized
+    p50; ``basis`` names it. Only on a CUDA device: a CPU run gets no
+    share of the card's peaks."""
+    if benchmark.device.type != "cuda":
+        return None
+    cost = benchmark.cost_model()
+    if cost is None:
+        return None
+    candidates = []
+    if (result.device_statistics is not None
+            and result.device_timing_method in ("cuda-events",
+                                                "pipeline-slope")):
+        candidates.append((result.device_statistics.median,
+                           f"device:{result.device_timing_method}"))
+    if result.saturated_marginal_statistics is not None:
+        candidates.append((result.saturated_marginal_statistics.median,
+                           "saturated-marginal"))
+    if result.saturated_statistics is not None:
+        candidates.append((result.saturated_statistics.median, "saturated"))
+    block_ms, basis = next(((ms, b) for ms, b in candidates if ms > 0),
+                           (0.0, ""))
+    if block_ms <= 0:
+        return None
+    rl = roofline_metrics(
+        cost, block_ms,
+        device_kind=torch.cuda.get_device_name(benchmark.device))
+    rl["basis"] = basis
+    return rl
 
 
 def run_benchmark(
@@ -121,9 +159,11 @@ def run_benchmark(
 
     result.validation = benchmark.validate()
     result.metadata = benchmark.metadata()
-    # Roofline accounting against the H100's peaks is queue 1, item 16;
-    # the reference's co-located projection exists only for its relay
-    # and is not ported.
+    roofline = roofline_section(benchmark, result)
+    if roofline is not None:
+        result.metadata["roofline"] = roofline
+    # The reference's co-located projection exists only for its relay and
+    # is not ported.
     mem = benchmark.memory_report()
     if mem:
         result.metadata["memory"] = mem

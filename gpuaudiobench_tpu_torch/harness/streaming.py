@@ -27,8 +27,9 @@ import torch
 def probe(y: torch.Tensor) -> torch.Tensor:
     """Tiny per-block residue: mean |value| of the output block, (1,).
     It keeps every output element in use and gives soaks a
-    state-integrity signal that tracks the whole block."""
-    return torch.mean(torch.abs(y)).reshape(1)
+    state-integrity signal that tracks the whole block. The mean is taken
+    in float32, so an integer output (SOL_MXU_int8) has a probe too."""
+    return torch.mean(torch.abs(y), dtype=torch.float32).reshape(1)
 
 
 def run_chained(step_fn: Callable, carry, depth: int) -> torch.Tensor:

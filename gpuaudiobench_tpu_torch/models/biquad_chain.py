@@ -129,7 +129,7 @@ class BiquadChainBenchmark(StandardBufferBenchmark):
         return {
             "flops": 9 * NUM_STAGES * n,
             "hbm_bytes": (2 * n + 4 * NUM_STAGES * self.track_count) * 4,
-            "unit": "fp32",
+            "unit": "vpu",
         }
 
     def metadata(self):

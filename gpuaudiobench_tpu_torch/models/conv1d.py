@@ -125,7 +125,7 @@ class Conv1DBenchmark(StandardBufferBenchmark):
         return {
             "flops": 2 * t * s * l,  # MAC per (sample, tap)
             "hbm_bytes": (2 * t * s + t * l) * 4,
-            "unit": "fp32",
+            "unit": "vpu",
         }
 
     def metadata(self):

@@ -127,7 +127,7 @@ class Conv1DAccelBenchmark(StandardBufferBenchmark):
         return {
             "flops": int(t * (2 * fft_flops + 6 * bins)),
             "hbm_bytes": (t * s * 2 + t * bins * 2) * 4,
-            "unit": "fp32",
+            "unit": "vpu",
         }
 
     def metadata(self):

@@ -68,6 +68,21 @@ def dwg_reference(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl, damp):
     return out, fwd, bwd
 
 
+def dwg_cost(waveguides: int, samples: int, touched: int) -> dict:
+    """A block's cost. ``touched`` is the number of rail cell pairs the
+    block reaches, sum over waveguides of min(L, S): each fwd and bwd cell
+    of them read and written once (16 B a pair), x read and out written
+    (8 B a sample), 24 B of parameters a waveguide; 10 FLOP a waveguide
+    and sample. The reference's count (``gpuaudiobench_tpu/models/
+    dwg.py:314``) moves 32 B a touched pair and no parameters.
+    ``chip_smoke.py``'s bound reads this count too."""
+    return {
+        "flops": 10 * waveguides * samples,
+        "hbm_bytes": 16 * touched + 8 * samples + 24 * waveguides,
+        "unit": "vpu",
+    }
+
+
 PARAMS = ("lengths", "in_taps", "out_taps", "gains", "refl", "damp")
 
 
@@ -199,6 +214,10 @@ class DWGBenchmark(Benchmark):
                 got, want, self.tolerance, mode=self.cfg.verification,
                 limit=self.cfg.spot_sample_limit, label=f"{self.name} {label}"))
         return v
+
+    def cost_model(self):
+        touched = int(np.minimum(self.lengths, self.buffer_size).sum())
+        return dwg_cost(self.track_count, self.buffer_size, touched)
 
     def bytes_processed(self) -> int:
         # input + mono output + both rails in each direction

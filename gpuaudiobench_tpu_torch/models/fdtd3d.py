@@ -85,6 +85,52 @@ def fdtd3d_reference(x: np.ndarray, steps_per_sample: int = op.STEPS_PER_SAMPLE,
     return rcv
 
 
+def fdtd3d_cost(room: int, samples: int, tracks: int,
+                per_track_receivers: bool) -> dict:
+    """A block's cost in the form that runs: the divergence form (the
+    broadcast receiver) or the field form (per-track receivers).
+
+    Operations per substep: a boundary cell 1 (p * (1 - absorption)); an
+    interior cell of the div form 11 (5 adds for the neighbours' sum, 4
+    for div', 2 for p'); the field form 3 for each of the 3 (n-1) n^2
+    updated faces, then 7 for an interior cell (5 for the divergence, 2
+    for p'). Per sample and track the source sum and the receiver's
+    scale, and per sample the injection. Bytes: the input block read, the
+    output written, the carried fields read and written once (p and div,
+    or p, vx, vy, vz), and the receiver cells read for the field form.
+    ``vmem_bytes`` is the on-chip traffic floor: the carried fields loaded
+    and stored once a substep. The reference
+    (``gpuaudiobench_tpu/models/fdtd3d.py:195``) counts 20 FLOP a cell
+    for both forms, the field form's bytes for both, and its floor on the
+    TPU's padded (n+1)^3 layout. ``chip_smoke.py``'s bounds read this
+    count too."""
+    n = op.grid_n(room)
+    cells, faces = n ** 3, (n + 1) * n * n
+    interior = (n - 2) ** 3
+    edge = cells - interior
+    substeps = samples * op.STEPS_PER_SAMPLE
+    per_block = 2 * tracks * samples + 2 * samples
+    io = 2 * tracks * samples * 4
+    if per_track_receivers:
+        flops = substeps * (9 * (n - 1) * n * n + 7 * interior + edge)
+        state = cells + 3 * faces
+        hbm = io + 2 * state * 4 + 4 * tracks
+        form = "field"
+    else:
+        flops = substeps * (11 * interior + edge)
+        state = 2 * cells
+        hbm = io + 2 * state * 4
+        form = "divergence"
+    return {
+        "flops": flops + per_block,
+        "hbm_bytes": hbm,
+        "vmem_bytes": substeps * state * 2 * 4,
+        "unit": "vpu",
+        "note": f"{form} form; vmem_bytes is the carried fields' load and "
+                "store a substep",
+    }
+
+
 class FDTD3DBenchmark(Benchmark):
     name = "FDTD3D"
     tolerance = 5e-3  # Metal full-sim tolerance (FDTD3DBenchmark.swift)
@@ -175,6 +221,10 @@ class FDTD3DBenchmark(Benchmark):
             mode=self.cfg.verification, limit=self.cfg.spot_sample_limit,
             label=self.name,
         )
+
+    def cost_model(self):
+        return fdtd3d_cost(self._room, self.buffer_size, self.track_count,
+                           self.cfg.fdtd_per_track_receivers)
 
     def metadata(self):
         return {

@@ -80,7 +80,7 @@ class FFTBenchmark(StandardBufferBenchmark):
         return {
             "flops": int(t * 2.5 * f * math.log2(f)),
             "hbm_bytes": t * (f * 4 + self.bins * 8),
-            "unit": "fp32",
+            "unit": "vpu",
         }
 
     def metadata(self):

@@ -36,4 +36,4 @@ class GainBenchmark(StandardBufferBenchmark):
 
     def cost_model(self):
         n = self.total_elements()
-        return {"flops": n, "hbm_bytes": 2 * n * 4, "unit": "fp32"}
+        return {"flops": n, "hbm_bytes": 2 * n * 4, "unit": "vpu"}

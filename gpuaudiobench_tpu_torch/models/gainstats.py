@@ -60,7 +60,7 @@ class GainStatsBenchmark(StandardBufferBenchmark):
         return {
             "flops": 3 * n,  # gain mul + mean-add + max-cmp per sample
             "hbm_bytes": (2 * n + 2 * self.track_count) * 4,
-            "unit": "fp32",
+            "unit": "vpu",
         }
 
     def validate(self) -> ValidationData:

@@ -160,7 +160,7 @@ class IIRBenchmark(StandardBufferBenchmark):
         return {
             "flops": 9 * n,  # w = x - a1 z1 - a2 z2; y = b0 w + b1 z1 + b2 z2
             "hbm_bytes": (2 * n + 4 * self.track_count) * 4,
-            "unit": "fp32",
+            "unit": "vpu",
         }
 
     def metadata(self):

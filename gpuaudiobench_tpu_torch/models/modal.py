@@ -244,7 +244,7 @@ class ModalFilterBankBenchmark(Benchmark):
         return {
             "flops": 8 * m * s,  # 6 rotate + 2 accumulate
             "hbm_bytes": (4 * m + 2 * m + s * self.output_tracks) * 4,
-            "unit": "fp32",
+            "unit": "vpu",
         }
 
     def total_elements(self) -> int:

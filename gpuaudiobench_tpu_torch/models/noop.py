@@ -34,5 +34,5 @@ class NoOpBenchmark(StandardBufferBenchmark):
 
     def cost_model(self):
         n = self.total_elements()
-        return {"flops": 0, "hbm_bytes": 2 * n * 4, "unit": "fp32",
+        return {"flops": 0, "hbm_bytes": 2 * n * 4, "unit": "vpu",
                 "note": "copy in+out"}

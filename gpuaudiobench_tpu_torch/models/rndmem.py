@@ -33,6 +33,20 @@ from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import generate_uniform01
 
 
+def rndmem_cost(tracks: int, samples: int) -> dict:
+    """A block's cost: every output sample read once from the pool and
+    written once, and the int32 playheads read; no arithmetic. The
+    reference's count (``gpuaudiobench_tpu/models/rndmem.py:146``) leaves
+    the playheads out. ``chip_smoke.py``'s bound reads this count too."""
+    n = tracks * samples
+    return {
+        "flops": 0,
+        "hbm_bytes": 2 * n * 4 + 4 * tracks,
+        "unit": "vpu",
+        "note": "random unaligned reads from a 512 MiB pool",
+    }
+
+
 class RndMemBenchmark(Benchmark):
     name = "RndMemRead"
     tolerance = 1e-6  # bench_rndmem.cu:106
@@ -120,6 +134,9 @@ class RndMemBenchmark(Benchmark):
             mode=self.cfg.verification, limit=self.cfg.spot_sample_limit,
             label=self.name,
         )
+
+    def cost_model(self):
+        return rndmem_cost(self.track_count, self.buffer_size)
 
     def metadata(self):
         return {

@@ -31,7 +31,12 @@ computes its golden at setup). Prints one JSON line with:
   block from ``torch.profiler`` over ``TRACE_BLOCKS`` chained blocks and
   over ``ROUNDTRIPS`` round trips, the device-busy time per block (the
   union of the kernels' and copies' intervals), and the device's idle
-  share of the traced window (first device event to last).
+  share of the traced window (first device event to last);
+* ``device_tier``: the device tier's p50 of ``device_iterate()`` (CUDA
+  events behind the spin, as the runner takes it), the same event pair
+  without the spin (which also times the host's enqueue), and the
+  profiler's device time per call of ``device_iterate()``: the gated p50
+  should match the last.
 
 Needs a CUDA device; raises without one.
 """
@@ -40,7 +45,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -48,6 +52,10 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
+from gpuaudiobench_tpu_torch.harness.device_timing import (
+    MAX_RUNS,
+    event_device_times,
+)
 from gpuaudiobench_tpu_torch.harness.streaming import run_chained
 from gpuaudiobench_tpu_torch.registry import create_benchmark
 from gpuaudiobench_tpu_torch.utils import device as dev
@@ -57,13 +65,6 @@ TRACE_BLOCKS = 128
 ROUNDTRIPS = 20
 
 
-def _smi(query: str) -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else ""
-
-
 def _sample_under_load(step, carry, blocks: int, delay_s: float) -> str:
     """SM clock and power draw, read by nvidia-smi from another thread
     ``delay_s`` into a chain of ``blocks`` blocks."""
@@ -71,7 +72,7 @@ def _sample_under_load(step, carry, blocks: int, delay_s: float) -> str:
 
     def sample():
         time.sleep(delay_s)
-        reading.append(_smi("clocks.sm,power.draw"))
+        reading.append(dev.nvidia_smi("clocks.sm,power.draw"))
 
     th = threading.Thread(target=sample)
     th.start()
@@ -115,6 +116,29 @@ def _summarize(events, blocks: int) -> Dict[str, object]:
         "window_us_per_block": window / blocks,
         "device_idle_share": 1.0 - busy / window if window > 0 else 0.0,
     }
+
+
+def device_tier(bench, runs: int = MAX_RUNS) -> Dict[str, float]:
+    """The device tier's p50 of ``bench.device_iterate()`` with and
+    without the spin, and the profiler's device time (kernels and copies)
+    per call over ``runs`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gated = statistics.median(event_device_times(bench.device_iterate, runs))
+    ungated = statistics.median(
+        event_device_times(bench.device_iterate, runs, spin_ms=0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            bench.device_iterate()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    if not events:
+        raise RuntimeError("the profiler saw no device time")
+    return {"gated_p50_ms": gated, "ungated_p50_ms": ungated,
+            "profiler_ms_per_call": sum(b - a for _, a, b in events)
+            / runs / 1e3}
 
 
 FLAGS = {
@@ -182,11 +206,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         for _ in range(ROUNDTRIPS):
             bench.iterate()
     roundtrip = _summarize(_device_events(prof), ROUNDTRIPS)
+    tier = device_tier(bench)
 
     print(json.dumps({
         "benchmark": name,
         "n_tracks": cfg.n_tracks,
-        "card": {"name_power_limit": _smi("name,power.limit"),
+        "card": {"name_power_limit": dev.nvidia_smi("name,power.limit"),
                  "sm_clock_power_draw_under_load": under_load},
         "depth": depth,
         "chain_wall_ms_per_block": statistics.median(walls),
@@ -194,6 +219,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "roundtrip_wall_ms": statistics.median(trips),
         "chain": chain,
         "roundtrip": roundtrip,
+        "device_tier": tier,
     }))
     return 0
 

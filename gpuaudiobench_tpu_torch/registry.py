@@ -82,6 +82,12 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
     from gpuaudiobench_tpu_torch.models.modal import ModalFilterBankBenchmark
     from gpuaudiobench_tpu_torch.models.noop import NoOpBenchmark
     from gpuaudiobench_tpu_torch.models.rndmem import RndMemBenchmark
+    from gpuaudiobench_tpu_torch.models.speedoflight import (
+        SolHbmStreamBenchmark,
+        SolMxuBenchmark,
+        SolVmemBenchmark,
+        SolVpuFmaBenchmark,
+    )
 
     return {
         "NoOp": NoOpBenchmark,
@@ -97,6 +103,12 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
         "FDTD3D": FDTD3DBenchmark,
         "RndMemRead": RndMemBenchmark,
         "BiquadChain": BiquadChainBenchmark,
+        "SOL_VPU": SolVpuFmaBenchmark,
+        "SOL_VMEM": SolVmemBenchmark,
+        "SOL_HBM": SolHbmStreamBenchmark,
+        "SOL_MXU_bf16": functools.partial(SolMxuBenchmark, dtype="bf16"),
+        "SOL_MXU_f32": functools.partial(SolMxuBenchmark, dtype="f32"),
+        "SOL_MXU_int8": functools.partial(SolMxuBenchmark, dtype="int8"),
     }
 
 

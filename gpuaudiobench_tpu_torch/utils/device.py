@@ -46,19 +46,24 @@ def block(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def nvidia_smi_identity() -> Optional[str]:
-    """The card's ``name, power.limit`` line from nvidia-smi, or None
-    where nvidia-smi is missing or fails."""
+def nvidia_smi(query: str) -> Optional[str]:
+    """The first card's line of ``nvidia-smi --query-gpu=<query>
+    --format=csv,noheader``, or None where nvidia-smi is missing or
+    fails."""
     try:
         proc = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=30)
     except (OSError, subprocess.TimeoutExpired):
         return None
-    if proc.returncode != 0:
+    if proc.returncode != 0 or not proc.stdout.strip():
         return None
-    return proc.stdout.strip().splitlines()[0] if proc.stdout.strip() else None
+    return proc.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_identity() -> Optional[str]:
+    """The card's ``name, power.limit`` line from nvidia-smi, or None."""
+    return nvidia_smi("name,power.limit")
 
 
 def gpu_identity(dev: torch.device) -> Dict[str, Optional[str]]:

@@ -290,7 +290,8 @@ def test_help_marks_the_ported_benchmarks():
     assert marked == {"IIRFilter", "ModalFilterBank", "BiquadChain", "NoOp",
                       "gain", "GainStats", "FFT1D", "Conv1D",
                       "Conv1D_accel", "DWG1DNaive", "DWG1DAccel", "FDTD3D",
-                      "RndMemRead"}
+                      "RndMemRead", "SOL_VPU", "SOL_VMEM", "SOL_HBM",
+                      "SOL_MXU_bf16", "SOL_MXU_f32", "SOL_MXU_int8"}
 
 
 @pytest.mark.parametrize("argv,want", [

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (the modal bank in its rotation and
 resonator forms, the four IIR kernels, the Conv1D FIR, the RndMem gather,
-the DWG block and the two FDTD forms) against their plain PyTorch twins,
-on the GPU. Marked ``cuda``: each test skips where there is no CUDA
+the DWG block, the two FDTD forms and the two speed-of-light FMA kernels)
+against their plain PyTorch twins, on the GPU, with the SOL GEMMs against
+their goldens and the device tier against the profiler. Marked ``cuda``: each test skips where there is no CUDA
 device.
 
 This file imports no jax, so it also runs where jax is not installed:
@@ -29,6 +30,7 @@ from gpuaudiobench_tpu_torch.models.modal import modal_reference_gs
 from gpuaudiobench_tpu_torch.ops import conv as cops
 from gpuaudiobench_tpu_torch.ops import iir as iops
 from gpuaudiobench_tpu_torch.ops import modal as tops
+from gpuaudiobench_tpu_torch.ops import speedoflight as sops
 from gpuaudiobench_tpu_torch.utils.data import (
     biquad_lowpass_coefficients,
     conv1d_impulse_responses,
@@ -540,3 +542,86 @@ def test_fdtd_kernels_are_deterministic(cuda):
 def test_fdtd_sync_probe_runs(cuda):
     fops.sync_probe(52, 64, cuda)
     torch.cuda.synchronize()
+
+
+# The speed-of-light kernels (rows, width, k): against the twin within
+# 1e-4 absolute (one rounding a pass against the twin's two: at most
+# k * 2^-23 * 2 on values below 2, 1e-4 at k = 512), against the closed
+# form within the benchmarks' 5e-4; the last two are SOL_VMEM's and
+# SOL_VPU's defaults.
+SOL_SHAPES = [(37, 1000, 24), (64, 1024, 130), (8, 128, 0), (3, 5, 1),
+              (512, 1024, 512), (2048, 1024, 512)]
+
+
+def _sol_x(rows, width, device, seed=5):
+    g = np.random.Generator(np.random.MT19937(seed))
+    x = (g.random((rows, width), dtype=np.float32) * 2 - 1).astype(np.float32)
+    return x, torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("name", ["fma_chain", "fma_vmem"])
+@pytest.mark.parametrize("rows,width,k", SOL_SHAPES)
+def test_sol_kernel_matches_plain_twin(cuda, name, rows, width, k):
+    host, x = _sol_x(rows, width, cuda)
+    launches = sops.KERNEL_LAUNCHES[name]
+    got = getattr(sops, name)(x, k)
+    torch.cuda.synchronize()
+    assert sops.KERNEL_LAUNCHES[name] == launches + 1
+    want = sops.fma_chain_plain(x, k)
+    assert got.shape == x.shape and got is not x
+    assert (got - want).abs().max().item() <= 1e-4
+    golden = sops.fma_golden(host, k)
+    assert np.abs(got.cpu().numpy() - golden).max() <= 5e-4
+
+
+def test_sol_kernels_agree_bit_for_bit(cuda):
+    _, x = _sol_x(300, 700, cuda)
+    assert torch.equal(sops.fma_chain(x, 77), sops.fma_vmem(x, 77))
+    assert torch.equal(sops.fma_chain(x, 0), x)
+
+
+@pytest.mark.parametrize("name", ["fma_chain", "fma_vmem"])
+def test_sol_wrapper_rejects_bad_input(cuda, name):
+    fn = getattr(sops, name)
+    launches = dict(sops.KERNEL_LAUNCHES)
+    with pytest.raises(TypeError, match="float32"):
+        fn(torch.ones((4, 8), dtype=torch.float64, device=cuda), 3)
+    with pytest.raises(ValueError, match="2-D"):
+        fn(torch.ones(8, device=cuda), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(torch.ones((8, 4), device=cuda).t(), 3)
+    with pytest.raises(ValueError, match="k must be"):
+        fn(torch.ones((4, 8), device=cuda), -1)
+    assert sops.KERNEL_LAUNCHES == launches
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
+def test_sol_matmul_at_4096_meets_its_golden(cuda, dtype):
+    """``torch.mm(..., out_dtype=torch.float32)`` (bf16), full-FP32
+    ``torch.matmul`` and ``torch._int_mm`` at the default 4,096 against
+    the f32 and exact integer goldens, every element checked."""
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.registry import create_benchmark
+
+    cfg = BenchConfig(verification="full")
+    bench = create_benchmark(f"SOL_MXU_{dtype}", cfg, cuda)
+    bench.setup()
+    v = bench.validate()
+    assert v.passed, v.messages[:3]
+    assert v.samples_checked == 4096 * 4096
+    if dtype == "int8":
+        assert v.max_error == 0.0
+
+
+def test_device_tier_tracks_the_profiler_on_rndmem(cuda):
+    """The gated device tier's p50 of RndMemRead at 65,536 tracks lies
+    within 10 % of the profiler's device time per call."""
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.profile_block import device_tier
+    from gpuaudiobench_tpu_torch.registry import create_benchmark
+
+    bench = create_benchmark("RndMemRead", BenchConfig(n_tracks=65536), cuda)
+    bench.setup()
+    tier = device_tier(bench)
+    assert abs(tier["gated_p50_ms"] - tier["profiler_ms_per_call"]) <= (
+        0.1 * tier["profiler_ms_per_call"]), tier

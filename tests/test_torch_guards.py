@@ -67,7 +67,13 @@ BLOCKED_JAX = textwrap.dedent("""
                         ("DWG1DAccel", {"dwg_max_length": 300}),
                         ("FDTD3D", {"fdtd_room": 8, "buffer_size": 16}),
                         ("FDTD3D", {"fdtd_room": 8, "buffer_size": 16,
-                                    "fdtd_per_track_receivers": True})]:
+                                    "fdtd_per_track_receivers": True}),
+                        ("SOL_VPU", {"sol_fma_k": 8, "sol_fma_mib": 1}),
+                        ("SOL_VMEM", {"sol_fma_k": 8, "sol_vmem_mib": 1}),
+                        ("SOL_HBM", {"sol_stream_mib": 1}),
+                        ("SOL_MXU_bf16", {"sol_matmul_dim": 64}),
+                        ("SOL_MXU_f32", {"sol_matmul_dim": 64}),
+                        ("SOL_MXU_int8", {"sol_matmul_dim": 64})]:
         c = cfg.replace(**knobs)
         b = create_benchmark(name, c, torch.device("cpu"))
         b.setup()
@@ -311,6 +317,61 @@ def test_chip_smoke_bounds():
     assert field_ms == pytest.approx(
         (1536 * (9 * 51 * 52 ** 2 + 7 * 50 ** 3 + edge) + small) / 67e9)
     assert field_ms == pytest.approx(0.0489, abs=1e-4)
+    # the FMA kernels at their defaults: 2 FLOP an element and pass
+    bounds = cs.sol_bounds()
+    for name, (rows, width, k) in (("fma_chain", cs.SOL_FMA_FULL),
+                                   ("fma_vmem", cs.SOL_VMEM_FULL)):
+        ms, by = bounds[name]
+        assert by == "operations" and ms == pytest.approx(
+            2 * k * rows * width / 67e9)
+    assert bounds["fma_chain"][0] == pytest.approx(0.0321, abs=1e-4)
+    assert bounds["fma_vmem"][0] == pytest.approx(0.0080, abs=1e-4)
+
+
+def test_chip_smoke_bounds_read_the_cost_models():
+    """One count: the kernels line's RndMem, DWG and FDTD bounds are the
+    benchmarks' own cost models at the main shapes."""
+    from gpuaudiobench_tpu_torch.models.dwg import dwg_cost
+    from gpuaudiobench_tpu_torch.models.fdtd3d import fdtd3d_cost
+    from gpuaudiobench_tpu_torch.models.rndmem import rndmem_cost
+
+    cs = _chip_smoke()
+    tracks, s, _ = cs.RNDMEM_FULL
+    assert cs.rndmem_bound() == cs.cost_bound(rndmem_cost(tracks, s))
+    g, s, _ = cs.DWG_FULL
+    assert cs.dwg_bound(12345) == cs.cost_bound(dwg_cost(g, s, 12345))
+    room, s, tracks = cs.FDTD_MAIN
+    for name, per_track in (("fdtd3d_div", False), ("fdtd3d_field", True)):
+        assert cs.fdtd_bounds()[name] == cs.cost_bound(
+            fdtd3d_cost(room, s, tracks, per_track))
+
+
+@pytest.mark.parametrize("fn", ["fma_chain", "fma_vmem"])
+def test_sol_wrappers_reject_bad_input(fn):
+    from gpuaudiobench_tpu_torch.ops import speedoflight as sops
+
+    wrapper = getattr(sops, fn)
+    with pytest.raises(TypeError, match="float32"):
+        wrapper(torch.ones((4, 8), dtype=torch.float64), 3)
+    with pytest.raises(ValueError, match="2-D"):
+        wrapper(torch.ones(8), 3)
+    with pytest.raises(ValueError, match="2-D"):
+        wrapper(torch.ones((0, 8)), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(torch.ones((8, 4)).t(), 3)
+    for k in (-1, 2.0, True):
+        with pytest.raises(ValueError, match="k must be"):
+            wrapper(torch.ones((4, 8)), k)
+
+
+@pytest.mark.parametrize("fn", ["fma_chain", "fma_vmem"])
+def test_sol_wrappers_raise_on_a_device_without_a_kernel(fn):
+    from gpuaudiobench_tpu_torch.ops import speedoflight as sops
+
+    launches = dict(sops.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="no kernel"):
+        getattr(sops, fn)(torch.empty((4, 8), device="meta"), 3)
+    assert sops.KERNEL_LAUNCHES == launches
 
 
 def _slice_ops():
@@ -319,9 +380,10 @@ def _slice_ops():
     from gpuaudiobench_tpu_torch.ops import fdtd3d as fops
     from gpuaudiobench_tpu_torch.ops import iir as iops
     from gpuaudiobench_tpu_torch.ops import rndmem as rops
+    from gpuaudiobench_tpu_torch.ops import speedoflight as sops
 
     return {"modal": tops, "iir": iops, "conv": cops, "rndmem": rops,
-            "dwg": dops, "fdtd": fops}
+            "dwg": dops, "fdtd": fops, "sol": sops}
 
 
 def test_chip_smoke_counts_twin_calls_and_restores_them():
@@ -348,8 +410,10 @@ def test_chip_smoke_counts_twin_calls_and_restores_them():
                               *fops.zero_fields_div(5), (2, 2, 2), (1, 2, 3))
         fops.fdtd3d_block_field(torch.zeros((1, 2)), *fops.zero_fields(5),
                                 (2, 2, 2), (1, 2, 3))
-    # the cascade twin and its 2 stages, conv, res, rndmem, dwg, 2 fdtd
-    assert twins.calls == 9
+        mods["sol"].fma_vmem(torch.zeros((2, 3)), 2)
+    # the cascade twin and its 2 stages, conv, res, rndmem, dwg, 2 fdtd,
+    # the FMA chain
+    assert twins.calls == 10
     assert {k: getattr(mods[k[0]], k[1]) for k in originals} == originals
     iops.KERNEL_LAUNCHES["iir_biquad"] += 1
     cops.KERNEL_LAUNCHES["conv1d"] += 1
@@ -360,13 +424,14 @@ def test_chip_smoke_counts_twin_calls_and_restores_them():
     counts = cs.launch_counts(*modules)
     assert set(counts) == {"modal_bank", "modal_res", "conv1d",
                            "rndmem_gather", "dwg_block", "fdtd3d_div",
-                           "fdtd3d_field", *iops.KERNEL_LAUNCHES}
+                           "fdtd3d_field", "fma_chain", "fma_vmem",
+                           *iops.KERNEL_LAUNCHES}
     assert not any(counts.values())
 
 
 def test_chip_smoke_lists_every_twin_and_kernel():
     """Every plain twin of a ported kernel is counted on the main paths,
-    and the kernels line has a row for each of the 11 ported kernels."""
+    and the kernels line has a row for each of the 13 ported kernels."""
     cs = _chip_smoke()
     mods = _slice_ops()
     assert set(mods) == set(cs.TwinCalls.NAMES)
@@ -379,10 +444,11 @@ def test_chip_smoke_lists_every_twin_and_kernel():
     text = (REPO / "chip_smoke.py").read_text()
     for name in kernels:
         assert f'"{name}"' in text, name
-    assert len(kernels) == 11
+    assert len(kernels) == 13
     assert set(cs.FDTD_REPLACES) == {"fdtd3d_div", "fdtd3d_field"}
+    assert set(cs.SOL_REPLACES) == {"fma_chain", "fma_vmem"}
     for replaces in (cs.RNDMEM_REPLACES, cs.DWG_REPLACES,
-                     *cs.FDTD_REPLACES.values()):
+                     *cs.FDTD_REPLACES.values(), *cs.SOL_REPLACES.values()):
         path, line = replaces.split(":")
         src = (REPO / path).read_text().splitlines()[int(line) - 1]
         assert src.startswith("def _") and "kernel" in src, replaces

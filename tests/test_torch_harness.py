@@ -54,7 +54,8 @@ def test_config_fields_match_the_reference():
     # the RndMem, DWG and FDTD knobs
     assert {"rndmem_pool_mb", "rndmem_min_loop", "rndmem_max_loop",
             "dwg_min_length", "dwg_max_length", "fdtd_per_track_receivers",
-            "fdtd_room"} <= ours
+            "fdtd_room", "sol_fma_k", "sol_fma_mib", "sol_stream_mib",
+            "sol_vmem_mib", "sol_matmul_dim"} <= ours
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 7, 21, 30])
