@@ -19,11 +19,12 @@ nonzero:
    T_out not dividing 32 (12 and 3; 12,288 x 512 x 12 is the CLI path's
    own); CUDA-event times of each kernel and its twin at the main shape.
 4. The four IIR kernels vs their plain twins, states chained over 3
-   blocks, at 8 x 64, 640 x 128 and 65,536 x 512 (tracks x samples), the
-   blockstate kernel at m = 16 and m = 128, and the systolic cascade vs
-   the chain cascade at 1e-6; CUDA-event times of each kernel and twin at
-   65,536 x 512, and of ``torch.matmul`` on the blockstate chunk products
-   as a yardstick.
+   blocks, at 8 x 64, 640 x 128, 65,536 x 512 and 1,000 x 96 (tracks x
+   samples; 1,000 is no multiple of the blockstate kernel's 8-track
+   group), the blockstate kernel at block_m 12, 16 and 128 (m = 12 and 96
+   at 96 samples), and the systolic cascade vs the chain cascade at 1e-6;
+   CUDA-event times of each kernel and twin at 65,536 x 512, and of
+   ``torch.matmul`` on the blockstate chunk products as a yardstick.
 5. The Conv1D FIR kernel vs its plain twin in both edge modes at five
    (tracks, samples, taps) shapes up to the main path's 19,456 x 512 x
    1,024, among them each CLI path's own and one with L - 1 > S in
@@ -131,7 +132,8 @@ CONV_REPLACES = "gpuaudiobench_tpu/ops/conv_pallas.py:40"
 # bar for blockstate vs scan). Systolic vs chain: 1e-6 absolute and
 # relative, the reference's cross-check.
 IIR_FULL = (65536, 512)
-IIR_SHAPES = [(8, 64), (640, 128), IIR_FULL]
+IIR_SHAPES = [(8, 64), (640, 128), IIR_FULL, (1000, 96)]
+IIR_BLOCK_M = (12, 16, 128)  # the blockstate kernel's; the others at 128
 IIR_ATOL = 1e-5
 CASCADE_TOL = 1e-6
 IIR_STAGES = 10
@@ -542,13 +544,13 @@ def iir_fns(torch, iops, tracks, s, device, block_m=128):
 
 def compare_iir(torch, iops, tracks, s, device):
     """Each IIR kernel against its twin over 3 chained blocks (blockstate
-    at m = 16 and m = 128), then systolic vs chain; returns max |kernel -
+    at every IIR_BLOCK_M), then systolic vs chain; returns max |kernel -
     twin| per kernel, outputs and states."""
     worst = {}
     sys_vs_chain = 0.0
-    for block_m in (16, 128):
+    for block_m in IIR_BLOCK_M:
         fns, x, z1, zk = iir_fns(torch, iops, tracks, s, device, block_m)
-        kinds = (["iir_biquad_blockstate"] if block_m == 16 else list(fns))
+        kinds = (["iir_biquad_blockstate"] if block_m != 128 else list(fns))
         outs = {}
         for kind in kinds:
             kern, plain = fns[kind]

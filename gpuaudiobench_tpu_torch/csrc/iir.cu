@@ -46,24 +46,46 @@
 //   Bound of both cascades: the same bytes as the biquad plus 5K
 //   instructions per sample (10 stages: 50, about 50 us of issue at
 //   65,536 x 512), so still bytes first.
-// * iir_blockstate_kernel<R> replaces _iir_blockstate_kernel
+// * iir_blockstate_kernel<NT> replaces _iir_blockstate_kernel
 //   (ops/iir.py:407, via iir_biquad_blockstate_pallas). Each m-sample
 //   chunk is w = taps @ x_chunk + u0*z1 + u1*z2, then
 //   y = b0*w + b1*w[-1] + b2*w[-2], and (z1, z2) = (w[m-1], w[m-2]).
-//   Bound: the dense chunk product is m FMAs per sample (at m = 128,
-//   2m + 9 = 265 FLOP per sample, about 130 us at 65,536 x 512 and
-//   67 TFLOP/s, above the 80 us of its bytes), but the taps are
-//   lower-triangular, so the product needs only (m + 1) / 2 FMAs per
-//   sample on average (m + 10 = 138 FLOP per sample, about 69 us): the
-//   bytes bound it, barely. The JAX kernel runs the product at
-//   Precision.HIGHEST and its tests hold it to 1e-5 of the scan, which
-//   TF32 tensor cores would not meet, so the product runs in FP32 FMAs:
-//   the taps (transposed, 64 KiB at m = 128, in dynamic shared memory)
-//   are read as broadcast float4s by a warp whose 32 lanes are 32
-//   tracks, and each of the 8 warps of a block owns m/8 rows of w, kept
-//   in registers (R per thread), and skips the columns above its rows'
-//   diagonal (56 % of the dense FMAs at m = 128). A 3xTF32 wgmma form
-//   is later work.
+//   The chunk products do not depend on each other; only the rank-2 term
+//   carries from chunk to chunk. Bound: bytes (at 65,536 x 512, m = 128,
+//   268 MB, 80 us at 3.35 TB/s; the triangular product is 138 FLOP a
+//   sample, 69 us at 67 TFLOP/s in FP32). The JAX kernel runs the product
+//   at Precision.HIGHEST and its tests hold it to 1e-5 of the scan, which
+//   plain TF32 misses, so the product runs in 3xTF32 on the tensor cores
+//   (mma.sync m16n8k8): v = hi + lo with hi = tf32(v) and lo = tf32(v -
+//   hi) (cvt.rna), and A_lo B_hi + A_hi B_lo + A_hi B_hi go into a fresh
+//   zero accumulator per 8-sample k-step, which is added into FP32
+//   registers by IEEE adds: the tensor cores never sum across k-steps
+//   (their FP32 sums are coarser than IEEE, ROADMAP's SOL_MXU_bf16 fault).
+//   The taps are the A operand (16 rows of w by 8 samples), a warp's 8
+//   tracks the B operand; k-tiles above the diagonal are skipped, 72 of
+//   128 steps remain at m = 128. What the design does about what held the
+//   earlier one-block-per-32-tracks kernel at 16 % of its bound:
+//   - every warp owns 8 tracks and runs the whole triangle for them, so
+//     all warps do equal work and no block barrier waits on the slowest;
+//   - the grid is persistent (one block of 16 warps an SM at m > 64, from
+//     the occupancy API): a block splits the taps into hi/lo fragments
+//     once, in the order the mmas read them (one conflict-free 16-byte
+//     read per lane a step), instead of 2,048 blocks re-reading and
+//     transposing 64 KiB each;
+//   - each warp walks its (track group, chunk) items with a 2-stage ring
+//     of cp.async copies (16 bytes a lane), so the next chunk's load runs
+//     under this chunk's product; the loop has no block barrier at all,
+//     only warp syncs;
+//   - the product reads one 16-byte fragment pair per three mmas, not
+//     five shared loads per 16 FMAs.
+//   w goes back into the warp's stage, y is written from it along
+//   samples (16 bytes a lane), and the state is carried in shared memory.
+//   m is padded with zeros to 16, 32, 64 or 128 in shared memory, so one
+//   kernel serves every m from 2 to 128; m not a multiple of 4 (or
+//   unaligned rows) copies 4 bytes a lane. What bounds it now is the
+//   product's mma.sync latency chain, not the bytes: the product alone,
+//   with no copies, takes about two thirds of the kernel's time (PERF.md
+//   §6, tools/blockstate_stages).
 //
 // Rounding: nvcc contracts the recurrences into FMAs, which round unlike
 // the NumPy golden's separate f32 steps. The models' tolerances (1e-4 on
@@ -76,6 +98,9 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
 namespace {
 
 constexpr int kTracks = 128;   // tracks (= threads) per block, tile kernels
@@ -84,9 +109,10 @@ constexpr int kPitch = kChunk + 1;
 constexpr int kBatch = 8;      // global loads in flight per thread (cascades)
 constexpr int kMaxStages = 16;
 
-constexpr int kBsWarps = 8;    // blockstate: warps per block (row groups)
+constexpr int kBsWarps = 16;   // blockstate: warps per block
 constexpr int kBsThreads = kBsWarps * 32;
-constexpr int kBsTracks = 32;  // blockstate: tracks per block (lanes)
+constexpr int kBsRows = 8;     // blockstate: tracks per warp (the mma's N)
+constexpr int kBsStages = 2;   // blockstate: x chunks in flight per warp
 
 struct Coeffs {
     float b0, b1, b2, a1, a2;
@@ -296,153 +322,302 @@ iir_cascade_systolic_kernel(const float* __restrict__ x,
     if (live) store_stages<K>(z_out, t, tracks, z1, z2);
 }
 
-// Shared memory of the blockstate kernel, as offsets in floats.
-struct BsLayout {
-    int m, mp, pitch;
-    int taps, u, tile, z, total;
-    __host__ __device__ BsLayout(int m_, int rows_per_thread)
-        : m(m_), mp(kBsWarps * rows_per_thread + 4), pitch(m_ | 1) {
-        // taps_t[i][j], (m, mp): j padded past the 8 warps' rows by 4, which
-        // keeps rows 16-byte aligned and spreads a column over 8 banks.
-        taps = 0;
-        u = taps + m * mp;                // u[j][2]
-        tile = u + 2 * m;                 // x chunk, then w: (32, pitch)
-        z = tile + kBsTracks * pitch;     // entering (z1, z2) per track
-        total = z + 2 * kBsTracks;
+// The blockstate kernel. A warp owns kBsRows tracks and walks their
+// m-sample chunks in order; the grid is persistent, so a block builds the
+// taps' fragment table once and its warps share it. All offsets below are
+// in floats, for NT = ceil(m / 8) k-tiles of 8 samples (2, 4, 8 or 16).
+template <int NT>
+struct BsShape {
+    static constexpr int kMt = NT / 2;             // m-tiles of 16 rows of w
+    static constexpr int kPitch = 8 * NT + 4;      // one track's chunk
+    static constexpr int kTile = kBsRows * kPitch; // a warp's stage
+    // (k-tile, m-tile) steps below the diagonal, k outer: m-tile mt needs
+    // k-tiles 0 .. 2mt + 1.
+    __host__ __device__ static constexpr int steps() {
+        int n = 0;
+        for (int k = 0; k < NT; ++k) n += kMt - (k >> 1);
+        return n;
     }
+    static constexpr int kHi = 0;                   // uint4 per (step, lane)
+    static constexpr int kLo = kHi + steps() * 32 * 4;
+    static constexpr int kU = kLo + steps() * 32 * 4;  // u[j][2], zero past m
+    static constexpr int kStage = kU + 16 * NT;
+    static constexpr int kZ = kStage + kBsWarps * kBsStages * kTile;  // (z1, z2)
+    static constexpr int kTotal = kZ + kBsWarps * kBsRows * 2;
 };
 
-template <int R>
-__global__ void __launch_bounds__(kBsThreads)
+// TF32 of v, rounded to nearest with ties away from zero.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+    return r;
+}
+
+// d += a (16 x 8, row) @ b (8 x 8, col), TF32 in, FP32 out.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Asynchronous copies into shared memory; bytes = 0 fills zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+// acc[mt] = the 16 x 8 tile (rows j = 16mt + g, 16mt + g + 8; tracks 2t,
+// 2t + 1) of taps @ x_chunk^T, g = lane / 4, t = lane % 4. Each step is
+// one k-tile of one m-tile in 3xTF32: small terms first, the three mmas
+// into a fresh zero accumulator, which is then added into acc in FP32.
+// The next step's taps fragments are read one step ahead, and a step's
+// sum is added into acc one step late, so the adds never wait on the
+// mmas just issued.
+template <int NT>
+__device__ __forceinline__ void bs_product(float (&acc)[NT / 2][4], const float* xs,
+                                           const uint4* hi, const uint4* lo, int lane) {
+    using B = BsShape<NT>;
+    constexpr int kSteps = B::steps();
+    const float* rx = xs + (lane >> 2) * B::kPitch + (lane & 3);
+#pragma unroll
+    for (int mt = 0; mt < B::kMt; ++mt) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][q] = 0.f;
+    }
+    uint4 hn = hi[lane], ln = lo[lane];
+    float dp[4] = {0.f, 0.f, 0.f, 0.f};
+    int mp = 0;
+    int st = 0;
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float v = rx[8 * k + 4 * h];
+            bh[h] = tf32_rna(v);
+            bl[h] = tf32_rna(v - __uint_as_float(bh[h]));
+        }
+#pragma unroll
+        for (int mt = k >> 1; mt < B::kMt; ++mt) {
+            const uint4 hc = hn, lc = ln;
+            if (st + 1 < kSteps) {
+                hn = hi[(st + 1) * 32 + lane];
+                ln = lo[(st + 1) * 32 + lane];
+            }
+            const uint32_t ah[4] = {hc.x, hc.y, hc.z, hc.w};
+            const uint32_t al[4] = {lc.x, lc.y, lc.z, lc.w};
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(d, al, bh[0], bh[1]);
+            mma_tf32(d, ah, bl[0], bl[1]);
+            mma_tf32(d, ah, bh[0], bh[1]);
+            if (st > 0) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[mp][q] += dp[q];
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) dp[q] = d[q];
+            mp = mt;
+            ++st;
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[mp][q] += dp[q];
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kBsThreads, 1)
 iir_blockstate_kernel(const float* __restrict__ x,
                       const float* __restrict__ coeffs,
                       const float* __restrict__ taps,
                       const float* __restrict__ u,
                       const float* __restrict__ z_in, float* __restrict__ y,
-                      float* __restrict__ z_out, int tracks, int s, int m) {
+                      float* __restrict__ z_out, int tracks, int s, int m,
+                      int vec) {
+    using B = BsShape<NT>;
+    constexpr int kPitch = B::kPitch;
+    constexpr int kSteps = B::steps();
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
-    const BsLayout L(m, R);
-    float* taps_t = smem + L.taps;
-    float* us = smem + L.u;
-    float* tile = smem + L.tile;
-    float* zs = smem + L.z;
+    uint4* hi = reinterpret_cast<uint4*>(smem + B::kHi);
+    uint4* lo = reinterpret_cast<uint4*>(smem + B::kLo);
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
-    const long long t0 = static_cast<long long>(blockIdx.x) * kBsTracks;
 
-    // taps_t[i][j] = taps[j][i], columns j >= m zero. taps is read
-    // coalesced, kBatch loads in flight per thread; the transposed
-    // shared store is bank-conflicted, a one-time cost per block.
-    const int mm = m * m;
-    for (int e0 = threadIdx.x; e0 < mm; e0 += kBatch * kBsThreads) {
-        float v[kBatch];
-#pragma unroll
-        for (int q = 0; q < kBatch; ++q) {
-            const int e = e0 + q * kBsThreads;
-            v[q] = (e < mm) ? taps[e] : 0.f;
+    // The taps in A-fragment order, split once: entry (step, lane) holds
+    // a0..a3 = taps[16mt + g (+8)][8k + t (+4)], zero outside m x m.
+    for (int e = threadIdx.x; e < kSteps * 32; e += kBsThreads) {
+        const int l = e & 31;
+        int k = 0, rem = e >> 5;
+        while (rem >= B::kMt - (k >> 1)) {
+            rem -= B::kMt - (k >> 1);
+            ++k;
         }
+        const int ja = 16 * ((k >> 1) + rem) + (l >> 2), jb = ja + 8;
+        const int i0 = 8 * k + (l & 3), i1 = i0 + 4;
+        const float v[4] = {
+            (ja < m && i0 < m) ? taps[ja * m + i0] : 0.f,
+            (jb < m && i0 < m) ? taps[jb * m + i0] : 0.f,
+            (ja < m && i1 < m) ? taps[ja * m + i1] : 0.f,
+            (jb < m && i1 < m) ? taps[jb * m + i1] : 0.f};
+        uint32_t h[4], r[4];
 #pragma unroll
-        for (int q = 0; q < kBatch; ++q) {
-            const int e = e0 + q * kBsThreads;
-            if (e < mm) taps_t[(e % m) * L.mp + e / m] = v[q];
+        for (int q = 0; q < 4; ++q) {
+            h[q] = tf32_rna(v[q]);
+            r[q] = tf32_rna(v[q] - __uint_as_float(h[q]));
         }
+        hi[e] = make_uint4(h[0], h[1], h[2], h[3]);
+        lo[e] = make_uint4(r[0], r[1], r[2], r[3]);
     }
-    const int pad = L.mp - m;
-    for (int e = threadIdx.x; e < m * pad; e += kBsThreads) {
-        taps_t[(e / pad) * L.mp + m + e % pad] = 0.f;
-    }
-    for (int e = threadIdx.x; e < 2 * m; e += kBsThreads) us[e] = u[e];
-    if (threadIdx.x < kBsTracks) {
-        const long long t = t0 + threadIdx.x;
-        zs[2 * threadIdx.x] = (t < tracks) ? z_in[2 * t] : 0.f;
-        zs[2 * threadIdx.x + 1] = (t < tracks) ? z_in[2 * t + 1] : 0.f;
-    }
+    float* us = smem + B::kU;
+    for (int e = threadIdx.x; e < 16 * NT; e += kBsThreads) us[e] = (e < 2 * m) ? u[e] : 0.f;
+    // Zeros in the stages: the columns past m stay zero for good.
+    float* wst = smem + B::kStage + warp * kBsStages * B::kTile;
+    for (int e = lane; e < kBsStages * B::kTile; e += 32) wst[e] = 0.f;
+    float* zs = smem + B::kZ + warp * kBsRows * 2;
+    __syncthreads();  // the only block-wide barrier
+
     const float b0 = coeffs[0], b1 = coeffs[1], b2 = coeffs[2];
-    const int j0 = warp * R;  // this thread's rows j0 .. j0 + R - 1
+    const int chunks = s / m;
+    const int groups = (tracks + kBsRows - 1) / kBsRows;
+    const int gw = blockIdx.x * kBsWarps + warp;
+    const int nw = gridDim.x * kBsWarps;
+    // Item it is chunk it % chunks of track group gw + (it / chunks) * nw.
+    const int items = (gw < groups) ? ((groups - 1 - gw) / nw + 1) * chunks : 0;
+    const int q4 = m >> 2;
+    // Lane's first (row, 16-byte column) of a stage, and the step per 32.
+    const int r0 = q4 ? lane / q4 : 0, q0 = lane - r0 * q4;
+    const int dr = q4 ? 32 / q4 : 0, dq = 32 - dr * q4;
 
-    for (int n0 = 0; n0 < s; n0 += m) {
-        // The (32 tracks x m) chunk of x, coalesced along samples, kBatch
-        // loads in flight per thread.
-        const int n_tile = kBsTracks * m;
-        for (int e0 = threadIdx.x; e0 < n_tile; e0 += kBatch * kBsThreads) {
-            float v[kBatch];
-#pragma unroll
-            for (int q = 0; q < kBatch; ++q) {
-                const int e = e0 + q * kBsThreads;
-                const long long t = t0 + e / m;
-                v[q] = (e < n_tile && t < tracks) ? x[t * s + n0 + e % m] : 0.f;
+    auto load = [&](int it) {  // item it's x chunk into stage it % 2
+        const long long t0 = static_cast<long long>(gw + (it / chunks) * nw) * kBsRows;
+        const int n0 = (it % chunks) * m;
+        float* dst = wst + (it & 1) * B::kTile;
+        if (vec) {
+            for (int e = lane, r = r0, q = q0; e < kBsRows * q4;
+                 e += 32, q += dq, r += dr + (q >= q4), q -= (q >= q4) ? q4 : 0) {
+                const long long tr = t0 + r;
+                const bool ok = tr < tracks;
+                cp_async16(dst + r * kPitch + 4 * q, x + (ok ? tr * s + n0 + 4 * q : 0),
+                           ok ? 16 : 0);
             }
-#pragma unroll
-            for (int q = 0; q < kBatch; ++q) {
-                const int e = e0 + q * kBsThreads;
-                if (e < n_tile) tile[(e / m) * L.pitch + e % m] = v[q];
+        } else {
+            for (int e = lane; e < kBsRows * m; e += 32) {
+                const int r = e / m, q = e - r * m;
+                const long long tr = t0 + r;
+                const bool ok = tr < tracks;
+                cp_async4(dst + r * kPitch + q, x + (ok ? tr * s + n0 + q : 0), ok ? 4 : 0);
             }
         }
-        __syncthreads();
+    };
 
-        // acc[r] = sum_i taps[j0 + r][i] * x[lane][i], i ascending. The
-        // taps are lower-triangular, so rows j0 .. j0 + R - 1 need only
-        // i < j0 + R: the terms skipped are exact zeros.
-        float acc[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = 0.f;
-        const float* xrow = tile + lane * L.pitch;
-        const int i_end = min(m, j0 + R);
-        for (int i = 0; i < i_end; ++i) {
-            const float xi = xrow[i];
-            const float* trow = taps_t + i * L.mp + j0;
-            if constexpr (R % 4 == 0) {
-#pragma unroll
-                for (int r = 0; r < R; r += 4) {
-                    const float4 tv = *reinterpret_cast<const float4*>(trow + r);
-                    acc[r] = fmaf(tv.x, xi, acc[r]);
-                    acc[r + 1] = fmaf(tv.y, xi, acc[r + 1]);
-                    acc[r + 2] = fmaf(tv.z, xi, acc[r + 2]);
-                    acc[r + 3] = fmaf(tv.w, xi, acc[r + 3]);
-                }
-            } else {
-#pragma unroll
-                for (int r = 0; r < R; ++r) acc[r] = fmaf(trow[r], xi, acc[r]);
-            }
-        }
-        const float z1 = zs[2 * lane];
-        const float z2 = zs[2 * lane + 1];
-        __syncthreads();  // every x read is done: the tile now takes w
-        float* wrow = tile + lane * L.pitch;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            const int j = j0 + r;
-            if (j < m) {
-                wrow[j] = acc[r] + us[2 * j] * z1 + us[2 * j + 1] * z2;
-            }
-        }
-        __syncthreads();
-
-        // y[t, n0 + j] from w[j], w[j-1], w[j-2] (entering state for j < 2).
-        for (int e = threadIdx.x; e < kBsTracks * m; e += kBsThreads) {
-            const int r = e / m;
-            const int j = e - r * m;
-            const long long t = t0 + r;
-            const float* w = tile + r * L.pitch;
-            const float wm1 = (j >= 1) ? w[j - 1] : zs[2 * r];
-            const float wm2 = (j >= 2) ? w[j - 2] : (j == 1 ? zs[2 * r] : zs[2 * r + 1]);
-            if (t < tracks) y[t * s + n0 + j] = b0 * w[j] + b1 * wm1 + b2 * wm2;
-        }
-        __syncthreads();
-        if (threadIdx.x < kBsTracks) {
-            const float* w = tile + threadIdx.x * L.pitch;
-            zs[2 * threadIdx.x] = w[m - 1];
-            zs[2 * threadIdx.x + 1] = w[m - 2];
-        }
-        __syncthreads();
+    if (items > 0) load(0);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    // The entering state of the warp's next group, read one group ahead.
+    float zn1 = 0.f, zn2 = 0.f;
+    if (lane < kBsRows) {
+        const long long tr = static_cast<long long>(gw) * kBsRows + lane;
+        zn1 = (tr < tracks) ? z_in[2 * tr] : 0.f;
+        zn2 = (tr < tracks) ? z_in[2 * tr + 1] : 0.f;
     }
-    if (threadIdx.x < kBsTracks) {
-        const long long t = t0 + threadIdx.x;
-        if (t < tracks) {
-            z_out[2 * t] = zs[2 * threadIdx.x];
-            z_out[2 * t + 1] = zs[2 * threadIdx.x + 1];
+    const int g = lane >> 2, t = lane & 3;
+    for (int it = 0; it < items; ++it) {
+        if (it + 1 < items) load(it + 1);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // item it is in
+        __syncwarp();
+        const int c = it % chunks;
+        const long long t0 = static_cast<long long>(gw + (it / chunks) * nw) * kBsRows;
+        if (c == 0) {
+            if (lane < kBsRows) {
+                zs[2 * lane] = zn1;
+                zs[2 * lane + 1] = zn2;
+                const long long tr = t0 + static_cast<long long>(nw) * kBsRows + lane;
+                zn1 = (tr < tracks) ? z_in[2 * tr] : 0.f;
+                zn2 = (tr < tracks) ? z_in[2 * tr + 1] : 0.f;
+            }
+            __syncwarp();
         }
+        float* xs = wst + (it & 1) * B::kTile;
+        float acc[B::kMt][4];
+        bs_product<NT>(acc, xs, hi, lo, lane);
+        const float z1a = zs[4 * t], z2a = zs[4 * t + 1];
+        const float z1b = zs[4 * t + 2], z2b = zs[4 * t + 3];
+        __syncwarp();  // every x read is done: the stage now takes w
+        float* pa = xs + (2 * t) * kPitch;
+        float* pb = pa + kPitch;
+#pragma unroll
+        for (int mt = 0; mt < B::kMt; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int j = 16 * mt + g + 8 * h;
+                const float2 uu = *reinterpret_cast<const float2*>(us + 2 * j);
+                if (j < m) {
+                    pa[j] = acc[mt][2 * h] + (uu.x * z1a + uu.y * z2a);
+                    pb[j] = acc[mt][2 * h + 1] + (uu.x * z1b + uu.y * z2b);
+                }
+            }
+        }
+        __syncwarp();
+
+        // y[t, n0 + j] from w[j], w[j-1], w[j-2] (the entering state for
+        // j < 2), written along samples.
+        const int n0 = c * m;
+        if (vec) {
+            for (int e = lane, r = r0, q = q0; e < kBsRows * q4;
+                 e += 32, q += dq, r += dr + (q >= q4), q -= (q >= q4) ? q4 : 0) {
+                const int j = 4 * q;
+                const long long tr = t0 + r;
+                if (tr >= tracks) break;
+                const float* w = xs + r * kPitch;
+                const float4 wv = *reinterpret_cast<const float4*>(w + j);
+                float p1, p2;
+                if (j == 0) {
+                    p1 = zs[2 * r];
+                    p2 = zs[2 * r + 1];
+                } else {
+                    const float2 pv = *reinterpret_cast<const float2*>(w + j - 2);
+                    p2 = pv.x;
+                    p1 = pv.y;
+                }
+                float4 yv;
+                yv.x = b0 * wv.x + b1 * p1 + b2 * p2;
+                yv.y = b0 * wv.y + b1 * wv.x + b2 * p1;
+                yv.z = b0 * wv.z + b1 * wv.y + b2 * wv.x;
+                yv.w = b0 * wv.w + b1 * wv.z + b2 * wv.y;
+                *reinterpret_cast<float4*>(y + tr * s + n0 + j) = yv;
+            }
+        } else {
+            for (int e = lane; e < kBsRows * m; e += 32) {
+                const int r = e / m, j = e - r * m;
+                const long long tr = t0 + r;
+                if (tr >= tracks) break;
+                const float* w = xs + r * kPitch;
+                const float wm1 = (j >= 1) ? w[j - 1] : zs[2 * r];
+                const float wm2 = (j >= 2) ? w[j - 2] : (j == 1 ? zs[2 * r] : zs[2 * r + 1]);
+                y[tr * s + n0 + j] = b0 * w[j] + b1 * wm1 + b2 * wm2;
+            }
+        }
+        __syncwarp();
+        if (lane < kBsRows) {
+            const float* w = xs + lane * kPitch;
+            zs[2 * lane] = w[m - 1];
+            zs[2 * lane + 1] = w[m - 2];
+            const long long tr = t0 + lane;
+            if (c == chunks - 1 && tr < tracks) {
+                z_out[2 * tr] = zs[2 * lane];
+                z_out[2 * tr + 1] = zs[2 * lane + 1];
+            }
+        }
+        __syncwarp();  // the stage is free for the copy two items on
     }
 }
 
@@ -465,19 +640,39 @@ cudaError_t launch_cascade(const float* x, const float* coeffs,
     return cudaGetLastError();
 }
 
-template <int R>
+// One or two blocks an SM (the occupancy API says which; one at m > 64),
+// never more than the track groups need.
+template <int NT>
 cudaError_t launch_blockstate(const float* x, const float* coeffs,
                               const float* taps, const float* u,
                               const float* z_in, float* y, float* z_out,
                               int tracks, int s, int m, cudaStream_t st) {
-    const size_t bytes = static_cast<size_t>(BsLayout(m, R).total) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        iir_blockstate_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+    const int bytes = BsShape<NT>::kTotal * static_cast<int>(sizeof(float));
+    static int cached_dev = -1, cached_blocks = 0;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    iir_blockstate_kernel<R><<<grid_for(tracks, kBsTracks), kBsThreads,
-                               bytes, st>>>(
-        x, coeffs, taps, u, z_in, y, z_out, tracks, s, m);
+    if (dev != cached_dev) {
+        err = cudaFuncSetAttribute(iir_blockstate_kernel<NT>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err != cudaSuccess) return err;
+        int sms = 0, per_sm = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, iir_blockstate_kernel<NT>, kBsThreads, bytes);
+        if (err != cudaSuccess) return err;
+        if (per_sm < 1) return cudaErrorInvalidConfiguration;
+        cached_blocks = sms * per_sm;
+        cached_dev = dev;
+    }
+    const int groups = (tracks + kBsRows - 1) / kBsRows;
+    const int blocks = std::min(cached_blocks, grid_for(groups, kBsWarps));
+    // 16-byte copies and stores when every chunk row is 16-byte aligned.
+    const int vec = (m % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                    (reinterpret_cast<uintptr_t>(y) % 16 == 0);
+    iir_blockstate_kernel<NT><<<blocks, kBsThreads, bytes, st>>>(
+        x, coeffs, taps, u, z_in, y, z_out, tracks, s, m, vec);
     return cudaGetLastError();
 }
 
@@ -530,15 +725,13 @@ int iir_blockstate_launch(const float* x, const float* coeffs,
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int rows = (m + kBsWarps - 1) / kBsWarps;  // rows per thread
+    const int nt = (m + 7) / 8;  // k-tiles of 8 samples, padded to 2, 4, 8, 16
     cudaError_t err;
-    if (rows <= 1) {
-        err = launch_blockstate<1>(x, coeffs, taps, u, z_in, y, z_out, tracks, s, m, st);
-    } else if (rows <= 2) {
+    if (nt <= 2) {
         err = launch_blockstate<2>(x, coeffs, taps, u, z_in, y, z_out, tracks, s, m, st);
-    } else if (rows <= 4) {
+    } else if (nt <= 4) {
         err = launch_blockstate<4>(x, coeffs, taps, u, z_in, y, z_out, tracks, s, m, st);
-    } else if (rows <= 8) {
+    } else if (nt <= 8) {
         err = launch_blockstate<8>(x, coeffs, taps, u, z_in, y, z_out, tracks, s, m, st);
     } else {
         err = launch_blockstate<16>(x, coeffs, taps, u, z_in, y, z_out, tracks, s, m, st);

@@ -27,8 +27,15 @@ import torch
 def probe(y: torch.Tensor) -> torch.Tensor:
     """Tiny per-block residue: mean |value| of the output block, (1,).
     It keeps every output element in use and gives soaks a
-    state-integrity signal that tracks the whole block. The mean is taken
-    in float32, so an integer output (SOL_MXU_int8) has a probe too."""
+    state-integrity signal that tracks the whole block. A floating output
+    takes one reduction pass, the L1 norm in float32 over the element
+    count, with no full-size temporary (the reference's probe is one
+    fused reduction). ``vector_norm`` refuses integers, so an integer
+    output (SOL_MXU_int8) keeps ``abs`` then a float32 ``mean``: two
+    passes."""
+    if y.is_floating_point():
+        norm = torch.linalg.vector_norm(y, 1, dtype=torch.float32)
+        return (norm / y.numel()).reshape(1)
     return torch.mean(torch.abs(y), dtype=torch.float32).reshape(1)
 
 

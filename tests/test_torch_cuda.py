@@ -161,16 +161,20 @@ def test_res_kernel_is_deterministic(cuda):
 # -- the four IIR kernels (csrc/iir.cu) against their plain twins --------
 #
 # Tolerance: 1e-5 absolute on outputs and states, kernel vs twin. The
-# kernels contract the recurrence into FMAs and the blockstate kernel sums
-# its chunk product in another order than torch.matmul, each ~1e-7 on
-# these unit-scale signals; 1e-5 is the reference's own bar for the
-# blockstate form against the scan (tests/test_pallas_ops.py:526).
+# kernels contract the recurrence into FMAs, and the blockstate kernel
+# forms its chunk product in 3xTF32 on the tensor cores, one 8-sample
+# k-step per tensor-core sum and FP32 sums across k-steps (~3e-7 on these
+# unit-scale signals; tests/test_torch_iir_ops.py emulates it on the
+# CPU); 1e-5 is the reference's own bar for the blockstate form against
+# the scan (tests/test_pallas_ops.py:526).
 # Systolic vs chain cascade: 1e-6 absolute and relative, the reference's
 # cross-check (tests/test_pallas_ops.py:165-191).
 
 IIR_ATOL = 1e-5
 CASCADE_TOL = 1e-6
-IIR_SHAPES = [(8, 64), (640, 128), (65536, 512)]
+# (1000, 96): a track count no warp's 8-track group divides, and S = 96,
+# where block_m 12 gives m = 12 (not a multiple of 8) and 128 gives m = 96.
+IIR_SHAPES = [(8, 64), (640, 128), (65536, 512), (1000, 96)]
 N_STAGES = 10
 
 
@@ -212,9 +216,9 @@ def _iir_pair(kind, tracks, s, device, block_m=128):
             lambda xx, zz: iops.iir_cascade_plain(xx, c, zz), x, z)
 
 
-IIR_CASES = [("iir_biquad", 128), ("iir_biquad_blockstate", 16),
-             ("iir_biquad_blockstate", 128), ("iir_cascade", 128),
-             ("iir_cascade_chain", 128)]
+IIR_CASES = [("iir_biquad", 128), ("iir_biquad_blockstate", 12),
+             ("iir_biquad_blockstate", 16), ("iir_biquad_blockstate", 128),
+             ("iir_cascade", 128), ("iir_cascade_chain", 128)]
 
 
 @pytest.mark.parametrize("tracks,s", IIR_SHAPES)
@@ -244,6 +248,30 @@ def test_iir_kernel_is_deterministic(cuda, kind, block_m):
     y2, z2 = kern(x, z)
     assert torch.equal(y1, y2) and torch.equal(z1, z2)
     assert torch.equal(z, z_copy)
+
+
+# (tracks, S, block_m): m the blockstate kernel pads to 16, 32, 64 or 128
+# (2, 3, 7, 12, 102, 124, 127, 128), with 16-byte and 4-byte copies, at
+# track counts no 8-track group divides.
+BLOCKSTATE_M_CASES = [(8, 64, 2), (17, 30, 3), (33, 14, 7), (1000, 96, 12),
+                      (3, 510, 102), (100, 248, 124), (5, 381, 127),
+                      (1000, 512, 128)]
+
+
+@pytest.mark.parametrize("tracks,s,block_m", BLOCKSTATE_M_CASES)
+def test_iir_blockstate_every_m_matches_twin_and_is_deterministic(
+        cuda, tracks, s, block_m):
+    kern, plain, x, z0 = _iir_pair("iir_biquad_blockstate", tracks, s, cuda,
+                                   block_m)
+    zk, zp = z0, z0
+    for _ in range(3):
+        yk, zk = kern(x, zk)
+        yp, zp = plain(x, zp)
+        assert (yk - yp).abs().max().item() <= IIR_ATOL
+        assert (zk - zp).abs().max().item() <= IIR_ATOL
+    y1, z1 = kern(x, z0)
+    y2, z2 = kern(x, z0)
+    assert torch.equal(y1, y2) and torch.equal(z1, z2)
 
 
 @pytest.mark.parametrize("tracks,s", [(640, 128), (65536, 512), (33, 7)])

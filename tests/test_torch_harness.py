@@ -132,6 +132,19 @@ def test_probe_is_mean_abs():
     assert p.shape == (1,) and p.item() == 2.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_probe_equals_mean_abs(dtype):
+    """One pass for a float output, abs then mean for an integer one:
+    both give mean(|y|) in float32."""
+    g = np.random.Generator(np.random.MT19937(3))
+    y = torch.from_numpy((g.random((37, 129)) * 200 - 100).astype(np.float32))
+    y = y.to(dtype)
+    p = streaming.probe(y)
+    want = torch.mean(torch.abs(y), dtype=torch.float32)
+    assert p.shape == (1,) and p.dtype == torch.float32
+    torch.testing.assert_close(p[0], want, rtol=1e-6, atol=0)
+
+
 def test_saturated_marginal_statistics(modal):
     step, carry = modal.stream_body()
     reps, depth = 5, 8

@@ -15,7 +15,10 @@ Tolerances, absolute:
   block-state form (its chunk products sum in another order);
 * the cascade twin vs ``iir_cascade_pallas`` (systolic) and
   ``iir_cascade_pallas_chain``: 1e-5, as ``tests/test_pallas_ops.py``
-  holds the systolic kernel against the chained scans.
+  holds the systolic kernel against the chained scans;
+* the CUDA blockstate kernel's 3xTF32 arithmetic, emulated here, vs the
+  blockstate twin: 1e-6, a tenth of the 1e-5 the card's tests hold the
+  kernel to.
 """
 
 import numpy as np
@@ -222,3 +225,73 @@ def test_wrappers_never_write_their_input_state(rng):
     z = torch.zeros((8, 2))
     _, z_new = tiir.iir_biquad(_t(_signal(rng, 8, 64)), _t(_coeffs()), z)
     assert z.abs().sum() == 0 and z_new.data_ptr() != z.data_ptr()
+
+
+def _tf32(v):
+    """TF32 of float32 ``v``, rounded to nearest, ties away from zero
+    (``cvt.rna.tf32.f32``): add half of the 13 dropped bits, then mask."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _blockstate_3xtf32(x, c, taps, u, state, passes=3):
+    """The arithmetic of the CUDA blockstate kernel (``csrc/iir.cu``) on
+    the CPU: per 8-sample k-step of each chunk, A_lo B_hi + A_hi B_lo +
+    A_hi B_hi (``passes=3``; ``passes=1`` is plain TF32, A_hi B_hi) into a
+    fresh float32 sum, added into a float32 running sum across k-steps;
+    then the rank-2 state term, y and the carried state as the kernel
+    forms them."""
+    b0, b1, b2 = c[0], c[1], c[2]
+    m = taps.shape[0]
+    th, xs_h = _tf32(taps), _tf32(x)
+    tl, xs_l = _tf32(taps - th), _tf32(x - xs_h)
+    y = torch.empty_like(x)
+    z1, z2 = state[:, 0], state[:, 1]
+    for n0 in range(0, x.shape[1], m):
+        acc = torch.zeros((x.shape[0], m))
+        for k0 in range(0, m, 8):
+            ch, cl = slice(n0 + k0, n0 + min(k0 + 8, m)), slice(k0, k0 + 8)
+            d = xs_h[:, ch] @ th[:, cl].t()
+            if passes == 3:
+                d = (xs_l[:, ch] @ th[:, cl].t()
+                     + xs_h[:, ch] @ tl[:, cl].t()) + d
+            acc = acc + d
+        w = acc + (z1[:, None] * u[:, 0] + z2[:, None] * u[:, 1])
+        wm1 = torch.cat([z1[:, None], w[:, :-1]], dim=1)
+        wm2 = torch.cat([z2[:, None], wm1[:, :-1]], dim=1)
+        y[:, n0:n0 + m] = b0 * w + b1 * wm1 + b2 * wm2
+        z1, z2 = w[:, m - 1], w[:, m - 2]
+    return y, torch.stack([z1, z2], dim=1)
+
+
+@pytest.mark.parametrize("fc", [0.25, 0.05])
+def test_blockstate_3xtf32_emulation_is_well_inside_the_bar(rng, fc):
+    """At m = 128, over 3 chained blocks of the tests' signals, the CUDA
+    kernel's 3xTF32 product (one k-step per tensor-core sum, IEEE sums
+    across k-steps) stays within 1e-6 of the float32 twin, a tenth of the
+    1e-5 bar; plain TF32 misses that bar."""
+    tracks, s, m = 64, 512, 128
+    x = _t(_signal(rng, tracks, s))
+    c = _t(_coeffs(fc=fc))
+    z0 = _t((rng.random((tracks, 2), dtype=np.float32) - 0.5).astype(
+        np.float32))
+    taps, u = (_t(a) for a in tiir.blockstate_tables(_coeffs(fc=fc), m))
+    twin = _chain(lambda xx, z: tiir.iir_biquad_blockstate_plain(
+        xx, c, taps, u, z), x, z0)
+    split = _chain(lambda xx, z: _blockstate_3xtf32(xx, c, taps, u, z),
+                   x, z0)
+    plain_tf32 = _chain(lambda xx, z: _blockstate_3xtf32(
+        xx, c, taps, u, z, passes=1), x, z0)
+    _assert_pair(split, twin, BLOCKSTATE_ATOL / 10)
+    assert max(np.abs(a - b).max()
+               for a, b in zip(plain_tf32, twin)) > BLOCKSTATE_ATOL
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10  # TF32 keeps 10 mantissa bits
+    v = torch.tensor([one + ulp / 4, one + ulp / 2, one + 3 * ulp / 4,
+                      -(one + ulp / 2), 3.0e-3], dtype=torch.float32)
+    got = _tf32(v)
+    assert got[:4].tolist() == [one, one + ulp, one + ulp, -(one + ulp)]
+    assert got[4].item() == pytest.approx(3.0e-3, rel=2.0 ** -11)
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
