@@ -14,10 +14,13 @@ nonzero:
    nvcc per source, all started together.
 3. The two modal kernels (rotation and Gordon-Smith resonator) vs their
    plain twins on the card, under every contract of the modal bank, with
-   the states chained over 2 blocks, at seven shapes up to the main
-   path's (1,048,576 modes, 512 samples, 32 tracks), three of them with
-   T_out not dividing 32 (12 and 3; 12,288 x 512 x 12 is the CLI path's
-   own); CUDA-event times of each kernel and its twin at the main shape.
+   the states chained over 2 blocks, at ten shapes up to the main path's
+   (1,048,576 modes, 512 samples, 32 tracks), three of them with T_out
+   not dividing 32 (12 and 3; 12,288 x 512 x 12 is the CLI path's own),
+   three at the persistent grid's edges (fewer tiles than SMs, a ragged
+   last tile, 4,194,304 modes in several passes), each with its schedule
+   (grid, modes a thread, passes, partials bytes); CUDA-event times of
+   each kernel and its twin at the main shape.
 4. The four IIR kernels vs their plain twins, states chained over 3
    blocks, at 8 x 64, 640 x 128, 65,536 x 512 and 1,000 x 96 (tracks x
    samples; 1,000 is no multiple of the blockstate kernel's 8-track
@@ -95,9 +98,13 @@ import sys
 import time
 
 MAIN_SHAPE = (1048576, 512, 32)
-# (12288, 512, 12) is ModalFilterBank's CLI path at 12 tracks.
+# (12288, 512, 12) is ModalFilterBank's CLI path at 12 tracks. The
+# persistent grid's edges: (2048, 64, 32) has fewer tiles than SMs,
+# (70048, 64, 32) a ragged last tile and blocks of 8 and 9 tiles, and
+# (4194304, 64, 32) more tiles than one pass of the grid takes.
 SHAPES = [(4096, 32, 32), (960, 64, 32), (256, 32, 8), (3000, 64, 12),
-          (999, 32, 3), (12288, 512, 12), MAIN_SHAPE]
+          (999, 32, 3), (12288, 512, 12), (2048, 64, 32), (70048, 64, 32),
+          (4194304, 64, 32), MAIN_SHAPE]
 OUT_RTOL = 1e-5  # max|kernel - plain| <= OUT_RTOL * max|plain|
 STATE_ATOL = 1e-4
 TIMING_REPS = 20
@@ -372,8 +379,11 @@ def compare(torch, ops, shape, device):
     if launched != (4, 3):
         fail(f"{shape}: {launched} (rotation, resonator) kernel launches, "
              "expected (4, 3)")
+    sched = ops._schedule(ops._lib(), "rotation", m, t, device)
     print(f"compare M={m} S={s} T_out={t}: ok  max rel-to-peak "
-          f"{max(rel):.3g}  state max|d| {max(serr, rerr):.3g}")
+          f"{max(rel):.3g}  state max|d| {max(serr, rerr):.3g}; schedule: "
+          f"grid {sched.grid}, {sched.modes_per_thread} modes a thread, "
+          f"{sched.passes} passes, partials {sched.n_partials * s * t * 4:,} B")
     return worst["rotation"], worst["res"]
 
 

@@ -2,6 +2,7 @@
 
     python -m gpuaudiobench_tpu_torch.calibrate_peaks [--nRuns 10]
         [--warmup 2] [--pipelineDepth 256] [--out PATH] [--dry]
+        [--only SOL_MXU_bf16 ...]
 
 PyTorch counterpart of ``tools/calibrate_peaks.py``. Runs the six
 speed-of-light benchmarks (``models/speedoflight.py``) through the
@@ -35,6 +36,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import json
+import os
 import sys
 from typing import Dict, Optional
 
@@ -132,6 +134,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=MEASURED_PEAKS_PATH)
     ap.add_argument("--dry", action="store_true",
                     help="print, do not write the json")
+    ap.add_argument("--only", nargs="+", choices=list(TARGETS),
+                    help="measure these benchmarks only; the other peaks "
+                         "are kept from --out (or the shipped file)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -155,10 +160,17 @@ def main(argv=None) -> int:
           f"{clocks['power_limit']}, max SM clock {clocks['clocks_max_sm']}")
 
     rows, peaks = [], {}
-    for name in TARGETS:
+    if args.only:
+        base = args.out if os.path.exists(args.out) else MEASURED_PEAKS_PATH
+        with open(base) as f:
+            kept = json.load(f)
+        peaks = dict(kept["peaks"])
+        rows = kept["raw"]
+    for name in args.only or TARGETS:
         print(f"  {name} ...", flush=True)
         row = measure(cfg, name, device)
-        rows.append(row)
+        rows = [r for r in rows if r["benchmark"] != name]
+        rows.insert(list(TARGETS).index(name), row)
         peaks[row["peak_key"]] = row["measured_rate"]
         unit = ("GB/s" if row["peak_key"].endswith("bytes_per_sec")
                 else "GFLOP/s")

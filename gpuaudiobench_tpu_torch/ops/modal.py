@@ -38,7 +38,9 @@ On a CUDA tensor it launches the kernel or raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -149,13 +151,103 @@ def _lib() -> ctypes.CDLL:
     lib = load("modal_bank")
     if lib.modal_bank_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.modal_bank_num_blocks.argtypes = [i, i]
-        lib.modal_bank_num_blocks.restype = i
-        lib.modal_bank_launch.argtypes = [p] * 9 + [i] * 4 + [p]
+        for fn in (lib.modal_bank_warps, lib.modal_bank_max_modes_per_thread):
+            fn.argtypes = []
+            fn.restype = i
+        lib.modal_bank_capacity.argtypes = [i]
+        lib.modal_bank_capacity.restype = i
+        lib.modal_bank_launch.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.modal_bank_launch.restype = i
-        lib.modal_res_launch.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.modal_res_launch.argtypes = [p] * 7 + [i] * 7 + [p]
         lib.modal_res_launch.restype = i
     return lib
+
+
+@dataclass(frozen=True)
+class ModalSchedule:
+    """The kernel's static schedule of m modes onto a persistent grid.
+
+    The modes lie in rows of ``row_w`` = lcm(32, T_out); a tile is
+    ``modes_per_thread`` rows of 32 columns, one warp's share of a pass
+    (``tile_modes``). Block b takes the contiguous tiles
+    ``block_tiles(b)`` and runs them in ``passes`` passes of ``warps``
+    tiles; each pass writes one (S, T_out) partial, so the kernel needs
+    ``n_partials`` of them. The order of every sum depends only on the
+    schedule."""
+
+    m: int
+    t_out: int
+    row_w: int
+    tiles: int
+    grid: int
+    passes: int
+    warps: int
+    modes_per_thread: int
+
+    @property
+    def n_partials(self) -> int:
+        return self.grid * self.passes
+
+    def block_tiles(self, b: int) -> Tuple[int, int]:
+        """Tiles [lo, hi) of block b."""
+        return b * self.tiles // self.grid, (b + 1) * self.tiles // self.grid
+
+    def tile_modes(self, tile: int) -> List[List[int]]:
+        """Modes of ``tile``: element [lane][k] is lane's mode of row k,
+        or -1 past the ragged edge."""
+        cols = self.row_w // 32
+        base = tile // cols * self.modes_per_thread * self.row_w
+        base += 32 * (tile % cols)
+        return [[mode if mode < self.m else -1
+                 for mode in (base + k * self.row_w + lane
+                              for k in range(self.modes_per_thread))]
+                for lane in range(32)]
+
+
+def modal_schedule(m: int, t_out: int, capacity: int, warps: int,
+                   max_modes_per_thread: int) -> ModalSchedule:
+    """Schedule m modes folded onto t_out tracks for a card on which
+    ``capacity`` blocks of ``warps`` rotation warps fit at once. A thread
+    holds ``max_modes_per_thread`` modes, halved (rounding down) while the
+    tiles would fill less than half of the card's warps, down to one; the
+    grid is ``capacity`` blocks, never more than there are tiles, and a
+    block takes as many passes as its share of the tiles needs."""
+    if m <= 0 or t_out <= 0 or m % t_out or capacity < 1:
+        raise ValueError(f"no schedule for M={m}, T_out={t_out}, "
+                         f"capacity {capacity}")
+    row_w = 32 // math.gcd(32, t_out) * t_out
+
+    def tiles_for(mpt):
+        return -(-m // (mpt * row_w)) * (row_w // 32)
+
+    mpt = max_modes_per_thread
+    while mpt > 1 and 2 * tiles_for(mpt) < capacity * warps:
+        mpt //= 2
+    tiles = tiles_for(mpt)
+    grid = min(capacity, tiles)
+    passes = -(-(-(-tiles // grid)) // warps)
+    return ModalSchedule(m, t_out, row_w, tiles, grid, passes, warps, mpt)
+
+
+# (device index, algorithm, M, T_out) -> the kernel's schedule, worked out
+# once: the launch path runs once a block.
+_SCHEDULES: Dict[Tuple[int, str, int, int], ModalSchedule] = {}
+
+
+def _schedule(lib, algorithm: str, m: int, t_out: int,
+              dev: torch.device) -> ModalSchedule:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, algorithm, m, t_out)
+    sched = _SCHEDULES.get(key)
+    if sched is None:
+        with torch.cuda.device(dev):
+            cap = lib.modal_bank_capacity(int(algorithm == "res"))
+        if cap < 0:
+            raise RuntimeError(f"modal_bank_capacity failed: CUDA error {-cap}")
+        sched = _SCHEDULES[key] = modal_schedule(
+            m, t_out, cap, lib.modal_bank_warps(),
+            lib.modal_bank_max_modes_per_thread())
+    return sched
 
 
 def _launch(algorithm: str, tables, amp: Optional[torch.Tensor], s0, s1,
@@ -168,8 +260,8 @@ def _launch(algorithm: str, tables, amp: Optional[torch.Tensor], s0, s1,
     lib = _lib()
     m = s0.shape[0]
     dev = s0.device
-    n_blocks = lib.modal_bank_num_blocks(m, output_tracks)
-    partials = torch.empty((n_blocks, buffer_size, output_tracks),
+    sched = _schedule(lib, algorithm, m, output_tracks, dev)
+    partials = torch.empty((sched.n_partials, buffer_size, output_tracks),
                            dtype=torch.float32, device=dev)
     shape = ((output_tracks, buffer_size) if track_major
              else (buffer_size, output_tracks))
@@ -188,7 +280,8 @@ def _launch(algorithm: str, tables, amp: Optional[torch.Tensor], s0, s1,
         err = getattr(lib, fn_name)(
             *ins, ptr(s0), ptr(s1), ptr(s0_o), ptr(s1_o),
             partials.data_ptr(), out.data_ptr(),
-            m, buffer_size, output_tracks, int(track_major), stream)
+            m, buffer_size, output_tracks, int(track_major),
+            sched.modes_per_thread, sched.grid, sched.passes, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
     KERNEL_LAUNCHES["modal_res" if res else "modal_bank"] += 1

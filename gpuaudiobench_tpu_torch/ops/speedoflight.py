@@ -138,23 +138,38 @@ def stream_scale(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0
 
 
+# K halves of the bf16 product: each half accumulates on the tensor cores,
+# and cuBLAS adds the second onto the first in f32 (the beta = 1 epilogue of
+# addmm). One accumulation over all of K = 4,096 misses the reference's 1e-3
+# on 329 of 16.8 M outputs (max 1.82e-3); halves meet it (max 8.9e-4), as
+# tools/sol_bf16_split.py measured on an H100.
+BF16_K_SPLITS = 2
+
+
 def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16 x bf16 -> f32 (``preferred_element_type=float32`` in JAX). On
-    CUDA ``torch.mm(..., out_dtype=torch.float32)``; a PyTorch without that
-    overload raises rather than round the product to bf16. On the CPU both
-    operands are upcast, which is exact."""
+    CUDA the sum of ``BF16_K_SPLITS`` K-chunk products, the first from
+    ``torch.mm(..., out_dtype=torch.float32)``, the rest added by
+    ``torch.addmm(c, ..., out_dtype=torch.float32)``; a PyTorch without
+    those overloads raises rather than round the product to bf16. On the
+    CPU both operands are upcast, which is exact."""
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError(f"matmul_bf16: operands must be bfloat16, got "
                         f"{a.dtype}, {b.dtype}")
     if a.device.type == "cpu":
         return a.float() @ b.float()
+    k = a.shape[1]
+    bounds = [k * i // BF16_K_SPLITS for i in range(BF16_K_SPLITS + 1)]
     try:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        c = torch.mm(a[:, :bounds[1]], b[:bounds[1]], out_dtype=torch.float32)
+        for lo, hi in zip(bounds[1:-1], bounds[2:]):
+            c = torch.addmm(c, a[:, lo:hi], b[lo:hi], out_dtype=torch.float32)
+        return c
     except (TypeError, NotImplementedError) as e:
         raise NotImplementedError(
-            "matmul_bf16: this PyTorch has no torch.mm(..., out_dtype=) "
-            f"({e}); a bf16 product rounded to bf16 misses the 1e-3 "
-            "tolerance, so SOL_MXU_bf16 does not run (ROADMAP.md)") from e
+            "matmul_bf16: this PyTorch has no torch.mm/addmm(..., "
+            f"out_dtype=) ({e}); a bf16 product rounded to bf16 misses the "
+            "1e-3 tolerance, so SOL_MXU_bf16 does not run (ROADMAP.md)") from e
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

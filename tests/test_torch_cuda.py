@@ -158,6 +158,48 @@ def test_res_kernel_is_deterministic(cuda):
         assert torch.equal(x, z)
 
 
+# The persistent grid's edges: a ragged M whose tiles do not divide among
+# the blocks, T_out 3, 8, 12 and 32, fewer tiles than SMs (one warp's
+# tile a block), and more tiles than the grid takes in one pass.
+SCHEDULE_SHAPES = [
+    (70048, 64, 32), (12288, 128, 12), (999, 32, 3), (33024, 40, 8),
+    (96, 16, 3), (4194304, 16, 32),
+]
+
+
+@pytest.mark.parametrize("m,s,t_out", SCHEDULE_SHAPES)
+def test_kernel_on_the_schedule_edges(cuda, m, s, t_out):
+    """Both forms under both contracts against their twins, and bit for
+    bit from run to run, at the persistent grid's edges."""
+    amp, cw, sw, re, im = _tables(m, cuda, seed=m % 97)
+    sched = tops._schedule(tops._lib(), "rotation", m, t_out, cuda)
+    if m == 4194304:
+        assert sched.passes > 1
+    if m == 96:
+        assert sched.grid < torch.cuda.get_device_properties(0).multi_processor_count
+    runs = []
+    for _ in range(2):
+        out, _, _ = tops.modal_bank(amp, cw, sw, re, im, s, t_out)
+        step = tops.modal_folded_step(cw, sw, amp * re, amp * im, s, t_out)
+        eps, y, q = tops.res_init(cw, sw, amp * re, amp * im)
+        res = tops.modal_res_step(eps, y, q, s, t_out)
+        runs.append((out, *step, *res))
+    for x, z in zip(*runs):
+        assert torch.equal(x, z)
+    out, step_out, kre, kim, res_out, ky, kq = runs[0]
+    plain, _, _ = tops.modal_bank_plain(amp, cw, sw, re, im, s, t_out)
+    _close(out, plain)
+    pout, pre, pim = tops.modal_folded_step_plain(cw, sw, amp * re, amp * im,
+                                                  s, t_out)
+    _close(step_out, pout)
+    assert (kre - pre).abs().max().item() <= STATE_ATOL
+    assert (kim - pim).abs().max().item() <= STATE_ATOL
+    rout, py, pq = tops.modal_res_step_plain(eps, y, q, s, t_out)
+    _close(res_out, rout)
+    assert (ky - py).abs().max().item() <= STATE_ATOL
+    assert (kq - pq).abs().max().item() <= STATE_ATOL
+
+
 # -- the four IIR kernels (csrc/iir.cu) against their plain twins --------
 #
 # Tolerance: 1e-5 absolute on outputs and states, kernel vs twin. The
@@ -625,9 +667,9 @@ def test_sol_wrapper_rejects_bad_input(cuda, name):
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
 def test_sol_matmul_at_4096_meets_its_golden(cuda, dtype):
-    """``torch.mm(..., out_dtype=torch.float32)`` (bf16), full-FP32
-    ``torch.matmul`` and ``torch._int_mm`` at the default 4,096 against
-    the f32 and exact integer goldens, every element checked."""
+    """``matmul_bf16`` (two K halves, each ``out_dtype=torch.float32``),
+    full-FP32 ``torch.matmul`` and ``torch._int_mm`` at the default 4,096
+    against the f32 and exact integer goldens, every element checked."""
     from gpuaudiobench_tpu_torch.config import BenchConfig
     from gpuaudiobench_tpu_torch.registry import create_benchmark
 
