@@ -26,6 +26,9 @@ nonzero:
    samples; 1,000 is no multiple of the blockstate kernel's 8-track
    group), the blockstate kernel at block_m 12, 16 and 128 (m = 12 and 96
    at 96 samples), and the systolic cascade vs the chain cascade at 1e-6;
+   the systolic cascade vs its twin and the chain at its schedule's edges
+   (K = 16 at 1,000 x 96, K = 10 at 33 x 4 with no steady step, K = 1 at
+   640 x 128), each with its schedule (grid, step ranges, chunks);
    CUDA-event times of each kernel and twin at 65,536 x 512, and of
    ``torch.matmul`` on the blockstate chunk products as a yardstick.
 5. The Conv1D FIR kernel vs its plain twin in both edge modes at five
@@ -144,6 +147,9 @@ IIR_BLOCK_M = (12, 16, 128)  # the blockstate kernel's; the others at 128
 IIR_ATOL = 1e-5
 CASCADE_TOL = 1e-6
 IIR_STAGES = 10
+# (K, tracks, samples) at the systolic cascade schedule's edges: the
+# deepest instance, S < K - 1 (warm-up and drain only), no lag.
+CASCADE_EDGES = [(16, 1000, 96), (10, 33, 4), (1, 640, 128)]
 IIR_SOURCE = "gpuaudiobench_tpu_torch/csrc/iir.cu"
 IIR_REPLACES = {
     "iir_biquad": "gpuaudiobench_tpu/ops/iir.py:49",
@@ -604,6 +610,46 @@ def compare_iir(torch, iops, tracks, s, device):
     return worst
 
 
+def schedule_text(iops, tracks, s, k):
+    sc = iops.cascade_schedule(tracks, s, k)
+    return (f"grid {sc.grid} x {sc.warps} warps, warm-up steps {sc.warmup}, "
+            f"steady {sc.steady}, drain {sc.drain}, {sc.chunks} chunks")
+
+
+def compare_cascade_edges(torch, iops, device):
+    """The systolic cascade against its twin (IIR_ATOL) and the chain
+    cascade (CASCADE_TOL abs + rel) over 3 chained blocks at each of
+    CASCADE_EDGES; returns max |kernel - twin|."""
+    worst = 0.0
+    for k, tracks, s in CASCADE_EDGES:
+        x, _, _ = iir_inputs(torch, tracks, s, device)
+        _, c, z = iir_inputs(torch, tracks, s, device, stages=k)
+        zs, zc, zp = z, z, z
+        err = chain_d = 0.0
+        for blk in range(3):
+            ys, zs = iops.iir_cascade(x, c, zs)
+            yc, zc = iops.iir_cascade_chain(x, c, zc)
+            yp, zp = iops.iir_cascade_plain(x, c, zp)
+            if not (torch.isfinite(ys).all() and torch.isfinite(zs).all()):
+                fail(f"iir_cascade K={k} {tracks}x{s}: non-finite output")
+            e = max((ys - yp).abs().max().item(), (zs - zp).abs().max().item())
+            if not e <= IIR_ATOL:
+                fail(f"iir_cascade K={k} {tracks}x{s} block {blk}: "
+                     f"max|kernel - twin| {e:.3g} > {IIR_ATOL:g}")
+            for a, b in ((ys, yc), (zs, zc)):
+                d = (a - b).abs()
+                if not (d <= CASCADE_TOL + CASCADE_TOL * b.abs()).all():
+                    fail(f"systolic vs chain K={k} {tracks}x{s}: max|d| "
+                         f"{d.max().item():.3g} > {CASCADE_TOL:g} abs + rel")
+                chain_d = max(chain_d, d.max().item())
+            err = max(err, e)
+        worst = max(worst, err)
+        print(f"compare iir_cascade K={k} {tracks}x{s}: ok  twin {err:.3g}  "
+              f"chain {chain_d:.3g}; schedule: "
+              + schedule_text(iops, tracks, s, k))
+    return worst
+
+
 def time_iir(torch, iops, device):
     """CUDA-event times (ms) at IIR_FULL of each kernel and its twin, in
     turns (twin, kernel, kernel, twin), and of torch.matmul on the
@@ -638,7 +684,9 @@ def time_iir(torch, iops, device):
               f"kernel {k1:.4f} / {k2:.4f} ms, plain twin {p1:.3f} / "
               f"{p2:.3f} ms" + ("" if library is None else
                                 f", torch.matmul chunk products "
-                                f"{library:.4f} ms"))
+                                f"{library:.4f} ms")
+              + ("" if kind != "iir_cascade" else "; schedule: "
+                 + schedule_text(iops, tracks, s, IIR_STAGES)))
         out[kind] = (min(k1, k2), min(p1, p2), library)
     return out
 
@@ -1358,6 +1406,8 @@ def main() -> int:
     for tracks, s in IIR_SHAPES:
         for k, v in compare_iir(torch, iops, tracks, s, device).items():
             iir_err[k] = max(iir_err.get(k, 0.0), v)
+    iir_err["iir_cascade"] = max(iir_err["iir_cascade"],
+                                 compare_cascade_edges(torch, iops, device))
     iir_times = time_iir(torch, iops, device)
     print(f"IIR kernels vs twins: {time.perf_counter() - t0:.1f} s")
 

@@ -32,20 +32,33 @@
 //   2K states in registers. Its dependency chain per sample is K stages
 //   long. The K stages' coefficients and states take up to ~130
 //   registers, so the cascades keep 8 loads in flight, not 32.
-// * iir_cascade_systolic_kernel<K> replaces _iir_cascade_kernel_systolic
+// * iir_cascade_systolic_kernel<K, ...> replaces _iir_cascade_kernel_systolic
 //   (ops/iir.py:161, via iir_cascade_pallas). At step t stage k works on
 //   sample t - k, so the K stage updates of a step are independent: one
 //   thread holds the skewed K-stage plane in registers, which turns the
 //   chain's K-long dependency into K-wide instruction-level parallelism.
-//   A live mask (0 <= t - k < S) freezes a stage's state during warm-up
-//   and drain, so the carried states land where the chain leaves them.
-//   Output lags input by K - 1 samples, so it goes through a second
-//   shared-memory tile whose global offset is shifted by K - 1. Each
-//   (sample, stage) update is the chain kernel's expression on the same
-//   operands, so the two agree to the rounding of FMA contraction.
 //   Bound of both cascades: the same bytes as the biquad plus 5K
 //   instructions per sample (10 stages: 50, about 50 us of issue at
-//   65,536 x 512), so still bytes first.
+//   65,536 x 512), so still bytes first. What the design does about it
+//   (PERF.md §6 has the measurements that chose it):
+//   - a warp owns 32 tracks and moves its own 32-sample chunk tiles
+//     through a ring of cp.async copies (16 bytes a lane where s % 4 == 0),
+//     so the next chunks load under this chunk's steps; the sample loop
+//     waits only on its own copies and warp syncs, never on the block;
+//   - a lane reads its row four samples at a time and writes four outputs
+//     at a time (16-byte shared accesses on a 36-float pitch, free of bank
+//     conflicts); the outputs overwrite their own inputs in the tile,
+//     aligned to output samples, so the K - 1 lag costs nothing and each
+//     row is stored along samples in whole 16-byte pieces;
+//   - the live mask (0 <= t - k < S) runs only in the K - 1 warm-up steps
+//     and the drain; the steady steps, 4 to a quad so the carried values
+//     advance by renaming, have none;
+//   - the schedule (grid, step ranges, chunks) is computed on the host
+//     (ops/iir.py cascade_schedule) and checked here; at 65,536 tracks its
+//     2,048 warps are one wave at 16 warps an SM.
+//   Each (sample, stage) update is the chain kernel's expression on the
+//   same operands, so its outputs and states are bit for bit those of the
+//   one-thread-a-track kernel it replaced (tools/cascade_stages).
 // * iir_blockstate_kernel<NT> replaces _iir_blockstate_kernel
 //   (ops/iir.py:407, via iir_biquad_blockstate_pallas). Each m-sample
 //   chunk is w = taps @ x_chunk + u0*z1 + u1*z2, then
@@ -264,59 +277,6 @@ iir_cascade_chain_kernel(const float* __restrict__ x,
         }
         __syncthreads();
         store_tile(y, tile, t0, tracks, s, n0, len);
-        __syncthreads();
-    }
-    if (live) store_stages<K>(z_out, t, tracks, z1, z2);
-}
-
-template <int K>
-__global__ void __launch_bounds__(kTracks)
-iir_cascade_systolic_kernel(const float* __restrict__ x,
-                            const float* __restrict__ coeffs,
-                            const float* __restrict__ z_in,
-                            float* __restrict__ y, float* __restrict__ z_out,
-                            int tracks, int s) {
-    __shared__ float in_tile[kTracks][kPitch];
-    __shared__ float out_tile[kTracks][kPitch];
-    const long long t0 = static_cast<long long>(blockIdx.x) * kTracks;
-    const long long t = t0 + threadIdx.x;
-    const bool live = t < tracks;
-    Coeffs c[K];
-    float z1[K], z2[K], ylast[K];
-    load_stages<K>(coeffs, z_in, t, tracks, live, c, z1, z2);
-#pragma unroll
-    for (int k = 0; k < K; ++k) ylast[k] = 0.f;
-
-    // Step t works on input sample t; stage K-1 emits sample t - (K-1).
-    const int steps = s + K - 1;
-    for (int n0 = 0; n0 < steps; n0 += kChunk) {
-        const int len = min(kChunk, steps - n0);
-        load_tile<kBatch>(in_tile, x, t0, tracks, s, n0, min(len, max(s - n0, 0)));
-        __syncthreads();
-        const float* in_row = in_tile[threadIdx.x];
-        float* out_row = out_tile[threadIdx.x];
-        for (int j = 0; j < len; ++j) {
-            const int step = n0 + j;
-            const float xin = in_row[j];  // 0 once step >= s (stage 0 dead)
-            // Stages from last to first, so ylast[k-1] is still the value
-            // stage k-1 produced on the previous step.
-#pragma unroll
-            for (int k = K - 1; k >= 0; --k) {
-                const float v = (k == 0) ? xin : ylast[k - 1];
-                const float w = v - c[k].a1 * z1[k] - c[k].a2 * z2[k];
-                const float out = c[k].b0 * w + c[k].b1 * z1[k] + c[k].b2 * z2[k];
-                const int n = step - k;
-                if (n >= 0 && n < s) {
-                    z2[k] = z1[k];
-                    z1[k] = w;
-                }
-                ylast[k] = out;
-            }
-            out_row[j] = ylast[K - 1];
-        }
-        __syncthreads();
-        // out_tile[r][j] is output sample n0 + j - (K - 1).
-        store_tile(y, out_tile, t0, tracks, s, n0 - (K - 1), len);
         __syncthreads();
     }
     if (live) store_stages<K>(z_out, t, tracks, z1, z2);
@@ -621,22 +581,296 @@ iir_blockstate_kernel(const float* __restrict__ x,
     }
 }
 
+// The systolic cascade. A warp owns 32 tracks, one a lane, and walks
+// their samples through a ring of kR 32-sample chunk tiles of its own in
+// shared memory: nothing in the sample loop waits on another warp. Row
+// pitch kCsPitch: 16-byte rows, so a lane reads its row four samples at a
+// time (LDS.128), and each 8-lane phase of such a read touches the 32
+// banks once. Chunk c lives in slot c % kR. Output sample n is written
+// back into the slot of input chunk n / 32, over its input, which step n
+// read K - 1 steps before; so output chunk o is complete once the quads
+// that emit samples 32o .. 32o + 31 have run, is stored from its slot
+// along samples, and the slot then takes the copy of chunk o + kR.
+constexpr int kCsWarps = 4;    // warps per block
+constexpr int kCsRing = 3;     // chunk tiles per warp: two read, one in flight
+constexpr int kCsUnroll = 1;   // steady quads per loop pass
+constexpr int kCsPitch = 36;   // floats per tile row
+constexpr int kCsTile = 32 * kCsPitch;
+
+// Warps an SM each depth is built to keep resident: 16 (the full shape's
+// 2,048 warps in one wave) while the K stages' 5K coefficients and 3K
+// carried values fit 128 registers, fewer above, so that no depth spills.
+template <int K>
+struct CsDepth {
+    static constexpr int kMinWarps = K <= 10 ? 16 : (K <= 13 ? 12 : 8);
+};
+
+#ifndef CASCADE_MARK
+// CASCADE_MARK(q) ends phase q of a warp's time (0 the start, 7 the end);
+// tools/cascade_stages builds it into clock64() phase sums, the port
+// into nothing.
+#define CASCADE_MARK(q)
+#endif
+
+// One step of the skewed plane: stage k takes sample t - k, last stage
+// first, so yl[k - 1] is still stage k - 1's output of the step before.
+// With kMask a stage whose sample lies outside [0, s) keeps its state
+// (warm-up and drain); in a steady step every stage is live. Each update
+// is the chain kernel's expression on the same operands.
+template <int K, bool kMask>
+__device__ __forceinline__ void cascade_step(const Coeffs (&c)[K], float (&z1)[K],
+                                             float (&z2)[K], float (&yl)[K],
+                                             float xin, int t, int s) {
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k) {
+        const float v = (k == 0) ? xin : yl[k - 1];
+        const float w = v - c[k].a1 * z1[k] - c[k].a2 * z2[k];
+        const float out = c[k].b0 * w + c[k].b1 * z1[k] + c[k].b2 * z2[k];
+        if (!kMask || (t - k >= 0 && t - k < s)) {
+            z2[k] = z1[k];
+            z1[k] = w;
+        }
+        yl[k] = out;
+    }
+}
+
+// Quad g: steps 4g + K - 1 .. 4g + K + 2 (from `step`), which emit output samples
+// 4g .. 4g + 3 into group gi = g % 8 of the lane's row `cur` of the chunk
+// tile. Their inputs are the samples of those steps: the carried group
+// win holds samples from step - D (D = (K - 1) % 4), the group after it, read
+// here, the rest; that group becomes the carry. It lies gi + A / 4 + 1
+// groups into cur, or into the next chunk's row nxt from 8 on.
+template <int K, bool kMask>
+__device__ __forceinline__ void cascade_quad(const Coeffs (&c)[K], float (&z1)[K],
+                                             float (&z2)[K], float (&yl)[K],
+                                             float (&win)[4], float* cur,
+                                             const float* nxt, int gi, int step, int s) {
+    constexpr int D = (K - 1) % 4;
+    constexpr int A = K - 1 - D;
+    const int j = gi + A / 4 + 1;
+    const float4 next = *reinterpret_cast<const float4*>((j < 8) ? cur + 4 * j
+                                                                 : nxt + 4 * (j - 8));
+    const float nx[4] = {next.x, next.y, next.z, next.w};
+    float o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float xin = (i + D < 4) ? win[i + D] : nx[i + D - 4];
+        if (kMask && step + i >= s) xin = 0.f;  // past the input: stage 0 is dead
+        cascade_step<K, kMask>(c, z1, z2, yl, xin, step + i, s);
+        o[i] = yl[K - 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) win[i] = nx[i];
+    *reinterpret_cast<float4*>(cur + 4 * gi) = make_float4(o[0], o[1], o[2], o[3]);
+}
+
+// The step ranges come from the host's schedule (ops/iir.py
+// cascade_schedule): steps 0 .. K - 2 are the masked warm-up, quads
+// 0 .. steady_quads - 1 run with no mask, quads steady_quads .. quads - 1
+// (the drain, ending at step K - 2 + 4 * quads >= s + K - 2) with it.
+// vec: 16-byte copies and stores (s % 4 == 0, x and y 16-byte aligned);
+// pair: states moved as float2 (z_in and z_out 8-byte aligned).
+template <int K, int kW, int kR, int kU>
+__global__ void __launch_bounds__(kW * 32, CsDepth<K>::kMinWarps / kW)
+iir_cascade_systolic_kernel(const float* __restrict__ x,
+                            const float* __restrict__ coeffs,
+                            const float* __restrict__ z_in,
+                            float* __restrict__ y, float* __restrict__ z_out,
+                            int tracks, int s, int steady_quads, int quads,
+                            int chunks, int vec, int pair) {
+    constexpr int L = K - 1;       // output lag, in steps
+    constexpr int A = L - L % 4;   // first sample of quad 0's carried group
+    extern __shared__ float4 cs_smem4[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const long long t0 = (static_cast<long long>(blockIdx.x) * kW + warp) * 32;
+    if (t0 >= tracks) return;
+    const int rows = static_cast<int>(min(32LL, tracks - t0));
+    float* ring = reinterpret_cast<float*>(cs_smem4) + warp * kR * kCsTile;
+    CASCADE_MARK(0);
+
+    // Chunk c of the warp's 32 rows into slot c % kR, zeros past s and
+    // past the last track; one commit group per call, empty past the end.
+    auto load = [&](int c) {
+        if (c < chunks) {
+            float* dst = ring + (c % kR) * kCsTile;
+            const int n0 = 32 * c;
+            if (vec) {
+                const int q = 4 * (lane & 7);
+                const bool in_s = n0 + q < s;
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int r = (lane >> 3) + 4 * i;
+                    const bool ok = in_s && r < rows;
+                    cp_async16(dst + r * kCsPitch + q, ok ? x + (t0 + r) * s + n0 + q : x,
+                               ok ? 16 : 0);
+                }
+            } else {
+                const bool in_s = n0 + lane < s;
+#pragma unroll 4
+                for (int r = 0; r < 32; ++r) {
+                    const bool ok = in_s && r < rows;
+                    cp_async4(dst + r * kCsPitch + lane, ok ? x + (t0 + r) * s + n0 + lane : x,
+                              ok ? 4 : 0);
+                }
+            }
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+#pragma unroll
+    for (int c = 0; c < kR; ++c) load(c);
+
+    const long long t = t0 + lane;
+    const bool live = lane < rows;
+    Coeffs c[K];
+    float z1[K], z2[K], yl[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        c[k] = load_coeffs(coeffs + 5 * k);
+        float2 z = make_float2(0.f, 0.f);
+        if (live) {
+            const long long e = static_cast<long long>(k) * tracks + t;
+            z = pair ? reinterpret_cast<const float2*>(z_in)[e]
+                     : make_float2(z_in[2 * e], z_in[2 * e + 1]);
+        }
+        z1[k] = z.x;
+        z2[k] = z.y;
+        yl[k] = 0.f;
+    }
+    CASCADE_MARK(1);
+
+    // Warm-up: steps 0 .. L - 1 from chunk 0; win ends as group A / 4.
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kR - 1) : "memory");
+    __syncwarp();
+    CASCADE_MARK(2);
+    float win[4];
+#pragma unroll
+    for (int j = 0; j <= A / 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(ring + lane * kCsPitch + 4 * j);
+        win[0] = v.x;
+        win[1] = v.y;
+        win[2] = v.z;
+        win[3] = v.w;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if (4 * j + i < L) cascade_step<K, true>(c, z1, z2, yl, win[i], 4 * j + i, s);
+        }
+    }
+    CASCADE_MARK(4);
+
+    for (int o = 0; o < chunks; ++o) {
+        // Chunks o and o + 1 are in; o + 2 .. o + kR - 1 may be in flight.
+        asm volatile("cp.async.wait_group %0;\n" :: "n"(kR - 2) : "memory");
+        __syncwarp();
+        CASCADE_MARK(2);
+        float* cur = ring + (o % kR) * kCsTile + lane * kCsPitch;
+        const float* nxt = ring + ((o + 1) % kR) * kCsTile + lane * kCsPitch;
+        const int g0 = 8 * o;
+        const int g1 = min(g0 + 8, quads);
+        const int gs = min(max(g0, steady_quads), g1);
+        int g = g0;
+        for (; g + kU <= gs; g += kU) {
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+                cascade_quad<K, false>(c, z1, z2, yl, win, cur, nxt, g + u - g0,
+                                       4 * (g + u) + L, s);
+            }
+        }
+        for (; g < gs; ++g) cascade_quad<K, false>(c, z1, z2, yl, win, cur, nxt, g - g0, 4 * g + L, s);
+        CASCADE_MARK(3);
+        for (; g < g1; ++g) cascade_quad<K, true>(c, z1, z2, yl, win, cur, nxt, g - g0, 4 * g + L, s);
+        CASCADE_MARK(4);
+        __syncwarp();  // every lane's outputs of chunk o are in its slot
+
+        // Output chunk o, along samples.
+        const float* src = ring + (o % kR) * kCsTile;
+        const int n0 = 32 * o;
+        if (vec) {
+            const int q = 4 * (lane & 7);
+            if (n0 + q < s) {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int r = (lane >> 3) + 4 * i;
+                    if (r < rows) {
+                        *reinterpret_cast<float4*>(y + (t0 + r) * s + n0 + q) =
+                            *reinterpret_cast<const float4*>(src + r * kCsPitch + q);
+                    }
+                }
+            }
+        } else if (n0 + lane < s) {
+#pragma unroll 4
+            for (int r = 0; r < rows; ++r) y[(t0 + r) * s + n0 + lane] = src[r * kCsPitch + lane];
+        }
+        __syncwarp();  // the slot is read out: it takes chunk o + kR
+        load(o + kR);
+        CASCADE_MARK(5);
+    }
+
+    if (live) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const long long e = static_cast<long long>(k) * tracks + t;
+            if (pair) {
+                reinterpret_cast<float2*>(z_out)[e] = make_float2(z1[k], z2[k]);
+            } else {
+                z_out[2 * e] = z1[k];
+                z_out[2 * e + 1] = z2[k];
+            }
+        }
+    }
+    CASCADE_MARK(7);
+}
+
 int grid_for(int tracks, int per_block) {
     return (tracks + per_block - 1) / per_block;
 }
 
 template <int K>
-cudaError_t launch_cascade(const float* x, const float* coeffs,
-                           const float* z_in, float* y, float* z_out,
-                           int tracks, int s, bool systolic, cudaStream_t st) {
-    const int blocks = grid_for(tracks, kTracks);
-    if (systolic) {
-        iir_cascade_systolic_kernel<K><<<blocks, kTracks, 0, st>>>(
-            x, coeffs, z_in, y, z_out, tracks, s);
-    } else {
-        iir_cascade_chain_kernel<K><<<blocks, kTracks, 0, st>>>(
-            x, coeffs, z_in, y, z_out, tracks, s);
+cudaError_t launch_chain(const float* x, const float* coeffs, const float* z_in,
+                         float* y, float* z_out, int tracks, int s, cudaStream_t st) {
+    iir_cascade_chain_kernel<K><<<grid_for(tracks, kTracks), kTracks, 0, st>>>(
+        x, coeffs, z_in, y, z_out, tracks, s);
+    return cudaGetLastError();
+}
+
+// The systolic cascade on the host's schedule: `grid` blocks of kW warps
+// (one warp per 32 tracks), steady steps up to steady_end, the drain up
+// to drain_end, `chunks` 32-sample chunks. A schedule that does not cover
+// the tracks and samples, or puts a step whose stages are not all live
+// into the steady range, is refused.
+template <int K, int kW, int kR, int kU>
+cudaError_t launch_systolic(const float* x, const float* coeffs, const float* z_in,
+                            float* y, float* z_out, int tracks, int s, int grid,
+                            int steady_end, int drain_end, int chunks, cudaStream_t st) {
+    constexpr int lag = K - 1;
+    const int quads = (s + 3) / 4;
+    if (grid < 1 || static_cast<long long>(grid) * kW * 32 < tracks ||
+        static_cast<long long>(grid - 1) * kW * 32 >= tracks ||
+        steady_end < lag || (steady_end - lag) % 4 != 0 ||
+        (steady_end > lag && steady_end > s) || drain_end != lag + 4 * quads ||
+        chunks != (s + 31) / 32) {
+        return cudaErrorInvalidValue;
     }
+    constexpr int bytes = kW * kR * kCsTile * static_cast<int>(sizeof(float));
+    auto kernel = iir_cascade_systolic_kernel<K, kW, kR, kU>;
+    static int cached_dev = -1;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev != cached_dev) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err != cudaSuccess) return err;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+        if (err != cudaSuccess) return err;
+        cached_dev = dev;
+    }
+    const int vec = (s % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                    (reinterpret_cast<uintptr_t>(y) % 16 == 0);
+    const int pair = (reinterpret_cast<uintptr_t>(z_in) % 8 == 0) &&
+                     (reinterpret_cast<uintptr_t>(z_out) % 8 == 0);
+    kernel<<<grid, kW * 32, bytes, st>>>(x, coeffs, z_in, y, z_out, tracks, s,
+                                         (steady_end - lag) / 4, quads, chunks, vec, pair);
     return cudaGetLastError();
 }
 
@@ -694,18 +928,28 @@ int iir_biquad_launch(const float* x, const float* coeffs, const float* z_in,
     return static_cast<int>(cudaGetLastError());
 }
 
+// Warps per block of the systolic cascade (the schedule's `warps`).
+int iir_cascade_warps() { return kCsWarps; }
+
 // coeffs: (k, 5); z_in, z_out: (k, tracks, 2); systolic selects the
-// skewed form (else the per-sample chain). 1 <= k <= iir_max_stages().
+// skewed form (else the per-sample chain), which runs on the schedule
+// (grid, steady_end, drain_end, chunks) of ops/iir.py cascade_schedule;
+// the chain ignores those four. 1 <= k <= iir_max_stages().
 int iir_cascade_launch(const float* x, const float* coeffs, const float* z_in,
                        float* y, float* z_out, int tracks, int s, int k,
-                       int systolic, void* stream) {
+                       int systolic, int grid, int steady_end, int drain_end,
+                       int chunks, void* stream) {
     if (tracks <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const bool sys = systolic != 0;
     cudaError_t err;
     switch (k) {
-#define IIR_CASE(N) \
-    case N: err = launch_cascade<N>(x, coeffs, z_in, y, z_out, tracks, s, sys, st); break;
+#define IIR_CASE(N)                                                                       \
+    case N:                                                                               \
+        err = systolic ? launch_systolic<N, kCsWarps, kCsRing, kCsUnroll>(                \
+                             x, coeffs, z_in, y, z_out, tracks, s, grid, steady_end,      \
+                             drain_end, chunks, st)                                       \
+                       : launch_chain<N>(x, coeffs, z_in, y, z_out, tracks, s, st);       \
+        break;
         IIR_CASE(1) IIR_CASE(2) IIR_CASE(3) IIR_CASE(4) IIR_CASE(5) IIR_CASE(6)
         IIR_CASE(7) IIR_CASE(8) IIR_CASE(9) IIR_CASE(10) IIR_CASE(11)
         IIR_CASE(12) IIR_CASE(13) IIR_CASE(14) IIR_CASE(15) IIR_CASE(16)

@@ -21,7 +21,8 @@ with the contract of its Pallas kernel:
 
 * ``iir_biquad`` (``iir_biquad_pallas``),
 * ``iir_biquad_blockstate`` (``iir_biquad_blockstate_pallas``),
-* ``iir_cascade`` (``iir_cascade_pallas``, the systolic kernel),
+* ``iir_cascade`` (``iir_cascade_pallas``, the systolic kernel, launched
+  on ``cascade_schedule``),
 * ``iir_cascade_chain`` (``iir_cascade_pallas_chain``, its oracle; the
   port's chain wrapper runs the chain kernel at every track count).
 
@@ -33,6 +34,7 @@ New states always go to fresh tensors: the input state is never written.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
@@ -162,11 +164,17 @@ def _lib() -> ctypes.CDLL:
     lib = load("iir")
     if lib.iir_biquad_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.iir_cascade_warps.argtypes = []
+        lib.iir_cascade_warps.restype = i
+        if lib.iir_cascade_warps() != CASCADE_WARPS:
+            raise RuntimeError(
+                f"csrc/iir.cu builds {lib.iir_cascade_warps()} warps a "
+                f"block, ops/iir.py schedules {CASCADE_WARPS}")
         lib.iir_max_stages.argtypes = []
         lib.iir_max_stages.restype = i
         lib.iir_biquad_launch.argtypes = [p] * 5 + [i] * 2 + [p]
         lib.iir_biquad_launch.restype = i
-        lib.iir_cascade_launch.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.iir_cascade_launch.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.iir_cascade_launch.restype = i
         lib.iir_blockstate_launch.argtypes = [p] * 7 + [i] * 3 + [p]
         lib.iir_blockstate_launch.restype = i
@@ -224,6 +232,52 @@ def iir_biquad_blockstate(x: torch.Tensor, coeffs: torch.Tensor,
                    (x, coeffs, taps, u, state), (tracks, s, m))
 
 
+# Warps per block of the systolic cascade kernel (csrc/iir.cu kCsWarps;
+# _lib checks the built library agrees).
+CASCADE_WARPS = 4
+CASCADE_CHUNK = 32  # samples per shared-memory chunk tile
+CASCADE_QUAD = 4    # steps per quad: one 16-byte read and write a lane
+
+
+@dataclass(frozen=True)
+class CascadeSchedule:
+    """Launch geometry of the systolic cascade kernel for one shape.
+
+    One warp owns 32 tracks (``grid`` blocks of ``warps`` warps). At step
+    t stage k updates sample t - k. ``warmup``, ``steady`` and ``drain``
+    are half-open step ranges: the K - 1 warm-up steps and the drain run
+    with the live mask 0 <= t - k < S, the steady steps (whole quads of 4,
+    each stage live at every one of them) without it. Quad q = (t - (K -
+    1)) // 4 emits output samples 4q .. 4q + 3, so ``drain`` ends at
+    K - 1 + 4 * ceil(S / 4) (up to 3 steps past S + K - 1, with every
+    stage dead). ``chunks`` is the number of 32-sample tiles a warp moves.
+    """
+
+    grid: int
+    warps: int
+    warmup: Tuple[int, int]
+    steady: Tuple[int, int]
+    drain: Tuple[int, int]
+    chunks: int
+
+
+def cascade_schedule(tracks: int, s: int, k: int) -> CascadeSchedule:
+    """The systolic cascade's schedule for (tracks, S) and K stages."""
+    if tracks < 1 or s < 1 or k < 1:
+        raise ValueError(f"cascade_schedule: tracks {tracks}, S {s} and K "
+                         f"{k} must all be >= 1")
+    lag = k - 1
+    steady_quads = max(0, (s - lag) // CASCADE_QUAD)
+    quads = -(-s // CASCADE_QUAD)
+    steady_end = lag + CASCADE_QUAD * steady_quads
+    return CascadeSchedule(
+        grid=-(-tracks // (32 * CASCADE_WARPS)), warps=CASCADE_WARPS,
+        warmup=(0, lag),
+        steady=(lag, steady_end),
+        drain=(steady_end, lag + CASCADE_QUAD * quads),
+        chunks=-(-s // CASCADE_CHUNK))
+
+
 def _cascade(kernel: str, systolic: int, x, coeffs, states) -> Pair:
     tracks, s = x.shape
     k = coeffs.shape[0] if coeffs.dim() == 2 else 0
@@ -234,12 +288,17 @@ def _cascade(kernel: str, systolic: int, x, coeffs, states) -> Pair:
         raise ValueError(f"{kernel}: needs at least one stage")
     if dev.type == "cpu":
         return iir_cascade_plain(x, coeffs, states)
-    max_k = _lib().iir_max_stages()
+    lib = _lib()
+    max_k = lib.iir_max_stages()
     if k > max_k:
         raise ValueError(
             f"{kernel}: the CUDA kernels take at most {max_k} stages, got {k}")
+    sched = (0, 0, 0, 0)  # the chain kernel takes no schedule
+    if systolic:
+        sc = cascade_schedule(tracks, s, k)
+        sched = (sc.grid, sc.steady[1], sc.drain[1], sc.chunks)
     return _launch(kernel, "iir_cascade_launch", x, states,
-                   (x, coeffs, states), (tracks, s, k, systolic))
+                   (x, coeffs, states), (tracks, s, k, systolic, *sched))
 
 
 def iir_cascade(x: torch.Tensor, coeffs: torch.Tensor,

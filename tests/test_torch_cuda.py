@@ -316,15 +316,48 @@ def test_iir_blockstate_every_m_matches_twin_and_is_deterministic(
     assert torch.equal(y1, y2) and torch.equal(z1, z2)
 
 
-@pytest.mark.parametrize("tracks,s", [(640, 128), (65536, 512), (33, 7)])
-def test_iir_cascade_systolic_matches_chain(cuda, tracks, s):
-    x, c, z = _iir_inputs(tracks, s, cuda, k=N_STAGES)
+# (K, tracks, S) at the systolic kernel's schedule edges: K = 1 (no lag),
+# 2 and 16 (the deepest instance), S = 1, 4 and 7 (no steady step when
+# S < K - 1, S not a multiple of 4: the 4-byte copies) and 521 (a ragged
+# last chunk), odd and ragged track counts (a partial warp, a partial
+# block).
+CASCADE_EDGES = [(k, tracks, s) for k in (1, 2, 16)
+                 for tracks, s in ((33, 1), (1000, 4), (77, 7), (1001, 521))]
+
+
+@pytest.mark.parametrize("k,tracks,s", [(N_STAGES, 640, 128),
+                                        (N_STAGES, 65536, 512),
+                                        (N_STAGES, 33, 7)] + CASCADE_EDGES)
+def test_iir_cascade_systolic_matches_chain(cuda, k, tracks, s):
+    x, c, z = _iir_inputs(tracks, s, cuda, k=k)
     zs, zc = z, z
     for _ in range(3):
         ys, zs = iops.iir_cascade(x, c, zs)
         yc, zc = iops.iir_cascade_chain(x, c, zc)
         torch.testing.assert_close(ys, yc, atol=CASCADE_TOL, rtol=CASCADE_TOL)
         torch.testing.assert_close(zs, zc, atol=CASCADE_TOL, rtol=CASCADE_TOL)
+
+
+@pytest.mark.parametrize("k,tracks,s", CASCADE_EDGES)
+@pytest.mark.parametrize("kind", ["iir_cascade", "iir_cascade_chain"])
+def test_iir_cascade_edges_match_twin_and_are_deterministic(
+        cuda, kind, k, tracks, s):
+    x, c, z0 = _iir_inputs(tracks, s, cuda, k=k)
+    z_copy = z0.clone()
+    kern = getattr(iops, kind)
+    launches = iops.KERNEL_LAUNCHES[kind]
+    zk, zp = z0, z0
+    for _ in range(3):  # states chained over 3 blocks
+        yk, zk = kern(x, c, zk)
+        yp, zp = iops.iir_cascade_plain(x, c, zp)
+        assert (yk - yp).abs().max().item() <= IIR_ATOL
+        assert (zk - zp).abs().max().item() <= IIR_ATOL
+    y1, z1 = kern(x, c, z0)
+    y2, z2 = kern(x, c, z0)
+    assert torch.equal(y1, y2) and torch.equal(z1, z2)
+    torch.cuda.synchronize()
+    assert iops.KERNEL_LAUNCHES[kind] == launches + 5
+    assert torch.equal(z0, z_copy)
 
 
 @pytest.mark.parametrize("kind,block_m", IIR_CASES)

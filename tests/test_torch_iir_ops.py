@@ -18,12 +18,21 @@ Tolerances, absolute:
   holds the systolic kernel against the chained scans;
 * the CUDA blockstate kernel's 3xTF32 arithmetic, emulated here, vs the
   blockstate twin: 1e-6, a tenth of the 1e-5 the card's tests hold the
-  kernel to.
+  kernel to;
+* the CUDA systolic cascade kernel's step order on ``cascade_schedule``
+  (warm-up, steady and drain quads, the chunk ring with outputs written
+  over their inputs), emulated here in float32, vs the cascade twin and
+  the Pallas systolic kernel: 1e-5, ``CASCADE_ATOL`` (the emulation rounds
+  each product apart, the kernel contracts them into FMAs).
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental.pallas import tpu as pltpu
 
 from gpuaudiobench_tpu.ops import iir as jiir
@@ -295,3 +304,167 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     assert got[:4].tolist() == [one, one + ulp, one + ulp, -(one + ulp)]
     assert got[4].item() == pytest.approx(3.0e-3, rel=2.0 ** -11)
     assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+
+
+def _stage_samples(sched, k, s):
+    """{stage: [samples it updates, in step order]}, and the steps of the
+    steady range at which some stage would be dead."""
+    seen = {kk: [] for kk in range(k)}
+    dead_in_steady = []
+    for lo, hi in (sched.warmup, sched.steady, sched.drain):
+        for t in range(lo, hi):
+            for kk in range(k):
+                if 0 <= t - kk < s:
+                    seen[kk].append(t - kk)
+                elif (lo, hi) == sched.steady:
+                    dead_in_steady.append((t, kk))
+    return seen, dead_in_steady
+
+
+@settings(max_examples=150, deadline=None)
+@given(k=st.integers(1, 16), s=st.integers(1, 600),
+       tracks=st.integers(1, 70000))
+def test_cascade_schedule_updates_each_stage_sample_once_in_order(
+        k, s, tracks):
+    """On ``cascade_schedule``: the blocks cover the tracks with no empty
+    block; the three step ranges tile [0, K - 1 + 4 * ceil(S / 4)) in
+    whole quads after the K - 1 warm-up steps; every stage updates every
+    sample exactly once and in order, and no stage is dead in a steady
+    step (the kernel runs those unmasked); every output sample is emitted
+    exactly once, by stage K - 1 on that very sample, into the chunk tile
+    the ring holds for it; each quad's inputs lie in its own chunk or the
+    next."""
+    sc = tiir.cascade_schedule(tracks, s, k)
+    per_block = 32 * sc.warps
+    assert (sc.grid - 1) * per_block < tracks <= sc.grid * per_block
+    lag = k - 1
+    assert sc.warmup == (0, lag)
+    assert sc.warmup[1] == sc.steady[0] and sc.steady[1] == sc.drain[0]
+    assert (sc.steady[1] - sc.steady[0]) % 4 == 0
+    assert sc.drain[1] == lag + 4 * (-(-s // 4))
+    assert sc.drain[1] >= s + k - 1
+    seen, dead = _stage_samples(sc, k, s)
+    assert dead == []
+    assert all(seen[kk] == list(range(s)) for kk in range(k))
+    assert (sc.chunks - 1) * 32 < s <= sc.chunks * 32
+    emitted = Counter()
+    a = lag - lag % 4
+    for t in range(sc.steady[0], sc.drain[1]):
+        q = (t - lag) // 4
+        n = t - lag  # stage K - 1's sample at step t
+        assert n // 4 == q and q // 8 < sc.chunks
+        emitted[n] += 1
+        # the group read at quad q (q + A / 4 + 1) is in chunk q // 8 or
+        # the next
+        assert (q + a // 4 + 1) // 8 - q // 8 in (0, 1)
+    assert all(emitted[n] == 1 for n in range(s))
+    assert all(n < -(-s // 4) * 4 for n in emitted)
+
+
+def _emulate_systolic(x, c, z, sched, ring=3, pitch=36):
+    """The CUDA systolic cascade kernel's step order (``csrc/iir.cu``) in
+    float32 NumPy, every lane at once: chunks copied into a ring of
+    ``ring`` tiles (zeros past S), the warm-up steps from chunk 0, then
+    per chunk its steady quads without the mask and its drain quads with
+    it, each quad reading the 4-sample group after its carried one and
+    writing its 4 outputs over inputs already read, then the chunk stored
+    from its tile and the tile given the chunk ``ring`` on."""
+    tracks, s = x.shape
+    k = c.shape[0]
+    lag = k - 1
+    d, a = lag % 4, lag - lag % 4
+    tiles = np.zeros((ring, tracks, pitch), np.float32)
+    y = np.full((tracks, s), np.nan, np.float32)
+    z1, z2 = z[:, :, 0].copy(), z[:, :, 1].copy()
+    yl = np.zeros((k, tracks), np.float32)
+
+    def load(ch):
+        if ch < sched.chunks:
+            n0 = 32 * ch
+            tiles[ch % ring, :, :32] = 0
+            tiles[ch % ring, :, :min(32, s - n0)] = x[:, n0:n0 + 32]
+
+    def step(xin, t, masked):
+        for kk in range(k - 1, -1, -1):
+            v = xin if kk == 0 else yl[kk - 1]
+            b0, b1, b2, a1, a2 = c[kk]
+            w = v - a1 * z1[kk] - a2 * z2[kk]
+            out = b0 * w + b1 * z1[kk] + b2 * z2[kk]
+            if not masked or 0 <= t - kk < s:
+                z2[kk], z1[kk] = z1[kk], w
+            else:
+                assert masked
+            yl[kk] = out
+
+    for ch in range(ring):
+        load(ch)
+    for j in range(a // 4 + 1):
+        win = tiles[0, :, 4 * j:4 * j + 4].copy()
+        for i in range(4):
+            if 4 * j + i < lag:
+                step(win[:, i], 4 * j + i, True)
+    steady_quads = (sched.steady[1] - lag) // 4
+    quads = (sched.drain[1] - lag) // 4
+    for o in range(sched.chunks):
+        cur, nxt = tiles[o % ring], tiles[(o + 1) % ring]
+        g0 = 8 * o
+        g1 = min(g0 + 8, quads)
+        gs = min(max(g0, steady_quads), g1)
+        for g in range(g0, g1):
+            masked = g >= gs
+            j = g - g0 + a // 4 + 1
+            nx = (cur[:, 4 * j:4 * j + 4] if j < 8
+                  else nxt[:, 4 * (j - 8):4 * (j - 8) + 4]).copy()
+            t0 = 4 * g + lag
+            outs = []
+            for i in range(4):
+                xin = win[:, i + d] if i + d < 4 else nx[:, i + d - 4]
+                if masked and t0 + i >= s:
+                    xin = np.zeros_like(xin)
+                step(xin, t0 + i, masked)
+                outs.append(yl[k - 1].copy())
+            win = nx
+            cur[:, 4 * (g - g0):4 * (g - g0) + 4] = np.stack(outs, axis=1)
+        n0 = 32 * o
+        y[:, n0:n0 + 32] = cur[:, :min(32, s - n0)]
+        load(o + ring)
+    return y, np.stack([z1, z2], axis=2)
+
+
+@pytest.mark.parametrize("k,tracks,s,vs_pallas", [
+    (10, 8, 32, True), (1, 8, 16, True), (16, 5, 96, True),
+    (10, 3, 4, True), (2, 7, 7, False), (16, 3, 1, False),
+    (3, 9, 70, False), (4, 6, 130, False), (13, 2, 33, False)])
+def test_cascade_kernel_step_order_matches_twin_and_pallas(
+        rng, k, tracks, s, vs_pallas):
+    """The emulated kernel, states chained over 3 blocks on the schedule
+    of each shape (S < K - 1, S not a multiple of 4, a ragged last chunk,
+    several chunks), against the twin and, where marked, the JAX
+    systolic kernel in interpret mode."""
+    x = _signal(rng, tracks, s)
+    c = _coeffs(k)
+    z0 = ((rng.random((k, tracks, 2), dtype=np.float32) - 0.5) * 0.2
+          ).astype(np.float32)
+    sched = tiir.cascade_schedule(tracks, s, k)
+    emu = _chain(lambda xx, z: _emulate_systolic(xx, c, z, sched), x, z0)
+    assert np.isfinite(emu[0]).all() and np.isfinite(emu[1]).all()
+    twin = _chain(lambda xx, z: tiir.iir_cascade_plain(xx, _t(c), z),
+                  _t(x), _t(z0))
+    _assert_pair(emu, twin, CASCADE_ATOL)
+    if vs_pallas:
+        with pltpu.force_tpu_interpret_mode():
+            systolic = _chain(lambda xx, z: jiir.iir_cascade_pallas(
+                xx, c, z, track_block=tracks), x, z0)
+        _assert_pair(emu, systolic, CASCADE_ATOL)
+
+
+def test_cascade_schedule_at_the_main_shape():
+    """65,536 tracks x 512, K = 10: 512 blocks of 4 warps (2,048 warps,
+    one wave at 16 warps an SM), 125 steady quads, 12 drain steps, 16
+    chunks; and a bad shape is refused."""
+    sc = tiir.cascade_schedule(65536, 512, 10)
+    assert (sc.grid, sc.warps, sc.chunks) == (512, 4, 16)
+    assert sc.warmup == (0, 9) and sc.steady == (9, 509)
+    assert sc.drain == (509, 521)
+    with pytest.raises(ValueError):
+        tiir.cascade_schedule(0, 512, 10)
