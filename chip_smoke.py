@@ -47,11 +47,18 @@ nonzero:
    1e-5 of the twin's peak), at 6 x 48 (unaligned lengths), 1,000 x 512
    and the main path's 32,768 x 512 x Lmax 2,000, with random and
    power-of-two lengths; CUDA-event times at 32,768 x 512.
-8. The two FDTD kernels vs their twins and the divergence kernel vs the
-   field kernel, fields chained over 2 blocks, each within 1e-5 of the
-   peak, at rooms 8 (64 samples), 50 (512) and 82 (32); the field kernel
-   with 128 per-track receivers at room 50 x 512; CUDA-event times at
-   room 50, 128 tracks x 512 samples, and of the grid-wide barrier alone.
+8. The FDTD kernels vs their twins bit for bit: the divergence form on
+   both routes (``ops.fdtd3d.fdtd_schedule``: the cluster kernel where
+   the room fits one thread-block cluster, the cooperative one
+   everywhere) and the field form's kernel, and the divergence form vs
+   the field form within 1e-5 of the peak, fields chained over 2 blocks,
+   at rooms 8 (64 samples), 50 (512) and 82 (32, the cooperative route
+   only), so the two routes also equal each other at rooms 8 and 50; the
+   field kernel with 128 per-track receivers, the first on the source
+   cell, at room 50 x 512; CUDA-event times of the cluster kernel and the
+   field kernel at room 50 and of the cooperative divergence kernel at
+   room 82, 128 tracks x 512 samples, and of the cluster barrier and the
+   grid barrier alone.
 9. The two speed-of-light kernels (``fma_chain``, ``fma_vmem``) vs their
    plain twin within 1e-4 absolute and vs the closed form within 5e-4, at
    37 x 1,000 (k = 24), 64 x 1,024 (k = 130) and each SOL benchmark's
@@ -69,7 +76,10 @@ nonzero:
    65,536 tracks and at the CLI's defaults (no ``--benchmark``: 128
    tracks, 100 runs, full verification), DWG1DNaive and DWG1DAccel at
    32,768 waveguides, and FDTD3D at room 50 with 128 tracks, with and
-   without ``--fdtdPerTrackReceivers``; each validates against the NumPy
+   without ``--fdtdPerTrackReceivers`` (the cluster kernel, not the
+   cooperative one, must launch in the first), and at room 82 x 64
+   samples (the cooperative divergence kernel); each validates against
+   the NumPy
    golden; then the CLI on the six SOL benchmarks at their defaults
    (``fma_chain`` must launch on SOL_VPU, ``fma_vmem`` on SOL_VMEM). On
    every CLI path the JSON's ``metadata.roofline`` must name its
@@ -84,7 +94,7 @@ nonzero:
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-12. A ``{"kernels": [...]}`` line (13 kernels), the nvidia-smi line, and
+12. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -182,13 +192,18 @@ DWG_SOURCE = "gpuaudiobench_tpu_torch/csrc/dwg.cu"
 DWG_REPLACES = "gpuaudiobench_tpu/ops/dwg_pallas.py:40"
 
 # The FDTD kernels (csrc/fdtd3d.cu), (room, samples): outputs and fields
-# within 1e-5 of the peak, kernel vs twin and divergence vs field.
+# kernel vs twin bit for bit on every route, divergence vs field within
+# 1e-5 of the peak. The cluster kernel and the field kernel are timed at
+# FDTD_MAIN, the cooperative divergence kernel at FDTD_COOP (a room no
+# cluster holds).
 FDTD_MAIN = (50, 512, 128)  # room, samples, tracks: the CLI path's
+FDTD_COOP = (82, 512, 128)
 FDTD_SHAPES = [(8, 64), (50, 512), (82, 32)]
 FDTD_RTOL = 1e-5
 FDTD_SOURCE = "gpuaudiobench_tpu_torch/csrc/fdtd3d.cu"
 FDTD_REPLACES = {"fdtd3d_div": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:149",
-                 "fdtd3d_field": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:77"}
+                 "fdtd3d_field": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:77",
+                 "fdtd3d_div_coop": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:149"}
 
 # The speed-of-light kernels (csrc/speedoflight.cu), (rows, width, k):
 # kernel vs twin within 1e-4 absolute (one rounding a pass against two:
@@ -251,6 +266,13 @@ DWG_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
            "--saturatedReps", "5", "--verification", "spot", "--json"]
 FDTD_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "32",
             "--saturatedReps", "5", "--verification", "spot", "--json"]
+# Room 82 on the cooperative kernels: 64-sample blocks (its NumPy golden
+# at 512 samples would take most of a minute), 5 runs, depth 16.
+FDTD_ROOM82 = ["--fdtdRoom", "82", "--bufferSize", "64", "--nRuns", "5",
+               "--warmup", "1", "--pipelineDepth", "16", "--saturatedReps",
+               "3", "--verification", "spot", "--json"]
+# Kernels a CLI path must not launch: room 50 fits a cluster.
+CLI_ABSENT = {"FDTD3D room 50, 128 tracks": ["fdtd3d_div_coop"]}
 SOL_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "64",
            "--saturatedReps", "5", "--verification", "spot", "--json"]
 SOL_KERNELS = {"SOL_VPU": ["fma_chain"], "SOL_VMEM": ["fma_vmem"]}
@@ -271,6 +293,8 @@ CLI_RUNS += [
     ("FDTD3D room 50, 128 tracks, per-track receivers",
      ["--benchmark", "FDTD3D", "--fdtdPerTrackReceivers"] + FDTD_CLI,
      ["fdtd3d_field"]),
+    ("FDTD3D room 82, 128 tracks x 64",
+     ["--benchmark", "FDTD3D"] + FDTD_ROOM82, ["fdtd3d_div_coop"]),
 ] + [(f"{name}, the defaults", ["--benchmark", name] + SOL_CLI,
       SOL_KERNELS.get(name, [])) for name in SOL_NAMES]
 
@@ -1007,41 +1031,64 @@ def fdtd_check(torch, label, got, want):
     return err
 
 
+def fdtd_same(torch, label, got, want):
+    """Fails unless every tensor of ``got`` equals ``want``'s bit for bit;
+    returns the max |got - want| (0)."""
+    for a, b in zip(got, want):
+        if tuple(a.shape) != tuple(b.shape) or not torch.equal(a, b):
+            err = ((a - b).abs().max().item()
+                   if a.shape == b.shape else float("nan"))
+            fail(f"{label}: not bit for bit the twin's (max|d| {err:.3g})")
+    return 0.0
+
+
+def fdtd_routes(fops, n):
+    """{kernel key: block function} of the kernels an n^3 grid can take:
+    the cooperative divergence kernel and the field kernel always, the
+    cluster kernel where it fits."""
+    out = {"fdtd3d_div_coop": fops.fdtd3d_block_div_coop,
+           "fdtd3d_field": fops.fdtd3d_block_field}
+    if fops.fdtd_schedule(n, "div").route == "cluster":
+        out["fdtd3d_div"] = fops.fdtd3d_block_div_cluster
+    return out
+
+
 def compare_fdtd(torch, fops, room, s, device, tracks=4):
-    """Both kernels vs their twins and div vs field over 2 chained blocks;
-    returns {kernel: max |kernel - twin|}."""
+    """Each route's kernels vs their twins bit for bit (so the routes
+    equal each other where both run) and div vs field within FDTD_RTOL,
+    over 2 chained blocks; returns {kernel: max |kernel - twin|}."""
     n, src, rcv = fdtd_geometry(fops, room)
     x = fdtd_x(torch, tracks, s, device)
-    dk = dp = fops.zero_fields_div(n, device)
-    fk = fp = fops.zero_fields(n, device)
+    routes = fdtd_routes(fops, n)
+    state = {k: (fops.zero_fields_div(n, device) if "div" in k
+                 else fops.zero_fields(n, device)) for k in routes}
+    dp, fp = fops.zero_fields_div(n, device), fops.zero_fields(n, device)
     before = dict(fops.KERNEL_LAUNCHES)
-    worst = {"fdtd3d_div": 0.0, "fdtd3d_field": 0.0}
     cross = 0.0
     for blk in range(2):
-        out_dk, *dk = fops.fdtd3d_block_div(x, *dk, src, rcv)
-        out_dp, *dp = fops.fdtd3d_block_div_plain(x, *dp, src, rcv)
-        out_fk, *fk = fops.fdtd3d_block_field(x, *fk, src, rcv)
-        out_fp, *fp = fops.fdtd3d_block_field_plain(x, *fp, src, rcv)
+        want_d = fops.fdtd3d_block_div_plain(x, *dp, src, rcv)
+        want_f = fops.fdtd3d_block_field_plain(x, *fp, src, rcv)
         tag = f"room {room} S={s} block {blk}"
-        for kind, pairs in (("fdtd3d_div", [(out_dk, out_dp), *zip(dk, dp)]),
-                            ("fdtd3d_field",
-                             [(out_fk, out_fp), *zip(fk, fp)])):
-            for got, want in pairs:
-                worst[kind] = max(worst[kind],
-                                  fdtd_check(torch, f"{kind} {tag}", got, want))
+        for key, fn in routes.items():
+            got = fn(x, *state[key], src, rcv)
+            fdtd_same(torch, f"{key} {tag}", got,
+                      want_d if "div" in key else want_f)
+            state[key] = got[1:]
+        dp, fp = want_d[1:], want_f[1:]
         cross = max(cross,
-                    fdtd_check(torch, f"div vs field {tag}", out_dk, out_fk),
-                    fdtd_check(torch, f"div vs field p {tag}", dk[0], fk[0]))
-    if out_dk.abs().max().item() <= 0:
+                    fdtd_check(torch, f"div vs field {tag}", want_d[0],
+                               want_f[0]),
+                    fdtd_check(torch, f"div vs field p {tag}", want_d[1],
+                               want_f[1]))
+    if want_d[0].abs().max().item() <= 0:
         fail(f"fdtd room {room}: the receiver heard nothing")
     torch.cuda.synchronize()
-    for k in worst:
+    for k in routes:
         if fops.KERNEL_LAUNCHES[k] - before[k] != 2:
             fail(f"{k}: expected 2 launches")
-    print(f"compare fdtd room {room} S={s}: ok  max|d| div "
-          f"{worst['fdtd3d_div']:.3g}, field {worst['fdtd3d_field']:.3g}, "
-          f"div vs field {cross:.3g}")
-    return worst
+    print(f"compare fdtd room {room} S={s}: ok  {', '.join(sorted(routes))} "
+          f"bit for bit the twins, div vs field {cross:.3g}")
+    return {k: 0.0 for k in routes}
 
 
 def fdtd_receivers(torch, fops, n, tracks, device):
@@ -1050,73 +1097,91 @@ def fdtd_receivers(torch, fops, n, tracks, device):
     return torch.from_numpy(cells.astype("int32")).to(device)
 
 
-def compare_fdtd_receivers(torch, fops, device) -> float:
-    """The field kernel with a receiver per track at FDTD_MAIN vs its
-    twin; returns the max |kernel - twin|."""
+def compare_fdtd_receivers(torch, fops, device):
+    """The field kernel with a receiver per track at FDTD_MAIN, track 0 on
+    the source cell, vs its twin bit for bit; returns {kernel: max
+    |kernel - twin|}."""
     room, s, tracks = FDTD_MAIN
     n, src, rcv = fdtd_geometry(fops, room)
     x = fdtd_x(torch, tracks, s, device)
     cells = fdtd_receivers(torch, fops, n, tracks, device)
-    got = fops.fdtd3d_block_field(x, *fops.zero_fields(n, device), src, rcv,
-                                  receivers=cells)
+    cells[0] = fops.flat_cell(src, n)
     want = fops.fdtd3d_block_field_plain(x, *fops.zero_fields(n, device), src,
                                          rcv, receivers=cells)
-    rel = max(fdtd_check(torch, f"fdtd3d_field {tracks} receivers", a, b)
-              for a, b in zip(got, want))
-    if len(set(got[0][:, -1].tolist())) < 2:
+    got = fops.fdtd3d_block_field(x, *fops.zero_fields(n, device), src, rcv,
+                                  receivers=cells)
+    fdtd_same(torch, f"fdtd3d_field {tracks} receivers", got, want)
+    if len(set(want[0][:, -1].tolist())) < 2:
         fail("fdtd3d_field receivers: every track read the same value")
     print(f"compare fdtd3d_field room {room} S={s}, {tracks} per-track "
-          f"receivers: ok  max|d| {rel:.3g}")
-    return rel
+          "receivers (one on the source cell): ok  bit for bit the twin's")
+    return {"fdtd3d_field": 0.0}
 
 
 def time_fdtd(torch, fops, device):
-    """CUDA-event times (ms) at FDTD_MAIN: the divergence kernel (broadcast
-    receiver) and the field kernel (a receiver per track), each against
-    its twin, and the grid-wide barrier alone at the divergence kernel's
-    grid: ({kernel: (ms, plain_ms)}, ms per barrier)."""
-    room, s, tracks = FDTD_MAIN
-    n, src, rcv = fdtd_geometry(fops, room)
-    x = fdtd_x(torch, tracks, s, device)
-    cells = fdtd_receivers(torch, fops, n, tracks, device)
-    zd, zf = fops.zero_fields_div(n, device), fops.zero_fields(n, device)
-    fns = {
-        "fdtd3d_div": (lambda: fops.fdtd3d_block_div(x, *zd, src, rcv),
-                       lambda: fops.fdtd3d_block_div_plain(x, *zd, src, rcv)),
-        "fdtd3d_field": (
-            lambda: fops.fdtd3d_block_field(x, *zf, src, rcv, receivers=cells),
-            lambda: fops.fdtd3d_block_field_plain(x, *zf, src, rcv,
-                                                  receivers=cells)),
-    }
+    """CUDA-event times (ms): the cluster kernel and the field kernel at
+    FDTD_MAIN and the cooperative divergence kernel at FDTD_COOP, the
+    divergence form with the broadcast receiver, the field form with a
+    receiver per track, each against its twin; and the cluster barrier (at
+    room 50's layout) and the grid barrier (at room 82's cooperative grid)
+    alone: ({kernel: (ms, plain_ms)}, us per cluster barrier, us per grid
+    barrier)."""
     out = {}
-    for name, (kern, plain) in fns.items():
-        p1 = median_ms(torch, plain, 1, 1)
-        k1 = median_ms(torch, kern, 5, 2)
-        k2 = median_ms(torch, kern, 5, 2)
-        p2 = median_ms(torch, plain, 1, 1)
-        print(f"time {name} room {room}, {tracks}x{s} (CUDA events, median "
-              f"of reps): kernel {k1:.4f} / {k2:.4f} ms, plain twin "
-              f"{p1:.2f} / {p2:.2f} ms")
-        out[name] = (min(k1, k2), min(p1, p2))
-    syncs = 3 * s
-    one = median_ms(torch, lambda: fops.sync_probe(n, syncs, device), 5, 2)
-    print(f"time grid-wide barrier alone, {syncs} in one launch on "
-          f"{n}^3's grid: {one:.4f} ms, {one / syncs * 1e3:.3f} us each")
-    return out, one / syncs
+    for (room, s, tracks), keys in ((FDTD_MAIN, ("fdtd3d_div", "fdtd3d_field")),
+                                    (FDTD_COOP, ("fdtd3d_div_coop",))):
+        n, src, rcv = fdtd_geometry(fops, room)
+        x = fdtd_x(torch, tracks, s, device)
+        cells = fdtd_receivers(torch, fops, n, tracks, device)
+        zd, zf = fops.zero_fields_div(n, device), fops.zero_fields(n, device)
+        routes = fdtd_routes(fops, n)
+        fns = {
+            key: ((lambda key=key: routes[key](x, *zd, src, rcv),
+                   lambda: fops.fdtd3d_block_div_plain(x, *zd, src, rcv))
+                  if "div" in key else
+                  (lambda key=key: routes[key](x, *zf, src, rcv,
+                                               receivers=cells),
+                   lambda: fops.fdtd3d_block_field_plain(x, *zf, src, rcv,
+                                                         receivers=cells)))
+            for key in keys}
+        for name, (kern, plain) in fns.items():
+            p1 = median_ms(torch, plain, 1, 1)
+            k1 = median_ms(torch, kern, 5, 2)
+            k2 = median_ms(torch, kern, 5, 2)
+            p2 = median_ms(torch, plain, 1, 1)
+            print(f"time {name} room {room}, {tracks}x{s} (CUDA events, "
+                  f"median of reps): kernel {k1:.4f} / {k2:.4f} ms, plain "
+                  f"twin {p1:.2f} / {p2:.2f} ms")
+            out[name] = (min(k1, k2), min(p1, p2))
+    syncs = 3 * FDTD_MAIN[1]
+    plan = fops.fdtd_schedule(fops.grid_n(FDTD_MAIN[0]), "div")
+    cl = median_ms(torch, lambda: fops.cluster_probe(
+        plan.blocks, plan.smem_bytes, syncs, device), 5, 2) / syncs * 1e3
+    n82 = fops.grid_n(FDTD_COOP[0])
+    gr = median_ms(torch, lambda: fops.sync_probe(n82, syncs, device),
+                   5, 2) / syncs * 1e3
+    print(f"time barriers alone, {syncs} in one launch: cluster barrier "
+          f"({plan.blocks} blocks, {plan.smem_bytes:,} B each) {cl:.4f} us, "
+          f"grid barrier (room {FDTD_COOP[0]}'s cooperative grid) {gr:.4f} us")
+    return out, cl, gr
 
 
 def fdtd_bounds():
-    """FDTD3D's count of each form at FDTD_MAIN
-    (``models.fdtd3d.fdtd3d_cost``): a boundary cell 1 FLOP a substep, an
+    """FDTD3D's count of each form (``models.fdtd3d.fdtd3d_cost``) where
+    each kernel is timed, FDTD_MAIN for the cluster kernel and the field
+    kernel and FDTD_COOP for the cooperative divergence kernel: a
+    boundary cell 1 FLOP a substep, an
     interior cell of the div form 11, the field form 3 a face and 7 an
-    interior cell; the source sum, injection and receiver scale; the
-    input and output, the carried fields read and written once, and the
-    field form's receivers."""
+    interior cell; the source sum, injection and receiver scale; the input
+    and output, the carried fields read and written once, and the field
+    form's receivers."""
     from gpuaudiobench_tpu_torch.models.fdtd3d import fdtd3d_cost
 
-    room, s, tracks = FDTD_MAIN
-    return {"fdtd3d_div": cost_bound(fdtd3d_cost(room, s, tracks, False)),
-            "fdtd3d_field": cost_bound(fdtd3d_cost(room, s, tracks, True))}
+    out = {}
+    for (room, s, tracks), keys in ((FDTD_MAIN, ("fdtd3d_div", "fdtd3d_field")),
+                                    (FDTD_COOP, ("fdtd3d_div_coop",))):
+        for key, per_track in zip(keys, (False, True)):
+            out[key] = cost_bound(fdtd3d_cost(room, s, tracks, per_track))
+    return out
 
 
 def sol_inputs(torch, rows, width, device, seed=13):
@@ -1430,13 +1495,13 @@ def main() -> int:
     print(f"dwg_block kernel vs twin: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    fdtd_err = {"fdtd3d_div": 0.0, "fdtd3d_field": 0.0}
+    fdtd_err = {k: 0.0 for k in FDTD_REPLACES}
     for room, s in FDTD_SHAPES:
         for k, v in compare_fdtd(torch, fops, room, s, device).items():
             fdtd_err[k] = max(fdtd_err[k], v)
-    fdtd_err["fdtd3d_field"] = max(fdtd_err["fdtd3d_field"],
-                                   compare_fdtd_receivers(torch, fops, device))
-    fdtd_times, _ = time_fdtd(torch, fops, device)
+    for k, v in compare_fdtd_receivers(torch, fops, device).items():
+        fdtd_err[k] = max(fdtd_err[k], v)
+    fdtd_times, _, _ = time_fdtd(torch, fops, device)
     print(f"fdtd kernels vs twins: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1495,6 +1560,8 @@ def main() -> int:
             for k, n in cli_path(torch, cli, counts, label, argv,
                                  kernels).items():
                 launches[k] += n
+                if n and k in CLI_ABSENT.get(label, ()):
+                    fail(f"{label}: {k} launched {n} times")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")
 
@@ -1559,7 +1626,7 @@ def main() -> int:
          (*dwg_times[:2], None), dwg_bound(dwg_times[2])),
     ] + [(name, FDTD_SOURCE, FDTD_REPLACES[name], fdtd_err[name],
           (*fdtd_times[name], None), fdtd_bounds()[name])
-         for name in ("fdtd3d_div", "fdtd3d_field")
+         for name in FDTD_REPLACES
     ] + [(name, SOL_SOURCE, SOL_REPLACES[name], sol_err[name],
           (*sol_times[name], None), sol_bounds()[name])
          for name in ("fma_chain", "fma_vmem")]

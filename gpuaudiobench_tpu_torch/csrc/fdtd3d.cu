@@ -1,57 +1,98 @@
 // 3-D FDTD room acoustics for Hopper (sm_90a): one block of S samples x 3
-// substeps in one persistent cooperative launch, bound through a plain C
-// interface (gpuaudiobench_tpu_torch/utils/build.py loads it with ctypes).
+// substeps in one launch, bound through a plain C interface
+// (gpuaudiobench_tpu_torch/utils/build.py loads it with ctypes).
 //
-// Two kernels, each replacing one Pallas kernel of
+// Each form replaces one Pallas kernel of
 // gpuaudiobench_tpu/ops/fdtd3d_pallas.py:
-//   * fdtd_div_kernel replaces _fdtd_kernel_div (fdtd3d_block_pallas_div),
-//     the production form. It carries (p, div v) on an N^3 grid; with the
-//     velocity update substituted into the divergence, an interior cell
-//     does
+//   * the divergence form replaces _fdtd_kernel_div
+//     (fdtd3d_block_pallas_div), the production form. It carries (p, div v)
+//     on an N^3 grid; with the velocity update substituted into the
+//     divergence, an interior cell does
 //         div' = (div + 6*k1*p) - k1 * (sum of the 6 neighbours' p)
 //         p'   = p - k2 * div'
 //     and a boundary cell p' = p * (1 - absorption). div' is zero off the
 //     interior, which is what the JAX wrapper returns after its re-mask.
-//   * fdtd_field_kernel replaces _fdtd_kernel (fdtd3d_block_pallas), the
-//     field form with the staggered velocities vx (N+1, N, N), vy (N, N+1,
-//     N), vz (N, N, N+1) (ops/fdtd3d.py:_fdtd_substep). It also serves the
-//     per-track receivers, which the JAX package runs on XLA only.
+//   * the field form replaces _fdtd_kernel (fdtd3d_block_pallas), with the
+//     staggered velocities vx (N+1, N, N), vy (N, N+1, N), vz (N, N, N+1)
+//     (ops/fdtd3d.py:_fdtd_substep). It also serves the per-track
+//     receivers, which the JAX package runs on XLA only.
 // At the start of each sample the source cell gets src[n] (the sum of all
 // tracks x 0.1, computed by the wrapper); after the sample's third
 // substep every receiver row t reads out[t, n] = p[rcv(t)] * 0.1, from
-// one broadcast receiver cell or from a cell per track.
+// one broadcast receiver cell or from a cell per track. A receiver on the
+// source cell reads the value from before the next sample's injection.
+// Each product, sum and difference is rounded on its own (__fmul_rn,
+// __fadd_rn, __fsub_rn), in the JAX expressions' order, so every kernel
+// gives the plain twin's bits.
 //
-// What bounds it: operations, and the grid-wide barrier. At room 50 (52^3
-// cells, 50^3 interior) a div block is 1,536 substeps x (11 FLOP x 125,000
+// What bounds it: operations, and the barrier. At room 50 (52^3 cells,
+// 50^3 interior) a div block is 1,536 substeps x (11 FLOP x 125,000
 // interior cells + 1 x 15,608 boundary cells) = 2.1 GFLOP, 0.032 ms at 67
-// TFLOP/s of FP32 (the field form about 16 FLOP a cell, 0.049 ms); the
-// fields (0.56 MB each) stay in the 50 MB L2. Every substep reads the
-// neighbours' p of the substep before,
-// so the whole grid must meet 1,536 times per block; the JAX package runs
-// the whole block in one launch, and so does this design:
-//   * A cooperative launch (cudaLaunchCooperativeKernel) of at most the
-//     blocks that fit on the card at once (occupancy x SMs); a launch that
-//     is too large fails and the wrapper raises. Each thread walks its
-//     cells in a grid stride, natural (x, y, z) order with z contiguous,
-//     and owns the same cells in every substep.
-//   * p ping-pongs between two buffers, so one cg::grid sync per substep
-//     is enough; div (and in the field form the velocities, which also
-//     ping-pong) is read and written by its owner only, or through the
-//     buffers of the substep before. Reads of cells other threads wrote go
-//     through L2 (__ldcg), never the non-coherent L1 or read-only caches.
+// TFLOP/s of FP32 (the field form about 16 FLOP a cell, 0.049 ms). Every
+// substep reads the neighbours' p of the substep before, so all cells
+// meet 1,536 times per block.
+//
+// The divergence form has two routes, chosen before the launch by
+// ops/fdtd3d.py:fdtd_schedule (never by a failed launch), which also
+// hands the cluster kernel its ranges:
+//
+// The cluster route (fdtd_div_cluster_kernel), for rooms whose (p, div)
+// fit in one thread-block cluster's shared memory (up to 16 blocks x 227
+// KB: rooms up to 65; room 50 takes 16 blocks of 8,788 cells). The TPU
+// kernel kept the whole grid in VMEM for the block; here the cluster's
+// distributed shared memory holds it from the prologue to the epilogue:
+//   * Block r of the cluster owns the flat cells [start[r], start[r + 1])
+//     of the schedule's balanced ranges, at least N^2 of them, so a +-1,
+//     +-N or +-N^2 neighbour lies in its own range or an adjacent block's.
+//     Thread t owns cells t, t + 1024, ... of the range, the same in every
+//     substep, and keeps their p and div in registers (only the owner
+//     reads div); a cell's boundary bit is computed once, in the prologue.
+//     There is a build for each odd count of cells a thread, so all but the
+//     last two iterations run unguarded (the last partial one's loads land
+//     in padding, its stores are masked).
+//   * p ping-pongs between two shared-memory buffers, each with a halo of
+//     N^2 cells on either side of the range, so every stencil read is a
+//     local shared-memory load. The owner of an edge cell also stores its
+//     new p from registers into the neighbour's halo (st.async to
+//     shared::cluster), which completes on the neighbour's mbarrier (one a
+//     buffer); the neighbour's one arrival a phase announces the bytes it
+//     awaits. A block waits only for its two neighbours: no cluster barrier
+//     runs inside the loop (one costs 0.77 us on the H100 at 16 blocks: its
+//     release / acquire is a GPU-scope fence and an L1 invalidation;
+//     PERF.md). The cells that read a halo are the ones that send into the
+//     other block, each after its loads, so receiving a neighbour's values
+//     also proves that it has read what this block's next stores
+//     overwrite. The edge cells go first in a substep, so that their
+//     stores travel while the other cells are computed.
 //   * The source cell's owner adds src[n + 1] when it writes the last
-//     substep of sample n (src[0] in the prologue, which copies the input
-//     state). The receivers are read after the next barrier from the
-//     buffer just written; if a receiver is the source cell it reads the
-//     value from before the injection, kept aside by the owner.
-//   * Each product, sum and difference is rounded on its own (__fmul_rn,
-//     __fadd_rn, __fsub_rn), in the JAX expressions' order, so the kernel
-//     gives the plain twin's bits.
-// The barrier is this design's floor (PERF.md). Keeping both fields in the
-// distributed shared memory of a thread-block cluster is left for later.
+//     substep of sample n, and keeps the value from before in shared
+//     memory; the receiver is read by the block that owns its cell.
+//   * The inputs are read once in the prologue (range and halos), the
+//     outputs written once in the epilogue; a cluster barrier after the
+//     prologue (every block started, its mbarriers initialised) and one
+//     before exit.
+//
+// The cooperative route (fdtd_div_coop_kernel), for larger rooms (82 at
+// the CLI's top sizes), and the field form's kernel (fdtd_field_kernel)
+// at every room: one persistent cooperative launch
+// (cudaLaunchCooperativeKernel) of at most the blocks that fit on the
+// card at once; each thread walks its cells in a grid stride, p
+// ping-pongs between two buffers in device memory (div, and in the field
+// form the velocities, which also ping-pong, read and written by their
+// owner), and each substep ends in a cg::grid sync. Reads of cells other
+// threads wrote go through L2 (__ldcg). The grid barrier, 1.43 us at room
+// 50's 275 blocks, is that route's floor (PERF.md). A cluster form of the
+// field kernel (four fields in shared memory, two hand-offs a substep)
+// ran no faster than fdtd_field_kernel; it is kept, measured, in
+// tools/fdtd_stages.
+//
+// FDTD_MARK(q) is a measurement hook of tools/fdtd_stages (clock64()
+// phase sums): unless defined before this file it compiles to nothing.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -109,7 +150,7 @@ __device__ __forceinline__ float inject(const Grid& g, int c, int k,
 }
 
 __global__ void __launch_bounds__(kThreads)
-fdtd_div_kernel(Grid g, const float* __restrict__ src,
+fdtd_div_coop_kernel(Grid g, const float* __restrict__ src,
                 const float* __restrict__ p_in,
                 const float* __restrict__ div_in,
                 float* pa, float* pb, float* div, float* out,
@@ -261,6 +302,470 @@ __global__ void __launch_bounds__(kThreads) fdtd_sync_probe_kernel(int syncs) {
     for (int i = 0; i < syncs; ++i) grid.sync();
 }
 
+// ---- the cluster route ------------------------------------------------
+
+#ifndef FDTD_MARK
+#define FDTD_MARK(q)
+#endif
+constexpr int kClusterThreads = 1024;
+constexpr int kMaxClusterBlocks = 16;
+// Builds for each odd count of cells a thread up to this; a build of CPT
+// serves ranges that need CPT, CPT - 1 or CPT - 2 iterations.
+constexpr int kMaxCellsPerThread = 19;
+
+// The cluster's ranges, as ops/fdtd3d.py:fdtd_schedule gives them: block
+// r owns the flat cells [start[r], start[r + 1]); cap is the longest
+// range, to which every block's layout is sized. A kernel takes them as a
+// __grid_constant__ parameter, read in place (no local copy).
+struct Ranges {
+    int start[kMaxClusterBlocks + 1];
+    int cap;
+};
+
+// Floats of a shared-memory array of `cells` slots plus padding: one
+// iteration of 1,024 cells and a few more, so that the last iteration of a
+// range loads in bounds for every thread (only its stores are masked to
+// the range).
+__host__ __device__ __forceinline__ int padded(long long cells) {
+    return static_cast<int>((cells + 12 + 1024 + 3) & ~3LL);
+}
+
+// One block's place in the cluster.
+struct Slab {
+    int rank, blocks;
+    int start, end;  // the block's range of flat cells
+    int prev_start;  // the previous block's first cell (0 for block 0)
+    int cap;         // the longest range
+};
+
+__device__ __forceinline__ Slab make_slab(const Ranges& r) {
+    cg::cluster_group cluster = cg::this_cluster();
+    Slab sl;
+    sl.rank = static_cast<int>(cluster.block_rank());
+    sl.blocks = static_cast<int>(cluster.num_blocks());
+    sl.start = r.start[sl.rank];
+    sl.end = r.start[sl.rank + 1];
+    sl.prev_start = sl.rank > 0 ? r.start[sl.rank - 1] : 0;
+    sl.cap = r.cap;
+    return sl;
+}
+
+// ---- halo hand-off between neighbouring blocks
+//
+// A block's copy of an array holds cells from an origin org (the first
+// halo cell) at slot c - org. The owner of an edge cell stores its new
+// value straight from registers into the neighbour's halo slot with
+// st.async (shared::cluster), which completes on the neighbour's
+// mbarrier; the neighbour's one arrival a phase announces the bytes it
+// awaits, so the phase completes when all its halo values have landed.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of `addr` (a shared::cta address of this
+// block) in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t in_rank(uint32_t addr, int rank) {
+    uint32_t out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(out) : "r"(addr), "r"(rank));
+    return out;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+                 : "memory");
+}
+
+// The block's one arrival of a phase, with the bytes the phase awaits.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+            smem_u32(bar)),
+        "r"(bytes)
+        : "memory");
+}
+
+// Waits for the phase of the given parity to complete; acquires at
+// cluster scope what the neighbours' st.async released.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+            "[%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done)
+            : "r"(addr), "r"(parity)
+            : "memory");
+    }
+}
+
+// v into shared::cluster address dst, counted on the mbarrier at bar (a
+// shared::cluster address of the same block).
+__device__ __forceinline__ void store_async(uint32_t dst, float v,
+                                            uint32_t bar) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+        "[%2];" ::"r"(dst),
+        "r"(__float_as_uint(v)), "r"(bar)
+        : "memory");
+}
+
+// Shared-memory load and store at a shared::cta address. A load is free
+// to move: every iteration runs unguarded, within the padding, and a
+// substep's loads read only the buffer no one writes in that substep.
+__device__ __forceinline__ float lds(uint32_t addr) {
+    float v;
+    asm("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+    return v;
+}
+
+__device__ __forceinline__ void sts(uint32_t addr, float v) {
+    asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts_if(bool ok, uint32_t addr, float v) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %0, 0;\n\t"
+        "@p st.shared.f32 [%1], %2;\n\t}" ::"r"(static_cast<uint32_t>(ok)),
+        "r"(addr), "f"(v)
+        : "memory");
+}
+
+// A value the compiler must treat as new: a substep's base addresses and
+// masks pass through it, so that per-cell values are rebuilt from one
+// register each substep instead of being hoisted out of the loop (and
+// spilled).
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+    asm volatile("" : "+r"(v));
+    return v;
+}
+
+__device__ __forceinline__ float opaque(float v) {
+    asm volatile("" : "+f"(v));
+    return v;
+}
+
+// Whether iteration i of a build of CPT runs in a block of `iters`
+// iterations (CPT - 2 <= iters <= CPT: the launch rounds the longest
+// range's iterations up to odd, and ranges differ by one cell): only the
+// last two are guarded, so the others run unguarded.
+template <int CPT>
+__device__ __forceinline__ bool runs(int i, int iters) {
+    return i < CPT - 2 || i < iters;
+}
+
+// The iteration of a thread's CPT cells that comes j-th: from both ends
+// of the range inward, so that the first and last nn cells, which go to
+// the neighbours, are sent early.
+template <int CPT>
+__device__ __forceinline__ constexpr int outside_in(int j) {
+    return (j & 1) ? CPT - 1 - j / 2 : j / 2;
+}
+
+// Where this thread's cell l = tid (then + 1024 i) of an array lands in
+// the copy of block `rank`, whose origin is org_to; and that block's
+// mbarrier.
+struct Remote {
+    uint32_t slot, bar;
+
+    __device__ __forceinline__ Remote(const float* arr, int org_to, int cell0,
+                                      uint64_t* mbar, int rank) {
+        slot = in_rank(smem_u32(arr), rank) +
+               4u * static_cast<uint32_t>(cell0 + threadIdx.x - org_to);
+        bar = in_rank(smem_u32(mbar), rank);
+    }
+};
+
+// p of cell c at the start of the block: the input, with src[0] injected
+// at the source cell.
+__device__ __forceinline__ float p_at_start(const Grid& g, const float* p_in,
+                                            const float* src, int c) {
+    const float v = p_in[c];
+    return c == g.src_cell ? __fadd_rn(v, src[0]) : v;
+}
+
+// Rows of out for sample smp, each written by the block that owns its
+// receiver's cell (rank 0 writes NaN for a cell outside the grid). own
+// points at the block's own range of p; src_pre holds the source cell's
+// value from before the injection of sample smp + 1.
+__device__ void cluster_receivers(const Grid& g, const Slab& sl, int smp,
+                                  const float* own, const float* src_pre,
+                                  float* out) {
+    const bool injected = smp + 1 < g.s;
+    for (int t = threadIdx.x; t < g.tracks; t += kClusterThreads) {
+        const int cell = g.rcv_rows ? g.rcv_rows[t] : g.rcv_cell;
+        float v;
+        if (cell < 0 || cell >= g.cells) {
+            if (sl.rank != 0) continue;
+            v = __int_as_float(0x7fc00000);
+        } else if (cell < sl.start || cell >= sl.end) {
+            continue;
+        } else if (injected && cell == g.src_cell) {
+            v = *src_pre;
+        } else {
+            v = own[cell - sl.start];
+        }
+        out[static_cast<long long>(t) * g.s + smp] = __fmul_rn(v, g.out_scale);
+    }
+}
+
+// Divergence form. Shared memory: two mbarriers (one a p buffer), the
+// source cell's pre-injection value, then two p buffers of
+// padded(cap + 2 nn) floats holding cells [start - nn, end + nn) from the
+// origin start - nn. Thread t owns local cells l = i * 1024 + t, i < CPT
+// (the launch takes the build of ceil(longest range / 1024) rounded up to
+// odd; of the iterations that run, only the last is partial: its loads
+// stay in the padding, its stores are masked), and keeps their p and div
+// in registers: a substep reads 6 neighbours
+// from shared memory and writes p once, and the owners of the first and
+// last nn cells also store p into the neighbours' halos of the same
+// buffer. Waiting for the neighbours' stores into this block's halos also
+// proves that they have read what this block's next stores overwrite:
+// the cells that read a halo are the ones that send into the other
+// block's halo, and each sends after its loads.
+template <int CPT>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fdtd_div_cluster_kernel(Grid g,
+                        const __grid_constant__ Ranges ranges,
+                        const float* __restrict__ src,
+                        const float* __restrict__ p_in,
+                        const float* __restrict__ div_in,
+                        float* __restrict__ p_out,
+                        float* __restrict__ div_out,
+                        float* __restrict__ out) {
+    extern __shared__ __align__(16) float smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    FDTD_MARK(0);
+    const int n = g.n, nn = n * n, tid = threadIdx.x;
+    const Slab sl = make_slab(ranges);
+    uint64_t* const bars = reinterpret_cast<uint64_t*>(smem);
+    float* const src_pre = smem + 4;
+    const int w = padded(sl.cap + 2LL * nn);
+    float* const buf0 = smem + 8;
+    float* const buf1 = buf0 + w;
+    const int len = sl.end - sl.start;
+    const bool has_prev = sl.rank > 0, has_next = sl.rank + 1 < sl.blocks;
+    // The bytes each phase awaits: the previous block's last nn cells and
+    // the next block's first nn.
+    const int expect = 4 * nn * (int{has_prev} + int{has_next});
+    // The constants in registers (not reloaded from the constant bank in
+    // every cell), and the pre-injection value's address.
+    const float k1 = opaque(g.k1), k2 = opaque(g.k2), c6 = opaque(g.c6);
+    const float absorb = opaque(g.absorb);
+    const uint32_t pre_a = smem_u32(src_pre);
+    const int iters = (len + kClusterThreads - 1) / kClusterThreads;
+
+    float pr[CPT], dv[CPT];
+    unsigned interior = 0, valid = 0;
+    int src_i = -1;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+        const int l = i * kClusterThreads + tid;
+        pr[i] = dv[i] = 0.f;
+        if (l < len) {
+            const int c = sl.start + l;
+            const int x = c / nn, y = (c / n) % n, z = c % n;
+            valid |= 1u << i;
+            pr[i] = p_at_start(g, p_in, src, c);
+            buf0[nn + l] = pr[i];
+            if (c == g.src_cell) src_i = i;
+            if (!on_boundary(x, y, z, n)) {
+                interior |= 1u << i;
+                dv[i] = div_in[c];
+            }
+        }
+    }
+    for (int j = tid; j < nn; j += kClusterThreads) {
+        const int lo = sl.start - nn + j, hi = sl.end + j;
+        if (lo >= 0) buf0[j] = p_at_start(g, p_in, src, lo);
+        if (hi < g.cells) buf0[nn + len + j] = p_at_start(g, p_in, src, hi);
+    }
+    if (tid == 0) {
+        mbar_init(&bars[0]);
+        mbar_init(&bars[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    FDTD_MARK(1);
+    cluster.sync();  // every block has started, its mbarriers initialised
+    FDTD_MARK(3);
+
+    const int substeps = 3 * g.s;
+    for (int k = 0; k < substeps; ++k) {
+        const int q = (k + 1) & 1;  // the buffer this substep writes
+        float* const bq = q ? buf1 : buf0;
+        const float* cur = (q ? buf0 : buf1) + nn;
+        const bool send = k + 1 < substeps && expect > 0;
+        if (k > 0 && k % 3 == 0) {
+            cluster_receivers(g, sl, k / 3 - 1, cur, src_pre, out);
+            FDTD_MARK(4);
+        }
+        if (tid == 0 && send) mbar_expect(&bars[q], expect);
+        // The cell of this thread that gets the injection, if any.
+        const int inj = (k % 3 == 2 && k / 3 + 1 < g.s) ? src_i : -1;
+        const uint32_t a = opaque(smem_u32(cur) + 4u * tid);
+        const uint32_t a_n = a + 4 * n, a_mn = a - 4 * n;
+        const uint32_t a_nn = a + 4 * nn, a_mnn = a - 4 * nn;
+        const uint32_t w0 = a - smem_u32(cur) + smem_u32(bq + nn);
+        const uint32_t in_mask = opaque(interior), ok_mask = opaque(valid);
+        // This buffer's copies in the neighbours: the first nn cells go to
+        // the previous block's upper halo, the last nn to the next block's
+        // lower halo.
+        Remote up(bq, sl.prev_start - nn, sl.start, &bars[q],
+                  has_prev ? sl.rank - 1 : sl.rank);
+        Remote down(bq, sl.end - nn, sl.start, &bars[q],
+                    has_next ? sl.rank + 1 : sl.rank);
+        auto cell = [&](int i) {
+            const uint32_t o = 4u * kClusterThreads * i;
+            const int l = i * kClusterThreads + tid;
+            const float pc = pr[i];
+            float sum = __fadd_rn(lds(a_nn + o), lds(a_mnn + o));
+            sum = __fadd_rn(sum, __fadd_rn(lds(a_n + o), lds(a_mn + o)));
+            sum = __fadd_rn(sum, __fadd_rn(lds(a + o + 4), lds(a + o - 4)));
+            const float d = __fsub_rn(__fadd_rn(dv[i], __fmul_rn(c6, pc)),
+                                      __fmul_rn(k1, sum));
+            const bool in = in_mask >> i & 1u;
+            const float vi = __fsub_rn(pc, __fmul_rn(k2, d));
+            const float vb = __fmul_rn(pc, absorb);
+            float v = in ? vi : vb;
+            dv[i] = in ? d : dv[i];
+            if (i == inj) {
+                sts(pre_a, v);
+                v = __fadd_rn(v, src[k / 3 + 1]);
+            }
+            pr[i] = v;
+            const bool ok = ok_mask >> i & 1u;
+            sts_if(ok, w0 + o, v);
+            if (send && has_prev && l < nn) store_async(up.slot + o, v, up.bar);
+            if (send && has_next && ok && l >= len - nn) {
+                store_async(down.slot + o, v, down.bar);
+            }
+        };
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+            if (runs<CPT>(outside_in<CPT>(j), iters)) cell(outside_in<CPT>(j));
+        }
+        FDTD_MARK(2);
+        __syncthreads();
+        if (send) mbar_wait(&bars[q], (k >> 1) & 1);
+        FDTD_MARK(3);
+    }
+    const float* fin = ((substeps & 1) ? buf1 : buf0) + nn;
+    cluster_receivers(g, sl, g.s - 1, fin, src_pre, out);
+    FDTD_MARK(4);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+        const int l = i * kClusterThreads + tid;
+        if (l < len) {
+            p_out[sl.start + l] = pr[i];
+            div_out[sl.start + l] = dv[i];  // zero off the interior
+        }
+    }
+    FDTD_MARK(7);
+    cluster.sync();  // no block leaves while a neighbour may address it
+}
+
+// Only the cluster barrier, `syncs` times: what one substep's barrier
+// costs at a given cluster size and shared memory, with no stencil work.
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fdtd_cluster_probe_kernel(int syncs) {
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int i = 0; i < syncs; ++i) cluster.sync();
+}
+
+// The build a range of at most `cap` cells takes: its iterations of 1,024
+// cells, rounded up to odd.
+int cells_per_thread(long long cap) {
+    return static_cast<int>((cap + kClusterThreads - 1) / kClusterThreads | 1);
+}
+
+// Reads `blocks` ranges from starts (blocks + 1 entries) into *r, if they
+// can carry an n^3 grid: they cover it in order, each of at least n^2
+// cells (so a neighbour lies in an adjacent range), balanced within one
+// cell (so a build guards only its last two iterations).
+bool cluster_ranges(int n, const int* starts, int blocks, Ranges* r) {
+    if (n < 3 || n > 1024 || starts == nullptr || blocks < 1 ||
+        blocks > kMaxClusterBlocks) {
+        return false;
+    }
+    const long long nn = 1LL * n * n, cells = nn * n;
+    if (starts[0] != 0 || starts[blocks] != cells) return false;
+    long long shortest = cells, longest = 0;
+    for (int b = 0; b < blocks; ++b) {
+        const long long len = 1LL * starts[b + 1] - starts[b];
+        if (len < nn) return false;
+        shortest = len < shortest ? len : shortest;
+        longest = len > longest ? len : longest;
+    }
+    if (longest - shortest > 1) return false;
+    *r = Ranges{};
+    for (int b = 0; b <= blocks; ++b) r->start[b] = starts[b];
+    r->cap = static_cast<int>(longest);
+    return true;
+}
+
+// Dynamic shared memory a block of the cluster kernel takes for ranges of
+// at most `cap` cells (ops/fdtd3d.py:cluster_smem_bytes): 8 floats (two
+// mbarriers, the pre-injection value), then two p buffers of the range
+// with an n^2 halo on each side.
+long long div_cluster_smem(int n, int cap) {
+    return 4 * (8LL + 2 * padded(cap + 2LL * n * n));
+}
+
+using DivClusterKernel = void (*)(Grid, Ranges, const float*, const float*,
+                                  const float*, float*, float*, float*);
+
+// The builds, one for each odd count of cells a thread; null above them.
+DivClusterKernel div_cluster_kernel(int cpt) {
+    switch (cpt) {
+#define FDTD_CASE(c) \
+    case c:          \
+        return fdtd_div_cluster_kernel<c>;
+        FDTD_CASE(1) FDTD_CASE(3) FDTD_CASE(5) FDTD_CASE(7) FDTD_CASE(9)
+        FDTD_CASE(11) FDTD_CASE(13) FDTD_CASE(15) FDTD_CASE(17) FDTD_CASE(19)
+#undef FDTD_CASE
+        default: return nullptr;
+    }
+}
+
+// A one-cluster launch of `kernel`: `blocks` blocks of 1,024 threads,
+// `smem` bytes of dynamic shared memory each. Sets the kernel's
+// attributes (the opt-in shared memory; a non-portable size above 8).
+cudaError_t cluster_config(const void* kernel, int blocks, long long smem,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (err != cudaSuccess) return err;
+    if (smem < 0 || smem > optin) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess && blocks > 8) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    *cfg = cudaLaunchConfig_t{};
+    cfg->gridDim = dim3(blocks);
+    cfg->blockDim = dim3(kClusterThreads);
+    cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg->stream = stream;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = blocks;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+    return err;
+}
+
 // Blocks of a cooperative launch of `kernel` that fit on the current
 // device at once, capped at what `work` items need; 0 with *err set when
 // the device cannot launch cooperatively.
@@ -316,7 +821,8 @@ bool bad_shape(int n, int s, int tracks, int src_cell) {
 
 extern "C" {
 
-// Divergence form. src (s,), p_in and div_in (n^3,) read only; pa, pb
+// Cooperative route, divergence form. src (s,), p_in and div_in (n^3,)
+// read only; pa, pb
 // (n^3,) scratch: after the block p' is in pa when s is even, pb when odd;
 // div (n^3,) receives div'; out (tracks, s), every row read from rcv_cell;
 // src_pre (1,) scratch. Returns the launch's error (0 on success).
@@ -329,20 +835,20 @@ int fdtd_div_launch(const float* src, const float* p_in, const float* div_in,
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err;
-    const int blocks = grid_blocks(fdtd_div_kernel, 1LL * n * n * n, &err);
+    const int blocks = grid_blocks(fdtd_div_coop_kernel, 1LL * n * n * n, &err);
     if (blocks == 0) return static_cast<int>(err);
     Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, nullptr, k1, k2, c6,
                        absorb, out_scale);
     void* args[] = {&g, &src, &p_in, &div_in, &pa, &pb, &div, &out, &src_pre};
     err = cudaLaunchCooperativeKernel(
-        (const void*)fdtd_div_kernel, dim3(blocks),
+        (const void*)fdtd_div_coop_kernel, dim3(blocks),
         dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 
-// Field form. p_in (n^3,), vx_in (n+1, n, n), vy_in (n, n+1, n), vz_in
-// (n, n, n+1) read only; pa, pb and each velocity's a, b buffers scratch:
+// Cooperative route, field form. p_in (n^3,), vx_in (n+1, n, n), vy_in
+// (n, n+1, n), vz_in (n, n, n+1) read only; pa, pb and each velocity's a, b buffers scratch:
 // after the block the fields are in the a buffers when s is even, the b
 // buffers when odd. out and src_pre as for fdtd_div_launch; the receiver
 // of row t is rcv_rows[t], or rcv_cell when rcv_rows is null.
@@ -371,11 +877,11 @@ int fdtd_field_launch(const float* src, const float* p_in, const float* vx_in,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The blocks the divergence kernel's launch takes for an n^3 grid (0 when
-// the device cannot launch it cooperatively).
+// The blocks the cooperative divergence kernel's launch takes for an n^3
+// grid (0 when the device cannot launch it cooperatively).
 int fdtd_div_blocks(int n) {
     cudaError_t err;
-    return grid_blocks(fdtd_div_kernel, 1LL * n * n * n, &err);
+    return grid_blocks(fdtd_div_coop_kernel, 1LL * n * n * n, &err);
 }
 
 // `syncs` grid-wide barriers alone, in one cooperative launch of `blocks`
@@ -388,6 +894,112 @@ int fdtd_sync_probe_launch(int syncs, int blocks, void* stream) {
         args, 0, static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Cluster route, divergence form: one cluster of `blocks` blocks carries
+// the whole n^3 grid in its shared memory, block r the flat cells
+// [starts[r], starts[r + 1]) (starts: blocks + 1 ints, host memory). src
+// (s,), p_in and div_in (n^3,) read only; p_out and div_out (n^3,)
+// receive p' and div'; out (tracks, s), every row read from rcv_cell.
+// Returns the launch's error (0 on success); cudaErrorInvalidValue when
+// the ranges cannot carry the grid (cluster_ranges, no build) or the card
+// lacks the shared memory.
+int fdtd_div_cluster_launch(const float* src, const float* p_in,
+                            const float* div_in, float* p_out, float* div_out,
+                            float* out, int n, int s, int src_cell, int tracks,
+                            int rcv_cell, float k1, float k2, float c6,
+                            float absorb, float out_scale, const int* starts,
+                            int blocks, void* stream) {
+    Ranges r;
+    if (bad_shape(n, s, tracks, src_cell) ||
+        !cluster_ranges(n, starts, blocks, &r)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const DivClusterKernel kernel = div_cluster_kernel(cells_per_thread(r.cap));
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config((const void*)kernel, blocks,
+                                     div_cluster_smem(n, r.cap),
+                                     static_cast<cudaStream_t>(stream), &cfg,
+                                     &attr);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, nullptr, k1,
+                             k2, c6, absorb, out_scale);
+    err = cudaLaunchKernelEx(&cfg, kernel, g, r, src, p_in, div_in, p_out,
+                             div_out, out);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory a block of the cluster kernel takes for an
+// n^3 grid on the ranges of fdtd_div_cluster_launch, or -1 when they
+// cannot carry it.
+long long fdtd_cluster_smem(int n, const int* starts, int blocks) {
+    Ranges r;
+    if (!cluster_ranges(n, starts, blocks, &r) ||
+        div_cluster_kernel(cells_per_thread(r.cap)) == nullptr) {
+        return -1;
+    }
+    return div_cluster_smem(n, r.cap);
+}
+
+// Clusters of the cluster kernel for an n^3 grid on those ranges that the
+// card can hold at once (cudaOccupancyMaxActiveClusters); the negated
+// CUDA error when the query fails.
+int fdtd_cluster_occupancy(int n, const int* starts, int blocks) {
+    const long long smem = fdtd_cluster_smem(n, starts, blocks);
+    if (smem < 0) return -static_cast<int>(cudaErrorInvalidValue);
+    Ranges r;
+    cluster_ranges(n, starts, blocks, &r);
+    const void* kernel = (const void*)div_cluster_kernel(cells_per_thread(r.cap));
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config(kernel, blocks, smem, nullptr, &cfg, &attr);
+    int clusters = 0;
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    }
+    return err == cudaSuccess ? clusters : -static_cast<int>(err);
+}
+
+// `syncs` cluster barriers alone, in one cluster of `blocks` blocks of
+// 1,024 threads with `smem` bytes of dynamic shared memory each. Returns
+// the launch's error (0 on success).
+int fdtd_cluster_probe_launch(int syncs, int blocks, int smem, void* stream) {
+    if (syncs < 0 || blocks < 1 || blocks > kMaxClusterBlocks) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config((const void*)fdtd_cluster_probe_kernel,
+                                     blocks, smem,
+                                     static_cast<cudaStream_t>(stream), &cfg,
+                                     &attr);
+    if (err == cudaSuccess) {
+        err = cudaLaunchKernelEx(&cfg, fdtd_cluster_probe_kernel, syncs);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of the barrier probe (`blocks` blocks, `smem` bytes each) that
+// the card can hold at once: 0 when such a cluster cannot be scheduled;
+// the negated CUDA error when the query fails.
+int fdtd_cluster_probe_occupancy(int blocks, int smem) {
+    if (blocks < 1 || blocks > kMaxClusterBlocks) {
+        return -static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config((const void*)fdtd_cluster_probe_kernel,
+                                     blocks, smem, nullptr, &cfg, &attr);
+    int clusters = 0;
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveClusters(
+            &clusters, (const void*)fdtd_cluster_probe_kernel, &cfg);
+    }
+    return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -27,13 +27,23 @@ sample n, and out[t, n] = p[rcv(t)] * 0.1 after its last substep.
   substep in the order of their expressions.
 
 A wrapper runs the twin only because its tensors lie on the CPU. On a
-CUDA tensor it launches the kernel or raises; it never falls back. The
-input fields are never written.
+CUDA tensor it launches a kernel or raises; it never falls back. The
+input fields are never written. Which kernel runs is decided before the
+launch by ``fdtd_schedule(n, form)``, pure host code: in the divergence
+form a room whose (p, div) fits in one thread-block cluster's shared
+memory (rooms up to 65; room 50 on 16 blocks) takes the cluster kernel
+(``fdtd3d_div`` in ``KERNEL_LAUNCHES``), a larger one (room 82) the
+cooperative kernel (``fdtd3d_div_coop``). The field form has one kernel,
+a cooperative one, at every room (``fdtd3d_field``). The route-specific
+launchers ``fdtd3d_block_div_{cluster,coop}`` take CUDA tensors only;
+they let the tests and ``chip_smoke.py`` hold one route against the
+other at a room both can serve.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -67,8 +77,84 @@ F_SOURCE_SCALE = float(np.float32(SOURCE_SCALE))
 F_OUTPUT_SCALE = float(np.float32(OUTPUT_SCALE))
 
 # Launches of each CUDA kernel, counted by its wrapper where it launches
-# it (chip_smoke.py reads them to prove the main path used the kernels).
-KERNEL_LAUNCHES: Dict[str, int] = {"fdtd3d_div": 0, "fdtd3d_field": 0}
+# it (chip_smoke.py reads them to prove the main path used the kernels):
+# the divergence form's cluster kernel under the form's name, its
+# cooperative kernel with "_coop"; the field form's one kernel.
+KERNEL_LAUNCHES: Dict[str, int] = {"fdtd3d_div": 0, "fdtd3d_div_coop": 0,
+                                   "fdtd3d_field": 0}
+
+# The cluster route (csrc/fdtd3d.cu): blocks of 1,024 threads, at most
+# 16 in a cluster (a non-portable size on sm_90), each with at most the
+# 232,448 bytes of shared memory a block can opt into on sm_90, each
+# thread at most 19 cells (the largest build).
+CLUSTER_THREADS = 1024
+MAX_CLUSTER_BLOCKS = 16
+SMEM_PER_BLOCK = 232_448
+MAX_CELLS_PER_THREAD = 19
+FORMS = ("div", "field")
+
+
+@dataclass(frozen=True)
+class FdtdPlan:
+    """How one block of an n^3 grid runs: ``route`` "cluster" (one
+    cluster of ``blocks`` blocks, block b owning the flat cells
+    ``ranges[b]``, which the kernel is given, and taking ``smem_bytes`` of
+    dynamic shared memory) or "cooperative" (blocks 0, no ranges: the
+    grid-stride kernel sizes its own launch)."""
+
+    route: str
+    blocks: int
+    ranges: Tuple[Tuple[int, int], ...]
+    smem_bytes: int
+
+
+COOPERATIVE = FdtdPlan("cooperative", 0, (), 0)
+
+
+def cluster_smem_bytes(n: int, cap: int) -> int:
+    """Dynamic shared memory a block of the cluster kernel takes for ranges
+    of at most ``cap`` cells (csrc/fdtd3d.cu:div_cluster_smem): 8 floats
+    of mbarriers and the source cell's pre-injection value, then two p
+    buffers of [n^2 | range | n^2], each padded by 1,036 floats (the last
+    partial iteration of 1,024 threads loads in bounds) and rounded up to
+    4."""
+    return 4 * (8 + 2 * ((cap + 2 * n * n + 12 + CLUSTER_THREADS + 3)
+                         // 4 * 4))
+
+
+def fdtd_schedule(n: int, form: str) -> FdtdPlan:
+    """The route of an n^3 grid in ``form`` ("div" or "field"). In the
+    divergence form a cluster of the largest power of two of blocks up to
+    16 and n (so each range holds at least n^2 cells and a +-1, +-n or
+    +-n^2 neighbour lies in the block's own range or an adjacent one), on
+    balanced ranges, takes the grid when every block's layout fits its
+    shared memory and the largest build's cells a thread; otherwise the
+    cooperative route does. The field form always takes the cooperative
+    route: its cluster design ran no faster (PERF.md)."""
+    if form not in FORMS:
+        raise ValueError(f"fdtd_schedule: form must be one of {FORMS}, "
+                         f"got {form!r}")
+    if form == "field":
+        return COOPERATIVE
+    blocks = MAX_CLUSTER_BLOCKS
+    while blocks > n:
+        blocks //= 2
+    cells = n ** 3
+    cap = -(-cells // blocks)
+    smem = cluster_smem_bytes(n, cap)
+    if (cells // blocks < n * n or smem > SMEM_PER_BLOCK
+            or cap > MAX_CELLS_PER_THREAD * CLUSTER_THREADS):
+        return COOPERATIVE
+    ranges = tuple((b * cells // blocks, (b + 1) * cells // blocks)
+                   for b in range(blocks))
+    return FdtdPlan("cluster", blocks, ranges, smem)
+
+
+def range_starts(plan: FdtdPlan):
+    """The plan's ranges as csrc/fdtd3d.cu takes them: blocks + 1 C ints,
+    block b owning [starts[b], starts[b + 1])."""
+    starts = [lo for lo, _ in plan.ranges] + [plan.ranges[-1][1]]
+    return (ctypes.c_int * len(starts))(*starts)
 
 Cell = Tuple[int, int, int]
 
@@ -231,17 +317,30 @@ def _check(x, fields, source: Cell, receiver: Cell,
 def _lib() -> ctypes.CDLL:
     from gpuaudiobench_tpu_torch.utils.build import load
 
-    lib = load("fdtd3d")
+    return bind(load("fdtd3d"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and result types of csrc/fdtd3d.cu's C interface
+    on a loaded library (once); returns it."""
     if lib.fdtd_div_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fdtd_div_launch.argtypes = [p] * 8 + [i] * 5 + [f] * 5 + [p]
-        lib.fdtd_div_launch.restype = i
-        lib.fdtd_field_launch.argtypes = [p] * 16 + [i] * 5 + [f] * 4 + [p]
-        lib.fdtd_field_launch.restype = i
-        lib.fdtd_div_blocks.argtypes = [i]
-        lib.fdtd_div_blocks.restype = i
-        lib.fdtd_sync_probe_launch.argtypes = [i, i, p]
-        lib.fdtd_sync_probe_launch.restype = i
+        ip = ctypes.POINTER(ctypes.c_int)
+        sig = {
+            "fdtd_div_launch": [p] * 8 + [i] * 5 + [f] * 5 + [p],
+            "fdtd_field_launch": [p] * 16 + [i] * 5 + [f] * 4 + [p],
+            "fdtd_div_cluster_launch": [p] * 6 + [i] * 5 + [f] * 5 + [ip, i, p],
+            "fdtd_div_blocks": [i],
+            "fdtd_sync_probe_launch": [i, i, p],
+            "fdtd_cluster_occupancy": [i, ip, i],
+            "fdtd_cluster_probe_launch": [i, i, i, p],
+            "fdtd_cluster_probe_occupancy": [i, i],
+        }
+        for name, args in sig.items():
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i
+        lib.fdtd_cluster_smem.argtypes = [i, ip, i]
+        lib.fdtd_cluster_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -249,71 +348,132 @@ def _empty(n_shape, like):
     return torch.empty(n_shape, dtype=torch.float32, device=like.device)
 
 
+def _launch(x, name: str, key: str, *args) -> None:
+    """Calls ``lib.<name>(*args, stream)`` on x's device; raises on a
+    nonzero CUDA error, else counts the launch under ``key``."""
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+    KERNEL_LAUNCHES[key] += 1
+
+
+def _on_cuda(x, fn: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn}: a route-specific launcher takes CUDA "
+                         f"tensors, got {x.device}")
+
+
+def _div_cluster(x, p, div, n, source, receiver, plan: FdtdPlan):
+    tracks, s = x.shape
+    p_out, div_out = _empty((n, n, n), x), _empty((n, n, n), x)
+    out = _empty((tracks, s), x)
+    _launch(x, "fdtd_div_cluster_launch", "fdtd3d_div",
+            source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
+            p_out.data_ptr(), div_out.data_ptr(), out.data_ptr(), n, s,
+            flat_cell(source, n), tracks, flat_cell(receiver, n), K1, K2, C6,
+            ABSORB, F_OUTPUT_SCALE, range_starts(plan), plan.blocks)
+    return out, p_out, div_out
+
+
+def _div_coop(x, p, div, n, source, receiver):
+    tracks, s = x.shape
+    pa, pb, div_out = (_empty((n, n, n), x) for _ in range(3))
+    out = _empty((tracks, s), x)
+    src_pre = _empty((1,), x)
+    _launch(x, "fdtd_div_launch", "fdtd3d_div_coop",
+            source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
+            pa.data_ptr(), pb.data_ptr(), div_out.data_ptr(), out.data_ptr(),
+            src_pre.data_ptr(), n, s, flat_cell(source, n), tracks,
+            flat_cell(receiver, n), K1, K2, C6, ABSORB, F_OUTPUT_SCALE)
+    return out, (pa if s % 2 == 0 else pb), div_out
+
+
+def _field(x, p, vx, vy, vz, n, source, receiver, receivers):
+    tracks, s = x.shape
+    pa, pb = _empty((n, n, n), x), _empty((n, n, n), x)
+    vs = [(_empty(t.shape, x), _empty(t.shape, x)) for t in (vx, vy, vz)]
+    out = _empty((tracks, s), x)
+    src_pre = _empty((1,), x)
+    _launch(x, "fdtd_field_launch", "fdtd3d_field",
+            source_row(x).data_ptr(), p.data_ptr(), vx.data_ptr(),
+            vy.data_ptr(), vz.data_ptr(), pa.data_ptr(), pb.data_ptr(),
+            *(b.data_ptr() for pair in vs for b in pair), out.data_ptr(),
+            src_pre.data_ptr(),
+            None if receivers is None else receivers.data_ptr(), n, s,
+            flat_cell(source, n), tracks, flat_cell(receiver, n), K1, K2,
+            ABSORB, F_OUTPUT_SCALE)
+    last = 0 if s % 2 == 0 else 1
+    return (out, (pa, pb)[last], vs[0][last], vs[1][last], vs[2][last])
+
+
+def _check_div(x, p, div, source, receiver, fn):
+    return _check(x, [("p", p, (0, 0, 0)), ("div", div, (0, 0, 0))], source,
+                  receiver, None, fn)
+
+
+def _check_field(x, p, vx, vy, vz, source, receiver, receivers, fn):
+    return _check(x, [("p", p, (0, 0, 0)), ("vx", vx, (1, 0, 0)),
+                      ("vy", vy, (0, 1, 0)), ("vz", vz, (0, 0, 1))],
+                  source, receiver, receivers, fn)
+
+
 def fdtd3d_block_div(x, p, div, source: Cell = SOURCE,
                      receiver: Cell = RECEIVER):
     """Divergence-form block: (out (T, S), p', div'); the grid size rides
     p.shape (room + 2 ghost cells)."""
-    n = _check(x, [("p", p, (0, 0, 0)), ("div", div, (0, 0, 0))], source,
-               receiver, None, "fdtd3d_block_div")
+    n = _check_div(x, p, div, source, receiver, "fdtd3d_block_div")
     if x.device.type == "cpu":
         return fdtd3d_block_div_plain(x, p, div, source, receiver)
-    lib = _lib()
-    tracks, s = x.shape
-    src = source_row(x)
-    pa, pb, div_out = (_empty((n, n, n), x) for _ in range(3))
-    out = _empty((tracks, s), x)
-    src_pre = _empty((1,), x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fdtd_div_launch(
-            src.data_ptr(), p.data_ptr(), div.data_ptr(), pa.data_ptr(),
-            pb.data_ptr(), div_out.data_ptr(), out.data_ptr(),
-            src_pre.data_ptr(), n, s, flat_cell(source, n), tracks,
-            flat_cell(receiver, n), K1, K2, C6, ABSORB, F_OUTPUT_SCALE, stream)
-    if err != 0:
-        raise RuntimeError(f"fdtd_div_launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES["fdtd3d_div"] += 1
-    return out, (pa if s % 2 == 0 else pb), div_out
+    plan = fdtd_schedule(n, "div")
+    if plan.route == "cluster":
+        return _div_cluster(x, p, div, n, source, receiver, plan)
+    return _div_coop(x, p, div, n, source, receiver)
 
 
 def fdtd3d_block_field(x, p, vx, vy, vz, source: Cell = SOURCE,
                        receiver: Cell = RECEIVER,
                        receivers: Optional[torch.Tensor] = None):
     """Field-form block: (out (T, S), p', vx', vy', vz'); ``receivers``
-    (int32 (T,) flat cells) gives each track its own receiver."""
-    n = _check(x, [("p", p, (0, 0, 0)), ("vx", vx, (1, 0, 0)),
-                   ("vy", vy, (0, 1, 0)), ("vz", vz, (0, 0, 1))],
-               source, receiver, receivers, "fdtd3d_block_field")
+    (int32 (T,) flat cells) gives each track its own receiver. Every room
+    takes the cooperative kernel (``fdtd_schedule``)."""
+    n = _check_field(x, p, vx, vy, vz, source, receiver, receivers,
+                     "fdtd3d_block_field")
     if x.device.type == "cpu":
         return fdtd3d_block_field_plain(x, p, vx, vy, vz, source, receiver,
                                         receivers)
-    lib = _lib()
-    tracks, s = x.shape
-    src = source_row(x)
-    pa, pb = _empty((n, n, n), x), _empty((n, n, n), x)
-    vs = [(_empty(t.shape, x), _empty(t.shape, x)) for t in (vx, vy, vz)]
-    out = _empty((tracks, s), x)
-    src_pre = _empty((1,), x)
-    rows = None if receivers is None else receivers.data_ptr()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fdtd_field_launch(
-            src.data_ptr(), p.data_ptr(), vx.data_ptr(), vy.data_ptr(),
-            vz.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            *(b.data_ptr() for pair in vs for b in pair), out.data_ptr(),
-            src_pre.data_ptr(), rows, n, s, flat_cell(source, n), tracks,
-            flat_cell(receiver, n), K1, K2, ABSORB, F_OUTPUT_SCALE, stream)
-    if err != 0:
-        raise RuntimeError(f"fdtd_field_launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES["fdtd3d_field"] += 1
-    last = 0 if s % 2 == 0 else 1
-    return (out, (pa, pb)[last], vs[0][last], vs[1][last], vs[2][last])
+    return _field(x, p, vx, vy, vz, n, source, receiver, receivers)
+
+
+def fdtd3d_block_div_cluster(x, p, div, source: Cell = SOURCE,
+                             receiver: Cell = RECEIVER):
+    """``fdtd3d_block_div`` on the cluster route; raises when the grid
+    does not fit a cluster."""
+    fn = "fdtd3d_block_div_cluster"
+    n = _check_div(x, p, div, source, receiver, fn)
+    _on_cuda(x, fn)
+    plan = fdtd_schedule(n, "div")
+    if plan.route != "cluster":
+        raise ValueError(f"{fn}: an {n}^3 grid does not fit a cluster")
+    return _div_cluster(x, p, div, n, source, receiver, plan)
+
+
+def fdtd3d_block_div_coop(x, p, div, source: Cell = SOURCE,
+                          receiver: Cell = RECEIVER):
+    """``fdtd3d_block_div`` on the cooperative route."""
+    fn = "fdtd3d_block_div_coop"
+    n = _check_div(x, p, div, source, receiver, fn)
+    _on_cuda(x, fn)
+    return _div_coop(x, p, div, n, source, receiver)
 
 
 def sync_probe(n: int, syncs: int, device) -> None:
     """Launch ``syncs`` grid-wide barriers alone, on as many blocks as the
-    divergence kernel takes for an n^3 grid: a measurement of the barrier
-    (not a kernel of any benchmark; not counted in KERNEL_LAUNCHES)."""
+    cooperative divergence kernel takes for an n^3 grid: a measurement of
+    the barrier (not a kernel of any benchmark; not counted in
+    KERNEL_LAUNCHES)."""
     lib = _lib()
     device = torch.device(device)
     with torch.cuda.device(device):
@@ -325,3 +485,31 @@ def sync_probe(n: int, syncs: int, device) -> None:
         err = lib.fdtd_sync_probe_launch(syncs, blocks, stream)
     if err != 0:
         raise RuntimeError(f"fdtd_sync_probe_launch failed: CUDA error {err}")
+
+
+def cluster_probe(blocks: int, smem_bytes: int, syncs: int, device) -> None:
+    """Launch ``syncs`` cluster barriers alone, in one cluster of
+    ``blocks`` blocks of the cluster kernels' size with ``smem_bytes`` of
+    shared memory each: a measurement of the barrier (not counted in
+    KERNEL_LAUNCHES)."""
+    lib = _lib()
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.fdtd_cluster_probe_launch(syncs, blocks, smem_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"fdtd_cluster_probe_launch failed: CUDA error "
+                           f"{err}")
+
+
+def cluster_occupancy(blocks: int, smem_bytes: int, device) -> int:
+    """Clusters of ``blocks`` blocks with ``smem_bytes`` each that the card
+    holds at once (``cudaOccupancyMaxActiveClusters`` on the barrier
+    probe): 0 when such a cluster cannot be scheduled."""
+    lib = _lib()
+    with torch.cuda.device(torch.device(device)):
+        got = lib.fdtd_cluster_probe_occupancy(blocks, smem_bytes)
+    if got < 0:
+        raise RuntimeError(f"fdtd_cluster_probe_occupancy failed: CUDA error "
+                           f"{-got}")
+    return got

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (the modal bank in its rotation and
 resonator forms, the four IIR kernels, the Conv1D FIR, the RndMem gather,
-the DWG block, the two FDTD forms and the two speed-of-light FMA kernels)
+the DWG block, the two FDTD forms, the divergence form on both routes,
+and the two speed-of-light FMA kernels)
 against their plain PyTorch twins, on the GPU, with the SOL GEMMs against
 their goldens and the device tier against the profiler. Marked ``cuda``: each test skips where there is no CUDA
 device.
@@ -16,6 +17,8 @@ mode by mode, so the same bars hold, and 1e-5 of the peak against
 ``modal_reference_gs`` (the reference's bar, tests/test_pallas_ops.py:432).
 The tolerances of the other kernels are stated at their tests below.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -645,6 +648,156 @@ def test_fdtd_kernels_are_deterministic(cuda):
 def test_fdtd_sync_probe_runs(cuda):
     fops.sync_probe(52, 64, cuda)
     torch.cuda.synchronize()
+
+
+# -- the divergence form's two routes (ops.fdtd3d.fdtd_schedule) -------
+#
+# The cluster kernel against the twin and against the cooperative kernel
+# at the same room, bit for bit (every product, sum and difference is
+# rounded on its own, in the twin's order), fields chained over 2 blocks.
+
+
+def _last_cluster_room():
+    """The largest room the schedule puts on the cluster route."""
+    return max(r for r in range(1, 130)
+               if fops.fdtd_schedule(fops.grid_n(r), "div").route == "cluster")
+
+
+def _div_case(room, s, tracks, receiver, device):
+    """x and the geometry, the receiver "default" (the room's receiver
+    cell), "source" (on the source cell) or "boundary" (on the first cell
+    of the schedule's fourth range)."""
+    n, src, rcv = (fops.grid_n(room), fops.source_pos(room),
+                   fops.receiver_pos(room))
+    if receiver == "source":
+        rcv = src
+    elif receiver == "boundary":
+        c = fops.fdtd_schedule(n, "div").ranges[3][0]
+        rcv = (c // (n * n), c // n % n, c % n)
+    return _fdtd_x(tracks, s, device), n, src, rcv
+
+
+def _div_chain(fn, x, n, src, rcv, device, blocks=2):
+    fields = fops.zero_fields_div(n, device)
+    outs = []
+    for _ in range(blocks):
+        got = fn(x, *fields, src, rcv)
+        outs.append(got)
+        fields = got[1:]
+    return outs
+
+
+def _same(a, b):
+    return all(torch.equal(u, v) for pa, pb in zip(a, b)
+               for u, v in zip(pa, pb))
+
+
+# (room, samples, tracks, receiver): the smallest room (1: 2 blocks of 13
+# and 14 cells), room 8 with the receiver on the source cell, room 15's
+# ragged ranges (307 and 308 cells) with the receiver on a range boundary
+# and S odd, room 50 with 128 tracks.
+FDTD_ROUTE_CASES = [(1, 6, 2, "default"), (8, 12, 4, "source"),
+                    (15, 7, 4, "boundary"), (50, 9, 128, "default")]
+
+
+@pytest.mark.parametrize("room,s,tracks,receiver", FDTD_ROUTE_CASES)
+def test_fdtd_cluster_route_matches_twin_and_coop_bit_for_bit(
+        cuda, room, s, tracks, receiver):
+    x, n, src, rcv = _div_case(room, s, tracks, receiver, cuda)
+    assert fops.fdtd_schedule(n, "div").route == "cluster"
+    before = dict(fops.KERNEL_LAUNCHES)
+    clu = _div_chain(fops.fdtd3d_block_div_cluster, x, n, src, rcv, cuda)
+    coop = _div_chain(fops.fdtd3d_block_div_coop, x, n, src, rcv, cuda)
+    twin = _div_chain(fops.fdtd3d_block_div_plain, x, n, src, rcv, cuda)
+    again = _div_chain(fops.fdtd3d_block_div, x, n, src, rcv, cuda)
+    torch.cuda.synchronize()
+    assert _same(clu, twin) and _same(coop, twin) and _same(clu, again)
+    assert clu[1][0].abs().max().item() > 0
+    assert fops.KERNEL_LAUNCHES["fdtd3d_div"] == before["fdtd3d_div"] + 4
+    assert (fops.KERNEL_LAUNCHES["fdtd3d_div_coop"]
+            == before["fdtd3d_div_coop"] + 2)
+
+
+def test_fdtd_routes_at_the_schedule_edge(cuda):
+    """The largest room on the cluster route takes it, bit for bit the
+    twin's and the cooperative kernel's; the next room takes the
+    cooperative route, and the cluster launcher refuses it."""
+    room = _last_cluster_room()
+    for r, key in ((room, "fdtd3d_div"), (room + 1, "fdtd3d_div_coop")):
+        x, n, src, rcv = _div_case(r, 3, 2, "default", cuda)
+        before = fops.KERNEL_LAUNCHES[key]
+        got = _div_chain(fops.fdtd3d_block_div, x, n, src, rcv, cuda)
+        twin = _div_chain(fops.fdtd3d_block_div_plain, x, n, src, rcv, cuda)
+        coop = _div_chain(fops.fdtd3d_block_div_coop, x, n, src, rcv, cuda)
+        torch.cuda.synchronize()
+        assert _same(got, twin) and _same(coop, twin)
+        assert fops.KERNEL_LAUNCHES[key] >= before + 2
+    with pytest.raises(ValueError, match="does not fit"):
+        fops.fdtd3d_block_div_cluster(x, *fops.zero_fields_div(n, cuda), src,
+                                      rcv)
+
+
+def test_fdtd_cluster_launch_refuses_ranges_it_cannot_carry(cuda):
+    """The C launcher checks the ranges it is given: they cover the grid
+    in order, each of at least n^2 cells, balanced within one cell."""
+    n, s, tracks = fops.grid_n(8), 4, 2
+    plan = fops.fdtd_schedule(n, "div")
+    lib = fops._lib()
+    starts = list(fops.range_starts(plan))
+    x = _fdtd_x(tracks, s, cuda)
+    src = fops.source_row(x)
+    p, div = fops.zero_fields_div(n, cuda)
+    outs = [torch.empty_like(p), torch.empty_like(div),
+            torch.empty((tracks, s), device=cuda)]
+    bad = [starts[:-1] + [starts[-1] - 1],  # short of the grid
+           [0, starts[2], starts[1]] + starts[3:],  # out of order
+           [0, n * n - 1] + starts[2:],  # a range under n^2 cells
+           [0, starts[1] + 2] + starts[2:]]  # unbalanced
+    for st in [starts] + bad:
+        arr = (ctypes.c_int * len(st))(*st)
+        err = lib.fdtd_div_cluster_launch(
+            src.data_ptr(), p.data_ptr(), div.data_ptr(),
+            *(o.data_ptr() for o in outs), n, s, 0, tracks, 0, fops.K1,
+            fops.K2, fops.C6, fops.ABSORB, fops.F_OUTPUT_SCALE, arr,
+            plan.blocks, torch.cuda.current_stream(cuda).cuda_stream)
+        assert (err == 0) == (st is starts), st
+        assert (lib.fdtd_cluster_smem(n, arr, plan.blocks)
+                == (plan.smem_bytes if st is starts else -1))
+    torch.cuda.synchronize()
+
+
+def test_fdtd_cluster_probe_runs_and_is_schedulable(cuda):
+    n = fops.grid_n(50)
+    plan = fops.fdtd_schedule(n, "div")
+    assert fops.cluster_occupancy(plan.blocks, plan.smem_bytes, cuda) >= 1
+    lib = fops._lib()
+    starts = fops.range_starts(plan)
+    assert lib.fdtd_cluster_smem(n, starts, plan.blocks) == plan.smem_bytes
+    assert lib.fdtd_cluster_occupancy(n, starts, plan.blocks) >= 1
+    fops.cluster_probe(plan.blocks, plan.smem_bytes, 64, cuda)
+    torch.cuda.synchronize()
+
+
+def test_fdtd_cluster_kernel_is_deterministic(cuda):
+    x, n, src, rcv = _div_case(50, 16, 8, "default", cuda)
+    a = _div_chain(fops.fdtd3d_block_div_cluster, x, n, src, rcv, cuda)
+    b = _div_chain(fops.fdtd3d_block_div_cluster, x, n, src, rcv, cuda)
+    assert _same(a, b)
+
+
+def test_fdtd_field_form_takes_its_one_kernel(cuda):
+    """The field form runs its cooperative kernel at every room, room 50
+    included, counted as fdtd3d_field."""
+    for room in (8, 50, 82):
+        n = fops.grid_n(room)
+        assert fops.fdtd_schedule(n, "field").route == "cooperative"
+        x = _fdtd_x(2, 3, cuda)
+        before = dict(fops.KERNEL_LAUNCHES)
+        fops.fdtd3d_block_field(x, *fops.zero_fields(n, cuda),
+                                fops.source_pos(room), fops.receiver_pos(room))
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in fops.KERNEL_LAUNCHES.items()} \
+            == {"fdtd3d_div": 0, "fdtd3d_div_coop": 0, "fdtd3d_field": 1}
 
 
 # The speed-of-light kernels (rows, width, k): against the twin within

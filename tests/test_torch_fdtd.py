@@ -15,16 +15,26 @@ ringing room. Tolerances, absolute:
   against the field twin: 1e-5 (the divergence form reassociates the
   update; the reference's bar, tests/test_benchmarks.py:189);
 * benchmark outputs, port vs JAX: 1e-5; goldens bit for bit.
+
+The CUDA kernels' route (``fdtd_schedule``) is checked here as host
+code, and a NumPy emulation of the divergence form's cluster layout
+(each block's range with its halos, the edge cells handed to the
+neighbours) matches the twin bit for bit; the kernels themselves run in
+``tests/test_torch_cuda.py``.
 """
 
 import contextlib
 import dataclasses
 import io
 import json
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental.pallas import tpu as pltpu
 
 from gpuaudiobench_tpu.models.fdtd3d import fdtd3d_reference as jax_reference
@@ -324,3 +334,192 @@ def test_fdtd_flags_reach_the_benchmark(argv, want):
     assert rec["validation"]["status"] == "SUCCESS"
     for k, v in want.items():
         assert rec["metadata"][k] == v
+
+
+# -- the route of the CUDA kernels (ops.fdtd3d.fdtd_schedule) ------------
+
+SMEM_PER_BLOCK = 232_448  # the opt-in shared memory of a block on sm_90
+
+
+@settings(max_examples=200, deadline=None)
+@given(n=st.integers(10, 130), form=st.sampled_from(["div", "field"]))
+def test_schedule_covers_the_grid_and_fits(n, form):
+    plan = op.fdtd_schedule(n, form)
+    if form == "field":  # the field form has no cluster kernel
+        assert plan == op.FdtdPlan("cooperative", 0, (), 0)
+        return
+    blocks = 16 if n >= 16 else 8
+    nn, cells = n * n, n ** 3
+    cap = -(-cells // blocks)
+    fits = (op.cluster_smem_bytes(n, cap) <= SMEM_PER_BLOCK
+            and cap <= 19 * 1024)
+    assert (plan.route == "cluster") == fits
+    if plan.route != "cluster":
+        assert plan == op.FdtdPlan("cooperative", 0, (), 0)
+        return
+    assert plan.blocks == blocks == len(plan.ranges)
+    # two p buffers of the longest range with an n^2 halo each side, 8
+    # floats ahead, and at most one iteration of 1,024 threads (and 15) of
+    # padding a buffer
+    assert plan.smem_bytes == op.cluster_smem_bytes(n, cap) <= SMEM_PER_BLOCK
+    layout = 4 * (8 + 2 * (cap + 2 * nn))
+    assert layout + 8 * 1036 <= plan.smem_bytes <= layout + 8 * 1039
+    # every flat cell owned by exactly one block, the ranges balanced
+    # within one cell
+    assert plan.ranges[0][0] == 0 and plan.ranges[-1][1] == cells
+    for (_, e), (s2, _) in zip(plan.ranges, plan.ranges[1:]):
+        assert e == s2
+    lens = [e - s2 for s2, e in plan.ranges]
+    assert max(lens) - min(lens) <= 1 and min(lens) >= nn
+    assert max(lens) == cap
+    assert list(op.range_starts(plan)) == [lo for lo, _ in plan.ranges] + [cells]
+    # every neighbour of an interior cell in its own or an adjacent range
+    owner = np.repeat(np.arange(blocks), lens)
+    x, y, z = np.meshgrid(*(np.arange(1, n - 1),) * 3, indexing="ij")
+    c = ((x * n + y) * n + z).ravel()
+    for d in (1, n, nn):
+        for nb in (c + d, c - d):
+            assert np.abs(owner[nb] - owner[c]).max() <= 1
+
+
+@pytest.mark.parametrize("form", ["div", "field"])
+def test_schedule_pins_the_chip_smoke_rooms(form):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    plan = op.fdtd_schedule(op.grid_n(50), form)
+    assert (82, 32) in chip_smoke.FDTD_SHAPES
+    assert op.fdtd_schedule(op.grid_n(82), form).route == "cooperative"
+    if form == "div":
+        assert plan.route == "cluster" and plan.blocks == 16
+        assert plan.ranges[1] == (8788, 17576)  # 52^3 / 16 cells a block
+        assert plan.smem_bytes == 121_888
+        # rooms up to 65 fit (67^3 / 16 cells a block and two halos)
+        assert op.fdtd_schedule(op.grid_n(65), form).route == "cluster"
+        assert op.fdtd_schedule(op.grid_n(66), form).route == "cooperative"
+    else:
+        assert plan.route == "cooperative"
+    with pytest.raises(ValueError, match="form"):
+        op.fdtd_schedule(52, "faces")
+
+
+def test_route_launchers_take_cuda_tensors_only(rng):
+    n, src, rcv = _geometry(8)
+    x = _t(_x(rng, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        op.fdtd3d_block_div_cluster(x, *op.zero_fields_div(n), src, rcv)
+    with pytest.raises(ValueError, match="CUDA"):
+        op.fdtd3d_block_div_coop(x, *op.zero_fields_div(n), src, rcv)
+
+
+# -- a NumPy emulation of the cluster kernel's layout ---------------------
+#
+# Each block holds its range and halos at slot c - origin, as the kernel
+# does; all blocks compute a substep from their own arrays, then hand the
+# edge cells to the neighbours' halos. The results must be the twin's bit
+# for bit: the layout, the ranges and the hand-offs lose or reorder
+# nothing.
+
+F32 = np.float32
+
+
+def _coords(c, n):
+    return c // (n * n), c // n % n, c % n
+
+
+def _interior(c, n):
+    x, y, z = _coords(c, n)
+    return ((x > 0) & (x < n - 1) & (y > 0) & (y < n - 1) & (z > 0)
+            & (z < n - 1))
+
+
+def _emulate_div(x, p, div, src_cell, rcv_cell, plan):
+    n = p.shape[0]
+    nn, cells = n * n, n ** 3
+    s = x.shape[1]
+    srcs = op.source_row(_t(x)).numpy()
+    p0 = p.ravel().copy()
+    p0[src_cell] += srcs[0]
+    d0 = np.where(_interior(np.arange(cells), n), div.ravel(), F32(0))
+    blocks = []
+    for st_, en in plan.ranges:
+        org = st_ - nn  # slot of cell c is c - org, halos of nn each side
+        c = np.arange(org, en + nn)
+        buf = np.zeros((2, c.size), F32)
+        ok = (c >= 0) & (c < cells)
+        buf[0, ok] = p0[c[ok]]
+        own = np.arange(st_, en)
+        blocks.append(dict(start=st_, end=en, org=org, buf=buf, own=own,
+                           dv=d0[own].copy(), inner=_interior(own, n)))
+    out = np.empty((x.shape[0], s), F32)
+    pre = F32(0)
+    for k in range(3 * s):
+        cur, nxt = k & 1, (k + 1) & 1
+        for b in blocks:
+            h = b["own"] - b["org"]
+            q = b["buf"][cur]
+            tot = (q[h + nn] + q[h - nn]) + (q[h + n] + q[h - n])
+            tot = tot + (q[h + 1] + q[h - 1])
+            d = (b["dv"] + F32(op.C6) * q[h]) - F32(op.K1) * tot
+            v = np.where(b["inner"], q[h] - F32(op.K2) * d,
+                         q[h] * F32(op.ABSORB))
+            b["dv"] = np.where(b["inner"], d, b["dv"])
+            if k % 3 == 2 and k // 3 + 1 < s and b["start"] <= src_cell < b["end"]:
+                i = src_cell - b["start"]
+                pre = v[i]
+                v[i] = v[i] + srcs[k // 3 + 1]
+            b["buf"][nxt, h] = v
+        for lo, hi in zip(blocks, blocks[1:]):  # the hand-offs
+            first = np.arange(hi["start"], hi["start"] + nn)
+            lo["buf"][nxt, first - lo["org"]] = hi["buf"][nxt, first - hi["org"]]
+            last = np.arange(lo["end"] - nn, lo["end"])
+            hi["buf"][nxt, last - hi["org"]] = lo["buf"][nxt, last - lo["org"]]
+        if k % 3 == 2:
+            smp = k // 3
+            b = next(b for b in blocks if b["start"] <= rcv_cell < b["end"])
+            v = (pre if smp + 1 < s and rcv_cell == src_cell
+                 else b["buf"][nxt, rcv_cell - b["org"]])
+            out[:, smp] = v * F32(op.F_OUTPUT_SCALE)
+    fin = (3 * s) & 1
+    p_out = np.concatenate([b["buf"][fin, b["own"] - b["org"]] for b in blocks])
+    d_out = np.concatenate([b["dv"] for b in blocks])
+    return out, p_out.reshape(p.shape), d_out.reshape(p.shape)
+
+
+# (room, samples, receiver): room 8 on 8 blocks of 125 cells, room 15 on
+# 16 ragged ones (307 and 308), receivers on the source cell and on a
+# range boundary.
+EMULATION_CASES = [(8, 5, "default"), (15, 4, "default"), (8, 7, "source"),
+                   (15, 3, "boundary")]
+
+
+def _emulation_case(room, receiver):
+    n, src, rcv = _geometry(room)
+    plan = op.fdtd_schedule(n, "div")
+    if receiver == "source":
+        rcv = src
+    elif receiver == "boundary":
+        c = plan.ranges[3][0]
+        rcv = (c // (n * n), c // n % n, c % n)
+    return n, src, rcv, plan
+
+
+@pytest.mark.parametrize("room,s,receiver", EMULATION_CASES)
+def test_div_cluster_layout_matches_twin_bit_for_bit(rng, room, s, receiver):
+    n, src, rcv, plan = _emulation_case(room, receiver)
+    assert plan.route == "cluster"
+    x = _x(rng, s)
+    fields = [f.numpy() for f in op.zero_fields_div(n)]
+    twin = op.zero_fields_div(n)
+    for _ in range(2):
+        got = _emulate_div(x, *fields, op.flat_cell(src, n),
+                           op.flat_cell(rcv, n), plan)
+        want = op.fdtd3d_block_div_plain(_t(x), *twin, src, rcv)
+        assert np.array_equal(got[0], want[0][:1].numpy()[0][None].repeat(
+            x.shape[0], 0))
+        for a, b in zip(got[1:], want[1:]):
+            assert np.array_equal(a, b.numpy())
+        fields, twin = list(got[1:]), want[1:]
+    assert np.abs(got[0]).max() > 0

@@ -317,6 +317,12 @@ def test_chip_smoke_bounds():
     assert field_ms == pytest.approx(
         (1536 * (9 * 51 * 52 ** 2 + 7 * 50 ** 3 + edge) + small) / 67e9)
     assert field_ms == pytest.approx(0.0489, abs=1e-4)
+    # the cooperative divergence kernel where it is timed: room 82 (84^3
+    # cells)
+    edge = 84 ** 3 - 82 ** 3
+    div_ms, by = bounds["fdtd3d_div_coop"]
+    assert by == "operations" and div_ms == pytest.approx(
+        (1536 * (11 * 82 ** 3 + edge) + small) / 67e9)
     # the FMA kernels at their defaults: 2 FLOP an element and pass
     bounds = cs.sol_bounds()
     for name, (rows, width, k) in (("fma_chain", cs.SOL_FMA_FULL),
@@ -340,10 +346,12 @@ def test_chip_smoke_bounds_read_the_cost_models():
     assert cs.rndmem_bound() == cs.cost_bound(rndmem_cost(tracks, s))
     g, s, _ = cs.DWG_FULL
     assert cs.dwg_bound(12345) == cs.cost_bound(dwg_cost(g, s, 12345))
-    room, s, tracks = cs.FDTD_MAIN
-    for name, per_track in (("fdtd3d_div", False), ("fdtd3d_field", True)):
-        assert cs.fdtd_bounds()[name] == cs.cost_bound(
-            fdtd3d_cost(room, s, tracks, per_track))
+    for shape, names in ((cs.FDTD_MAIN, ("fdtd3d_div", "fdtd3d_field")),
+                         (cs.FDTD_COOP, ("fdtd3d_div_coop",))):
+        room, s, tracks = shape
+        for name, per_track in zip(names, (False, True)):
+            assert cs.fdtd_bounds()[name] == cs.cost_bound(
+                fdtd3d_cost(room, s, tracks, per_track))
 
 
 @pytest.mark.parametrize("fn", ["fma_chain", "fma_vmem"])
@@ -424,14 +432,16 @@ def test_chip_smoke_counts_twin_calls_and_restores_them():
     counts = cs.launch_counts(*modules)
     assert set(counts) == {"modal_bank", "modal_res", "conv1d",
                            "rndmem_gather", "dwg_block", "fdtd3d_div",
-                           "fdtd3d_field", "fma_chain", "fma_vmem",
+                           "fdtd3d_field", "fdtd3d_div_coop", "fma_chain",
+                           "fma_vmem",
                            *iops.KERNEL_LAUNCHES}
     assert not any(counts.values())
 
 
 def test_chip_smoke_lists_every_twin_and_kernel():
     """Every plain twin of a ported kernel is counted on the main paths,
-    and the kernels line has a row for each of the 13 ported kernels."""
+    and the kernels line has a row for each of the 14 kernels (the 13
+    ported ones, the FDTD divergence form on two routes)."""
     cs = _chip_smoke()
     mods = _slice_ops()
     assert set(mods) == set(cs.TwinCalls.NAMES)
@@ -444,8 +454,9 @@ def test_chip_smoke_lists_every_twin_and_kernel():
     text = (REPO / "chip_smoke.py").read_text()
     for name in kernels:
         assert f'"{name}"' in text, name
-    assert len(kernels) == 13
-    assert set(cs.FDTD_REPLACES) == {"fdtd3d_div", "fdtd3d_field"}
+    assert len(kernels) == 14
+    assert set(cs.FDTD_REPLACES) == {"fdtd3d_div", "fdtd3d_field",
+                                     "fdtd3d_div_coop"}
     assert set(cs.SOL_REPLACES) == {"fma_chain", "fma_vmem"}
     for replaces in (cs.RNDMEM_REPLACES, cs.DWG_REPLACES,
                      *cs.FDTD_REPLACES.values(), *cs.SOL_REPLACES.values()):
