@@ -43,10 +43,15 @@ nonzero:
    65,536 tracks x 512 samples from a 512 MiB pool; CUDA-event times of
    the kernel, the twin and one advanced-indexing gather.
 7. The DWG block vs its plain twin from random rails U(0, 0.1), chained
-   over 2 blocks (rails within 1e-6 absolute, the mono output within
-   1e-5 of the twin's peak), at 6 x 48 (unaligned lengths), 1,000 x 512
-   and the main path's 32,768 x 512 x Lmax 2,000, with random and
-   power-of-two lengths; CUDA-event times at 32,768 x 512.
+   over 2 blocks: rails bit for bit the twin's, the mono output bit for
+   bit ``ops.dwg.dwg_mono_in_order`` (the kernel's summation order in
+   NumPy) and within 1e-5 of the twin's peak, and a rerun bit for bit,
+   each shape with its schedule (``ops.dwg.dwg_schedule``), at 6 x 48
+   (unaligned lengths); the edge lengths 1, 2, S - 1, S, S + 1, 2S - 1,
+   odd, an out tap at or past S and in tap = out tap at S = 48, 512 and
+   2,000; 1,000 x 512, 2,048 x 2,000, the main path's 32,768 x 512 x
+   Lmax 2,000 with random and power-of-two lengths, and 70,000 x 512 x
+   Lmax 600 (past 65,535 waveguides); CUDA-event times at 32,768 x 512.
 8. The FDTD kernels vs their twins bit for bit: the divergence form on
    both routes (``ops.fdtd3d.fdtd_schedule``: the cluster kernel where
    the room fits one thread-block cluster, the cooperative one
@@ -179,14 +184,23 @@ RNDMEM_FULL = (65536, 512, 512 * 1024 * 1024 // 4)
 RNDMEM_SOURCE = "gpuaudiobench_tpu_torch/csrc/rndmem.cu"
 RNDMEM_REPLACES = "gpuaudiobench_tpu/ops/rndmem_pallas.py:62"
 
-# The DWG block (csrc/dwg.cu), (waveguides, samples, Lmax, lengths or None
-# for U[100, Lmax), power-of-two lengths): rails within 1e-6 absolute, the
-# mono output within 1e-5 of the twin's peak, from rails U(0, 0.1).
+# The DWG block (csrc/dwg.cu), (waveguides, samples, Lmax, lengths tiled
+# over the rows or None for U[100, Lmax), power-of-two lengths, in tap =
+# out tap on every 7th row), from rails U(0, 0.1): rails bit for bit the
+# twin's, the mono output bit for bit ops.dwg.dwg_mono_in_order and within
+# 1e-5 of the twin's peak (the twin sums in another order).
 DWG_FULL = (32768, 512, 2000)
-DWG_SHAPES = [(6, 48, 40, (5, 8, 12, 16, 33, 40), False),
-              (1000, 512, 2000, None, False), (*DWG_FULL, None, False),
-              (*DWG_FULL, None, True)]
-DWG_RAIL_ATOL = 1e-6
+DWG_EDGE_48 = (1, 2, 47, 48, 49, 95, 7, 33, 3, 70, 64, 5)
+DWG_EDGE_512 = (1, 2, 511, 512, 513, 1023, 101, 777, 3, 640, 1000, 100)
+DWG_EDGE_2000 = (1, 2, 1999, 2000, 2001, 3999, 101, 2667, 3, 777, 3000)
+DWG_SHAPES = [(6, 48, 40, (5, 8, 12, 16, 33, 40), False, False),
+              (300, 48, 100, DWG_EDGE_48, False, True),
+              (1000, 512, 1100, DWG_EDGE_512, False, True),
+              (333, 2000, 4000, DWG_EDGE_2000, False, True),
+              (1000, 512, 2000, None, False, False),
+              (2048, 2000, 2000, None, False, False),
+              (*DWG_FULL, None, False, False), (*DWG_FULL, None, True, False),
+              (70000, 512, 600, None, False, False)]
 DWG_OUT_RTOL = 1e-5
 DWG_SOURCE = "gpuaudiobench_tpu_torch/csrc/dwg.cu"
 DWG_REPLACES = "gpuaudiobench_tpu/ops/dwg_pallas.py:40"
@@ -914,7 +928,8 @@ def rndmem_bound():
     return cost_bound(rndmem_cost(tracks, s))
 
 
-def dwg_inputs(torch, g_count, s, lmax, lengths, pow2, device, seed=11):
+def dwg_inputs(torch, g_count, s, lmax, lengths, pow2, device, seed=11,
+               same_tap=False):
     """(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl, damp) on the
     card: the benchmark's parameter draws, rails U(0, 0.1)."""
     import numpy as np
@@ -922,17 +937,20 @@ def dwg_inputs(torch, g_count, s, lmax, lengths, pow2, device, seed=11):
     g = np.random.Generator(np.random.MT19937(seed + g_count))
     if lengths is None:
         lengths = 100 + g.integers(0, lmax - 100, g_count)
-    lengths = np.asarray(lengths)
+    lengths = np.resize(np.asarray(lengths), g_count)
     if pow2:
         lengths = 2 ** np.floor(np.log2(lengths))
     lengths = lengths.astype(np.int32)
+    in_taps = (lengths // 4).astype(np.int32)
+    out_taps = (3 * lengths // 4).astype(np.int32)
+    if same_tap:
+        in_taps[::7] = out_taps[::7]
     f32 = np.float32
     arrays = [
         (g.random(s, dtype=f32) * 2 - 1).astype(f32),
         (g.random((g_count, lmax), dtype=f32) * f32(0.1)).astype(f32),
         (g.random((g_count, lmax), dtype=f32) * f32(0.1)).astype(f32),
-        lengths, (lengths // 4).astype(np.int32),
-        (3 * lengths // 4).astype(np.int32),
+        lengths, in_taps, out_taps,
         (0.1 + 0.9 * g.random(g_count, dtype=f32)).astype(f32),
         (0.99 + 0.01 * (g.random(g_count, dtype=f32) - 0.5)).astype(f32),
         (0.9999 + 1e-4 * (g.random(g_count, dtype=f32) - 0.5)).astype(f32),
@@ -941,34 +959,53 @@ def dwg_inputs(torch, g_count, s, lmax, lengths, pow2, device, seed=11):
 
 
 def compare_dwg(torch, dops, shape, device) -> float:
-    """The DWG kernel vs its twin over 2 chained blocks; returns the max
-    |kernel - twin| of the rails."""
-    g_count, s, lmax, lengths, pow2 = shape
+    """The DWG kernel vs its twin over 2 chained blocks: rails bit for
+    bit, the mono output bit for bit its NumPy emulation and within
+    DWG_OUT_RTOL of the twin's peak, a rerun bit for bit; returns the max
+    |kernel - twin| of the rails (0)."""
+    import numpy as np
+
+    g_count, s, lmax, lengths, pow2, same_tap = shape
     x, fwd, bwd, *params = dwg_inputs(torch, g_count, s, lmax, lengths, pow2,
-                                      device)
-    fk, bk, fp, bp = fwd.clone(), bwd.clone(), fwd, bwd
+                                      device, same_tap=same_tap)
+    host = [p.cpu().numpy() for p in params]
+    fk, bk, fp, bp = fwd.clone(), bwd.clone(), fwd.clone(), bwd.clone()
     before = dops.KERNEL_LAUNCHES["dwg_block"]
     worst, out_rel = 0.0, 0.0
+    label = f"dwg_block {shape[:3]}{' pow2' if pow2 else ''}"
     for blk in range(2):
+        want = dops.dwg_mono_in_order(x.cpu().numpy(), fk.cpu().numpy(),
+                                      bk.cpu().numpy(), *host)
         ok, fk, bk = dops.dwg_block(x, fk, bk, *params)
         op_, fp, bp = dops.dwg_block_plain(x, fp, bp, *params)
         rail = max((fk - fp).abs().max().item(), (bk - bp).abs().max().item())
-        if not rail <= DWG_RAIL_ATOL:
-            fail(f"dwg_block {shape[:3]} block {blk}: rails max|d| "
-                 f"{rail:.3g} > {DWG_RAIL_ATOL:g}")
+        if not (torch.equal(fk, fp) and torch.equal(bk, bp)):
+            fail(f"{label} block {blk}: rails not bit for bit the twin's "
+                 f"(max|d| {rail:.3g})")
+        if not np.array_equal(ok.cpu().numpy(), want):
+            fail(f"{label} block {blk}: mono output not bit for bit "
+                 "dwg_mono_in_order")
         peak = op_.abs().max().item()
         err = (ok - op_).abs().max().item()
         if not (err <= DWG_OUT_RTOL * peak and peak > 0
                 and torch.isfinite(fk).all()):
-            fail(f"dwg_block {shape[:3]} block {blk}: out max|d| {err:.3g} "
+            fail(f"{label} block {blk}: out max|d| {err:.3g} "
                  f"against {DWG_OUT_RTOL:g} * {peak:.4g}, or non-finite rails")
         worst, out_rel = max(worst, rail), max(out_rel, err / peak)
+    again = dops.dwg_block(x, fwd.clone(), bwd.clone(), *params)
+    first = dops.dwg_block(x, fwd.clone(), bwd.clone(), *params)
+    if not all(torch.equal(u, v) for u, v in zip(first, again)):
+        fail(f"{label}: two runs differ")
     torch.cuda.synchronize()
-    if dops.KERNEL_LAUNCHES["dwg_block"] - before != 2:
-        fail("dwg_block: expected 2 launches")
-    print(f"compare dwg_block G={g_count} S={s} Lmax={lmax}"
-          f"{' pow2' if pow2 else ''}: ok  rails max|d| {worst:.3g}, out "
-          f"{out_rel:.3g} of the peak")
+    if dops.KERNEL_LAUNCHES["dwg_block"] - before != 4:
+        fail("dwg_block: expected 4 launches")
+    sc = dops.dwg_schedule(g_count, s, lmax)
+    depth = -(-s // int(host[0].min()))  # the longest chain a thread walks
+    print(f"compare {label}{' edge' if lengths is not None else ''}: ok  "
+          f"rails max|d| {worst:.3g}, out bit for bit its emulated order, "
+          f"{out_rel:.3g} of the twin's peak, rerun bit for bit; schedule: "
+          f"{sc.segments} segment(s) a row, {sc.groups} mono groups, grid "
+          f"{sc.grid}; depth {depth}")
     return worst
 
 

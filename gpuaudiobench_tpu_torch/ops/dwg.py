@@ -13,11 +13,16 @@ waveguide g and sample n (writePos 0):
   fwd[g, cur] = b * refl ; bwd[g, bpos] = f * refl
   if cur == out_tap: out[n] += (f + b) * 0.5   (WAVEGUIDE_MIX_FACTOR)
 
-* ``dwg_block`` wraps the hand-written CUDA kernel (``csrc/dwg.cu``),
-  which replaces the Pallas ``_dwg_kernel``: one thread per waveguide with
-  direct circular indexing, and a deterministic sum of the mono output.
+* ``dwg_block`` wraps the hand-written CUDA kernels (``csrc/dwg.cu``),
+  which replace the Pallas ``_dwg_kernel``: each closed rail cell pair
+  (fwd[g, p], bwd[g, (p + L/2) % L]), p < min(L, S), walks its chain of
+  samples p, p + L, ... in one thread, threads laid along the row; the
+  out-tap pairs walk in mono blocks that sum the output in a fixed order.
+  ``dwg_schedule`` is its launch geometry.
 * ``dwg_block_plain`` is its twin: a loop over samples with a gather and
   a scatter on all rows, as the JAX ``dwg_block`` runs it.
+* ``dwg_mono_in_order`` is the kernel's mono output in NumPy, summed in
+  the kernel's order, so a check can hold the output bit for bit.
 
 Both update the given rails in place and return ``(out (S,), fwd, bwd)``;
 a caller that needs the starting rails clones them first. Lengths must lie in [1, Lmax] (the kernel leaves a row outside
@@ -30,8 +35,11 @@ CUDA tensor it launches the kernel or raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 MIX_FACTOR = 0.5  # benchmark_constants.cuh WAVEGUIDE_MIX_FACTOR
@@ -41,6 +49,49 @@ MIX_FACTOR = 0.5  # benchmark_constants.cuh WAVEGUIDE_MIX_FACTOR
 KERNEL_LAUNCHES: Dict[str, int] = {"dwg_block": 0}
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+DWG_WARPS = 4  # warps a block of the kernel
+DWG_GROUP = 32 * DWG_WARPS  # waveguides a mono group (one block)
+DWG_PAIRS = 8  # cell pairs a thread (csrc/dwg.cu kPairs)
+
+
+@dataclass(frozen=True)
+class DWGSchedule:
+    """Launch geometry of the DWG kernel for (waveguides, S, Lmax).
+
+    A warp of an update block owns a segment of 32 * ``DWG_PAIRS``
+    consecutive cells of one row: lane l holds the pairs p = start + l +
+    32 j, j < ``DWG_PAIRS``. ``segments`` segments cover the row's first
+    min(Lmax, S) cells. The grid's first ``groups`` blocks are the mono
+    groups (128 waveguides each); block ``groups + b`` holds warp tasks
+    4 b .. 4 b + 3, task t on row t // segments, segment t % segments
+    (``task``). A fold kernel then adds the groups' sums in order. Each
+    thread walks its chains to their end, so no depth is needed."""
+
+    segments: int
+    groups: int
+    update_blocks: int
+
+    @property
+    def grid(self) -> int:
+        return self.groups + self.update_blocks
+
+    def task(self, block: int, warp: int) -> Tuple[int, int]:
+        """(row, first cell) of warp ``warp`` of update block ``block``
+        (counted from the first update block)."""
+        t = block * DWG_WARPS + warp
+        return t // self.segments, t % self.segments * 32 * DWG_PAIRS
+
+
+@functools.lru_cache(maxsize=64)
+def dwg_schedule(guides: int, s: int, lmax: int) -> DWGSchedule:
+    """The DWG kernel's schedule."""
+    if guides < 1 or s < 1 or lmax < 1:
+        raise ValueError(f"dwg_schedule: waveguides {guides}, S {s} and "
+                         f"Lmax {lmax} must be >= 1")
+    segments = -(-min(lmax, s) // (32 * DWG_PAIRS))
+    return DWGSchedule(segments=segments, groups=-(-guides // DWG_GROUP),
+                       update_blocks=-(-guides * segments // DWG_WARPS))
 
 
 def dwg_block_plain(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl,
@@ -62,6 +113,56 @@ def dwg_block_plain(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl,
         bwd[rows, bpos] = f * refl
         out[n] = torch.where(cur == out_taps, (f + b) * MIX_FACTOR, 0.0).sum()
     return out, fwd, bwd
+
+
+def dwg_mono_in_order(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl,
+                      damp) -> np.ndarray:
+    """The kernel's mono output for one block from the starting rails, in
+    NumPy float32: each waveguide's out-tap pair walked as the kernel
+    walks it, and its contributions summed in the kernel's order. For
+    each sample: 32 consecutive waveguides by the xor butterfly (lane 0's
+    value: lanes i and i + 16 first, then + 8, + 4, + 2, + 1), the four
+    warps of a 128-waveguide group in order, the groups in order from 0.
+    Rows with L outside [1, Lmax] contribute nothing."""
+    x = np.asarray(x, np.float32)
+    lengths = np.asarray(lengths).astype(np.int64)
+    in_taps, out_taps = np.asarray(in_taps), np.asarray(out_taps)
+    gains, refl, damp = (np.asarray(a, np.float32) for a in (gains, refl, damp))
+    guides, lmax = fwd.shape
+    s = x.shape[0]
+    rows = np.flatnonzero((lengths >= 1) & (lengths <= lmax) & (out_taps >= 0)
+                          & (out_taps < np.minimum(lengths, s)))
+    length, tap = lengths[rows], out_taps[rows].astype(np.int64)
+    fv = np.asarray(fwd, np.float32)[rows, tap]
+    bv = np.asarray(bwd, np.float32)[rows, (tap + length // 2) % length]
+    inj = tap == in_taps[rows]
+    groups = -(-guides // DWG_GROUP)
+    contrib = np.zeros((groups * DWG_GROUP, s), np.float32)
+    n, live = tap.copy(), np.ones(rows.size, bool)
+    half = np.float32(MIX_FACTOR)
+    while live.any():
+        i = np.flatnonzero(live)
+        f = fv[i] * damp[rows[i]]
+        b = bv[i] * damp[rows[i]]
+        xi = x[n[i]] * gains[rows[i]]
+        f = np.where(inj[i], f + xi, f)
+        b = np.where(inj[i], b + xi, b)
+        fv[i] = b * refl[rows[i]]
+        bv[i] = f * refl[rows[i]]
+        contrib[rows[i], n[i]] = (f + b) * half
+        n[i] += length[i]
+        live[i] = n[i] < s
+    v = contrib.reshape(groups, DWG_WARPS, 32, s)
+    while v.shape[2] > 1:
+        h = v.shape[2] // 2
+        v = v[:, :, :h] + v[:, :, h:]
+    group_sums = v[:, 0, 0]
+    for w in range(1, DWG_WARPS):
+        group_sums = group_sums + v[:, w, 0]
+    out = np.zeros(s, np.float32)
+    for k in range(groups):
+        out = out + group_sums[k]
+    return out
 
 
 def _check(x, fwd, bwd, ints, floats) -> torch.device:
@@ -99,10 +200,8 @@ def _lib() -> ctypes.CDLL:
     lib = load("dwg")
     if lib.dwg_block_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dwg_block_launch.argtypes = [p] * 11 + [i] * 3 + [p]
+        lib.dwg_block_launch.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.dwg_block_launch.restype = i
-        lib.dwg_blocks.argtypes = [i]
-        lib.dwg_blocks.restype = i
     return lib
 
 
@@ -119,16 +218,17 @@ def dwg_block(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl,
     lib = _lib()
     g, lmax = fwd.shape
     s = x.shape[0]
-    partials = torch.empty((s, lib.dwg_blocks(g)), dtype=torch.float32,
-                           device=dev)
+    sc = dwg_schedule(g, s, lmax)
+    group_sums = torch.empty((sc.groups, s), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dwg_block_launch(
             x.data_ptr(), fwd.data_ptr(), bwd.data_ptr(), lengths.data_ptr(),
             in_taps.data_ptr(), out_taps.data_ptr(), gains.data_ptr(),
-            refl.data_ptr(), damp.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), g, lmax, s, stream)
+            refl.data_ptr(), damp.data_ptr(), group_sums.data_ptr(),
+            out.data_ptr(), g, lmax, s, sc.segments, sc.groups,
+            sc.update_blocks, stream)
     if err != 0:
         raise RuntimeError(f"dwg_block_launch failed: CUDA error {err}")
     KERNEL_LAUNCHES["dwg_block"] += 1

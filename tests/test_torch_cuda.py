@@ -19,6 +19,8 @@ The tolerances of the other kernels are stated at their tests below.
 """
 
 import ctypes
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -555,6 +557,125 @@ def test_dwg_kernel_is_deterministic_and_in_place(cuda):
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     _, f, bw = dops.dwg_block(x, fwd, bwd, *params)
     assert f.data_ptr() == fwd.data_ptr() and torch.equal(f, a[1])
+
+
+# The redesigned kernel (one thread a closed cell pair, the out-tap pairs
+# in mono blocks): rails bit for bit the twin's, and the mono output bit
+# for bit ``dwg_mono_in_order`` (its order emulated in NumPy), chained over
+# 2 blocks, at the edge lengths 1, 2, S - 1, S, S + 1, 2S - 1, odd, an out
+# tap at or past S and in tap = out tap (every 7th row), at S = 48, 512 and
+# 2,000, and past 65,535 waveguides. (waveguides, S, Lmax, lengths tiled
+# over the rows or None for U[100, Lmax), in tap = out tap every 7th row.)
+# The edge lengths are chip_smoke.py's.
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+try:
+    from chip_smoke import DWG_EDGE_48, DWG_EDGE_512, DWG_EDGE_2000
+finally:
+    sys.path.pop(0)
+DWG_EXACT_SHAPES = [(6, 48, 40, [5, 8, 12, 16, 33, 40], False),
+                    (300, 48, 100, DWG_EDGE_48, True),
+                    (1000, 512, 1100, DWG_EDGE_512, True),
+                    (333, 2000, 4000, DWG_EDGE_2000, True),
+                    (1000, 512, 2000, None, False),
+                    (257, 2000, 2000, None, False),
+                    (70000, 512, 600, None, False)]
+
+
+def _dwg_exact_inputs(g_count, s, lmax, lengths, same_tap, device):
+    g = np.random.Generator(np.random.MT19937(g_count + s + 1))
+    if lengths is None:
+        lengths = 100 + g.integers(0, lmax - 100, g_count)
+    lengths = np.resize(np.asarray(lengths), g_count).astype(np.int32)
+    in_taps = (lengths // 4).astype(np.int32)
+    out_taps = (3 * lengths // 4).astype(np.int32)
+    if same_tap:
+        in_taps[::7] = out_taps[::7]
+    f32 = np.float32
+    arrays = [(g.random(s, dtype=f32) * 2 - 1).astype(f32),
+              g.random((g_count, lmax), dtype=f32) * f32(0.1),
+              g.random((g_count, lmax), dtype=f32) * f32(0.1),
+              lengths, in_taps, out_taps,
+              (0.1 + 0.9 * g.random(g_count, dtype=f32)).astype(f32),
+              (0.99 + 0.01 * (g.random(g_count, dtype=f32) - 0.5)).astype(f32),
+              (0.9999 + 1e-4 * (g.random(g_count, dtype=f32) - 0.5)).astype(f32)]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("g_count,s,lmax,lengths,same_tap", DWG_EXACT_SHAPES)
+def test_dwg_kernel_is_bit_exact(cuda, g_count, s, lmax, lengths, same_tap):
+    x, fwd, bwd, *params = _dwg_exact_inputs(g_count, s, lmax, lengths,
+                                             same_tap, cuda)
+    host = [p.cpu().numpy() for p in params]
+    fk, bk, fp, bp = fwd.clone(), bwd.clone(), fwd, bwd
+    peak = 0.0
+    for _ in range(2):
+        want = dops.dwg_mono_in_order(x.cpu().numpy(), fk.cpu().numpy(),
+                                      bk.cpu().numpy(), *host)
+        ok, fk, bk = dops.dwg_block(x, fk, bk, *params)
+        _, fp, bp = dops.dwg_block_plain(x, fp, bp, *params)
+        torch.cuda.synchronize()
+        assert torch.equal(fk, fp) and torch.equal(bk, bp)
+        assert np.array_equal(ok.cpu().numpy(), want)
+        peak = max(peak, float(np.abs(want).max()))
+    assert peak > 0
+    again = dops.dwg_block(x, fwd.clone(), bwd.clone(), *params)
+    first = dops.dwg_block(x, fwd.clone(), bwd.clone(), *params)
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def test_dwg_kernel_leaves_rows_outside_the_rails_untouched(cuda):
+    x, fwd, bwd, *params = _dwg_exact_inputs(300, 48, 100, DWG_EDGE_48, True,
+                                             cuda)
+    bad = torch.tensor([0, 17, 130, 299])
+    params[0][bad] = torch.tensor([0, -3, 101, 1 << 30], dtype=torch.int32,
+                                  device=cuda)
+    good = torch.ones(300, dtype=torch.bool)
+    good[bad] = False
+    good = good.to(cuda)
+    fk, bk = fwd.clone(), bwd.clone()
+    out, fk, bk = dops.dwg_block(x, fk, bk, *params)
+    torch.cuda.synchronize()
+    assert torch.equal(fk[~good], fwd[~good]) and torch.equal(bk[~good], bwd[~good])
+    sub = [p[good].contiguous() for p in params]
+    want, fp, bp = dops.dwg_block_plain(x, fwd[good].clone(), bwd[good].clone(), *sub)
+    assert torch.equal(fk[good], fp) and torch.equal(bk[good], bp)
+    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_dwg_kernel_on_a_side_stream(cuda):
+    """The fold kernel follows the block kernel in stream order: several
+    calls queued on a side stream give the default stream's results."""
+    x, fwd, bwd, *params = _dwg_exact_inputs(1000, 512, 1100, DWG_EDGE_512,
+                                             True, cuda)
+    want = dops.dwg_block(x, fwd.clone(), bwd.clone(), *params)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [dops.dwg_block(x, fwd.clone(), bwd.clone(), *params)
+               for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for g in got:
+        assert all(torch.equal(u, v) for u, v in zip(g, want))
+
+
+def test_dwg_launch_refuses_a_schedule_that_misses_the_shape(cuda):
+    x, fwd, bwd, *params = _dwg_exact_inputs(1000, 512, 1100, DWG_EDGE_512,
+                                             False, cuda)
+    sc = dops.dwg_schedule(1000, 512, 1100)
+    lib = dops._lib()
+    gs = torch.empty((sc.groups, 512), device=cuda)
+    out = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in [x, fwd, bwd] + params + [gs, out]]
+    stream = torch.cuda.current_stream().cuda_stream
+    for bad in ((sc.segments - 1, sc.groups, sc.update_blocks),
+                (sc.segments + 1, sc.groups, sc.update_blocks),
+                (sc.segments, sc.groups - 1, sc.update_blocks),
+                (sc.segments, sc.groups, sc.update_blocks - 1)):
+        assert lib.dwg_block_launch(*ptrs, 1000, 1100, 512, *bad, stream) != 0
+    assert lib.dwg_block_launch(*ptrs, 1000, 1100, 512, sc.segments,
+                                sc.groups, sc.update_blocks, stream) == 0
+    torch.cuda.synchronize()
 
 
 # -- the FDTD kernels (csrc/fdtd3d.cu) against their twins --------------

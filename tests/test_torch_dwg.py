@@ -11,6 +11,11 @@ Tolerances, absolute: outputs 1e-5 and rails 1e-6 against the JAX
 reference's own bars, tests/test_pallas_ops.py:137-139); the benchmark's
 rails against the JAX benchmark's 1e-6 (each rail cell is the same chain
 of float32 products and sums); the golden bit for bit.
+
+The CUDA kernel cannot run here, so its arithmetic is emulated lane by
+lane in NumPy from ``dwg_schedule``: its rails must be the golden's bit
+for bit, and its mono order (``dwg_mono_in_order``) the twin's output
+within 1e-5.
 """
 
 import dataclasses
@@ -18,6 +23,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental.pallas import tpu as pltpu
 
 from gpuaudiobench_tpu.models.dwg import dwg_reference as jax_reference
@@ -268,3 +275,213 @@ def test_load_state_rejects_lengths_past_the_rails(jax_cfg):
     with pytest.raises(ValueError, match="rails"):
         pb.load_state(jb.host_input, {k: getattr(jb, k) for k in PARAMS},
                       jb.host_fwd[:, :10], jb.host_bwd)
+
+
+# -- the CUDA kernel's schedule and arithmetic, emulated -----------------
+#
+# Edge lengths at S = 48: 1 (half 0, so bpos == cur), 2, S - 1, S, S + 1,
+# 2S - 1 (the bwd window wraps), odd lengths, an out tap at or past S
+# (70, 95), and rows whose in tap is their out tap (``SAME_TAP``).
+EDGE = [1, 2, S - 1, S, S + 1, 2 * S - 1, 7, 33, 70, 13, 64, 3, 5, 100]
+SAME_TAP = (3, 7, 10)  # rows given in_tap = out_tap
+
+
+def _edge_inputs(rng, lengths, same_tap=SAME_TAP, s=S):
+    lengths = np.array(lengths, np.int32)
+    g = len(lengths)
+    lmax = int(lengths.max()) + 3
+    in_taps = (lengths // 4).astype(np.int32)
+    out_taps = (3 * lengths // 4).astype(np.int32)
+    in_taps[list(same_tap)] = out_taps[list(same_tap)]
+    params = [lengths, in_taps, out_taps,
+              (0.1 + 0.9 * rng.random(g, dtype=np.float32)).astype(np.float32),
+              np.full(g, 0.99, np.float32), np.full(g, 0.9999, np.float32)]
+    x = (rng.random(s, dtype=np.float32) * 2 - 1).astype(np.float32)
+    fwd = (rng.random((g, lmax), dtype=np.float32) * 0.1).astype(np.float32)
+    bwd = (rng.random((g, lmax), dtype=np.float32) * 0.1).astype(np.float32)
+    return x, fwd, bwd, params
+
+
+def _step(fv, bv, gain, refl, damp, inj, xn):
+    """csrc/dwg.cu pair_step on float32 arrays; returns the contribution."""
+    f, b = fv * damp, bv * damp
+    xi = xn * gain
+    f, b = np.where(inj, f + xi, f), np.where(inj, b + xi, b)
+    return b * refl, f * refl, (f + b) * np.float32(0.5)
+
+
+def _emulate(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl, damp):
+    """The kernel's rails, lane by lane: each update warp of the schedule
+    walks its pairs as ``update_segment`` does, each mono lane its row's
+    out-tap pair. Returns (fwd', bwd', steps), steps[g, p] the number of
+    steps fwd cell p's pair took, and the count of times it was loaded."""
+    fwd, bwd = fwd.copy(), bwd.copy()
+    g_count, lmax = fwd.shape
+    s = x.shape[0]
+    sc = dops.dwg_schedule(g_count, s, lmax)
+    steps = np.zeros((g_count, lmax), np.int64)
+    owned = np.zeros((g_count, lmax), np.int64)
+    lanes = np.arange(32)
+    for blk in range(sc.update_blocks):
+        for warp in range(dops.DWG_WARPS):
+            row, start = sc.task(blk, warp)
+            if row >= g_count:
+                continue
+            ln, it, ot = int(lengths[row]), int(in_taps[row]), int(out_taps[row])
+            if not 1 <= ln <= lmax or start >= min(ln, s):
+                continue
+            base = start + lanes
+            p = base[:, None] + 32 * np.arange(dops.DWG_PAIRS)[None, :]
+            on = (p < min(ln, s)) & (p != ot)
+            bp = (p + ln // 2) % ln
+            fv = np.where(on, fwd[row, np.minimum(p, lmax - 1)], 0).astype(np.float32)
+            bv = np.where(on, bwd[row, bp], 0).astype(np.float32)
+            np.add.at(owned[row], p[on], 1)
+            n = base.copy()
+            while (n < s).any():
+                nj = n[:, None] + 32 * np.arange(dops.DWG_PAIRS)[None, :]
+                act = on & (nj < s)
+                xn = x[np.minimum(nj, s - 1)]
+                f2, b2, _ = _step(fv, bv, gains[row], refl[row], damp[row],
+                                  p == it, xn)
+                fv, bv = np.where(act, f2, fv), np.where(act, b2, bv)
+                np.add.at(steps[row], p[act], 1)
+                n += ln
+            fwd[row, p[on]] = fv[on]
+            bwd[row, bp[on]] = bv[on]
+    for row in range(g_count):  # the mono groups' lanes
+        ln, ot = int(lengths[row]), int(out_taps[row])
+        if not (1 <= ln <= lmax and 0 <= ot < min(ln, s)):
+            continue
+        owned[row, ot] += 1
+        bp = (ot + ln // 2) % ln
+        fv, bv = fwd[row, ot], bwd[row, bp]
+        for n in range(ot, s, ln):
+            fv, bv, _ = _step(fv, bv, gains[row], refl[row], damp[row],
+                              ot == in_taps[row], x[n])
+            steps[row, ot] += 1
+        fwd[row, ot], bwd[row, bp] = fv, bv
+    return fwd, bwd, steps, owned
+
+
+@settings(max_examples=40, deadline=None)
+@given(g_count=st.integers(1, 40), s=st.integers(1, 140),
+       lmax=st.integers(1, 160), seed=st.integers(0, 2 ** 31 - 1))
+def test_dwg_schedule_covers_every_pair_once(g_count, s, lmax, seed):
+    rng = np.random.Generator(np.random.MT19937(seed))
+    lengths = rng.integers(1, lmax + 1, g_count).astype(np.int32)
+    x, fwd, bwd = (np.zeros(s, np.float32), np.zeros((g_count, lmax), np.float32),
+                   np.zeros((g_count, lmax), np.float32))
+    params = [lengths, (lengths // 4).astype(np.int32),
+              (3 * lengths // 4).astype(np.int32)] + [np.ones(g_count, np.float32)] * 3
+    _, _, steps, owned = _emulate(x, fwd, bwd, *params)
+    for row, ln in enumerate(lengths):
+        touched = np.arange(lmax) < min(ln, s)
+        assert (owned[row][touched] == 1).all() and (owned[row][~touched] == 0).all()
+        p = np.arange(min(ln, s))
+        assert np.array_equal(steps[row][:p.size], -(-(s - p) // ln))
+        assert (steps[row][p.size:] == 0).all()
+    # The longest chain any thread walks: D = ceil(S / min L).
+    assert steps.max() == -(-s // int(lengths.min()))
+
+
+@settings(max_examples=60, deadline=None)
+@given(g_count=st.integers(1, 200_000), s=st.integers(1, 8192),
+       lmax=st.integers(1, 8192))
+def test_dwg_schedule_fits_cuda_limits(g_count, s, lmax):
+    sc = dops.dwg_schedule(g_count, s, lmax)
+    width, seg = min(lmax, s), 32 * dops.DWG_PAIRS
+    assert (sc.segments - 1) * seg < width <= sc.segments * seg
+    assert sc.groups * dops.DWG_GROUP >= g_count > (sc.groups - 1) * dops.DWG_GROUP
+    assert sc.update_blocks * dops.DWG_WARPS >= g_count * sc.segments
+    assert sc.task(sc.update_blocks - 1, dops.DWG_WARPS - 1)[0] >= g_count - 1
+    assert 1 <= sc.grid <= 2 ** 31 - 1
+    with pytest.raises(ValueError):
+        dops.dwg_schedule(g_count, s, 0)
+
+
+@pytest.mark.parametrize("case", ["edge", "unaligned", "pow2", "mixed"])
+def test_kernel_emulation_is_the_golden_bit_for_bit(rng, case):
+    if case == "edge":
+        x, fwd, bwd, params = _edge_inputs(rng, EDGE)
+    else:
+        x, fwd, bwd, params = _inputs(rng, LENGTHS[case])
+    f, b = fwd, bwd
+    gf, gb = fwd, bwd
+    for _ in range(2):  # chained
+        f, b, _, _ = _emulate(x, f, b, *params)
+        _, gf, gb = dwg_reference(x, gf, gb, *params)
+        assert np.array_equal(f, gf) and np.array_equal(b, gb)
+    assert not np.array_equal(f, fwd)
+
+
+@pytest.mark.parametrize("ref,s", [("xla", S), ("xla", 2 * S - 1),
+                                   ("arc", S)])
+def test_kernel_emulation_matches_jax_scan_and_arc(rng, ref, s):
+    """The arc form takes ceil(S / min L) rounds, so it sees the edge rows
+    of length 7 and up (7 rounds)."""
+    x, fwd, bwd, params = _edge_inputs(rng, EDGE, s=s)
+    keep = np.argsort(params[0] < s, kind="stable")  # long rows first
+    if ref == "arc":
+        keep = keep[params[0][keep] >= 7]
+    fwd, bwd, params = fwd[keep], bwd[keep], [p[keep] for p in params]
+    f, b, _, _ = _emulate(x, fwd, bwd, *params)
+    out = dops.dwg_mono_in_order(x, fwd, bwd, *params)
+    lengths = params[0]
+    if ref == "xla":
+        r_out, r_f, r_b = jax_dwg_block(x, fwd, bwd, *params)
+    else:
+        r_out, r_f, r_b = dwg_block_arc(
+            x, fwd, bwd, *params, n_long=int((lengths >= s).sum()),
+            n_rounds=int(-(-s // int(lengths[lengths < s].min()))))
+    np.testing.assert_allclose(f, np.asarray(r_f), atol=RAIL_ATOL, rtol=0)
+    np.testing.assert_allclose(b, np.asarray(r_b), atol=RAIL_ATOL, rtol=0)
+    np.testing.assert_allclose(out, np.asarray(r_out), atol=OUT_ATOL, rtol=0)
+    assert np.abs(out).max() > 0.01
+
+
+@pytest.mark.parametrize("g_count", [6, 200, 300])
+def test_mono_order_matches_the_twin(rng, g_count):
+    """Past one group (128 waveguides) and one warp, with out taps that
+    collide on samples, so the butterfly and the group order both act."""
+    lengths = np.resize(np.array(EDGE, np.int32), g_count)
+    same = [i for i in range(g_count) if i % 14 in SAME_TAP]
+    x, fwd, bwd, params = _edge_inputs(rng, lengths, same_tap=same)
+    out = dops.dwg_mono_in_order(x, fwd, bwd, *params)
+    want, _, _ = dops.dwg_block_plain(_t(x), _t(fwd), _t(bwd),
+                                      *[_t(p) for p in params])
+    g_out, _, _ = dwg_reference(x, fwd, bwd, *params)
+    assert np.abs(out).max() > 0.01
+    np.testing.assert_allclose(out, want.numpy(), atol=OUT_ATOL, rtol=0)
+    np.testing.assert_allclose(out, g_out, atol=OUT_ATOL, rtol=0)
+
+
+def test_mono_order_is_the_written_tree():
+    """One sample, one waveguide a lane: the butterfly's tree, then the
+    warps and the groups in order, checked on values whose float32 sums
+    depend on the order."""
+    g_count, s = 300, 1
+    lengths = np.ones(g_count, np.int32)
+    taps = np.zeros(g_count, np.int32)
+    rng = np.random.Generator(np.random.MT19937(5))
+    fwd = (10.0 ** rng.integers(-8, 8, (g_count, 1))).astype(np.float32)
+    fwd *= np.where(rng.random((g_count, 1)) < 0.5, -1, 1).astype(np.float32)
+    bwd = np.zeros_like(fwd)
+    one = np.ones(g_count, np.float32)
+    out = dops.dwg_mono_in_order(np.zeros(1, np.float32), fwd, bwd, lengths,
+                                 taps - 1, taps, one, one, one)
+    c = np.zeros(384, np.float32)
+    c[:g_count] = (fwd[:, 0] + bwd[:, 0]) * np.float32(0.5)
+    acc = np.float32(0)
+    for grp in range(3):
+        warp_sums = []
+        for w in range(4):
+            lane = list(c[grp * 128 + 32 * w: grp * 128 + 32 * w + 32])
+            for off in (16, 8, 4, 2, 1):  # lane 0 of the xor butterfly
+                lane = [np.float32(lane[i] + lane[i ^ off]) for i in range(32)]
+            warp_sums.append(lane[0])
+        gsum = warp_sums[0]
+        for w in warp_sums[1:]:
+            gsum = np.float32(gsum + w)
+        acc = np.float32(acc + gsum)
+    assert out.shape == (s,) and out[0] == acc
