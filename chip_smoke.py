@@ -54,16 +54,16 @@ nonzero:
    Lmax 600 (past 65,535 waveguides); CUDA-event times at 32,768 x 512.
 8. The FDTD kernels vs their twins bit for bit: the divergence form on
    both routes (``ops.fdtd3d.fdtd_schedule``: the cluster kernel where
-   the room fits one thread-block cluster, the cooperative one
-   everywhere) and the field form's kernel, and the divergence form vs
-   the field form within 1e-5 of the peak, fields chained over 2 blocks,
-   at rooms 8 (64 samples), 50 (512) and 82 (32, the cooperative route
-   only), so the two routes also equal each other at rooms 8 and 50; the
-   field kernel with 128 per-track receivers, the first on the source
-   cell, at room 50 x 512; CUDA-event times of the cluster kernel and the
-   field kernel at room 50 and of the cooperative divergence kernel at
-   room 82, 128 tracks x 512 samples, and of the cluster barrier and the
-   grid barrier alone.
+   the room fits one thread-block cluster, the plane kernel, a
+   cooperative launch of a block a plane, everywhere) and the field
+   form's kernel, and the divergence form vs the field form within 1e-5
+   of the peak, fields chained over 2 blocks, at rooms 8 (64 samples), 50
+   (512), 82 and 128 (32 each, the plane route only), so the two routes
+   also equal each other at rooms 8 and 50; the field kernel with 128
+   per-track receivers, the first on the source cell, at room 50 x 512;
+   CUDA-event times of the cluster kernel and the field kernel at room 50
+   and of the plane kernel at rooms 82 and 128, 128 tracks x 512 samples,
+   and of the cluster barrier and the grid barrier alone.
 9. The two speed-of-light kernels (``fma_chain``, ``fma_vmem``) vs their
    plain twin within 1e-4 absolute and vs the closed form within 5e-4, at
    37 x 1,000 (k = 24), 64 x 1,024 (k = 130) and each SOL benchmark's
@@ -82,10 +82,8 @@ nonzero:
    tracks, 100 runs, full verification), DWG1DNaive and DWG1DAccel at
    32,768 waveguides, and FDTD3D at room 50 with 128 tracks, with and
    without ``--fdtdPerTrackReceivers`` (the cluster kernel, not the
-   cooperative one, must launch in the first), and at room 82 x 64
-   samples (the cooperative divergence kernel); each validates against
-   the NumPy
-   golden; then the CLI on the six SOL benchmarks at their defaults
+   plane kernel, must launch in the first), and at room 82 x 64 samples
+   (the plane kernel); each validates against the NumPy golden; then the CLI on the six SOL benchmarks at their defaults
    (``fma_chain`` must launch on SOL_VPU, ``fma_vmem`` on SOL_VMEM). On
    every CLI path the JSON's ``metadata.roofline`` must name its
    ``peak_source`` and ``basis``, and no share of a peak may pass 105 %.
@@ -93,8 +91,9 @@ nonzero:
    saturated tier (``DWG_CLI``, ``FDTD_CLI``): a DWG round trip at 32,768
    waveguides moves ~1 GB of rails through pageable memory and its host
    golden replays every iteration, and one FDTD block takes milliseconds
-   (1,536 grid-wide barriers), so the default depth of 512 x 21 reps
-   would take minutes (``SOL_CLI``: a SOL_MXU_f32 block is ~2.5 ms).
+   (1,536 substeps, each waiting on neighbours), so the default depth of
+   512 x 21 reps would take minutes (``SOL_CLI``: a SOL_MXU_f32 block is
+   ~2.5 ms).
 11. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
@@ -208,11 +207,15 @@ DWG_REPLACES = "gpuaudiobench_tpu/ops/dwg_pallas.py:40"
 # The FDTD kernels (csrc/fdtd3d.cu), (room, samples): outputs and fields
 # kernel vs twin bit for bit on every route, divergence vs field within
 # 1e-5 of the peak. The cluster kernel and the field kernel are timed at
-# FDTD_MAIN, the cooperative divergence kernel at FDTD_COOP (a room no
-# cluster holds).
+# FDTD_MAIN, the plane kernel (``fdtd3d_div_coop``) at FDTD_COOP (a room
+# no cluster holds; its time goes into the kernels line) and at FDTD_BIG
+# (the largest room the config allows; printed with its bound, under
+# FDTD_BIG_KEY).
 FDTD_MAIN = (50, 512, 128)  # room, samples, tracks: the CLI path's
 FDTD_COOP = (82, 512, 128)
-FDTD_SHAPES = [(8, 64), (50, 512), (82, 32)]
+FDTD_BIG = (128, 512, 128)
+FDTD_BIG_KEY = "fdtd3d_div_coop room 128"
+FDTD_SHAPES = [(8, 64), (50, 512), (82, 32), (128, 32)]
 FDTD_RTOL = 1e-5
 FDTD_SOURCE = "gpuaudiobench_tpu_torch/csrc/fdtd3d.cu"
 FDTD_REPLACES = {"fdtd3d_div": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:149",
@@ -280,7 +283,7 @@ DWG_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
            "--saturatedReps", "5", "--verification", "spot", "--json"]
 FDTD_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "32",
             "--saturatedReps", "5", "--verification", "spot", "--json"]
-# Room 82 on the cooperative kernels: 64-sample blocks (its NumPy golden
+# Room 82 on the plane kernel: 64-sample blocks (its NumPy golden
 # at 512 samples would take most of a minute), 5 runs, depth 16.
 FDTD_ROOM82 = ["--fdtdRoom", "82", "--bufferSize", "64", "--nRuns", "5",
                "--warmup", "1", "--pipelineDepth", "16", "--saturatedReps",
@@ -1081,8 +1084,8 @@ def fdtd_same(torch, label, got, want):
 
 def fdtd_routes(fops, n):
     """{kernel key: block function} of the kernels an n^3 grid can take:
-    the cooperative divergence kernel and the field kernel always, the
-    cluster kernel where it fits."""
+    the plane kernel and the field kernel always, the cluster kernel
+    where it fits."""
     out = {"fdtd3d_div_coop": fops.fdtd3d_block_div_coop,
            "fdtd3d_field": fops.fdtd3d_block_field}
     if fops.fdtd_schedule(n, "div").route == "cluster":
@@ -1157,15 +1160,16 @@ def compare_fdtd_receivers(torch, fops, device):
 
 def time_fdtd(torch, fops, device):
     """CUDA-event times (ms): the cluster kernel and the field kernel at
-    FDTD_MAIN and the cooperative divergence kernel at FDTD_COOP, the
-    divergence form with the broadcast receiver, the field form with a
-    receiver per track, each against its twin; and the cluster barrier (at
-    room 50's layout) and the grid barrier (at room 82's cooperative grid)
-    alone: ({kernel: (ms, plain_ms)}, us per cluster barrier, us per grid
-    barrier)."""
+    FDTD_MAIN and the plane kernel at FDTD_COOP and FDTD_BIG (under
+    FDTD_BIG_KEY), the divergence form with the broadcast receiver, the
+    field form with a receiver per track, each against its twin; and the
+    cluster barrier (at room 50's layout) and the grid barrier (at room
+    82's field-kernel grid) alone: ({kernel: (ms, plain_ms)}, us per
+    cluster barrier, us per grid barrier)."""
     out = {}
     for (room, s, tracks), keys in ((FDTD_MAIN, ("fdtd3d_div", "fdtd3d_field")),
-                                    (FDTD_COOP, ("fdtd3d_div_coop",))):
+                                    (FDTD_COOP, ("fdtd3d_div_coop",)),
+                                    (FDTD_BIG, ("fdtd3d_div_coop",))):
         n, src, rcv = fdtd_geometry(fops, room)
         x = fdtd_x(torch, tracks, s, device)
         cells = fdtd_receivers(torch, fops, n, tracks, device)
@@ -1188,7 +1192,8 @@ def time_fdtd(torch, fops, device):
             print(f"time {name} room {room}, {tracks}x{s} (CUDA events, "
                   f"median of reps): kernel {k1:.4f} / {k2:.4f} ms, plain "
                   f"twin {p1:.2f} / {p2:.2f} ms")
-            out[name] = (min(k1, k2), min(p1, p2))
+            key = FDTD_BIG_KEY if (room, s, tracks) == FDTD_BIG else name
+            out[key] = (min(k1, k2), min(p1, p2))
     syncs = 3 * FDTD_MAIN[1]
     plan = fops.fdtd_schedule(fops.grid_n(FDTD_MAIN[0]), "div")
     cl = median_ms(torch, lambda: fops.cluster_probe(
@@ -1198,15 +1203,15 @@ def time_fdtd(torch, fops, device):
                    5, 2) / syncs * 1e3
     print(f"time barriers alone, {syncs} in one launch: cluster barrier "
           f"({plan.blocks} blocks, {plan.smem_bytes:,} B each) {cl:.4f} us, "
-          f"grid barrier (room {FDTD_COOP[0]}'s cooperative grid) {gr:.4f} us")
+          f"grid barrier (room {FDTD_COOP[0]}'s field-kernel grid) {gr:.4f} us")
     return out, cl, gr
 
 
 def fdtd_bounds():
     """FDTD3D's count of each form (``models.fdtd3d.fdtd3d_cost``) where
     each kernel is timed, FDTD_MAIN for the cluster kernel and the field
-    kernel and FDTD_COOP for the cooperative divergence kernel: a
-    boundary cell 1 FLOP a substep, an
+    kernel, FDTD_COOP for the plane kernel and FDTD_BIG for it under
+    FDTD_BIG_KEY: a boundary cell 1 FLOP a substep, an
     interior cell of the div form 11, the field form 3 a face and 7 an
     interior cell; the source sum, injection and receiver scale; the input
     and output, the carried fields read and written once, and the field
@@ -1215,7 +1220,8 @@ def fdtd_bounds():
 
     out = {}
     for (room, s, tracks), keys in ((FDTD_MAIN, ("fdtd3d_div", "fdtd3d_field")),
-                                    (FDTD_COOP, ("fdtd3d_div_coop",))):
+                                    (FDTD_COOP, ("fdtd3d_div_coop",)),
+                                    (FDTD_BIG, (FDTD_BIG_KEY,))):
         for key, per_track in zip(keys, (False, True)):
             out[key] = cost_bound(fdtd3d_cost(room, s, tracks, per_track))
     return out
@@ -1539,6 +1545,10 @@ def main() -> int:
     for k, v in compare_fdtd_receivers(torch, fops, device).items():
         fdtd_err[k] = max(fdtd_err[k], v)
     fdtd_times, _, _ = time_fdtd(torch, fops, device)
+    big_ms, big_by = fdtd_bounds()[FDTD_BIG_KEY]
+    print(f"time {FDTD_BIG_KEY}: {fdtd_times[FDTD_BIG_KEY][0]:.4f} ms against "
+          f"its bound {big_ms:.4f} ms ({big_by}), "
+          f"{big_ms / fdtd_times[FDTD_BIG_KEY][0]:.2%}")
     print(f"fdtd kernels vs twins: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -34,7 +34,7 @@
 //
 // The divergence form has two routes, chosen before the launch by
 // ops/fdtd3d.py:fdtd_schedule (never by a failed launch), which also
-// hands the cluster kernel its ranges:
+// hands each kernel its ranges:
 //
 // The cluster route (fdtd_div_cluster_kernel), for rooms whose (p, div)
 // fit in one thread-block cluster's shared memory (up to 16 blocks x 227
@@ -72,19 +72,53 @@
 //     prologue (every block started, its mbarriers initialised) and one
 //     before exit.
 //
-// The cooperative route (fdtd_div_coop_kernel), for larger rooms (82 at
-// the CLI's top sizes), and the field form's kernel (fdtd_field_kernel)
-// at every room: one persistent cooperative launch
-// (cudaLaunchCooperativeKernel) of at most the blocks that fit on the
-// card at once; each thread walks its cells in a grid stride, p
-// ping-pongs between two buffers in device memory (div, and in the field
-// form the velocities, which also ping-pong, read and written by their
-// owner), and each substep ends in a cg::grid sync. Reads of cells other
-// threads wrote go through L2 (__ldcg). The grid barrier, 1.43 us at room
-// 50's 275 blocks, is that route's floor (PERF.md). A cluster form of the
-// field kernel (four fields in shared memory, two hand-offs a substep)
-// ran no faster than fdtd_field_kernel; it is kept, measured, in
-// tools/fdtd_stages.
+// The plane route (fdtd_div_planes_kernel), for the rooms one cluster
+// cannot hold (66 to 128; room 128 is 130^3 cells, 8.8 MB of p): one
+// persistent cooperative launch (cudaLaunchCooperativeKernel, which
+// refuses a grid that cannot be resident at once, where a plain launch of
+// this kernel would hang) of one block of 1,024 threads a plane, n <= 130
+// blocks on the H100's 132 SMs; the launcher checks the occupancy at the
+// plan's shared memory first and raises, never falls back.
+//   * Block b owns x-plane b, the flat cells [b n^2, (b + 1) n^2). An
+//     interior cell's +-1 and +-n neighbours lie in its own plane; only
+//     the +-n^2 ones lie in the adjacent blocks' planes. (Half a plane a
+//     block would put +-n across blocks too, and an even split needs 2n <=
+//     132 blocks: rooms up to 64, which the cluster route takes.)
+//   * Thread t owns cells t, t + 1024, ... of the plane and keeps their p
+//     and div in registers, as in the cluster kernel, with the same
+//     unguarded loop, boundary bits and per-cell update (div_cell); the
+//     plane's p ping-pongs between two shared buffers, with no halo (room
+//     128's two are 2 x 72.8 KB).
+//   * The hand-off goes through L2, with no grid barrier: after substep k
+//     every thread stores its new p also into the block's slot of a
+//     global exchange buffer of two parities (st.global.cg), the block
+//     meets a __syncthreads, and one thread stores k + 1 into the block's
+//     flag with st.release.gpu. Before substep k + 1 two threads wait for
+//     the two neighbours' flags to reach k + 1 (ld.acquire.gpu), the block
+//     meets a second __syncthreads, and the neighbours' planes are read
+//     with ld.global.cg (through L2: a line in L1 could be a substep or
+//     two old).
+//   * Why two parities suffice: substep k writes slot parity (k + 1) & 1,
+//     which the neighbours last read in substep k - 1. Block b starts
+//     substep k only after both neighbours' flags reach k, and a
+//     neighbour stores k only after a __syncthreads that follows all of
+//     its loads of substep k - 1. So no slot is overwritten while a
+//     neighbour may still read it, and no block runs more than one
+//     substep ahead of a neighbour.
+//   * The flags are reset and the input planes published in the
+//     prologue, followed by one cg::grid sync (the only one).
+//   * The source cell's owner injects as in the cluster kernel; the
+//     receiver is read by the block that owns its cell.
+//
+// The field form's kernel (fdtd_field_kernel) at every room: one
+// persistent cooperative launch of at most the blocks that fit on the card
+// at once; each thread walks its cells in a grid stride, p and the
+// velocities ping-pong between two buffers in device memory (each
+// velocity read and written by its owner), and each substep ends in a
+// cg::grid sync. Reads of cells other threads wrote go through L2
+// (__ldcg). The grid barrier, 1.43 us at room 50, is its floor (PERF.md).
+// A cluster form of it (four fields in shared memory, two hand-offs a
+// substep) ran no faster; it is kept, measured, in tools/fdtd_stages.
 //
 // FDTD_MARK(q) is a measurement hook of tools/fdtd_stages (clock64()
 // phase sums): unless defined before this file it compiles to nothing.
@@ -147,58 +181,6 @@ __device__ __forceinline__ float inject(const Grid& g, int c, int k,
         v = __fadd_rn(v, src[k / 3 + 1]);
     }
     return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-fdtd_div_coop_kernel(Grid g, const float* __restrict__ src,
-                const float* __restrict__ p_in,
-                const float* __restrict__ div_in,
-                float* pa, float* pb, float* div, float* out,
-                float* src_pre) {
-    cg::grid_group grid = cg::this_grid();
-    const int n = g.n, nn = n * n;
-    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-    const int stride = gridDim.x * blockDim.x;
-
-    for (int c = tid; c < g.cells; c += stride) {
-        const int x = c / nn, y = (c / n) % n, z = c % n;
-        float v = p_in[c];
-        if (c == g.src_cell) v = __fadd_rn(v, src[0]);
-        pa[c] = v;
-        div[c] = on_boundary(x, y, z, n) ? 0.f : div_in[c];
-    }
-    grid.sync();
-
-    const int substeps = 3 * g.s;
-    for (int k = 0; k < substeps; ++k) {
-        const float* cur = (k & 1) ? pb : pa;
-        float* nxt = (k & 1) ? pa : pb;
-        if (k > 0 && k % 3 == 0) {
-            read_receivers(g, k / 3 - 1, cur, src_pre, out, tid, stride);
-        }
-        for (int c = tid; c < g.cells; c += stride) {
-            const int x = c / nn, y = (c / n) % n, z = c % n;
-            const float pc = __ldcg(cur + c);
-            float v;
-            if (on_boundary(x, y, z, n)) {
-                v = __fmul_rn(pc, g.absorb);
-            } else {
-                float sum = __fadd_rn(__ldcg(cur + c + nn), __ldcg(cur + c - nn));
-                sum = __fadd_rn(sum, __fadd_rn(__ldcg(cur + c + n),
-                                               __ldcg(cur + c - n)));
-                sum = __fadd_rn(sum, __fadd_rn(__ldcg(cur + c + 1),
-                                               __ldcg(cur + c - 1)));
-                const float d = __fsub_rn(__fadd_rn(div[c], __fmul_rn(g.c6, pc)),
-                                          __fmul_rn(g.k1, sum));
-                div[c] = d;
-                v = __fsub_rn(pc, __fmul_rn(g.k2, d));
-            }
-            nxt[c] = inject(g, c, k, v, src, src_pre);
-        }
-        grid.sync();
-    }
-    read_receivers(g, g.s - 1, (substeps & 1) ? pb : pa, src_pre, out, tid,
-                   stride);
 }
 
 // One face's velocity after the update v + (-k1) * (p_hi - p_lo).
@@ -488,6 +470,83 @@ __device__ __forceinline__ float p_at_start(const Grid& g, const float* p_in,
     return c == g.src_cell ? __fadd_rn(v, src[0]) : v;
 }
 
+// A block's cells [start, start + len) at the start of the block, thread
+// t's at l = t + 1024 i, i < CPT: p (src[0] injected) into pr and own[l],
+// div on the interior into dv (0 elsewhere), the bits of the thread's
+// valid and interior cells, and which of them is the source cell (-1 for
+// none). Both kernels of the divergence form take them so.
+template <int CPT>
+__device__ __forceinline__ void load_cells(
+    const Grid& g, int start, int len, const float* src, const float* p_in,
+    const float* div_in, float* own, float (&pr)[CPT], float (&dv)[CPT],
+    unsigned& valid, unsigned& interior, int& src_i) {
+    const int n = g.n, nn = n * n;
+    valid = interior = 0;
+    src_i = -1;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+        const int l = i * kClusterThreads + threadIdx.x;
+        pr[i] = dv[i] = 0.f;
+        if (l < len) {
+            const int c = start + l;
+            const int x = c / nn, y = (c / n) % n, z = c % n;
+            valid |= 1u << i;
+            pr[i] = p_at_start(g, p_in, src, c);
+            own[l] = pr[i];
+            if (c == g.src_cell) src_i = i;
+            if (!on_boundary(x, y, z, n)) {
+                interior |= 1u << i;
+                dv[i] = div_in[c];
+            }
+        }
+    }
+}
+
+// The block's cells' p' and div' (zero off the interior) from registers.
+template <int CPT>
+__device__ __forceinline__ void store_cells(int start, int len,
+                                            const float (&pr)[CPT],
+                                            const float (&dv)[CPT],
+                                            float* p_out, float* div_out) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+        const int l = i * kClusterThreads + threadIdx.x;
+        if (l < len) {
+            p_out[start + l] = pr[i];
+            div_out[start + l] = dv[i];
+        }
+    }
+}
+
+// One cell's substep in the divergence form, from its p and div and the
+// sums of its neighbours' p in pairs along x, y and z, each operation
+// rounded on its own in the twin's order: returns p' (p * (1 -
+// absorption) off the interior); div' replaces dv on the interior. Both
+// values are computed and one selected, so a warp never diverges on the
+// boundary bit.
+__device__ __forceinline__ float div_pairs(float pc, float& dv, bool in,
+                                           float xx, float yy, float zz,
+                                           float k1, float k2, float c6,
+                                           float absorb) {
+    const float sum = __fadd_rn(__fadd_rn(xx, yy), zz);
+    const float d = __fsub_rn(__fadd_rn(dv, __fmul_rn(c6, pc)),
+                              __fmul_rn(k1, sum));
+    const float vi = __fsub_rn(pc, __fmul_rn(k2, d));
+    const float vb = __fmul_rn(pc, absorb);
+    dv = in ? d : dv;
+    return in ? vi : vb;
+}
+
+// The same from the six neighbours' p in +-x, +-y, +-z order.
+__device__ __forceinline__ float div_cell(float pc, float& dv, bool in,
+                                          float xp, float xm, float yp,
+                                          float ym, float zp, float zm,
+                                          float k1, float k2, float c6,
+                                          float absorb) {
+    return div_pairs(pc, dv, in, __fadd_rn(xp, xm), __fadd_rn(yp, ym),
+                     __fadd_rn(zp, zm), k1, k2, c6, absorb);
+}
+
 // Rows of out for sample smp, each written by the block that owns its
 // receiver's cell (rank 0 writes NaN for a cell outside the grid). own
 // points at the block's own range of p; src_pre holds the source cell's
@@ -560,25 +619,10 @@ fdtd_div_cluster_kernel(Grid g,
     const int iters = (len + kClusterThreads - 1) / kClusterThreads;
 
     float pr[CPT], dv[CPT];
-    unsigned interior = 0, valid = 0;
-    int src_i = -1;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-        const int l = i * kClusterThreads + tid;
-        pr[i] = dv[i] = 0.f;
-        if (l < len) {
-            const int c = sl.start + l;
-            const int x = c / nn, y = (c / n) % n, z = c % n;
-            valid |= 1u << i;
-            pr[i] = p_at_start(g, p_in, src, c);
-            buf0[nn + l] = pr[i];
-            if (c == g.src_cell) src_i = i;
-            if (!on_boundary(x, y, z, n)) {
-                interior |= 1u << i;
-                dv[i] = div_in[c];
-            }
-        }
-    }
+    unsigned valid, interior;
+    int src_i;
+    load_cells<CPT>(g, sl.start, len, src, p_in, div_in, buf0 + nn, pr, dv,
+                    valid, interior, src_i);
     for (int j = tid; j < nn; j += kClusterThreads) {
         const int lo = sl.start - nn + j, hi = sl.end + j;
         if (lo >= 0) buf0[j] = p_at_start(g, p_in, src, lo);
@@ -621,17 +665,10 @@ fdtd_div_cluster_kernel(Grid g,
         auto cell = [&](int i) {
             const uint32_t o = 4u * kClusterThreads * i;
             const int l = i * kClusterThreads + tid;
-            const float pc = pr[i];
-            float sum = __fadd_rn(lds(a_nn + o), lds(a_mnn + o));
-            sum = __fadd_rn(sum, __fadd_rn(lds(a_n + o), lds(a_mn + o)));
-            sum = __fadd_rn(sum, __fadd_rn(lds(a + o + 4), lds(a + o - 4)));
-            const float d = __fsub_rn(__fadd_rn(dv[i], __fmul_rn(c6, pc)),
-                                      __fmul_rn(k1, sum));
-            const bool in = in_mask >> i & 1u;
-            const float vi = __fsub_rn(pc, __fmul_rn(k2, d));
-            const float vb = __fmul_rn(pc, absorb);
-            float v = in ? vi : vb;
-            dv[i] = in ? d : dv[i];
+            float v = div_cell(pr[i], dv[i], in_mask >> i & 1u, lds(a_nn + o),
+                               lds(a_mnn + o), lds(a_n + o), lds(a_mn + o),
+                               lds(a + o + 4), lds(a + o - 4), k1, k2, c6,
+                               absorb);
             if (i == inj) {
                 sts(pre_a, v);
                 v = __fadd_rn(v, src[k / 3 + 1]);
@@ -656,14 +693,7 @@ fdtd_div_cluster_kernel(Grid g,
     const float* fin = ((substeps & 1) ? buf1 : buf0) + nn;
     cluster_receivers(g, sl, g.s - 1, fin, src_pre, out);
     FDTD_MARK(4);
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-        const int l = i * kClusterThreads + tid;
-        if (l < len) {
-            p_out[sl.start + l] = pr[i];
-            div_out[sl.start + l] = dv[i];  // zero off the interior
-        }
-    }
+    store_cells<CPT>(sl.start, len, pr, dv, p_out, div_out);
     FDTD_MARK(7);
     cluster.sync();  // no block leaves while a neighbour may address it
 }
@@ -674,6 +704,177 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 fdtd_cluster_probe_kernel(int syncs) {
     cg::cluster_group cluster = cg::this_cluster();
     for (int i = 0; i < syncs; ++i) cluster.sync();
+}
+
+// ---- the plane route --------------------------------------------------
+
+// Ints from one block's flag to the next: a 128-byte line each.
+constexpr int kFlagStride = 32;
+
+// Floats of one plane's slot in the exchange buffer: n^2 cells and the
+// padding that the last iteration's loads reach into.
+__host__ __device__ __forceinline__ long long plane_stride(int n) {
+    return padded(1LL * n * n);
+}
+
+// Floats ahead of the plane in a shared-memory buffer (at least n + 1, so
+// that the loads of row -1 stay in bounds), and floats of one buffer: the
+// lead, the plane, one iteration of 1,024 cells and the lead again.
+__host__ __device__ __forceinline__ int plane_lead(int n) {
+    return (n + 4) & ~3;
+}
+
+__host__ __device__ __forceinline__ int plane_slots(int n) {
+    return (2 * plane_lead(n) + n * n + kClusterThreads + 3) & ~3;
+}
+
+// Global-memory load and store that bypass L1: the exchange buffer is
+// written by other blocks between one substep and the next. The load is
+// free to move, as lds() is: its address is rebuilt each substep after
+// the barrier that follows the wait.
+__device__ __forceinline__ float ldcg(const float* p) {
+    float v;
+    asm("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p));
+    return v;
+}
+
+__device__ __forceinline__ void stcg_if(bool ok, float* p, float v) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %0, 0;\n\t"
+        "@p st.global.cg.f32 [%1], %2;\n\t}" ::"r"(static_cast<uint32_t>(ok)),
+        "l"(p), "f"(v)
+        : "memory");
+}
+
+__device__ __forceinline__ const float* opaque(const float* p) {
+    asm volatile("" : "+l"(p));
+    return p;
+}
+
+// A block's flag: the number of substeps whose planes it has published.
+__device__ __forceinline__ void flag_release(int* f, int v) {
+    asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(f), "r"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ void flag_wait(const int* f, int v) {
+    int got;
+    do {
+        asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                     : "=r"(got)
+                     : "l"(f)
+                     : "memory");
+    } while (got < v);
+}
+
+// Divergence form, one block a plane (block b: plane b, n blocks of 1,024
+// threads in one cooperative launch). Shared memory: 8 floats (the source
+// cell's pre-injection value at 4), then two plane buffers of
+// plane_slots(n) floats, cell l of the plane at slot plane_lead(n) + l.
+// xch holds two parities of n + 2 slots of plane_stride(n) floats, plane
+// b at slot b + 1 (slots 0 and n + 1 are never written: the boundary
+// planes' loads from them are discarded); flags, one a block every
+// kFlagStride ints. Thread t owns cells l = i * 1024 + t, i < CPT (the
+// build of ceil(n^2 / 1024) rounded up to odd; only the last iteration
+// that runs is partial: its loads stay in the padding, its stores are
+// masked).
+template <int CPT>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fdtd_div_planes_kernel(Grid g, const float* __restrict__ src,
+                       const float* __restrict__ p_in,
+                       const float* __restrict__ div_in,
+                       float* __restrict__ p_out,
+                       float* __restrict__ div_out,
+                       float* __restrict__ out, float* xch, int* flags) {
+    extern __shared__ __align__(16) float smem[];
+    FDTD_MARK(0);
+    const int n = g.n, nn = n * n, tid = threadIdx.x;
+    const int b = blockIdx.x, blocks = gridDim.x;
+    const Slab sl{b, blocks, b * nn, (b + 1) * nn, (b - 1) * nn, nn};
+    float* const src_pre = smem + 4;
+    float* const buf0 = smem + 8 + plane_lead(n);
+    float* const buf1 = buf0 + plane_slots(n);
+    const long long stride = plane_stride(n);
+    const long long parity = (n + 2LL) * stride;
+    const bool has_prev = b > 0, has_next = b + 1 < blocks;
+    int* const own_flag = flags + b * kFlagStride;
+    const float k1 = opaque(g.k1), k2 = opaque(g.k2), c6 = opaque(g.c6);
+    const float absorb = opaque(g.absorb);
+    const uint32_t pre_a = smem_u32(src_pre);
+    const int iters = (nn + kClusterThreads - 1) / kClusterThreads;
+
+    float pr[CPT], dv[CPT];
+    unsigned valid, interior;
+    int src_i;
+    load_cells<CPT>(g, sl.start, nn, src, p_in, div_in, buf0, pr, dv, valid,
+                    interior, src_i);
+    // Substep 0 reads the input planes from parity 0.
+    float* const pub0 = xch + (b + 1) * stride + tid;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+        stcg_if(valid >> i & 1u, pub0 + i * kClusterThreads, pr[i]);
+    }
+    if (tid == 0) *own_flag = 0;
+    FDTD_MARK(1);
+    cg::this_grid().sync();  // the flags reset, the input planes published
+    FDTD_MARK(3);
+
+    const int substeps = 3 * g.s;
+    for (int k = 0; k < substeps; ++k) {
+        const int q = (k + 1) & 1;  // the buffer and the parity k writes
+        float* const bq = q ? buf1 : buf0;
+        const float* cur = q ? buf0 : buf1;
+        const bool send = k + 1 < substeps;
+        if (k > 0 && k % 3 == 0) {
+            cluster_receivers(g, sl, k / 3 - 1, cur, src_pre, out);
+            FDTD_MARK(4);
+        }
+        const int inj = (k % 3 == 2 && k / 3 + 1 < g.s) ? src_i : -1;
+        const uint32_t a = opaque(smem_u32(cur) + 4u * tid);
+        const uint32_t a_n = a + 4 * n, a_mn = a - 4 * n;
+        const uint32_t w0 = a - smem_u32(cur) + smem_u32(bq);
+        const uint32_t in_mask = opaque(interior), ok_mask = opaque(valid);
+        // The neighbours' planes of substep k - 1 (the next plane at slot
+        // b + 2, the previous at b), and this block's slot of parity q.
+        const float* const dn =
+            opaque(xch + (k & 1) * parity + b * stride + tid);
+        const float* const up = dn + 2 * stride;
+        float* const pub = xch + q * parity + (b + 1) * stride + tid;
+        auto cell = [&](int i) {
+            const uint32_t o = 4u * kClusterThreads * i;
+            const int og = kClusterThreads * i;
+            float v = div_cell(pr[i], dv[i], in_mask >> i & 1u, ldcg(up + og),
+                               ldcg(dn + og), lds(a_n + o), lds(a_mn + o),
+                               lds(a + o + 4), lds(a + o - 4), k1, k2, c6,
+                               absorb);
+            if (i == inj) {
+                sts(pre_a, v);
+                v = __fadd_rn(v, src[k / 3 + 1]);
+            }
+            pr[i] = v;
+            const bool ok = ok_mask >> i & 1u;
+            sts_if(ok, w0 + o, v);
+            if (send) stcg_if(ok, pub + og, v);
+        };
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) {
+            if (runs<CPT>(i, iters)) cell(i);
+        }
+        FDTD_MARK(2);
+        __syncthreads();  // the plane stored, here and in the exchange
+        if (send) {
+            if (tid == 0) flag_release(own_flag, k + 1);
+            if (tid == 0 && has_prev) flag_wait(own_flag - kFlagStride, k + 1);
+            if (tid == 32 && has_next) flag_wait(own_flag + kFlagStride, k + 1);
+            __syncthreads();
+        }
+        FDTD_MARK(3);
+    }
+    const float* fin = (substeps & 1) ? buf1 : buf0;
+    cluster_receivers(g, sl, g.s - 1, fin, src_pre, out);
+    FDTD_MARK(4);
+    store_cells<CPT>(sl.start, nn, pr, dv, p_out, div_out);
+    FDTD_MARK(7);
 }
 
 // The build a range of at most `cap` cells takes: its iterations of 1,024
@@ -719,16 +920,85 @@ using DivClusterKernel = void (*)(Grid, Ranges, const float*, const float*,
                                   const float*, float*, float*, float*);
 
 // The builds, one for each odd count of cells a thread; null above them.
-DivClusterKernel div_cluster_kernel(int cpt) {
-    switch (cpt) {
-#define FDTD_CASE(c) \
-    case c:          \
-        return fdtd_div_cluster_kernel<c>;
-        FDTD_CASE(1) FDTD_CASE(3) FDTD_CASE(5) FDTD_CASE(7) FDTD_CASE(9)
-        FDTD_CASE(11) FDTD_CASE(13) FDTD_CASE(15) FDTD_CASE(17) FDTD_CASE(19)
-#undef FDTD_CASE
-        default: return nullptr;
+#define FDTD_BUILDS(kernel)                                              \
+    switch (cpt) {                                                       \
+        case 1: return kernel<1>;                                        \
+        case 3: return kernel<3>;                                        \
+        case 5: return kernel<5>;                                        \
+        case 7: return kernel<7>;                                        \
+        case 9: return kernel<9>;                                        \
+        case 11: return kernel<11>;                                      \
+        case 13: return kernel<13>;                                      \
+        case 15: return kernel<15>;                                      \
+        case 17: return kernel<17>;                                      \
+        case 19: return kernel<19>;                                      \
+        default: return nullptr;                                         \
     }
+
+DivClusterKernel div_cluster_kernel(int cpt) {
+    FDTD_BUILDS(fdtd_div_cluster_kernel)
+}
+
+using DivPlanesKernel = void (*)(Grid, const float*, const float*,
+                                 const float*, float*, float*, float*, float*,
+                                 int*);
+
+// The plane kernel's builds, as the cluster kernel's.
+DivPlanesKernel div_planes_kernel(int cpt) {
+    FDTD_BUILDS(fdtd_div_planes_kernel)
+}
+#undef FDTD_BUILDS
+
+// Dynamic shared memory a block of the plane kernel takes for an n^3 grid
+// (ops/fdtd3d.py:planes_smem_bytes): 8 floats, then two plane buffers.
+long long div_planes_smem(int n) { return 4 * (8LL + 2 * plane_slots(n)); }
+
+// Whether starts (blocks + 1 ints) are the plane route's ranges of an n^3
+// grid: block b owns plane b, [b n^2, (b + 1) n^2).
+bool plane_ranges(int n, const int* starts, int blocks) {
+    if (n < 3 || n > 1024 || starts == nullptr || blocks != n) return false;
+    for (int b = 0; b <= blocks; ++b) {
+        if (starts[b] != b * n * n) return false;
+    }
+    return true;
+}
+
+// Blocks of `threads` threads of `kernel` with `smem` bytes of dynamic
+// shared memory each that the current device holds at once (after
+// setting the kernel's shared-memory attribute); 0 with *err set when it
+// cannot launch them cooperatively.
+int coresident_blocks(const void* kernel, int threads, long long smem,
+                      cudaError_t* err) {
+    int dev = 0, sms = 0, coop = 0, optin = 0, per_sm = 0;
+    *err = cudaGetDevice(&dev);
+    if (*err == cudaSuccess) {
+        *err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    }
+    if (*err == cudaSuccess) {
+        *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (*err == cudaSuccess) {
+        *err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (*err != cudaSuccess) return 0;
+    if (smem < 0 || smem > optin) {
+        *err = cudaErrorInvalidValue;
+        return 0;
+    }
+    *err = cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+    if (*err == cudaSuccess) {
+        *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, threads, static_cast<size_t>(smem));
+    }
+    if (*err != cudaSuccess) return 0;
+    if (!coop || per_sm < 1) {
+        *err = cudaErrorCooperativeLaunchTooLarge;
+        return 0;
+    }
+    return per_sm * sms;
 }
 
 // A one-cluster launch of `kernel`: `blocks` blocks of 1,024 threads,
@@ -766,30 +1036,14 @@ cudaError_t cluster_config(const void* kernel, int blocks, long long smem,
     return err;
 }
 
-// Blocks of a cooperative launch of `kernel` that fit on the current
-// device at once, capped at what `work` items need; 0 with *err set when
-// the device cannot launch cooperatively.
+// Blocks of 512 threads of a cooperative launch of `kernel` that fit on
+// the current device at once, capped at what `work` items need; 0 with
+// *err set when the device cannot launch them cooperatively.
 template <typename K>
 int grid_blocks(K kernel, long long work, cudaError_t* err) {
-    int dev = 0, sms = 0, coop = 0, per_sm = 0;
-    *err = cudaGetDevice(&dev);
-    if (*err == cudaSuccess) {
-        *err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    }
-    if (*err == cudaSuccess) {
-        *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (*err == cudaSuccess) {
-        *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                             kThreads, 0);
-    }
-    if (*err != cudaSuccess) return 0;
-    if (!coop || per_sm < 1) {
-        *err = cudaErrorCooperativeLaunchTooLarge;
-        return 0;
-    }
+    const long long fit = coresident_blocks((const void*)kernel, kThreads, 0,
+                                            err);
     const long long need = (work + kThreads - 1) / kThreads;
-    const long long fit = static_cast<long long>(per_sm) * sms;
     return static_cast<int>(need < fit ? need : fit);
 }
 
@@ -821,37 +1075,12 @@ bool bad_shape(int n, int s, int tracks, int src_cell) {
 
 extern "C" {
 
-// Cooperative route, divergence form. src (s,), p_in and div_in (n^3,)
-// read only; pa, pb
-// (n^3,) scratch: after the block p' is in pa when s is even, pb when odd;
-// div (n^3,) receives div'; out (tracks, s), every row read from rcv_cell;
-// src_pre (1,) scratch. Returns the launch's error (0 on success).
-int fdtd_div_launch(const float* src, const float* p_in, const float* div_in,
-                    float* pa, float* pb, float* div, float* out,
-                    float* src_pre, int n, int s, int src_cell, int tracks,
-                    int rcv_cell, float k1, float k2, float c6, float absorb,
-                    float out_scale, void* stream) {
-    if (bad_shape(n, s, tracks, src_cell)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    cudaError_t err;
-    const int blocks = grid_blocks(fdtd_div_coop_kernel, 1LL * n * n * n, &err);
-    if (blocks == 0) return static_cast<int>(err);
-    Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, nullptr, k1, k2, c6,
-                       absorb, out_scale);
-    void* args[] = {&g, &src, &p_in, &div_in, &pa, &pb, &div, &out, &src_pre};
-    err = cudaLaunchCooperativeKernel(
-        (const void*)fdtd_div_coop_kernel, dim3(blocks),
-        dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
-}
-
 // Cooperative route, field form. p_in (n^3,), vx_in (n+1, n, n), vy_in
 // (n, n+1, n), vz_in (n, n, n+1) read only; pa, pb and each velocity's a, b buffers scratch:
 // after the block the fields are in the a buffers when s is even, the b
-// buffers when odd. out and src_pre as for fdtd_div_launch; the receiver
-// of row t is rcv_rows[t], or rcv_cell when rcv_rows is null.
+// buffers when odd. out (tracks, s); src_pre (1,) scratch; the receiver
+// of row t is rcv_rows[t], or rcv_cell when rcv_rows is null. Returns the
+// launch's error (0 on success).
 int fdtd_field_launch(const float* src, const float* p_in, const float* vx_in,
                       const float* vy_in, const float* vz_in, float* pa,
                       float* pb, float* vxa, float* vxb, float* vya,
@@ -877,11 +1106,12 @@ int fdtd_field_launch(const float* src, const float* p_in, const float* vx_in,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The blocks the cooperative divergence kernel's launch takes for an n^3
-// grid (0 when the device cannot launch it cooperatively).
-int fdtd_div_blocks(int n) {
+// The blocks the field kernel's cooperative launch takes for an n^3 grid
+// (0 when the device cannot launch it cooperatively): the grid whose
+// barrier fdtd_sync_probe_launch measures.
+int fdtd_field_blocks(int n) {
     cudaError_t err;
-    return grid_blocks(fdtd_div_coop_kernel, 1LL * n * n * n, &err);
+    return grid_blocks(fdtd_field_kernel, 1LL * (n + 1) * n * n, &err);
 }
 
 // `syncs` grid-wide barriers alone, in one cooperative launch of `blocks`
@@ -894,6 +1124,71 @@ int fdtd_sync_probe_launch(int syncs, int blocks, void* stream) {
         args, 0, static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Plane route, divergence form: one cooperative launch of `blocks` = n
+// blocks, block b owning plane b ([starts[b], starts[b + 1]) = [b n^2,
+// (b + 1) n^2); starts: blocks + 1 ints, host memory). src (s,), p_in and
+// div_in (n^3,) read only; p_out and div_out (n^3,) receive p' and div';
+// out (tracks, s), every row read from rcv_cell; xch (2 (n + 2)
+// plane_stride(n) floats) and flags (n kFlagStride ints) scratch, neither
+// read before the kernel writes it. Returns the launch's error (0 on
+// success): cudaErrorInvalidValue when the ranges are not the planes or
+// no build takes n^2 cells a block, cudaErrorCooperativeLaunchTooLarge
+// when the card cannot hold the blocks at once.
+int fdtd_div_planes_launch(const float* src, const float* p_in,
+                           const float* div_in, float* p_out, float* div_out,
+                           float* out, float* xch, int* flags, int n, int s,
+                           int src_cell, int tracks, int rcv_cell, float k1,
+                           float k2, float c6, float absorb, float out_scale,
+                           const int* starts, int blocks, void* stream) {
+    if (bad_shape(n, s, tracks, src_cell) ||
+        !plane_ranges(n, starts, blocks)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const DivPlanesKernel kernel =
+        div_planes_kernel(cells_per_thread(1LL * n * n));
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const long long smem = div_planes_smem(n);
+    cudaError_t err;
+    const int fit =
+        coresident_blocks((const void*)kernel, kClusterThreads, smem, &err);
+    if (fit == 0) return static_cast<int>(err);
+    if (fit < blocks) {
+        return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    }
+    Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, nullptr, k1, k2, c6,
+                       absorb, out_scale);
+    void* args[] = {&g,   &src, &p_in, &div_in, &p_out,
+                    &div_out, &out, &xch, &flags};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                      dim3(kClusterThreads), args,
+                                      static_cast<size_t>(smem),
+                                      static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory a block of the plane kernel takes for an n^3
+// grid, or -1 when no build takes n^2 cells a block.
+long long fdtd_planes_smem(int n) {
+    if (n < 3 || n > 1024 ||
+        div_planes_kernel(cells_per_thread(1LL * n * n)) == nullptr) {
+        return -1;
+    }
+    return div_planes_smem(n);
+}
+
+// Blocks of the plane kernel for an n^3 grid that the card holds at once
+// (the launch needs n); the negated CUDA error when the query fails.
+int fdtd_planes_capacity(int n) {
+    const long long smem = fdtd_planes_smem(n);
+    if (smem < 0) return -static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err;
+    const int fit = coresident_blocks(
+        (const void*)div_planes_kernel(cells_per_thread(1LL * n * n)),
+        kClusterThreads, smem, &err);
+    return fit > 0 ? fit : -static_cast<int>(err);
 }
 
 // Cluster route, divergence form: one cluster of `blocks` blocks carries

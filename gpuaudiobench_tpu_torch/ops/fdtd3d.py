@@ -32,12 +32,14 @@ input fields are never written. Which kernel runs is decided before the
 launch by ``fdtd_schedule(n, form)``, pure host code: in the divergence
 form a room whose (p, div) fits in one thread-block cluster's shared
 memory (rooms up to 65; room 50 on 16 blocks) takes the cluster kernel
-(``fdtd3d_div`` in ``KERNEL_LAUNCHES``), a larger one (room 82) the
-cooperative kernel (``fdtd3d_div_coop``). The field form has one kernel,
-a cooperative one, at every room (``fdtd3d_field``). The route-specific
-launchers ``fdtd3d_block_div_{cluster,coop}`` take CUDA tensors only;
-they let the tests and ``chip_smoke.py`` hold one route against the
-other at a room both can serve.
+(``fdtd3d_div`` in ``KERNEL_LAUNCHES``), a larger one (rooms 66-128) the
+plane kernel, one cooperative launch of a block a plane that hands the
+planes on through L2 (``plane_schedule``; ``fdtd3d_div_coop``). The field
+form has one kernel, a cooperative one, at every room (``fdtd3d_field``).
+The route-specific launchers ``fdtd3d_block_div_{cluster,coop}`` take
+CUDA tensors only; they let the tests and ``chip_smoke.py`` hold one
+route against the other at a room both can serve (the plane kernel
+serves every room from n = 3).
 """
 
 from __future__ import annotations
@@ -78,8 +80,8 @@ F_OUTPUT_SCALE = float(np.float32(OUTPUT_SCALE))
 
 # Launches of each CUDA kernel, counted by its wrapper where it launches
 # it (chip_smoke.py reads them to prove the main path used the kernels):
-# the divergence form's cluster kernel under the form's name, its
-# cooperative kernel with "_coop"; the field form's one kernel.
+# the divergence form's cluster kernel under the form's name, its plane
+# kernel (a cooperative launch) with "_coop"; the field form's one kernel.
 KERNEL_LAUNCHES: Dict[str, int] = {"fdtd3d_div": 0, "fdtd3d_div_coop": 0,
                                    "fdtd3d_field": 0}
 
@@ -91,16 +93,20 @@ CLUSTER_THREADS = 1024
 MAX_CLUSTER_BLOCKS = 16
 SMEM_PER_BLOCK = 232_448
 MAX_CELLS_PER_THREAD = 19
+# The plane route: one block of 1,024 threads a plane, each block's flag
+# 32 ints (a 128-byte line) from the next.
+PLANE_FLAG_STRIDE = 32
 FORMS = ("div", "field")
 
 
 @dataclass(frozen=True)
 class FdtdPlan:
     """How one block of an n^3 grid runs: ``route`` "cluster" (one
-    cluster of ``blocks`` blocks, block b owning the flat cells
-    ``ranges[b]``, which the kernel is given, and taking ``smem_bytes`` of
-    dynamic shared memory) or "cooperative" (blocks 0, no ranges: the
-    grid-stride kernel sizes its own launch)."""
+    cluster of ``blocks`` blocks) or "cooperative" (one cooperative
+    launch). Block b owns the flat cells ``ranges[b]``, which the kernel
+    is given, and takes ``smem_bytes`` of dynamic shared memory; the field
+    form's grid-stride kernel has blocks 0 and no ranges (it sizes its own
+    launch)."""
 
     route: str
     blocks: int
@@ -122,6 +128,38 @@ def cluster_smem_bytes(n: int, cap: int) -> int:
                          // 4 * 4))
 
 
+def plane_stride(n: int) -> int:
+    """Floats of one plane's slot in the plane kernel's exchange buffer
+    (csrc/fdtd3d.cu:plane_stride): n^2 cells and 1,036 floats of padding
+    (the last partial iteration of 1,024 threads loads in bounds), rounded
+    up to 4."""
+    return (n * n + 12 + CLUSTER_THREADS + 3) // 4 * 4
+
+
+def planes_smem_bytes(n: int) -> int:
+    """Dynamic shared memory a block of the plane kernel takes
+    (csrc/fdtd3d.cu:div_planes_smem): 8 floats, then two buffers of the
+    block's plane, each with a lead of (n + 4) rounded down to 4 floats
+    ahead and behind (the rows above and below load in bounds) and one
+    iteration of 1,024 cells, rounded up to 4."""
+    lead = (n + 4) // 4 * 4
+    return 4 * (8 + 2 * ((2 * lead + n * n + CLUSTER_THREADS + 3) // 4 * 4))
+
+
+def plane_schedule(n: int) -> FdtdPlan:
+    """The plane route of an n^3 grid: n blocks of 1,024 threads, block b
+    owning x-plane b, so an interior cell's +-1 and +-n neighbours lie in
+    its own plane and its +-n^2 ones in the adjacent ranges. Raises when
+    no build of the kernel takes n^2 cells a block; whether the card holds
+    n blocks at once is the launch's check."""
+    nn = n * n
+    if n < 3 or nn > MAX_CELLS_PER_THREAD * CLUSTER_THREADS:
+        raise ValueError(f"plane_schedule: no plane kernel for an {n}^3 grid")
+    return FdtdPlan("cooperative", n,
+                    tuple((b * nn, (b + 1) * nn) for b in range(n)),
+                    planes_smem_bytes(n))
+
+
 def fdtd_schedule(n: int, form: str) -> FdtdPlan:
     """The route of an n^3 grid in ``form`` ("div" or "field"). In the
     divergence form a cluster of the largest power of two of blocks up to
@@ -129,8 +167,9 @@ def fdtd_schedule(n: int, form: str) -> FdtdPlan:
     +-n^2 neighbour lies in the block's own range or an adjacent one), on
     balanced ranges, takes the grid when every block's layout fits its
     shared memory and the largest build's cells a thread; otherwise the
-    cooperative route does. The field form always takes the cooperative
-    route: its cluster design ran no faster (PERF.md)."""
+    plane route (``plane_schedule``) does. The field form always takes its
+    cooperative grid-stride kernel: its cluster design ran no faster
+    (PERF.md)."""
     if form not in FORMS:
         raise ValueError(f"fdtd_schedule: form must be one of {FORMS}, "
                          f"got {form!r}")
@@ -144,7 +183,7 @@ def fdtd_schedule(n: int, form: str) -> FdtdPlan:
     smem = cluster_smem_bytes(n, cap)
     if (cells // blocks < n * n or smem > SMEM_PER_BLOCK
             or cap > MAX_CELLS_PER_THREAD * CLUSTER_THREADS):
-        return COOPERATIVE
+        return plane_schedule(n)
     ranges = tuple((b * cells // blocks, (b + 1) * cells // blocks)
                    for b in range(blocks))
     return FdtdPlan("cluster", blocks, ranges, smem)
@@ -323,14 +362,15 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the argument and result types of csrc/fdtd3d.cu's C interface
     on a loaded library (once); returns it."""
-    if lib.fdtd_div_launch.argtypes is None:
+    if lib.fdtd_div_planes_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ip = ctypes.POINTER(ctypes.c_int)
         sig = {
-            "fdtd_div_launch": [p] * 8 + [i] * 5 + [f] * 5 + [p],
+            "fdtd_div_planes_launch": [p] * 8 + [i] * 5 + [f] * 5 + [ip, i, p],
             "fdtd_field_launch": [p] * 16 + [i] * 5 + [f] * 4 + [p],
             "fdtd_div_cluster_launch": [p] * 6 + [i] * 5 + [f] * 5 + [ip, i, p],
-            "fdtd_div_blocks": [i],
+            "fdtd_field_blocks": [i],
+            "fdtd_planes_capacity": [i],
             "fdtd_sync_probe_launch": [i, i, p],
             "fdtd_cluster_occupancy": [i, ip, i],
             "fdtd_cluster_probe_launch": [i, i, i, p],
@@ -341,6 +381,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             getattr(lib, name).restype = i
         lib.fdtd_cluster_smem.argtypes = [i, ip, i]
         lib.fdtd_cluster_smem.restype = ctypes.c_longlong
+        lib.fdtd_planes_smem.argtypes = [i]
+        lib.fdtd_planes_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -378,17 +420,22 @@ def _div_cluster(x, p, div, n, source, receiver, plan: FdtdPlan):
     return out, p_out, div_out
 
 
-def _div_coop(x, p, div, n, source, receiver):
+def _div_coop(x, p, div, n, source, receiver, plan: FdtdPlan):
     tracks, s = x.shape
-    pa, pb, div_out = (_empty((n, n, n), x) for _ in range(3))
+    p_out, div_out = _empty((n, n, n), x), _empty((n, n, n), x)
     out = _empty((tracks, s), x)
-    src_pre = _empty((1,), x)
-    _launch(x, "fdtd_div_launch", "fdtd3d_div_coop",
+    # Scratch the kernel writes before it reads: two parities of n + 2
+    # plane slots, and a flag a block.
+    xch = _empty((2 * (n + 2) * plane_stride(n),), x)
+    flags = torch.empty((n * PLANE_FLAG_STRIDE,), dtype=torch.int32,
+                        device=x.device)
+    _launch(x, "fdtd_div_planes_launch", "fdtd3d_div_coop",
             source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
-            pa.data_ptr(), pb.data_ptr(), div_out.data_ptr(), out.data_ptr(),
-            src_pre.data_ptr(), n, s, flat_cell(source, n), tracks,
-            flat_cell(receiver, n), K1, K2, C6, ABSORB, F_OUTPUT_SCALE)
-    return out, (pa if s % 2 == 0 else pb), div_out
+            p_out.data_ptr(), div_out.data_ptr(), out.data_ptr(),
+            xch.data_ptr(), flags.data_ptr(), n, s, flat_cell(source, n),
+            tracks, flat_cell(receiver, n), K1, K2, C6, ABSORB,
+            F_OUTPUT_SCALE, range_starts(plan), plan.blocks)
+    return out, p_out, div_out
 
 
 def _field(x, p, vx, vy, vz, n, source, receiver, receivers):
@@ -430,7 +477,7 @@ def fdtd3d_block_div(x, p, div, source: Cell = SOURCE,
     plan = fdtd_schedule(n, "div")
     if plan.route == "cluster":
         return _div_cluster(x, p, div, n, source, receiver, plan)
-    return _div_coop(x, p, div, n, source, receiver)
+    return _div_coop(x, p, div, n, source, receiver, plan)
 
 
 def fdtd3d_block_field(x, p, vx, vy, vz, source: Cell = SOURCE,
@@ -462,24 +509,26 @@ def fdtd3d_block_div_cluster(x, p, div, source: Cell = SOURCE,
 
 def fdtd3d_block_div_coop(x, p, div, source: Cell = SOURCE,
                           receiver: Cell = RECEIVER):
-    """``fdtd3d_block_div`` on the cooperative route."""
+    """``fdtd3d_block_div`` on the plane route (``plane_schedule``), at
+    any room, including those the cluster route takes."""
     fn = "fdtd3d_block_div_coop"
     n = _check_div(x, p, div, source, receiver, fn)
     _on_cuda(x, fn)
-    return _div_coop(x, p, div, n, source, receiver)
+    return _div_coop(x, p, div, n, source, receiver, plane_schedule(n))
 
 
 def sync_probe(n: int, syncs: int, device) -> None:
     """Launch ``syncs`` grid-wide barriers alone, on as many blocks as the
-    cooperative divergence kernel takes for an n^3 grid: a measurement of
-    the barrier (not a kernel of any benchmark; not counted in
+    field kernel's cooperative launch takes for an n^3 grid (the one
+    kernel that still ends each substep in a grid barrier): a measurement
+    of the barrier (not a kernel of any benchmark; not counted in
     KERNEL_LAUNCHES)."""
     lib = _lib()
     device = torch.device(device)
     with torch.cuda.device(device):
-        blocks = lib.fdtd_div_blocks(n)
+        blocks = lib.fdtd_field_blocks(n)
         if blocks <= 0:
-            raise RuntimeError("fdtd_div_blocks: no cooperative launch on "
+            raise RuntimeError("fdtd_field_blocks: no cooperative launch on "
                                f"{device}")
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fdtd_sync_probe_launch(syncs, blocks, stream)

@@ -906,6 +906,79 @@ def test_fdtd_cluster_kernel_is_deterministic(cuda):
     assert _same(a, b)
 
 
+# The plane route (a block a plane, the planes handed on through L2) at
+# the rooms it serves on the main paths: 66 (the first past the cluster
+# route), 82 and 128 (the largest the config allows; S = 32), bit for bit
+# the twin, fields chained over 2 blocks, each S long enough for the
+# receiver to hear the source in the second block (60, 74 and 116 cells
+# apart).
+FDTD_PLANE_CASES = [(66, 20), (82, 25), (128, 32)]
+
+
+@pytest.mark.parametrize("room,s", FDTD_PLANE_CASES)
+def test_fdtd_plane_kernel_matches_twin_bit_for_bit(cuda, room, s):
+    x, n, src, rcv = _div_case(room, s, 4, "default", cuda)
+    plan = fops.fdtd_schedule(n, "div")
+    assert plan.route == "cooperative" and plan.blocks == n
+    before = dict(fops.KERNEL_LAUNCHES)
+    got = _div_chain(fops.fdtd3d_block_div, x, n, src, rcv, cuda)
+    twin = _div_chain(fops.fdtd3d_block_div_plain, x, n, src, rcv, cuda)
+    torch.cuda.synchronize()
+    assert _same(got, twin)
+    assert got[1][0].abs().max().item() > 0
+    assert {k: v - before[k] for k, v in fops.KERNEL_LAUNCHES.items()} \
+        == {"fdtd3d_div": 0, "fdtd3d_div_coop": 2, "fdtd3d_field": 0}
+
+
+def test_fdtd_plane_kernel_is_deterministic(cuda):
+    x, n, src, rcv = _div_case(82, 16, 8, "default", cuda)
+    a = _div_chain(fops.fdtd3d_block_div_coop, x, n, src, rcv, cuda)
+    b = _div_chain(fops.fdtd3d_block_div_coop, x, n, src, rcv, cuda)
+    assert _same(a, b)
+
+
+def test_fdtd_plane_launch_refuses_what_it_cannot_carry(cuda):
+    """The C launcher takes only the schedule's planes, and only a grid
+    the card holds at once: a cooperative launch, refused (never hung)
+    past the card's SMs. Its shared memory is the schedule's."""
+    lib = fops._lib()
+    for room in (66, 82, 128):
+        n = fops.grid_n(room)
+        assert lib.fdtd_planes_smem(n) == fops.plane_schedule(n).smem_bytes
+        assert lib.fdtd_planes_capacity(n) >= n
+    n, s, tracks = fops.grid_n(8), 4, 2
+    x = _fdtd_x(tracks, s, cuda)
+    p, div = fops.zero_fields_div(n, cuda)
+    outs = [torch.empty_like(p), torch.empty_like(div),
+            torch.empty((tracks, s), device=cuda)]
+    xch = torch.empty(2 * (n + 2) * fops.plane_stride(n), device=cuda)
+    flags = torch.empty(n * fops.PLANE_FLAG_STRIDE, dtype=torch.int32,
+                        device=cuda)
+    starts = list(fops.range_starts(fops.plane_schedule(n)))
+    bad = [starts[:-1] + [starts[-1] - 1],  # short of the grid
+           [0, starts[1] + 1] + starts[2:]]  # not a plane
+    for st in [starts] + bad:
+        arr = (ctypes.c_int * len(st))(*st)
+        err = lib.fdtd_div_planes_launch(
+            fops.source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
+            *(o.data_ptr() for o in outs), xch.data_ptr(), flags.data_ptr(),
+            n, s, 0, tracks, 0, fops.K1, fops.K2, fops.C6, fops.ABSORB,
+            fops.F_OUTPUT_SCALE, arr, n,
+            torch.cuda.current_stream(cuda).cuda_stream)
+        assert (err == 0) == (st is starts), st
+    torch.cuda.synchronize()
+    # 139 planes: a build takes them (19,321 cells a block), the card's
+    # SMs do not
+    n = 139
+    assert 0 < lib.fdtd_planes_capacity(n) < n
+    x, big = _fdtd_x(tracks, s, cuda), fops.zero_fields_div(n, cuda)
+    before = dict(fops.KERNEL_LAUNCHES)
+    with pytest.raises(RuntimeError, match="fdtd_div_planes_launch failed"):
+        fops.fdtd3d_block_div_coop(x, *big, (69, 69, 14), (100, 40, 69))
+    torch.cuda.synchronize()
+    assert fops.KERNEL_LAUNCHES == before
+
+
 def test_fdtd_field_form_takes_its_one_kernel(cuda):
     """The field form runs its cooperative kernel at every room, room 50
     included, counted as fdtd3d_field."""

@@ -16,11 +16,13 @@ ringing room. Tolerances, absolute:
   update; the reference's bar, tests/test_benchmarks.py:189);
 * benchmark outputs, port vs JAX: 1e-5; goldens bit for bit.
 
-The CUDA kernels' route (``fdtd_schedule``) is checked here as host
-code, and a NumPy emulation of the divergence form's cluster layout
-(each block's range with its halos, the edge cells handed to the
-neighbours) matches the twin bit for bit; the kernels themselves run in
-``tests/test_torch_cuda.py``.
+The CUDA kernels' route (``fdtd_schedule``, ``plane_schedule``) is
+checked here as host code, and NumPy emulations of the divergence form's
+two layouts match the twin bit for bit: the cluster layout (each block's
+range with its halos, the edge cells handed to the neighbours) and the
+plane layout (a block a plane, the planes handed on through a two-parity
+exchange, the blocks run in a random order that the flags allow); the
+kernels themselves run in ``tests/test_torch_cuda.py``.
 """
 
 import contextlib
@@ -354,8 +356,9 @@ def test_schedule_covers_the_grid_and_fits(n, form):
     fits = (op.cluster_smem_bytes(n, cap) <= SMEM_PER_BLOCK
             and cap <= 19 * 1024)
     assert (plan.route == "cluster") == fits
-    if plan.route != "cluster":
-        assert plan == op.FdtdPlan("cooperative", 0, (), 0)
+    if plan.route != "cluster":  # the plane route
+        assert plan == op.plane_schedule(n)
+        _check_plane_plan(n, plan)
         return
     assert plan.blocks == blocks == len(plan.ranges)
     # two p buffers of the longest range with an n^2 halo each side, 8
@@ -382,6 +385,66 @@ def test_schedule_covers_the_grid_and_fits(n, form):
             assert np.abs(owner[nb] - owner[c]).max() <= 1
 
 
+def _check_plane_plan(n, plan):
+    """The plane route's plan of an n^3 grid: a block of whole planes
+    each, in order, covering the grid; every +-1, +-n neighbour of an
+    interior cell in its own range and every +-n^2 one in an adjacent
+    range; the layout within a block's shared memory and the blocks
+    within the H100's 132 SMs."""
+    nn, cells = n * n, n ** 3
+    assert plan.route == "cooperative" and plan.blocks == n <= 132
+    assert len(plan.ranges) == plan.blocks
+    assert plan.ranges[0][0] == 0 and plan.ranges[-1][1] == cells
+    for b, (lo, hi) in enumerate(plan.ranges):
+        assert (lo, hi) == (b * nn, (b + 1) * nn)  # whole planes
+    assert list(op.range_starts(plan)) == [lo for lo, _ in plan.ranges] + [cells]
+    owner = np.repeat(np.arange(plan.blocks), nn)
+    x, y, z = np.meshgrid(*(np.arange(1, n - 1),) * 3, indexing="ij")
+    c = ((x * n + y) * n + z).ravel()
+    for d, dist in ((1, 0), (n, 0), (nn, 1)):
+        for nb in (c + d, c - d):
+            assert (np.abs(owner[nb] - owner[c]) == dist).all()
+    # two buffers of [lead | plane | 1,024 | lead], the lead >= n + 1 (the
+    # rows above and below load in bounds), 8 floats ahead
+    lead = (n + 4) // 4 * 4
+    assert lead >= n + 1
+    layout = 4 * (8 + 2 * (2 * lead + nn + 1024))
+    assert layout <= plan.smem_bytes <= layout + 8 * 3
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    # an exchange slot holds a plane and the last iteration's loads
+    assert nn + 1024 <= op.plane_stride(n) <= nn + 1039
+    assert op.plane_stride(n) % 4 == 0
+
+
+@settings(max_examples=100, deadline=None)
+@given(n=st.integers(3, 130))
+def test_plane_schedule_covers_the_grid_and_fits(n):
+    """The plane route serves every grid from n = 3 (the route launcher
+    takes it at rooms the cluster route also serves)."""
+    _check_plane_plan(n, op.plane_schedule(n))
+
+
+def test_plane_schedule_refuses_grids_without_a_build():
+    assert op.plane_schedule(139).blocks == 139  # 19,321 cells a plane
+    for n in (2, 140):
+        with pytest.raises(ValueError, match="no plane kernel"):
+            op.plane_schedule(n)
+
+
+@pytest.mark.parametrize("room,smem", [(66, 46_368), (82, 66_080),
+                                       (128, 145_536)])
+def test_plane_schedule_pins_rooms(room, smem):
+    """Rooms 66 (the first past the cluster route), 82 (chip_smoke.py's
+    FDTD_COOP) and 128 (the largest the config allows) take the plane
+    route: a block a plane, n <= 130 blocks on the H100's 132 SMs."""
+    n = op.grid_n(room)
+    plan = op.fdtd_schedule(n, "div")
+    assert plan == op.plane_schedule(n)
+    assert plan.route == "cooperative" and plan.blocks == n
+    assert plan.ranges[1] == (n * n, 2 * n * n)
+    assert plan.smem_bytes == smem
+
+
 @pytest.mark.parametrize("form", ["div", "field"])
 def test_schedule_pins_the_chip_smoke_rooms(form):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -391,7 +454,9 @@ def test_schedule_pins_the_chip_smoke_rooms(form):
         sys.path.pop(0)
     plan = op.fdtd_schedule(op.grid_n(50), form)
     assert (82, 32) in chip_smoke.FDTD_SHAPES
+    assert (128, 32) in chip_smoke.FDTD_SHAPES
     assert op.fdtd_schedule(op.grid_n(82), form).route == "cooperative"
+    assert op.fdtd_schedule(op.grid_n(128), form).route == "cooperative"
     if form == "div":
         assert plan.route == "cluster" and plan.blocks == 16
         assert plan.ranges[1] == (8788, 17576)  # 52^3 / 16 cells a block
@@ -523,3 +588,134 @@ def test_div_cluster_layout_matches_twin_bit_for_bit(rng, room, s, receiver):
             assert np.array_equal(a, b.numpy())
         fields, twin = list(got[1:]), want[1:]
     assert np.abs(got[0]).max() > 0
+
+
+# -- a NumPy emulation of the plane kernel's layout and hand-off ---------
+#
+# Each block holds its plane (two buffers), p and div of its cells and a
+# flag; the exchange has two parities of n + 2 plane slots, plane b at
+# slot b + 1, the two unwritten slots NaN. A block may run substep k once
+# both neighbours' flags reach k - lag (lag 0 is the kernel's rule); the
+# blocks run one substep at a time in an order that rule allows, random or
+# greedy (always the lowest block it allows). Substep k reads the
+# neighbours' slots of parity k & 1 and writes the block's own of parity
+# (k + 1) & 1, then stores k + 1 in its flag. The results must be the
+# twin's bit for bit in every allowed order: the layout, the exchange and
+# the flag rule lose or reorder nothing.
+
+
+def _emulate_planes(x, p, div, src_cell, rcv_cell, plan, order, lag=0):
+    n = p.shape[0]
+    nn, s = n * n, x.shape[1]
+    substeps = 3 * s
+    srcs = op.source_row(_t(x)).numpy()
+    p0 = p.ravel().copy()
+    p0[src_cell] += srcs[0]
+    d0 = np.where(_interior(np.arange(n ** 3), n), div.ravel(), F32(0))
+    xch = np.full((2, n + 2, nn), np.nan, F32)
+    blocks = []
+    for b, (lo, hi) in enumerate(plan.ranges):
+        own = np.arange(lo, hi)
+        blocks.append(dict(b=b, lo=lo, k=0, pre=F32(0), dv=d0[own].copy(),
+                           inner=_interior(own, n),
+                           buf=np.stack([p0[own], np.zeros(nn, F32)])))
+        xch[0, b + 1] = p0[own]  # the prologue, before the grid sync
+    flags = [0] * len(blocks)
+    out = np.full((x.shape[0], s), np.nan, F32)
+
+    def receivers(blk, smp, cur):
+        if blk["lo"] <= rcv_cell < blk["lo"] + nn:
+            v = (blk["pre"] if smp + 1 < s and rcv_cell == src_cell
+                 else cur[rcv_cell - blk["lo"]])
+            out[:, smp] = v * F32(op.F_OUTPUT_SCALE)
+
+    def substep(blk):
+        b, k = blk["b"], blk["k"]
+        q = (k + 1) & 1
+        cur = blk["buf"][k & 1]
+        if k > 0 and k % 3 == 0:
+            receivers(blk, k // 3 - 1, cur)
+        pad = np.concatenate([np.zeros(n + 1, F32), cur, np.zeros(n + 1, F32)])
+        at = np.arange(nn) + n + 1
+        with np.errstate(invalid="ignore"):
+            tot = xch[k & 1, b + 2] + xch[k & 1, b]
+            tot = tot + (pad[at + n] + pad[at - n])
+            tot = tot + (pad[at + 1] + pad[at - 1])
+            d = (blk["dv"] + F32(op.C6) * cur) - F32(op.K1) * tot
+            v = np.where(blk["inner"], cur - F32(op.K2) * d,
+                         cur * F32(op.ABSORB))
+        blk["dv"] = np.where(blk["inner"], d, blk["dv"])
+        if (k % 3 == 2 and k // 3 + 1 < s
+                and blk["lo"] <= src_cell < blk["lo"] + nn):
+            i = src_cell - blk["lo"]
+            blk["pre"] = v[i]
+            v[i] = v[i] + srcs[k // 3 + 1]
+        blk["buf"][q] = v
+        if k + 1 < substeps:
+            xch[q, b + 1] = v
+            flags[b] = k + 1
+        blk["k"] = k + 1
+        if blk["k"] == substeps:
+            receivers(blk, s - 1, v)
+
+    def allowed(blk):
+        return blk["k"] < substeps and all(
+            flags[nb] >= blk["k"] - lag
+            for nb in (blk["b"] - 1, blk["b"] + 1) if 0 <= nb < len(blocks))
+
+    while any(blk["k"] < substeps for blk in blocks):
+        ready = [blk for blk in blocks if allowed(blk)]
+        assert ready, "the flag rule deadlocked"
+        substep(ready[0] if order is None else
+                ready[order.integers(len(ready))])
+    fin = substeps & 1
+    p_out = np.concatenate([blk["buf"][fin] for blk in blocks])
+    d_out = np.concatenate([blk["dv"] for blk in blocks])
+    return out, p_out.reshape(p.shape), d_out.reshape(p.shape)
+
+
+# (room, samples, receiver): rooms 8, 10, 13 and 14 (n = 10, 12, 15 and
+# 16 planes; the cluster route takes these rooms, the plane route is
+# forced), S odd and even, receivers on the source cell and on the first
+# interior cell of a plane.
+PLANE_EMULATION_CASES = [(8, 5, "default"), (10, 4, "source"),
+                         (13, 3, "plane"), (14, 4, "default")]
+
+
+def _plane_case(rng, room, s, receiver):
+    n, src, rcv = _geometry(room)
+    if receiver == "source":
+        rcv = src
+    elif receiver == "plane":
+        rcv = (3, 1, 1)  # the first interior cell of block 3's plane
+    return n, src, rcv, op.plane_schedule(n), _x(rng, s)
+
+
+@pytest.mark.parametrize("room,s,receiver", PLANE_EMULATION_CASES)
+def test_div_plane_layout_matches_twin_bit_for_bit(rng, room, s, receiver):
+    n, src, rcv, plan, x = _plane_case(rng, room, s, receiver)
+    for order in (np.random.default_rng(room), None):  # random, greedy
+        fields = [f.numpy() for f in op.zero_fields_div(n)]
+        twin = op.zero_fields_div(n)
+        for _ in range(2):
+            got = _emulate_planes(x, *fields, op.flat_cell(src, n),
+                                  op.flat_cell(rcv, n), plan, order)
+            want = op.fdtd3d_block_div_plain(_t(x), *twin, src, rcv)
+            assert np.array_equal(got[0], want[0].numpy())
+            for a, b in zip(got[1:], want[1:]):
+                assert np.array_equal(a, b.numpy())
+            fields, twin = list(got[1:]), want[1:]
+        assert np.abs(got[0]).max() > 0
+
+
+def test_div_plane_handoff_needs_both_flags(rng):
+    """With the flag rule one substep looser, a block runs two substeps
+    ahead of a neighbour and overwrites a slot that the neighbour has not
+    yet read: the emulation then differs from the twin."""
+    n, src, rcv, plan, x = _plane_case(rng, 8, 4, "default")
+    p, div = (f.numpy() for f in op.zero_fields_div(n))
+    args = (x, p, div, op.flat_cell(src, n), op.flat_cell(rcv, n), plan, None)
+    want = op.fdtd3d_block_div_plain(_t(x), *op.zero_fields_div(n), src, rcv)
+    good, loose = _emulate_planes(*args), _emulate_planes(*args, lag=1)
+    assert np.array_equal(good[1], want[1].numpy())
+    assert not np.array_equal(loose[1], want[1].numpy())

@@ -323,6 +323,14 @@ def test_chip_smoke_bounds():
     div_ms, by = bounds["fdtd3d_div_coop"]
     assert by == "operations" and div_ms == pytest.approx(
         (1536 * (11 * 82 ** 3 + edge) + small) / 67e9)
+    # and at room 128 (130^3 cells), the largest room the config allows,
+    # printed beside its time under its own key
+    assert cs.FDTD_BIG == (128, 512, 128)
+    edge = 130 ** 3 - 128 ** 3
+    div_ms, by = bounds[cs.FDTD_BIG_KEY]
+    assert by == "operations" and div_ms == pytest.approx(
+        (1536 * (11 * 128 ** 3 + edge) + small) / 67e9)
+    assert div_ms == pytest.approx(0.5311, abs=1e-4)
     # the FMA kernels at their defaults: 2 FLOP an element and pass
     bounds = cs.sol_bounds()
     for name, (rows, width, k) in (("fma_chain", cs.SOL_FMA_FULL),
@@ -347,7 +355,8 @@ def test_chip_smoke_bounds_read_the_cost_models():
     g, s, _ = cs.DWG_FULL
     assert cs.dwg_bound(12345) == cs.cost_bound(dwg_cost(g, s, 12345))
     for shape, names in ((cs.FDTD_MAIN, ("fdtd3d_div", "fdtd3d_field")),
-                         (cs.FDTD_COOP, ("fdtd3d_div_coop",))):
+                         (cs.FDTD_COOP, ("fdtd3d_div_coop",)),
+                         (cs.FDTD_BIG, (cs.FDTD_BIG_KEY,))):
         room, s, tracks = shape
         for name, per_track in zip(names, (False, True)):
             assert cs.fdtd_bounds()[name] == cs.cost_bound(

@@ -1,4 +1,4 @@
-"""Measure the FDTD3D kernels' redesign (the cluster route) on one CUDA device.
+"""Measure the FDTD3D kernels' redesigns (cluster, plane routes) on one device.
 
     python3 tools/fdtd_stages/run.py [--out DIR]
 
@@ -17,23 +17,41 @@ each:
 * ``ptxas -v`` registers, spills and shared memory of every kernel;
 * from ``cuobjdump -sass``, the instruction mix of the substep loop of the
   shipped cluster kernel and of the two-phase field design at room 50's
-  build (9 cells a thread);
+  build (9 cells a thread), and of the plane kernel at room 82's (7);
+* the plane kernel's shared memory and co-resident blocks at rooms 66,
+  82, 100 and 128;
 * the cluster barrier alone (us, 1,536 in one launch) at 2, 4, 8 and 16
-  blocks, beside the grid barrier at room 50's and room 82's cooperative
+  blocks, beside the grid barrier at room 50's and room 82's field-kernel
   grids;
 * bit-for-bit checks, fields chained over 2 blocks, at rooms 1, 8, 15
   (ragged ranges) and 50, with S odd, a receiver on the source cell and
   on a range boundary, and 128 per-track receivers: the cluster kernel
-  against the twin, the cooperative kernel and a rerun (also on 8 blocks
-  at room 50), and the two-phase field design against the twin, the
-  shipped field kernel and a rerun;
+  against the twin, the plane kernel, the grid-sync kernel and a
+  rerun (also on 8 blocks at room 50), and the two-phase field design
+  against the twin, the shipped field kernel and a rerun; at rooms 66, 82
+  and 128 the plane kernel against the twin, the grid-sync kernel and a
+  rerun;
 * CUDA-event times at room 50, 128 tracks x 512 samples, in turns: the
-  divergence form's cooperative kernel, the cluster kernel on 16 and 8
+  divergence form's plane kernel, the cluster kernel on 16 and 8
   blocks, without its hand-offs, and its first design (a cluster barrier
   a substep, checked bit for bit first); the shipped field kernel and the
   two-phase design with and without its hand-offs;
+* the pair design (clusters of two planes) and the plane kernel with its
+  in-plane pair sums taken in the wait (``planes pre``) against the twin
+  bit for bit at rooms 8, 81 (an odd count of planes), 66, 82 and 128;
+* CUDA-event times behind a ~1 ms spin at rooms 66, 82, 100 and 128, 128
+  tracks x 512 samples, in turns: the grid-sync kernel (the one the
+  plane kernel replaced), the plane kernel, the plane kernel with its
+  pair sums taken in the wait, the pair design, and the plane kernel's
+  variants without the flag waits and without the exchange; then, for
+  each of the grid-sync kernel and the plane kernel, the largest room
+  whose block meets the 10.667 ms deadline (a bisection over rooms
+  66-128);
+* the same times of the cluster kernel and the plane kernel at rooms 8
+  to 65, which the cluster route takes: where each route is the faster;
 * clock64() phase sums per warp of the cluster kernel and the two-phase
-  design at that shape.
+  design at room 50, and of the plane kernel at rooms 66, 82, 100 and
+  128.
 
 The designs that ship in no kernel live in ``stages.cu``. Needs one CUDA
 device, nvcc and cuobjdump (``$CUDA_HOME`` or ``/usr/local/cuda``).
@@ -64,12 +82,18 @@ from gpuaudiobench_tpu_torch.utils.build import NVCC_FLAGS, nvcc_path  # noqa: E
 
 ROOM, S, TRACKS = 50, 512, 128
 CHECKS = [(1, 7), (8, 64), (15, 9), (50, 33)]  # (room, samples)
+PLANE_CHECKS = [(66, 5), (82, 7), (128, 4)]
+PLANE_ROOMS = (66, 82, 100, 128)
+PLANE_PROFILE = PLANE_ROOMS
+CROSSOVER_ROOMS = (8, 16, 24, 32, 40, 50, 58, 65)
+DEADLINE_MS = 512 / 48_000 * 1e3
 SYNCS = 1536
 BUILDS = {"plain": ["-Xptxas", "-v"], "prof": ["-DFDTD_PROFILE"]}
 PHASES = {1: "prologue", 2: "stencil / faces", 6: "p update (field)",
           3: "wait", 4: "receivers", 7: "epilogue"}
-SASS = {"cluster kernel": r"fdtd_div_cluster_kernelILi9E",
-        "two-phase field design": r"two_phase_field_kernelILi9ELb1E"}
+SASS = {"cluster kernel": (r"fdtd_div_cluster_kernelILi9E", 9),
+        "two-phase field design": (r"two_phase_field_kernelILi9ELb1E", 9),
+        "plane kernel": (r"fdtd_div_planes_kernelILi7E", 7)}
 
 
 def sh(cmd):
@@ -126,6 +150,17 @@ def bind_designs(lib):
     lib.two_phase_field_smem.restype = ctypes.c_longlong
     lib.fdtd_prof_set.argtypes = [p]
     lib.fdtd_prof_set.restype = i
+    lib.old_coop_div_launch.argtypes = [p] * 8 + [i] * 5 + [f] * 5 + [p]
+    lib.old_coop_div_launch.restype = i
+    lib.old_coop_div_blocks.argtypes = [i]
+    lib.old_coop_div_blocks.restype = i
+    lib.planes_variant_launch.argtypes = ([p] * 8 + [i] * 5 + [f] * 5
+                                          + [ip, i, i, p])
+    lib.planes_variant_launch.restype = i
+    lib.planes_pair_launch.argtypes = lib.planes_variant_launch.argtypes
+    lib.planes_pair_launch.restype = i
+    lib.planes_pair_occupancy.argtypes = [i]
+    lib.planes_pair_occupancy.restype = i
 
 
 def geometry(room):
@@ -170,6 +205,63 @@ def div_design(lib, name, x, p, div, n, src, rcv, blocks):
     return outs[2], outs[0], outs[1]
 
 
+def old_coop(lib, x, p, div, n, src, rcv):
+    """The grid-sync kernel (the cooperative divergence kernel the plane
+    kernel replaced): (out, p', div')."""
+    tracks, s = x.shape
+    pa, pb, d = (torch.empty_like(p) for _ in range(3))
+    out = torch.empty((tracks, s), device=x.device)
+    pre = torch.empty(1, device=x.device)
+    err = lib.old_coop_div_launch(
+        fops.source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
+        pa.data_ptr(), pb.data_ptr(), d.data_ptr(), out.data_ptr(),
+        pre.data_ptr(), n, s, fops.flat_cell(src, n), tracks,
+        fops.flat_cell(rcv, n), fops.K1, fops.K2, fops.C6, fops.ABSORB,
+        fops.F_OUTPUT_SCALE, stream())
+    if err != 0:
+        raise RuntimeError(f"old_coop_div_launch: CUDA error {err}")
+    return out, (pa if s % 2 == 0 else pb), d
+
+
+PAIR_COOPERATIVE = [1]  # the pair design's launch; 0 once refused
+
+
+def plane_variant(lib, mode, x, p, div, n, src, rcv):
+    """The plane kernel without its waits (mode 1) or without the exchange
+    too (mode 2): (out, p', div'), wrong; mode "pair": the pair design
+    (clusters of two planes), launched cooperatively unless such a launch
+    was refused once."""
+    tracks, s = x.shape
+    outs = [torch.empty_like(p), torch.empty_like(div),
+            torch.empty((tracks, s), device=x.device)]
+    xch = torch.empty(2 * (n + 2) * fops.plane_stride(n), device=x.device)
+    flags = torch.empty(n * fops.PLANE_FLAG_STRIDE, dtype=torch.int32,
+                        device=x.device)
+    plan = fops.plane_schedule(n)
+
+    def launch(name, last):
+        return getattr(lib, name)(
+            fops.source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
+            *(o.data_ptr() for o in outs), xch.data_ptr(), flags.data_ptr(),
+            n, s, fops.flat_cell(src, n), tracks, fops.flat_cell(rcv, n),
+            fops.K1, fops.K2, fops.C6, fops.ABSORB, fops.F_OUTPUT_SCALE,
+            fops.range_starts(plan), plan.blocks, last, stream())
+
+    if mode == "pair":
+        err = launch("planes_pair_launch", PAIR_COOPERATIVE[0])
+        if err != 0 and PAIR_COOPERATIVE[0]:
+            print(f"pair design: the cooperative cluster launch was refused "
+                  f"(CUDA error {err}); launching it plainly after "
+                  "cudaOccupancyMaxActiveClusters", flush=True)
+            PAIR_COOPERATIVE[0] = 0
+            err = launch("planes_pair_launch", 0)
+    else:
+        err = launch("planes_variant_launch", mode)
+    if err != 0:
+        raise RuntimeError(f"plane design {mode}: CUDA error {err}")
+    return outs[2], outs[0], outs[1]
+
+
 def two_phase(lib, x, p, vx, vy, vz, n, src, rcv, receivers=None,
               exchange=True):
     """The two-phase field design on the schedule's cluster size: (out,
@@ -202,13 +294,18 @@ def line_cells(n, tracks, dev):
     return torch.from_numpy(cells.astype(np.int32)).to(dev)
 
 
-def median_ms(fn, reps=10, calls=3):
+def median_ms(fn, reps=10, calls=3, spin=False):
+    """Median over reps of CUDA-event ms a call, ``calls`` back to back;
+    with ``spin``, each rep behind a ~1 ms spin kernel, so that the events
+    time the device alone."""
     fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(2_000_000)
         a.record()
         for _ in range(calls):
             fn()
@@ -223,9 +320,11 @@ def same(a, b):
 
 
 def check(lib, room, s, dev, rcv=None, per_track=False, blocks=None):
-    """Over 2 chained blocks, bit for bit: the cluster kernel (on
-    ``blocks`` blocks, by default the schedule's) against the twin, the
-    cooperative kernel and a rerun; unless ``blocks`` is given, the
+    """Over 2 chained blocks, bit for bit: the divergence form's kernel
+    for the room (the cluster kernel on ``blocks`` blocks, by default the
+    schedule's, where the room fits a cluster, else the plane kernel)
+    against the twin, the plane kernel, the grid-sync kernel and a
+    rerun; where the room fits a cluster and ``blocks`` is not given, the
     two-phase field design against the twin, the shipped field kernel and
     a rerun. Returns (all equal, a line)."""
     n, src, rcv0 = geometry(room)
@@ -233,34 +332,51 @@ def check(lib, room, s, dev, rcv=None, per_track=False, blocks=None):
     tracks = TRACKS if per_track else 4
     x = x_of(tracks, s, dev)
     cells = line_cells(n, tracks, dev) if per_track else None
+    cluster = fops.fdtd_schedule(n, "div").route == "cluster"
     forms = {}
+
+    def planes(f):
+        return fops.fdtd3d_block_div_coop(x, *f, src, rcv)
+
     if not per_track:
-        forms["div"] = (
-            fops.zero_fields_div,
-            (lambda f: fops.fdtd3d_block_div_cluster(x, *f, src, rcv))
-            if blocks is None else
-            (lambda f: div_design(lib, "fdtd_div_cluster_launch", x, *f, n,
-                                  src, rcv, blocks)),
-            lambda f: fops.fdtd3d_block_div_coop(x, *f, src, rcv),
-            lambda f: fops.fdtd3d_block_div_plain(x, *f, src, rcv))
-    if blocks is None:
+        if not cluster:
+            kern = planes
+        elif blocks is None:
+            def kern(f):
+                return fops.fdtd3d_block_div_cluster(x, *f, src, rcv)
+        else:
+            def kern(f):
+                return div_design(lib, "fdtd_div_cluster_launch", x, *f, n,
+                                  src, rcv, blocks)
+        others = {"twin": lambda f: fops.fdtd3d_block_div_plain(x, *f, src,
+                                                                rcv),
+                  "grid-sync kernel": lambda f: old_coop(lib, x, *f, n, src,
+                                                         rcv)}
+        if cluster:
+            others["plane kernel"] = planes
+        forms["div " + ("cluster" if cluster else "planes")] = (
+            fops.zero_fields_div, kern, others)
+    if blocks is None and cluster:
         forms["two-phase field"] = (
             fops.zero_fields,
             lambda f: two_phase(lib, x, *f, n, src, rcv, cells),
-            lambda f: fops.fdtd3d_block_field(x, *f, src, rcv,
-                                              receivers=cells),
-            lambda f: fops.fdtd3d_block_field_plain(x, *f, src, rcv,
-                                                    receivers=cells))
+            {"twin": lambda f: fops.fdtd3d_block_field_plain(
+                 x, *f, src, rcv, receivers=cells),
+             "shipped": lambda f: fops.fdtd3d_block_field(
+                 x, *f, src, rcv, receivers=cells)})
     res = {}
-    for form, (zero, clu, shipped, twin) in forms.items():
-        fc = fo = fp = fr = zero(n, dev)
-        ok = {"twin": True, "shipped": True, "rerun": True}
+    for form, (zero, kern, others) in forms.items():
+        mine = again = zero(n, dev)
+        theirs = {k: zero(n, dev) for k in others}
+        ok = dict.fromkeys(list(others) + ["rerun"], True)
         for _ in range(2):
-            rc, ro, rp, rr = clu(fc), shipped(fo), twin(fp), clu(fr)
-            ok["twin"] &= same(rc, rp)
-            ok["shipped"] &= same(rc, ro)
-            ok["rerun"] &= same(rc, rr)
-            fc, fo, fp, fr = rc[1:], ro[1:], rp[1:], rr[1:]
+            got, rerun = kern(mine), kern(again)
+            ok["rerun"] &= same(got, rerun)
+            for k, fn in others.items():
+                want = fn(theirs[k])
+                ok[k] &= same(got, want)
+                theirs[k] = want[1:]
+            mine, again = got[1:], rerun[1:]
         res[form] = ok
     torch.cuda.synchronize()
     good = all(all(v.values()) for v in res.values())
@@ -270,6 +386,28 @@ def check(lib, room, s, dev, rcv=None, per_track=False, blocks=None):
                   + "; ".join(f"{f} " + ", ".join(
                       f"{k} {'=' if v else 'DIFFERS'}" for k, v in ok.items())
                       for f, ok in res.items()))
+
+
+def deadline_room(fn_of_room, lo=66, hi=128):
+    """The largest room in [lo, hi] whose 128 x 512 block meets the
+    deadline, by bisection (the time grows with the room), or lo - 1;
+    and {room: ms} of the rooms timed."""
+    seen = {}
+
+    def ms(room):
+        if room not in seen:
+            seen[room] = median_ms(fn_of_room(room), 3, 1, spin=True)
+        return seen[room]
+
+    if ms(lo) > DEADLINE_MS:
+        return lo - 1, seen
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if ms(mid) <= DEADLINE_MS:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo, seen
 
 
 def main() -> int:
@@ -320,6 +458,17 @@ def main() -> int:
     print(f"schedule room {ROOM}: div {plan.route} on {plan.blocks} blocks "
           f"of {plan.smem_bytes:,} B, field "
           f"{fops.fdtd_schedule(n, 'field').route}")
+    for room in PLANE_ROOMS:
+        m = fops.grid_n(room)
+        pp = fops.fdtd_schedule(m, "div")
+        print(f"schedule room {room}: div {pp.route} on {pp.blocks} blocks "
+              f"of {pp.smem_bytes:,} B (C side {plain.fdtd_planes_smem(m):,}); "
+              f"the card holds {plain.fdtd_planes_capacity(m)} at once; "
+              f"the grid-sync kernel {plain.old_coop_div_blocks(m)} blocks "
+              "of 512; "
+              f"the pair design's clusters of 2 at once "
+              f"{plain.planes_pair_occupancy(m)} (needs {-(-m // 2)})",
+              flush=True)
 
     fn = None
     for ln in log.splitlines():
@@ -331,16 +480,16 @@ def main() -> int:
             print(f"ptxas {short}: {ln.split(':', 1)[-1].strip()}")
     _, sass = sh([str(Path(nvcc_path()).with_name("cuobjdump")), "-sass",
                   str(paths["plain"])])
-    for label, pat in SASS.items():
+    for label, (pat, cpt) in SASS.items():
         name, loops = hot_loops(sass, pat, "LDS")
         for blk in re.split(r"\n\s+Function : ", sass)[1:]:
             if blk.split("\n", 1)[0].strip() == name:
                 (out_dir / f"sass_{label.split()[0]}.txt").write_text(blk)
         if loops:
             top = max(loops, key=lambda c: c["LDS"])  # the substep loop
-            print(f"sass {label}, 9 cells a thread: substep loop "
+            print(f"sass {label}, {cpt} cells a thread: substep loop "
                   f"{sum(top.values())} instructions, "
-                  f"{sum(top.values()) / 9:.1f} a cell: "
+                  f"{sum(top.values()) / cpt:.1f} a cell: "
                   + ", ".join(f"{k} {v}" for k, v in top.most_common(18)),
                   flush=True)
 
@@ -358,8 +507,8 @@ def main() -> int:
     for room in (ROOM, 82):
         m = fops.grid_n(room)
         ms = median_ms(lambda: fops.sync_probe(m, SYNCS, dev), 5, 2)
-        print(f"grid barrier alone, room {room}'s cooperative grid "
-              f"({plain.fdtd_div_blocks(m)} blocks of 512): "
+        print(f"grid barrier alone, room {room}'s field-kernel grid "
+              f"({plain.fdtd_field_blocks(m)} blocks of 512): "
               f"{ms / SYNCS * 1e3:.4f} us each", flush=True)
 
     ok = True
@@ -371,10 +520,29 @@ def main() -> int:
                                       edge % n8)),
               dict(room=ROOM, s=16, per_track=True),
               dict(room=ROOM, s=16, blocks=8)]
+    cases += [dict(room=r, s=s) for r, s in PLANE_CHECKS]
     for case in cases:
         good, text = check(plain, dev=dev, **case)
         ok = ok and good
         print(text, flush=True)
+    for room, s in [(8, 12), (81, 7)] + PLANE_CHECKS:
+        m, psrc, prcv = geometry(room)
+        xr = x_of(4, s, dev)
+        res = []
+        for mode in ("pair", 3):
+            f_var = f_twin = fops.zero_fields_div(m, dev)
+            good = True
+            for _ in range(2):
+                got = plane_variant(plain, mode, xr, *f_var, m, psrc, prcv)
+                want = fops.fdtd3d_block_div_plain(xr, *f_twin, psrc, prcv)
+                good &= same(got, want)
+                f_var, f_twin = got[1:], want[1:]
+            torch.cuda.synchronize()
+            ok = ok and good
+            res.append(f"{'pair design' if mode == 'pair' else 'planes pre'}"
+                       f" {'=' if good else 'DIFFERS'}")
+        print(f"check room {room} S={s} vs twin: " + ", ".join(res),
+              flush=True)
 
     x = x_of(TRACKS, S, dev)
     cells = line_cells(n, TRACKS, dev)
@@ -391,7 +559,7 @@ def main() -> int:
 
     def div(route, blocks=16):
         def run():
-            if route == "coop":
+            if route == "planes":
                 fops.fdtd3d_block_div_coop(x, *zd, src, rcv)
             elif route == "cluster":
                 fops.fdtd3d_block_div_cluster(x, *zd, src, rcv)
@@ -409,11 +577,12 @@ def main() -> int:
         return run
 
     for form, order in (
-            ("div", [("coop", div("coop")), ("cluster 16", div("cluster")),
+            ("div", [("planes", div("planes")), ("cluster 16", div("cluster")),
                      ("cluster 8", div("fdtd_div_cluster_launch", 8)),
                      ("cluster 16 no hand-off", div("no_handoff_div_launch")),
                      ("first design", div("barrier_div_launch")),
-                     ("cluster 16", div("cluster")), ("coop", div("coop"))]),
+                     ("cluster 16", div("cluster")),
+                     ("planes", div("planes"))]),
             ("field", [("shipped (cooperative)", field("shipped")),
                        ("two-phase 16", field("two-phase")),
                        ("two-phase 16 no hand-off", field("no hand-off")),
@@ -427,29 +596,98 @@ def main() -> int:
                   f"{k} " + " / ".join(f"{v:.4f}" for v in vs)
                   for k, vs in times.items()), flush=True)
 
-    warps = 16 * 32
+    # The plane route against its parent, behind a spin, in turns.
+    def planes_fns(room):
+        m, psrc, prcv = geometry(room)
+        xr = x_of(TRACKS, S, dev)
+        z = fops.zero_fields_div(m, dev)
+        return {
+            "grid-sync kernel": lambda: old_coop(plain, xr, *z, m, psrc,
+                                                 prcv),
+            "planes": lambda: fops.fdtd3d_block_div_coop(xr, *z, psrc, prcv),
+            "planes no wait": lambda: plane_variant(plain, 1, xr, *z, m, psrc,
+                                                    prcv),
+            "planes no exchange": lambda: plane_variant(plain, 2, xr, *z, m,
+                                                        psrc, prcv),
+            "pairs": lambda: plane_variant(plain, "pair", xr, *z, m, psrc,
+                                           prcv),
+            "planes pre": lambda: plane_variant(plain, 3, xr, *z, m, psrc,
+                                                prcv)}
+
+    for room in PLANE_ROOMS:
+        fns = planes_fns(room)
+        order = ["grid-sync kernel", "planes", "planes pre", "pairs",
+                 "planes no wait", "planes no exchange", "pairs",
+                 "planes pre", "planes", "grid-sync kernel"]
+        times = {}
+        for label in order:
+            times.setdefault(label, []).append(
+                median_ms(fns[label], 5, 1, spin=True))
+        print(f"times planes room {room}, {TRACKS}x{S} (ms, CUDA events "
+              "behind a spin, median of 5): " + "; ".join(
+                  f"{k} " + " / ".join(f"{v:.4f}" for v in vs)
+                  for k, vs in times.items()), flush=True)
+        del fns
+        torch.cuda.empty_cache()
+    for label in ("grid-sync kernel", "planes"):
+        room, seen = deadline_room(lambda r: planes_fns(r)[label])
+        print(f"deadline {DEADLINE_MS:.3f} ms at {TRACKS}x{S}: {label} meets "
+              f"it up to room {room} (timed: " + ", ".join(
+                  f"{r} {v:.4f}" for r, v in sorted(seen.items())) + ")",
+              flush=True)
+
+    for room in CROSSOVER_ROOMS:
+        m, psrc, prcv = geometry(room)
+        xr = x_of(TRACKS, S, dev)
+        z = fops.zero_fields_div(m, dev)
+        fns = {"cluster": lambda: fops.fdtd3d_block_div_cluster(xr, *z, psrc,
+                                                                prcv),
+               "planes": lambda: fops.fdtd3d_block_div_coop(xr, *z, psrc,
+                                                            prcv)}
+        times = {}
+        for label in ("cluster", "planes", "planes", "cluster"):
+            times.setdefault(label, []).append(
+                median_ms(fns[label], 5, 1, spin=True))
+        print(f"times routes room {room}, {TRACKS}x{S} (ms, behind a spin, "
+              "median of 5): " + "; ".join(
+                  f"{k} " + " / ".join(f"{v:.4f}" for v in vs)
+                  for k, vs in times.items()), flush=True)
+
+    warps = max(16, max(fops.grid_n(r) for r in PLANE_PROFILE)) * 32
     prof = torch.zeros(warps * 8, dtype=torch.int64, device=dev)
     prof_lib = libs["prof"]
 
-    def div_prof():
-        use(prof_lib)
-        try:
-            fops.fdtd3d_block_div_cluster(x, *zd, src, rcv)
-        finally:
-            use(plain)
+    def profiled(fn):
+        def run():
+            use(prof_lib)
+            try:
+                fn()
+            finally:
+                use(plain)
+        return run
 
-    for form, fn in (("cluster kernel", div_prof),
-                     ("two-phase field design", field("two-phase", prof_lib))):
+    runs = [("cluster kernel", 16 * 32, profiled(
+                lambda: fops.fdtd3d_block_div_cluster(x, *zd, src, rcv))),
+            ("two-phase field design", 16 * 32, field("two-phase", prof_lib))]
+    for room in PLANE_PROFILE:
+        m, psrc, prcv = geometry(room)
+        zr = fops.zero_fields_div(m, dev)
+        runs.append((f"plane kernel room {room}", m * 32, profiled(
+            lambda zr=zr, psrc=psrc, prcv=prcv: fops.fdtd3d_block_div_coop(
+                x, *zr, psrc, prcv))))
+    for form, nwarps, fn in runs:
         prof.zero_()
         if prof_lib.fdtd_prof_set(prof.data_ptr()) != 0:
             raise RuntimeError("fdtd_prof_set failed")
         ms = median_ms(fn, 3, 1)
-        pr = prof.view(-1, 8).cpu().numpy().astype(np.float64) / max_mhz
-        print(f"phases {form}, profiled build ({ms:.4f} ms; {warps} warps; "
+        pr = prof[:nwarps * 8].view(-1, 8).cpu().numpy().astype(np.float64)
+        pr /= max_mhz
+        print(f"phases {form}, profiled build ({ms:.4f} ms; {nwarps} warps; "
               "mean us a warp): "
               + ", ".join(f"{name} {pr[:, q].mean():.2f}" for q, name in PHASES.items()
                           if pr[:, q].any())
-              + f"; total {pr[:, 0].mean():.2f} (max {pr[:, 0].max():.2f})")
+              + f"; total {pr[:, 0].mean():.2f} (max {pr[:, 0].max():.2f})",
+              flush=True)
     print(f"all checks bit for bit: {ok}")
     print(f"card: {sh(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'])[1].strip()}")
     return 0 if ok else 1

@@ -12,7 +12,21 @@
 //   timing of what the exchange costs);
 // * two_phase_field_launch: a cluster design of the field form (p, vx,
 //   vy, vz single-buffered in shared memory, faces then p, two hand-offs
-//   a substep), with its hand-offs or without them.
+//   a substep), with its hand-offs or without them;
+// * old_coop_div_launch: the grid-stride cooperative divergence kernel
+//   that the plane kernel replaced (the grid-sync kernel, verbatim: p and
+//   div in device memory, a cg::grid sync a substep), for rooms 66-128;
+// * planes_variant_launch: the shipped plane kernel without its waits for
+//   the neighbours' flags (the exchange still stored and loaded; wrong
+//   results: a timing of what the waits cost), or without the exchange
+//   too (the +-n^2 neighbours read from the block's own plane: a timing of
+//   the stencil alone on n SMs); or, right, with each cell's in-plane
+//   pair sums (y and z) of the next substep taken while the block waits
+//   for its neighbours' flags (two more floats a cell in registers);
+// * planes_pair_launch: the plane kernel on thread-block clusters of two
+//   planes: the partner's plane read from its shared memory (ld
+//   .shared::cluster), only the other neighbour's through L2, so a block
+//   loads one plane from L2 a substep instead of two.
 //
 // run.py (beside this file) builds it twice with nvcc: plain (with
 // -Xptxas -v: registers, shared memory and spills) and -DFDTD_PROFILE,
@@ -593,6 +607,335 @@ int div_design_launch(K kernel, long long smem, const float* src,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The grid-sync kernel: the cooperative divergence kernel that the plane
+// route replaced, verbatim but for its name.
+__global__ void __launch_bounds__(kThreads)
+old_coop_div_kernel(Grid g, const float* __restrict__ src,
+                    const float* __restrict__ p_in,
+                    const float* __restrict__ div_in,
+                    float* pa, float* pb, float* div, float* out,
+                    float* src_pre) {
+    cg::grid_group grid = cg::this_grid();
+    const int n = g.n, nn = n * n;
+    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+    const int stride = gridDim.x * blockDim.x;
+
+    for (int c = tid; c < g.cells; c += stride) {
+        const int x = c / nn, y = (c / n) % n, z = c % n;
+        float v = p_in[c];
+        if (c == g.src_cell) v = __fadd_rn(v, src[0]);
+        pa[c] = v;
+        div[c] = on_boundary(x, y, z, n) ? 0.f : div_in[c];
+    }
+    grid.sync();
+
+    const int substeps = 3 * g.s;
+    for (int k = 0; k < substeps; ++k) {
+        const float* cur = (k & 1) ? pb : pa;
+        float* nxt = (k & 1) ? pa : pb;
+        if (k > 0 && k % 3 == 0) {
+            read_receivers(g, k / 3 - 1, cur, src_pre, out, tid, stride);
+        }
+        for (int c = tid; c < g.cells; c += stride) {
+            const int x = c / nn, y = (c / n) % n, z = c % n;
+            const float pc = __ldcg(cur + c);
+            float v;
+            if (on_boundary(x, y, z, n)) {
+                v = __fmul_rn(pc, g.absorb);
+            } else {
+                float sum = __fadd_rn(__ldcg(cur + c + nn), __ldcg(cur + c - nn));
+                sum = __fadd_rn(sum, __fadd_rn(__ldcg(cur + c + n),
+                                               __ldcg(cur + c - n)));
+                sum = __fadd_rn(sum, __fadd_rn(__ldcg(cur + c + 1),
+                                               __ldcg(cur + c - 1)));
+                const float d = __fsub_rn(__fadd_rn(div[c], __fmul_rn(g.c6, pc)),
+                                          __fmul_rn(g.k1, sum));
+                div[c] = d;
+                v = __fsub_rn(pc, __fmul_rn(g.k2, d));
+            }
+            nxt[c] = inject(g, c, k, v, src, src_pre);
+        }
+        grid.sync();
+    }
+    read_receivers(g, g.s - 1, (substeps & 1) ? pb : pa, src_pre, out, tid,
+                   stride);
+}
+
+// The shipped plane kernel with WAIT false (no flag waits: each block
+// runs ahead on whatever the exchange holds) or EXCHANGE false too (the
+// +-n^2 neighbours read from the block's own plane in shared memory, no
+// exchange stores): timings of the waits and of the exchange, wrong
+// results. With PRE, right: the y and z pair sums of every cell for
+// substep k + 1 are taken from the new plane while thread 0 and 32 wait
+// for the neighbours' flags after substep k (the sum's order unchanged:
+// (x pair + y pair) + z pair).
+template <int CPT, bool WAIT, bool EXCHANGE, bool PRE = false>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+planes_variant_kernel(Grid g, const float* __restrict__ src,
+                      const float* __restrict__ p_in,
+                      const float* __restrict__ div_in,
+                      float* __restrict__ p_out, float* __restrict__ div_out,
+                      float* __restrict__ out, float* xch, int* flags) {
+    extern __shared__ __align__(16) float smem[];
+    FDTD_MARK(0);
+    const int n = g.n, nn = n * n, tid = threadIdx.x;
+    const int b = blockIdx.x, blocks = gridDim.x;
+    const Slab sl{b, blocks, b * nn, (b + 1) * nn, (b - 1) * nn, nn};
+    float* const src_pre = smem + 4;
+    float* const buf0 = smem + 8 + plane_lead(n);
+    float* const buf1 = buf0 + plane_slots(n);
+    const long long stride = plane_stride(n);
+    const long long parity = (n + 2LL) * stride;
+    const bool has_prev = b > 0, has_next = b + 1 < blocks;
+    int* const own_flag = flags + b * kFlagStride;
+    const float k1 = opaque(g.k1), k2 = opaque(g.k2), c6 = opaque(g.c6);
+    const float absorb = opaque(g.absorb);
+    const uint32_t pre_a = smem_u32(src_pre);
+    const int iters = (nn + kClusterThreads - 1) / kClusterThreads;
+
+    float pr[CPT], dv[CPT];
+    unsigned valid, interior;
+    int src_i;
+    load_cells<CPT>(g, sl.start, nn, src, p_in, div_in, buf0, pr, dv, valid,
+                    interior, src_i);
+    float* const pub0 = xch + (b + 1) * stride + tid;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+        stcg_if(valid >> i & 1u, pub0 + i * kClusterThreads, pr[i]);
+    }
+    if (tid == 0) *own_flag = 0;
+    FDTD_MARK(1);
+    cg::this_grid().sync();
+    FDTD_MARK(3);
+
+    // The in-plane pair sums of the coming substep, from the plane at
+    // shared::cta address base + 4 tid.
+    float yy[CPT], zz[CPT];
+    auto pairs = [&](uint32_t base) {
+        const uint32_t a = opaque(base + 4u * tid);
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) {
+            const uint32_t o = 4u * kClusterThreads * i;
+            if (runs<CPT>(i, iters)) {
+                yy[i] = __fadd_rn(lds(a + o + 4 * n), lds(a + o - 4 * n));
+                zz[i] = __fadd_rn(lds(a + o + 4), lds(a + o - 4));
+            }
+        }
+    };
+    if (PRE) pairs(smem_u32(buf0));
+
+    const int substeps = 3 * g.s;
+    for (int k = 0; k < substeps; ++k) {
+        const int q = (k + 1) & 1;
+        float* const bq = q ? buf1 : buf0;
+        const float* cur = q ? buf0 : buf1;
+        const bool send = k + 1 < substeps;
+        if (k > 0 && k % 3 == 0) {
+            cluster_receivers(g, sl, k / 3 - 1, cur, src_pre, out);
+            FDTD_MARK(4);
+        }
+        const int inj = (k % 3 == 2 && k / 3 + 1 < g.s) ? src_i : -1;
+        const uint32_t a = opaque(smem_u32(cur) + 4u * tid);
+        const uint32_t a_n = a + 4 * n, a_mn = a - 4 * n;
+        const uint32_t w0 = a - smem_u32(cur) + smem_u32(bq);
+        const uint32_t in_mask = opaque(interior), ok_mask = opaque(valid);
+        const float* const dn =
+            opaque(xch + (k & 1) * parity + b * stride + tid);
+        const float* const up = dn + 2 * stride;
+        float* const pub = xch + q * parity + (b + 1) * stride + tid;
+        auto cell = [&](int i) {
+            const uint32_t o = 4u * kClusterThreads * i;
+            const int og = kClusterThreads * i;
+            const float xp = EXCHANGE ? ldcg(up + og) : lds(a + o + 8);
+            const float xm = EXCHANGE ? ldcg(dn + og) : lds(a + o - 8);
+            float v = PRE ? div_pairs(pr[i], dv[i], in_mask >> i & 1u,
+                                      __fadd_rn(xp, xm), yy[i], zz[i], k1, k2,
+                                      c6, absorb)
+                          : div_cell(pr[i], dv[i], in_mask >> i & 1u, xp, xm,
+                                     lds(a_n + o), lds(a_mn + o),
+                                     lds(a + o + 4), lds(a + o - 4), k1, k2,
+                                     c6, absorb);
+            if (i == inj) {
+                sts(pre_a, v);
+                v = __fadd_rn(v, src[k / 3 + 1]);
+            }
+            pr[i] = v;
+            const bool ok = ok_mask >> i & 1u;
+            sts_if(ok, w0 + o, v);
+            if (EXCHANGE && send) stcg_if(ok, pub + og, v);
+        };
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) {
+            if (runs<CPT>(i, iters)) cell(i);
+        }
+        FDTD_MARK(2);
+        __syncthreads();
+        if (send) {
+            if (tid == 0) flag_release(own_flag, k + 1);
+            if (PRE) pairs(smem_u32(bq));
+            if (WAIT && tid == 0 && has_prev) {
+                flag_wait(own_flag - kFlagStride, k + 1);
+            }
+            if (WAIT && tid == 32 && has_next) {
+                flag_wait(own_flag + kFlagStride, k + 1);
+            }
+            __syncthreads();
+        }
+        FDTD_MARK(3);
+    }
+    const float* fin = (substeps & 1) ? buf1 : buf0;
+    cluster_receivers(g, sl, g.s - 1, fin, src_pre, out);
+    FDTD_MARK(4);
+    store_cells<CPT>(sl.start, nn, pr, dv, p_out, div_out);
+    FDTD_MARK(7);
+}
+
+// The variant builds: rooms 66, 82, 100 and 128 (5, 7, 11 and 17 cells a
+// thread; 1 for the checks at small rooms); mode 1 without the waits, 2
+// without the exchange too, 3 with the pair sums taken in the wait.
+DivPlanesKernel planes_variant(int cpt, int mode) {
+#define FDTD_VARIANT(c)                                              \
+    case c:                                                          \
+        return mode == 1   ? planes_variant_kernel<c, false, true>   \
+               : mode == 2 ? planes_variant_kernel<c, false, false>  \
+                           : planes_variant_kernel<c, true, true, true>;
+    if (mode < 1 || mode > 3) return nullptr;
+    switch (cpt) {
+        FDTD_VARIANT(1) FDTD_VARIANT(5) FDTD_VARIANT(7) FDTD_VARIANT(11)
+        FDTD_VARIANT(17)
+        default: return nullptr;
+    }
+#undef FDTD_VARIANT
+}
+
+// A float of shared::cluster address addr.
+__device__ __forceinline__ float ld_dsmem(uint32_t addr) {
+    float v;
+    asm("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+    return v;
+}
+
+// The plane kernel on clusters of two planes (block b = 2c + r, rank r of
+// cluster c; a grid of n rounded up to even, the extra block idle). Rank
+// 0's next plane and rank 1's previous one are the partner's, read from
+// its shared memory; the other neighbour's comes through the exchange as
+// in the shipped kernel. The flags count published planes, the prologue's
+// included (the launcher zeroes them): substep k waits for the
+// neighbours' flags to reach k + 1, so no grid sync is needed; a cluster
+// barrier after the prologue and one before exit (no block leaves while
+// its partner may read it).
+template <int CPT>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+planes_pair_kernel(Grid g, const float* __restrict__ src,
+                   const float* __restrict__ p_in,
+                   const float* __restrict__ div_in,
+                   float* __restrict__ p_out, float* __restrict__ div_out,
+                   float* __restrict__ out, float* xch, int* flags) {
+    extern __shared__ __align__(16) float smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int n = g.n, nn = n * n, tid = threadIdx.x;
+    const int b = blockIdx.x, blocks = n;
+    if (b >= n) {  // the idle partner of the last plane
+        cluster.sync();
+        cluster.sync();
+        return;
+    }
+    const int rank = static_cast<int>(cluster.block_rank());
+    const Slab sl{b, blocks, b * nn, (b + 1) * nn, (b - 1) * nn, nn};
+    float* const src_pre = smem + 4;
+    float* const buf0 = smem + 8 + plane_lead(n);
+    float* const buf1 = buf0 + plane_slots(n);
+    const long long stride = plane_stride(n);
+    const long long parity = (n + 2LL) * stride;
+    const bool has_prev = b > 0, has_next = b + 1 < blocks;
+    int* const own_flag = flags + b * kFlagStride;
+    const float k1 = opaque(g.k1), k2 = opaque(g.k2), c6 = opaque(g.c6);
+    const float absorb = opaque(g.absorb);
+    const uint32_t pre_a = smem_u32(src_pre);
+    const int iters = (nn + kClusterThreads - 1) / kClusterThreads;
+
+    float pr[CPT], dv[CPT];
+    unsigned valid, interior;
+    int src_i;
+    load_cells<CPT>(g, sl.start, nn, src, p_in, div_in, buf0, pr, dv, valid,
+                    interior, src_i);
+    float* const pub0 = xch + (b + 1) * stride + tid;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+        stcg_if(valid >> i & 1u, pub0 + i * kClusterThreads, pr[i]);
+    }
+    __syncthreads();
+    if (tid == 0) flag_release(own_flag, 1);
+    cluster.sync();  // the partner's shared memory exists
+    if (tid == 0 && has_prev) flag_wait(own_flag - kFlagStride, 1);
+    if (tid == 32 && has_next) flag_wait(own_flag + kFlagStride, 1);
+    __syncthreads();
+
+    const int substeps = 3 * g.s;
+    for (int k = 0; k < substeps; ++k) {
+        const int q = (k + 1) & 1;
+        float* const bq = q ? buf1 : buf0;
+        const float* cur = q ? buf0 : buf1;
+        const bool send = k + 1 < substeps;
+        if (k > 0 && k % 3 == 0) {
+            cluster_receivers(g, sl, k / 3 - 1, cur, src_pre, out);
+        }
+        const int inj = (k % 3 == 2 && k / 3 + 1 < g.s) ? src_i : -1;
+        const uint32_t a = opaque(smem_u32(cur) + 4u * tid);
+        const uint32_t a_n = a + 4 * n, a_mn = a - 4 * n;
+        const uint32_t w0 = a - smem_u32(cur) + smem_u32(bq);
+        const uint32_t in_mask = opaque(interior), ok_mask = opaque(valid);
+        // The partner's copy of cur, and the other neighbour's slot.
+        const uint32_t ra = in_rank(a, rank ^ 1);
+        const float* const l2 = opaque(xch + (k & 1) * parity +
+                                       (rank ? b + 2 : b) * stride + tid);
+        float* const pub = xch + q * parity + (b + 1) * stride + tid;
+        auto cell = [&](int i) {
+            const uint32_t o = 4u * kClusterThreads * i;
+            const int og = kClusterThreads * i;
+            const float rem = ld_dsmem(ra + o), far = ldcg(l2 + og);
+            float v = div_cell(pr[i], dv[i], in_mask >> i & 1u,
+                               rank ? far : rem, rank ? rem : far,
+                               lds(a_n + o), lds(a_mn + o), lds(a + o + 4),
+                               lds(a + o - 4), k1, k2, c6, absorb);
+            if (i == inj) {
+                sts(pre_a, v);
+                v = __fadd_rn(v, src[k / 3 + 1]);
+            }
+            pr[i] = v;
+            const bool ok = ok_mask >> i & 1u;
+            sts_if(ok, w0 + o, v);
+            if (send) stcg_if(ok, pub + og, v);
+        };
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) {
+            if (runs<CPT>(i, iters)) cell(i);
+        }
+        __syncthreads();
+        if (send) {
+            if (tid == 0) flag_release(own_flag, k + 2);
+            if (tid == 0 && has_prev) flag_wait(own_flag - kFlagStride, k + 2);
+            if (tid == 32 && has_next) flag_wait(own_flag + kFlagStride, k + 2);
+            __syncthreads();
+        }
+    }
+    const float* fin = (substeps & 1) ? buf1 : buf0;
+    cluster_receivers(g, sl, g.s - 1, fin, src_pre, out);
+    store_cells<CPT>(sl.start, nn, pr, dv, p_out, div_out);
+    cluster.sync();
+}
+
+DivPlanesKernel planes_pair(int cpt) {
+    switch (cpt) {
+        case 1: return planes_pair_kernel<1>;
+        case 5: return planes_pair_kernel<5>;
+        case 7: return planes_pair_kernel<7>;
+        case 11: return planes_pair_kernel<11>;
+        case 17: return planes_pair_kernel<17>;
+        default: return nullptr;
+    }
+}
+
 }  // namespace
 
 // The first design; arguments as fdtd_div_cluster_launch.
@@ -672,6 +1015,158 @@ extern "C" long long two_phase_field_smem(int n, const int* starts,
     Ranges r;
     if (!cluster_ranges(n, starts, blocks, &r)) return -1;
     return two_phase_smem(n, r.cap);
+}
+
+// The grid-sync kernel's launch (the replaced fdtd_div_launch): src (s,),
+// p_in and div_in (n^3,) read only; pa, pb (n^3,) scratch: after the
+// block p' is in pa when s is even, pb when odd; div (n^3,) receives
+// div'; out (tracks, s); src_pre (1,) scratch.
+extern "C" int old_coop_div_launch(const float* src, const float* p_in,
+                                   const float* div_in, float* pa, float* pb,
+                                   float* div, float* out, float* src_pre,
+                                   int n, int s, int src_cell, int tracks,
+                                   int rcv_cell, float k1, float k2, float c6,
+                                   float absorb, float out_scale,
+                                   void* stream) {
+    if (bad_shape(n, s, tracks, src_cell)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaError_t err;
+    const int blocks = grid_blocks(old_coop_div_kernel, 1LL * n * n * n, &err);
+    if (blocks == 0) return static_cast<int>(err);
+    Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, nullptr, k1, k2, c6,
+                       absorb, out_scale);
+    void* args[] = {&g, &src, &p_in, &div_in, &pa, &pb, &div, &out, &src_pre};
+    err = cudaLaunchCooperativeKernel(
+        (const void*)old_coop_div_kernel, dim3(blocks), dim3(kThreads), args,
+        0, static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of the grid-sync kernel's launch for an n^3 grid.
+extern "C" int old_coop_div_blocks(int n) {
+    cudaError_t err;
+    return grid_blocks(old_coop_div_kernel, 1LL * n * n * n, &err);
+}
+
+// A plane-kernel variant (planes_variant's mode); the rest of the
+// arguments as fdtd_div_planes_launch.
+extern "C" int planes_variant_launch(
+    const float* src, const float* p_in, const float* div_in, float* p_out,
+    float* div_out, float* out, float* xch, int* flags, int n, int s,
+    int src_cell, int tracks, int rcv_cell, float k1, float k2, float c6,
+    float absorb, float out_scale, const int* starts, int blocks, int mode,
+    void* stream) {
+    if (bad_shape(n, s, tracks, src_cell) ||
+        !plane_ranges(n, starts, blocks)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const DivPlanesKernel kernel =
+        planes_variant(cells_per_thread(1LL * n * n), mode);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const long long smem = div_planes_smem(n);
+    cudaError_t err;
+    const int fit = coresident_blocks((const void*)kernel, kClusterThreads,
+                                            smem, &err);
+    if (fit == 0) return static_cast<int>(err);
+    if (fit < blocks) {
+        return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    }
+    Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, nullptr, k1, k2, c6,
+                       absorb, out_scale);
+    void* args[] = {&g,   &src, &p_in, &div_in, &p_out,
+                    &div_out, &out, &xch, &flags};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                      dim3(kClusterThreads), args,
+                                      static_cast<size_t>(smem),
+                                      static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The pair design (rooms 8 and below, 66, 82, 100 and 128: 1, 5, 7, 11
+// and 17 cells a thread); the arguments as fdtd_div_planes_launch, and
+// cooperative: 1 to launch with the cooperative attribute beside the
+// cluster dimension, 0 without it (the co-residency then checked with
+// cudaOccupancyMaxActiveClusters). Zeroes the flags first.
+extern "C" int planes_pair_launch(
+    const float* src, const float* p_in, const float* div_in, float* p_out,
+    float* div_out, float* out, float* xch, int* flags, int n, int s,
+    int src_cell, int tracks, int rcv_cell, float k1, float k2, float c6,
+    float absorb, float out_scale, const int* starts, int blocks,
+    int cooperative, void* stream) {
+    if (bad_shape(n, s, tracks, src_cell) ||
+        !plane_ranges(n, starts, blocks)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const DivPlanesKernel kernel = planes_pair(cells_per_thread(1LL * n * n));
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const long long smem = div_planes_smem(n);
+    cudaError_t err = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[2];
+    cfg.gridDim = dim3(n + (n & 1));
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = cooperative ? 2 : 1;
+    if (!cooperative) {
+        int clusters = 0;
+        err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel,
+                                             &cfg);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (2 * clusters < n + (n & 1)) {
+            return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+        }
+    }
+    err = cudaMemsetAsync(flags, 0, sizeof(int) * kFlagStride * n,
+                          static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, nullptr, k1,
+                             k2, c6, absorb, out_scale);
+    err = cudaLaunchKernelEx(&cfg, kernel, g, src, p_in, div_in, p_out,
+                             div_out, out, xch, flags);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of two of the pair design the card holds at once for an n^3
+// grid (negated CUDA error when the query fails).
+extern "C" int planes_pair_occupancy(int n) {
+    const DivPlanesKernel kernel = planes_pair(cells_per_thread(1LL * n * n));
+    if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+    const long long smem = div_planes_smem(n);
+    cudaError_t err = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr;
+    cfg.gridDim = dim3(n + (n & 1));
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 2;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel,
+                                             &cfg);
+    }
+    return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 extern "C" int fdtd_prof_set(long long* buf) {
