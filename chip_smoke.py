@@ -56,14 +56,16 @@ nonzero:
    both routes (``ops.fdtd3d.fdtd_schedule``: the cluster kernel where
    the room fits one thread-block cluster, the plane kernel, a
    cooperative launch of a block a plane, everywhere) and the field
-   form's kernel, and the divergence form vs the field form within 1e-5
-   of the peak, fields chained over 2 blocks, at rooms 8 (64 samples), 50
-   (512), 82 and 128 (32 each, the plane route only), so the two routes
-   also equal each other at rooms 8 and 50; the field kernel with 128
-   per-track receivers, the first on the source cell, at room 50 x 512;
-   CUDA-event times of the cluster kernel and the field kernel at room 50
-   and of the plane kernel at rooms 82 and 128, 128 tracks x 512 samples,
-   and of the cluster barrier and the grid barrier alone.
+   form's plane kernel with 128 per-track receivers (the first on the
+   source cell) and with the broadcast receiver, and the divergence form
+   vs the field form within 1e-5 of the peak, fields chained over 2
+   blocks, at rooms 8 (64 samples), 50 (512), 82 and 128 (32 each, the
+   plane route only), so the two div routes also equal each other at
+   rooms 8 and 50; CUDA-event times of the cluster kernel and the field
+   kernel at room 50, of the plane kernel and the field kernel at room
+   82 and of the plane kernel at room 128, 128 tracks x 512 samples (the
+   field form with per-track receivers), and of the cluster barrier
+   alone.
 9. The two speed-of-light kernels (``fma_chain``, ``fma_vmem``) vs their
    plain twin within 1e-4 absolute and vs the closed form within 5e-4, at
    37 x 1,000 (k = 24), 64 x 1,024 (k = 130) and each SOL benchmark's
@@ -81,9 +83,11 @@ nonzero:
    65,536 tracks and at the CLI's defaults (no ``--benchmark``: 128
    tracks, 100 runs, full verification), DWG1DNaive and DWG1DAccel at
    32,768 waveguides, and FDTD3D at room 50 with 128 tracks, with and
-   without ``--fdtdPerTrackReceivers`` (the cluster kernel, not the
-   plane kernel, must launch in the first), and at room 82 x 64 samples
-   (the plane kernel); each validates against the NumPy golden; then the CLI on the six SOL benchmarks at their defaults
+   without ``--fdtdPerTrackReceivers`` (with it the field kernel must
+   launch; without it the cluster kernel, not the plane kernel), and at
+   room 82 x 64 samples (the plane kernel); each
+   validates against the NumPy golden; then the CLI on the six SOL
+   benchmarks at their defaults
    (``fma_chain`` must launch on SOL_VPU, ``fma_vmem`` on SOL_VMEM). On
    every CLI path the JSON's ``metadata.roofline`` must name its
    ``peak_source`` and ``basis``, and no share of a peak may pass 105 %.
@@ -209,12 +213,14 @@ DWG_REPLACES = "gpuaudiobench_tpu/ops/dwg_pallas.py:40"
 # 1e-5 of the peak. The cluster kernel and the field kernel are timed at
 # FDTD_MAIN, the plane kernel (``fdtd3d_div_coop``) at FDTD_COOP (a room
 # no cluster holds; its time goes into the kernels line) and at FDTD_BIG
-# (the largest room the config allows; printed with its bound, under
-# FDTD_BIG_KEY).
+# (the largest room the config allows), the field kernel also at
+# FDTD_COOP; the last two are printed with their bounds, under
+# FDTD_BIG_KEY and FDTD_FIELD_82_KEY.
 FDTD_MAIN = (50, 512, 128)  # room, samples, tracks: the CLI path's
 FDTD_COOP = (82, 512, 128)
 FDTD_BIG = (128, 512, 128)
 FDTD_BIG_KEY = "fdtd3d_div_coop room 128"
+FDTD_FIELD_82_KEY = "fdtd3d_field room 82"
 FDTD_SHAPES = [(8, 64), (50, 512), (82, 32), (128, 32)]
 FDTD_RTOL = 1e-5
 FDTD_SOURCE = "gpuaudiobench_tpu_torch/csrc/fdtd3d.cu"
@@ -1093,12 +1099,23 @@ def fdtd_routes(fops, n):
     return out
 
 
-def compare_fdtd(torch, fops, room, s, device, tracks=4):
+def fdtd_receivers(torch, fops, n, src, tracks, device):
+    """Per-track receivers along the line, track 0 on the source cell."""
+    xs, ys, zs = fops.receiver_line(tracks, n)
+    cells = (xs.astype("int64") * n + ys) * n + zs
+    cells[0] = fops.flat_cell(src, n)
+    return torch.from_numpy(cells.astype("int32")).to(device)
+
+
+def compare_fdtd(torch, fops, room, s, device, tracks=128):
     """Each route's kernels vs their twins bit for bit (so the routes
-    equal each other where both run) and div vs field within FDTD_RTOL,
-    over 2 chained blocks; returns {kernel: max |kernel - twin|}."""
+    equal each other where both run), the field kernel with per-track
+    receivers and with the broadcast receiver, and div vs field within
+    FDTD_RTOL, over 2 chained blocks; returns {kernel: max |kernel -
+    twin|}."""
     n, src, rcv = fdtd_geometry(fops, room)
     x = fdtd_x(torch, tracks, s, device)
+    cells = fdtd_receivers(torch, fops, n, src, tracks, device)
     routes = fdtd_routes(fops, n)
     state = {k: (fops.zero_fields_div(n, device) if "div" in k
                  else fops.zero_fields(n, device)) for k in routes}
@@ -1108,11 +1125,19 @@ def compare_fdtd(torch, fops, room, s, device, tracks=4):
     for blk in range(2):
         want_d = fops.fdtd3d_block_div_plain(x, *dp, src, rcv)
         want_f = fops.fdtd3d_block_field_plain(x, *fp, src, rcv)
+        want_t = fops.fdtd3d_block_field_plain(x, *fp, src, rcv,
+                                               receivers=cells)
         tag = f"room {room} S={s} block {blk}"
         for key, fn in routes.items():
-            got = fn(x, *state[key], src, rcv)
-            fdtd_same(torch, f"{key} {tag}", got,
-                      want_d if "div" in key else want_f)
+            if "div" in key:
+                got = fn(x, *state[key], src, rcv)
+                fdtd_same(torch, f"{key} {tag}", got, want_d)
+            else:
+                fdtd_same(torch, f"{key} broadcast {tag}",
+                          fn(x, *state[key], src, rcv), want_f)
+                got = fn(x, *state[key], src, rcv, receivers=cells)
+                fdtd_same(torch, f"{key} {tracks} per-track {tag}", got,
+                          want_t)
             state[key] = got[1:]
         dp, fp = want_d[1:], want_f[1:]
         cross = max(cross,
@@ -1122,57 +1147,38 @@ def compare_fdtd(torch, fops, room, s, device, tracks=4):
                                want_f[1]))
     if want_d[0].abs().max().item() <= 0:
         fail(f"fdtd room {room}: the receiver heard nothing")
+    if len(set(want_t[0][:, -1].tolist())) < 2:
+        fail(f"fdtd room {room}: every per-track receiver read the same")
     torch.cuda.synchronize()
     for k in routes:
-        if fops.KERNEL_LAUNCHES[k] - before[k] != 2:
-            fail(f"{k}: expected 2 launches")
+        want = 2 if "div" in k else 4
+        if fops.KERNEL_LAUNCHES[k] - before[k] != want:
+            fail(f"{k}: expected {want} launches")
     print(f"compare fdtd room {room} S={s}: ok  {', '.join(sorted(routes))} "
-          f"bit for bit the twins, div vs field {cross:.3g}")
+          f"bit for bit the twins (the field kernel with {tracks} per-track "
+          f"receivers, one on the source cell, and broadcast), div vs field "
+          f"{cross:.3g}")
     return {k: 0.0 for k in routes}
 
 
-def fdtd_receivers(torch, fops, n, tracks, device):
-    xs, ys, zs = fops.receiver_line(tracks, n)
-    cells = (xs.astype("int64") * n + ys) * n + zs
-    return torch.from_numpy(cells.astype("int32")).to(device)
-
-
-def compare_fdtd_receivers(torch, fops, device):
-    """The field kernel with a receiver per track at FDTD_MAIN, track 0 on
-    the source cell, vs its twin bit for bit; returns {kernel: max
-    |kernel - twin|}."""
-    room, s, tracks = FDTD_MAIN
-    n, src, rcv = fdtd_geometry(fops, room)
-    x = fdtd_x(torch, tracks, s, device)
-    cells = fdtd_receivers(torch, fops, n, tracks, device)
-    cells[0] = fops.flat_cell(src, n)
-    want = fops.fdtd3d_block_field_plain(x, *fops.zero_fields(n, device), src,
-                                         rcv, receivers=cells)
-    got = fops.fdtd3d_block_field(x, *fops.zero_fields(n, device), src, rcv,
-                                  receivers=cells)
-    fdtd_same(torch, f"fdtd3d_field {tracks} receivers", got, want)
-    if len(set(want[0][:, -1].tolist())) < 2:
-        fail("fdtd3d_field receivers: every track read the same value")
-    print(f"compare fdtd3d_field room {room} S={s}, {tracks} per-track "
-          "receivers (one on the source cell): ok  bit for bit the twin's")
-    return {"fdtd3d_field": 0.0}
+# Where each kernel is timed: (room, samples, tracks), {kernel key: the
+# name its time goes under}; the field form with per-track receivers.
+FDTD_TIMED = [(FDTD_MAIN, {"fdtd3d_div": "fdtd3d_div",
+                           "fdtd3d_field": "fdtd3d_field"}),
+              (FDTD_COOP, {"fdtd3d_div_coop": "fdtd3d_div_coop",
+                           "fdtd3d_field": FDTD_FIELD_82_KEY}),
+              (FDTD_BIG, {"fdtd3d_div_coop": FDTD_BIG_KEY})]
 
 
 def time_fdtd(torch, fops, device):
-    """CUDA-event times (ms): the cluster kernel and the field kernel at
-    FDTD_MAIN and the plane kernel at FDTD_COOP and FDTD_BIG (under
-    FDTD_BIG_KEY), the divergence form with the broadcast receiver, the
-    field form with a receiver per track, each against its twin; and the
-    cluster barrier (at room 50's layout) and the grid barrier (at room
-    82's field-kernel grid) alone: ({kernel: (ms, plain_ms)}, us per
-    cluster barrier, us per grid barrier)."""
+    """CUDA-event times (ms) at FDTD_TIMED, each kernel against its twin:
+    ({name: (ms, plain_ms)}, us per cluster barrier alone at room 50's
+    layout)."""
     out = {}
-    for (room, s, tracks), keys in ((FDTD_MAIN, ("fdtd3d_div", "fdtd3d_field")),
-                                    (FDTD_COOP, ("fdtd3d_div_coop",)),
-                                    (FDTD_BIG, ("fdtd3d_div_coop",))):
+    for (room, s, tracks), keys in FDTD_TIMED:
         n, src, rcv = fdtd_geometry(fops, room)
         x = fdtd_x(torch, tracks, s, device)
-        cells = fdtd_receivers(torch, fops, n, tracks, device)
+        cells = fdtd_receivers(torch, fops, n, src, tracks, device)
         zd, zf = fops.zero_fields_div(n, device), fops.zero_fields(n, device)
         routes = fdtd_routes(fops, n)
         fns = {
@@ -1184,46 +1190,37 @@ def time_fdtd(torch, fops, device):
                    lambda: fops.fdtd3d_block_field_plain(x, *zf, src, rcv,
                                                          receivers=cells)))
             for key in keys}
-        for name, (kern, plain) in fns.items():
-            p1 = median_ms(torch, plain, 1, 1)
+        for key, (kern, plain) in fns.items():
             k1 = median_ms(torch, kern, 5, 2)
+            p1 = median_ms(torch, plain, 1, 1)
             k2 = median_ms(torch, kern, 5, 2)
-            p2 = median_ms(torch, plain, 1, 1)
-            print(f"time {name} room {room}, {tracks}x{s} (CUDA events, "
+            print(f"time {key} room {room}, {tracks}x{s} (CUDA events, "
                   f"median of reps): kernel {k1:.4f} / {k2:.4f} ms, plain "
-                  f"twin {p1:.2f} / {p2:.2f} ms")
-            key = FDTD_BIG_KEY if (room, s, tracks) == FDTD_BIG else name
-            out[key] = (min(k1, k2), min(p1, p2))
+                  f"twin {p1:.2f} ms")
+            out[keys[key]] = (min(k1, k2), p1)
     syncs = 3 * FDTD_MAIN[1]
     plan = fops.fdtd_schedule(fops.grid_n(FDTD_MAIN[0]), "div")
     cl = median_ms(torch, lambda: fops.cluster_probe(
         plan.blocks, plan.smem_bytes, syncs, device), 5, 2) / syncs * 1e3
-    n82 = fops.grid_n(FDTD_COOP[0])
-    gr = median_ms(torch, lambda: fops.sync_probe(n82, syncs, device),
-                   5, 2) / syncs * 1e3
-    print(f"time barriers alone, {syncs} in one launch: cluster barrier "
-          f"({plan.blocks} blocks, {plan.smem_bytes:,} B each) {cl:.4f} us, "
-          f"grid barrier (room {FDTD_COOP[0]}'s field-kernel grid) {gr:.4f} us")
-    return out, cl, gr
+    print(f"time cluster barrier alone, {syncs} in one launch "
+          f"({plan.blocks} blocks, {plan.smem_bytes:,} B each): {cl:.4f} us")
+    return out, cl
 
 
 def fdtd_bounds():
     """FDTD3D's count of each form (``models.fdtd3d.fdtd3d_cost``) where
-    each kernel is timed, FDTD_MAIN for the cluster kernel and the field
-    kernel, FDTD_COOP for the plane kernel and FDTD_BIG for it under
-    FDTD_BIG_KEY: a boundary cell 1 FLOP a substep, an
-    interior cell of the div form 11, the field form 3 a face and 7 an
+    each kernel is timed (FDTD_TIMED): a boundary cell 1 FLOP a substep,
+    an interior cell of the div form 11, the field form 3 a face and 7 an
     interior cell; the source sum, injection and receiver scale; the input
     and output, the carried fields read and written once, and the field
     form's receivers."""
     from gpuaudiobench_tpu_torch.models.fdtd3d import fdtd3d_cost
 
     out = {}
-    for (room, s, tracks), keys in ((FDTD_MAIN, ("fdtd3d_div", "fdtd3d_field")),
-                                    (FDTD_COOP, ("fdtd3d_div_coop",)),
-                                    (FDTD_BIG, (FDTD_BIG_KEY,))):
-        for key, per_track in zip(keys, (False, True)):
-            out[key] = cost_bound(fdtd3d_cost(room, s, tracks, per_track))
+    for (room, s, tracks), keys in FDTD_TIMED:
+        for key, name in keys.items():
+            out[name] = cost_bound(fdtd3d_cost(room, s, tracks,
+                                               "field" in key))
     return out
 
 
@@ -1542,13 +1539,11 @@ def main() -> int:
     for room, s in FDTD_SHAPES:
         for k, v in compare_fdtd(torch, fops, room, s, device).items():
             fdtd_err[k] = max(fdtd_err[k], v)
-    for k, v in compare_fdtd_receivers(torch, fops, device).items():
-        fdtd_err[k] = max(fdtd_err[k], v)
-    fdtd_times, _, _ = time_fdtd(torch, fops, device)
-    big_ms, big_by = fdtd_bounds()[FDTD_BIG_KEY]
-    print(f"time {FDTD_BIG_KEY}: {fdtd_times[FDTD_BIG_KEY][0]:.4f} ms against "
-          f"its bound {big_ms:.4f} ms ({big_by}), "
-          f"{big_ms / fdtd_times[FDTD_BIG_KEY][0]:.2%}")
+    fdtd_times, _ = time_fdtd(torch, fops, device)
+    for key in (FDTD_FIELD_82_KEY, FDTD_BIG_KEY):
+        b_ms, b_by = fdtd_bounds()[key]
+        print(f"time {key}: {fdtd_times[key][0]:.4f} ms against its bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / fdtd_times[key][0]:.2%}")
     print(f"fdtd kernels vs twins: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -15,7 +15,8 @@
 //   * the field form replaces _fdtd_kernel (fdtd3d_block_pallas), with the
 //     staggered velocities vx (N+1, N, N), vy (N, N+1, N), vz (N, N, N+1)
 //     (ops/fdtd3d.py:_fdtd_substep). It also serves the per-track
-//     receivers, which the JAX package runs on XLA only.
+//     receivers, which the JAX package runs on XLA only: each block writes
+//     the rows whose receiver lies in its plane.
 // At the start of each sample the source cell gets src[n] (the sum of all
 // tracks x 0.1, computed by the wrapper); after the sample's third
 // substep every receiver row t reads out[t, n] = p[rcv(t)] * 0.1, from
@@ -25,16 +26,16 @@
 // __fadd_rn, __fsub_rn), in the JAX expressions' order, so every kernel
 // gives the plain twin's bits.
 //
-// What bounds it: operations, and the barrier. At room 50 (52^3 cells,
+// What bounds it: operations, and the hand-offs. At room 50 (52^3 cells,
 // 50^3 interior) a div block is 1,536 substeps x (11 FLOP x 125,000
 // interior cells + 1 x 15,608 boundary cells) = 2.1 GFLOP, 0.032 ms at 67
 // TFLOP/s of FP32 (the field form about 16 FLOP a cell, 0.049 ms). Every
 // substep reads the neighbours' p of the substep before, so all cells
 // meet 1,536 times per block.
 //
-// The divergence form has two routes, chosen before the launch by
+// Each kernel's route is chosen before the launch by
 // ops/fdtd3d.py:fdtd_schedule (never by a failed launch), which also
-// hands each kernel its ranges:
+// hands it its ranges. The divergence form has two:
 //
 // The cluster route (fdtd_div_cluster_kernel), for rooms whose (p, div)
 // fit in one thread-block cluster's shared memory (up to 16 blocks x 227
@@ -110,15 +111,20 @@
 //   * The source cell's owner injects as in the cluster kernel; the
 //     receiver is read by the block that owns its cell.
 //
-// The field form's kernel (fdtd_field_kernel) at every room: one
-// persistent cooperative launch of at most the blocks that fit on the card
-// at once; each thread walks its cells in a grid stride, p and the
-// velocities ping-pong between two buffers in device memory (each
-// velocity read and written by its owner), and each substep ends in a
-// cg::grid sync. Reads of cells other threads wrote go through L2
-// (__ldcg). The grid barrier, 1.43 us at room 50, is its floor (PERF.md).
-// A cluster form of it (four fields in shared memory, two hand-offs a
-// substep) ran no faster; it is kept, measured, in tools/fdtd_stages.
+// The field form takes the plane route at every room
+// (fdtd_field_planes_kernel, ops/fdtd3d.py:plane_schedule(n, "field")):
+// the div plane kernel's launch, exchange, flags and argument for two
+// parities, with p the only field that crosses blocks. A block keeps a
+// replica of the vx faces above its plane and updates it from the next
+// plane's p exactly as their owner does, so the faces never travel; the
+// faces in y and z stay in the plane (in registers up to 7 cells a
+// thread, room 82; in shared memory above, with one more __syncthreads a
+// substep). The receivers are bucketed by plane on the host
+// (ops/fdtd3d.py:receiver_csr). It replaced a grid-stride cooperative
+// kernel with a grid barrier a substep (1.40-1.43 us of ~3.6 at room 50;
+// PERF.md), which lives on, measured, in tools/fdtd_stages, beside a
+// cluster form (four fields in shared memory, two hand-offs a substep)
+// that ran no faster.
 //
 // FDTD_MARK(q) is a measurement hook of tools/fdtd_stages (clock64()
 // phase sums): unless defined before this file it compiles to nothing.
@@ -131,8 +137,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 512;
 
 struct Grid {
     int n;            // cells per axis
@@ -150,138 +154,10 @@ __device__ __forceinline__ bool on_boundary(int x, int y, int z, int n) {
            z == n - 1;
 }
 
-// Rows of out for sample smp, read from p after the sample's last
-// substep. src_pre holds the source cell's value from before the
-// injection of sample smp + 1, when there was one.
-__device__ void read_receivers(const Grid& g, int smp, const float* p,
-                               const float* src_pre, float* out, int tid,
-                               int stride) {
-    const bool injected = smp + 1 < g.s;
-    for (int t = tid; t < g.tracks; t += stride) {
-        const int cell = g.rcv_rows ? g.rcv_rows[t] : g.rcv_cell;
-        float v;
-        if (cell < 0 || cell >= g.cells) {
-            v = __int_as_float(0x7fc00000);  // NaN: no such cell
-        } else if (injected && cell == g.src_cell) {
-            v = __ldcg(src_pre);
-        } else {
-            v = __ldcg(p + cell);
-        }
-        out[static_cast<long long>(t) * g.s + smp] = __fmul_rn(v, g.out_scale);
-    }
-}
-
-// The value written to the source cell's next buffer at the end of a
-// sample: the injection of the next sample, the pre-injection value kept.
-__device__ __forceinline__ float inject(const Grid& g, int c, int k,
-                                        float v, const float* src,
-                                        float* src_pre) {
-    if (c == g.src_cell && k % 3 == 2 && k / 3 + 1 < g.s) {
-        *src_pre = v;
-        v = __fadd_rn(v, src[k / 3 + 1]);
-    }
-    return v;
-}
-
 // One face's velocity after the update v + (-k1) * (p_hi - p_lo).
 __device__ __forceinline__ float face(float v, float p_hi, float p_lo,
                                       float k1) {
     return __fadd_rn(v, __fmul_rn(-k1, __fsub_rn(p_hi, p_lo)));
-}
-
-__global__ void __launch_bounds__(kThreads)
-fdtd_field_kernel(Grid g, const float* __restrict__ src,
-                  const float* __restrict__ p_in,
-                  const float* __restrict__ vx_in,
-                  const float* __restrict__ vy_in,
-                  const float* __restrict__ vz_in,
-                  float* pa, float* pb, float* vxa, float* vxb, float* vya,
-                  float* vyb, float* vza, float* vzb, float* out,
-                  float* src_pre) {
-    cg::grid_group grid = cg::this_grid();
-    const int n = g.n, nn = n * n;
-    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-    const int stride = gridDim.x * blockDim.x;
-    const int vx_cells = (n + 1) * nn;  // vy and vz have as many faces
-
-    // Prologue: both velocity buffers get the input, so the faces no
-    // substep updates (x = 0 and x = n of vx, and so on) hold it in both.
-    for (int c = tid; c < g.cells; c += stride) {
-        float v = p_in[c];
-        if (c == g.src_cell) v = __fadd_rn(v, src[0]);
-        pa[c] = v;
-    }
-    for (int f = tid; f < vx_cells; f += stride) {
-        vxa[f] = vxb[f] = vx_in[f];
-        vya[f] = vyb[f] = vy_in[f];
-        vza[f] = vzb[f] = vz_in[f];
-    }
-    grid.sync();
-
-    const int substeps = 3 * g.s;
-    for (int k = 0; k < substeps; ++k) {
-        const bool odd = k & 1;
-        const float* cur = odd ? pb : pa;
-        float* nxt = odd ? pa : pb;
-        const float* vx = odd ? vxb : vxa;
-        const float* vy = odd ? vyb : vya;
-        const float* vz = odd ? vzb : vza;
-        float* vx2 = odd ? vxa : vxb;
-        float* vy2 = odd ? vya : vyb;
-        float* vz2 = odd ? vza : vzb;
-        if (k > 0 && k % 3 == 0) {
-            read_receivers(g, k / 3 - 1, cur, src_pre, out, tid, stride);
-        }
-        for (int c = tid; c < g.cells; c += stride) {
-            const int x = c / nn, y = (c / n) % n, z = c % n;
-            const int fx = c;                         // vx[x, y, z]
-            const int fy = (x * (n + 1) + y) * n + z;  // vy[x, y, z]
-            const int fz = c + x * n + y;              // vz[x, y, z]
-            const float pc = __ldcg(cur + c);
-            // This cell's lower faces (index 1..n-1 on their axis).
-            float vx0 = __ldcg(vx + fx), vy0 = __ldcg(vy + fy),
-                  vz0 = __ldcg(vz + fz);
-            if (x >= 1) {
-                vx0 = face(vx0, pc, __ldcg(cur + c - nn), g.k1);
-                vx2[fx] = vx0;
-            }
-            if (y >= 1) {
-                vy0 = face(vy0, pc, __ldcg(cur + c - n), g.k1);
-                vy2[fy] = vy0;
-            }
-            if (z >= 1) {
-                vz0 = face(vz0, pc, __ldcg(cur + c - 1), g.k1);
-                vz2[fz] = vz0;
-            }
-            float v;
-            if (on_boundary(x, y, z, n)) {
-                v = __fmul_rn(pc, g.absorb);
-            } else {
-                // The upper faces, as their own cells' threads update them.
-                const float vx1 = face(__ldcg(vx + fx + nn), __ldcg(cur + c + nn),
-                                       pc, g.k1);
-                const float vy1 = face(__ldcg(vy + fy + n), __ldcg(cur + c + n),
-                                       pc, g.k1);
-                const float vz1 = face(__ldcg(vz + fz + 1), __ldcg(cur + c + 1),
-                                       pc, g.k1);
-                const float d = __fadd_rn(
-                    __fadd_rn(__fsub_rn(vx1, vx0), __fsub_rn(vy1, vy0)),
-                    __fsub_rn(vz1, vz0));
-                v = __fsub_rn(pc, __fmul_rn(g.k2, d));
-            }
-            nxt[c] = inject(g, c, k, v, src, src_pre);
-        }
-        grid.sync();
-    }
-    read_receivers(g, g.s - 1, (substeps & 1) ? pb : pa, src_pre, out, tid,
-                   stride);
-}
-
-// Only the grid-wide barrier, `syncs` times: what one substep's sync
-// costs at a given grid size, with no stencil work (PERF.md).
-__global__ void __launch_bounds__(kThreads) fdtd_sync_probe_kernel(int syncs) {
-    cg::grid_group grid = cg::this_grid();
-    for (int i = 0; i < syncs; ++i) grid.sync();
 }
 
 // ---- the cluster route ------------------------------------------------
@@ -877,6 +753,282 @@ fdtd_div_planes_kernel(Grid g, const float* __restrict__ src,
     FDTD_MARK(7);
 }
 
+// ---- the field form on the plane route ----------------------------------
+
+// The largest n whose plane a build holds (139^2 <= 19 x 1,024 cells).
+constexpr int kMaxPlanes = 139;
+
+// The rows of out each block writes, as ops/fdtd3d.py:receiver_csr gives
+// them: block b writes rows order[j], j in [start[b], start[b + 1]) (row j
+// itself when order is null: the broadcast receiver's plane owns them
+// all). Taken as a __grid_constant__ parameter, like Ranges.
+struct RcvPlanes {
+    int start[kMaxPlanes + 1];
+};
+
+// Rows of out for sample smp that block b writes, from its plane's p
+// (own: cell l of the plane at own[l]); src_pre holds the source cell's
+// value from before the injection of sample smp + 1.
+__device__ void plane_receivers(const Grid& g, const RcvPlanes& rcv,
+                                const int* order, int b, int smp,
+                                const float* own, const float* src_pre,
+                                float* out) {
+    const bool injected = smp + 1 < g.s;
+    const int base = b * g.n * g.n;
+    for (int j = rcv.start[b] + threadIdx.x; j < rcv.start[b + 1];
+         j += kClusterThreads) {
+        const int t = order ? order[j] : j;
+        const int cell = g.rcv_rows ? g.rcv_rows[t] : g.rcv_cell;
+        const float v = injected && cell == g.src_cell ? *src_pre
+                                                       : own[cell - base];
+        out[static_cast<long long>(t) * g.s + smp] = __fmul_rn(v, g.out_scale);
+    }
+}
+
+// Field form, one block a plane (block b: plane b, n blocks of 1,024
+// threads in one cooperative launch), the exchange, flags and layout of
+// the divergence form's plane kernel. Thread t owns cells l = i * 1024 +
+// t, i < CPT, of the plane (y = l / n, z = l % n): their p and lower x
+// face vx[b, y, z] in registers (each face's one owner updates it), and a
+// replica of the face above in x, vx[b + 1, y, z], whose owner lies in
+// the next plane. The replica is updated as face(vx, p[b + 1], p[b]), the
+// owner's operands in the owner's order, so it holds the owner's bits
+// with no hand-off of faces: only p crosses blocks. The lower and upper
+// faces in y and z belong to threads of the same plane; two layouts keep
+// them:
+//   * kRegFaces (up to kRegFacesMaxCpt cells a thread): each thread keeps
+//     vy[b, y, z], vz[b, y, z] and replicas of vy[b, y + 1, z] and
+//     vz[b, y, z + 1] in registers (seven floats a cell); p alone lives in
+//     shared memory, in two buffers; one phase a substep.
+//   * otherwise vy and vz live in shared memory (one buffer each, cell l
+//     at slot plane_lead(n) + l like p) and p in one buffer: a substep
+//     updates the faces from p and stores them, meets a __syncthreads,
+//     then reads the upper faces and stores p over itself (no thread
+//     reads p in that phase). Three floats a cell in registers, three
+//     planes in shared memory: room 128 fits.
+// Every replica is updated on all of its plane's cells, as its owner
+// updates its face, not only where it is read (the interior): the owner of
+// vx[b + 1] updates it on every (y, z) while b + 1 <= n - 1. The faces no
+// cell owns (vx[n], vy[:, n], vz[:, :, n]) and those at index 0 are never
+// updated: they go to the outputs as they came in. kWait and kExchange
+// false are measurements (tools/fdtd_stages): no waits for the
+// neighbours' flags; no exchange either (the +-n^2 neighbours read from
+// the block's own plane).
+template <int CPT, bool kRegFaces, bool kWait = true, bool kExchange = true>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fdtd_field_planes_kernel(Grid g, const __grid_constant__ RcvPlanes rcv,
+                         const int* __restrict__ order,
+                         const float* __restrict__ src,
+                         const float* __restrict__ p_in,
+                         const float* __restrict__ vx_in,
+                         const float* __restrict__ vy_in,
+                         const float* __restrict__ vz_in,
+                         float* __restrict__ p_out,
+                         float* __restrict__ vx_out,
+                         float* __restrict__ vy_out,
+                         float* __restrict__ vz_out, float* __restrict__ out,
+                         float* xch, int* flags) {
+    extern __shared__ __align__(16) float smem[];
+    FDTD_MARK(0);
+    constexpr int R = kRegFaces ? CPT : 1;  // y and z faces in registers
+    const int n = g.n, nn = n * n, tid = threadIdx.x;
+    const int b = blockIdx.x, base = b * nn;
+    const int slots = plane_slots(n);
+    float* const src_pre = smem + 4;
+    float* const buf0 = smem + 8 + plane_lead(n);
+    float* const buf1 = kRegFaces ? buf0 + slots : buf0;
+    float* const fy = buf1 + slots;  // without kRegFaces: vy, vz of the plane
+    float* const fz = fy + slots;
+    const long long stride = plane_stride(n);
+    const long long parity = (n + 2LL) * stride;
+    const bool has_prev = b > 0, has_next = b + 1 < n;
+    int* const own_flag = flags + b * kFlagStride;
+    const float k1 = opaque(g.k1), k2 = opaque(g.k2);
+    const float absorb = opaque(g.absorb);
+    const uint32_t pre_a = smem_u32(src_pre);
+    const int iters = (nn + kClusterThreads - 1) / kClusterThreads;
+
+    // The prologue: the fields of the thread's cells, the faces no cell
+    // owns copied through, the input plane published, the flag reset.
+    float pr[CPT], vx0[CPT], vx1[CPT], vy0[R], vz0[R], vy1[R], vz1[R];
+    unsigned valid = 0, interior = 0, ylo = 0, zlo = 0;
+    int src_i = -1;
+    float* const pub0 = xch + (b + 1) * stride + tid;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+        const int l = i * kClusterThreads + tid;
+        const int r = i % R;
+        pr[i] = vx0[i] = vx1[i] = 0.f;
+        vy0[r] = vz0[r] = vy1[r] = vz1[r] = 0.f;
+        if (l < nn) {
+            const int c = base + l, y = l / n, z = l % n;
+            const int fyi = c + b * n, fzi = c + b * n + y;  // vy, vz [b, y, z]
+            valid |= 1u << i;
+            if (!on_boundary(b, y, z, n)) interior |= 1u << i;
+            if (y >= 1) ylo |= 1u << i;
+            if (z >= 1) zlo |= 1u << i;
+            if (c == g.src_cell) src_i = i;
+            pr[i] = p_at_start(g, p_in, src, c);
+            buf0[l] = pr[i];
+            stcg_if(true, pub0 + i * kClusterThreads, pr[i]);
+            vx0[i] = vx_in[c];
+            vx1[i] = vx_in[c + nn];
+            if (kRegFaces) {
+                vy0[r] = vy_in[fyi];
+                vz0[r] = vz_in[fzi];
+                vy1[r] = vy_in[fyi + n];
+                vz1[r] = vz_in[fzi + 1];
+            } else {
+                fy[l] = vy_in[fyi];
+                fz[l] = vz_in[fzi];
+            }
+        }
+    }
+    for (int j = tid; j < n; j += kClusterThreads) {
+        const int vy_top = (b * (n + 1) + n) * n + j;  // vy[b, n, j]
+        const int vz_top = (b * n + j) * (n + 1) + n;  // vz[b, j, n]
+        vy_out[vy_top] = vy_in[vy_top];
+        vz_out[vz_top] = vz_in[vz_top];
+    }
+    if (!has_next) {
+        for (int l = tid; l < nn; l += kClusterThreads) {
+            vx_out[n * nn + l] = vx_in[n * nn + l];  // vx[n]
+        }
+    }
+    if (tid == 0) *own_flag = 0;
+    FDTD_MARK(1);
+    cg::this_grid().sync();  // the flags reset, the input planes published
+    FDTD_MARK(3);
+
+    const int substeps = 3 * g.s;
+    for (int k = 0; k < substeps; ++k) {
+        const int q = (k + 1) & 1;  // the buffer and the parity k writes
+        float* const bq = q ? buf1 : buf0;
+        const float* cur = q ? buf0 : buf1;
+        const bool send = k + 1 < substeps;
+        if (k > 0 && k % 3 == 0) {
+            plane_receivers(g, rcv, order, b, k / 3 - 1, cur, src_pre, out);
+            FDTD_MARK(4);
+        }
+        const int inj = (k % 3 == 2 && k / 3 + 1 < g.s) ? src_i : -1;
+        const uint32_t a = opaque(smem_u32(cur) + 4u * tid);
+        const uint32_t a_n = a + 4 * n, a_mn = a - 4 * n;
+        const uint32_t w0 = a - smem_u32(cur) + smem_u32(bq);
+        const uint32_t ay = a - smem_u32(cur) + smem_u32(fy);
+        const uint32_t az = a - smem_u32(cur) + smem_u32(fz);
+        const uint32_t in_mask = opaque(interior), ok_mask = opaque(valid);
+        const uint32_t y_mask = opaque(ylo), z_mask = opaque(zlo);
+        // The neighbours' planes of substep k - 1 (the next plane at slot
+        // b + 2, the previous at b), and this block's slot of parity q.
+        const float* const dn =
+            opaque(xch + (k & 1) * parity + b * stride + tid);
+        const float* const up = dn + 2 * stride;
+        float* const pub = xch + q * parity + (b + 1) * stride + tid;
+        // The faces of cell i from the p of substep k - 1 (without
+        // kRegFaces, vy and vz read and stored in shared memory).
+        auto faces = [&](int i) {
+            const uint32_t o = 4u * kClusterThreads * i;
+            const int og = kClusterThreads * i;
+            const int r = i % R;
+            const float pc = pr[i];
+            const float pdn = kExchange ? ldcg(dn + og) : lds(a + o);
+            const float pup = kExchange ? ldcg(up + og) : lds(a + o);
+            if (has_prev) vx0[i] = face(vx0[i], pc, pdn, k1);
+            if (has_next) vx1[i] = face(vx1[i], pup, pc, k1);
+            const float oy = kRegFaces ? vy0[r] : lds(ay + o);
+            const float oz = kRegFaces ? vz0[r] : lds(az + o);
+            const float ny = y_mask >> i & 1u
+                                 ? face(oy, pc, lds(a_mn + o), k1) : oy;
+            const float nz = z_mask >> i & 1u
+                                 ? face(oz, pc, lds(a + o - 4), k1) : oz;
+            if (kRegFaces) {
+                vy0[r] = ny;
+                vz0[r] = nz;
+                vy1[r] = face(vy1[r], lds(a_n + o), pc, k1);
+                vz1[r] = face(vz1[r], lds(a + o + 4), pc, k1);
+            } else {
+                const bool ok = ok_mask >> i & 1u;
+                sts_if(ok, ay + o, ny);
+                sts_if(ok, az + o, nz);
+            }
+        };
+        // p of cell i from its faces, stored here and in the exchange.
+        auto pressure = [&](int i) {
+            const uint32_t o = 4u * kClusterThreads * i;
+            const int og = kClusterThreads * i;
+            const int r = i % R;
+            const float pc = pr[i];
+            const float ly = kRegFaces ? vy0[r] : lds(ay + o);
+            const float lz = kRegFaces ? vz0[r] : lds(az + o);
+            const float uy = kRegFaces ? vy1[r] : lds(ay + o + 4 * n);
+            const float uz = kRegFaces ? vz1[r] : lds(az + o + 4);
+            const float d = __fadd_rn(
+                __fadd_rn(__fsub_rn(vx1[i], vx0[i]), __fsub_rn(uy, ly)),
+                __fsub_rn(uz, lz));
+            const float vi = __fsub_rn(pc, __fmul_rn(k2, d));
+            const float vb = __fmul_rn(pc, absorb);
+            float v = in_mask >> i & 1u ? vi : vb;
+            if (i == inj) {
+                sts(pre_a, v);
+                v = __fadd_rn(v, src[k / 3 + 1]);
+            }
+            pr[i] = v;
+            const bool ok = ok_mask >> i & 1u;
+            sts_if(ok, w0 + o, v);
+            if (kExchange && send) stcg_if(ok, pub + og, v);
+        };
+        if (kRegFaces) {
+#pragma unroll
+            for (int i = 0; i < CPT; ++i) {
+                if (runs<CPT>(i, iters)) {
+                    faces(i);
+                    pressure(i);
+                }
+            }
+            FDTD_MARK(2);
+        } else {
+#pragma unroll
+            for (int i = 0; i < CPT; ++i) {
+                if (runs<CPT>(i, iters)) faces(i);
+            }
+            FDTD_MARK(2);
+            __syncthreads();  // p read, the plane's new vy and vz stored
+#pragma unroll
+            for (int i = 0; i < CPT; ++i) {
+                if (runs<CPT>(i, iters)) pressure(i);
+            }
+            FDTD_MARK(6);
+        }
+        __syncthreads();  // the plane stored, here and in the exchange
+        if (send) {
+            if (tid == 0) flag_release(own_flag, k + 1);
+            if (kWait && tid == 0 && has_prev) {
+                flag_wait(own_flag - kFlagStride, k + 1);
+            }
+            if (kWait && tid == 32 && has_next) {
+                flag_wait(own_flag + kFlagStride, k + 1);
+            }
+            __syncthreads();
+        }
+        FDTD_MARK(3);
+    }
+    const float* fin = (substeps & 1) ? buf1 : buf0;
+    plane_receivers(g, rcv, order, b, g.s - 1, fin, src_pre, out);
+    FDTD_MARK(4);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+        const int l = i * kClusterThreads + tid;
+        if (l < nn) {
+            const int c = base + l, y = l / n, r = i % R;
+            p_out[c] = pr[i];
+            vx_out[c] = vx0[i];
+            vy_out[c + b * n] = kRegFaces ? vy0[r] : fy[l];
+            vz_out[c + b * n + y] = kRegFaces ? vz0[r] : fz[l];
+        }
+    }
+    FDTD_MARK(7);
+}
+
 // The build a range of at most `cap` cells takes: its iterations of 1,024
 // cells, rounded up to odd.
 int cells_per_thread(long long cap) {
@@ -1036,17 +1188,6 @@ cudaError_t cluster_config(const void* kernel, int blocks, long long smem,
     return err;
 }
 
-// Blocks of 512 threads of a cooperative launch of `kernel` that fit on
-// the current device at once, capped at what `work` items need; 0 with
-// *err set when the device cannot launch them cooperatively.
-template <typename K>
-int grid_blocks(K kernel, long long work, cudaError_t* err) {
-    const long long fit = coresident_blocks((const void*)kernel, kThreads, 0,
-                                            err);
-    const long long need = (work + kThreads - 1) / kThreads;
-    return static_cast<int>(need < fit ? need : fit);
-}
-
 Grid make_grid(int n, int s, int src_cell, int tracks, int rcv_cell,
                const int* rcv_rows, float k1, float k2, float c6,
                float absorb, float out_scale) {
@@ -1071,60 +1212,113 @@ bool bad_shape(int n, int s, int tracks, int src_cell) {
            src_cell >= n * n * n;
 }
 
-}  // namespace
+using FieldPlanesKernel = void (*)(Grid, RcvPlanes, const int*, const float*,
+                                   const float*, const float*, const float*,
+                                   const float*, float*, float*, float*,
+                                   float*, float*, float*, int*);
 
-extern "C" {
+// The field plane kernel keeps the upper faces' replicas in registers
+// (kRegFaces) up to this many cells a thread, and vy and vz in shared
+// memory above (ops/fdtd3d.py:FIELD_REG_FACES_MAX_CPT).
+constexpr int kRegFacesMaxCpt = 7;
 
-// Cooperative route, field form. p_in (n^3,), vx_in (n+1, n, n), vy_in
-// (n, n+1, n), vz_in (n, n, n+1) read only; pa, pb and each velocity's a, b buffers scratch:
-// after the block the fields are in the a buffers when s is even, the b
-// buffers when odd. out (tracks, s); src_pre (1,) scratch; the receiver
-// of row t is rcv_rows[t], or rcv_cell when rcv_rows is null. Returns the
-// launch's error (0 on success).
-int fdtd_field_launch(const float* src, const float* p_in, const float* vx_in,
-                      const float* vy_in, const float* vz_in, float* pa,
-                      float* pb, float* vxa, float* vxb, float* vya,
-                      float* vyb, float* vza, float* vzb, float* out,
-                      float* src_pre, const int* rcv_rows, int n, int s,
-                      int src_cell, int tracks, int rcv_cell, float k1,
-                      float k2, float absorb, float out_scale, void* stream) {
-    if (bad_shape(n, s, tracks, src_cell)) {
+// The field plane kernel's builds, one for each odd count of cells a
+// thread; null above them.
+FieldPlanesKernel field_planes_kernel(int cpt) {
+#define FDTD_FIELD_BUILD(c) \
+    case c: return fdtd_field_planes_kernel<c, (c <= kRegFacesMaxCpt)>;
+    switch (cpt) {
+        FDTD_FIELD_BUILD(1)
+        FDTD_FIELD_BUILD(3)
+        FDTD_FIELD_BUILD(5)
+        FDTD_FIELD_BUILD(7)
+        FDTD_FIELD_BUILD(9)
+        FDTD_FIELD_BUILD(11)
+        FDTD_FIELD_BUILD(13)
+        FDTD_FIELD_BUILD(15)
+        FDTD_FIELD_BUILD(17)
+        default: return nullptr;
+    }
+#undef FDTD_FIELD_BUILD
+}
+
+// Dynamic shared memory a block of a field plane build takes for an n^3
+// grid (ops/fdtd3d.py:planes_smem_bytes): 8 floats, then two p buffers
+// where the build keeps the faces in registers, else one p buffer, vy
+// and vz.
+long long field_planes_smem(int n, bool reg_faces) {
+    return 4 * (8LL + (reg_faces ? 2 : 3) * plane_slots(n));
+}
+
+// The rows of out each block writes: from rcv_starts (n + 1 ints, host
+// memory, from 0 to `tracks` in order) for per-track receivers; for the
+// broadcast receiver (rcv_starts null), every row to its cell's plane.
+bool receiver_planes(int n, int tracks, int rcv_cell, const int* rcv_starts,
+                     RcvPlanes* r) {
+    if (n > kMaxPlanes) return false;
+    *r = RcvPlanes{};
+    if (rcv_starts == nullptr) {
+        if (rcv_cell < 0 || rcv_cell >= n * n * n) return false;
+        for (int b = 0; b <= n; ++b) {
+            r->start[b] = b <= rcv_cell / (n * n) ? 0 : tracks;
+        }
+        return true;
+    }
+    if (rcv_starts[0] != 0 || rcv_starts[n] != tracks) return false;
+    for (int b = 0; b <= n; ++b) {
+        if (b > 0 && rcv_starts[b] < rcv_starts[b - 1]) return false;
+        r->start[b] = rcv_starts[b];
+    }
+    return true;
+}
+
+// One cooperative launch of a field plane build (`kernel`, `smem` bytes a
+// block) on the schedule's planes; the arguments as
+// fdtd_field_planes_launch's. Refuses (cudaErrorInvalidValue) ranges that
+// are not the planes or rows that do not cover out, and
+// (cudaErrorCooperativeLaunchTooLarge) a grid the card cannot hold at
+// once, before launching anything.
+int field_planes_launch(FieldPlanesKernel kernel, long long smem,
+                        const float* src, const float* p_in,
+                        const float* vx_in, const float* vy_in,
+                        const float* vz_in, float* p_out, float* vx_out,
+                        float* vy_out, float* vz_out, float* out, float* xch,
+                        int* flags, const int* rcv_rows, const int* order,
+                        const int* rcv_starts, int n, int s, int src_cell,
+                        int tracks, int rcv_cell, float k1, float k2,
+                        float absorb, float out_scale, const int* starts,
+                        int blocks, cudaStream_t stream) {
+    RcvPlanes rcv;
+    const bool per_track = rcv_rows != nullptr;
+    if (bad_shape(n, s, tracks, src_cell) ||
+        !plane_ranges(n, starts, blocks) || kernel == nullptr ||
+        per_track != (order != nullptr) ||
+        per_track != (rcv_starts != nullptr) ||
+        !receiver_planes(n, tracks, rcv_cell, rcv_starts, &rcv)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err;
-    const int blocks = grid_blocks(fdtd_field_kernel, 1LL * (n + 1) * n * n,
-                                   &err);
-    if (blocks == 0) return static_cast<int>(err);
+    const int fit =
+        coresident_blocks((const void*)kernel, kClusterThreads, smem, &err);
+    if (fit == 0) return static_cast<int>(err);
+    if (fit < blocks) {
+        return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    }
     Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, rcv_rows, k1, k2,
                        0.f, absorb, out_scale);
-    void* args[] = {&g, &src, &p_in, &vx_in, &vy_in, &vz_in, &pa, &pb, &vxa,
-                    &vxb, &vya, &vyb, &vza, &vzb, &out, &src_pre};
-    err = cudaLaunchCooperativeKernel(
-        (const void*)fdtd_field_kernel, dim3(blocks),
-        dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+    void* args[] = {&g,     &rcv,   &order,  &src,    &p_in,   &vx_in,
+                    &vy_in, &vz_in, &p_out,  &vx_out, &vy_out, &vz_out,
+                    &out,   &xch,   &flags};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                      dim3(kClusterThreads), args,
+                                      static_cast<size_t>(smem), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 
-// The blocks the field kernel's cooperative launch takes for an n^3 grid
-// (0 when the device cannot launch it cooperatively): the grid whose
-// barrier fdtd_sync_probe_launch measures.
-int fdtd_field_blocks(int n) {
-    cudaError_t err;
-    return grid_blocks(fdtd_field_kernel, 1LL * (n + 1) * n * n, &err);
-}
+}  // namespace
 
-// `syncs` grid-wide barriers alone, in one cooperative launch of `blocks`
-// blocks of the kernels' size. Returns the launch's error (0 on success).
-int fdtd_sync_probe_launch(int syncs, int blocks, void* stream) {
-    if (syncs < 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    void* args[] = {&syncs};
-    const cudaError_t err = cudaLaunchCooperativeKernel(
-        (const void*)fdtd_sync_probe_kernel, dim3(blocks), dim3(kThreads),
-        args, 0, static_cast<cudaStream_t>(stream));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
-}
+extern "C" {
 
 // Plane route, divergence form: one cooperative launch of `blocks` = n
 // blocks, block b owning plane b ([starts[b], starts[b + 1]) = [b n^2,
@@ -1167,6 +1361,63 @@ int fdtd_div_planes_launch(const float* src, const float* p_in,
                                       static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Plane route, field form: one cooperative launch of `blocks` = n blocks,
+// block b owning plane b (starts as fdtd_div_planes_launch's). src (s,),
+// p_in (n^3,), vx_in (n+1, n, n), vy_in (n, n+1, n), vz_in (n, n, n+1)
+// read only; p_out, vx_out, vy_out, vz_out receive the fields; out
+// (tracks, s); xch (2 (n + 2) plane_stride(n) floats) and flags (n
+// kFlagStride ints) scratch, neither read before the kernel writes it.
+// Per-track receivers: rcv_rows (tracks,) flat cells and order (tracks,)
+// the rows by plane, both device memory, and rcv_starts (n + 1 ints, host
+// memory): block b writes rows order[j], j in [rcv_starts[b],
+// rcv_starts[b + 1]), each of whose cells lies in plane b
+// (ops/fdtd3d.py:receiver_csr). All three null: every row reads
+// rcv_cell. Returns the launch's error (0 on success):
+// cudaErrorInvalidValue when the ranges are not the planes, the rows do
+// not cover out or no build takes n^2 cells a block,
+// cudaErrorCooperativeLaunchTooLarge when the card cannot hold the blocks
+// at once.
+int fdtd_field_planes_launch(const float* src, const float* p_in,
+                             const float* vx_in, const float* vy_in,
+                             const float* vz_in, float* p_out, float* vx_out,
+                             float* vy_out, float* vz_out, float* out,
+                             float* xch, int* flags, const int* rcv_rows,
+                             const int* order, const int* rcv_starts, int n,
+                             int s, int src_cell, int tracks, int rcv_cell,
+                             float k1, float k2, float absorb,
+                             float out_scale, const int* starts, int blocks,
+                             void* stream) {
+    if (n < 3 || n > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+    const int cpt = cells_per_thread(1LL * n * n);
+    return field_planes_launch(
+        field_planes_kernel(cpt), field_planes_smem(n, cpt <= kRegFacesMaxCpt),
+        src, p_in, vx_in, vy_in, vz_in, p_out, vx_out, vy_out, vz_out, out,
+        xch, flags, rcv_rows, order, rcv_starts, n, s, src_cell, tracks,
+        rcv_cell, k1, k2, absorb, out_scale, starts, blocks,
+        static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory a block of the field plane kernel takes for an
+// n^3 grid, or -1 when no build takes n^2 cells a block.
+long long fdtd_field_planes_smem(int n) {
+    if (n < 3 || n > kMaxPlanes) return -1;
+    const int cpt = cells_per_thread(1LL * n * n);
+    if (field_planes_kernel(cpt) == nullptr) return -1;
+    return field_planes_smem(n, cpt <= kRegFacesMaxCpt);
+}
+
+// Blocks of the field plane kernel for an n^3 grid that the card holds at
+// once (the launch needs n); the negated CUDA error when the query fails.
+int fdtd_field_planes_capacity(int n) {
+    const long long smem = fdtd_field_planes_smem(n);
+    if (smem < 0) return -static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err;
+    const int fit = coresident_blocks(
+        (const void*)field_planes_kernel(cells_per_thread(1LL * n * n)),
+        kClusterThreads, smem, &err);
+    return fit > 0 ? fit : -static_cast<int>(err);
 }
 
 // The dynamic shared memory a block of the plane kernel takes for an n^3

@@ -29,17 +29,19 @@ sample n, and out[t, n] = p[rcv(t)] * 0.1 after its last substep.
 A wrapper runs the twin only because its tensors lie on the CPU. On a
 CUDA tensor it launches a kernel or raises; it never falls back. The
 input fields are never written. Which kernel runs is decided before the
-launch by ``fdtd_schedule(n, form)``, pure host code: in the divergence
-form a room whose (p, div) fits in one thread-block cluster's shared
-memory (rooms up to 65; room 50 on 16 blocks) takes the cluster kernel
-(``fdtd3d_div`` in ``KERNEL_LAUNCHES``), a larger one (rooms 66-128) the
-plane kernel, one cooperative launch of a block a plane that hands the
-planes on through L2 (``plane_schedule``; ``fdtd3d_div_coop``). The field
-form has one kernel, a cooperative one, at every room (``fdtd3d_field``).
-The route-specific launchers ``fdtd3d_block_div_{cluster,coop}`` take
-CUDA tensors only; they let the tests and ``chip_smoke.py`` hold one
-route against the other at a room both can serve (the plane kernel
-serves every room from n = 3).
+launch by ``fdtd_schedule(n, form)``, pure host code, as a route,
+"cluster" or "planes". In the divergence form a room whose (p,
+div) fits in one thread-block cluster's shared memory (rooms up to 65;
+room 50 on 16 blocks) takes the cluster kernel (``fdtd3d_div`` in
+``KERNEL_LAUNCHES``), a larger one (rooms 66-128) the plane kernel, one
+cooperative launch of a block a plane that hands the planes on through
+L2 (``plane_schedule``; ``fdtd3d_div_coop``). The field form takes its
+plane kernel at every room (``plane_schedule(n, "field")``;
+``fdtd3d_field``), with the per-track receivers bucketed by plane on the
+host (``receiver_csr``). The route-specific launchers
+``fdtd3d_block_div_{cluster,coop}`` take CUDA tensors only; they let the
+tests and ``chip_smoke.py`` hold one route against the other at a room
+both can serve (the plane kernels serve every room from n = 3).
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ F_OUTPUT_SCALE = float(np.float32(OUTPUT_SCALE))
 # Launches of each CUDA kernel, counted by its wrapper where it launches
 # it (chip_smoke.py reads them to prove the main path used the kernels):
 # the divergence form's cluster kernel under the form's name, its plane
-# kernel (a cooperative launch) with "_coop"; the field form's one kernel.
+# kernel with "_coop"; the field form's one kernel.
 KERNEL_LAUNCHES: Dict[str, int] = {"fdtd3d_div": 0, "fdtd3d_div_coop": 0,
                                    "fdtd3d_field": 0}
 
@@ -94,27 +96,27 @@ MAX_CLUSTER_BLOCKS = 16
 SMEM_PER_BLOCK = 232_448
 MAX_CELLS_PER_THREAD = 19
 # The plane route: one block of 1,024 threads a plane, each block's flag
-# 32 ints (a 128-byte line) from the next.
+# 32 ints (a 128-byte line) from the next. The field form's plane kernel
+# keeps the upper faces' replicas in registers up to this many cells a
+# thread, vy and vz in shared memory above (csrc/fdtd3d.cu:
+# kRegFacesMaxCpt); its builds go up to 17 cells a thread.
 PLANE_FLAG_STRIDE = 32
+FIELD_REG_FACES_MAX_CPT = 7
+FIELD_MAX_CELLS_PER_THREAD = 17
 FORMS = ("div", "field")
 
 
 @dataclass(frozen=True)
 class FdtdPlan:
     """How one block of an n^3 grid runs: ``route`` "cluster" (one
-    cluster of ``blocks`` blocks) or "cooperative" (one cooperative
-    launch). Block b owns the flat cells ``ranges[b]``, which the kernel
-    is given, and takes ``smem_bytes`` of dynamic shared memory; the field
-    form's grid-stride kernel has blocks 0 and no ranges (it sizes its own
-    launch)."""
+    cluster of ``blocks`` blocks) or "planes" (one cooperative launch of a
+    block a plane). Block b owns the flat cells ``ranges[b]``, which the
+    kernel is given, and takes ``smem_bytes`` of dynamic shared memory."""
 
     route: str
     blocks: int
     ranges: Tuple[Tuple[int, int], ...]
     smem_bytes: int
-
-
-COOPERATIVE = FdtdPlan("cooperative", 0, (), 0)
 
 
 def cluster_smem_bytes(n: int, cap: int) -> int:
@@ -136,28 +138,44 @@ def plane_stride(n: int) -> int:
     return (n * n + 12 + CLUSTER_THREADS + 3) // 4 * 4
 
 
-def planes_smem_bytes(n: int) -> int:
-    """Dynamic shared memory a block of the plane kernel takes
-    (csrc/fdtd3d.cu:div_planes_smem): 8 floats, then two buffers of the
-    block's plane, each with a lead of (n + 4) rounded down to 4 floats
-    ahead and behind (the rows above and below load in bounds) and one
-    iteration of 1,024 cells, rounded up to 4."""
+def cells_per_thread(cells: int) -> int:
+    """The build a block of ``cells`` cells takes: its iterations of
+    1,024 cells, rounded up to odd (csrc/fdtd3d.cu:cells_per_thread)."""
+    return -(-cells // CLUSTER_THREADS) | 1
+
+
+def planes_smem_bytes(n: int, form: str = "div") -> int:
+    """Dynamic shared memory a block of a plane kernel takes
+    (csrc/fdtd3d.cu:div_planes_smem, field_planes_smem): 8 floats, then
+    buffers of the block's plane, each with a lead of (n + 4) rounded down
+    to 4 floats ahead and behind (the rows above and below load in bounds)
+    and one iteration of 1,024 cells, rounded up to 4: two (p) in the
+    divergence form and in the field form's builds that keep the faces in
+    registers, three (one of p, vy, vz) in its others."""
     lead = (n + 4) // 4 * 4
-    return 4 * (8 + 2 * ((2 * lead + n * n + CLUSTER_THREADS + 3) // 4 * 4))
+    bufs = 2
+    if form == "field" and cells_per_thread(n * n) > FIELD_REG_FACES_MAX_CPT:
+        bufs = 3
+    return 4 * (8 + bufs * ((2 * lead + n * n + CLUSTER_THREADS + 3)
+                            // 4 * 4))
 
 
-def plane_schedule(n: int) -> FdtdPlan:
-    """The plane route of an n^3 grid: n blocks of 1,024 threads, block b
-    owning x-plane b, so an interior cell's +-1 and +-n neighbours lie in
-    its own plane and its +-n^2 ones in the adjacent ranges. Raises when
-    no build of the kernel takes n^2 cells a block; whether the card holds
-    n blocks at once is the launch's check."""
+def plane_schedule(n: int, form: str = "div") -> FdtdPlan:
+    """The plane route of an n^3 grid in ``form``: n blocks of 1,024
+    threads, block b owning x-plane b, so an interior cell's +-1 and +-n
+    neighbours lie in its own plane and its +-n^2 ones in the adjacent
+    ranges. Raises when no build of the form's kernel takes n^2 cells a
+    block, or its layout does not fit a block's shared memory; whether
+    the card holds n blocks at once is the launch's check."""
     nn = n * n
-    if n < 3 or nn > MAX_CELLS_PER_THREAD * CLUSTER_THREADS:
-        raise ValueError(f"plane_schedule: no plane kernel for an {n}^3 grid")
-    return FdtdPlan("cooperative", n,
-                    tuple((b * nn, (b + 1) * nn) for b in range(n)),
-                    planes_smem_bytes(n))
+    cap = (FIELD_MAX_CELLS_PER_THREAD if form == "field"
+           else MAX_CELLS_PER_THREAD)
+    smem = planes_smem_bytes(n, form)
+    if n < 3 or nn > cap * CLUSTER_THREADS or smem > SMEM_PER_BLOCK:
+        raise ValueError(f"plane_schedule: no plane kernel for an {n}^3 "
+                         f"grid in the {form} form")
+    return FdtdPlan("planes", n,
+                    tuple((b * nn, (b + 1) * nn) for b in range(n)), smem)
 
 
 def fdtd_schedule(n: int, form: str) -> FdtdPlan:
@@ -167,14 +185,13 @@ def fdtd_schedule(n: int, form: str) -> FdtdPlan:
     +-n^2 neighbour lies in the block's own range or an adjacent one), on
     balanced ranges, takes the grid when every block's layout fits its
     shared memory and the largest build's cells a thread; otherwise the
-    plane route (``plane_schedule``) does. The field form always takes its
-    cooperative grid-stride kernel: its cluster design ran no faster
-    (PERF.md)."""
+    plane route (``plane_schedule``) does. The field form takes its plane
+    route at every room (rooms up to 129 have a build)."""
     if form not in FORMS:
         raise ValueError(f"fdtd_schedule: form must be one of {FORMS}, "
                          f"got {form!r}")
     if form == "field":
-        return COOPERATIVE
+        return plane_schedule(n, "field")
     blocks = MAX_CLUSTER_BLOCKS
     while blocks > n:
         blocks //= 2
@@ -194,6 +211,22 @@ def range_starts(plan: FdtdPlan):
     block b owning [starts[b], starts[b + 1])."""
     starts = [lo for lo, _ in plan.ranges] + [plan.ranges[-1][1]]
     return (ctypes.c_int * len(starts))(*starts)
+
+
+def receiver_csr(cells, n: int):
+    """The per-track receivers bucketed by plane, as the field plane
+    kernel takes them: (order, starts), order the rows (int32) sorted by
+    their cell's x-plane (stably), starts (n + 1 ints) such that plane b's
+    block writes rows order[starts[b]:starts[b + 1]]. Raises on a cell
+    outside the n^3 grid."""
+    cells = np.asarray(cells, np.int64)
+    if cells.size and (cells.min() < 0 or cells.max() >= n ** 3):
+        raise ValueError(f"receiver_csr: a receiver cell lies outside the "
+                         f"{n}^3 grid")
+    plane = cells // (n * n)
+    order = np.argsort(plane, kind="stable").astype(np.int32)
+    starts = np.searchsorted(plane[order], np.arange(n + 1))
+    return order, [int(v) for v in starts]
 
 Cell = Tuple[int, int, int]
 
@@ -367,11 +400,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ip = ctypes.POINTER(ctypes.c_int)
         sig = {
             "fdtd_div_planes_launch": [p] * 8 + [i] * 5 + [f] * 5 + [ip, i, p],
-            "fdtd_field_launch": [p] * 16 + [i] * 5 + [f] * 4 + [p],
+            "fdtd_field_planes_launch": ([p] * 14 + [ip] + [i] * 5 + [f] * 4
+                                         + [ip, i, p]),
+            "fdtd_field_planes_capacity": [i],
             "fdtd_div_cluster_launch": [p] * 6 + [i] * 5 + [f] * 5 + [ip, i, p],
-            "fdtd_field_blocks": [i],
             "fdtd_planes_capacity": [i],
-            "fdtd_sync_probe_launch": [i, i, p],
             "fdtd_cluster_occupancy": [i, ip, i],
             "fdtd_cluster_probe_launch": [i, i, i, p],
             "fdtd_cluster_probe_occupancy": [i, i],
@@ -381,8 +414,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             getattr(lib, name).restype = i
         lib.fdtd_cluster_smem.argtypes = [i, ip, i]
         lib.fdtd_cluster_smem.restype = ctypes.c_longlong
-        lib.fdtd_planes_smem.argtypes = [i]
-        lib.fdtd_planes_smem.restype = ctypes.c_longlong
+        for name in ("fdtd_planes_smem", "fdtd_field_planes_smem"):
+            getattr(lib, name).argtypes = [i]
+            getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
 
@@ -420,15 +454,20 @@ def _div_cluster(x, p, div, n, source, receiver, plan: FdtdPlan):
     return out, p_out, div_out
 
 
+def _plane_scratch(n, x):
+    """Scratch of a plane kernel, written before it is read: two parities
+    of n + 2 plane slots, and a flag a block."""
+    xch = _empty((2 * (n + 2) * plane_stride(n),), x)
+    flags = torch.empty((n * PLANE_FLAG_STRIDE,), dtype=torch.int32,
+                        device=x.device)
+    return xch, flags
+
+
 def _div_coop(x, p, div, n, source, receiver, plan: FdtdPlan):
     tracks, s = x.shape
     p_out, div_out = _empty((n, n, n), x), _empty((n, n, n), x)
     out = _empty((tracks, s), x)
-    # Scratch the kernel writes before it reads: two parities of n + 2
-    # plane slots, and a flag a block.
-    xch = _empty((2 * (n + 2) * plane_stride(n),), x)
-    flags = torch.empty((n * PLANE_FLAG_STRIDE,), dtype=torch.int32,
-                        device=x.device)
+    xch, flags = _plane_scratch(n, x)
     _launch(x, "fdtd_div_planes_launch", "fdtd3d_div_coop",
             source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
             p_out.data_ptr(), div_out.data_ptr(), out.data_ptr(),
@@ -438,22 +477,52 @@ def _div_coop(x, p, div, n, source, receiver, plan: FdtdPlan):
     return out, p_out, div_out
 
 
-def _field(x, p, vx, vy, vz, n, source, receiver, receivers):
+# The receivers' buckets of the last few receivers tensors, by id: (the
+# tensor, held so that its id is not reused, its version, n, order on its
+# device, the plane starts as C ints). A block function is called with the
+# same receivers block after block; bucketing them reads them to the host,
+# which waits for the device, so that happens once a tensor, not once a
+# call.
+_RECEIVER_BUCKETS: Dict[int, tuple] = {}
+_RECEIVER_BUCKETS_KEPT = 8
+
+
+def _receiver_buckets(receivers: torch.Tensor, n: int):
+    """(order, starts) of ``receiver_csr`` for a receivers tensor, order
+    on its device and starts as n + 1 C ints."""
+    hit = _RECEIVER_BUCKETS.get(id(receivers))
+    if (hit is not None and hit[0] is receivers
+            and hit[1] == receivers._version and hit[2] == n):
+        return hit[3], hit[4]
+    order, starts = receiver_csr(receivers.cpu().numpy(), n)
+    entry = (receivers, receivers._version, n,
+             torch.from_numpy(order).to(receivers.device),
+             (ctypes.c_int * len(starts))(*starts))
+    _RECEIVER_BUCKETS.pop(id(receivers), None)
+    if len(_RECEIVER_BUCKETS) >= _RECEIVER_BUCKETS_KEPT:
+        _RECEIVER_BUCKETS.pop(next(iter(_RECEIVER_BUCKETS)))
+    _RECEIVER_BUCKETS[id(receivers)] = entry
+    return entry[3], entry[4]
+
+
+def _field_planes(x, p, vx, vy, vz, n, source, receiver, receivers,
+                  plan: FdtdPlan):
     tracks, s = x.shape
-    pa, pb = _empty((n, n, n), x), _empty((n, n, n), x)
-    vs = [(_empty(t.shape, x), _empty(t.shape, x)) for t in (vx, vy, vz)]
+    outs = [_empty(t.shape, x) for t in (p, vx, vy, vz)]
     out = _empty((tracks, s), x)
-    src_pre = _empty((1,), x)
-    _launch(x, "fdtd_field_launch", "fdtd3d_field",
+    xch, flags = _plane_scratch(n, x)
+    rows = order = starts = None
+    if receivers is not None:
+        order, starts = _receiver_buckets(receivers, n)
+        rows, order = receivers.data_ptr(), order.data_ptr()
+    _launch(x, "fdtd_field_planes_launch", "fdtd3d_field",
             source_row(x).data_ptr(), p.data_ptr(), vx.data_ptr(),
-            vy.data_ptr(), vz.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            *(b.data_ptr() for pair in vs for b in pair), out.data_ptr(),
-            src_pre.data_ptr(),
-            None if receivers is None else receivers.data_ptr(), n, s,
-            flat_cell(source, n), tracks, flat_cell(receiver, n), K1, K2,
-            ABSORB, F_OUTPUT_SCALE)
-    last = 0 if s % 2 == 0 else 1
-    return (out, (pa, pb)[last], vs[0][last], vs[1][last], vs[2][last])
+            vy.data_ptr(), vz.data_ptr(), *(t.data_ptr() for t in outs),
+            out.data_ptr(), xch.data_ptr(), flags.data_ptr(), rows, order,
+            starts, n, s, flat_cell(source, n), tracks,
+            flat_cell(receiver, n), K1, K2, ABSORB, F_OUTPUT_SCALE,
+            range_starts(plan), plan.blocks)
+    return (out, *outs)
 
 
 def _check_div(x, p, div, source, receiver, fn):
@@ -484,14 +553,15 @@ def fdtd3d_block_field(x, p, vx, vy, vz, source: Cell = SOURCE,
                        receiver: Cell = RECEIVER,
                        receivers: Optional[torch.Tensor] = None):
     """Field-form block: (out (T, S), p', vx', vy', vz'); ``receivers``
-    (int32 (T,) flat cells) gives each track its own receiver. Every room
-    takes the cooperative kernel (``fdtd_schedule``)."""
+    (int32 (T,) flat cells) gives each track its own receiver; a receiver
+    cell outside the grid raises."""
     n = _check_field(x, p, vx, vy, vz, source, receiver, receivers,
                      "fdtd3d_block_field")
     if x.device.type == "cpu":
         return fdtd3d_block_field_plain(x, p, vx, vy, vz, source, receiver,
                                         receivers)
-    return _field(x, p, vx, vy, vz, n, source, receiver, receivers)
+    return _field_planes(x, p, vx, vy, vz, n, source, receiver, receivers,
+                         fdtd_schedule(n, "field"))
 
 
 def fdtd3d_block_div_cluster(x, p, div, source: Cell = SOURCE,
@@ -515,25 +585,6 @@ def fdtd3d_block_div_coop(x, p, div, source: Cell = SOURCE,
     n = _check_div(x, p, div, source, receiver, fn)
     _on_cuda(x, fn)
     return _div_coop(x, p, div, n, source, receiver, plane_schedule(n))
-
-
-def sync_probe(n: int, syncs: int, device) -> None:
-    """Launch ``syncs`` grid-wide barriers alone, on as many blocks as the
-    field kernel's cooperative launch takes for an n^3 grid (the one
-    kernel that still ends each substep in a grid barrier): a measurement
-    of the barrier (not a kernel of any benchmark; not counted in
-    KERNEL_LAUNCHES)."""
-    lib = _lib()
-    device = torch.device(device)
-    with torch.cuda.device(device):
-        blocks = lib.fdtd_field_blocks(n)
-        if blocks <= 0:
-            raise RuntimeError("fdtd_field_blocks: no cooperative launch on "
-                               f"{device}")
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fdtd_sync_probe_launch(syncs, blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"fdtd_sync_probe_launch failed: CUDA error {err}")
 
 
 def cluster_probe(blocks: int, smem_bytes: int, syncs: int, device) -> None:

@@ -766,14 +766,9 @@ def test_fdtd_kernels_are_deterministic(cuda):
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
-def test_fdtd_sync_probe_runs(cuda):
-    fops.sync_probe(52, 64, cuda)
-    torch.cuda.synchronize()
-
-
 # -- the divergence form's two routes (ops.fdtd3d.fdtd_schedule) -------
 #
-# The cluster kernel against the twin and against the cooperative kernel
+# The cluster kernel against the twin and against the plane kernel
 # at the same room, bit for bit (every product, sum and difference is
 # rounded on its own, in the twin's order), fields chained over 2 blocks.
 
@@ -841,8 +836,8 @@ def test_fdtd_cluster_route_matches_twin_and_coop_bit_for_bit(
 
 def test_fdtd_routes_at_the_schedule_edge(cuda):
     """The largest room on the cluster route takes it, bit for bit the
-    twin's and the cooperative kernel's; the next room takes the
-    cooperative route, and the cluster launcher refuses it."""
+    twin's and the plane kernel's; the next room takes the plane route,
+    and the cluster launcher refuses it."""
     room = _last_cluster_room()
     for r, key in ((room, "fdtd3d_div"), (room + 1, "fdtd3d_div_coop")):
         x, n, src, rcv = _div_case(r, 3, 2, "default", cuda)
@@ -919,7 +914,7 @@ FDTD_PLANE_CASES = [(66, 20), (82, 25), (128, 32)]
 def test_fdtd_plane_kernel_matches_twin_bit_for_bit(cuda, room, s):
     x, n, src, rcv = _div_case(room, s, 4, "default", cuda)
     plan = fops.fdtd_schedule(n, "div")
-    assert plan.route == "cooperative" and plan.blocks == n
+    assert plan.route == "planes" and plan.blocks == n
     before = dict(fops.KERNEL_LAUNCHES)
     got = _div_chain(fops.fdtd3d_block_div, x, n, src, rcv, cuda)
     twin = _div_chain(fops.fdtd3d_block_div_plain, x, n, src, rcv, cuda)
@@ -979,19 +974,132 @@ def test_fdtd_plane_launch_refuses_what_it_cannot_carry(cuda):
     assert fops.KERNEL_LAUNCHES == before
 
 
-def test_fdtd_field_form_takes_its_one_kernel(cuda):
-    """The field form runs its cooperative kernel at every room, room 50
-    included, counted as fdtd3d_field."""
-    for room in (8, 50, 82):
+# -- the field form's plane kernel (ops.fdtd3d.plane_schedule) ----------
+#
+# Bit for bit the twin, outputs and the four fields, chained over 2
+# blocks, with 128 per-track receivers along the line (track 0 on the
+# source cell) and with the broadcast receiver, at the rooms chip_smoke.py
+# holds: 8 and 50 (the faces in registers, 1 and 3 cells a thread), 82
+# (the last room so, 7) and 128 (the largest, 17 cells a thread, vy and
+# vz in shared memory); S long enough for the receivers to hear the
+# source.
+FDTD_FIELD_CASES = [(8, 24), (50, 20), (82, 25), (128, 32)]
+
+
+def _field_receivers(n, src, tracks, device):
+    xs, ys, zs = fops.receiver_line(tracks, n)
+    cells = ((xs.astype(np.int64) * n + ys) * n + zs).astype(np.int32)
+    cells[0] = fops.flat_cell(src, n)
+    return torch.from_numpy(cells).to(device)
+
+
+def _field_chain(fn, x, n, src, rcv, device, receivers, blocks=2):
+    fields = fops.zero_fields(n, device)
+    outs = []
+    for _ in range(blocks):
+        got = fn(x, *fields, src, rcv, receivers=receivers)
+        outs.append(got)
+        fields = got[1:]
+    return outs
+
+
+@pytest.mark.parametrize("room,s", FDTD_FIELD_CASES)
+@pytest.mark.parametrize("per_track", [True, False])
+def test_fdtd_field_plane_kernel_matches_twin_bit_for_bit(cuda, room, s,
+                                                          per_track):
+    n, src, rcv = (fops.grid_n(room), fops.source_pos(room),
+                   fops.receiver_pos(room))
+    plan = fops.fdtd_schedule(n, "field")
+    assert plan == fops.plane_schedule(n, "field") and plan.blocks == n
+    tracks = 128 if per_track else 4
+    x = _fdtd_x(tracks, s, cuda)
+    cells = _field_receivers(n, src, tracks, cuda) if per_track else None
+    before = dict(fops.KERNEL_LAUNCHES)
+    got = _field_chain(fops.fdtd3d_block_field, x, n, src, rcv, cuda, cells)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in fops.KERNEL_LAUNCHES.items()} \
+        == {"fdtd3d_div": 0, "fdtd3d_div_coop": 0, "fdtd3d_field": 2}
+    twin = _field_chain(fops.fdtd3d_block_field_plain, x, n, src, rcv, cuda,
+                        cells)
+    torch.cuda.synchronize()
+    assert _same(got, twin)
+    assert got[1][0].abs().max().item() > 0
+    if per_track:
+        assert len(set(got[1][0][:, -1].tolist())) > 1
+
+
+def test_fdtd_field_plane_kernel_is_deterministic(cuda):
+    n, src, rcv = fops.grid_n(50), fops.source_pos(50), fops.receiver_pos(50)
+    x = _fdtd_x(128, 16, cuda)
+    cells = _field_receivers(n, src, 128, cuda)
+    a = _field_chain(fops.fdtd3d_block_field, x, n, src, rcv, cuda, cells)
+    b = _field_chain(fops.fdtd3d_block_field, x, n, src, rcv, cuda, cells)
+    assert _same(a, b)
+
+
+def test_fdtd_field_plane_launch_refuses_what_it_cannot_carry(cuda):
+    """The C launcher takes only the schedule's planes, rows of out that
+    cover every track in order, and grids a build takes: it refuses the
+    others before launching anything, and the wrapper then raises and
+    counts no launch. Its shared memory is the schedule's, and the card
+    holds its grid, at rooms on both layouts."""
+    lib = fops._lib()
+    for room in (8, 50, 82, 83, 128):
         n = fops.grid_n(room)
-        assert fops.fdtd_schedule(n, "field").route == "cooperative"
-        x = _fdtd_x(2, 3, cuda)
-        before = dict(fops.KERNEL_LAUNCHES)
-        fops.fdtd3d_block_field(x, *fops.zero_fields(n, cuda),
-                                fops.source_pos(room), fops.receiver_pos(room))
-        torch.cuda.synchronize()
-        assert {k: v - before[k] for k, v in fops.KERNEL_LAUNCHES.items()} \
-            == {"fdtd3d_div": 0, "fdtd3d_div_coop": 0, "fdtd3d_field": 1}
+        plan = fops.plane_schedule(n, "field")
+        assert lib.fdtd_field_planes_smem(n) == plan.smem_bytes
+        assert lib.fdtd_field_planes_capacity(n) >= n
+    n, s, tracks = fops.grid_n(8), 4, 3
+    src, rcv = fops.source_pos(8), fops.receiver_pos(8)
+    x = _fdtd_x(tracks, s, cuda)
+    fields = fops.zero_fields(n, cuda)
+    outs = [torch.empty_like(f) for f in fields]
+    out = torch.empty((tracks, s), device=cuda)
+    xch, flags = fops._plane_scratch(n, x)
+    cells = _field_receivers(n, src, tracks, cuda)
+    order, rstarts = fops._receiver_buckets(cells, n)
+    starts = list(fops.range_starts(fops.plane_schedule(n, "field")))
+    rows = list(rstarts)
+    bad_planes = [starts[:-1] + [starts[-1] - 1], [0, starts[1] + 1]
+                  + starts[2:]]
+    bad_rows = [rows[:-1] + [tracks - 1], [1] + rows[1:],
+                [0, rows[2] + 1, rows[2]] + rows[3:]]
+
+    def launch(st, rs, per_track=True):
+        arr = (ctypes.c_int * len(st))(*st)
+        rarr = (ctypes.c_int * len(rs))(*rs) if per_track else None
+        return lib.fdtd_field_planes_launch(
+            fops.source_row(x).data_ptr(), *(f.data_ptr() for f in fields),
+            *(o.data_ptr() for o in outs), out.data_ptr(), xch.data_ptr(),
+            flags.data_ptr(), cells.data_ptr() if per_track else None,
+            order.data_ptr() if per_track else None, rarr, n, s,
+            fops.flat_cell(src, n), tracks, fops.flat_cell(rcv, n), fops.K1,
+            fops.K2, fops.ABSORB, fops.F_OUTPUT_SCALE, arr, n,
+            torch.cuda.current_stream(cuda).cuda_stream)
+
+    assert launch(starts, rows) == 0
+    assert launch(starts, rows, per_track=False) == 0
+    for st in bad_planes:
+        assert launch(st, rows) != 0, st
+    for rs in bad_rows:
+        assert launch(starts, rs) != 0, rs
+    torch.cuda.synchronize()
+    # 132 planes: no build takes 17,424 cells a block (19 a thread); a
+    # plan that asks for them anyway is refused before the launch
+    n = 132
+    assert lib.fdtd_field_planes_smem(n) == -1
+    big = fops.FdtdPlan("planes", n, tuple((b * n * n, (b + 1) * n * n)
+                                           for b in range(n)), 0)
+    x = _fdtd_x(2, 2, cuda)
+    src, rcv = (65, 65, 13), (104, 40, 65)
+    before = dict(fops.KERNEL_LAUNCHES)
+    with pytest.raises(RuntimeError, match="fdtd_field_planes_launch failed"):
+        fops._field_planes(x, *fops.zero_fields(n, cuda), n, src, rcv, None,
+                           big)
+    with pytest.raises(ValueError, match="no plane kernel"):
+        fops.fdtd3d_block_field(x, *fops.zero_fields(n, cuda), src, rcv)
+    torch.cuda.synchronize()
+    assert fops.KERNEL_LAUNCHES == before
 
 
 # The speed-of-light kernels (rows, width, k): against the twin within

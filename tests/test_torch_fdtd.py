@@ -17,12 +17,14 @@ ringing room. Tolerances, absolute:
 * benchmark outputs, port vs JAX: 1e-5; goldens bit for bit.
 
 The CUDA kernels' route (``fdtd_schedule``, ``plane_schedule``) is
-checked here as host code, and NumPy emulations of the divergence form's
-two layouts match the twin bit for bit: the cluster layout (each block's
-range with its halos, the edge cells handed to the neighbours) and the
-plane layout (a block a plane, the planes handed on through a two-parity
-exchange, the blocks run in a random order that the flags allow); the
-kernels themselves run in ``tests/test_torch_cuda.py``.
+checked here as host code, and NumPy emulations of the kernels' layouts
+match the twins bit for bit: the divergence form's cluster layout (each
+block's range with its halos, the edge cells handed to the neighbours)
+and its plane layout (a block a plane, the planes handed on through a
+two-parity exchange, the blocks run in a random order that the flags
+allow), and the field form's plane layout (the same exchange, each block
+with a replica of the vx faces above its plane, the receivers bucketed by
+plane); the kernels themselves run in ``tests/test_torch_cuda.py``.
 """
 
 import contextlib
@@ -347,8 +349,11 @@ SMEM_PER_BLOCK = 232_448  # the opt-in shared memory of a block on sm_90
 @given(n=st.integers(10, 130), form=st.sampled_from(["div", "field"]))
 def test_schedule_covers_the_grid_and_fits(n, form):
     plan = op.fdtd_schedule(n, form)
-    if form == "field":  # the field form has no cluster kernel
-        assert plan == op.FdtdPlan("cooperative", 0, (), 0)
+    if form == "field":  # the plane route at every room
+        cpt = -(-n * n // 1024) | 1
+        bufs = 2 if cpt <= 7 else 3  # two p; one p, vy and vz
+        assert plan == op.plane_schedule(n, "field")
+        _check_plane_plan(n, plan, bufs)
         return
     blocks = 16 if n >= 16 else 8
     nn, cells = n * n, n ** 3
@@ -385,14 +390,14 @@ def test_schedule_covers_the_grid_and_fits(n, form):
             assert np.abs(owner[nb] - owner[c]).max() <= 1
 
 
-def _check_plane_plan(n, plan):
+def _check_plane_plan(n, plan, bufs=2):
     """The plane route's plan of an n^3 grid: a block of whole planes
     each, in order, covering the grid; every +-1, +-n neighbour of an
     interior cell in its own range and every +-n^2 one in an adjacent
-    range; the layout within a block's shared memory and the blocks
-    within the H100's 132 SMs."""
+    range; the layout (``bufs`` plane buffers) within a block's shared
+    memory and the blocks within the H100's 132 SMs."""
     nn, cells = n * n, n ** 3
-    assert plan.route == "cooperative" and plan.blocks == n <= 132
+    assert plan.route == "planes" and plan.blocks == n <= 132
     assert len(plan.ranges) == plan.blocks
     assert plan.ranges[0][0] == 0 and plan.ranges[-1][1] == cells
     for b, (lo, hi) in enumerate(plan.ranges):
@@ -404,12 +409,12 @@ def _check_plane_plan(n, plan):
     for d, dist in ((1, 0), (n, 0), (nn, 1)):
         for nb in (c + d, c - d):
             assert (np.abs(owner[nb] - owner[c]) == dist).all()
-    # two buffers of [lead | plane | 1,024 | lead], the lead >= n + 1 (the
+    # buffers of [lead | plane | 1,024 | lead], the lead >= n + 1 (the
     # rows above and below load in bounds), 8 floats ahead
     lead = (n + 4) // 4 * 4
     assert lead >= n + 1
-    layout = 4 * (8 + 2 * (2 * lead + nn + 1024))
-    assert layout <= plan.smem_bytes <= layout + 8 * 3
+    layout = 4 * (8 + bufs * (2 * lead + nn + 1024))
+    assert layout <= plan.smem_bytes <= layout + 4 * bufs * 3
     assert plan.smem_bytes <= SMEM_PER_BLOCK
     # an exchange slot holds a plane and the last iteration's loads
     assert nn + 1024 <= op.plane_stride(n) <= nn + 1039
@@ -429,6 +434,11 @@ def test_plane_schedule_refuses_grids_without_a_build():
     for n in (2, 140):
         with pytest.raises(ValueError, match="no plane kernel"):
             op.plane_schedule(n)
+    # the field form's builds go up to 17 cells a thread (17,161 a plane)
+    assert op.plane_schedule(131, "field").blocks == 131
+    for n in (2, 132):
+        with pytest.raises(ValueError, match="no plane kernel"):
+            op.fdtd_schedule(n, "field")
 
 
 @pytest.mark.parametrize("room,smem", [(66, 46_368), (82, 66_080),
@@ -440,7 +450,7 @@ def test_plane_schedule_pins_rooms(room, smem):
     n = op.grid_n(room)
     plan = op.fdtd_schedule(n, "div")
     assert plan == op.plane_schedule(n)
-    assert plan.route == "cooperative" and plan.blocks == n
+    assert plan.route == "planes" and plan.blocks == n
     assert plan.ranges[1] == (n * n, 2 * n * n)
     assert plan.smem_bytes == smem
 
@@ -455,17 +465,28 @@ def test_schedule_pins_the_chip_smoke_rooms(form):
     plan = op.fdtd_schedule(op.grid_n(50), form)
     assert (82, 32) in chip_smoke.FDTD_SHAPES
     assert (128, 32) in chip_smoke.FDTD_SHAPES
-    assert op.fdtd_schedule(op.grid_n(82), form).route == "cooperative"
-    assert op.fdtd_schedule(op.grid_n(128), form).route == "cooperative"
+    assert op.fdtd_schedule(op.grid_n(82), form).route == "planes"
     if form == "div":
         assert plan.route == "cluster" and plan.blocks == 16
         assert plan.ranges[1] == (8788, 17576)  # 52^3 / 16 cells a block
         assert plan.smem_bytes == 121_888
         # rooms up to 65 fit (67^3 / 16 cells a block and two halos)
         assert op.fdtd_schedule(op.grid_n(65), form).route == "cluster"
-        assert op.fdtd_schedule(op.grid_n(66), form).route == "cooperative"
+        assert op.fdtd_schedule(op.grid_n(66), form).route == "planes"
+        assert op.fdtd_schedule(op.grid_n(128), form).route == "planes"
     else:
-        assert plan.route == "cooperative"
+        # room 50: 52 planes of 2,704 cells, 3 a thread, the faces in
+        # registers and two p buffers, as up to 7 a thread (room 82: 84
+        # planes of 7,056); room 83 on: one p buffer, vy and vz in shared
+        # memory; room 128: 130 planes, 17 cells a thread, three buffers
+        # of 18,188 floats
+        assert plan == op.plane_schedule(op.grid_n(50), "field")
+        assert plan.blocks == 52 and plan.ranges[1] == (2704, 5408)
+        assert plan.smem_bytes == 30_752
+        assert op.fdtd_schedule(op.grid_n(82), form).smem_bytes == 66_080
+        assert op.fdtd_schedule(op.grid_n(83), form).smem_bytes == 101_168
+        assert op.fdtd_schedule(op.grid_n(128), form).smem_bytes == 218_288
+        assert op.fdtd_schedule(op.grid_n(128), form).blocks == 130
     with pytest.raises(ValueError, match="form"):
         op.fdtd_schedule(52, "faces")
 
@@ -719,3 +740,207 @@ def test_div_plane_handoff_needs_both_flags(rng):
     good, loose = _emulate_planes(*args), _emulate_planes(*args, lag=1)
     assert np.array_equal(good[1], want[1].numpy())
     assert not np.array_equal(loose[1], want[1].numpy())
+
+
+# -- a NumPy emulation of the field form's plane kernel ------------------
+#
+# Block b holds its plane's p (two buffers), its cells' lower faces vx[b],
+# vy[b, :n] and vz[b, :, :n], and a replica of the faces above its plane,
+# vx[b + 1]; only p crosses blocks, through the same two-parity exchange
+# and flag rule as the divergence form's plane kernel (``lag``), the blocks
+# run in a random or greedy order that the rule allows. The replica is
+# updated from the neighbour's p as the owner updates its face: on every
+# (y, z) while b + 1 <= n - 1 (``replica="interior"``: only where the
+# owner's cell is interior, which must differ from the twin). Each block
+# writes the rows of out that ``receiver_csr`` buckets to its plane. The
+# results must be the twin's bit for bit.
+
+
+def _emulate_field_planes(x, p, vx, vy, vz, src_cell, cells, order, lag=0,
+                          replica="owner"):
+    n = p.shape[0]
+    nn, s = n * n, x.shape[1]
+    substeps = 3 * s
+    k1, k2 = F32(-op.K1), F32(op.K2)
+    srcs = op.source_row(_t(x)).numpy()
+    p0 = p.ravel().copy()
+    p0[src_cell] += srcs[0]
+    rows, starts = op.receiver_csr(cells, n)
+    xch = np.full((2, n + 2, nn), np.nan, F32)
+    blocks = []
+    for b in range(n):
+        own = np.arange(b * nn, (b + 1) * nn)
+        if replica == "owner" or b + 1 >= n:
+            upd = np.full(nn, b + 1 <= n - 1)
+        else:
+            upd = _interior(own + nn, n)
+        blocks.append(dict(
+            b=b, lo=b * nn, k=0, pre=F32(0), inner=_interior(own, n),
+            buf=np.stack([p0[own], np.zeros(nn, F32)]), upd=upd,
+            vx0=vx[b].ravel().copy(), vx1=vx[b + 1].ravel().copy(),
+            vy=vy[b, :n].copy(), vz=vz[b, :, :n].copy(),
+            rows=rows[starts[b]:starts[b + 1]]))
+        xch[0, b + 1] = p0[own]
+    flags = [0] * n
+    out = np.full((x.shape[0], s), np.nan, F32)
+
+    def receivers(blk, smp, cur):
+        for t in blk["rows"]:
+            v = (blk["pre"] if smp + 1 < s and cells[t] == src_cell
+                 else cur[cells[t] - blk["lo"]])
+            out[t, smp] = v * F32(op.F_OUTPUT_SCALE)
+
+    def substep(blk):
+        b, k = blk["b"], blk["k"]
+        q = (k + 1) & 1
+        cur = blk["buf"][k & 1]
+        if k > 0 and k % 3 == 0:
+            receivers(blk, k // 3 - 1, cur)
+        c2 = cur.reshape(n, n)
+        with np.errstate(invalid="ignore"):
+            if b >= 1:
+                blk["vx0"] = blk["vx0"] + k1 * (cur - xch[k & 1, b])
+            blk["vx1"] = np.where(
+                blk["upd"], blk["vx1"] + k1 * (xch[k & 1, b + 2] - cur),
+                blk["vx1"])
+        blk["vy"][1:] = blk["vy"][1:] + k1 * (c2[1:] - c2[:-1])
+        blk["vz"][:, 1:] = blk["vz"][:, 1:] + k1 * (c2[:, 1:] - c2[:, :-1])
+        vy_up = np.concatenate([blk["vy"][1:], blk["vy"][:1]])
+        vz_up = np.concatenate([blk["vz"][:, 1:], blk["vz"][:, :1]], axis=1)
+        with np.errstate(invalid="ignore"):
+            d = ((blk["vx1"] - blk["vx0"])
+                 + (vy_up - blk["vy"]).ravel()) + (vz_up - blk["vz"]).ravel()
+        v = np.where(blk["inner"], cur - k2 * d, cur * F32(op.ABSORB))
+        if (k % 3 == 2 and k // 3 + 1 < s
+                and blk["lo"] <= src_cell < blk["lo"] + nn):
+            i = src_cell - blk["lo"]
+            blk["pre"] = v[i]
+            v[i] = v[i] + srcs[k // 3 + 1]
+        blk["buf"][q] = v
+        if k + 1 < substeps:
+            xch[q, b + 1] = v
+            flags[b] = k + 1
+        blk["k"] = k + 1
+        if blk["k"] == substeps:
+            receivers(blk, s - 1, v)
+
+    def allowed(blk):
+        return blk["k"] < substeps and all(
+            flags[nb] >= blk["k"] - lag
+            for nb in (blk["b"] - 1, blk["b"] + 1) if 0 <= nb < n)
+
+    while any(blk["k"] < substeps for blk in blocks):
+        ready = [blk for blk in blocks if allowed(blk)]
+        assert ready, "the flag rule deadlocked"
+        substep(ready[0] if order is None else
+                ready[order.integers(len(ready))])
+    fin = substeps & 1
+    p_out = np.concatenate([blk["buf"][fin] for blk in blocks])
+    p_out = p_out.reshape(p.shape)
+    vx_out = np.concatenate([np.stack([blk["vx0"] for blk in blocks]),
+                             vx[n].reshape(1, nn)]).reshape(vx.shape)
+    vy_out, vz_out = vy.copy(), vz.copy()
+    for blk in blocks:
+        vy_out[blk["b"], :n] = blk["vy"]
+        vz_out[blk["b"], :, :n] = blk["vz"]
+    return out, p_out, vx_out, vy_out, vz_out
+
+
+# (room, samples, receivers): rooms 1, 8 and 15 (n = 3, 10 and 17
+# planes), and room 128, the largest the config allows (130 planes, 17
+# cells a thread); S odd and even; receivers "line" (a line of 7 across x,
+# track 2 moved onto the source cell) or "broadcast" (every track reads
+# the room's receiver).
+FIELD_PLANE_CASES = [(1, 3, "line"), (8, 4, "broadcast"), (8, 5, "line"),
+                     (15, 3, "line"), (15, 2, "broadcast"), (128, 1, "line")]
+
+
+def _field_plane_case(rng, room, s, receivers):
+    n, src, rcv = _geometry(room)
+    tracks = 7
+    if receivers == "broadcast":
+        cells = np.full(tracks, op.flat_cell(rcv, n), np.int64)
+    else:
+        xs, ys, zs = op.receiver_line(tracks, n)
+        cells = (xs.astype(np.int64) * n + ys) * n + zs
+        cells[2] = op.flat_cell(src, n)
+    return n, src, rcv, cells, _x(rng, s, tracks)
+
+
+def _field_fields(rng, n, scale):
+    """Random starting fields (a ringing room): p, vx, vy, vz."""
+    return [(rng.random(shape, dtype=np.float32) * scale).astype(np.float32)
+            for shape in ((n, n, n), (n + 1, n, n), (n, n + 1, n),
+                          (n, n, n + 1))]
+
+
+def _twin_field(x, fields, src, rcv, cells, receivers):
+    got = op.fdtd3d_block_field_plain(
+        _t(x), *(_t(f) for f in fields), src, rcv,
+        receivers=(None if receivers == "broadcast"
+                   else _t(cells.astype(np.int32))))
+    return [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("room,s,receivers", FIELD_PLANE_CASES)
+def test_field_plane_layout_matches_twin_bit_for_bit(rng, room, s,
+                                                     receivers):
+    n, src, rcv, cells, x = _field_plane_case(rng, room, s, receivers)
+    assert op.fdtd_schedule(n, "field").route == "planes"
+    orders = [np.random.default_rng(room), None]  # random, greedy
+    for order in orders if room < 100 else orders[1:]:
+        start = _field_fields(np.random.default_rng(s), n, 1e-3)
+        mine, twin = start, start
+        for _ in range(2):
+            got = _emulate_field_planes(x, *mine, op.flat_cell(src, n),
+                                        cells, order)
+            want = _twin_field(x, twin, src, rcv, cells, receivers)
+            for a, b in zip(got, want):
+                assert np.array_equal(a, b)
+            mine, twin = got[1:], want[1:]
+        assert np.abs(got[0]).max() > 0
+        if receivers == "line" and room > 1:  # room 1 has one interior cell
+            assert len(set(got[0][:, -1].tolist())) > 1
+
+
+def test_field_plane_handoff_needs_both_flags(rng):
+    """With the flag rule one substep looser, a block overwrites an
+    exchange slot its neighbour has not read: the field form's emulation
+    then differs from the twin."""
+    n, src, rcv, cells, x = _field_plane_case(rng, 8, 4, "line")
+    fields = _field_fields(np.random.default_rng(1), n, 1e-3)
+    want = _twin_field(x, fields, src, rcv, cells, "line")
+    args = (x, *fields, op.flat_cell(src, n), cells, None)
+    good, loose = _emulate_field_planes(*args), _emulate_field_planes(
+        *args, lag=1)
+    assert np.array_equal(good[1], want[1])
+    assert not np.array_equal(loose[1], want[1])
+
+
+def test_field_plane_replica_follows_its_owner(rng):
+    """A replica of vx[b + 1] updated only where its owner's cell is
+    interior misses the owner's updates on the last plane (all boundary),
+    which the interior cells of plane n - 2 read: p differs from the
+    twin."""
+    n, src, rcv, cells, x = _field_plane_case(rng, 8, 4, "line")
+    fields = _field_fields(np.random.default_rng(2), n, 1e-3)
+    want = _twin_field(x, fields, src, rcv, cells, "line")
+    args = (x, *fields, op.flat_cell(src, n), cells, None)
+    good = _emulate_field_planes(*args)
+    interior_only = _emulate_field_planes(*args, replica="interior")
+    assert all(np.array_equal(a, b) for a, b in zip(good, want))
+    assert not np.array_equal(interior_only[1], want[1])
+
+
+def test_receiver_csr_buckets_rows_by_plane():
+    n = 5
+    cells = np.array([3 * 25 + 7, 0, 4 * 25, 3 * 25, 124, 26])
+    order, starts = op.receiver_csr(cells, n)
+    assert order.dtype == np.int32 and len(starts) == n + 1
+    assert starts == [0, 1, 2, 2, 4, 6]
+    assert order.tolist() == [1, 5, 0, 3, 2, 4]  # stable within a plane
+    for b in range(n):
+        assert all(cells[t] // 25 == b for t in order[starts[b]:starts[b + 1]])
+    for bad in ([-1], [125]):
+        with pytest.raises(ValueError, match="outside"):
+            op.receiver_csr(np.array(bad), n)

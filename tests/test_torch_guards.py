@@ -318,11 +318,15 @@ def test_chip_smoke_bounds():
         (1536 * (9 * 51 * 52 ** 2 + 7 * 50 ** 3 + edge) + small) / 67e9)
     assert field_ms == pytest.approx(0.0489, abs=1e-4)
     # the cooperative divergence kernel where it is timed: room 82 (84^3
-    # cells)
+    # cells), and the field kernel there too, under its own key
     edge = 84 ** 3 - 82 ** 3
     div_ms, by = bounds["fdtd3d_div_coop"]
     assert by == "operations" and div_ms == pytest.approx(
         (1536 * (11 * 82 ** 3 + edge) + small) / 67e9)
+    field_ms, by = bounds[cs.FDTD_FIELD_82_KEY]
+    assert by == "operations" and field_ms == pytest.approx(
+        (1536 * (9 * 83 * 84 ** 2 + 7 * 82 ** 3 + edge) + small) / 67e9)
+    assert field_ms == pytest.approx(0.2103, abs=1e-4)
     # and at room 128 (130^3 cells), the largest room the config allows,
     # printed beside its time under its own key
     assert cs.FDTD_BIG == (128, 512, 128)
@@ -355,7 +359,8 @@ def test_chip_smoke_bounds_read_the_cost_models():
     g, s, _ = cs.DWG_FULL
     assert cs.dwg_bound(12345) == cs.cost_bound(dwg_cost(g, s, 12345))
     for shape, names in ((cs.FDTD_MAIN, ("fdtd3d_div", "fdtd3d_field")),
-                         (cs.FDTD_COOP, ("fdtd3d_div_coop",)),
+                         (cs.FDTD_COOP, ("fdtd3d_div_coop",
+                                         cs.FDTD_FIELD_82_KEY)),
                          (cs.FDTD_BIG, (cs.FDTD_BIG_KEY,))):
         room, s, tracks = shape
         for name, per_track in zip(names, (False, True)):

@@ -1,6 +1,6 @@
 """Measure the FDTD3D kernels' redesigns (cluster, plane routes) on one device.
 
-    python3 tools/fdtd_stages/run.py [--out DIR]
+    python3 tools/fdtd_stages/run.py [--out DIR] [--part all|div|field]
 
 Builds ``stages.cu`` (beside this file; it includes
 ``gpuaudiobench_tpu_torch/csrc/fdtd3d.cu``) twice with nvcc, one process
@@ -53,6 +53,27 @@ each:
   design at room 50, and of the plane kernel at rooms 66, 82, 100 and
   128.
 
+The field form (``--part field``; ``--part div`` runs the above alone,
+``all`` both):
+
+* ptxas registers and spills of the field plane kernel's builds, and the
+  SASS mix of its substep loop at 3 cells a thread (the upper faces in
+  registers) and 7 (vy and vz in shared memory);
+* its route, shared memory and co-resident blocks at rooms 8 to 128;
+* bit-for-bit checks, fields chained over 2 blocks, with 128 per-track
+  receivers (track 0 on the source cell) and the broadcast receiver, at
+  rooms 1, 8, 15, 50, 66, 69, 70 (the layouts' edge), 82, 100 and 128:
+  the route against the twin, the grid-stride kernel and a rerun, and
+  the other layout (rooms up to 82) against the twin;
+* CUDA-event times behind a ~1 ms spin, 128 per-track receivers x 512
+  samples, in turns: the grid-stride kernel and the route at rooms 8,
+  24, 40, 50, 66, 82, 100, 113 and 128, the other layout at rooms up to
+  82, the plane kernel without its waits and without its exchange at
+  rooms 50, 82 and 128; then the largest room whose block meets the
+  10.667 ms deadline on the grid-stride kernel and on the route;
+* clock64() phase sums per warp of the plane kernel at rooms 50, 82 and
+  128.
+
 The designs that ship in no kernel live in ``stages.cu``. Needs one CUDA
 device, nvcc and cuobjdump (``$CUDA_HOME`` or ``/usr/local/cuda``).
 ``--out`` (default ``build/fdtd_stages``, which git ignores) receives
@@ -94,6 +115,17 @@ PHASES = {1: "prologue", 2: "stencil / faces", 6: "p update (field)",
 SASS = {"cluster kernel": (r"fdtd_div_cluster_kernelILi9E", 9),
         "two-phase field design": (r"two_phase_field_kernelILi9ELb1E", 9),
         "plane kernel": (r"fdtd_div_planes_kernelILi7E", 7)}
+FIELD_SASS = {
+    "field plane kernel, registers": (
+        r"fdtd_field_planes_kernelILi3ELb1ELb1ELb1E", 3),
+    "field plane kernel, shared": (
+        r"fdtd_field_planes_kernelILi7ELb0ELb1ELb1E", 7)}
+FIELD_CHECKS = [(1, 5), (8, 12), (15, 7), (50, 9), (66, 5), (69, 4),
+                (70, 4), (82, 7), (100, 4), (128, 3)]  # (room, samples)
+FIELD_ROOMS = (8, 24, 40, 50, 66, 82, 100, 113, 128)
+FIELD_OTHER_LAYOUT = 82  # the other layout is built up to this room
+FIELD_CUT_ROOMS = (50, 82, 128)  # without the waits, without the exchange
+FIELD_PROFILE = (50, 82, 128)
 
 
 def sh(cmd):
@@ -161,6 +193,15 @@ def bind_designs(lib):
     lib.planes_pair_launch.restype = i
     lib.planes_pair_occupancy.argtypes = [i]
     lib.planes_pair_occupancy.restype = i
+    lib.field_planes_variant_launch.argtypes = (
+        [i, i] + lib.fdtd_field_planes_launch.argtypes)
+    lib.field_planes_variant_launch.restype = i
+    lib.old_field_launch.argtypes = [p] * 16 + [i] * 5 + [f] * 4 + [p]
+    lib.old_field_launch.restype = i
+    lib.old_field_blocks.argtypes = [i]
+    lib.old_field_blocks.restype = i
+    lib.fdtd_sync_probe_launch.argtypes = [i, i, p]
+    lib.fdtd_sync_probe_launch.restype = i
 
 
 def geometry(room):
@@ -221,6 +262,39 @@ def old_coop(lib, x, p, div, n, src, rcv):
     if err != 0:
         raise RuntimeError(f"old_coop_div_launch: CUDA error {err}")
     return out, (pa if s % 2 == 0 else pb), d
+
+
+def old_field(lib, x, p, vx, vy, vz, source, receiver, receivers=None):
+    """The field form's grid-stride kernel (the one the plane kernel
+    replaced), with fdtd3d_block_field's arguments: (out, p', vx', vy',
+    vz')."""
+    n = p.shape[0]
+    tracks, s = x.shape
+    pa, pb = torch.empty_like(p), torch.empty_like(p)
+    vs = [(torch.empty_like(t), torch.empty_like(t)) for t in (vx, vy, vz)]
+    out = torch.empty((tracks, s), device=x.device)
+    src_pre = torch.empty(1, device=x.device)
+    err = lib.old_field_launch(
+        fops.source_row(x).data_ptr(), p.data_ptr(), vx.data_ptr(),
+        vy.data_ptr(), vz.data_ptr(), pa.data_ptr(), pb.data_ptr(),
+        *(b.data_ptr() for pair in vs for b in pair), out.data_ptr(),
+        src_pre.data_ptr(),
+        None if receivers is None else receivers.data_ptr(), n, s,
+        fops.flat_cell(source, n), tracks, fops.flat_cell(receiver, n),
+        fops.K1, fops.K2, fops.ABSORB, fops.F_OUTPUT_SCALE, stream())
+    if err != 0:
+        raise RuntimeError(f"old_field_launch: CUDA error {err}")
+    last = 0 if s % 2 == 0 else 1
+    return (out, (pa, pb)[last], vs[0][last], vs[1][last], vs[2][last])
+
+
+def sync_probe(lib, n, syncs):
+    """``syncs`` grid barriers alone, on the grid-stride field kernel's
+    grid for an n^3 room."""
+    err = lib.fdtd_sync_probe_launch(syncs, lib.old_field_blocks(n),
+                                     stream())
+    if err != 0:
+        raise RuntimeError(f"fdtd_sync_probe_launch: CUDA error {err}")
 
 
 PAIR_COOPERATIVE = [1]  # the pair design's launch; 0 once refused
@@ -410,30 +484,40 @@ def deadline_room(fn_of_room, lo=66, hi=128):
     return lo, seen
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=str(REPO / "build" / "fdtd_stages"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA device", file=sys.stderr)
-        return 1
-    out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
-              "--format=csv,noheader"])[1].strip()
-    print(f"card: {smi}", flush=True)
-    max_mhz = float(smi.split(",")[-1].split()[0])
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
-    t0 = time.time()
-    paths, log = build(out_dir)
-    print(f"build: two libraries in {time.time() - t0:.1f} s", flush=True)
-    libs = {k: ctypes.CDLL(str(v)) for k, v in paths.items()}
-    for lib in libs.values():
-        bind_designs(lib)
+def print_build(log, lib_path, out_dir, part):
+    """ptxas lines and the SASS mix of the part's kernels."""
+    fn = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+        if fn and ("Used" in ln or "spill" in ln) and (
+                part == "all" or ("field_planes" in fn) == (part == "field")):
+            short = re.sub(r"^_Z\d+", "", fn)[:64]
+            print(f"ptxas {short}: {ln.split(':', 1)[-1].strip()}")
+    _, sass = sh([str(Path(nvcc_path()).with_name("cuobjdump")), "-sass",
+                  str(lib_path)])
+    kernels = {**(SASS if part != "field" else {}),
+               **(FIELD_SASS if part != "div" else {})}
+    for label, (pat, cpt) in kernels.items():
+        name, loops = hot_loops(sass, pat, "LDS")
+        for blk in re.split(r"\n\s+Function : ", sass)[1:]:
+            if blk.split("\n", 1)[0].strip() == name:
+                (out_dir / f"sass_{label.replace(' ', '_').replace(',', '')}"
+                 ".txt").write_text(blk)
+        if loops:
+            top = max(loops, key=lambda c: c["LDS"])  # the substep loop
+            print(f"sass {label}, {cpt} cells a thread: substep loop "
+                  f"{sum(top.values())} instructions, "
+                  f"{sum(top.values()) / cpt:.1f} a cell: "
+                  + ", ".join(f"{k} {v}" for k, v in top.most_common(18)),
+                  flush=True)
+
+
+def div_part(libs, dev, max_mhz):
+    """The divergence form's measurements (and the field form's cluster
+    design); returns whether every check was bit for bit."""
     plain = libs["plain"]
-    use(plain)
-    dev = torch.device("cuda:0")
     n = fops.grid_n(ROOM)
 
     # Schedulability first: it decides the field form's layout.
@@ -470,29 +554,6 @@ def main() -> int:
               f"{plain.planes_pair_occupancy(m)} (needs {-(-m // 2)})",
               flush=True)
 
-    fn = None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            fn = m.group(1)
-        if fn and ("Used" in ln or "spill" in ln):
-            short = re.sub(r"^_Z\d+", "", fn)[:48]
-            print(f"ptxas {short}: {ln.split(':', 1)[-1].strip()}")
-    _, sass = sh([str(Path(nvcc_path()).with_name("cuobjdump")), "-sass",
-                  str(paths["plain"])])
-    for label, (pat, cpt) in SASS.items():
-        name, loops = hot_loops(sass, pat, "LDS")
-        for blk in re.split(r"\n\s+Function : ", sass)[1:]:
-            if blk.split("\n", 1)[0].strip() == name:
-                (out_dir / f"sass_{label.split()[0]}.txt").write_text(blk)
-        if loops:
-            top = max(loops, key=lambda c: c["LDS"])  # the substep loop
-            print(f"sass {label}, {cpt} cells a thread: substep loop "
-                  f"{sum(top.values())} instructions, "
-                  f"{sum(top.values()) / cpt:.1f} a cell: "
-                  + ", ".join(f"{k} {v}" for k, v in top.most_common(18)),
-                  flush=True)
-
     # The barriers alone.
     for blocks in (2, 4, 8, 16):
         ms = median_ms(lambda: fops.cluster_probe(blocks, plan.smem_bytes,
@@ -506,9 +567,9 @@ def main() -> int:
           f"{ms / SYNCS * 1e3:.4f} us each")
     for room in (ROOM, 82):
         m = fops.grid_n(room)
-        ms = median_ms(lambda: fops.sync_probe(m, SYNCS, dev), 5, 2)
-        print(f"grid barrier alone, room {room}'s field-kernel grid "
-              f"({plain.fdtd_field_blocks(m)} blocks of 512): "
+        ms = median_ms(lambda: sync_probe(plain, m, SYNCS), 5, 2)
+        print(f"grid barrier alone, room {room}'s grid-stride field grid "
+              f"({plain.old_field_blocks(m)} blocks of 512): "
               f"{ms / SYNCS * 1e3:.4f} us each", flush=True)
 
     ok = True
@@ -583,11 +644,11 @@ def main() -> int:
                      ("first design", div("barrier_div_launch")),
                      ("cluster 16", div("cluster")),
                      ("planes", div("planes"))]),
-            ("field", [("shipped (cooperative)", field("shipped")),
+            ("field", [("shipped (planes)", field("shipped")),
                        ("two-phase 16", field("two-phase")),
                        ("two-phase 16 no hand-off", field("no hand-off")),
                        ("two-phase 16", field("two-phase")),
-                       ("shipped (cooperative)", field("shipped"))])):
+                       ("shipped (planes)", field("shipped"))])):
         times = {}
         for label, fn in order:
             times.setdefault(label, []).append(median_ms(fn))
@@ -688,6 +749,210 @@ def main() -> int:
                           if pr[:, q].any())
               + f"; total {pr[:, 0].mean():.2f} (max {pr[:, 0].max():.2f})",
               flush=True)
+    return ok
+
+
+def field_variant(lib, reg_faces, mode, x, fields, n, src, rcv, cells):
+    """A field plane build of stages.cu:field_planes_variant (the layout
+    with the upper faces in registers or vy and vz in shared memory; mode
+    1 without the waits, 2 without the exchange too): (out, p', vx', vy',
+    vz')."""
+    tracks, s = x.shape
+    outs = [torch.empty_like(f) for f in fields]
+    out = torch.empty((tracks, s), device=x.device)
+    xch, flags = fops._plane_scratch(n, x)
+    rows = order = starts = None
+    if cells is not None:
+        order, starts = fops._receiver_buckets(cells, n)
+        rows, order = cells.data_ptr(), order.data_ptr()
+    plan = fops.plane_schedule(n)  # the planes; the layout is the build's
+    err = lib.field_planes_variant_launch(
+        int(reg_faces), mode, fops.source_row(x).data_ptr(),
+        *(f.data_ptr() for f in fields), *(o.data_ptr() for o in outs),
+        out.data_ptr(), xch.data_ptr(), flags.data_ptr(), rows, order,
+        starts, n, s, fops.flat_cell(src, n), tracks, fops.flat_cell(rcv, n),
+        fops.K1, fops.K2, fops.ABSORB, fops.F_OUTPUT_SCALE,
+        fops.range_starts(plan), plan.blocks, stream())
+    if err != 0:
+        raise RuntimeError(f"field plane build (registers {reg_faces}, mode "
+                           f"{mode}): CUDA error {err}")
+    return (out, *outs)
+
+
+def field_cells(n, src, tracks, dev):
+    """128 receivers along the line, track 0 on the source cell."""
+    cells = line_cells(n, tracks, dev)
+    cells[0] = fops.flat_cell(src, n)
+    return cells
+
+
+def shipped_layout(n):
+    """Whether the route's build for an n^3 grid keeps the upper faces in
+    registers."""
+    return fops.cells_per_thread(n * n) <= fops.FIELD_REG_FACES_MAX_CPT
+
+
+def field_part(libs, dev, max_mhz):
+    """The field form's plane kernel: routes, checks, times, the deadline
+    room and phases; returns whether every check was bit for bit."""
+    plain, prof_lib = libs["plain"], libs["prof"]
+    for room in FIELD_ROOMS:
+        n = fops.grid_n(room)
+        plan = fops.fdtd_schedule(n, "field")
+        extra = ""
+        if plan.route == "planes":
+            extra = (f" on {plan.blocks} blocks of {plan.smem_bytes:,} B (C "
+                     f"side {plain.fdtd_field_planes_smem(n):,}), "
+                     f"{fops.cells_per_thread(n * n)} cells a thread, "
+                     f"upper faces in "
+                     f"{'registers' if shipped_layout(n) else 'shared memory'}"
+                     f"; the card holds "
+                     f"{plain.fdtd_field_planes_capacity(n)} at once")
+        print(f"schedule field room {room}: {plan.route}{extra}; the "
+              f"grid-stride kernel {plain.old_field_blocks(n)} blocks of 512",
+              flush=True)
+
+    ok = True
+    for room, s in FIELD_CHECKS:
+        n, src, rcv = geometry(room)
+        for per_track in (True, False):
+            tracks = TRACKS if per_track else 4
+            x = x_of(tracks, s, dev)
+            cells = field_cells(n, src, tracks, dev) if per_track else None
+            kerns = {
+                "twin": fops.fdtd3d_block_field_plain,
+                "grid-stride": (lambda *a, **kw:
+                                old_field(plain, *a, **kw)),
+                "rerun": fops.fdtd3d_block_field}
+            if room <= FIELD_OTHER_LAYOUT:
+                kerns["other layout"] = (
+                    lambda xx, *f, src=src, rcv=rcv, n=n, cells=cells:
+                    field_variant(plain, not shipped_layout(n), 0, xx,
+                                  list(f), n, src, rcv, cells))
+            mine = fops.zero_fields(n, dev)
+            theirs = {k: fops.zero_fields(n, dev) for k in kerns}
+            res = dict.fromkeys(kerns, True)
+            for _ in range(2):
+                got = fops.fdtd3d_block_field(x, *mine, src, rcv,
+                                              receivers=cells)
+                for k, fn in kerns.items():
+                    if k in ("twin", "grid-stride", "rerun"):
+                        want = fn(x, *theirs[k], src, rcv, receivers=cells)
+                    else:
+                        want = fn(x, *theirs[k])
+                    res[k] &= same(got, want)
+                    theirs[k] = want[1:]
+                mine = got[1:]
+            torch.cuda.synchronize()
+            ok = ok and all(res.values())
+            print(f"check field room {room} S={s} "
+                  f"({fops.fdtd_schedule(n, 'field').route}), "
+                  + (f"{tracks} per-track receivers" if per_track
+                     else "broadcast receiver") + ": "
+                  + ", ".join(f"{k} {'=' if v else 'DIFFERS'}"
+                              for k, v in res.items()), flush=True)
+
+    def fns(room):
+        n, src, rcv = geometry(room)
+        x = x_of(TRACKS, S, dev)
+        cells = field_cells(n, src, TRACKS, dev)
+        z = fops.zero_fields(n, dev)
+        out = {"grid-stride": lambda: old_field(
+                   plain, x, *z, src, rcv, receivers=cells),
+               "route": lambda: fops.fdtd3d_block_field(
+                   x, *z, src, rcv, receivers=cells)}
+        reg, variants = shipped_layout(n), {}
+        if room <= FIELD_OTHER_LAYOUT:
+            variants["other layout"] = (not reg, 0)
+        if room in FIELD_CUT_ROOMS:
+            variants["no wait"] = (reg, 1)
+            variants["no exchange"] = (reg, 2)
+        for label, (r, mode) in variants.items():
+            out[label] = (lambda r=r, mode=mode: field_variant(
+                plain, r, mode, x, z, n, src, rcv, cells))
+        return out
+
+    for room in FIELD_ROOMS:
+        fn = fns(room)
+        labels = list(fn)
+        order = labels + labels[::-1]
+        times = {}
+        for label in order:
+            times.setdefault(label, []).append(
+                median_ms(fn[label], 5, 1, spin=True))
+        print(f"times field room {room}, {TRACKS}x{S} per-track (ms, CUDA "
+              "events behind a spin, median of 5): " + "; ".join(
+                  f"{k} " + " / ".join(f"{v:.4f}" for v in vs)
+                  for k, vs in times.items()), flush=True)
+        del fn
+        torch.cuda.empty_cache()
+    for label in ("grid-stride", "route"):
+        room, seen = deadline_room(lambda r: fns(r)[label], lo=8)
+        print(f"deadline {DEADLINE_MS:.3f} ms at {TRACKS}x{S} per-track: "
+              f"the {label} meets it up to room {room} (timed: " + ", ".join(
+                  f"{r} {v:.4f}" for r, v in sorted(seen.items())) + ")",
+              flush=True)
+        torch.cuda.empty_cache()
+
+    prof = torch.zeros(max(fops.grid_n(r) for r in FIELD_PROFILE) * 32 * 8,
+                       dtype=torch.int64, device=dev)
+    for room in FIELD_PROFILE:
+        n, src, rcv = geometry(room)
+        x = x_of(TRACKS, S, dev)
+        cells = field_cells(n, src, TRACKS, dev)
+        z = fops.zero_fields(n, dev)
+        prof.zero_()
+        if prof_lib.fdtd_prof_set(prof.data_ptr()) != 0:
+            raise RuntimeError("fdtd_prof_set failed")
+        use(prof_lib)
+        try:
+            ms = median_ms(lambda: fops.fdtd3d_block_field(
+                x, *z, src, rcv, receivers=cells), 3, 1)
+        finally:
+            use(plain)
+        nwarps = n * 32
+        pr = prof[:nwarps * 8].view(-1, 8).cpu().numpy().astype(np.float64)
+        pr /= max_mhz
+        print(f"phases field plane kernel room {room}, profiled build "
+              f"({ms:.4f} ms; {nwarps} warps; mean us a warp): "
+              + ", ".join(f"{name} {pr[:, q].mean():.2f}"
+                          for q, name in PHASES.items() if pr[:, q].any())
+              + f"; total {pr[:, 0].mean():.2f} (max {pr[:, 0].max():.2f})",
+              flush=True)
+    return ok
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=str(REPO / "build" / "fdtd_stages"))
+    ap.add_argument("--part", choices=("all", "div", "field"), default="all")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+              "--format=csv,noheader"])[1].strip()
+    print(f"card: {smi}", flush=True)
+    max_mhz = float(smi.split(",")[-1].split()[0])
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    t0 = time.time()
+    paths, log = build(out_dir)
+    print(f"build: two libraries in {time.time() - t0:.1f} s", flush=True)
+    libs = {k: ctypes.CDLL(str(v)) for k, v in paths.items()}
+    for lib in libs.values():
+        bind_designs(lib)
+    plain = libs["plain"]
+    use(plain)
+    dev = torch.device("cuda:0")
+    print_build(log, paths["plain"], out_dir, args.part)
+    ok = True
+    if args.part != "field":
+        ok = div_part(libs, dev, max_mhz) and ok
+    if args.part != "div":
+        ok = field_part(libs, dev, max_mhz) and ok
     print(f"all checks bit for bit: {ok}")
     print(f"card: {sh(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'])[1].strip()}")
     return 0 if ok else 1

@@ -27,6 +27,13 @@
 //   planes: the partner's plane read from its shared memory (ld
 //   .shared::cluster), only the other neighbour's through L2, so a block
 //   loads one plane from L2 a substep instead of two.
+// * field_planes_variant_launch: the field form's plane kernel in the
+//   layout the route does not ship at a room, and without its waits or
+//   its exchange (wrong results: timings);
+// * old_field_launch: the field form's grid-stride cooperative kernel
+//   that the plane kernel replaced (verbatim: p and the velocities in
+//   device memory, a cg::grid sync a substep), and
+//   fdtd_sync_probe_launch, that grid barrier alone.
 //
 // run.py (beside this file) builds it twice with nvcc: plain (with
 // -Xptxas -v: registers, shared memory and spills) and -DFDTD_PROFILE,
@@ -607,6 +614,153 @@ int div_design_launch(K kernel, long long smem, const float* src,
     return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the grid-stride kernels the plane route replaced -------------------
+//
+// The field form's grid-stride cooperative kernel (old_field_kernel, the
+// shipped field kernel before the plane route; verbatim but for its name),
+// its helpers, and the grid barrier alone (a probe at its grid).
+
+constexpr int kThreads = 512;
+
+// Rows of out for sample smp, read from p after the sample's last
+// substep. src_pre holds the source cell's value from before the
+// injection of sample smp + 1, when there was one.
+__device__ void read_receivers(const Grid& g, int smp, const float* p,
+                               const float* src_pre, float* out, int tid,
+                               int stride) {
+    const bool injected = smp + 1 < g.s;
+    for (int t = tid; t < g.tracks; t += stride) {
+        const int cell = g.rcv_rows ? g.rcv_rows[t] : g.rcv_cell;
+        float v;
+        if (cell < 0 || cell >= g.cells) {
+            v = __int_as_float(0x7fc00000);  // NaN: no such cell
+        } else if (injected && cell == g.src_cell) {
+            v = __ldcg(src_pre);
+        } else {
+            v = __ldcg(p + cell);
+        }
+        out[static_cast<long long>(t) * g.s + smp] = __fmul_rn(v, g.out_scale);
+    }
+}
+
+// The value written to the source cell's next buffer at the end of a
+// sample: the injection of the next sample, the pre-injection value kept.
+__device__ __forceinline__ float inject(const Grid& g, int c, int k,
+                                        float v, const float* src,
+                                        float* src_pre) {
+    if (c == g.src_cell && k % 3 == 2 && k / 3 + 1 < g.s) {
+        *src_pre = v;
+        v = __fadd_rn(v, src[k / 3 + 1]);
+    }
+    return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+old_field_kernel(Grid g, const float* __restrict__ src,
+                  const float* __restrict__ p_in,
+                  const float* __restrict__ vx_in,
+                  const float* __restrict__ vy_in,
+                  const float* __restrict__ vz_in,
+                  float* pa, float* pb, float* vxa, float* vxb, float* vya,
+                  float* vyb, float* vza, float* vzb, float* out,
+                  float* src_pre) {
+    cg::grid_group grid = cg::this_grid();
+    const int n = g.n, nn = n * n;
+    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+    const int stride = gridDim.x * blockDim.x;
+    const int vx_cells = (n + 1) * nn;  // vy and vz have as many faces
+
+    // Prologue: both velocity buffers get the input, so the faces no
+    // substep updates (x = 0 and x = n of vx, and so on) hold it in both.
+    for (int c = tid; c < g.cells; c += stride) {
+        float v = p_in[c];
+        if (c == g.src_cell) v = __fadd_rn(v, src[0]);
+        pa[c] = v;
+    }
+    for (int f = tid; f < vx_cells; f += stride) {
+        vxa[f] = vxb[f] = vx_in[f];
+        vya[f] = vyb[f] = vy_in[f];
+        vza[f] = vzb[f] = vz_in[f];
+    }
+    grid.sync();
+
+    const int substeps = 3 * g.s;
+    for (int k = 0; k < substeps; ++k) {
+        const bool odd = k & 1;
+        const float* cur = odd ? pb : pa;
+        float* nxt = odd ? pa : pb;
+        const float* vx = odd ? vxb : vxa;
+        const float* vy = odd ? vyb : vya;
+        const float* vz = odd ? vzb : vza;
+        float* vx2 = odd ? vxa : vxb;
+        float* vy2 = odd ? vya : vyb;
+        float* vz2 = odd ? vza : vzb;
+        if (k > 0 && k % 3 == 0) {
+            read_receivers(g, k / 3 - 1, cur, src_pre, out, tid, stride);
+        }
+        for (int c = tid; c < g.cells; c += stride) {
+            const int x = c / nn, y = (c / n) % n, z = c % n;
+            const int fx = c;                         // vx[x, y, z]
+            const int fy = (x * (n + 1) + y) * n + z;  // vy[x, y, z]
+            const int fz = c + x * n + y;              // vz[x, y, z]
+            const float pc = __ldcg(cur + c);
+            // This cell's lower faces (index 1..n-1 on their axis).
+            float vx0 = __ldcg(vx + fx), vy0 = __ldcg(vy + fy),
+                  vz0 = __ldcg(vz + fz);
+            if (x >= 1) {
+                vx0 = face(vx0, pc, __ldcg(cur + c - nn), g.k1);
+                vx2[fx] = vx0;
+            }
+            if (y >= 1) {
+                vy0 = face(vy0, pc, __ldcg(cur + c - n), g.k1);
+                vy2[fy] = vy0;
+            }
+            if (z >= 1) {
+                vz0 = face(vz0, pc, __ldcg(cur + c - 1), g.k1);
+                vz2[fz] = vz0;
+            }
+            float v;
+            if (on_boundary(x, y, z, n)) {
+                v = __fmul_rn(pc, g.absorb);
+            } else {
+                // The upper faces, as their own cells' threads update them.
+                const float vx1 = face(__ldcg(vx + fx + nn), __ldcg(cur + c + nn),
+                                       pc, g.k1);
+                const float vy1 = face(__ldcg(vy + fy + n), __ldcg(cur + c + n),
+                                       pc, g.k1);
+                const float vz1 = face(__ldcg(vz + fz + 1), __ldcg(cur + c + 1),
+                                       pc, g.k1);
+                const float d = __fadd_rn(
+                    __fadd_rn(__fsub_rn(vx1, vx0), __fsub_rn(vy1, vy0)),
+                    __fsub_rn(vz1, vz0));
+                v = __fsub_rn(pc, __fmul_rn(g.k2, d));
+            }
+            nxt[c] = inject(g, c, k, v, src, src_pre);
+        }
+        grid.sync();
+    }
+    read_receivers(g, g.s - 1, (substeps & 1) ? pb : pa, src_pre, out, tid,
+                   stride);
+}
+
+// Only the grid-wide barrier, `syncs` times: what one substep's sync
+// costs at a given grid size, with no stencil work (PERF.md).
+__global__ void __launch_bounds__(kThreads) fdtd_sync_probe_kernel(int syncs) {
+    cg::grid_group grid = cg::this_grid();
+    for (int i = 0; i < syncs; ++i) grid.sync();
+}
+
+// Blocks of 512 threads of a cooperative launch of `kernel` that fit on
+// the current device at once, capped at what `work` items need; 0 with
+// *err set when the device cannot launch them cooperatively.
+template <typename K>
+int grid_blocks(K kernel, long long work, cudaError_t* err) {
+    const long long fit = coresident_blocks((const void*)kernel, kThreads, 0,
+                                            err);
+    const long long need = (work + kThreads - 1) / kThreads;
+    return static_cast<int>(need < fit ? need : fit);
+}
+
 // The grid-sync kernel: the cooperative divergence kernel that the plane
 // route replaced, verbatim but for its name.
 __global__ void __launch_bounds__(kThreads)
@@ -1169,6 +1323,61 @@ extern "C" int planes_pair_occupancy(int n) {
     return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
+// The field plane kernel's builds beside the shipped ones: either
+// layout (reg_faces 1: the faces in registers, p alone in shared memory;
+// 0: vy and vz in shared memory) at rooms up to 82 (1, 3, 5 and 7 cells a
+// thread); and, in the shipped layout at rooms 50, 82 and 128, mode 1
+// without the flag waits (each block runs ahead on whatever the exchange
+// holds), mode 2 without the exchange too (the +-n^2 neighbours read from
+// the block's own plane): timings of what the waits and the exchange
+// cost, wrong results. Null for any other combination.
+FieldPlanesKernel field_planes_variant(int cpt, int reg_faces, int mode) {
+#define FDTD_FIELD_LAYOUT(c, r)                                            \
+    if (cpt == c && reg_faces == (r) && mode == 0) {                       \
+        return fdtd_field_planes_kernel<c, r>;                             \
+    }
+#define FDTD_FIELD_CUTS(c, r)                                              \
+    if (cpt == c && reg_faces == (r) && mode == 1) {                       \
+        return fdtd_field_planes_kernel<c, r, false>;                      \
+    }                                                                      \
+    if (cpt == c && reg_faces == (r) && mode == 2) {                       \
+        return fdtd_field_planes_kernel<c, r, false, false>;               \
+    }
+    FDTD_FIELD_LAYOUT(1, true)
+    FDTD_FIELD_LAYOUT(1, false)
+    FDTD_FIELD_LAYOUT(3, true)
+    FDTD_FIELD_LAYOUT(3, false)
+    FDTD_FIELD_LAYOUT(5, true)
+    FDTD_FIELD_LAYOUT(5, false)
+    FDTD_FIELD_LAYOUT(7, true)
+    FDTD_FIELD_LAYOUT(7, false)
+    FDTD_FIELD_CUTS(3, true)
+    FDTD_FIELD_CUTS(7, true)
+    FDTD_FIELD_CUTS(17, false)
+#undef FDTD_FIELD_LAYOUT
+#undef FDTD_FIELD_CUTS
+    return nullptr;
+}
+
+// A field plane build of field_planes_variant; the other arguments as
+// fdtd_field_planes_launch's.
+extern "C" int field_planes_variant_launch(
+    int reg_faces, int mode, const float* src, const float* p_in,
+    const float* vx_in, const float* vy_in, const float* vz_in, float* p_out,
+    float* vx_out, float* vy_out, float* vz_out, float* out, float* xch,
+    int* flags, const int* rcv_rows, const int* order, const int* rcv_starts,
+    int n, int s, int src_cell, int tracks, int rcv_cell, float k1, float k2,
+    float absorb, float out_scale, const int* starts, int blocks,
+    void* stream) {
+    if (n < 3 || n > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+    return field_planes_launch(
+        field_planes_variant(cells_per_thread(1LL * n * n), reg_faces, mode),
+        field_planes_smem(n, reg_faces != 0), src, p_in, vx_in, vy_in, vz_in,
+        p_out, vx_out, vy_out, vz_out, out, xch, flags, rcv_rows, order,
+        rcv_starts, n, s, src_cell, tracks, rcv_cell, k1, k2, absorb,
+        out_scale, starts, blocks, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int fdtd_prof_set(long long* buf) {
 #ifdef FDTD_PROFILE
     return static_cast<int>(
@@ -1177,4 +1386,60 @@ extern "C" int fdtd_prof_set(long long* buf) {
     (void)buf;
     return static_cast<int>(cudaErrorInvalidValue);
 #endif
+}
+
+// The grid-stride field kernel. p_in (n^3,), vx_in (n+1, n, n), vy_in (n,
+// n+1, n), vz_in (n, n, n+1) read only; pa, pb and each velocity's a, b
+// buffers scratch: after the block the fields are in the a buffers when
+// s is even, the b buffers when odd. out (tracks, s); src_pre (1,)
+// scratch; the receiver of row t is rcv_rows[t], or rcv_cell when
+// rcv_rows is null. Returns the launch's error (0 on success).
+extern "C" int old_field_launch(const float* src, const float* p_in,
+                                const float* vx_in, const float* vy_in,
+                                const float* vz_in, float* pa, float* pb,
+                                float* vxa, float* vxb, float* vya,
+                                float* vyb, float* vza, float* vzb,
+                                float* out, float* src_pre,
+                                const int* rcv_rows, int n, int s,
+                                int src_cell, int tracks, int rcv_cell,
+                                float k1, float k2, float absorb,
+                                float out_scale, void* stream) {
+    if (bad_shape(n, s, tracks, src_cell)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaError_t err;
+    const int blocks = grid_blocks(old_field_kernel, 1LL * (n + 1) * n * n,
+                                   &err);
+    if (blocks == 0) return static_cast<int>(err);
+    Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, rcv_rows, k1, k2,
+                       0.f, absorb, out_scale);
+    void* args[] = {&g, &src, &p_in, &vx_in, &vy_in, &vz_in, &pa, &pb, &vxa,
+                    &vxb, &vya, &vyb, &vza, &vzb, &out, &src_pre};
+    err = cudaLaunchCooperativeKernel(
+        (const void*)old_field_kernel, dim3(blocks),
+        dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks the grid-stride field kernel's cooperative launch takes for
+// an n^3 grid (0 when the device cannot launch it cooperatively): the
+// grid whose barrier fdtd_sync_probe_launch measures.
+extern "C" int old_field_blocks(int n) {
+    cudaError_t err;
+    return grid_blocks(old_field_kernel, 1LL * (n + 1) * n * n, &err);
+}
+
+// `syncs` grid-wide barriers alone, in one cooperative launch of `blocks`
+// blocks of the kernels' size. Returns the launch's error (0 on success).
+extern "C" int fdtd_sync_probe_launch(int syncs, int blocks, void* stream) {
+    if (syncs < 0 || blocks <= 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    void* args[] = {&syncs};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        (const void*)fdtd_sync_probe_kernel, dim3(blocks), dim3(kThreads),
+        args, 0, static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
 }
