@@ -28,9 +28,13 @@ nonzero:
    at 96 samples), and the systolic cascade vs the chain cascade at 1e-6;
    the systolic cascade vs its twin and the chain at its schedule's edges
    (K = 16 at 1,000 x 96, K = 10 at 33 x 4 with no steady step, K = 1 at
-   640 x 128), each with its schedule (grid, step ranges, chunks);
-   CUDA-event times of each kernel and twin at 65,536 x 512, and of
-   ``torch.matmul`` on the blockstate chunk products as a yardstick.
+   640 x 128), each with its schedule (grid, step ranges, chunks), and
+   the chain cascade vs its twin at those and at its own edges (S % 4 !=
+   0 on its staged route at 1,001 x 45, 77 x 7 (K = 16) and 129 x 30,
+   track counts no block divides), bit for bit on an unaligned x (the
+   staged route at every shape); CUDA-event times of each kernel and twin at 65,536 x 512, the chain
+   kernel's share of its bound, and of ``torch.matmul`` on the
+   blockstate chunk products as a yardstick.
 5. The Conv1D FIR kernel vs its plain twin in both edge modes at five
    (tracks, samples, taps) shapes up to the main path's 19,456 x 512 x
    1,024, among them each CLI path's own and one with L - 1 > S in
@@ -102,7 +106,12 @@ nonzero:
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-12. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+12. ``torch.profiler`` names the kernels of one call of each cascade
+   wrapper at 1,000 x 96: the chain wrapper must launch the chain kernel
+   alone (its coefficients' copy to the constant bank is a memcpy), the
+   systolic wrapper the systolic kernel alone. It runs after everything
+   timed (a profiler session slows the process's later launches).
+13. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -166,8 +175,14 @@ IIR_ATOL = 1e-5
 CASCADE_TOL = 1e-6
 IIR_STAGES = 10
 # (K, tracks, samples) at the systolic cascade schedule's edges: the
-# deepest instance, S < K - 1 (warm-up and drain only), no lag.
-CASCADE_EDGES = [(16, 1000, 96), (10, 33, 4), (1, 640, 128)]
+# deepest instance, S < K - 1 (warm-up and drain only), no lag; and at
+# the chain cascade's: S % 4 != 0 (its staged route: 45 with a ragged
+# last chunk, 7, 30), track counts no 128-track block divides (1,001, 77,
+# 129), K = 16. At each the chain also runs on an unaligned copy of x
+# (the staged route by the rule), bit for bit its output on the rule's
+# route.
+CASCADE_EDGES = [(16, 1000, 96), (10, 33, 4), (1, 640, 128), (10, 1001, 45),
+                 (16, 77, 7), (2, 129, 30)]
 IIR_SOURCE = "gpuaudiobench_tpu_torch/csrc/iir.cu"
 IIR_REPLACES = {
     "iir_biquad": "gpuaudiobench_tpu/ops/iir.py:49",
@@ -663,38 +678,93 @@ def schedule_text(iops, tracks, s, k):
             f"steady {sc.steady}, drain {sc.drain}, {sc.chunks} chunks")
 
 
+def unaligned_copy(torch, x):
+    """x's values in a contiguous tensor 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    u = buf[1:].view(x.shape)
+    u.copy_(x)
+    return u
+
+
 def compare_cascade_edges(torch, iops, device):
-    """The systolic cascade against its twin (IIR_ATOL) and the chain
-    cascade (CASCADE_TOL abs + rel) over 3 chained blocks at each of
-    CASCADE_EDGES; returns max |kernel - twin|."""
-    worst = 0.0
+    """Over 3 chained blocks at each of CASCADE_EDGES: the systolic
+    cascade against its twin (IIR_ATOL) and the chain cascade
+    (CASCADE_TOL abs + rel); the chain against its twin (IIR_ATOL), and
+    bit for bit on an unaligned copy of x (the staged route). Returns
+    max |kernel - twin| of each cascade."""
+    worst = {"iir_cascade": 0.0, "iir_cascade_chain": 0.0}
     for k, tracks, s in CASCADE_EDGES:
         x, _, _ = iir_inputs(torch, tracks, s, device)
+        xu = unaligned_copy(torch, x)
         _, c, z = iir_inputs(torch, tracks, s, device, stages=k)
         zs, zc, zp = z, z, z
-        err = chain_d = 0.0
+        err = chain_err = chain_d = 0.0
+        before = dict(iops.CHAIN_ROUTE_LAUNCHES)
         for blk in range(3):
-            ys, zs = iops.iir_cascade(x, c, zs)
-            yc, zc = iops.iir_cascade_chain(x, c, zc)
+            ys, zs_next = iops.iir_cascade(x, c, zs)
+            yc, zc_next = iops.iir_cascade_chain(x, c, zc)
             yp, zp = iops.iir_cascade_plain(x, c, zp)
+            yu, zu = iops.iir_cascade_chain(xu, c, zc)
+            if not (torch.equal(yu, yc) and torch.equal(zu, zc_next)):
+                fail(f"iir_cascade_chain K={k} {tracks}x{s} block {blk}: "
+                     "an unaligned x (the staged route) gives other bits")
+            zs, zc = zs_next, zc_next
             if not (torch.isfinite(ys).all() and torch.isfinite(zs).all()):
                 fail(f"iir_cascade K={k} {tracks}x{s}: non-finite output")
             e = max((ys - yp).abs().max().item(), (zs - zp).abs().max().item())
-            if not e <= IIR_ATOL:
-                fail(f"iir_cascade K={k} {tracks}x{s} block {blk}: "
-                     f"max|kernel - twin| {e:.3g} > {IIR_ATOL:g}")
+            ec = max((yc - yp).abs().max().item(), (zc - zp).abs().max().item())
+            if not (e <= IIR_ATOL and ec <= IIR_ATOL):
+                fail(f"K={k} {tracks}x{s} block {blk}: max|kernel - twin| "
+                     f"systolic {e:.3g}, chain {ec:.3g} > {IIR_ATOL:g}")
             for a, b in ((ys, yc), (zs, zc)):
                 d = (a - b).abs()
                 if not (d <= CASCADE_TOL + CASCADE_TOL * b.abs()).all():
                     fail(f"systolic vs chain K={k} {tracks}x{s}: max|d| "
                          f"{d.max().item():.3g} > {CASCADE_TOL:g} abs + rel")
                 chain_d = max(chain_d, d.max().item())
-            err = max(err, e)
-        worst = max(worst, err)
+            err, chain_err = max(err, e), max(chain_err, ec)
+        worst["iir_cascade"] = max(worst["iir_cascade"], err)
+        worst["iir_cascade_chain"] = max(worst["iir_cascade_chain"], chain_err)
+        routes = {r: n - before[r] for r, n in iops.CHAIN_ROUTE_LAUNCHES.items()}
+        sc = iops.chain_schedule(tracks, s, x.data_ptr())
         print(f"compare iir_cascade K={k} {tracks}x{s}: ok  twin {err:.3g}  "
               f"chain {chain_d:.3g}; schedule: "
-              + schedule_text(iops, tracks, s, k))
+              + schedule_text(iops, tracks, s, k)
+              + f"; chain twin {chain_err:.3g}, route {sc.route} (grid "
+              f"{sc.grid} x {sc.warps} warps, {sc.chunks} chunks), unaligned "
+              f"x bit for bit, launches by route {routes}")
     return worst
+
+
+def chain_kernel_names(torch, iops, device):
+    """Each cascade wrapper, called once under torch.profiler at 1,000 x
+    96, K = 10, launches its own kernel and no other: the chain wrapper
+    the chain kernel (its coefficients' copy to the constant bank is a
+    memcpy), the systolic wrapper the systolic kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, c, z = iir_inputs(torch, 1000, 96, device, stages=IIR_STAGES)
+    seen = {}
+    for name, fn, want in (
+            ("iir_cascade_chain", iops.iir_cascade_chain, "iir_cascade_chain_kernel"),
+            ("iir_cascade", iops.iir_cascade, "iir_cascade_systolic_kernel")):
+        fn(x, c, z)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(x, c, z)
+            torch.cuda.synchronize()
+        device_events = [e.name for e in prof.events()
+                         if "CUDA" in str(getattr(e, "device_type", ""))]
+        kernels = sorted({n for n in device_events
+                          if not n.startswith(("Memcpy", "Memset"))})
+        if not kernels:
+            fail(f"{name}: the profiler saw no kernel")
+        if not all(want in n for n in kernels):
+            fail(f"{name} launched {kernels}, not {want} alone")
+        seen[name] = (kernels, sorted({n for n in device_events} - set(kernels)))
+    print("profiler: " + "; ".join(
+        f"{name} launched {[n[:72] for n in k]}" + (f", copies {c}" if c else "")
+        for name, (k, c) in seen.items()))
 
 
 def time_iir(torch, iops, device):
@@ -1511,9 +1581,13 @@ def main() -> int:
     for tracks, s in IIR_SHAPES:
         for k, v in compare_iir(torch, iops, tracks, s, device).items():
             iir_err[k] = max(iir_err.get(k, 0.0), v)
-    iir_err["iir_cascade"] = max(iir_err["iir_cascade"],
-                                 compare_cascade_edges(torch, iops, device))
+    for k, v in compare_cascade_edges(torch, iops, device).items():
+        iir_err[k] = max(iir_err[k], v)
     iir_times = time_iir(torch, iops, device)
+    b_ms, b_by = iir_bounds(128)["iir_cascade_chain"]
+    ms = iir_times["iir_cascade_chain"][0]
+    print(f"time iir_cascade_chain {IIR_FULL[0]}x{IIR_FULL[1]}: {ms:.4f} ms "
+          f"against its bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.2%}")
     print(f"IIR kernels vs twins: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1610,6 +1684,12 @@ def main() -> int:
     t0 = time.perf_counter()
     calibrate(calibrate_peaks, roofline, card)
     print(f"calibration: {time.perf_counter() - t0:.1f} s")
+
+    # Last of the checks: nothing is timed after a profiler session, which
+    # slows the process's later launches (PERF.md §6).
+    t0 = time.perf_counter()
+    chain_kernel_names(torch, iops, device)
+    print(f"profiler proof: {time.perf_counter() - t0:.1f} s")
 
     rows = []
     for name, replaces, (b_ms, b_by) in (

@@ -26,12 +26,35 @@
 //   the bytes bound; PERF.md). The ragged edge of the tracks and of the
 //   samples is masked here, where the TPU wrapper padded the tracks to
 //   512 and called itself.
-// * iir_cascade_chain_kernel<K> replaces _iir_cascade_kernel
-//   (ops/iir.py:130, via iir_cascade_pallas_chain): each sample runs
-//   through all K stages before the next starts, the same tile scheme,
-//   2K states in registers. Its dependency chain per sample is K stages
-//   long. The K stages' coefficients and states take up to ~130
-//   registers, so the cascades keep 8 loads in flight, not 32.
+// * iir_cascade_chain_kernel<K, kTma, kRing, kConst> replaces
+//   _iir_cascade_kernel (ops/iir.py:130, via iir_cascade_pallas_chain):
+//   each sample runs through all K stages before the next starts, 2K
+//   states in registers. It is the systolic kernel's oracle (BiquadChain
+//   holds one against the other), so it shares none of that kernel's
+//   device code or its skewed schedule. Bound: the biquad's bytes plus 5K
+//   FP32 instructions a sample (at 65,536 x 512, K = 10, 268 MB against
+//   ~50 us of issue), so bytes first. What the design does about it
+//   (PERF.md §6 has the measurements):
+//   - the coefficients live in the constant bank (c_chain_coeffs, filled
+//     by a copy on the stream before each launch), so the FFMAs read
+//     them as operands and a thread holds only its 2K states: 65,536
+//     tracks are one wave of 4 blocks of 4 warps an SM;
+//   - a warp owns 32 tracks and a ring of kRing chunk tiles (32 tracks x
+//     32 samples, 128-byte rows, the TMA's 128-byte swizzle), filled by
+//     TMA loads that one lane issues onto an mbarrier a tile and written
+//     back by TMA stores from the same tile, so the next chunks' copies
+//     run under this chunk's samples and nothing waits on another warp;
+//   - a lane walks its row four samples at a time (one conflict-free
+//     16-byte shared access a quad: the swizzle puts the 8 rows of a
+//     quarter-warp on 8 different 16-byte pieces), the loop unrolled by
+//     the quad, so the states advance by register renaming;
+//   - where TMA cannot take the rows (S % 4 != 0, or x or y not 16-byte
+//     aligned) the host picks the staged route (kTma false): the same
+//     tile and sample loop, the tile filled and stored element by
+//     element by the warp's lanes.
+//   What holds it now is the tile pattern, not the arithmetic: its TMA
+//   copies alone, with no stages, take ~87 % of its time, against ~76 %
+//   for a plain copy of the same bytes (PERF.md §6, tools/cascade_stages).
 // * iir_cascade_systolic_kernel<K, ...> replaces _iir_cascade_kernel_systolic
 //   (ops/iir.py:161, via iir_cascade_pallas). At step t stage k works on
 //   sample t - k, so the K stage updates of a step are independent: one
@@ -59,6 +82,8 @@
 //   Each (sample, stage) update is the chain kernel's expression on the
 //   same operands, so its outputs and states are bit for bit those of the
 //   one-thread-a-track kernel it replaced (tools/cascade_stages).
+//   The two cascades share no device function: only the host's grid_for
+//   and the C entry points' argument checks.
 // * iir_blockstate_kernel<NT> replaces _iir_blockstate_kernel
 //   (ops/iir.py:407, via iir_biquad_blockstate_pallas). Each m-sample
 //   chunk is w = taps @ x_chunk + u0*z1 + u1*z2, then
@@ -109,6 +134,7 @@
 // wrapper allocated (never the input state), and returns
 // cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and its encoder's types (reached at run time)
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -119,7 +145,6 @@ namespace {
 constexpr int kTracks = 128;   // tracks (= threads) per block, tile kernels
 constexpr int kChunk = 32;     // samples per shared-memory tile
 constexpr int kPitch = kChunk + 1;
-constexpr int kBatch = 8;      // global loads in flight per thread (cascades)
 constexpr int kMaxStages = 16;
 
 constexpr int kBsWarps = 16;   // blockstate: warps per block
@@ -143,8 +168,9 @@ constexpr int kRowStep = kTracks / kChunk;
 
 // tile[r][c] = x[t0 + r, n0 + c] for c < len and a track inside T, else 0.
 // Loads go kB at a time into registers before any is stored, so kB loads
-// are in flight per thread (the biquad takes all kChunk at once; the
-// cascades, which hold their stages in registers, fewer).
+// are in flight per thread (the biquad takes all kChunk at once; the old
+// cascade kernels of tools/cascade_stages, which hold their stages in
+// registers, 8).
 template <int kB>
 __device__ __forceinline__ void load_tile(float (*tile)[kPitch],
                                           const float* __restrict__ x,
@@ -218,68 +244,282 @@ iir_biquad_kernel(const float* __restrict__ x, const float* __restrict__ coeffs,
     }
 }
 
-template <int K>
-__device__ __forceinline__ void load_stages(const float* __restrict__ coeffs,
-                                            const float* __restrict__ z_in,
-                                            long long t, int tracks, bool live,
-                                            Coeffs (&c)[K], float (&z1)[K],
-                                            float (&z2)[K]) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        c[k] = load_coeffs(coeffs + 5 * k);
-        const long long base = (static_cast<long long>(k) * tracks + t) * 2;
-        z1[k] = live ? z_in[base] : 0.f;
-        z2[k] = live ? z_in[base + 1] : 0.f;
-    }
+// The chain cascade. A warp owns 32 tracks, one a lane, and walks their
+// samples through a ring of kRing chunk tiles of its own in shared memory
+// (one tile on the staged route): nothing in the sample loop waits on
+// another warp. A tile is 32 rows (tracks) of 32 samples, 128 bytes a
+// row, laid out as the TMA's 128-byte swizzle writes it: the 16-byte
+// piece q (samples 4q .. 4q + 3) of row r sits at piece q ^ (r % 8) of the
+// row. A lane reads and writes its row a piece at a time, and the 8 lanes
+// of each quarter-warp then touch 8 different pieces: all 32 banks once.
+// Chunk c lives in slot c % kRing, and its outputs overwrite its inputs
+// in the slot, from which the TMA store writes them back.
+constexpr int kChWarps = 4;                    // warps per block
+constexpr int kChRing = 3;                     // chunk tiles per warp (TMA route)
+constexpr int kChTile = 32 * 32;               // floats a tile
+constexpr int kChTileBytes = kChTile * static_cast<int>(sizeof(float));
+constexpr int kChAlign = 1024;                 // the 128-byte swizzle's tile alignment
+
+// b0, b1, b2, a1, a2 of stage k at 5k. One copy for every launch: a launch
+// copies its coefficients here on its stream first, so two launches on
+// different streams with different coefficients would race on it.
+__constant__ float c_chain_coeffs[kMaxStages * 5];
+
+#ifndef CHAIN_MARK
+// CHAIN_MARK(q) ends phase q of a warp's time (0 the start, 7 the end);
+// tools/cascade_stages builds it into clock64() phase sums, the port
+// into nothing.
+#define CHAIN_MARK(q)
+#endif
+
+__device__ __forceinline__ uint32_t ch_smem(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int K>
-__device__ __forceinline__ void store_stages(float* __restrict__ z_out,
-                                             long long t, int tracks,
-                                             const float (&z1)[K],
-                                             const float (&z2)[K]) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        const long long base = (static_cast<long long>(k) * tracks + t) * 2;
-        z_out[base] = z1[k];
-        z_out[base + 1] = z2[k];
-    }
+// Offset (floats) of sample j of row r in a swizzled tile.
+__device__ __forceinline__ int ch_swizzle(int r, int j) {
+    return 32 * r + ((((j >> 2) ^ r) & 7) << 2) + (j & 3);
 }
 
-template <int K>
-__global__ void __launch_bounds__(kTracks)
-iir_cascade_chain_kernel(const float* __restrict__ x,
-                         const float* __restrict__ coeffs,
-                         const float* __restrict__ z_in, float* __restrict__ y,
-                         float* __restrict__ z_out, int tracks, int s) {
-    __shared__ float tile[kTracks][kPitch];
-    const long long t0 = static_cast<long long>(blockIdx.x) * kTracks;
-    const long long t = t0 + threadIdx.x;
-    const bool live = t < tracks;
-    Coeffs c[K];
-    float z1[K], z2[K];
-    load_stages<K>(coeffs, z_in, t, tracks, live, c, z1, z2);
-    for (int n0 = 0; n0 < s; n0 += kChunk) {
-        const int len = min(kChunk, s - n0);
-        load_tile<kBatch>(tile, x, t0, tracks, s, n0, len);
-        __syncthreads();
-        float* row = tile[threadIdx.x];
-        for (int j = 0; j < len; ++j) {
-            float v = row[j];
+// Waits until the phase of the given parity of *bar has completed.
+__device__ __forceinline__ void ch_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(ch_smem(bar)), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// The (32 tracks x 32 samples) box of the map at (sample n0, track t0)
+// into tile, completing on bar (zeros past the edges of x).
+__device__ __forceinline__ void ch_tma_load(float* tile, const CUtensorMap* map,
+                                            uint64_t* bar, int n0, int t0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(ch_smem(bar)), "r"(kChTileBytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4}], [%2];\n"
+        :: "r"(ch_smem(tile)), "l"(reinterpret_cast<uint64_t>(map)), "r"(ch_smem(bar)),
+           "r"(n0), "r"(t0)
+        : "memory");
+}
+
+// tile into the map's box at (n0, t0), clipped at the edges of y; one
+// bulk group.
+__device__ __forceinline__ void ch_tma_store(const CUtensorMap* map, const float* tile,
+                                             int n0, int t0) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(ch_smem(tile)), "r"(n0), "r"(t0)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The staged route's fill: row r of the tile from track t0 + r, sample
+// n0 + lane by each lane (zeros past the edges), 8 loads in flight a lane.
+__device__ __forceinline__ void ch_fill(float* tile, const float* __restrict__ x,
+                                        long long t0, int rows, int s, int n0, int len,
+                                        int lane) {
+    const bool in = lane < len;
+#pragma unroll 1
+    for (int r0 = 0; r0 < 32; r0 += 8) {
+        float v[8];
 #pragma unroll
-            for (int k = 0; k < K; ++k) {
-                const float w = v - c[k].a1 * z1[k] - c[k].a2 * z2[k];
-                v = c[k].b0 * w + c[k].b1 * z1[k] + c[k].b2 * z2[k];
-                z2[k] = z1[k];
-                z1[k] = w;
-            }
-            row[j] = v;
+        for (int i = 0; i < 8; ++i) {
+            const int r = r0 + i;
+            v[i] = (in && r < rows) ? x[(t0 + r) * s + n0 + lane] : 0.f;
         }
-        __syncthreads();
-        store_tile(y, tile, t0, tracks, s, n0, len);
-        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 8; ++i) tile[ch_swizzle(r0 + i, lane)] = v[i];
     }
-    if (live) store_stages<K>(z_out, t, tracks, z1, z2);
+}
+
+// The staged route's store, the fill's mirror.
+__device__ __forceinline__ void ch_drain(float* __restrict__ y, const float* tile,
+                                         long long t0, int rows, int s, int n0, int len,
+                                         int lane) {
+    if (lane >= len) return;
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) y[(t0 + r) * s + n0 + lane] = tile[ch_swizzle(r, lane)];
+}
+
+// The K stages' coefficients: read from the constant bank as the FFMAs'
+// operands (kConst), or held in registers, loaded from coeffs.
+template <int K, bool kConst>
+struct ChCoeffs {
+    float r[kConst ? 1 : 5 * K];
+    __device__ __forceinline__ void from_global(const float* __restrict__ coeffs) {
+        if constexpr (!kConst) {
+#pragma unroll
+            for (int i = 0; i < 5 * K; ++i) r[i] = coeffs[i];
+        }
+    }
+    __device__ __forceinline__ float operator[](int i) const {
+        if constexpr (kConst) {
+            return c_chain_coeffs[i];
+        } else {
+            return r[i];
+        }
+    }
+};
+
+// Samples v[0 .. N - 1] of the lane's track through the K stages, each
+// sample through every stage before the next: the per-sample chain.
+// Each update is
+//     w = v - a1*z1 - a2*z2,   v = b0*w + b1*z1 + b2*z2,
+// with its roundings written out as nvcc contracted that expression in
+// the kernel this one replaced (tools/cascade_stages checks it bit for
+// bit at every depth): w = fma(-a2, z2, fma(-a1, z1, v)), and v =
+// fma(b2, z2, fma(b0, w, b1*z1)), but fma(b2, z2, fma(b1, z1, b0*w)) at
+// K = 1. The compiler picks either product of b0*w + b1*z1 to round
+// alone by what surrounds it, so the oracle fixes its choice.
+template <int K, bool kConst, int N>
+__device__ __forceinline__ void ch_samples(float (&v)[4], float (&z1)[K], float (&z2)[K],
+                                           const ChCoeffs<K, kConst>& cf) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const float b0 = cf[5 * k], b1 = cf[5 * k + 1], b2 = cf[5 * k + 2];
+            const float a1 = cf[5 * k + 3], a2 = cf[5 * k + 4];
+            const float w = __fmaf_rn(-a2, z2[k], __fmaf_rn(-a1, z1[k], v[i]));
+            const float p = K == 1 ? __fmaf_rn(b1, z1[k], __fmul_rn(b0, w))
+                                   : __fmaf_rn(b0, w, __fmul_rn(b1, z1[k]));
+            v[i] = __fmaf_rn(b2, z2[k], p);
+            z2[k] = z1[k];
+            z1[k] = w;
+        }
+    }
+}
+
+// kTma: the TMA route (x_map, y_map; S % 4 == 0), else the staged route
+// (x, y). kRing: chunk tiles a warp on the TMA route. kConst: the
+// coefficients from the constant bank, else from coeffs into registers
+// (tools/cascade_stages' variant).
+template <int K, bool kTma, int kRing, bool kConst>
+__global__ void __launch_bounds__(kChWarps * 32, 4)
+iir_cascade_chain_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap y_map,
+                         const float* __restrict__ x, const float* __restrict__ coeffs,
+                         const float* __restrict__ z_in, float* __restrict__ y,
+                         float* __restrict__ z_out, int tracks, int s, int chunks) {
+    constexpr int R = kTma ? kRing : 1;
+    // The slot chunk c - kLag held is refilled after chunk c's store: one
+    // chunk later than its own store with 3 or more tiles, so the issuing
+    // lane never waits on the store just issued.
+    constexpr int kLag = R >= 3 ? 1 : 0;
+    extern __shared__ float4 ch_smem4[];
+    __shared__ uint64_t full[kChWarps][R];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const long long t0 = (static_cast<long long>(blockIdx.x) * kChWarps + warp) * 32;
+    if (t0 >= tracks) return;
+    const int rows = static_cast<int>(min(32LL, tracks - t0));
+    const uint32_t raw = ch_smem(ch_smem4);
+    float* ring = reinterpret_cast<float*>(
+                      reinterpret_cast<char*>(ch_smem4) +
+                      (((raw + kChAlign - 1) & ~static_cast<uint32_t>(kChAlign - 1)) - raw)) +
+                  warp * R * kChTile;
+    uint64_t* bar = full[warp];
+    CHAIN_MARK(0);
+
+    if (kTma && lane == 0) {  // one lane a warp issues its copies
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(ch_smem(&bar[r]))
+                         : "memory");
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#pragma unroll
+        for (int c = 0; c < R; ++c) {
+            if (c < chunks) ch_tma_load(ring + c * kChTile, &x_map, &bar[c], 32 * c,
+                                        static_cast<int>(t0));
+        }
+    }
+    __syncwarp();
+
+    ChCoeffs<K, kConst> cf;
+    cf.from_global(coeffs);
+    const long long t = t0 + lane;
+    const bool live = lane < rows;
+    float z1[K], z2[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const long long e = static_cast<long long>(k) * tracks + t;
+        z1[k] = live ? z_in[2 * e] : 0.f;
+        z2[k] = live ? z_in[2 * e + 1] : 0.f;
+    }
+    const int sw = lane & 7;
+    CHAIN_MARK(1);
+
+    for (int c = 0; c < chunks; ++c) {
+        float* tile = ring + (c % R) * kChTile;
+        const int n0 = 32 * c;
+        const int len = min(32, s - n0);
+        if constexpr (kTma) {
+            ch_wait(&bar[c % R], (c / R) & 1);
+        } else {
+            ch_fill(tile, x, t0, rows, s, n0, len, lane);
+            __syncwarp();
+        }
+        CHAIN_MARK(2);
+        float* row = tile + 32 * lane;
+        const int quads = len >> 2;
+#pragma unroll 1
+        for (int q = 0; q < quads; ++q) {
+            float4* p = reinterpret_cast<float4*>(row + ((q ^ sw) << 2));
+            const float4 in = *p;
+            float v[4] = {in.x, in.y, in.z, in.w};
+            ch_samples<K, kConst, 4>(v, z1, z2, cf);
+            *p = make_float4(v[0], v[1], v[2], v[3]);
+        }
+        if constexpr (!kTma) {  // a chunk's last len % 4 samples (S % 4 != 0)
+            for (int j = 4 * quads; j < len; ++j) {
+                float* p = tile + ch_swizzle(lane, j);
+                float v[4] = {*p, 0.f, 0.f, 0.f};
+                ch_samples<K, kConst, 1>(v, z1, z2, cf);
+                *p = v[0];
+            }
+        }
+        CHAIN_MARK(3);
+        if constexpr (kTma) {
+            // The lanes' outputs are in the tile: order them before the
+            // async proxy's read, then one lane stores the chunk and
+            // refills the slot whose store has been read out.
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            __syncwarp();
+            if (lane == 0) {
+                ch_tma_store(&y_map, tile, n0, static_cast<int>(t0));
+                const int old = c - kLag;
+                if (old >= 0 && old + R < chunks) {
+                    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(kLag) : "memory");
+                    ch_tma_load(ring + (old % R) * kChTile, &x_map, &bar[old % R],
+                                32 * (old + R), static_cast<int>(t0));
+                }
+            }
+        } else {
+            __syncwarp();
+            ch_drain(y, tile, t0, rows, s, n0, len, lane);
+            __syncwarp();  // the tile is read out: it takes the next chunk
+        }
+        CHAIN_MARK(4);
+    }
+
+    if (live) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const long long e = static_cast<long long>(k) * tracks + t;
+            z_out[2 * e] = z1[k];
+            z_out[2 * e + 1] = z2[k];
+        }
+    }
+    // The stores must have read the tiles before the block's shared
+    // memory goes.
+    if (kTma && lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    CHAIN_MARK(7);
 }
 
 // The blockstate kernel. A warp owns kBsRows tracks and walks their
@@ -825,11 +1065,102 @@ int grid_for(int tracks, int per_block) {
     return (tracks + per_block - 1) / per_block;
 }
 
-template <int K>
-cudaError_t launch_chain(const float* x, const float* coeffs, const float* z_in,
-                         float* y, float* z_out, int tracks, int s, cudaStream_t st) {
-    iir_cascade_chain_kernel<K><<<grid_for(tracks, kTracks), kTracks, 0, st>>>(
-        x, coeffs, z_in, y, z_out, tracks, s);
+// cuTensorMapEncodeTiled, reached through the runtime so that the
+// library needs no -lcuda.
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave,
+                                     CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                     CUtensorMapFloatOOBfill);
+
+cudaError_t tensor_map_encoder(TensorMapEncode* fn) {
+    static TensorMapEncode cached = nullptr;
+    if (cached == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &found);
+#endif
+        if (err != cudaSuccess) return err;
+        if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+        cached = reinterpret_cast<TensorMapEncode>(p);
+    }
+    *fn = cached;
+    return cudaSuccess;
+}
+
+// The (tracks, s) float32 array at base as a map of 32 x 32 boxes (32
+// samples = 128 bytes inner, 32 tracks outer), 128-byte swizzle, zeros
+// past the edges on load. TMA takes rows of 4s bytes only when that is a
+// multiple of 16, and a 16-byte aligned base.
+cudaError_t chain_map(CUtensorMap* map, const float* base, int tracks, int s) {
+    TensorMapEncode encode = nullptr;
+    cudaError_t err = tensor_map_encoder(&encode);
+    if (err != cudaSuccess) return err;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(tracks)};
+    const cuuint64_t pitch[1] = {static_cast<cuuint64_t>(s) * sizeof(float)};
+    const cuuint32_t box[2] = {32, 32};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                              const_cast<float*>(base), dims, pitch, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+bool chain_tma_takes(const float* x, const float* y, int s) {
+    return s % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(y) % 16 == 0;
+}
+
+// The chain cascade on the host's route and geometry (ops/iir.py
+// chain_schedule): kTma the TMA route, which the shape and pointers must
+// allow, else the staged route, which takes any; grid blocks of kChWarps
+// warps (one a 32 tracks), chunks 32-sample chunks. A geometry that does
+// not cover the shape is refused. The coefficients go into the constant
+// bank by a copy on the stream just before the launch.
+template <int K, bool kTma, int kRing, bool kConst>
+cudaError_t launch_chain(const float* x, const float* coeffs, const float* z_in, float* y,
+                         float* z_out, int tracks, int s, int grid, int chunks,
+                         cudaStream_t st) {
+    if (grid != grid_for(tracks, kChWarps * 32) || chunks != (s + 31) / 32 ||
+        (kTma && !chain_tma_takes(x, y, s))) {
+        return cudaErrorInvalidValue;
+    }
+    CUtensorMap x_map{}, y_map{};
+    cudaError_t err = cudaSuccess;
+    if constexpr (kTma) {
+        err = chain_map(&x_map, x, tracks, s);
+        if (err != cudaSuccess) return err;
+        err = chain_map(&y_map, y, tracks, s);
+        if (err != cudaSuccess) return err;
+    }
+    if constexpr (kConst) {
+        err = cudaMemcpyToSymbolAsync(c_chain_coeffs, coeffs, 5 * K * sizeof(float), 0,
+                                      cudaMemcpyDeviceToDevice, st);
+        if (err != cudaSuccess) return err;
+    }
+    constexpr int bytes = (kTma ? kRing : 1) * kChWarps * kChTileBytes + kChAlign;
+    auto kernel = iir_cascade_chain_kernel<K, kTma, kRing, kConst>;
+    static int cached_dev = -1;
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev != cached_dev) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err != cudaSuccess) return err;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+        if (err != cudaSuccess) return err;
+        cached_dev = dev;
+    }
+    kernel<<<grid, kChWarps * 32, bytes, st>>>(x_map, y_map, x, coeffs, z_in, y, z_out,
+                                               tracks, s, chunks);
     return cudaGetLastError();
 }
 
@@ -931,29 +1262,62 @@ int iir_biquad_launch(const float* x, const float* coeffs, const float* z_in,
 // Warps per block of the systolic cascade (the schedule's `warps`).
 int iir_cascade_warps() { return kCsWarps; }
 
-// coeffs: (k, 5); z_in, z_out: (k, tracks, 2); systolic selects the
-// skewed form (else the per-sample chain), which runs on the schedule
-// (grid, steady_end, drain_end, chunks) of ops/iir.py cascade_schedule;
-// the chain ignores those four. 1 <= k <= iir_max_stages().
+// Warps per block of the chain cascade (chain_schedule's `warps`).
+int iir_chain_warps() { return kChWarps; }
+
+// The systolic cascade on the schedule (grid, steady_end, drain_end,
+// chunks) of ops/iir.py cascade_schedule. coeffs: (k, 5); z_in, z_out:
+// (k, tracks, 2); 1 <= k <= iir_max_stages().
 int iir_cascade_launch(const float* x, const float* coeffs, const float* z_in,
                        float* y, float* z_out, int tracks, int s, int k,
-                       int systolic, int grid, int steady_end, int drain_end,
-                       int chunks, void* stream) {
+                       int grid, int steady_end, int drain_end, int chunks,
+                       void* stream) {
     if (tracks <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     switch (k) {
-#define IIR_CASE(N)                                                                       \
-    case N:                                                                               \
-        err = systolic ? launch_systolic<N, kCsWarps, kCsRing, kCsUnroll>(                \
-                             x, coeffs, z_in, y, z_out, tracks, s, grid, steady_end,      \
-                             drain_end, chunks, st)                                       \
-                       : launch_chain<N>(x, coeffs, z_in, y, z_out, tracks, s, st);       \
+#define IIR_CASE(N)                                                                      \
+    case N:                                                                              \
+        err = launch_systolic<N, kCsWarps, kCsRing, kCsUnroll>(                          \
+            x, coeffs, z_in, y, z_out, tracks, s, grid, steady_end, drain_end, chunks, st); \
         break;
         IIR_CASE(1) IIR_CASE(2) IIR_CASE(3) IIR_CASE(4) IIR_CASE(5) IIR_CASE(6)
         IIR_CASE(7) IIR_CASE(8) IIR_CASE(9) IIR_CASE(10) IIR_CASE(11)
         IIR_CASE(12) IIR_CASE(13) IIR_CASE(14) IIR_CASE(15) IIR_CASE(16)
 #undef IIR_CASE
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(err);
+}
+
+// The per-sample chain cascade on the route and geometry of ops/iir.py
+// chain_schedule: route 0 TMA (S % 4 == 0, x and y 16-byte aligned),
+// route 1 staged; grid = ceil(tracks / 128), chunks = ceil(s / 32).
+// coeffs: (k, 5); z_in, z_out: (k, tracks, 2); 1 <= k <= iir_max_stages().
+// It writes the constant bank's coefficients on the stream first: the
+// port launches it on one stream, and two concurrent launches with other
+// coefficients would race there.
+int iir_cascade_chain_launch(const float* x, const float* coeffs, const float* z_in,
+                             float* y, float* z_out, int tracks, int s, int k, int route,
+                             int grid, int chunks, void* stream) {
+    if (tracks <= 0 || s <= 0 || (route != 0 && route != 1)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    switch (k) {
+#define CHAIN_CASE(N)                                                                     \
+    case N:                                                                               \
+        err = route == 0 ? launch_chain<N, true, kChRing, true>(x, coeffs, z_in, y, z_out, \
+                                                                tracks, s, grid, chunks, st) \
+                         : launch_chain<N, false, 1, true>(x, coeffs, z_in, y, z_out,      \
+                                                           tracks, s, grid, chunks, st);   \
+        break;
+        CHAIN_CASE(1) CHAIN_CASE(2) CHAIN_CASE(3) CHAIN_CASE(4) CHAIN_CASE(5)
+        CHAIN_CASE(6) CHAIN_CASE(7) CHAIN_CASE(8) CHAIN_CASE(9) CHAIN_CASE(10)
+        CHAIN_CASE(11) CHAIN_CASE(12) CHAIN_CASE(13) CHAIN_CASE(14) CHAIN_CASE(15)
+        CHAIN_CASE(16)
+#undef CHAIN_CASE
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(err);

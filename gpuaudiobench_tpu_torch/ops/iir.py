@@ -24,7 +24,8 @@ with the contract of its Pallas kernel:
 * ``iir_cascade`` (``iir_cascade_pallas``, the systolic kernel, launched
   on ``cascade_schedule``),
 * ``iir_cascade_chain`` (``iir_cascade_pallas_chain``, its oracle; the
-  port's chain wrapper runs the chain kernel at every track count).
+  port's chain wrapper runs the chain kernel at every track count, on
+  the route ``chain_schedule`` picks).
 
 A wrapper runs the plain twin only because its tensors lie on the CPU.
 On a CUDA tensor it launches its kernel or raises; it never falls back.
@@ -48,6 +49,9 @@ KERNEL_LAUNCHES: Dict[str, int] = {
     "iir_cascade": 0,
     "iir_cascade_chain": 0,
 }
+# Launches of the chain kernel by route (each also counts once under
+# KERNEL_LAUNCHES["iir_cascade_chain"]).
+CHAIN_ROUTE_LAUNCHES: Dict[str, int] = {"tma": 0, "staged": 0}
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -166,16 +170,22 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.iir_cascade_warps.argtypes = []
         lib.iir_cascade_warps.restype = i
-        if lib.iir_cascade_warps() != CASCADE_WARPS:
-            raise RuntimeError(
-                f"csrc/iir.cu builds {lib.iir_cascade_warps()} warps a "
-                f"block, ops/iir.py schedules {CASCADE_WARPS}")
+        lib.iir_chain_warps.argtypes = []
+        lib.iir_chain_warps.restype = i
+        for fn, want in ((lib.iir_cascade_warps, CASCADE_WARPS),
+                         (lib.iir_chain_warps, CHAIN_WARPS)):
+            if fn() != want:
+                raise RuntimeError(
+                    f"csrc/iir.cu {fn.__name__} is {fn()}, ops/iir.py "
+                    f"schedules {want}")
         lib.iir_max_stages.argtypes = []
         lib.iir_max_stages.restype = i
         lib.iir_biquad_launch.argtypes = [p] * 5 + [i] * 2 + [p]
         lib.iir_biquad_launch.restype = i
-        lib.iir_cascade_launch.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.iir_cascade_launch.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.iir_cascade_launch.restype = i
+        lib.iir_cascade_chain_launch.argtypes = [p] * 5 + [i] * 6 + [p]
+        lib.iir_cascade_chain_launch.restype = i
         lib.iir_blockstate_launch.argtypes = [p] * 7 + [i] * 3 + [p]
         lib.iir_blockstate_launch.restype = i
     return lib
@@ -278,7 +288,53 @@ def cascade_schedule(tracks: int, s: int, k: int) -> CascadeSchedule:
         chunks=-(-s // CASCADE_CHUNK))
 
 
-def _cascade(kernel: str, systolic: int, x, coeffs, states) -> Pair:
+# Warps per block of the chain cascade kernel (csrc/iir.cu kChWarps).
+CHAIN_WARPS = 4
+CHAIN_BOX = (32, 32)     # a chunk tile: (samples, tracks), 128-byte rows
+CHAIN_SWIZZLE = 128      # bytes: the TMA's 128-byte swizzle of a tile
+CHAIN_ROUTES = ("tma", "staged")  # the C entry's route 0 and 1
+
+
+@dataclass(frozen=True)
+class ChainSchedule:
+    """Launch geometry of the chain cascade kernel for one shape.
+
+    ``grid`` blocks of ``warps`` warps, a warp 32 tracks; ``chunks``
+    32-sample chunk tiles a warp. ``route`` "tma" fills and stores the
+    tiles by TMA on tensor maps of x and y that ``csrc/iir.cu`` encodes
+    as ``global_dims`` (S, tracks), innermost first, rows ``row_pitch``
+    bytes apart, boxes of ``box`` elements, a ``swizzle``-byte swizzle:
+    TMA takes a row pitch that is a multiple of 16 bytes (S % 4 == 0) and
+    a 16-byte aligned x (y comes from the wrapper's allocator, aligned).
+    Otherwise "staged": the warp's lanes fill and store each tile element
+    by element. The route is picked here, before the launch; the C side
+    refuses a TMA route that S or the pointers do not allow.
+    """
+
+    route: str
+    grid: int
+    warps: int
+    chunks: int
+    global_dims: Tuple[int, int]
+    row_pitch: int
+    box: Tuple[int, int]
+    swizzle: int
+
+
+def chain_schedule(tracks: int, s: int, x_ptr: int = 0) -> ChainSchedule:
+    """The chain cascade's schedule for (tracks, S) with x at x_ptr."""
+    if tracks < 1 or s < 1:
+        raise ValueError(f"chain_schedule: tracks {tracks} and S {s} must "
+                         "both be >= 1")
+    return ChainSchedule(
+        route="tma" if s % 4 == 0 and x_ptr % 16 == 0 else "staged",
+        grid=-(-tracks // (32 * CHAIN_WARPS)), warps=CHAIN_WARPS,
+        chunks=-(-s // CHAIN_BOX[0]), global_dims=(s, tracks),
+        row_pitch=4 * s, box=CHAIN_BOX, swizzle=CHAIN_SWIZZLE)
+
+
+def _cascade_args(kernel: str, x, coeffs, states):
+    """Checks the cascade contract; returns (tracks, S, K, device)."""
     tracks, s = x.shape
     k = coeffs.shape[0] if coeffs.dim() == 2 else 0
     dev = _check(kernel, x, [("x", x, (tracks, s)),
@@ -286,30 +342,46 @@ def _cascade(kernel: str, systolic: int, x, coeffs, states) -> Pair:
                              ("states", states, (k, tracks, 2))])
     if k == 0:
         raise ValueError(f"{kernel}: needs at least one stage")
-    if dev.type == "cpu":
-        return iir_cascade_plain(x, coeffs, states)
-    lib = _lib()
-    max_k = lib.iir_max_stages()
+    return tracks, s, k, dev
+
+
+def _check_depth(kernel: str, k: int) -> None:
+    max_k = _lib().iir_max_stages()
     if k > max_k:
         raise ValueError(
             f"{kernel}: the CUDA kernels take at most {max_k} stages, got {k}")
-    sched = (0, 0, 0, 0)  # the chain kernel takes no schedule
-    if systolic:
-        sc = cascade_schedule(tracks, s, k)
-        sched = (sc.grid, sc.steady[1], sc.drain[1], sc.chunks)
-    return _launch(kernel, "iir_cascade_launch", x, states,
-                   (x, coeffs, states), (tracks, s, k, systolic, *sched))
 
 
 def iir_cascade(x: torch.Tensor, coeffs: torch.Tensor,
                 states: torch.Tensor) -> Pair:
     """Same contract as ``iir_cascade_pallas`` (the systolic kernel):
     x (T, S), coeffs (K, 5), states (K, T, 2) -> (y, states')."""
-    return _cascade("iir_cascade", 1, x, coeffs, states)
+    tracks, s, k, dev = _cascade_args("iir_cascade", x, coeffs, states)
+    if dev.type == "cpu":
+        return iir_cascade_plain(x, coeffs, states)
+    _check_depth("iir_cascade", k)
+    sc = cascade_schedule(tracks, s, k)
+    return _launch("iir_cascade", "iir_cascade_launch", x, states,
+                   (x, coeffs, states),
+                   (tracks, s, k, sc.grid, sc.steady[1], sc.drain[1],
+                    sc.chunks))
 
 
 def iir_cascade_chain(x: torch.Tensor, coeffs: torch.Tensor,
                       states: torch.Tensor) -> Pair:
     """Same contract as ``iir_cascade_pallas_chain`` (each sample through
-    every stage before the next): the oracle of ``iir_cascade``."""
-    return _cascade("iir_cascade_chain", 0, x, coeffs, states)
+    every stage before the next): the oracle of ``iir_cascade``. On CUDA
+    the kernel runs on the route ``chain_schedule`` picks (both routes
+    give the same bits)."""
+    tracks, s, k, dev = _cascade_args("iir_cascade_chain", x, coeffs,
+                                      states)
+    if dev.type == "cpu":
+        return iir_cascade_plain(x, coeffs, states)
+    _check_depth("iir_cascade_chain", k)
+    sc = chain_schedule(tracks, s, x.data_ptr())
+    out = _launch("iir_cascade_chain", "iir_cascade_chain_launch", x, states,
+                  (x, coeffs, states),
+                  (tracks, s, k, CHAIN_ROUTES.index(sc.route), sc.grid,
+                   sc.chunks))
+    CHAIN_ROUTE_LAUNCHES[sc.route] += 1
+    return out

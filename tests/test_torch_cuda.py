@@ -365,6 +365,71 @@ def test_iir_cascade_edges_match_twin_and_are_deterministic(
     assert torch.equal(z0, z_copy)
 
 
+# The chain cascade's two routes (ops/iir.py chain_schedule): TMA where
+# S % 4 == 0 and x is 16-byte aligned, else staged (an unaligned copy of
+# x takes it at any S). Both routes give the same bits; each holds to the
+# twin (IIR_ATOL) and to the systolic kernel (CASCADE_TOL).
+CHAIN_ROUTE_CASES = [(10, 65536, 512), (10, 1000, 96), (16, 1001, 521),
+                     (1, 33, 4), (2, 77, 7), (16, 129, 30), (10, 5, 1)]
+
+
+def _unaligned(x):
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    u = buf[1:].view(x.shape)
+    u.copy_(x)
+    return u
+
+
+@pytest.mark.parametrize("k,tracks,s", CHAIN_ROUTE_CASES)
+def test_iir_cascade_chain_routes_match_twin_systolic_and_each_other(
+        cuda, k, tracks, s):
+    x, c, z0 = _iir_inputs(tracks, s, cuda, k=k)
+    xu = _unaligned(x)
+    rule = iops.chain_schedule(tracks, s, x.data_ptr()).route
+    assert rule == ("tma" if s % 4 == 0 else "staged")
+    routes = dict(iops.CHAIN_ROUTE_LAUNCHES)
+    zc, zs, zp = z0, z0, z0
+    for _ in range(3):  # states chained over 3 blocks
+        yc, zc_next = iops.iir_cascade_chain(x, c, zc)
+        yu, zu = iops.iir_cascade_chain(xu, c, zc)  # the staged route
+        assert torch.equal(yu, yc) and torch.equal(zu, zc_next)
+        zc = zc_next
+        ys, zs = iops.iir_cascade(x, c, zs)
+        yp, zp = iops.iir_cascade_plain(x, c, zp)
+        assert (yc - yp).abs().max().item() <= IIR_ATOL
+        assert (zc - zp).abs().max().item() <= IIR_ATOL
+        torch.testing.assert_close(ys, yc, atol=CASCADE_TOL, rtol=CASCADE_TOL)
+        torch.testing.assert_close(zs, zc, atol=CASCADE_TOL, rtol=CASCADE_TOL)
+    torch.cuda.synchronize()
+    got = {r: n - routes[r] for r, n in iops.CHAIN_ROUTE_LAUNCHES.items()}
+    assert got == ({"tma": 3, "staged": 3} if rule == "tma"
+                   else {"tma": 0, "staged": 6})
+
+
+@pytest.mark.parametrize("s,offset", [(30, 0), (32, 1)])
+def test_iir_cascade_chain_entry_refuses_a_tma_route_it_cannot_take(
+        cuda, s, offset):
+    """The C entry refuses the TMA route (0) for S % 4 != 0 or an
+    unaligned x, launching nothing, and takes the staged route (1) there:
+    a route, never a fallback."""
+    x, c, z = _iir_inputs(64, s, cuda, k=3)
+    if offset:
+        x = _unaligned(x)
+    y, zo = torch.empty_like(x), torch.empty_like(z)
+    sc = iops.chain_schedule(64, s, x.data_ptr())
+    assert sc.route == "staged"
+    lib = iops._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [t.data_ptr() for t in (x, c, z, y, zo)] + [64, s, 3]
+    assert lib.iir_cascade_chain_launch(*args, 0, sc.grid, sc.chunks,
+                                        stream) != 0
+    assert lib.iir_cascade_chain_launch(*args, 1, sc.grid, sc.chunks,
+                                        stream) == 0
+    yp, zp = iops.iir_cascade_plain(x, c, z)
+    assert (y - yp).abs().max().item() <= IIR_ATOL
+    assert (zo - zp).abs().max().item() <= IIR_ATOL
+
+
 @pytest.mark.parametrize("kind,block_m", IIR_CASES)
 def test_iir_wrapper_rejects_bad_input(cuda, kind, block_m):
     kern, _, x, z = _iir_pair(kind, 64, 128, cuda, block_m)

@@ -477,3 +477,51 @@ def test_chip_smoke_lists_every_twin_and_kernel():
         path, line = replaces.split(":")
         src = (REPO / path).read_text().splitlines()[int(line) - 1]
         assert src.startswith("def _") and "kernel" in src, replaces
+
+
+def _device_functions(src):
+    """{name: body} of every ``__global__`` and ``__device__`` function of
+    a CUDA source (templates included), found by brace matching."""
+    import re
+
+    src = re.sub(r"__launch_bounds__\([^)]*\)", "", src)
+    out = {}
+    for m in re.finditer(
+            r"__(?:global|device)__\s[^;{]*?\b(\w+)\s*\([^;{]*?\)\s*(?:const\s*)?\{",
+            src):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"{": 1, "}": -1}.get(src[i], 0)
+            i += 1
+        out.setdefault(m.group(1), "")
+        out[m.group(1)] += src[m.end():i]
+    return out
+
+
+def _reached(funcs, root):
+    """The device functions ``root`` calls, transitively."""
+    import re
+
+    seen, todo = set(), [root]
+    while todo:
+        body = funcs[todo.pop()]
+        for name in funcs:
+            if name not in seen and re.search(rf"\b{name}\s*(<[^;]*?>)?\s*\(", body):
+                seen.add(name)
+                todo.append(name)
+    return seen - {root}
+
+
+@pytest.mark.parametrize("kernel,other", [
+    ("iir_cascade_chain_kernel", "iir_cascade_systolic_kernel"),
+    ("iir_cascade_systolic_kernel", "iir_cascade_chain_kernel")])
+def test_cascade_kernels_share_no_device_code(kernel, other):
+    """The chain cascade is the systolic cascade's oracle: neither kernel
+    calls a device function the other reaches, nor the other kernel."""
+    src = (PKG / "csrc" / "iir.cu").read_text()
+    funcs = _device_functions(src)
+    assert {kernel, other, "ch_samples", "cascade_step"} <= set(funcs)
+    mine, theirs = _reached(funcs, kernel), _reached(funcs, other)
+    assert mine and theirs
+    assert other not in mine
+    assert not mine & (theirs | {other}), sorted(mine & theirs)

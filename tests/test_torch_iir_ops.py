@@ -23,9 +23,14 @@ Tolerances, absolute:
   (warm-up, steady and drain quads, the chunk ring with outputs written
   over their inputs), emulated here in float32, vs the cascade twin and
   the Pallas systolic kernel: 1e-5, ``CASCADE_ATOL`` (the emulation rounds
-  each product apart, the kernel contracts them into FMAs).
+  each product apart, the kernel contracts them into FMAs);
+* the CUDA chain cascade kernel's order on ``chain_schedule`` (32-track
+  warps, swizzled 32-sample chunk tiles, quads and the staged route's
+  tail), emulated the same way, vs the cascade twin and the Pallas chain
+  kernel: 1e-5, ``CASCADE_ATOL``.
 """
 
+import pathlib
 from collections import Counter
 
 import numpy as np
@@ -468,3 +473,184 @@ def test_cascade_schedule_at_the_main_shape():
     assert sc.drain == (509, 521)
     with pytest.raises(ValueError):
         tiir.cascade_schedule(0, 512, 10)
+
+
+# -- the chain cascade kernel's host side and tile layout ----------------
+#
+# ``chain_schedule`` picks the route before the launch: TMA where the rows
+# are a multiple of 16 bytes (S % 4 == 0) and x is 16-byte aligned, else
+# the staged route. The tile layout is the TMA's 128-byte swizzle.
+
+@pytest.mark.parametrize("s,x_ptr,route", [
+    (512, 0, "tma"), (4, 0x1000, "tma"), (96, 16, "tma"),
+    (521, 0, "staged"), (7, 0, "staged"), (1, 0, "staged"),
+    (30, 0, "staged"), (512, 4, "staged"), (512, 8, "staged"),
+    (512, 0x1004, "staged")])
+def test_chain_schedule_route_rule(s, x_ptr, route):
+    assert tiir.chain_schedule(1000, s, x_ptr).route == route
+    assert route in tiir.CHAIN_ROUTES
+
+
+@pytest.mark.parametrize("tracks,s", [(1, 1), (33, 4), (128, 32), (129, 33),
+                                      (1000, 96), (1001, 521), (65536, 512),
+                                      (70000, 600)])
+def test_chain_schedule_grid_and_tensor_map(tracks, s):
+    """Blocks of 4 warps, a warp 32 tracks: the grid covers the tracks
+    with no empty block; the chunks cover S; the tensor map is (S,
+    tracks) innermost first, rows 4S bytes apart (a multiple of 16 on the
+    TMA route, as cuTensorMapEncodeTiled needs), boxes of 32 samples x 32
+    tracks whose 128-byte rows are the swizzle's span (a box dimension
+    may be at most 256)."""
+    sc = tiir.chain_schedule(tracks, s)
+    per_block = 32 * sc.warps
+    assert sc.warps == tiir.CHAIN_WARPS == 4
+    assert (sc.grid - 1) * per_block < tracks <= sc.grid * per_block
+    assert (sc.chunks - 1) * sc.box[0] < s <= sc.chunks * sc.box[0]
+    assert sc.global_dims == (s, tracks)
+    assert sc.row_pitch == 4 * s
+    assert (sc.route == "tma") == (sc.row_pitch % 16 == 0)
+    assert sc.box == (32, 32) and all(1 <= b <= 256 for b in sc.box)
+    assert 4 * sc.box[0] == sc.swizzle == 128
+    with pytest.raises(ValueError):
+        tiir.chain_schedule(0, s)
+
+
+def test_chain_schedule_at_the_main_shape():
+    """65,536 x 512: 512 blocks of 4 warps (2,048 warps, one wave at 4
+    blocks an SM on 132 SMs), 16 chunks, the TMA route."""
+    sc = tiir.chain_schedule(65536, 512)
+    assert (sc.route, sc.grid, sc.warps, sc.chunks) == ("tma", 512, 4, 16)
+    assert sc.grid <= 4 * 132
+
+
+# ``csrc/iir.cu`` ch_swizzle: the offset (floats) of sample j of row r in a
+# chain tile; the 16-byte piece j / 4 of a row sits at piece (j / 4) ^
+# (r % 8). The test below holds this copy to the source.
+CH_SWIZZLE = "32 * r + ((((j >> 2) ^ r) & 7) << 2) + (j & 3)"
+
+
+def _tile_offset(r, j):
+    return 32 * r + ((((j >> 2) ^ r) & 7) << 2) + (j & 3)
+
+
+def test_chain_tile_offset_is_the_kernels():
+    src = (pathlib.Path(tiir.__file__).parents[1] / "csrc" / "iir.cu").read_text()
+    assert f"return {CH_SWIZZLE};" in src
+    r, j = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    np.testing.assert_array_equal(eval(CH_SWIZZLE), _tile_offset(r, j))
+
+
+def _tma_swizzle_128(byte_offset):
+    """The 128-byte swizzle's address map: bits [4:6] of a byte offset
+    XOR bits [7:9]."""
+    return byte_offset ^ (((byte_offset >> 7) & 7) << 4)
+
+
+def test_chain_tile_offsets_are_the_tma_swizzle_and_a_bijection():
+    rows, samples = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    off = _tile_offset(rows, samples)
+    assert sorted(off.ravel()) == list(range(32 * 32))  # one slot each
+    dense = 4 * (32 * rows + samples)
+    np.testing.assert_array_equal(4 * off, _tma_swizzle_128(dense))
+
+
+@pytest.mark.parametrize("quad", range(8))
+def test_chain_tile_quad_reads_are_free_of_bank_conflicts(quad):
+    """Lane r reads samples 4q .. 4q + 3 of row r (16 bytes); a warp's
+    16-byte accesses go by quarter-warps, and each quarter-warp's 8 reads
+    fall in 8 distinct 16-byte pieces of the 128-byte bank line."""
+    lanes = np.arange(32)
+    off = _tile_offset(lanes, np.full(32, 4 * quad))
+    assert (off % 4 == 0).all()  # 16-byte aligned
+    for g in range(4):
+        pieces = (off[8 * g:8 * g + 8] // 4) % 8
+        assert len(set(pieces)) == 8
+
+
+def test_chain_tile_staged_copies_are_free_of_bank_conflicts():
+    """The staged route's fill and store: lane j moves sample j of one row
+    at a time (32 banks once), and the tail's scalar reads (lane r,
+    sample j of row r) fall on 8 banks, 4 lanes a bank."""
+    lanes = np.arange(32)
+    for r in range(32):
+        banks = _tile_offset(np.full(32, r), lanes) % 32
+        assert len(set(banks)) == 32
+    for j in range(32):
+        banks = _tile_offset(lanes, np.full(32, j)) % 32
+        assert len(set(banks)) == 8
+
+
+def _emulate_chain(x, c, z, sched):
+    """The CUDA chain cascade kernel's order (``csrc/iir.cu``) in float32
+    NumPy, every warp and lane at once: per 32-sample chunk each warp's
+    tile filled through the swizzled offsets (zeros past S and past the
+    last track), each lane walking its row a quad at a time, every sample
+    through the K stages in order before the next, outputs written over
+    their inputs, the chunk's last S % 4 samples one at a time on the
+    staged route, then the tile stored back through the same offsets."""
+    tracks, s = x.shape
+    k = c.shape[0]
+    rows_all = 32 * sched.warps * sched.grid
+    xp = np.zeros((rows_all, s), np.float32)
+    xp[:tracks] = x
+    y = np.full((rows_all, s), np.nan, np.float32)
+    z1 = np.zeros((k, rows_all), np.float32)
+    z2 = np.zeros((k, rows_all), np.float32)
+    z1[:, :tracks], z2[:, :tracks] = z[:, :, 0], z[:, :, 1]
+    warps = rows_all // 32
+    r = np.arange(32)
+
+    def stage_samples(v):
+        for kk in range(k):
+            b0, b1, b2, a1, a2 = c[kk]
+            w = v - a1 * z1[kk] - a2 * z2[kk]
+            v = b0 * w + b1 * z1[kk] + b2 * z2[kk]
+            z2[kk], z1[kk] = z1[kk].copy(), w
+        return v
+
+    for ch in range(sched.chunks):
+        n0 = 32 * ch
+        ln = min(32, s - n0)
+        tiles = np.zeros((warps, 32 * 32), np.float32)
+        for j in range(ln):
+            tiles[:, _tile_offset(r, j)] = xp[:, n0 + j].reshape(warps, 32)
+        lanes_off = lambda j: _tile_offset(r, j)  # noqa: E731
+        quads = ln // 4
+        for q in range(quads):
+            for j in range(4 * q, 4 * q + 4):
+                v = tiles[:, lanes_off(j)].reshape(-1)
+                tiles[:, lanes_off(j)] = stage_samples(v).reshape(warps, 32)
+        assert sched.route == "staged" or ln % 4 == 0
+        for j in range(4 * quads, ln):
+            v = tiles[:, lanes_off(j)].reshape(-1)
+            tiles[:, lanes_off(j)] = stage_samples(v).reshape(warps, 32)
+        for j in range(ln):
+            y[:, n0 + j] = tiles[:, _tile_offset(r, j)].reshape(-1)
+    return y[:tracks], np.stack([z1[:, :tracks], z2[:, :tracks]], axis=2)
+
+
+@pytest.mark.parametrize("k,tracks,s,vs_pallas", [
+    (10, 8, 32, True), (1, 8, 16, True), (16, 5, 96, True),
+    (10, 3, 4, True), (2, 7, 7, False), (16, 3, 1, False),
+    (3, 130, 70, False), (4, 6, 130, False), (13, 33, 33, False)])
+def test_chain_kernel_order_matches_twin_and_pallas(rng, k, tracks, s,
+                                                    vs_pallas):
+    """The emulated chain kernel, states chained over 3 blocks on the
+    schedule of each shape (both routes, a ragged last chunk and block,
+    S < 4), against the twin and, where marked, the JAX chain kernel in
+    interpret mode."""
+    x = _signal(rng, tracks, s)
+    c = _coeffs(k)
+    z0 = ((rng.random((k, tracks, 2), dtype=np.float32) - 0.5) * 0.2
+          ).astype(np.float32)
+    sched = tiir.chain_schedule(tracks, s)
+    emu = _chain(lambda xx, z: _emulate_chain(xx, c, z, sched), x, z0)
+    assert np.isfinite(emu[0]).all() and np.isfinite(emu[1]).all()
+    twin = _chain(lambda xx, z: tiir.iir_cascade_plain(xx, _t(c), z),
+                  _t(x), _t(z0))
+    _assert_pair(emu, twin, CASCADE_ATOL)
+    if vs_pallas:
+        with pltpu.force_tpu_interpret_mode():
+            chain = _chain(lambda xx, z: jiir.iir_cascade_pallas_chain(
+                xx, c, z, track_block=tracks), x, z0)
+        _assert_pair(emu, chain, CASCADE_ATOL)
