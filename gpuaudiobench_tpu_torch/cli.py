@@ -5,9 +5,12 @@
 
 A cut-down counterpart of ``gpuaudiobench_tpu/cli.py`` with the same
 ``parse_args`` / ``run`` / ``main`` shape and the flags the ported
-benchmarks read. A flag the reference knows but the port has not ported
-yet exits 1 with a message that names its ROADMAP item, as does
-``--outputfile`` without ``--json`` (the CSV writer is not ported). The
+benchmarks and tiers read, DAW-sim pacing (``--dawsim``,
+``--dawsim-mode``, ``--dawsim-jitter-us``), the overlapped-infeed tier
+(``--overlapDepth``, ``--overlapReps``) and the datacopy pool
+(``--transferMiB``) among them. A flag the reference knows but the port
+has not ported yet exits 1 with a message that names its ROADMAP item, as
+does ``--outputfile`` without ``--json`` (the CSV writer is not ported). The
 run is on the GPU: ``main(argv)`` takes ``device="cuda"``; only a caller
 that passes ``device="cpu"`` (the tests) gets the CPU. A benchmark that
 raises is reported and the suite goes on, but the exit code is 1.
@@ -41,6 +44,8 @@ VALUE_FLAGS = {
     "--warmup": ("warmup", int),
     "--outputfile": ("output_file", str),
     "--verification": ("verification", str),
+    "--dawsim-mode": ("dawsim_mode", str),
+    "--dawsim-jitter-us": ("dawsim_jitter_us", float),
     "--impl": ("impl", str),
     "--iirForm": ("iir_form", str),
     "--iirBlockM": ("iir_block_m", int),
@@ -48,6 +53,7 @@ VALUE_FLAGS = {
     "--irLength": ("ir_length", int),
     "--convEdgeMode": ("conv_edge_mode", str),
     "--poolMiB": ("rndmem_pool_mb", int),
+    "--transferMiB": ("transfer_mib", int),
     "--dwgMinLen": ("dwg_min_length", int),
     "--dwgMaxLen": ("dwg_max_length", int),
     "--fdtdRoom": ("fdtd_room", int),
@@ -58,11 +64,14 @@ VALUE_FLAGS = {
     "--solMatmulDim": ("sol_matmul_dim", int),
     "--pipelineDepth": ("pipeline_depth", int),
     "--saturatedReps": ("saturated_reps", int),
+    "--overlapDepth": ("overlap_depth", int),
+    "--overlapReps": ("overlap_reps", int),
     "--seed": ("seed", int),
 }
 SWITCHES = {
     "--json": ("json_output", True),
     "--quiet": ("quiet", True),
+    "--dawsim": ("dawsim", True),
     "--no-device-timing": ("device_timing", False),
     "--noSaturatedMarginal": ("saturated_marginal", False),
     "--modalRenorm": ("modal_renorm", True),
@@ -71,13 +80,7 @@ SWITCHES = {
 # Flags of the reference's CLI that the port has not ported, with the
 # ROADMAP.md item that ports them.
 UNPORTED_FLAGS = {
-    "--category": "queue 1, item 17",
-    "--dawsim": "queue 1, item 5",
-    "--dawsim-mode": "queue 1, item 5",
-    "--dawsim-jitter-us": "queue 1, item 5",
-    "--overlapDepth": "queue 1, item 5",
-    "--overlapReps": "queue 1, item 5",
-    "--transferMiB": "queue 1, item 5",
+    "--category": "queue 1, item 17a",
     "--capture": "queue 1, item 4",
     "--captureDir": "queue 1, item 4",
     "--partconvForm": "queue 1, item 13",
@@ -87,8 +90,8 @@ UNPORTED_FLAGS = {
     "--neuralampChannels": "queue 1, item 15",
     "--neuralampLayers": "queue 1, item 15",
     "--neuralampDtype": "queue 1, item 15",
-    "--csvSchema": "queue 1, item 17",
-    "--latenciesFile": "queue 1, item 17",
+    "--csvSchema": "queue 1, item 17a",
+    "--latenciesFile": "queue 1, item 17a",
     "--dataParallel": "queue 1, item 18",
     "--mesh": "queue 1, item 18",
     "--compilationCacheDir": "'Not ported' (XLA only)",
@@ -116,6 +119,9 @@ def print_help() -> None:
     print("  --outputfile [file]      With --json: write the JSON to a file")
     print("                           (the CSV writer is not ported yet)")
     print("  --verification [mode]    none | spot | full (default: full)")
+    print("  --dawsim                 Pace iterations at the audio buffer rate")
+    print("  --dawsim-mode [mode]     spin | sleep (default: spin)")
+    print("  --dawsim-jitter-us [us]  Schedule jitter in microseconds")
     print("  --impl [which]           auto | pallas (the CUDA kernel) | xla")
     print("                           (the plain twin; refused on the GPU)")
     print("  --iirForm [f]            scan | blockstate (IIRFilter "
@@ -128,6 +134,7 @@ def print_help() -> None:
     print("  --convEdgeMode [m]       clamp | bleed (Conv1D window before "
           "a track's start; default clamp)")
     print("  --poolMiB [n]            RndMemRead pool size (default: 512)")
+    print("  --transferMiB [n]        datacopy* pool size (default: 10)")
     print("  --dwgMinLen/--dwgMaxLen [n]  DWG delay-line length range")
     print("                           (CUDA default 100-2000; Metal used 64-1024)")
     print("  --fdtdRoom [n]           FDTD3D room cells per axis "
@@ -144,6 +151,10 @@ def print_help() -> None:
     print("                           n chained blocks, state carried")
     print("  --saturatedReps [n]      Saturated-tier repetitions (default: 21)")
     print("  --noSaturatedMarginal    Skip the depth-differenced marginal tier")
+    print("  --overlapDepth [n]       Also measure overlapped infeed: upload")
+    print("                           block k+1 while block k computes, vs")
+    print("                           the serial twin (n blocks per rep)")
+    print("  --overlapReps [n]        Overlap-tier repetitions (default: 5)")
     print("  --seed [n]               Test-data seed (default: 42)")
     print("  --no-device-timing       Skip the device tier (CUDA events)")
     print("  --quiet                  Suppress progress output (results only)")
@@ -163,6 +174,10 @@ def print_help() -> None:
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark FDTD3D "
           "--fdtdRoom 50 --pipelineDepth 32 --json")
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark SOL_VPU --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark datacopy0199 "
+          "--transferMiB 100 --dawsim --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark IIRFilter "
+          "--nTracks 65536 --overlapDepth 32 --json")
     print("  python -m gpuaudiobench_tpu_torch.cli    (RndMemRead, 128 tracks)")
 
 
@@ -240,7 +255,7 @@ def parse_args(argv: List[str]):
     if cfg.output_file and not cfg.json_output:
         return None, [], (
             "Error: --outputfile writes CSV, which the PyTorch CLI does not "
-            "write yet (see ROADMAP.md queue 1, item 17); add --json to "
+            "write yet (see ROADMAP.md queue 1, item 17a); add --json to "
             "write the JSON result to the file")
 
     if filters:
@@ -299,6 +314,10 @@ def run(cfg: BenchConfig, names: List[str], device: str = "cuda") -> int:
                     generate_json_results(result, cfg, torch_dev))
             else:
                 print_results(result, cfg)
+            if result.deadline_miss_rate:
+                print(f"WARNING: {name} missed "
+                      f"{result.deadline_miss_rate:.1f}% of buffer "
+                      "deadlines under DAW pacing")
             bench.cleanup()
         except Exception as e:  # noqa: BLE001 - suite resilience
             traceback.print_exc()

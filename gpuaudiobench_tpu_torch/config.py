@@ -42,11 +42,20 @@ class BenchConfig:
     # The device tier: CUDA events around device_iterate()
     # (harness/device_timing.py).
     device_timing: bool = True
-    # Runner tiers not ported yet: asking for one raises (runner.py).
+    # DAW-load simulation (harness/dawsim.py): pace each timed iteration
+    # to the next buffer boundary by spinning or sleeping, with uniform
+    # +-jitter.
     dawsim: bool = False
+    dawsim_mode: str = "spin"  # "spin" | "sleep"
+    dawsim_jitter_us: float = 0.0
+    # Runner tiers not ported yet: asking for one raises (runner.py).
     capture: bool = False
     data_parallel: int = 1
+    # Overlapped-infeed pass (harness/overlap.py): overlap_depth blocks
+    # with the input upload double-buffered against compute, beside the
+    # serial twin, overlap_reps times (0/1 = off).
     overlap_depth: int = 0
+    overlap_reps: int = 5
 
     seed: int = 42
     # ModalFilterBank: None = min(1024*nTracks, 1M) modes.
@@ -83,6 +92,9 @@ class BenchConfig:
     # cells; 50 is the CUDA/Metal reference, bench_fdtd3d.cuh:12-38).
     fdtd_per_track_receivers: bool = False
     fdtd_room: int = 50
+    # datacopy*: the pool in MiB the five ratios split (the CUDA default
+    # 10; the poster's tab5/tab8 also measured 100 MiB and 1 GiB).
+    transfer_mib: int = 10
 
     # Speed-of-light benchmarks (SOL_*, models/speedoflight.py): FMA passes
     # an element, the FMA, stream and shared-memory working sets in MiB, and
@@ -120,6 +132,8 @@ class BenchConfig:
             raise ValueError("n_runs must be positive")
         if self.verification not in ("none", "spot", "full"):
             raise ValueError(f"invalid verification mode: {self.verification}")
+        if self.dawsim_mode not in ("spin", "sleep"):
+            raise ValueError(f"invalid dawsim mode: {self.dawsim_mode}")
         if self.conv_edge_mode not in ("clamp", "bleed"):
             raise ValueError(f"invalid conv edge mode: {self.conv_edge_mode}")
         if not 8 <= self.fdtd_room <= 128:

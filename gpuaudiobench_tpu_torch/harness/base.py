@@ -64,6 +64,20 @@ class BenchmarkResult:
     saturated_marginal_latencies: List[float] = dataclasses.field(
         default_factory=list)
     saturated_marginal_statistics: Optional[LatencyStats] = None
+    # DAW-sim pacing (harness/dawsim.py): the percentage of timed
+    # iterations past the buffer deadline, and the pacer that ran
+    # ("native" | "python").
+    deadline_miss_rate: Optional[float] = None
+    dawsim_pacer: Optional[str] = None
+    # Overlapped-infeed pass (overlap_depth): per-block ms with the input
+    # upload double-buffered against compute, and the serial twin
+    # measured in the same reps (harness/overlap.py).
+    overlap_depth: int = 0
+    overlap_serial_latencies: List[float] = dataclasses.field(
+        default_factory=list)
+    overlap_latencies: List[float] = dataclasses.field(default_factory=list)
+    overlap_serial_statistics: Optional[LatencyStats] = None
+    overlap_statistics: Optional[LatencyStats] = None
 
 
 class Benchmark:
@@ -122,6 +136,19 @@ class Benchmark:
         runs ONE block on device-resident data, carrying state where the
         benchmark has it, and ``probe`` is a (1,) tensor
         (``streaming.probe``). None = unsupported."""
+        return None
+
+    def overlap_body(self):
+        """Optional overlapped-infeed hook (overlap_depth): return
+        ``(step_fn, host_blocks, carry)`` where ``step_fn(x_dev, carry)
+        -> (y, carry')`` runs ONE block of device compute on an uploaded
+        input block, ``host_blocks`` is a list of >= 2 distinct host
+        payloads (numpy arrays or pinned tensors) of one shape cycled
+        across blocks, and ``carry`` is the initial device-resident state
+        (() for stateless blocks). The harness measures serial against
+        double-buffered steady state (harness/overlap.py). None =
+        unsupported (e.g. modal synthesis, which uploads nothing per
+        block)."""
         return None
 
     def validate(self) -> ValidationData:

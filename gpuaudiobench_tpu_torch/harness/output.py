@@ -5,12 +5,14 @@ PyTorch counterpart of two functions of
 JSON of cuda/globals.cu:137-182 with the reference's extended sections)
 and ``print_results`` (globals.cu:26-67). Every key of the reference's
 JSON whose field the port's ``BenchmarkResult`` has is written under the
-same name; a section the port cannot fill (overlap, DAW-sim miss rate,
-the co-located projection) is left out, never written as 0. The
-``metadata.roofline`` section (``harness/runner.py``) is there on a CUDA
-device only, and ``print_results`` prints it as the reference's
-``Roofline [...]`` line. The CSV writer is not ported yet (ROADMAP.md
-queue 1, item 17).
+same name; a section the port cannot fill (the co-located projection)
+is left out, never written as 0. The ``metadata.roofline`` section
+(``harness/runner.py``) is there on a CUDA device only, and
+``print_results`` prints it as the reference's ``Roofline [...]`` line.
+Under DAW-sim the ``deadline`` section also names the pacer that ran,
+``pacer: "native" | "python"`` (a key the reference lacks), so a
+fallback to the Python pacer shows. The CSV writer is not ported yet
+(ROADMAP.md queue 1, item 17a).
 
 One departure: the reference takes the saturated marginal as the
 blocks/s basis whenever it is above 0 (``output.py:89``), so a body
@@ -169,6 +171,23 @@ def generate_json_results(result: BenchmarkResult, cfg: BenchConfig,
                 "raw_ms": [round(v, 6)
                            for v in result.saturated_marginal_latencies],
             }
+    if result.overlap_statistics is not None:
+        os_, ov = result.overlap_serial_statistics, result.overlap_statistics
+        out["overlapped"] = {
+            "depth": result.overlap_depth,
+            # Serial twin: upload -> compute -> probe read per block.
+            "serial_p50_ms": os_.median,
+            "overlapped_p50_ms": ov.median,
+            "overlapped_p95_ms": ov.p95,
+            "speedup_vs_serial": (os_.median / ov.median
+                                  if ov.median > 0 else 0.0),
+            "reps": ov.count,
+            "serial_raw_ms": [round(v, 6)
+                              for v in result.overlap_serial_latencies],
+            "overlapped_raw_ms": [round(v, 6)
+                                  for v in result.overlap_latencies],
+            "meets_deadline": bool(ov.p95 <= threshold),
+        }
     out["performance"] = {
         "throughput_gbps": result.throughput_gbps,
         "samples_per_sec": result.samples_per_sec,
@@ -183,6 +202,9 @@ def generate_json_results(result: BenchmarkResult, cfg: BenchConfig,
             "error_count": v.error_count,
             "samples_checked": v.samples_checked,
         }
+    if result.deadline_miss_rate is not None:
+        out["deadline"]["miss_rate_percent"] = result.deadline_miss_rate
+        out["deadline"]["pacer"] = result.dawsim_pacer
     out["device"] = device_identity(device)
     if result.metadata:
         out["metadata"] = result.metadata
@@ -238,6 +260,13 @@ def print_results(result: BenchmarkResult, cfg: BenchConfig) -> None:
         else:
             print(f"{bps:.1f} blocks/s [{basis}]")
 
+    if result.overlap_statistics is not None:
+        os_, ov = result.overlap_serial_statistics, result.overlap_statistics
+        sp = os_.median / ov.median if ov.median > 0 else 0.0
+        print(f"Overlapped infeed (depth {result.overlap_depth}): "
+              f"p50 {ov.median:.3f} ms/block vs serial {os_.median:.3f} "
+              f"({sp:.2f}x; upload double-buffered against compute)")
+
     print("\nPerformance Metrics:")
     print(f"Throughput:        {result.throughput_gbps:.3f} GB/s")
     print(f"Samples/sec:       {result.samples_per_sec:.0f}")
@@ -260,6 +289,10 @@ def print_results(result: BenchmarkResult, cfg: BenchConfig) -> None:
               f"{rl['achieved_gbps']:.1f} GB/s HBM "
               f"({rl['hbm_pct_of_peak']:.1f}% of peak) -> {bound} "
               f"[{rl['peak_source']}]")
+
+    if result.deadline_miss_rate is not None:
+        print(f"Deadline miss rate: {result.deadline_miss_rate:.1f}% "
+              f"({result.dawsim_pacer} pacer)")
 
     v = result.validation
     if v is not None:

@@ -1,5 +1,6 @@
-"""Iteration runner: warmup -> timed loop -> device tier -> saturated
-pass -> statistics -> validation.
+"""Iteration runner: warmup -> timed loop (DAW-sim paced when asked) ->
+device tier -> saturated pass -> overlapped-infeed pass -> statistics ->
+validation.
 
 PyTorch counterpart of ``gpuaudiobench_tpu/harness/runner.py`` (port of
 GPUABenchmark::runWithIteration, cuda/bench_base.cu:59-118). Timing is
@@ -20,12 +21,15 @@ import torch
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.harness.base import Benchmark, BenchmarkResult
+from gpuaudiobench_tpu_torch.harness.dawsim import deadline_miss_rate
 from gpuaudiobench_tpu_torch.harness.device_timing import measure_device_times
+from gpuaudiobench_tpu_torch.harness.overlap import measure_overlap
 from gpuaudiobench_tpu_torch.harness.statistics import calculate_statistics
 from gpuaudiobench_tpu_torch.harness.streaming import (
     measure_saturated,
     measure_saturated_marginal,
 )
+from gpuaudiobench_tpu_torch.utils.native import make_dawsim
 from gpuaudiobench_tpu_torch.utils.roofline import roofline_metrics
 
 
@@ -34,9 +38,6 @@ def _refuse_unported(cfg: BenchConfig) -> None:
     yet: asking for one raises instead of skipping it silently."""
     unported = [
         (cfg.capture, "profiler capture (capture)", "queue 1, item 4"),
-        (cfg.dawsim, "DAW-sim pacing (dawsim)", "queue 1, item 5"),
-        (cfg.overlap_depth > 1, "overlapped infeed (overlap_depth)",
-         "queue 1, item 5"),
         (cfg.data_parallel > 1, "data-parallel sharding (data_parallel)",
          "queue 1, item 18"),
     ]
@@ -105,9 +106,18 @@ def run_benchmark(
         if verbose:
             print("Warmup complete, starting timed iterations...")
 
-    # Timed iterations (bench_base.cu:89-94).
+    # Timed iterations (bench_base.cu:89-94), each paced to the next
+    # buffer boundary under DAW-sim (the wait is outside the timing).
+    daw = None
+    if cfg.dawsim:
+        daw = make_dawsim(cfg.buffer_size, cfg.fs, cfg.dawsim_mode,
+                          cfg.dawsim_jitter_us, cfg.seed)
+        result.dawsim_pacer = daw.pacer
+        daw.reset()
     latencies = []
     for _ in range(cfg.n_runs):
+        if daw is not None:
+            daw.wait()
         t0 = time.perf_counter()
         benchmark.iterate()
         latencies.append((time.perf_counter() - t0) * 1000.0)
@@ -149,6 +159,25 @@ def run_benchmark(
             result.saturated_latencies = sat
             result.saturated_statistics = calculate_statistics(sat)
 
+    # Overlapped-infeed pass: the input upload double-buffered against
+    # compute, beside its serial twin in the same reps.
+    if cfg.overlap_depth > 1:
+        body = benchmark.overlap_body()
+        if body is None:
+            if verbose:
+                print(f"Note: {benchmark.name} has no per-block input "
+                      "upload; skipping overlapped-infeed pass.")
+        else:
+            step_fn, host_blocks, carry = body
+            ser, ovl = measure_overlap(step_fn, host_blocks, carry,
+                                       cfg.overlap_depth, cfg.overlap_reps,
+                                       benchmark.device)
+            result.overlap_depth = cfg.overlap_depth
+            result.overlap_serial_latencies = ser
+            result.overlap_latencies = ovl
+            result.overlap_serial_statistics = calculate_statistics(ser)
+            result.overlap_statistics = calculate_statistics(ovl)
+
     # Derived metrics (bench_base.cu:110-115).
     result.bytes_processed = benchmark.bytes_processed()
     result.mean_latency_ms = result.statistics.mean
@@ -156,6 +185,9 @@ def run_benchmark(
         mean_sec = result.mean_latency_ms / 1000.0
         result.throughput_gbps = (result.bytes_processed / (1024.0**3)) / mean_sec
         result.samples_per_sec = benchmark.total_elements() / mean_sec
+    if cfg.dawsim:
+        result.deadline_miss_rate = deadline_miss_rate(
+            latencies, cfg.buffer_size, cfg.fs)
 
     result.validation = benchmark.validate()
     result.metadata = benchmark.metadata()

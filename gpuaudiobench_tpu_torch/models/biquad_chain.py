@@ -101,6 +101,13 @@ class BiquadChainBenchmark(StandardBufferBenchmark):
 
         return step, (self._resident_input, self._states_dev)
 
+    def overlap_body(self):
+        """Input upload double-buffered against the cascade; the 10
+        stages' state carries block to block from the entry states."""
+        coeffs = self._coeffs_dev
+        return ((lambda x, zs: iir_cascade(x, coeffs, zs)),
+                self.overlap_blocks(), self._states_dev)
+
     def validate(self) -> ValidationData:
         mode, limit = self.cfg.verification, self.cfg.spot_sample_limit
         v = compare_abs(self.host_output, self.golden, self.tolerance,

@@ -78,6 +78,18 @@ class StandardBufferBenchmark(Benchmark):
     def setup_standard_buffers(self) -> None:
         self.set_input(self.make_input())
 
+    def overlap_blocks(self):
+        """Two distinct host payloads for the overlapped-infeed tier
+        (harness/overlap.py): the input and its negation, so every
+        per-block upload is a real transfer, not a repeat."""
+        a = self.host_input
+        return [a, np.negative(a)]
+
+    def stateless_overlap(self, fn: Callable[[torch.Tensor], torch.Tensor]):
+        """``overlap_body`` of a benchmark without state: each block runs
+        ``fn`` on its uploaded input."""
+        return (lambda x, c: (fn(x), c)), self.overlap_blocks(), ()
+
     def stateless_stream(self, fn: Callable[[torch.Tensor], torch.Tensor]):
         """``stream_body`` of a benchmark without state: each block runs
         ``fn`` on the resident input and emits the probe of its output."""

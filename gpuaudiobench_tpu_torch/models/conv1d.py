@@ -107,6 +107,9 @@ class Conv1DBenchmark(StandardBufferBenchmark):
     def stream_body(self):
         return self.stateless_stream(self._run)
 
+    def overlap_body(self):
+        return self.stateless_overlap(self._run)
+
     def validate(self) -> ValidationData:
         if self.cfg.verification != "none":
             rows = self.checked_tracks()

@@ -95,6 +95,9 @@ class Conv1DAccelBenchmark(StandardBufferBenchmark):
     def stream_body(self):
         return self.stateless_stream(self._run)
 
+    def overlap_body(self):
+        return self.stateless_overlap(self._run)
+
     def validate(self) -> ValidationData:
         # Relative-to-peak metric (error <= tol * max|golden|, the DSP
         # full-scale convention): a per-sample relative metric diverges

@@ -194,6 +194,20 @@ class DWGBenchmark(Benchmark):
                       dev.to_device(self.host_fwd, self.device),
                       dev.to_device(self.host_bwd, self.device))
 
+    def overlap_body(self):
+        """Input upload double-buffered against the rail update; the
+        rails carry on the device (updated in place), from the last
+        round trip's."""
+        run = self._run
+
+        def step(x, rails):
+            out, fwd, bwd = run(x, *rails)
+            return out, (fwd, bwd)
+
+        return (step, [self.host_input, np.negative(self.host_input)],
+                (dev.to_device(self.host_fwd, self.device),
+                 dev.to_device(self.host_bwd, self.device)))
+
     def validate(self) -> ValidationData:
         if self.cfg.verification == "none":
             return compare_abs(self.host_output, self.host_output,

@@ -59,6 +59,10 @@ class FFTBenchmark(StandardBufferBenchmark):
         return self.stateless_stream(
             lambda x: rfft_interleaved(x, self.fft_size))
 
+    def overlap_body(self):
+        return self.stateless_overlap(
+            lambda x: rfft_interleaved(x, self.fft_size))
+
     def validate(self) -> ValidationData:
         return compare_complex(
             self.host_re, self.host_im, self.golden_re, self.golden_im,

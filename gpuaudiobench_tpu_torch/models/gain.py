@@ -34,6 +34,9 @@ class GainBenchmark(StandardBufferBenchmark):
     def stream_body(self):
         return self.stateless_stream(lambda x: gain_op(x, GAIN_VALUE))
 
+    def overlap_body(self):
+        return self.stateless_overlap(lambda x: gain_op(x, GAIN_VALUE))
+
     def cost_model(self):
         n = self.total_elements()
         return {"flops": n, "hbm_bytes": 2 * n * 4, "unit": "vpu"}

@@ -55,6 +55,9 @@ class GainStatsBenchmark(StandardBufferBenchmark):
     def stream_body(self):
         return self.stateless_stream(_fused)
 
+    def overlap_body(self):
+        return self.stateless_overlap(_fused)
+
     def cost_model(self):
         n = self.total_elements()
         return {

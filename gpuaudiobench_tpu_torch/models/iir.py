@@ -130,6 +130,13 @@ class IIRBenchmark(StandardBufferBenchmark):
 
         return step, (self._resident_input, self._timing_state)
 
+    def overlap_body(self):
+        """Input upload double-buffered against the biquad; the filter
+        state carries block to block (the streaming dependency)."""
+        filt, c = self._filter, self._coeffs_dev
+        return ((lambda x, z: filt(x, c, z)), self.overlap_blocks(),
+                self._state_dev)
+
     def validate(self) -> ValidationData:
         if self.cfg.verification == "none":
             return compare_abs(self.host_output, self.host_output,

@@ -1,5 +1,5 @@
-"""Elementwise and reduction ops of the basic tier: no-op copy, gain, gain
-plus per-track statistics.
+"""Elementwise and reduction ops of the basic tier and the datacopy
+family: no-op copy, gain, gain plus per-track statistics, data transfer.
 
 PyTorch counterpart of ``gpuaudiobench_tpu/ops/elementwise.py``, which
 has no Pallas kernel: these are plain PyTorch, as they were plain XLA.
@@ -8,9 +8,9 @@ has no Pallas kernel: these are plain PyTorch, as they were plain XLA.
 * ``gain_op``: out = gain * in (GainKernel, cuda/bench_gain.cu:6-24).
 * ``gain_stats_op``: out = gain * in plus per-track [mean, max] of the
   *input* (GainStatsKernel, cuda/bench_gainstats.cu:7-31).
-
-``data_transfer_op`` comes with the datacopy benchmarks (ROADMAP.md
-queue 1, item 5).
+* ``data_transfer_op``: copy the input portion, synthesize
+  0.5 + 0.5*sin(i*0.001) beyond it (DataTransferKernel,
+  cuda/bench_datatransfer.cu:15-25).
 """
 
 from __future__ import annotations
@@ -35,3 +35,18 @@ def gain_stats_op(x: torch.Tensor,
     stats[t] = [mean(x[t]), max(x[t])] (NSTATS = 2)."""
     stats = torch.stack([x.mean(dim=1), x.amax(dim=1)], dim=1)
     return gain * x, stats
+
+
+def data_transfer_op(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """out[i] = x[i] for i < len(x), else 0.5 + 0.5*sin(i*0.001), in
+    float32; x is the 1-D input portion. The result is a fresh tensor
+    even where it only copies x. The index i is one float32 iota over the
+    whole output, sliced: past 2^24 it rounds to the nearest float32, as
+    ``np.arange(n, dtype=np.float32)`` and the reference's iota do."""
+    in_size = x.shape[0]
+    if out_size <= in_size:
+        return x[:out_size].clone()
+    idx = torch.arange(out_size, dtype=torch.int32, device=x.device)
+    idx = idx.to(torch.float32)[in_size:]
+    synth = 0.5 + 0.5 * torch.sin(idx * 0.001)
+    return torch.cat([x, synth])

@@ -73,6 +73,10 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
     from gpuaudiobench_tpu_torch.models.biquad_chain import BiquadChainBenchmark
     from gpuaudiobench_tpu_torch.models.conv1d import Conv1DBenchmark
     from gpuaudiobench_tpu_torch.models.conv1d_accel import Conv1DAccelBenchmark
+    from gpuaudiobench_tpu_torch.models.datatransfer import (
+        DATACOPY_CONFIGS,
+        DataTransferBenchmark,
+    )
     from gpuaudiobench_tpu_torch.models.dwg import DWGBenchmark
     from gpuaudiobench_tpu_torch.models.fdtd3d import FDTD3DBenchmark
     from gpuaudiobench_tpu_torch.models.fft import FFTBenchmark
@@ -93,6 +97,8 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
         "NoOp": NoOpBenchmark,
         "gain": GainBenchmark,
         "GainStats": GainStatsBenchmark,
+        **{name: functools.partial(DataTransferBenchmark, name=name)
+           for name in DATACOPY_CONFIGS},
         "FFT1D": FFTBenchmark,
         "IIRFilter": IIRBenchmark,
         "Conv1D": Conv1DBenchmark,

@@ -4,6 +4,13 @@ PyTorch counterpart of ``gpuaudiobench_tpu/utils/device.py``. The device
 is an explicit ``torch.device`` that callers thread through; nothing here
 sets a global default. A request for the GPU never falls back to the
 CPU: the CPU is used only when a caller names it.
+
+``to_device`` and ``from_device`` copy through pageable host memory, as
+every benchmark's round trip does. ``stage_pinned`` places a host array
+in page-locked memory (the reference's cudaMallocHost path,
+cuda/bench_utils.cu:101-155) and ``upload`` copies such a buffer to the
+card without waiting: the datacopy family and the overlapped-infeed tier
+use them.
 """
 
 from __future__ import annotations
@@ -33,6 +40,30 @@ def to_device(host_array: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host -> device copy (cudaMemcpy H2D). On the CPU too it is a copy,
     so an in-place update of the tensor never writes the host array."""
     return torch.from_numpy(np.ascontiguousarray(host_array)).to(dev, copy=True)
+
+
+def stage_pinned(host_array: np.ndarray,
+                 dev: torch.device) -> Optional[torch.Tensor]:
+    """A page-locked CPU tensor holding ``host_array``, the DMA source of
+    later uploads to ``dev`` (cudaMallocHost). None on the CPU, which has
+    no pinned memory. On a CUDA device a failed pin raises
+    ``RuntimeError``: it never returns a pageable buffer in its place."""
+    if dev.type != "cuda":
+        return None
+    src = torch.from_numpy(np.ascontiguousarray(host_array))
+    staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    if not staged.is_pinned():
+        raise RuntimeError("stage_pinned: the host buffer is not page-locked")
+    return staged.copy_(src)
+
+
+def upload(src, dev: torch.device) -> torch.Tensor:
+    """Host -> device copy of a pinned tensor (``stage_pinned``), enqueued
+    on the current stream without waiting, or of a numpy array through
+    ``to_device``."""
+    if isinstance(src, torch.Tensor):
+        return src.to(dev, non_blocking=True, copy=True)
+    return to_device(src, dev)
 
 
 def from_device(t: torch.Tensor) -> np.ndarray:

@@ -114,7 +114,7 @@ def test_help_names_every_ported_flag_and_benchmark():
         assert name in text
 
 
-@pytest.mark.parametrize("name", ["PartConv", "NeuralAmp", "datacopy5050"])
+@pytest.mark.parametrize("name", ["PartConv", "NeuralAmp", "DAWSessionMix"])
 def test_unported_benchmark_exits_1_naming_roadmap(name):
     rc, lines = _run(cli.main, ["--benchmark", name, "--nRuns", "1"],
                      device="cpu")
@@ -134,6 +134,48 @@ def test_unported_flag_exits_1_naming_roadmap(flag):
     assert rc == 1
     assert lines == [f"Error: {flag} is not ported to the PyTorch CLI yet; "
                      f"see ROADMAP.md {cli.UNPORTED_FLAGS[flag]}"]
+
+
+# The flags the port refused until pinned staging, the datacopy family,
+# DAW-sim and the overlapped infeed were ported: each now runs a toy
+# benchmark and reaches the configuration under the reference's field.
+RETIRED_REFUSALS = {
+    "--dawsim": ([], {"dawsim": True}),
+    "--dawsim-mode": (["sleep"], {"dawsim_mode": "sleep"}),
+    "--dawsim-jitter-us": (["250"], {"dawsim_jitter_us": 250.0}),
+    "--overlapDepth": (["4"], {"overlap_depth": 4}),
+    "--overlapReps": (["2"], {"overlap_reps": 2}),
+    "--transferMiB": (["1"], {"transfer_mib": 1}),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(RETIRED_REFUSALS))
+def test_retired_refusal_flag_now_runs(flag):
+    values, fields = RETIRED_REFUSALS[flag]
+    name = "datacopy5050" if flag == "--transferMiB" else "gain"
+    argv = ["--benchmark", name, "--nTracks", "8", "--nRuns", "2",
+            "--warmup", "1", "--json", flag] + values
+    if flag in ("--dawsim-mode", "--dawsim-jitter-us"):
+        argv.append("--dawsim")
+    if flag == "--overlapReps":
+        argv += ["--overlapDepth", "4"]
+    cfg, names, err = cli.parse_args(argv)
+    jcfg, jnames, jerr = jax_cli.parse_args(argv)
+    assert err is None and jerr is None and names == jnames == [name]
+    for key, want in fields.items():
+        assert getattr(cfg, key) == getattr(jcfg, key) == want
+    rc, lines = _run(cli.main, argv, device="cpu")
+    assert rc == 0, lines[-20:]
+    rec = _json(lines)
+    assert rec["validation"]["status"] == "SUCCESS"
+    if cfg.dawsim:
+        assert rec["deadline"]["pacer"] in ("native", "python")
+        assert "miss_rate_percent" in rec["deadline"]
+    if cfg.overlap_depth > 1:
+        assert rec["overlapped"]["depth"] == 4
+        assert rec["overlapped"]["reps"] == cfg.overlap_reps
+    if flag == "--transferMiB":
+        assert rec["metadata"]["inputFloats"] == 131072
 
 
 def test_every_reference_flag_is_ported_or_refused():
@@ -291,7 +333,9 @@ def test_help_marks_the_ported_benchmarks():
                       "gain", "GainStats", "FFT1D", "Conv1D",
                       "Conv1D_accel", "DWG1DNaive", "DWG1DAccel", "FDTD3D",
                       "RndMemRead", "SOL_VPU", "SOL_VMEM", "SOL_HBM",
-                      "SOL_MXU_bf16", "SOL_MXU_f32", "SOL_MXU_int8"}
+                      "SOL_MXU_bf16", "SOL_MXU_f32", "SOL_MXU_int8",
+                      "datacopy0199", "datacopy2080", "datacopy5050",
+                      "datacopy8020", "datacopy9901"}
 
 
 @pytest.mark.parametrize("argv,want", [

@@ -1248,3 +1248,68 @@ def test_device_tier_tracks_the_profiler_on_rndmem(cuda):
     tier = device_tier(bench)
     assert abs(tier["gated_p50_ms"] - tier["profiler_ms_per_call"]) <= (
         0.1 * tier["profiler_ms_per_call"]), tier
+
+
+# --- pinned staging and the overlapped infeed on the card ---------------
+
+
+def test_stage_pinned_is_page_locked_and_uploads(cuda):
+    from gpuaudiobench_tpu_torch.utils import device as dev
+
+    a = np.arange(1 << 16, dtype=np.float32)
+    t = dev.stage_pinned(a, cuda)
+    assert t.is_pinned() and t.device.type == "cpu"
+    assert np.array_equal(t.numpy(), a)
+    up = dev.upload(t, cuda)
+    torch.cuda.synchronize()
+    assert up.device.type == "cuda" and np.array_equal(up.cpu().numpy(), a)
+
+
+def _slow_accumulate(x, c):
+    """A step slow enough (~0.5 ms of spin first) that an upload that
+    did not wait for it would overwrite its slot while it reads."""
+    torch.cuda._sleep(1_000_000)
+    return x * 2.0, c + x
+
+
+@pytest.mark.parametrize("loop", ["serial", "overlapped", "batched"])
+def test_overlap_loops_are_exact_under_real_concurrency(cuda, loop):
+    """Four distinct blocks of small integers through two slots: the
+    last output and the summed carry are exact, so a missing event wait
+    between the copy stream and the compute shows as a wrong sum."""
+    from gpuaudiobench_tpu_torch.harness import overlap
+
+    n, depth = 1 << 20, 24
+    blocks = [np.full(n, k + 1, np.float32) for k in range(4)]
+    carry = torch.zeros(n, device=cuda)
+    if loop == "batched":
+        groups = overlap.batch_groups(blocks, 4)
+        infeed = overlap.Infeed(groups, cuda)
+        y, c = overlap.run_batched(infeed, _slow_accumulate, carry, depth, 4)
+        seq = [groups[(k // 4) % 2][k % 4, 0] for k in range(depth)]
+    else:
+        infeed = overlap.Infeed(blocks, cuda)
+        run = overlap.run_serial if loop == "serial" else overlap.run_overlapped
+        y, c = run(infeed, _slow_accumulate, carry, depth)
+        seq = [blocks[k % 4][0] for k in range(depth)]
+    torch.cuda.synchronize()
+    assert torch.all(y == 2.0 * seq[-1]).item()
+    assert torch.all(c == float(sum(seq))).item()
+
+
+def test_datacopy_uploads_pinned_and_validates(cuda):
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.models.datatransfer import (
+        DataTransferBenchmark,
+    )
+
+    b = DataTransferBenchmark(BenchConfig(transfer_mib=4), cuda,
+                              "datacopy2080")
+    b.setup()
+    assert b._pinned_input is not None and b._pinned_input.is_pinned()
+    assert b.validate().passed
+    tmc = b.metadata()["transferMemoryClass"]
+    assert tmc["pinned_supported"] and tmc["h2d_path_used"] == "pinned"
+    for key in ("h2d_pageable_ms", "h2d_pinned_ms", "d2h_pageable_ms",
+                "d2h_pinned_ms"):
+        assert tmc[key] > 0, key

@@ -11,6 +11,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,6 +45,9 @@ BLOCKED_JAX = textwrap.dedent("""
         importlib.import_module(name)
     import chip_smoke  # noqa: F401
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+    for mod in ("models.datatransfer", "harness.dawsim", "harness.overlap",
+                "utils.native"):
+        assert "gpuaudiobench_tpu_torch." + mod in names, mod
 
     import torch
     from gpuaudiobench_tpu_torch.config import BenchConfig
@@ -73,12 +77,21 @@ BLOCKED_JAX = textwrap.dedent("""
                         ("SOL_HBM", {"sol_stream_mib": 1}),
                         ("SOL_MXU_bf16", {"sol_matmul_dim": 64}),
                         ("SOL_MXU_f32", {"sol_matmul_dim": 64}),
-                        ("SOL_MXU_int8", {"sol_matmul_dim": 64})]:
+                        ("SOL_MXU_int8", {"sol_matmul_dim": 64}),
+                        ("datacopy0199", {"transfer_mib": 1,
+                                          "dawsim": True}),
+                        ("datacopy9901", {"transfer_mib": 1,
+                                          "overlap_depth": 4,
+                                          "overlap_reps": 1}),
+                        ("IIRFilter", {"overlap_depth": 4,
+                                       "overlap_reps": 1})]:
         c = cfg.replace(**knobs)
         b = create_benchmark(name, c, torch.device("cpu"))
         b.setup()
         res = run_benchmark(b, c, verbose=False)
         assert res.validation.passed, (name, res.validation.messages[:3])
+        assert (res.overlap_statistics is not None) == (c.overlap_depth > 1)
+        assert (res.dawsim_pacer == "native") == c.dawsim
 
     import contextlib, io, json
     from gpuaudiobench_tpu_torch import cli
@@ -105,7 +118,7 @@ def test_port_runs_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", BLOCKED_JAX], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
-    assert r.stdout.split()[-2] == "OK" and int(r.stdout.split()[-1]) >= 30
+    assert r.stdout.split()[-2] == "OK" and int(r.stdout.split()[-1]) >= 34
 
 
 def test_no_source_mentions_jax():
@@ -127,6 +140,19 @@ def port_cfg(small_cfg):
 
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_stage_pinned_never_returns_a_pageable_tensor(monkeypatch):
+    """Where the allocator hands back memory that is not page-locked,
+    ``stage_pinned`` on a CUDA device raises rather than return it."""
+    real_empty = torch.empty
+
+    def pageable_empty(*args, pin_memory=False, **kw):
+        return real_empty(*args, **kw)
+
+    monkeypatch.setattr(torch, "empty", pageable_empty)
+    with pytest.raises(RuntimeError, match="not page-locked"):
+        dev.stage_pinned(np.zeros(8, np.float32), torch.device("cuda:0"))
 
 
 def test_device_cuda_raises_without_cuda(monkeypatch):

@@ -192,15 +192,35 @@ def test_run_benchmark_single_depth_when_marginal_off(modal, port_cfg):
 
 
 @pytest.mark.parametrize("knob", [
-    {"overlap_depth": 2},
     {"capture": True},
-    {"dawsim": True},
-    {"overlap_depth": 4},
     {"data_parallel": 2},
 ])
 def test_runner_refuses_unported_tiers(modal, port_cfg, knob):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_benchmark(modal, port_cfg.replace(**knob), verbose=False)
+
+
+@pytest.mark.parametrize("knob", [
+    {"overlap_depth": 2},
+    {"dawsim": True},
+    {"overlap_depth": 4},
+])
+def test_runner_runs_the_ported_tiers(port_cfg, knob):
+    """The tiers the runner refused before DAW-sim and the overlapped
+    infeed were ported: each runs on gain and fills its fields."""
+    from gpuaudiobench_tpu_torch.models.gain import GainBenchmark
+
+    cfg = port_cfg.replace(overlap_reps=2, **knob)
+    b = GainBenchmark(cfg, CPU)
+    b.setup()
+    res = run_benchmark(b, cfg, verbose=False)
+    assert res.validation.passed
+    if cfg.dawsim:
+        assert res.deadline_miss_rate is not None
+        assert res.dawsim_pacer in ("native", "python")
+    else:
+        assert res.overlap_depth == cfg.overlap_depth
+        assert len(res.overlap_latencies) == 2
 
 
 def test_resolve_impl(port_cfg):
