@@ -119,19 +119,40 @@ nonzero:
    datacopy5050 at 100 MiB), serial and overlapped p50 a block, each
    path's kernel launched at least once a block of the pass; and the
    overlapped loop's last output and carry after 32 blocks bit for bit
-   the serial loop's from one starting carry, for IIRFilter at 65,536 and
-   DWG1DNaive at 32,768 (``harness.overlap.run_serial`` /
-   ``run_overlapped``).
-12. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+   the serial loop's from one starting carry, for IIRFilter at 65,536,
+   DWG1DNaive at 32,768 and DAWSessionMix at 65,536
+   (``harness.overlap.run_serial`` / ``run_overlapped``).
+12. PartConv and DAWSessionMix, still with the plain twins counted (none
+   may run): the CLI on PartConv at 1,536 tracks x 512 with the
+   48,000-tap IR (the JAX package's certified capacity) in the shift,
+   ring and nupols (``--partconvTailChunk 8``) forms and shift with f16
+   spectra (``PARTCONV_CLI``: 10 runs, depth 64, 5 reps), each printed
+   against its cost-model bound, and the shift / ring A/B; DAWSessionMix
+   at 65,536 strips (4 EQ stages, 48,000 taps; ``SESSION_CLI``: 5 runs)
+   and with 16 stages at 128, the systolic cascade launched exactly once
+   a session block; each validated against its NumPy golden, its
+   roofline shares at most 105 %. The PartConv shift and the 65,536-strip
+   session runs go without ``--json``: their CSV (header and row) must
+   equal what ``csv_from_json_results`` derives from the same run's JSON,
+   and the latency file must hold every round trip; ``--csvSchema metal``
+   writes its own header, and appending the cuda schema to that file
+   exits nonzero. The overlap tier on PartConv at 1,536 and the session
+   at 65,536 (the session's kernel at least once a block; its overlapped
+   loop bit for bit the serial one after 32 blocks is in phase 11's
+   check). Then 64 chained stream blocks of each PartConv form and of
+   both session paths after a warm pass, under
+   ``torch.cuda.set_sync_debug_mode("error")``: none may wait for the
+   device.
+13. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-13. ``torch.profiler`` names the kernels of one call of each cascade
+14. ``torch.profiler`` names the kernels of one call of each cascade
    wrapper at 1,000 x 96: the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. It runs after everything
    timed (a profiler session slows the process's later launches).
-14. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+15. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -143,8 +164,11 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 MAIN_SHAPE = (1048576, 512, 32)
@@ -405,7 +429,45 @@ OVERLAP_RUNS = [
 ] + [(f"{name}, 65536 tracks", ["--benchmark", name, "--nTracks", "65536"],
       []) for name in ("gain", "GainStats", "FFT1D")]
 # Overlapped against serial loop, bit for bit, from one starting carry.
-OVERLAP_CHECKS = [("IIRFilter", 65536), ("DWG1DNaive", 32768)]
+OVERLAP_CHECKS = [("IIRFilter", 65536), ("DWG1DNaive", 32768),
+                  ("DAWSessionMix", 65536)]
+
+# PartConv and DAWSessionMix (phase 12). PartConv at the JAX package's
+# certified capacity, 1,536 tracks with the 48,000-tap IR
+# (docs/RESULTS_r4_capacity.md:10), in each form and with f16 spectra,
+# on a shallower tier (a block is milliseconds); DAWSessionMix at 65,536
+# strips (docs/RESULTS_r3_capacity.md:56) with few round trips (its golden
+# replays the EQ of every block on the host), and 16 EQ stages at the
+# CLI's default 128 strips.
+PARTCONV_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "64",
+                "--saturatedReps", "5", "--verification", "spot"]
+PARTCONV_WIDE = ["--benchmark", "PartConv", "--nTracks", "1536",
+                 "--irLength", "48000"]
+PARTCONV_FORMS = {"shift": [], "ring": ["--partconvForm", "ring"],
+                  "nupols": ["--partconvForm", "nupols",
+                             "--partconvTailChunk", "8"],
+                  "shift f16": ["--partconvHDtype", "f16"]}
+SESSION_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
+               "--saturatedReps", "5", "--verification", "spot"]
+SESSION_WIDE = ["--benchmark", "DAWSessionMix", "--nTracks", "65536"]
+SESSION_K16 = ["--benchmark", "DAWSessionMix", "--sessionEqStages", "16"]
+# The overlapped-infeed tier on both at those widths.
+SESSION_OVERLAP_RUNS = [
+    ("PartConv shift, 1536 tracks", PARTCONV_WIDE, []),
+    ("DAWSessionMix, 65536 strips", SESSION_WIDE, ["iir_cascade"]),
+]
+# Chained blocks under torch.cuda.set_sync_debug_mode("error"), after a
+# warm pass: none may wait for the device.
+SYNC_FREE_BLOCKS = 64
+SYNC_FREE_PATHS = [
+    (f"PartConv {form}, 1536 tracks", "PartConv",
+     {"n_tracks": 1536, "ir_length": 48000, **knobs})
+    for form, knobs in (("shift", {}), ("ring", {"partconv_form": "ring"}),
+                        ("nupols", {"partconv_form": "nupols"}),
+                        ("shift f16", {"partconv_h_dtype": "f16"}))
+] + [("DAWSessionMix, 65536 strips", "DAWSessionMix", {"n_tracks": 65536}),
+     ("DAWSessionMix K=16, 128 strips", "DAWSessionMix",
+      {"session_eq_stages": 16})]
 
 
 def fail(msg: str) -> None:
@@ -1564,19 +1626,31 @@ def reset_counts(*modules):
             mod.KERNEL_LAUNCHES[k] = 0
 
 
-def cli_json(cli, label, argv):
-    """One CLI run in-process, stdout captured; fails unless it exits 0
-    and validation passed. Returns (the JSON result, the wall seconds)."""
+def quiet_main(cli, argv):
+    """``cli.main(argv)`` with its output captured: (exit code, lines)."""
     buf = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def run_cli(cli, label, argv):
+    """``quiet_main``; fails unless the CLI exits 0. Returns (the output
+    lines, the wall seconds)."""
+    t0 = time.perf_counter()
+    rc, lines = quiet_main(cli, argv)
     wall = time.perf_counter() - t0
-    lines = buf.getvalue().splitlines()
     if rc != 0:
         for ln in lines[-20:]:
             print(f"cli: {ln}")
         fail(f"{label}: cli.main returned {rc}")
+    return lines, wall
+
+
+def cli_json(cli, label, argv):
+    """One CLI run in-process, stdout captured; fails unless it exits 0
+    and validation passed. Returns (the JSON result, the wall seconds)."""
+    lines, wall = run_cli(cli, label, argv)
     try:
         start = lines.index("{")
         end = len(lines) - 1 - lines[::-1].index("}")
@@ -1589,12 +1663,12 @@ def cli_json(cli, label, argv):
     return rec, wall
 
 
-def cli_path(torch, cli, counts, label, argv, kernels):
-    """One CLI run (``cli_json``); fails unless the device tier used CUDA
-    events and each of ``kernels`` launched. ``counts`` reads the launch
-    counts, which the caller reset. Returns the launch counts of the
-    run."""
-    rec, wall = cli_json(cli, label, argv)
+def cli_path(torch, cli, counts, label, argv, kernels, run=cli_json):
+    """One CLI run (``run``: ``cli_json``, or ``cli_csv`` bound to its
+    directory); fails unless the device tier used CUDA events and each of
+    ``kernels`` launched. ``counts`` reads the launch counts, which the
+    caller reset. Returns the launch counts of the run and its JSON."""
+    rec, wall = run(cli, label, argv)
     launches = counts()
     v = rec["validation"]
     dstats = rec.get("device_statistics", {})
@@ -1605,7 +1679,7 @@ def cli_path(torch, cli, counts, label, argv, kernels):
             fail(f"{label}: {k} was not launched")
     rl = check_roofline(label, rec)
     st, sat = rec["statistics"], rec.get("saturated", {})
-    marg = sat.get("marginal", {})
+    marg = sat.get("marginal") or {}
     print(f"cli {label}: {wall:.1f} s, round trip p50 {st['p50_ms']:.4f} / "
           f"p99 {st['p99_ms']:.4f} ms, device p50 {dstats['median_ms']:.4f} "
           f"ms [cuda-events], saturated p50 {sat.get('p50_ms', 0):.4f} ms, "
@@ -1618,7 +1692,7 @@ def cli_path(torch, cli, counts, label, argv, kernels):
               if k in rl)
           + f" ({rl['bound']}), launches "
           + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
-    return launches
+    return launches, rec
 
 
 def datacopy_phase(cli):
@@ -1684,10 +1758,10 @@ def dawsim_phase(cli, counts, reset, launches, datacopy0199_p50):
           f"{rec['deadline']['miss_rate_percent']:.1f} %")
 
 
-def overlap_phase(cli, counts, reset, launches):
-    """The overlapped-infeed tier on every path with an overlap_body; the
-    path's kernel must launch at least once a block. Adds the launches."""
-    for label, argv, kernels in OVERLAP_RUNS:
+def overlap_phase(cli, counts, reset, launches, runs=OVERLAP_RUNS):
+    """The overlapped-infeed tier on each path of ``runs``; the path's
+    kernel must launch at least once a block. Adds the launches."""
+    for label, argv, kernels in runs:
         reset()
         rec, wall = cli_json(cli, label, argv + OVERLAP_CLI)
         n = counts()
@@ -1739,6 +1813,192 @@ def overlap_check(torch, registry, config, overlap, device):
         del b, infeed, got
 
 
+
+
+def cli_csv(cli, output, tmpdir, label, argv):
+    """One CLI run without ``--json``: the summary printed, then the latency
+    file and the CSV row written into ``tmpdir``. The run's result is taken
+    from the CSV writer as it writes. Fails unless the CSV (header and row)
+    equals what ``csv_from_json_results`` derives from the run's JSON
+    (``generate_json_results`` of that result on that device) and the
+    latency file holds every round trip. Returns (the JSON, the wall
+    seconds)."""
+    stem = os.path.join(tmpdir, label.split(",")[0].replace(" ", "_"))
+    csv_path, lat_path = stem + ".csv", stem + "_latencies.txt"
+    seen = []
+    real = output.write_csv_results
+
+    def capture(result, cfg, filename, device=None):
+        seen.append((result, cfg, device))
+        return real(result, cfg, filename, device)
+
+    output.write_csv_results = capture
+    try:
+        _, wall = run_cli(cli, label, argv + ["--outputfile", csv_path,
+                                              "--latenciesFile", lat_path])
+    finally:
+        output.write_csv_results = real
+    if len(seen) != 1:
+        fail(f"{label}: {len(seen)} CSV writes, expected 1")
+    result, cfg, device = seen[0]
+    rec = output.generate_json_results(result, cfg, device)
+    with open(csv_path) as f:
+        live = f.read()
+    derived = output.csv_from_json_results([rec])
+    if live != derived:
+        print(f"csv live:    {live!r}")
+        print(f"csv derived: {derived!r}")
+        fail(f"{label}: the CSV written live differs from the one derived "
+             "from the run's JSON")
+    with open(lat_path) as f:
+        lat = f.read().splitlines()
+    n = len(result.latencies)
+    if f"# Count: {n}" not in lat or len(lat) != 11 + n:
+        fail(f"{label}: the latency file does not hold the {n} round trips")
+    if rec.get("validation", {}).get("status") != "SUCCESS":
+        fail(f"{label}: validation {rec.get('validation')}")
+    print(f"csv {label}: the live row equals the one derived from the "
+          f"JSON: {live.splitlines()[-1]}")
+    return rec, wall
+
+
+def csv_schema_check(cli, output, tmpdir):
+    """``--csvSchema metal`` writes Metal's header and one row; a run of
+    the CUDA schema appending to that file exits nonzero and leaves it as
+    it was."""
+    path = os.path.join(tmpdir, "metal.csv")
+    argv = ["--benchmark", "PartConv", "--nRuns", "3", "--warmup", "1",
+            "--verification", "spot", "--no-device-timing", "--outputfile",
+            path, "--latenciesFile", os.path.join(tmpdir, "metal_lat.txt")]
+    rc, lines = quiet_main(cli, argv + ["--csvSchema", "metal"])
+    if rc != 0:
+        fail(f"csv metal: cli.main returned {rc}: {lines[-5:]}")
+    with open(path) as f:
+        rows = f.read().splitlines()
+    if (len(rows) != 2 or rows[0] != output.METAL_CSV_HEADER
+            or not rows[1].startswith("PartConv,")):
+        fail(f"csv metal: {rows}")
+    rc, lines = quiet_main(cli, argv)
+    with open(path) as f:
+        after = f.read().splitlines()
+    if rc == 0 or after != rows:
+        fail(f"csv: appending the cuda schema to a metal file exited {rc}, "
+             f"file {after}")
+    refusal = next((ln for ln in lines if "different CSV schema" in ln), "")
+    print(f"csv metal: header {rows[0]!r}, row {rows[1]}; the cuda schema "
+          f"appended to it exits {rc} ({refusal.strip()[:80]})")
+
+
+def sync_free(torch, registry, config, device):
+    """SYNC_FREE_BLOCKS chained stream blocks of each path after a warm
+    pass, under ``torch.cuda.set_sync_debug_mode("error")``: none may wait
+    for the device. The probes are read after the window."""
+    for label, name, knobs in SYNC_FREE_PATHS:
+        cfg = config.BenchConfig(verification="none", device_timing=False,
+                                 **knobs)
+        b = registry.create_benchmark(name, cfg, device)
+        b.setup()
+        step, carry = b.stream_body()
+        for _ in range(4):
+            carry, _ = step(carry)
+        torch.cuda.synchronize()
+        probes = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(SYNC_FREE_BLOCKS):
+                carry, p = step(carry)
+                probes.append(p)
+        except RuntimeError as e:
+            torch.cuda.set_sync_debug_mode("default")
+            fail(f"sync-free {label}: {e}")
+        torch.cuda.set_sync_debug_mode("default")
+        vals = torch.cat(probes).cpu()
+        if not bool(torch.isfinite(vals).all()) or float(vals[-1]) <= 0:
+            fail(f"sync-free {label}: probes {vals[-4:].tolist()}")
+        print(f"sync-free {label}: {SYNC_FREE_BLOCKS} chained blocks with no "
+              f"host sync, last probe {float(vals[-1]):.6g}")
+        del b, step, carry, probes
+
+
+def session_phase(torch, cli, output, registry, config, models_session,
+                  counts, reset, launches, device):
+    """Phase 12: PartConv at 1,536 tracks in each form, DAWSessionMix at
+    65,536 strips and 16 stages at 128 (each validated; the session's EQ
+    kernel launched exactly once a block), the overlap tier on both, the
+    CSV and latency files, and the sync-free chains. Adds the launches."""
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_csv_")
+
+    def csv_run(c, label, argv):
+        return cli_csv(c, output, tmpdir, label, argv)
+
+    def json_run(c, label, argv):
+        return cli_json(c, label, argv + ["--json"])
+
+    try:
+        pc = {}
+        for form, flags in PARTCONV_FORMS.items():
+            label = f"PartConv {form}, 1536 tracks"
+            reset()
+            n, rec = cli_path(torch, cli, counts, label,
+                              PARTCONV_WIDE + flags + PARTCONV_CLI, [],
+                              run=csv_run if form == "shift" else json_run)
+            for k, v in n.items():
+                launches[k] += v
+            rl = rec["metadata"]["roofline"]
+            b_ms, b_by = bound(rl["hbm_bytes_per_block"], rl["flops_per_block"])
+            dev_ms = rec["device_statistics"]["median_ms"]
+            pc[form] = rec
+            print(f"PartConv {form}: device p50 {dev_ms:.4f} ms against its "
+                  f"cost-model bound {b_ms:.4f} ms ({b_by}), {b_ms / dev_ms:.2%}"
+                  f"; fdlBytes {rec['metadata']['fdlBytes']}, validation max "
+                  f"error {rec['validation']['max_error']:.3g}")
+        sh, rg = pc["shift"], pc["ring"]
+        print("PartConv A/B at 1536 tracks, shift vs ring: device p50 "
+              f"{sh['device_statistics']['median_ms']:.4f} / "
+              f"{rg['device_statistics']['median_ms']:.4f} ms, saturated p50 "
+              f"{sh['saturated']['p50_ms']:.4f} / "
+              f"{rg['saturated']['p50_ms']:.4f} ms, marginal p50 "
+              f"{sh['saturated']['marginal']['p50_ms']:.4f} / "
+              f"{rg['saturated']['marginal']['p50_ms']:.4f} ms, round trip "
+              f"p50 {sh['statistics']['p50_ms']:.4f} / "
+              f"{rg['statistics']['p50_ms']:.4f} ms")
+
+        blocks = [0]
+        real_block = models_session.session_block
+
+        def counted(*args, **kw):
+            blocks[0] += 1
+            return real_block(*args, **kw)
+
+        for label, argv, run in (
+                ("DAWSessionMix, 65536 strips", SESSION_WIDE + SESSION_CLI,
+                 csv_run),
+                ("DAWSessionMix K=16, 128 strips", SESSION_K16 + SESSION_CLI,
+                 json_run)):
+            reset()
+            blocks[0] = 0
+            models_session.session_block = counted
+            try:
+                n, rec = cli_path(torch, cli, counts, label, argv,
+                                  ["iir_cascade"], run=run)
+            finally:
+                models_session.session_block = real_block
+            if n["iir_cascade"] != blocks[0]:
+                fail(f"{label}: iir_cascade launched {n['iir_cascade']} "
+                     f"times in {blocks[0]} session blocks")
+            for k, v in n.items():
+                launches[k] += v
+            print(f"{label}: iir_cascade launched once a block "
+                  f"({blocks[0]} blocks), validation max error "
+                  f"{rec['validation']['max_error']:.3g} of the golden's peak")
+
+        overlap_phase(cli, counts, reset, launches, SESSION_OVERLAP_RUNS)
+        csv_schema_check(cli, output, tmpdir)
+        sync_free(torch, registry, config, device)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1754,8 +2014,9 @@ def main() -> int:
             config,
             registry,
         )
-        from gpuaudiobench_tpu_torch.harness import overlap
+        from gpuaudiobench_tpu_torch.harness import output, overlap
         from gpuaudiobench_tpu_torch.models import modal as models_modal
+        from gpuaudiobench_tpu_torch.models import session as models_session
         from gpuaudiobench_tpu_torch.ops import conv as cops
         from gpuaudiobench_tpu_torch.ops import dwg as dops
         from gpuaudiobench_tpu_torch.ops import fdtd3d as fops
@@ -1887,7 +2148,7 @@ def main() -> int:
         for label, argv, kernels in CLI_RUNS:
             reset_counts(*modules)
             for k, n in cli_path(torch, cli, counts, label, argv,
-                                 kernels).items():
+                                 kernels)[0].items():
                 launches[k] += n
                 if n and k in CLI_ABSENT.get(label, ()):
                     fail(f"{label}: {k} launched {n} times")
@@ -1902,6 +2163,13 @@ def main() -> int:
         overlap_phase(cli, counts, reset, launches)
         overlap_check(torch, registry, config, overlap, device)
         print(f"pinned staging, DAW-sim and overlap: "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # PartConv, DAWSessionMix, the CSV writer, the sync-free chains.
+        t0 = time.perf_counter()
+        session_phase(torch, cli, output, registry, config, models_session,
+                      counts, reset, launches, device)
+        print(f"PartConv, DAWSessionMix and CSV: "
               f"{time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")

@@ -7,13 +7,18 @@ A cut-down counterpart of ``gpuaudiobench_tpu/cli.py`` with the same
 ``parse_args`` / ``run`` / ``main`` shape and the flags the ported
 benchmarks and tiers read, DAW-sim pacing (``--dawsim``,
 ``--dawsim-mode``, ``--dawsim-jitter-us``), the overlapped-infeed tier
-(``--overlapDepth``, ``--overlapReps``) and the datacopy pool
-(``--transferMiB``) among them. A flag the reference knows but the port
-has not ported yet exits 1 with a message that names its ROADMAP item, as
-does ``--outputfile`` without ``--json`` (the CSV writer is not ported). The
-run is on the GPU: ``main(argv)`` takes ``device="cuda"``; only a caller
-that passes ``device="cpu"`` (the tests) gets the CPU. A benchmark that
-raises is reported and the suite goes on, but the exit code is 1.
+(``--overlapDepth``, ``--overlapReps``), the datacopy pool
+(``--transferMiB``), PartConv's and DAWSessionMix's knobs and the output
+flags (``--csvSchema``, ``--latenciesFile``, ``--category``) among them.
+Without ``--json`` each benchmark's summary is printed, then its latency
+file and, with ``--outputfile``, its CSV row are written; with ``--json``
+the JSON goes to ``--outputfile`` or stdout. A flag the reference knows
+but the port has not ported yet exits 1 with a message that names its
+ROADMAP item, as does a ``--category`` that holds a benchmark still to
+be ported. The run is on the GPU: ``main(argv)`` takes
+``device="cuda"``; only a caller that passes ``device="cpu"`` (the
+tests) gets the CPU. A benchmark that raises is reported and the suite
+goes on, but the exit code is 1.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.registry import (
     BENCHMARK_DESCRIPTIONS,
     BENCHMARK_NAMES,
+    CATEGORIES,
     EXTENSION_NAMES,
+    UNPORTED_BENCHMARKS,
     create_benchmark,
     list_benchmarks,
     ported_benchmarks,
@@ -37,6 +44,7 @@ DEFAULT_BENCHMARK = "RndMemRead"  # cuda/main.cu:239
 
 VALUE_FLAGS = {
     "--benchmark": ("benchmark", str),
+    "--category": ("category", str),
     "--fs": ("fs", int),
     "--bufferSize": ("buffer_size", int),
     "--nTracks": ("n_tracks", int),
@@ -52,6 +60,12 @@ VALUE_FLAGS = {
     "--modalModes": ("modal_num_modes", int),
     "--irLength": ("ir_length", int),
     "--convEdgeMode": ("conv_edge_mode", str),
+    "--partconvForm": ("partconv_form", str),
+    "--partconvTailChunk": ("partconv_tail_chunk", int),
+    "--partconvHDtype": ("partconv_h_dtype", str),
+    "--sessionEqStages": ("session_eq_stages", int),
+    "--csvSchema": ("csv_schema", str),
+    "--latenciesFile": ("latencies_file", str),
     "--poolMiB": ("rndmem_pool_mb", int),
     "--transferMiB": ("transfer_mib", int),
     "--dwgMinLen": ("dwg_min_length", int),
@@ -80,18 +94,11 @@ SWITCHES = {
 # Flags of the reference's CLI that the port has not ported, with the
 # ROADMAP.md item that ports them.
 UNPORTED_FLAGS = {
-    "--category": "queue 1, item 17a",
     "--capture": "queue 1, item 4",
     "--captureDir": "queue 1, item 4",
-    "--partconvForm": "queue 1, item 13",
-    "--partconvTailChunk": "queue 1, item 13",
-    "--partconvHDtype": "queue 1, item 13",
-    "--sessionEqStages": "queue 1, item 14",
     "--neuralampChannels": "queue 1, item 15",
     "--neuralampLayers": "queue 1, item 15",
     "--neuralampDtype": "queue 1, item 15",
-    "--csvSchema": "queue 1, item 17a",
-    "--latenciesFile": "queue 1, item 17a",
     "--dataParallel": "queue 1, item 18",
     "--mesh": "queue 1, item 18",
     "--compilationCacheDir": "'Not ported' (XLA only)",
@@ -110,14 +117,19 @@ def print_help() -> None:
     print("  --benchmark [name]       Run specific benchmark (see list below)")
     print("  --benchmarkFilter [pat]  Run all benchmarks matching substring or /regex/")
     print("                           (repeatable / comma separated)")
+    print("  --category [name]        Run a suite category: "
+          + " | ".join(CATEGORIES))
     print("  --fs [rate]              Set sampling rate (default: 48000)")
     print("  --bufferSize [size]      Set buffer size (default: 512)")
     print("  --nTracks [count]        Set number of tracks (default: 128)")
     print("  --nRuns [count]          Set number of iterations (default: 100)")
     print("  --warmup [count]         Set warmup iterations (default: 3)")
     print("  --json                   Output results in JSON format")
-    print("  --outputfile [file]      With --json: write the JSON to a file")
-    print("                           (the CSV writer is not ported yet)")
+    print("  --outputfile [file]      Save results to CSV file (with --json:")
+    print("                           write the JSON to the file)")
+    print("  --csvSchema [s]          cuda (default) | metal CSV column set")
+    print("  --latenciesFile [file]   Raw latency dump (default: "
+          "<temp dir>/<name>_latencies.txt)")
     print("  --verification [mode]    none | spot | full (default: full)")
     print("  --dawsim                 Pace iterations at the audio buffer rate")
     print("  --dawsim-mode [mode]     spin | sleep (default: spin)")
@@ -129,10 +141,17 @@ def print_help() -> None:
     print("  --iirBlockM [m]          blockstate samples per step (default 0 "
           "= auto: 128 on the kernel, clamped to a bufferSize divisor)")
     print("  --modalModes [n]         ModalFilterBank mode count")
-    print("  --irLength [n]           Conv1D / Conv1D_accel IR length "
-          "(default 1024 / 512)")
+    print("  --irLength [n]           IR length: Conv1D / Conv1D_accel "
+          "(default 1024 / 512), PartConv and DAWSessionMix (48000)")
     print("  --convEdgeMode [m]       clamp | bleed (Conv1D window before "
           "a track's start; default clamp)")
+    print("  --partconvForm [f]       shift | ring | nupols (PartConv "
+          "FDL form; default shift)")
+    print("  --partconvTailChunk [k]  nupols tail partition size in "
+          "blocks (default 8)")
+    print("  --partconvHDtype [d]     f32 | f16 (PartConv IR-spectra storage)")
+    print("  --sessionEqStages [k]    DAWSessionMix per-track EQ cascade "
+          "depth (default: 4)")
     print("  --poolMiB [n]            RndMemRead pool size (default: 512)")
     print("  --transferMiB [n]        datacopy* pool size (default: 10)")
     print("  --dwgMinLen/--dwgMaxLen [n]  DWG delay-line length range")
@@ -178,6 +197,10 @@ def print_help() -> None:
           "--transferMiB 100 --dawsim --json")
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark IIRFilter "
           "--nTracks 65536 --overlapDepth 32 --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark PartConv "
+          "--nTracks 1536 --partconvForm nupols --outputfile r.csv")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark DAWSessionMix "
+          "--nTracks 65536 --verification spot --json")
     print("  python -m gpuaudiobench_tpu_torch.cli    (RndMemRead, 128 tracks)")
 
 
@@ -211,6 +234,7 @@ def parse_args(argv: List[str]):
     """Returns (cfg, benchmark_names, error_message)."""
     benchmark: Optional[str] = None
     filters: List[str] = []
+    categories: List[str] = []
     updates = {}
     i = 0
     while i < len(argv):
@@ -241,6 +265,22 @@ def parse_args(argv: List[str]):
                     return None, [], f"Error: invalid value for {arg}: {v}"
                 if key == "benchmark":
                     benchmark = val
+                elif key == "category":
+                    if val not in CATEGORIES:
+                        return None, [], (
+                            f"Error: unknown category '{val}' "
+                            f"(choose from {', '.join(CATEGORIES)})")
+                    unported = [n for n in CATEGORIES[val]
+                                if n in UNPORTED_BENCHMARKS]
+                    if unported:
+                        items = sorted({UNPORTED_BENCHMARKS[n]
+                                        for n in unported})
+                        return None, [], (
+                            f"Error: --category {val} holds "
+                            f"{', '.join(unported)}, not ported to the "
+                            f"PyTorch CLI yet; see ROADMAP.md "
+                            f"{'; '.join(items)}")
+                    categories.extend(CATEGORIES[val])
                 else:
                     updates[key] = val
         else:
@@ -252,15 +292,11 @@ def parse_args(argv: List[str]):
         cfg.validate()
     except ValueError as e:
         return None, [], f"Error: {e}"
-    if cfg.output_file and not cfg.json_output:
-        return None, [], (
-            "Error: --outputfile writes CSV, which the PyTorch CLI does not "
-            "write yet (see ROADMAP.md queue 1, item 17a); add --json to "
-            "write the JSON result to the file")
 
-    if filters:
+    if filters or categories:
         names = [n for n in BENCHMARK_NAMES + EXTENSION_NAMES
-                 if matches_filter(n, filters)]
+                 if (filters and matches_filter(n, filters))
+                 or n in categories]
         if benchmark and benchmark not in names:
             names.append(benchmark)
         if not names:
@@ -274,6 +310,8 @@ def run(cfg: BenchConfig, names: List[str], device: str = "cuda") -> int:
     from gpuaudiobench_tpu_torch.harness.output import (
         generate_json_results,
         print_results,
+        write_csv_results,
+        write_latencies_file,
     )
     from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
     from gpuaudiobench_tpu_torch.utils import device as dev
@@ -314,6 +352,11 @@ def run(cfg: BenchConfig, names: List[str], device: str = "cuda") -> int:
                     generate_json_results(result, cfg, torch_dev))
             else:
                 print_results(result, cfg)
+                if cfg.write_latencies:
+                    write_latencies_file(result, cfg.latencies_file)
+                if cfg.output_file:
+                    write_csv_results(result, cfg, cfg.output_file,
+                                      torch_dev)
             if result.deadline_miss_rate:
                 print(f"WARNING: {name} missed "
                       f"{result.deadline_miss_rate:.1f}% of buffer "

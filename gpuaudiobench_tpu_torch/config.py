@@ -29,11 +29,14 @@ class BenchConfig:
     n_runs: int = 100
     warmup: int = 3
 
-    # Output control (cli.py): progress chatter off, a JSON file path,
-    # JSON instead of the printed summary.
+    # Output control (cli.py): progress chatter off, the CSV path (the
+    # JSON's with json_output), JSON instead of the printed summary, and
+    # the raw latency dump ("" = <temp dir>/<name>_latencies.txt).
     quiet: bool = False
     output_file: str = ""
     json_output: bool = False
+    latencies_file: str = ""
+    write_latencies: bool = True
 
     # Validation: "none" | "spot" | "full"; spot checks <= limit samples.
     verification: str = "full"
@@ -77,6 +80,17 @@ class BenchConfig:
     # track-major buffer, the CUDA reference's indexing).
     ir_length: Optional[int] = None
     conv_edge_mode: str = "clamp"
+    # PartConv: the frequency-domain delay line's form, "shift" (every
+    # slot moves a block, the default) | "ring" (one slot written, the
+    # doubled H read through a window) | "nupols" (a K-slot uniform head
+    # and K*B-tap tail partitions, K = partconv_tail_chunk); the IR
+    # spectra's storage dtype, "f32" | "f16" (the MAC runs in f32).
+    partconv_form: str = "shift"
+    partconv_tail_chunk: int = 8
+    partconv_h_dtype: str = "f32"
+    # DAWSessionMix: the per-track EQ cascade's depth (1-16 stages); the
+    # reverb's IR length is ir_length.
+    session_eq_stages: int = 4
 
     # RndMemRead: the sample pool in MiB and the per-track loop-length
     # range (bench_rndmem.cuh: 512 MiB, loop wrap 1000-48000).
@@ -106,6 +120,8 @@ class BenchConfig:
     sol_matmul_dim: int = 4096
 
     impl: str = "auto"
+    # CSV schema: "cuda" (globals.cu:69-122) | "metal" (main.swift:256).
+    csv_schema: str = "cuda"
 
     # Saturated pass: pipeline_depth chained blocks per timing (0/1 =
     # off), saturated_reps timings, and the depth-differenced marginal
@@ -139,6 +155,16 @@ class BenchConfig:
         if not 8 <= self.fdtd_room <= 128:
             raise ValueError(
                 f"fdtd_room must be in [8, 128], got {self.fdtd_room}")
+        if not 2 <= self.partconv_tail_chunk <= 64:
+            raise ValueError(
+                "partconv_tail_chunk must be in [2, 64], got "
+                f"{self.partconv_tail_chunk}")
+        if self.partconv_form not in ("ring", "shift", "nupols"):
+            raise ValueError(
+                f"invalid partconv form: {self.partconv_form}")
+        if self.partconv_h_dtype not in ("f32", "f16"):
+            raise ValueError(
+                f"invalid partconv H dtype: {self.partconv_h_dtype}")
         if self.iir_form not in ("scan", "blockstate"):
             raise ValueError(f"invalid iir form: {self.iir_form}")
         if self.iir_block_m != 0 and not 2 <= self.iir_block_m <= 128:
@@ -153,8 +179,16 @@ class BenchConfig:
                     f"blockstate needs a buffer_size divisor in "
                     f"[2, {cap}]; {self.buffer_size} has none -- "
                     "use iir_form scan")
+        if not 1 <= self.session_eq_stages <= 16:
+            # Staggered cutoffs 0.25 - 0.0125*k stay positive through 16
+            # stages, the systolic kernel's limit (csrc/iir.cu).
+            raise ValueError(
+                f"session_eq_stages ({self.session_eq_stages}) must be "
+                "in [1, 16]")
         if self.impl not in ("auto", "xla", "pallas"):
             raise ValueError(f"invalid impl: {self.impl}")
+        if self.csv_schema not in ("cuda", "metal"):
+            raise ValueError(f"invalid csv schema: {self.csv_schema}")
         if self.dwg_min_length < 4:
             raise ValueError("dwg_min_length must be >= 4")
         if self.dwg_max_length < self.dwg_min_length:

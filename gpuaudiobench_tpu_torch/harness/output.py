@@ -1,31 +1,51 @@
-"""Result printing and the JSON result.
+"""Result printing, the JSON result, the CSV writer and the latency file.
 
-PyTorch counterpart of two functions of
-``gpuaudiobench_tpu/harness/output.py``: ``generate_json_results`` (the
-JSON of cuda/globals.cu:137-182 with the reference's extended sections)
-and ``print_results`` (globals.cu:26-67). Every key of the reference's
-JSON whose field the port's ``BenchmarkResult`` has is written under the
-same name; a section the port cannot fill (the co-located projection)
-is left out, never written as 0. The ``metadata.roofline`` section
+PyTorch counterpart of ``gpuaudiobench_tpu/harness/output.py``:
+``generate_json_results`` (the JSON of cuda/globals.cu:137-182 with the
+reference's extended sections), ``print_results`` (globals.cu:26-67),
+``write_csv_results`` and ``csv_from_json_results`` (the CUDA schema of
+globals.cu:69-122 with the saturated, marginal and context columns, or
+Metal's schema, main.swift:256; header detection on append) and
+``write_latencies_file`` (bench_utils.cu:416-442). Every key of the
+reference's JSON whose field the port's ``BenchmarkResult`` has is
+written under the same name; a section the port cannot fill (the
+co-located projection) is left out, never written as 0, and the CSV's
+``projected_ms`` column stays empty. The ``metadata.roofline`` section
 (``harness/runner.py``) is there on a CUDA device only, and
 ``print_results`` prints it as the reference's ``Roofline [...]`` line.
 Under DAW-sim the ``deadline`` section also names the pacer that ran,
 ``pacer: "native" | "python"`` (a key the reference lacks), so a
-fallback to the Python pacer shows. The CSV writer is not ported yet
-(ROADMAP.md queue 1, item 17a).
+fallback to the Python pacer shows.
 
-One departure: the reference takes the saturated marginal as the
-blocks/s basis whenever it is above 0 (``output.py:89``), so a body
-below timer noise can publish a rate above its own device tier. Here the
-marginal is the basis only when its median is above its own dispersion
-(the median absolute deviation of the per-rep marginals) and no faster
-than the device tier's median; otherwise the amortized wall/depth is,
-and ``blocks_per_sec_basis`` says which.
+Departures:
+
+* The reference takes the saturated marginal as the blocks/s basis
+  whenever it is above 0 (``output.py:89``), so a body below timer noise
+  can publish a rate above its own device tier. Here the marginal is the
+  basis only when its median is above its own dispersion (the median
+  absolute deviation of the per-rep marginals) and no faster than the
+  device tier's median; otherwise the amortized wall/depth is, and
+  ``blocks_per_sec_basis`` says which. The CSV's ``blocks_per_sec`` and
+  basis columns come from the same ``saturated_basis``.
+* Where the marginal tier was asked for and gave no marginal, the
+  reference's live CSV row writes a basis and its JSON-derived row
+  leaves it empty (``output.py:155``); where the saturated tier was asked
+  for and the benchmark has no streaming mode, its derived CSV loses the
+  saturated columns that the live one keeps empty. Here the JSON keeps
+  ``saturated.marginal: null`` and ``saturated: {"pipeline_depth",
+  "skipped"}`` for them, and the CSV is derived from the JSON alone
+  (``_cuda_row``), so the live row and the derived row are the same
+  text.
+* The latency file's default path is ``<temp dir>/<name>_latencies.txt``
+  (``tempfile.gettempdir()``, which follows ``TMPDIR``), the reference's
+  ``/tmp/<name>_latencies.txt`` where ``TMPDIR`` is unset.
 """
 
 from __future__ import annotations
 
+import os
 import statistics as pystats
+import tempfile
 from typing import Optional
 
 import torch
@@ -171,6 +191,16 @@ def generate_json_results(result: BenchmarkResult, cfg: BenchConfig,
                 "raw_ms": [round(v, 6)
                            for v in result.saturated_marginal_latencies],
             }
+        elif _marginal_mode(cfg):
+            # Asked for and not there: the CSV still has its columns.
+            out["saturated"]["marginal"] = None
+    elif cfg.pipeline_depth > 1:
+        # Asked for, and the benchmark has no streaming mode: the CSV
+        # still has the (empty) columns.
+        out["saturated"] = {"pipeline_depth": cfg.pipeline_depth,
+                            "skipped": "no streaming mode"}
+        if _marginal_mode(cfg):
+            out["saturated"]["marginal"] = None
     if result.overlap_statistics is not None:
         os_, ov = result.overlap_serial_statistics, result.overlap_statistics
         out["overlapped"] = {
@@ -210,6 +240,150 @@ def generate_json_results(result: BenchmarkResult, cfg: BenchConfig,
         out["metadata"] = result.metadata
     out["raw_latencies_ms"] = [round(v, 6) for v in result.latencies]
     return out
+
+
+CSV_HEADER = (
+    "benchmark,fs,bufferSize,nTracks,nRuns,min_ms,max_ms,avg_ms,"
+    "p50_ms,p95_ms,p99_ms,threshold_ms,meets_deadline"
+)
+# With --pipelineDepth: the saturated tier's p50/p95/p99 (wall/depth),
+# blocks/s and its deadline verdict on p99 (blank without a stream).
+CSV_SATURATED_COLS = (
+    ",saturated_p50_ms,saturated_p95_ms,saturated_p99_ms"
+    ",blocks_per_sec,saturated_meets_deadline"
+)
+# With the marginal tier: its p50 and the basis of blocks_per_sec.
+CSV_MARGINAL_COLS = ",saturated_marginal_p50_ms,blocks_per_sec_basis"
+# Always: the device tier's method, the co-located projection (empty:
+# not ported) and the timing environment ("local" on a GPU, "cpu").
+CSV_CONTEXT_COLS = ",device_timing_method,projected_ms,timing_environment"
+# Metal's alternate schema (metal-swift/.../main.swift:256,320).
+METAL_CSV_HEADER = (
+    "benchmark,median_ms,p95_ms,p99_ms,max_ms,mean_ms,stddev_ms,count"
+)
+
+
+def _marginal_mode(cfg: BenchConfig) -> bool:
+    """Whether the runner measures the marginal tier (``harness/runner.py``)."""
+    return cfg.pipeline_depth >= 4 and cfg.saturated_marginal
+
+
+def _check_existing_header(filename: str, expected: str) -> bool:
+    """True when the file needs a header; raises ``ValueError`` when it
+    has one of another schema (rows under a different header would
+    corrupt it)."""
+    if not os.path.exists(filename):
+        return True
+    with open(filename) as f:
+        first = f.readline().rstrip("\n")
+    if first and first != expected:
+        raise ValueError(
+            f"{filename} already has a different CSV schema "
+            f"(found {first.split(',')[0]}...-header with "
+            f"{len(first.split(','))} columns, this run writes "
+            f"{len(expected.split(','))}); use a new --outputfile"
+        )
+    return not first
+
+
+def _append_row(filename: str, header: str, row: str) -> None:
+    write_header = _check_existing_header(filename, header)
+    with open(filename, "a") as f:
+        if write_header:
+            f.write(header + "\n")
+        f.write(row + "\n")
+    print(f"Results saved to: {filename}")
+
+
+def _cuda_header(saturated_mode: bool, marginal_mode: bool) -> str:
+    return (CSV_HEADER + (CSV_SATURATED_COLS if saturated_mode else "")
+            + (CSV_MARGINAL_COLS if marginal_mode else "")
+            + CSV_CONTEXT_COLS)
+
+
+def _cuda_row(rec: dict, saturated_mode: bool, marginal_mode: bool) -> str:
+    """One CUDA-schema row from a JSON result (``generate_json_results``):
+    the one derivation both CSV surfaces use."""
+    c, s, d = rec["configuration"], rec["statistics"], rec["deadline"]
+    row = (
+        f'{rec["benchmark"]},{c["fs"]},{c["bufferSize"]},{c["nTracks"]},'
+        f'{c["nRuns"]},{s["min_ms"]:g},{s["max_ms"]:g},{s["avg_ms"]:g},'
+        f'{s["p50_ms"]:g},{s["p95_ms"]:g},{s["p99_ms"]:g},'
+        f'{d["threshold_ms"]:g},'
+        f'{"true" if d["meets_deadline"] else "false"}'
+    )
+    if saturated_mode:
+        sat = rec.get("saturated")
+        if sat and sat.get("p50_ms", 0) > 0:
+            row += (f',{sat["p50_ms"]:g},{sat["p95_ms"]:g},'
+                    f'{sat["p99_ms"]:g},{sat["blocks_per_sec"]:g},'
+                    f'{"true" if sat["meets_deadline"] else "false"}')
+            if marginal_mode and "marginal" in sat:
+                marg = sat["marginal"]  # null: asked for, none came
+                marg_s = f'{marg["p50_ms"]:g}' if marg else ""
+                row += f',{marg_s},{sat["blocks_per_sec_basis"]}'
+            elif marginal_mode:  # not asked for (another run's columns)
+                row += ",,"
+        else:
+            row += ",,,,," + (",," if marginal_mode else "")
+    method = (rec.get("device_statistics") or {}).get("method") or ""
+    env = (rec.get("device") or {}).get("timing_environment") or ""
+    return row + f",{method},,{env}"
+
+
+def write_csv_results(result: BenchmarkResult, cfg: BenchConfig,
+                      filename: str,
+                      device: Optional[torch.device] = None) -> None:
+    """Appends the run's row to ``filename`` (a header first when the file
+    is new or empty; ``ValueError`` when it has another schema's).
+    ``device`` is the one the run used, for ``timing_environment``."""
+    if not filename:
+        return
+    if cfg.csv_schema == "metal":
+        s = result.statistics
+        _append_row(filename, METAL_CSV_HEADER, (
+            f"{result.benchmark_name},{s.median:g},{s.p95:g},{s.p99:g},"
+            f"{s.max_val:g},{s.mean:g},{s.std_dev:g},{s.count}"))
+        return
+    saturated_mode = cfg.pipeline_depth > 1
+    marginal_mode = _marginal_mode(cfg)
+    rec = generate_json_results(result, cfg, device)
+    _append_row(filename, _cuda_header(saturated_mode, marginal_mode),
+                _cuda_row(rec, saturated_mode, marginal_mode))
+
+
+def csv_from_json_results(results: list) -> str:
+    """The CUDA-schema CSV of JSON results: the saturated columns when one
+    of them has a saturated section, the marginal ones when one has a
+    ``saturated.marginal`` key (null where the tier gave nothing)."""
+    saturated_mode = any(r.get("saturated") for r in results)
+    marginal_mode = any("marginal" in (r.get("saturated") or {})
+                        for r in results)
+    lines = [_cuda_header(saturated_mode, marginal_mode)]
+    lines += [_cuda_row(r, saturated_mode, marginal_mode) for r in results]
+    return "\n".join(lines) + "\n"
+
+
+def write_latencies_file(result: BenchmarkResult, filename: str = "") -> None:
+    """Raw latency dump with a stats header (bench_utils.cu:416-442);
+    default path ``<temp dir>/<name>_latencies.txt``."""
+    if not filename:
+        filename = os.path.join(tempfile.gettempdir(),
+                                f"{result.benchmark_name}_latencies.txt")
+    s = result.statistics
+    with open(filename, "w") as f:
+        f.write("# Latency Statistics (ms)\n")
+        f.write(f"# Count: {s.count}\n")
+        f.write(f"# Mean: {s.mean:.3f}\n")
+        f.write(f"# Median: {s.median:.3f}\n")
+        f.write(f"# Std Dev: {s.std_dev:.3f}\n")
+        f.write(f"# Min: {s.min_val:.3f}\n")
+        f.write(f"# Max: {s.max_val:.3f}\n")
+        f.write(f"# P95: {s.p95:.3f}\n")
+        f.write(f"# P99: {s.p99:.3f}\n")
+        f.write("#\n# Raw latencies:\n")
+        for v in result.latencies:
+            f.write(f"{v:.6f}\n")
 
 
 def print_results(result: BenchmarkResult, cfg: BenchConfig) -> None:

@@ -9,12 +9,17 @@
         --nTracks 128 --depth 64
     python -m gpuaudiobench_tpu_torch.profile_block --benchmark DWG1DNaive \
         --nTracks 32768 --depth 256
+    python -m gpuaudiobench_tpu_torch.profile_block --benchmark PartConv \
+        --nTracks 1536 --depth 64 [--partconvForm ring]
+    python -m gpuaudiobench_tpu_torch.profile_block --benchmark DAWSessionMix \
+        --nTracks 65536 --depth 256
 
 With no arguments it profiles the main cell of ``bench`` (ModalFilterBank,
 1,048,576 modes, 512-sample blocks, 32 tracks). The flags are the CLI's
 (``--benchmark``, ``--nTracks``, ``--bufferSize``, ``--iirForm``,
 ``--iirBlockM``, ``--modalModes``, ``--irLength``, ``--convEdgeMode``,
-``--fdtdRoom``), and ``--depth`` (default 2,048) sets the chain depth,
+``--fdtdRoom``, ``--partconvForm``, ``--partconvTailChunk``,
+``--partconvHDtype``, ``--sessionEqStages``), and ``--depth`` (default 2,048) sets the chain depth,
 which the slow blocks need cut: any ported benchmark
 with a stream body can be profiled (RndMemRead, DWG1DNaive, DWG1DAccel
 and FDTD3D among them; FDTD3D with the divergence kernel, the CLI's
@@ -151,6 +156,10 @@ FLAGS = {
     "--irLength": ("ir_length", int),
     "--convEdgeMode": ("conv_edge_mode", str),
     "--fdtdRoom": ("fdtd_room", int),
+    "--partconvForm": ("partconv_form", str),
+    "--partconvTailChunk": ("partconv_tail_chunk", int),
+    "--partconvHDtype": ("partconv_h_dtype", str),
+    "--sessionEqStages": ("session_eq_stages", int),
     "--depth": ("depth", int),
 }
 

@@ -1,9 +1,11 @@
 """Benchmark registry: the reference's names -> factories.
 
 PyTorch counterpart of ``gpuaudiobench_tpu/registry.py`` (registration
-order of cuda/main.cu:84-100). Only the ported benchmarks have a
-factory; every other name raises ``NotImplementedError``. The
-descriptions are the reference's, for ``--help``.
+order of cuda/main.cu:84-100), with its suite categories. Only the
+ported benchmarks have a factory; every other name raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it
+(``UNPORTED_BENCHMARKS``). The descriptions are the reference's, for
+``--help``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,32 @@ EXTENSION_NAMES: List[str] = [
     "SOL_VPU", "SOL_VMEM", "SOL_HBM",
     "SOL_MXU_bf16", "SOL_MXU_f32", "SOL_MXU_int8",
 ]
+
+# Suite categories (the WebGPU UI's groups, webgpu/js/app.js:46-79, and
+# the reference's extensions).
+CATEGORIES = {
+    "transfer": ["datacopy0199", "datacopy2080", "datacopy5050",
+                 "datacopy8020", "datacopy9901"],
+    "basic": ["NoOp", "gain", "GainStats"],
+    "dsp": ["IIRFilter", "Conv1D", "Conv1D_accel", "ModalFilterBank",
+            "FFT1D", "BiquadChain", "PartConv"],
+    "physical": ["DWG1DNaive", "DWG1DAccel", "FDTD3D"],
+    "memory": ["RndMemRead"],
+    "neural": ["NeuralAmp", "NeuralAmpLSTM"],
+    "session": ["DAWSessionMix"],
+    "multichip": ["MultiChipSuite", "ICIBandwidth"],
+    "speedoflight": ["SOL_VPU", "SOL_VMEM", "SOL_HBM",
+                     "SOL_MXU_bf16", "SOL_MXU_f32", "SOL_MXU_int8"],
+}
+
+# The names without a factory here, with the ROADMAP.md item that ports
+# them.
+UNPORTED_BENCHMARKS = {
+    "NeuralAmp": "queue 1, item 15",
+    "NeuralAmpLSTM": "queue 1, item 15",
+    "MultiChipSuite": "queue 1, item 18",
+    "ICIBandwidth": "queue 1, item 18",
+}
 
 
 BENCHMARK_DESCRIPTIONS = {
@@ -85,7 +113,9 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
     from gpuaudiobench_tpu_torch.models.iir import IIRBenchmark
     from gpuaudiobench_tpu_torch.models.modal import ModalFilterBankBenchmark
     from gpuaudiobench_tpu_torch.models.noop import NoOpBenchmark
+    from gpuaudiobench_tpu_torch.models.partconv import PartConvBenchmark
     from gpuaudiobench_tpu_torch.models.rndmem import RndMemBenchmark
+    from gpuaudiobench_tpu_torch.models.session import DAWSessionMixBenchmark
     from gpuaudiobench_tpu_torch.models.speedoflight import (
         SolHbmStreamBenchmark,
         SolMxuBenchmark,
@@ -109,6 +139,8 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
         "FDTD3D": FDTD3DBenchmark,
         "RndMemRead": RndMemBenchmark,
         "BiquadChain": BiquadChainBenchmark,
+        "PartConv": PartConvBenchmark,
+        "DAWSessionMix": DAWSessionMixBenchmark,
         "SOL_VPU": SolVpuFmaBenchmark,
         "SOL_VMEM": SolVmemBenchmark,
         "SOL_HBM": SolHbmStreamBenchmark,
@@ -128,9 +160,10 @@ def create_benchmark(name: str, cfg: BenchConfig,
     factories = _factories()
     if name in factories:
         return factories[name](cfg, device)
-    if name in BENCHMARK_NAMES or name in EXTENSION_NAMES:
+    if name in UNPORTED_BENCHMARKS:
         raise NotImplementedError(
-            f"{name}: not yet ported; see ROADMAP.md")
+            f"{name}: not yet ported; see ROADMAP.md "
+            f"{UNPORTED_BENCHMARKS[name]}")
     raise KeyError(f"Unknown benchmark: {name}")
 
 

@@ -16,6 +16,8 @@ bit:
   (cuda/bench_iir.cu:199-226).
 * ``conv1d_impulse_responses``: the per-track windowed-sinc IR bank of
   Conv1D and Conv1D_accel (cuda/bench_conv1d.cu:159-181).
+* ``reverb_impulse_responses``: PartConv's and DAWSessionMix's decaying
+  noise IRs (``tests/test_torch_partconv.py`` holds it bit for bit).
 """
 
 from __future__ import annotations
@@ -67,3 +69,18 @@ def biquad_lowpass_coefficients(normalized_frequency: float, q: float = 0.707):
     a1 = -2.0 * cos_w
     a2 = 1.0 - alpha
     return tuple(np.float32(v / a0) for v in (b0, b1, b2, a1, a2))
+
+
+def reverb_impulse_responses(track_count: int, ir_length: int,
+                             seed: int = 42) -> np.ndarray:
+    """(T, L) exponentially decaying noise IRs (60 dB over the full
+    length, T60 = L/fs), L2-normalized per track."""
+    g = _rng(seed)
+    noise = (g.random((track_count, ir_length), dtype=np.float32) * 2.0
+             - 1.0)
+    t = np.arange(ir_length, dtype=np.float32)
+    decay = np.exp(np.float32(np.log(1e-3)) * t
+                   / np.float32(max(ir_length - 1, 1)))
+    ir = noise * decay[None, :]
+    norm = np.sqrt((ir.astype(np.float64) ** 2).sum(axis=1, keepdims=True))
+    return (ir / np.maximum(norm, 1e-12)).astype(np.float32)

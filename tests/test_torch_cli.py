@@ -114,7 +114,8 @@ def test_help_names_every_ported_flag_and_benchmark():
         assert name in text
 
 
-@pytest.mark.parametrize("name", ["PartConv", "NeuralAmp", "DAWSessionMix"])
+@pytest.mark.parametrize("name", ["NeuralAmpLSTM", "NeuralAmp",
+                                  "MultiChipSuite"])
 def test_unported_benchmark_exits_1_naming_roadmap(name):
     rc, lines = _run(cli.main, ["--benchmark", name, "--nRuns", "1"],
                      device="cpu")
@@ -136,9 +137,10 @@ def test_unported_flag_exits_1_naming_roadmap(flag):
                      f"see ROADMAP.md {cli.UNPORTED_FLAGS[flag]}"]
 
 
-# The flags the port refused until pinned staging, the datacopy family,
-# DAW-sim and the overlapped infeed were ported: each now runs a toy
-# benchmark and reaches the configuration under the reference's field.
+# The flags the port refused until they were ported (pinned staging, the
+# datacopy family, DAW-sim and the overlapped infeed; then the CSV writer,
+# PartConv and DAWSessionMix): each now runs a toy benchmark and reaches
+# the configuration under the reference's field.
 RETIRED_REFUSALS = {
     "--dawsim": ([], {"dawsim": True}),
     "--dawsim-mode": (["sleep"], {"dawsim_mode": "sleep"}),
@@ -146,15 +148,33 @@ RETIRED_REFUSALS = {
     "--overlapDepth": (["4"], {"overlap_depth": 4}),
     "--overlapReps": (["2"], {"overlap_reps": 2}),
     "--transferMiB": (["1"], {"transfer_mib": 1}),
+    "--category": (["session"], {}),
+    "--csvSchema": (["metal"], {"csv_schema": "metal"}),
+    "--latenciesFile": (["lat.txt"], {"latencies_file": "lat.txt"}),
+    "--partconvForm": (["ring"], {"partconv_form": "ring"}),
+    "--partconvTailChunk": (["2"], {"partconv_tail_chunk": 2}),
+    "--partconvHDtype": (["f16"], {"partconv_h_dtype": "f16"}),
+    "--sessionEqStages": (["3"], {"session_eq_stages": 3}),
 }
+# The benchmark each retired flag runs (gain where it is not named).
+RETIRED_RUNS = {"--transferMiB": "datacopy5050", "--category":
+                "DAWSessionMix", "--sessionEqStages": "DAWSessionMix",
+                "--partconvForm": "PartConv", "--partconvTailChunk":
+                "PartConv", "--partconvHDtype": "PartConv"}
 
 
 @pytest.mark.parametrize("flag", sorted(RETIRED_REFUSALS))
 def test_retired_refusal_flag_now_runs(flag):
     values, fields = RETIRED_REFUSALS[flag]
-    name = "datacopy5050" if flag == "--transferMiB" else "gain"
-    argv = ["--benchmark", name, "--nTracks", "8", "--nRuns", "2",
-            "--warmup", "1", "--json", flag] + values
+    name = RETIRED_RUNS.get(flag, "gain")
+    argv = ["--nTracks", "8", "--nRuns", "2", "--warmup", "1", "--json",
+            flag] + values
+    if flag != "--category":
+        argv = ["--benchmark", name] + argv
+    if name in ("PartConv", "DAWSessionMix"):
+        argv += ["--bufferSize", "64", "--irLength", "300"]
+    if flag == "--partconvTailChunk":
+        argv += ["--partconvForm", "nupols"]
     if flag in ("--dawsim-mode", "--dawsim-jitter-us"):
         argv.append("--dawsim")
     if flag == "--overlapReps":
@@ -176,6 +196,11 @@ def test_retired_refusal_flag_now_runs(flag):
         assert rec["overlapped"]["reps"] == cfg.overlap_reps
     if flag == "--transferMiB":
         assert rec["metadata"]["inputFloats"] == 131072
+    if name == "PartConv":
+        assert rec["metadata"]["formResolved"] == cfg.partconv_form
+        assert rec["metadata"]["hDtype"] == cfg.partconv_h_dtype
+    if flag == "--sessionEqStages":
+        assert rec["metadata"]["eqStages"] == 3
 
 
 def test_every_reference_flag_is_ported_or_refused():
@@ -205,10 +230,20 @@ def test_bad_arguments_exit_1(argv, needle):
 
 
 def test_outputfile_without_json_exits_1_naming_roadmap(tmp_path):
+    """Since the CSV writer was ported, ``--outputfile`` without ``--json``
+    no longer exits 1: it appends the CUDA-schema CSV row, header first,
+    after the printed summary (the name is kept from the refusal)."""
     out = tmp_path / "r.csv"
-    rc, lines = _run(cli.main, ["--benchmark", "IIRFilter", "--outputfile",
-                                str(out)], device="cpu")
-    assert rc == 1 and "ROADMAP" in lines[-1] and not out.exists()
+    rc, lines = _run(cli.main, ["--benchmark", "IIRFilter", "--nTracks", "8",
+                                "--nRuns", "3", "--warmup", "1",
+                                "--outputfile", str(out), "--latenciesFile",
+                                str(tmp_path / "lat.txt")], device="cpu")
+    assert rc == 0 and not any("ROADMAP" in ln for ln in lines)
+    assert f"Results saved to: {out}" in lines
+    header, row = out.read_text().splitlines()
+    assert header == (jax_output.CSV_HEADER + jax_output.CSV_CONTEXT_COLS)
+    assert row.startswith("IIRFilter,48000,512,8,3,")
+    assert row.endswith(",wall,,cpu")
 
 
 def test_outputfile_with_json_writes_the_json(tmp_path):
@@ -234,10 +269,10 @@ def test_filter_run_goes_on_past_a_failure_and_exits_1():
     """A filter that selects an unported benchmark and a ported one runs
     the ported one and still exits 1 (the reference's suite
     resilience)."""
-    rc, lines = _run(cli.main, ["--benchmarkFilter", "=PartConv,=IIRFilter",
+    rc, lines = _run(cli.main, ["--benchmarkFilter", "=NeuralAmp,=IIRFilter",
                                 "--no-device-timing"] + TOY, device="cpu")
     assert rc == 1
-    assert any("PartConv" in ln and "ROADMAP" in ln for ln in lines)
+    assert any("NeuralAmp" in ln and "ROADMAP" in ln for ln in lines)
     assert _json(lines)["benchmark"] == "IIRFilter"
 
 
@@ -332,7 +367,8 @@ def test_help_marks_the_ported_benchmarks():
     assert marked == {"IIRFilter", "ModalFilterBank", "BiquadChain", "NoOp",
                       "gain", "GainStats", "FFT1D", "Conv1D",
                       "Conv1D_accel", "DWG1DNaive", "DWG1DAccel", "FDTD3D",
-                      "RndMemRead", "SOL_VPU", "SOL_VMEM", "SOL_HBM",
+                      "RndMemRead", "PartConv", "DAWSessionMix",
+                      "SOL_VPU", "SOL_VMEM", "SOL_HBM",
                       "SOL_MXU_bf16", "SOL_MXU_f32", "SOL_MXU_int8",
                       "datacopy0199", "datacopy2080", "datacopy5050",
                       "datacopy8020", "datacopy9901"}
@@ -425,3 +461,28 @@ def test_slice_json_keys_are_a_subset_of_the_reference(name):
     assert ours["configuration"] == theirs["configuration"]
     ours.pop("saturated")  # asked of the port only
     assert _paths(ours) <= _paths(theirs), _paths(ours) - _paths(theirs)
+
+
+@pytest.mark.parametrize("category", ["transfer", "basic", "dsp", "physical",
+                                      "memory", "session", "speedoflight"])
+def test_category_selects_like_the_reference(category):
+    argv = ["--category", category, "--benchmarkFilter", "=gain"]
+    cfg, names, err = cli.parse_args(argv)
+    j_cfg, j_names, j_err = jax_cli.parse_args(argv)
+    assert err is None and j_err is None and names == j_names
+
+
+@pytest.mark.parametrize("category,item", [("neural", "queue 1, item 15"),
+                                           ("multichip", "queue 1, item 18")])
+def test_category_of_unported_benchmarks_exits_1_naming_roadmap(category,
+                                                                item):
+    rc, lines = _run(cli.main, ["--category", category], device="cpu")
+    assert rc == 1 and lines[-1].endswith(f"see ROADMAP.md {item}")
+    assert jax_cli.parse_args(["--category", category])[2] is None
+
+
+def test_unknown_category_exits_1():
+    rc, lines = _run(cli.main, ["--category", "brass"], device="cpu")
+    assert rc == 1 and "unknown category 'brass'" in lines[-1]
+    assert "unknown category 'brass'" in jax_cli.parse_args(
+        ["--category", "brass"])[2]

@@ -46,7 +46,8 @@ BLOCKED_JAX = textwrap.dedent("""
     import chip_smoke  # noqa: F401
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     for mod in ("models.datatransfer", "harness.dawsim", "harness.overlap",
-                "utils.native"):
+                "utils.native", "ops.partconv", "models.partconv",
+                "models.session"):
         assert "gpuaudiobench_tpu_torch." + mod in names, mod
 
     import torch
@@ -84,7 +85,20 @@ BLOCKED_JAX = textwrap.dedent("""
                                           "overlap_depth": 4,
                                           "overlap_reps": 1}),
                         ("IIRFilter", {"overlap_depth": 4,
-                                       "overlap_reps": 1})]:
+                                       "overlap_reps": 1}),
+                        ("PartConv", {"ir_length": 300}),
+                        ("PartConv", {"ir_length": 300,
+                                      "partconv_form": "ring",
+                                      "partconv_h_dtype": "f16"}),
+                        ("PartConv", {"ir_length": 300,
+                                      "partconv_form": "nupols",
+                                      "partconv_tail_chunk": 2,
+                                      "overlap_depth": 4,
+                                      "overlap_reps": 1}),
+                        ("DAWSessionMix", {"ir_length": 300,
+                                           "session_eq_stages": 16,
+                                           "overlap_depth": 4,
+                                           "overlap_reps": 1})]:
         c = cfg.replace(**knobs)
         b = create_benchmark(name, c, torch.device("cpu"))
         b.setup()
@@ -104,6 +118,18 @@ BLOCKED_JAX = textwrap.dedent("""
     assert rc == 0, lines[-10:]
     rec = json.loads("\\n".join(lines[lines.index("{"):-1]))
     assert rec["validation"]["status"] == "SUCCESS"
+    import os, tempfile
+    tmp = tempfile.mkdtemp()
+    csv = os.path.join(tmp, "r.csv")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--benchmark", "DAWSessionMix", "--nTracks", "8",
+                       "--bufferSize", "64", "--irLength", "300", "--nRuns",
+                       "2", "--outputfile", csv, "--latenciesFile",
+                       os.path.join(tmp, "lat.txt")], device="cpu")
+    assert rc == 0
+    assert open(csv).read().startswith("benchmark,fs,bufferSize")
+    import shutil
+    shutil.rmtree(tmp)
     from gpuaudiobench_tpu_torch.ops import modal as tops
     tabs = [torch.rand(960) for _ in range(5)]
     out, _, _ = tops.modal_bank(*tabs, 16, 12, algorithm="res")
@@ -223,6 +249,13 @@ def test_registry_names_mirror_the_reference():
 def test_unported_benchmarks_raise(port_cfg, name):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         registry.create_benchmark(name, port_cfg, CPU)
+
+
+def test_unported_names_are_exactly_those_without_a_factory():
+    assert set(registry.UNPORTED_BENCHMARKS) == (
+        set(registry.list_benchmarks()) - set(registry.ported_benchmarks()))
+    assert len(registry.ported_benchmarks()) == 26
+    assert registry.CATEGORIES == jax_registry.CATEGORIES
 
 
 def test_unknown_benchmark_raises(port_cfg):
