@@ -143,16 +143,33 @@ nonzero:
    both session paths after a warm pass, under
    ``torch.cuda.set_sync_debug_mode("error")``: none may wait for the
    device.
-13. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+13. NeuralAmp and NeuralAmpLSTM (no kernel of the 14: cuBLAS GEMMs and
+   elementwise ops; the LSTM block one CUDA graph replay), still with the
+   plain twins counted (none may run): the CLI on NeuralAmp at the JAX
+   package's widths (C = 128, L = 10) in f32, bf16 and int8 at 128 tracks
+   and in f32 at 256 (``NEURAL_CLI``: 10 runs, depth 64, 5 reps), and on
+   NeuralAmpLSTM (H = 128) in f32 and bf16 at 128 (``LSTM_CLI``: 5 runs,
+   depth 16), each validated in full against its f64 golden, with its
+   device, saturated and round-trip p50 and its max error, its cost-model
+   bound at the data-sheet peak of its dtype, ``matmulPrecision:
+   "highest"``, and on the LSTM ``blockForm: "cuda-graph"`` with exactly
+   one graph replay (``ops.neuralamp.GRAPH_REPLAYS``) for every block the
+   run made; the overlap tier on NeuralAmp and NeuralAmpLSTM f32 at 128
+   (the LSTM replaying at least once a block) and their overlapped loops
+   bit for bit the serial ones; one LSTM block replayed through its graph
+   bit for bit the same block run eagerly on the card, in f32 and bf16,
+   with the CUDA-event times of both; and 64 chained stream blocks of
+   each of the six paths under ``torch.cuda.set_sync_debug_mode("error")``.
+14. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-14. ``torch.profiler`` names the kernels of one call of each cascade
+15. ``torch.profiler`` names the kernels of one call of each cascade
    wrapper at 1,000 x 96: the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. It runs after everything
    timed (a profiler session slows the process's later launches).
-15. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+16. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -456,6 +473,33 @@ SESSION_OVERLAP_RUNS = [
     ("PartConv shift, 1536 tracks", PARTCONV_WIDE, []),
     ("DAWSessionMix, 65536 strips", SESSION_WIDE, ["iir_cascade"]),
 ]
+# NeuralAmp and NeuralAmpLSTM (phase 13) at the JAX package's default
+# widths (C = H = 128, L = 10; gpuaudiobench_tpu/config.py:81-83): the TCN
+# at 128 tracks in each dtype and at 256 in f32 (its certified capacity,
+# docs/RESULTS_r4_capacity.md:10) on PartConv's tier; the LSTM, whose block
+# is one graph replay of 512 dependent steps, at 128 tracks on a shallower
+# one. Full verification against the f64 goldens.
+NEURAL_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "64",
+              "--saturatedReps", "5", "--json"]
+LSTM_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "16",
+            "--saturatedReps", "5", "--json"]
+NEURAL_PATHS = [("NeuralAmp", "f32", 128), ("NeuralAmp", "bf16", 128),
+                ("NeuralAmp", "int8", 128), ("NeuralAmp", "f32", 256),
+                ("NeuralAmpLSTM", "f32", 128), ("NeuralAmpLSTM", "bf16", 128)]
+NEURAL_RUNS = [
+    (f"{name} {dtype}, {tracks} tracks",
+     ["--benchmark", name, "--nTracks", str(tracks), "--neuralampDtype",
+      dtype] + (LSTM_CLI if name == "NeuralAmpLSTM" else NEURAL_CLI))
+    for name, dtype, tracks in NEURAL_PATHS]
+NEURAL_OVERLAP_RUNS = [
+    ("NeuralAmp f32, 128 tracks", ["--benchmark", "NeuralAmp"], []),
+    ("NeuralAmpLSTM f32, 128 tracks", ["--benchmark", "NeuralAmpLSTM"],
+     ["lstm_block"]),
+]
+NEURAL_OVERLAP_CHECKS = [("NeuralAmp", 128), ("NeuralAmpLSTM", 128)]
+# The eager LSTM block against its graph: CUDA-event reps of one eager
+# block (~3,600 launches from the host) and of GRAPH_CALLS replays.
+EAGER_REPS, GRAPH_REPS, GRAPH_CALLS = 3, 5, 10
 # Chained blocks under torch.cuda.set_sync_debug_mode("error"), after a
 # warm pass: none may wait for the device.
 SYNC_FREE_BLOCKS = 64
@@ -468,6 +512,10 @@ SYNC_FREE_PATHS = [
 ] + [("DAWSessionMix, 65536 strips", "DAWSessionMix", {"n_tracks": 65536}),
      ("DAWSessionMix K=16, 128 strips", "DAWSessionMix",
       {"session_eq_stages": 16})]
+NEURAL_SYNC_FREE_PATHS = [
+    (f"{name} {dtype}, {tracks} tracks", name,
+     {"n_tracks": tracks, "neuralamp_dtype": dtype})
+    for name, dtype, tracks in NEURAL_PATHS]
 
 
 def fail(msg: str) -> None:
@@ -1782,10 +1830,11 @@ def overlap_phase(cli, counts, reset, launches, runs=OVERLAP_RUNS):
               + ", ".join(f"{k} {v}" for k, v in n.items() if v))
 
 
-def overlap_check(torch, registry, config, overlap, device):
+def overlap_check(torch, registry, config, overlap, device,
+                  checks=OVERLAP_CHECKS):
     """The overlapped loop's last output and carry after OVERLAP_DEPTH
     blocks, bit for bit the serial loop's, from one starting carry."""
-    for name, tracks in OVERLAP_CHECKS:
+    for name, tracks in checks:
         cfg = config.BenchConfig(n_tracks=tracks, verification="spot")
         b = registry.create_benchmark(name, cfg, device)
         b.setup()
@@ -1889,11 +1938,11 @@ def csv_schema_check(cli, output, tmpdir):
           f"appended to it exits {rc} ({refusal.strip()[:80]})")
 
 
-def sync_free(torch, registry, config, device):
+def sync_free(torch, registry, config, device, paths=SYNC_FREE_PATHS):
     """SYNC_FREE_BLOCKS chained stream blocks of each path after a warm
     pass, under ``torch.cuda.set_sync_debug_mode("error")``: none may wait
     for the device. The probes are read after the window."""
-    for label, name, knobs in SYNC_FREE_PATHS:
+    for label, name, knobs in paths:
         cfg = config.BenchConfig(verification="none", device_timing=False,
                                  **knobs)
         b = registry.create_benchmark(name, cfg, device)
@@ -1999,6 +2048,107 @@ def session_phase(torch, cli, output, registry, config, models_session,
         shutil.rmtree(tmpdir, ignore_errors=True)
 
 
+def lstm_replays_expected(argv) -> int:
+    """LSTM blocks one CLI run makes (each one graph replay): set-up's
+    round trip, the warmup and timed round trips, the device tier's warm
+    call and runs, and the saturated tier's warm pass and reps over its
+    two depths (``harness/streaming.measure_saturated_marginal``)."""
+    flag = {argv[i]: int(argv[i + 1]) for i in range(len(argv) - 1)
+            if argv[i] in ("--nRuns", "--warmup", "--pipelineDepth",
+                           "--saturatedReps")}
+    runs, depth = flag["--nRuns"], flag["--pipelineDepth"]
+    lo = max(1, depth // 4)
+    return ((1 + flag["--warmup"] + runs) + (1 + min(runs, 20))
+            + (lo + depth) * (1 + flag["--saturatedReps"]))
+
+
+def lstm_graph_check(torch, registry, config, na, device):
+    """One LSTM block replayed through its graph, bit for bit the same
+    block run eagerly on the card, from a nonzero state, in f32 and bf16;
+    the CUDA-event time of the eager block and of a replay."""
+    for dtype in ("f32", "bf16"):
+        cfg = config.BenchConfig(verification="none", device_timing=False,
+                                 neuralamp_dtype=dtype)
+        b = registry.create_benchmark("NeuralAmpLSTM", cfg, device)
+        b.setup()  # one block from zero: the state is nonzero after it
+        x = b._resident_input
+        h, c = (t.clone() for t in b._state)
+        run = na.lstm_runner(b._params, dtype, x, h, c)
+        graphed = [t.clone() for t in run(x, h, c)]
+        eager = na.lstm_block(x, h, c, b._params, dtype)
+        for what, g, e in zip(("y", "h", "c"), graphed, eager):
+            if not torch.equal(g, e):
+                fail(f"LSTM {dtype}: the graphed block's {what} differs from "
+                     "the eager block's by "
+                     f"{float((g - e).abs().max()):.3g}")
+        eager_ms = median_ms(torch, lambda: na.lstm_block(
+            x, h, c, b._params, dtype), EAGER_REPS, 1)
+        graph_ms = median_ms(torch, run, GRAPH_REPS, GRAPH_CALLS)
+        print(f"LSTM {dtype} block at {b.track_count} x {b.buffer_size}, "
+              f"H {b.channels}: the graph's y, h, c bit for bit the eager "
+              f"block's; eager {eager_ms:.4f} ms, graphed {graph_ms:.4f} ms "
+              f"(CUDA events, median of {EAGER_REPS} / {GRAPH_REPS} reps), "
+              f"x{eager_ms / graph_ms:.2f}; deadline "
+              f"{cfg.deadline_ms():.3f} ms")
+        del b, run, graphed, eager
+
+
+def neural_phase(torch, cli, registry, config, overlap, roofline, na, counts,
+                 reset, device):
+    """Phase 13: NeuralAmp in f32, bf16 and int8 at 128 tracks and f32 at
+    256, NeuralAmpLSTM in f32 and bf16 at 128, each validated against its
+    f64 golden with matmulPrecision "highest", every LSTM block a graph
+    replay (``ops.neuralamp.GRAPH_REPLAYS``); the overlap tier on both,
+    the overlapped loop bit for bit the serial one, the graphed LSTM block
+    bit for bit the eager one with both times, and the sync-free
+    chains."""
+
+    def ncounts():
+        return {**counts(), **na.GRAPH_REPLAYS}
+
+    def nreset():
+        reset()
+        na.GRAPH_REPLAYS["lstm_block"] = 0
+
+    launches = {k: 0 for k in ncounts()}  # none of the 14 may launch
+    for label, argv in NEURAL_RUNS:
+        lstm = "NeuralAmpLSTM" in argv
+        nreset()
+        n, rec = cli_path(torch, cli, ncounts, label, argv, [])
+        md = rec["metadata"]
+        if md.get("matmulPrecision") != "highest":
+            fail(f"{label}: matmulPrecision {md.get('matmulPrecision')!r}")
+        replays = n["lstm_block"]
+        if lstm:
+            want = lstm_replays_expected(argv)
+            if md.get("blockForm") != "cuda-graph" or replays != want:
+                fail(f"{label}: block form {md.get('blockForm')!r}, "
+                     f"{replays} graph replays for {want} blocks")
+        elif replays:
+            fail(f"{label}: {replays} LSTM graph replays")
+        if any(v for k, v in n.items() if k != "lstm_block"):
+            fail(f"{label}: launched {n}")
+        rl = md["roofline"]
+        t_ops = rl["flops_per_block"] / roofline.SPEC_PEAK[
+            roofline.UNIT_PEAK_KEY[rl["unit"]]] * 1e3
+        t_bytes = rl["hbm_bytes_per_block"] / HBM_BYTES_PER_S * 1e3
+        dev_ms = rec["device_statistics"]["median_ms"]
+        print(f"{label}: device p50 {dev_ms:.4f} ms against its cost-model "
+              f"bound {max(t_ops, t_bytes):.4f} ms ("
+              f"{'operations' if t_ops >= t_bytes else 'bytes'} at the "
+              f"data-sheet {rl['unit']} peak), saturated p50 "
+              f"{rec['saturated']['p50_ms']:.4f} ms, round trip p50 "
+              f"{rec['statistics']['p50_ms']:.4f} ms, max error "
+              f"{rec['validation']['max_error']:.3g} of the golden's peak; "
+              f"matmulPrecision highest"
+              + (f", {replays} graph replays" if lstm else ""))
+    overlap_phase(cli, ncounts, nreset, launches, NEURAL_OVERLAP_RUNS)
+    overlap_check(torch, registry, config, overlap, device,
+                  NEURAL_OVERLAP_CHECKS)
+    lstm_graph_check(torch, registry, config, na, device)
+    sync_free(torch, registry, config, device, NEURAL_SYNC_FREE_PATHS)
+
+
 def main() -> int:
     try:
         import torch
@@ -2022,6 +2172,7 @@ def main() -> int:
         from gpuaudiobench_tpu_torch.ops import fdtd3d as fops
         from gpuaudiobench_tpu_torch.ops import iir as iops
         from gpuaudiobench_tpu_torch.ops import modal as ops
+        from gpuaudiobench_tpu_torch.ops import neuralamp as na
         from gpuaudiobench_tpu_torch.ops import rndmem as rops
         from gpuaudiobench_tpu_torch.ops import speedoflight as sops
         from gpuaudiobench_tpu_torch.utils import build
@@ -2170,6 +2321,13 @@ def main() -> int:
         session_phase(torch, cli, output, registry, config, models_session,
                       counts, reset, launches, device)
         print(f"PartConv, DAWSessionMix and CSV: "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # NeuralAmp and NeuralAmpLSTM.
+        t0 = time.perf_counter()
+        neural_phase(torch, cli, registry, config, overlap, roofline, na,
+                     counts, reset, device)
+        print(f"NeuralAmp and NeuralAmpLSTM: "
               f"{time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")

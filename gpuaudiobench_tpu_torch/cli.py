@@ -8,8 +8,9 @@ A cut-down counterpart of ``gpuaudiobench_tpu/cli.py`` with the same
 benchmarks and tiers read, DAW-sim pacing (``--dawsim``,
 ``--dawsim-mode``, ``--dawsim-jitter-us``), the overlapped-infeed tier
 (``--overlapDepth``, ``--overlapReps``), the datacopy pool
-(``--transferMiB``), PartConv's and DAWSessionMix's knobs and the output
-flags (``--csvSchema``, ``--latenciesFile``, ``--category``) among them.
+(``--transferMiB``), PartConv's, DAWSessionMix's and NeuralAmp's knobs
+and the output flags (``--csvSchema``, ``--latenciesFile``,
+``--category``) among them.
 Without ``--json`` each benchmark's summary is printed, then its latency
 file and, with ``--outputfile``, its CSV row are written; with ``--json``
 the JSON goes to ``--outputfile`` or stdout. A flag the reference knows
@@ -64,6 +65,9 @@ VALUE_FLAGS = {
     "--partconvTailChunk": ("partconv_tail_chunk", int),
     "--partconvHDtype": ("partconv_h_dtype", str),
     "--sessionEqStages": ("session_eq_stages", int),
+    "--neuralampChannels": ("neuralamp_channels", int),
+    "--neuralampLayers": ("neuralamp_layers", int),
+    "--neuralampDtype": ("neuralamp_dtype", str),
     "--csvSchema": ("csv_schema", str),
     "--latenciesFile": ("latencies_file", str),
     "--poolMiB": ("rndmem_pool_mb", int),
@@ -96,9 +100,6 @@ SWITCHES = {
 UNPORTED_FLAGS = {
     "--capture": "queue 1, item 4",
     "--captureDir": "queue 1, item 4",
-    "--neuralampChannels": "queue 1, item 15",
-    "--neuralampLayers": "queue 1, item 15",
-    "--neuralampDtype": "queue 1, item 15",
     "--dataParallel": "queue 1, item 18",
     "--mesh": "queue 1, item 18",
     "--compilationCacheDir": "'Not ported' (XLA only)",
@@ -152,6 +153,11 @@ def print_help() -> None:
     print("  --partconvHDtype [d]     f32 | f16 (PartConv IR-spectra storage)")
     print("  --sessionEqStages [k]    DAWSessionMix per-track EQ cascade "
           "depth (default: 4)")
+    print("  --neuralampChannels [n]  NeuralAmp TCN channel count / LSTM "
+          "hidden size (default: 128)")
+    print("  --neuralampLayers [n]    NeuralAmp dilated-layer count (default: 10)")
+    print("  --neuralampDtype [d]     f32 | bf16 | int8 (NeuralAmp GEMM dtype; "
+          "int8 TCN-only)")
     print("  --poolMiB [n]            RndMemRead pool size (default: 512)")
     print("  --transferMiB [n]        datacopy* pool size (default: 10)")
     print("  --dwgMinLen/--dwgMaxLen [n]  DWG delay-line length range")
@@ -201,6 +207,10 @@ def print_help() -> None:
           "--nTracks 1536 --partconvForm nupols --outputfile r.csv")
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark DAWSessionMix "
           "--nTracks 65536 --verification spot --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark NeuralAmp "
+          "--neuralampDtype bf16 --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --category neural "
+          "--pipelineDepth 16 --json")
     print("  python -m gpuaudiobench_tpu_torch.cli    (RndMemRead, 128 tracks)")
 
 

@@ -92,6 +92,13 @@ class BenchConfig:
     # reverb's IR length is ir_length.
     session_eq_stages: int = 4
 
+    # NeuralAmp / NeuralAmpLSTM: channels (the LSTM's hidden size), the
+    # TCN's dilated layers, and the GEMM dtype, "f32" (full FP32) |
+    # "bf16" | "int8" (TCN only).
+    neuralamp_channels: int = 128
+    neuralamp_layers: int = 10
+    neuralamp_dtype: str = "f32"
+
     # RndMemRead: the sample pool in MiB and the per-track loop-length
     # range (bench_rndmem.cuh: 512 MiB, loop wrap 1000-48000).
     rndmem_pool_mb: int = 512
@@ -185,6 +192,19 @@ class BenchConfig:
             raise ValueError(
                 f"session_eq_stages ({self.session_eq_stages}) must be "
                 "in [1, 16]")
+        if self.neuralamp_dtype not in ("f32", "bf16", "int8"):
+            raise ValueError(
+                f"invalid NeuralAmp dtype: {self.neuralamp_dtype}")
+        if not 1 <= self.neuralamp_channels <= 512:
+            raise ValueError(
+                f"neuralamp_channels ({self.neuralamp_channels}) must be "
+                "in [1, 512]")
+        if not 1 <= self.neuralamp_layers <= 12:
+            # Carried-tail memory doubles a layer ((K-1)*2^l samples a
+            # track); 12 layers = 16 s receptive field.
+            raise ValueError(
+                f"neuralamp_layers ({self.neuralamp_layers}) must be "
+                "in [1, 12]")
         if self.impl not in ("auto", "xla", "pallas"):
             raise ValueError(f"invalid impl: {self.impl}")
         if self.csv_schema not in ("cuda", "metal"):

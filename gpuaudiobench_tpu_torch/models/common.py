@@ -25,6 +25,18 @@ from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import generate_random_audio
 
 
+def check_full_fp32(name: str = "") -> None:
+    """Raises when float32 matmuls may run in TF32: the benchmarks whose
+    GEMMs stand for the reference's f32 contract (DAWSessionMix's bus and
+    mixdown, NeuralAmp's f32 mode) run them in full FP32 ('highest')."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            f"{name or 'this benchmark'}: float32 matmuls are set to TF32 "
+            f"({torch.get_float32_matmul_precision()!r}); its GEMMs run in "
+            "full FP32 ('highest')")
+
+
 def expand_rows(part: np.ndarray, rows: Optional[np.ndarray], shape,
                 axis: int = 0) -> np.ndarray:
     """``part`` computed for the tracks ``rows`` (along ``axis``) placed

@@ -30,7 +30,10 @@ import torch
 
 from gpuaudiobench_tpu_torch.harness.streaming import probe
 from gpuaudiobench_tpu_torch.harness.validation import ValidationData, compare_rel
-from gpuaudiobench_tpu_torch.models.common import StandardBufferBenchmark
+from gpuaudiobench_tpu_torch.models.common import (
+    StandardBufferBenchmark,
+    check_full_fp32,
+)
 from gpuaudiobench_tpu_torch.models.iir import iir_reference
 from gpuaudiobench_tpu_torch.ops.iir import iir_cascade
 from gpuaudiobench_tpu_torch.ops.partconv import (
@@ -113,17 +116,6 @@ def session_block(x, coeffs, eq_states, send, pan2, prev, fre, fim,
     return mix, eq2, xbus, fre2, fim2
 
 
-def check_full_fp32() -> None:
-    """Raises when float32 matmuls may run in TF32 (the bus sum and the
-    mixdown must be full FP32, the reference's Precision.HIGHEST)."""
-    if (torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError(
-            "DAWSessionMix: float32 matmuls are set to TF32 "
-            f"({torch.get_float32_matmul_precision()!r}); the bus and the "
-            "mixdown run in full FP32 ('highest')")
-
-
 class DAWSessionMixBenchmark(StandardBufferBenchmark):
     name = "DAWSessionMix"
     tolerance = 1e-3  # relative-to-peak, the FFT-convolution class
@@ -134,7 +126,7 @@ class DAWSessionMixBenchmark(StandardBufferBenchmark):
 
     def setup(self) -> None:
         cfg = self.cfg
-        check_full_fp32()
+        check_full_fp32(self.name)
         self.eq_stages = cfg.session_eq_stages
         self.ir_length = cfg.ir_length or DEFAULT_IR_LENGTH
         self.partitions = num_partitions(self.ir_length, self.buffer_size)

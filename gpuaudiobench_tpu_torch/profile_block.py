@@ -13,13 +13,19 @@
         --nTracks 1536 --depth 64 [--partconvForm ring]
     python -m gpuaudiobench_tpu_torch.profile_block --benchmark DAWSessionMix \
         --nTracks 65536 --depth 256
+    python -m gpuaudiobench_tpu_torch.profile_block --benchmark NeuralAmp \
+        --nTracks 128 --depth 64 [--neuralampDtype bf16]
+    python -m gpuaudiobench_tpu_torch.profile_block --benchmark NeuralAmpLSTM \
+        --nTracks 128 --depth 16
 
 With no arguments it profiles the main cell of ``bench`` (ModalFilterBank,
 1,048,576 modes, 512-sample blocks, 32 tracks). The flags are the CLI's
 (``--benchmark``, ``--nTracks``, ``--bufferSize``, ``--iirForm``,
 ``--iirBlockM``, ``--modalModes``, ``--irLength``, ``--convEdgeMode``,
 ``--fdtdRoom``, ``--partconvForm``, ``--partconvTailChunk``,
-``--partconvHDtype``, ``--sessionEqStages``), and ``--depth`` (default 2,048) sets the chain depth,
+``--partconvHDtype``, ``--sessionEqStages``, ``--neuralampChannels``,
+``--neuralampLayers``, ``--neuralampDtype``), and ``--depth`` (default
+2,048) sets the chain depth,
 which the slow blocks need cut: any ported benchmark
 with a stream body can be profiled (RndMemRead, DWG1DNaive, DWG1DAccel
 and FDTD3D among them; FDTD3D with the divergence kernel, the CLI's
@@ -160,6 +166,9 @@ FLAGS = {
     "--partconvTailChunk": ("partconv_tail_chunk", int),
     "--partconvHDtype": ("partconv_h_dtype", str),
     "--sessionEqStages": ("session_eq_stages", int),
+    "--neuralampChannels": ("neuralamp_channels", int),
+    "--neuralampLayers": ("neuralamp_layers", int),
+    "--neuralampDtype": ("neuralamp_dtype", str),
     "--depth": ("depth", int),
 }
 

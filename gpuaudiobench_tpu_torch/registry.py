@@ -53,8 +53,6 @@ CATEGORIES = {
 # The names without a factory here, with the ROADMAP.md item that ports
 # them.
 UNPORTED_BENCHMARKS = {
-    "NeuralAmp": "queue 1, item 15",
-    "NeuralAmpLSTM": "queue 1, item 15",
     "MultiChipSuite": "queue 1, item 18",
     "ICIBandwidth": "queue 1, item 18",
 }
@@ -112,6 +110,7 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
     from gpuaudiobench_tpu_torch.models.gainstats import GainStatsBenchmark
     from gpuaudiobench_tpu_torch.models.iir import IIRBenchmark
     from gpuaudiobench_tpu_torch.models.modal import ModalFilterBankBenchmark
+    from gpuaudiobench_tpu_torch.models.neuralamp import NeuralAmpBenchmark
     from gpuaudiobench_tpu_torch.models.noop import NoOpBenchmark
     from gpuaudiobench_tpu_torch.models.partconv import PartConvBenchmark
     from gpuaudiobench_tpu_torch.models.rndmem import RndMemBenchmark
@@ -140,6 +139,8 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
         "RndMemRead": RndMemBenchmark,
         "BiquadChain": BiquadChainBenchmark,
         "PartConv": PartConvBenchmark,
+        "NeuralAmp": NeuralAmpBenchmark,
+        "NeuralAmpLSTM": functools.partial(NeuralAmpBenchmark, arch="lstm"),
         "DAWSessionMix": DAWSessionMixBenchmark,
         "SOL_VPU": SolVpuFmaBenchmark,
         "SOL_VMEM": SolVmemBenchmark,

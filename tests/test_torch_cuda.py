@@ -3,8 +3,10 @@ resonator forms, the four IIR kernels, the Conv1D FIR, the RndMem gather,
 the DWG block, the two FDTD forms, the divergence form on both routes,
 and the two speed-of-light FMA kernels)
 against their plain PyTorch twins, on the GPU, with the SOL GEMMs against
-their goldens and the device tier against the profiler. Marked ``cuda``: each test skips where there is no CUDA
-device.
+their goldens and the device tier against the profiler; and NeuralAmp's
+blocks, the LSTM's graph replay against its eager block and both
+architectures against the CPU twin. Marked ``cuda``: each test skips where
+there is no CUDA device.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -1313,3 +1315,70 @@ def test_datacopy_uploads_pinned_and_validates(cuda):
     for key in ("h2d_pageable_ms", "h2d_pinned_ms", "d2h_pageable_ms",
                 "d2h_pinned_ms"):
         assert tmc[key] > 0, key
+
+
+# NeuralAmp / NeuralAmpLSTM on the card. The LSTM block runs there as a
+# replay of a captured CUDA graph (harness/graph.py), held bit for bit to
+# the same block run eagerly on the card. The card's runs against the CPU
+# twin: f32 within 1e-5 of the peak (full FP32 both sides, sums in another
+# order); bf16 and int8 at the benchmark's own tolerance (one f32 ulp can
+# move a bf16 activation by one bf16 step) and each against its golden.
+NEURAL_TOY = dict(n_tracks=32, buffer_size=64, neuralamp_channels=32,
+                  neuralamp_layers=4, verification="full")
+
+
+def _neural(device, arch, dtype):
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.models.neuralamp import NeuralAmpBenchmark
+
+    b = NeuralAmpBenchmark(BenchConfig(neuralamp_dtype=dtype, **NEURAL_TOY),
+                           device, arch)
+    b.setup()
+    return b
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_lstm_graph_block_equals_eager_bit_for_bit(cuda, dtype):
+    from gpuaudiobench_tpu_torch.ops import neuralamp as na
+
+    b = _neural(cuda, "lstm", dtype)
+    x = b._resident_input
+    h, c = (t.clone() for t in b._state)
+    run = na.lstm_runner(b._params, dtype, x, h, c)
+    before = na.GRAPH_REPLAYS["lstm_block"]
+    for _ in range(2):  # a replay rewrites the same outputs
+        graphed = [t.clone() for t in run(x, h, c)]
+    eager = na.lstm_block(x, h, c, b._params, dtype)
+    for g, e in zip(graphed, eager):
+        assert torch.equal(g, e)
+    assert na.GRAPH_REPLAYS["lstm_block"] == before + 2
+    assert b.metadata()["blockForm"] == "cuda-graph"
+
+
+@pytest.mark.parametrize("arch,dtype", [("tcn", "f32"), ("tcn", "bf16"),
+                                        ("tcn", "int8"), ("lstm", "f32"),
+                                        ("lstm", "bf16")])
+def test_neuralamp_on_the_card_matches_the_cpu_twin(cuda, arch, dtype):
+    card, cpu = _neural(cuda, arch, dtype), _neural(torch.device("cpu"),
+                                                    arch, dtype)
+    for _ in range(3):
+        card.iterate()
+        cpu.iterate()
+    peak = np.abs(cpu.host_output).max()
+    rel = 1e-5 if dtype == "f32" else card.tolerance
+    assert np.abs(card.host_output - cpu.host_output).max() <= rel * peak
+    for b in (card, cpu):
+        v = b.validate()
+        assert v.passed, v.messages[:3]
+
+
+def test_captured_block_raises_when_the_capture_fails(cuda):
+    """A block that waits for the device (``.item()``) cannot be captured:
+    the constructor raises, and nothing runs the block eagerly instead."""
+    from gpuaudiobench_tpu_torch.harness.graph import CapturedBlock
+
+    def syncs(x):
+        return (x * float(x.sum().item()),)
+
+    with pytest.raises(RuntimeError, match="CapturedBlock"):
+        CapturedBlock(syncs, [torch.ones(8, device=cuda)])

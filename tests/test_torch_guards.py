@@ -47,7 +47,8 @@ BLOCKED_JAX = textwrap.dedent("""
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     for mod in ("models.datatransfer", "harness.dawsim", "harness.overlap",
                 "utils.native", "ops.partconv", "models.partconv",
-                "models.session"):
+                "models.session", "harness.graph", "ops.neuralamp",
+                "models.neuralamp"):
         assert "gpuaudiobench_tpu_torch." + mod in names, mod
 
     import torch
@@ -98,6 +99,13 @@ BLOCKED_JAX = textwrap.dedent("""
                         ("DAWSessionMix", {"ir_length": 300,
                                            "session_eq_stages": 16,
                                            "overlap_depth": 4,
+                                           "overlap_reps": 1}),
+                        ("NeuralAmp", {"neuralamp_channels": 16,
+                                       "neuralamp_layers": 3,
+                                       "neuralamp_dtype": "int8"}),
+                        ("NeuralAmpLSTM", {"neuralamp_channels": 16,
+                                           "neuralamp_dtype": "bf16",
+                                           "overlap_depth": 4,
                                            "overlap_reps": 1})]:
         c = cfg.replace(**knobs)
         b = create_benchmark(name, c, torch.device("cpu"))
@@ -144,7 +152,7 @@ def test_port_runs_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", BLOCKED_JAX], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
-    assert r.stdout.split()[-2] == "OK" and int(r.stdout.split()[-1]) >= 34
+    assert r.stdout.split()[-2] == "OK" and int(r.stdout.split()[-1]) >= 37
 
 
 def test_no_source_mentions_jax():
@@ -254,7 +262,7 @@ def test_unported_benchmarks_raise(port_cfg, name):
 def test_unported_names_are_exactly_those_without_a_factory():
     assert set(registry.UNPORTED_BENCHMARKS) == (
         set(registry.list_benchmarks()) - set(registry.ported_benchmarks()))
-    assert len(registry.ported_benchmarks()) == 26
+    assert len(registry.ported_benchmarks()) == 28
     assert registry.CATEGORIES == jax_registry.CATEGORIES
 
 
