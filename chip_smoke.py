@@ -76,7 +76,13 @@ nonzero:
    default shape at k = 512; CUDA-event times of each kernel and the twin
    at the defaults.
 10. Main paths, each with every launch count reset just before and read
-   just after, and the plain twins counted (none may run):
+   just after, and the plain twins counted (none may run). A kernel's
+   launches are its wrapper's count plus those of the chain graphs'
+   replays (``harness.graph.REPLAYED_LAUNCHES``: a replay makes every
+   launch its capture recorded). Every path with a saturated tier must
+   report ``metadata.chainForm`` "cuda-graph" (NeuralAmpLSTM "loop"), one
+   replay a depth a rep and its untimed run, and its kernels replayed a
+   whole number of times a chained block:
    ``gpuaudiobench_tpu_torch.bench.main()`` at its defaults; 512 chained
    resonator blocks at the main modal shape, the first checked against
    ``modal_reference_gs`` on spot tracks; then the CLI on IIRFilter (scan
@@ -160,16 +166,35 @@ nonzero:
    bit for bit the same block run eagerly on the card, in f32 and bf16,
    with the CUDA-event times of both; and 64 chained stream blocks of
    each of the six paths under ``torch.cuda.set_sync_debug_mode("error")``.
-14. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+14. The saturated chain as one CUDA graph (``harness.graph.ChainGraph``)
+   against the loop of host launches, on ``GRAPH_PATHS``: the modal bank
+   at 1,048,576 modes onto 32 tracks, IIRFilter at 65,536 and
+   DAWSessionMix at 65,536 strips and at 16 stages x 128 (depth 512),
+   DWG1DNaive at 32,768 and PartConv ring and nupols at 1,536 x 48,000
+   taps (depth 64), FDTD3D at room 50 (cluster route, and per-track
+   receivers on the field plane kernel) and room 82 x 64 samples (the
+   plane route; depth 32). On each, a replay's probes bit for bit the
+   loop's from the same entry carry (the cuFFT / cuBLAS bodies,
+   ``GRAPH_LIBRARY_BODIES``, within their benchmark's tolerance of the
+   peak probe, and named where they are not bit for bit), two replays bit
+   for bit each other; capture and instantiation seconds, node counts,
+   peak memory, and both forms' saturated and marginal p50 in turns.
+   Then whether a chain of NeuralAmpLSTM blocks, each its own graph's
+   replay, captures (the body is declared a loop either way).
+15. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-15. ``torch.profiler`` names the kernels of one call of each cascade
+16. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
+   profiler session writes a trace that must hold ``modal_bank`` device
+   events; the busy time a block and idle share of its saturated tier's
+   timed reps (graph replays), read from the trace.
+17. ``torch.profiler`` names the kernels of one call of each cascade
    wrapper at 1,000 x 96: the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
-   systolic wrapper the systolic kernel alone. It runs after everything
-   timed (a profiler session slows the process's later launches).
-16. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+   systolic wrapper the systolic kernel alone. The profiler sessions run
+   after everything timed (a session slows the process's later launches).
+18. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -373,6 +398,9 @@ FDTD_ROOM82 = ["--fdtdRoom", "82", "--bufferSize", "64", "--nRuns", "5",
                "3", "--verification", "spot", "--json"]
 # Kernels a CLI path must not launch: room 50 fits a cluster.
 CLI_ABSENT = {"FDTD3D room 50, 128 tracks": ["fdtd3d_div_coop"]}
+# Kernels no stream body launches, so no chain graph replays: the chain
+# cascade is BiquadChain's validation oracle.
+CHAIN_ABSENT = {"iir_cascade_chain"}
 SOL_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "64",
            "--saturatedReps", "5", "--verification", "spot", "--json"]
 SOL_KERNELS = {"SOL_VPU": ["fma_chain"], "SOL_VMEM": ["fma_vmem"]}
@@ -516,6 +544,41 @@ NEURAL_SYNC_FREE_PATHS = [
     (f"{name} {dtype}, {tracks} tracks", name,
      {"n_tracks": tracks, "neuralamp_dtype": dtype})
     for name, dtype, tracks in NEURAL_PATHS]
+# The saturated chain as one CUDA graph against the loop of host
+# launches (phase 14): (label, benchmark, knobs, depth). The probes of a
+# replay must equal the loop's from the same entry carry bit for bit
+# (the cuBLAS / cuFFT bodies of GRAPH_LIBRARY_BODIES within their
+# benchmark's validation tolerance of the loop's peak probe), and two
+# replays each other; then GRAPH_REPS interleaved reps of both forms at
+# depth // 4 and depth (saturated and marginal p50, in turns).
+GRAPH_PATHS = [
+    ("ModalFilterBank 1M modes onto 32 tracks", "ModalFilterBank",
+     {"n_tracks": 1024}, 512),
+    ("IIRFilter, 65536 tracks", "IIRFilter", {"n_tracks": 65536}, 512),
+    ("DWG1DNaive, 32768 waveguides", "DWG1DNaive", {"n_tracks": 32768}, 64),
+    ("DAWSessionMix, 65536 strips", "DAWSessionMix", {"n_tracks": 65536},
+     512),
+    ("DAWSessionMix K=16, 128 strips", "DAWSessionMix",
+     {"session_eq_stages": 16}, 512),
+] + [(f"PartConv {form}, 1536 tracks", "PartConv",
+      {"n_tracks": 1536, "ir_length": 48000, "partconv_form": form}, 64)
+     for form in ("ring", "nupols")] + [
+    ("FDTD3D room 50, 128 tracks", "FDTD3D", {}, 32),
+    ("FDTD3D room 50, per-track receivers", "FDTD3D",
+     {"fdtd_per_track_receivers": True}, 32),
+    ("FDTD3D room 82, 128 tracks x 64", "FDTD3D",
+     {"fdtd_room": 82, "buffer_size": 64}, 32),
+]
+GRAPH_LIBRARY_BODIES = ("DAWSessionMix", "PartConv")
+GRAPH_REPS = 7
+# The --capture run (after the calibration: a profiler session slows the
+# process's later short launches): the modal headline cell on a short
+# tier; its trace must hold modal_bank events inside the timed reps of
+# the saturated tier, whose busy time and idle share are printed.
+CAPTURE_CLI = ["--benchmark", "ModalFilterBank", "--nTracks", "1024",
+               "--nRuns", "5", "--warmup", "1", "--pipelineDepth", "512",
+               "--saturatedReps", "3", "--verification", "spot", "--json",
+               "--capture"]
 
 
 def fail(msg: str) -> None:
@@ -924,6 +987,8 @@ def chain_kernel_names(torch, iops, device):
     memcpy), the systolic wrapper the systolic kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    from gpuaudiobench_tpu_torch.harness.profiler import device_events
+
     x, c, z = iir_inputs(torch, 1000, 96, device, stages=IIR_STAGES)
     seen = {}
     for name, fn, want in (
@@ -932,26 +997,26 @@ def chain_kernel_names(torch, iops, device):
         fn(x, c, z)
         torch.cuda.synchronize()
         # A session whose trace came back without a single device event
-        # (seen once on the H100, for the systolic wrapper, whose call
-        # copies nothing) is taken again, up to PROFILE_SESSIONS times;
+        # (seen on the H100 in about 1 of 180 one-call sessions,
+        # tools/profiler_sessions.py; the cause is not known, PERF.md §7)
+        # is taken again, up to PROFILE_SESSIONS times;
         # a trace with device events is judged as it is.
         for _ in range(PROFILE_SESSIONS):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 fn(x, c, z)
                 torch.cuda.synchronize()
-            device_events = [e.name for e in prof.events()
-                             if "CUDA" in str(getattr(e, "device_type", ""))]
-            if device_events:
+            names = [e[0] for e in device_events(prof)]
+            if names:
                 break
             print(f"profiler: {name}: a session recorded no device event")
-        kernels = sorted({n for n in device_events
+        kernels = sorted({n for n in names
                           if not n.startswith(("Memcpy", "Memset"))})
         if not kernels:
             fail(f"{name}: the profiler saw no kernel (its events: "
                  f"{[(e.name[:48], str(e.device_type)) for e in prof.events()]})")
         if not all(want in n for n in kernels):
             fail(f"{name} launched {kernels}, not {want} alone")
-        seen[name] = (kernels, sorted({n for n in device_events} - set(kernels)))
+        seen[name] = (kernels, sorted(set(names) - set(kernels)))
     print("profiler: " + "; ".join(
         f"{name} launched {[n[:72] for n in k]}" + (f", copies {c}" if c else "")
         for name, (k, c) in seen.items()))
@@ -1663,15 +1728,23 @@ class TwinCalls:
 
 
 def launch_counts(*modules):
-    """Every wrapper's launch count, by kernel name (each ops module keeps
-    its counts in a ``KERNEL_LAUNCHES`` dict)."""
-    return {k: n for mod in modules for k, n in mod.KERNEL_LAUNCHES.items()}
+    """Every kernel's launches, by name: its wrapper's count (each ops
+    module keeps them in a ``KERNEL_LAUNCHES`` dict) plus the launches of
+    the chain graphs' replays (``harness.graph.REPLAYED_LAUNCHES``: each
+    replay makes every launch its capture recorded)."""
+    from gpuaudiobench_tpu_torch.harness.graph import REPLAYED_LAUNCHES
+
+    return {k: n + REPLAYED_LAUNCHES.get(k, 0)
+            for mod in modules for k, n in mod.KERNEL_LAUNCHES.items()}
 
 
 def reset_counts(*modules):
+    from gpuaudiobench_tpu_torch.harness.graph import reset_replay_counts
+
     for mod in modules:
         for k in mod.KERNEL_LAUNCHES:
             mod.KERNEL_LAUNCHES[k] = 0
+    reset_replay_counts()
 
 
 def quiet_main(cli, argv):
@@ -1714,8 +1787,14 @@ def cli_json(cli, label, argv):
 def cli_path(torch, cli, counts, label, argv, kernels, run=cli_json):
     """One CLI run (``run``: ``cli_json``, or ``cli_csv`` bound to its
     directory); fails unless the device tier used CUDA events and each of
-    ``kernels`` launched. ``counts`` reads the launch counts, which the
-    caller reset. Returns the launch counts of the run and its JSON."""
+    ``kernels`` launched. With a saturated tier, its ``metadata.chainForm``
+    must be "cuda-graph" ("loop" for NeuralAmpLSTM), with one replay a
+    depth a rep and its untimed run, and each of ``kernels`` replayed a
+    whole number of times a chained block (none for ``CHAIN_ABSENT``). ``counts`` reads the launch
+    counts, which the caller reset. Returns the launch counts of the run
+    and its JSON."""
+    from gpuaudiobench_tpu_torch.harness import graph as hgraph
+
     rec, wall = run(cli, label, argv)
     launches = counts()
     v = rec["validation"]
@@ -1725,6 +1804,26 @@ def cli_path(torch, cli, counts, label, argv, kernels, run=cli_json):
     for k in kernels:
         if launches[k] <= 0:
             fail(f"{label}: {k} was not launched")
+    form = rec["metadata"].get("chainForm")
+    chain = ""
+    if "--pipelineDepth" in argv:
+        want = "loop" if "NeuralAmpLSTM" in argv else "cuda-graph"
+        if form != want:
+            fail(f"{label}: chain form {form!r}, not {want!r}")
+        blocks, replays = chain_expectation(argv)
+        if form == "cuda-graph":
+            got = hgraph.CHAIN_REPLAYS["chain"]
+            if got != replays:
+                fail(f"{label}: {got} chain replays, not {replays}")
+            replayed = blocks * (replays // 2)
+            for k in kernels:
+                n = hgraph.REPLAYED_LAUNCHES.get(k, 0)
+                if (n > 0) == (k in CHAIN_ABSENT) or n % replayed:
+                    fail(f"{label}: {k} replayed {n} times in {replayed} "
+                         "chained blocks")
+        chain = f"chain {form} ({hgraph.CHAIN_REPLAYS['chain']} replays), "
+    elif form is not None:
+        fail(f"{label}: chain form {form!r} without a saturated tier")
     rl = check_roofline(label, rec)
     st, sat = rec["statistics"], rec.get("saturated", {})
     marg = sat.get("marginal") or {}
@@ -1738,7 +1837,7 @@ def cli_path(torch, cli, counts, label, argv, kernels, run=cli_json):
           + ", ".join(f"{k} {rl[k]:.1f} %" for k in (
               "hbm_pct_of_peak", "flops_pct_of_peak", "vmem_pct_of_peak")
               if k in rl)
-          + f" ({rl['bound']}), launches "
+          + f" ({rl['bound']}), {chain}launches "
           + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
     return launches, rec
 
@@ -1970,7 +2069,7 @@ def sync_free(torch, registry, config, device, paths=SYNC_FREE_PATHS):
 
 
 def session_phase(torch, cli, output, registry, config, models_session,
-                  counts, reset, launches, device):
+                  hgraph, counts, reset, launches, device):
     """Phase 12: PartConv at 1,536 tracks in each form, DAWSessionMix at
     65,536 strips and 16 stages at 128 (each validated; the session's EQ
     kernel launched exactly once a block), the overlap tier on both, the
@@ -2012,11 +2111,13 @@ def session_phase(torch, cli, output, registry, config, models_session,
               f"p50 {sh['statistics']['p50_ms']:.4f} / "
               f"{rg['statistics']['p50_ms']:.4f} ms")
 
-        blocks = [0]
+        # Session blocks, counted as the kernels are: a call inside a
+        # chain's capture is recorded, and each replay makes it.
+        blocks = {"session_block": 0}
         real_block = models_session.session_block
 
         def counted(*args, **kw):
-            blocks[0] += 1
+            hgraph.count_launch(blocks, "session_block")
             return real_block(*args, **kw)
 
         for label, argv, run in (
@@ -2025,20 +2126,23 @@ def session_phase(torch, cli, output, registry, config, models_session,
                 ("DAWSessionMix K=16, 128 strips", SESSION_K16 + SESSION_CLI,
                  json_run)):
             reset()
-            blocks[0] = 0
+            blocks["session_block"] = 0
             models_session.session_block = counted
             try:
                 n, rec = cli_path(torch, cli, counts, label, argv,
                                   ["iir_cascade"], run=run)
             finally:
                 models_session.session_block = real_block
-            if n["iir_cascade"] != blocks[0]:
+            made = (blocks["session_block"]
+                    + hgraph.REPLAYED_LAUNCHES.get("session_block", 0))
+            if n["iir_cascade"] != made:
                 fail(f"{label}: iir_cascade launched {n['iir_cascade']} "
-                     f"times in {blocks[0]} session blocks")
+                     f"times in {made} session blocks")
             for k, v in n.items():
                 launches[k] += v
             print(f"{label}: iir_cascade launched once a block "
-                  f"({blocks[0]} blocks), validation max error "
+                  f"({made} blocks, graph replays included), validation max "
+                  "error "
                   f"{rec['validation']['max_error']:.3g} of the golden's peak")
 
         overlap_phase(cli, counts, reset, launches, SESSION_OVERLAP_RUNS)
@@ -2149,6 +2253,164 @@ def neural_phase(torch, cli, registry, config, overlap, roofline, na, counts,
     sync_free(torch, registry, config, device, NEURAL_SYNC_FREE_PATHS)
 
 
+def clone_carry(torch, carry):
+    """A copy of a stream carry: its tensors cloned, the rest as it is."""
+    if isinstance(carry, torch.Tensor):
+        return carry.clone()
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(clone_carry(torch, c) for c in carry)
+    return carry
+
+
+def chain_expectation(argv):
+    """(chains, replays) of one CLI run's saturated tier: two depths (the
+    marginal's depth // 4 and the depth), each built and run once untimed
+    and then once a rep (``harness/streaming.measure_saturated_multi``)."""
+    flag = {argv[i]: int(argv[i + 1]) for i in range(len(argv) - 1)
+            if argv[i] in ("--pipelineDepth", "--saturatedReps")}
+    depth = flag.get("--pipelineDepth", 0)
+    reps = flag.get("--saturatedReps", 21)
+    return depth + max(1, depth // 4), 2 * (1 + reps)
+
+
+def graph_phase(torch, registry, config, hgraph, streaming, device):
+    """Phase 14: on each of GRAPH_PATHS, the chain captured as one CUDA
+    graph against the loop from the same entry carry (probes bit for bit,
+    two replays bit for bit), with the capture's seconds, nodes and peak
+    memory, and both forms' saturated and marginal p50 in turns."""
+    import statistics
+
+    for label, name, knobs, depth in GRAPH_PATHS:
+        t0 = time.perf_counter()
+        cfg = config.BenchConfig(verification="none", device_timing=False,
+                                 **knobs)
+        b = registry.create_benchmark(name, cfg, device)
+        b.setup()
+        if not b.stream_capturable:
+            fail(f"graph {label}: the body is declared uncapturable")
+        step, carry = b.stream_body()
+        loop = streaming.run_chained(step, clone_carry(torch, carry), depth)
+        lo = max(1, depth // 4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pool = torch.cuda.graph_pool_handle()
+        g_hi = hgraph.ChainGraph(step, carry, depth, pool, label)
+        g_lo = hgraph.ChainGraph(step, carry, lo, pool, label)
+        peak = torch.cuda.max_memory_allocated()
+        replays0 = hgraph.CHAIN_REPLAYS["chain"]
+        p1, p2 = g_hi.run(), g_hi.run()
+        if not torch.equal(p1, p2):
+            fail(f"graph {label}: two replays differ by "
+                 f"{float((p1 - p2).abs().max()):.3g}")
+        if torch.equal(p1, loop):
+            agree = "bit for bit the loop's"
+        else:
+            rel = float((p1 - loop).abs().max() / loop.abs().max())
+            if name not in GRAPH_LIBRARY_BODIES or not rel <= b.tolerance:
+                fail(f"graph {label}: the replay's probes differ from the "
+                     f"loop's by {rel:.3g} of its peak")
+            agree = (f"within {rel:.3g} of the loop's peak probe (tolerance "
+                     f"{b.tolerance:g}; cuBLAS / cuFFT)")
+        runs = {"cuda-graph": {lo: g_lo.run, depth: g_hi.run}}
+        loop_carry = clone_carry(torch, carry)
+        runs["loop"] = {d: (lambda d=d: streaming.run_chained(
+            step, loop_carry, d)) for d in (lo, depth)}
+        walls = {f: {lo: [], depth: []} for f in runs}
+        order = ["loop", "cuda-graph"]
+        for r in range(GRAPH_REPS):
+            for form in (order if r % 2 == 0 else order[::-1]):
+                for d in (lo, depth):
+                    t1 = time.perf_counter()
+                    runs[form][d]()
+                    walls[form][d].append((time.perf_counter() - t1) * 1e3)
+        sat, marg = {}, {}
+        for form, w in walls.items():
+            sat[form] = statistics.median(h / depth for h in w[depth])
+            marg[form] = statistics.median(
+                (h - l) / (depth - lo) for l, h in zip(w[lo], w[depth]))
+        replays = hgraph.CHAIN_REPLAYS["chain"] - replays0
+        print(f"graph {label}: depth {depth} (marginal from {lo}), probes "
+              f"{agree}, two replays bit for bit; capture "
+              f"{g_hi.capture_s:.2f} + {g_lo.capture_s:.2f} s, instantiation "
+              f"{g_hi.instantiate_s:.3f} + {g_lo.instantiate_s:.3f} s, "
+              f"{g_hi.nodes} + {g_lo.nodes} nodes ("
+              f"{sum(g_hi.captured.values())} kernel-wrapper launches "
+              f"captured at depth {depth}: {dict(g_hi.captured)}), max "
+              f"memory allocated {peak / 2**30:.2f} GiB; saturated p50 graph "
+              f"{sat['cuda-graph']:.4f} / loop {sat['loop']:.4f} ms, marginal "
+              f"p50 graph {marg['cuda-graph']:.4f} / loop "
+              f"{marg['loop']:.4f} ms ({GRAPH_REPS} reps in turns); "
+              f"{replays} replays; {time.perf_counter() - t0:.1f} s")
+        del b, step, carry, g_hi, g_lo, runs, loop_carry
+        torch.cuda.empty_cache()
+
+
+def lstm_nested_capture(torch, registry, config, hgraph, streaming, device):
+    """Whether a chain of NeuralAmpLSTM blocks, each one replay of the
+    block's own graph, can be captured as one graph: the body is declared
+    a loop either way; this prints what the capture does."""
+    cfg = config.BenchConfig(verification="none", device_timing=False)
+    b = registry.create_benchmark("NeuralAmpLSTM", cfg, device)
+    b.setup()
+    step, carry = b.stream_body()
+    loop = streaming.run_chained(step, clone_carry(torch, carry), 2)
+    try:
+        g = hgraph.ChainGraph(step, carry, 2, name="NeuralAmpLSTM")
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print("graph NeuralAmpLSTM: 2 blocks, each a replay of the block's "
+              "graph, cannot be captured as one graph: "
+              + " | ".join(str(e).splitlines())[:300])
+        return
+    got = g.run()
+    print(f"graph NeuralAmpLSTM: 2 blocks, each a replay of the block's "
+          f"graph, captured as one graph ({g.nodes} nodes); probes "
+          f"{'bit for bit' if torch.equal(got, loop) else 'NOT equal to'} "
+          "the loop's")
+
+
+def capture_run(torch, cli, hprofiler, counts, reset, launches):
+    """The CLI with --capture on the modal headline cell: one session
+    writes a trace holding modal_bank device events; the timed reps of its
+    saturated tier, summarized from the trace (busy time a block, idle
+    share). Adds the launches."""
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        label = "ModalFilterBank 1M modes, --capture"
+        reset()
+        argv = CAPTURE_CLI + ["--captureDir", tmpdir]
+        rec, wall = cli_json(cli, label, argv)
+        n = counts()
+        if n["modal_bank"] <= 0:
+            fail(f"{label}: modal_bank was not launched")
+        for k, v in n.items():
+            launches[k] += v
+        if rec["metadata"].get("chainForm") != "cuda-graph":
+            fail(f"{label}: chain form {rec['metadata'].get('chainForm')!r}")
+        path = os.path.join(tmpdir, "ModalFilterBank.trace.json")
+        events = hprofiler.trace_events(path)
+        if not any("modal_bank" in e[0] for e in events):
+            fail(f"{label}: the trace holds no modal_bank event "
+                 f"({len(events)} device events)")
+        timed = hprofiler.trace_events(path, "saturated-reps")
+        blocks, replays = chain_expectation(argv)
+        s = hprofiler.summarize(timed, blocks * (replays // 2 - 1))
+        if "error" in s:
+            fail(f"{label}: no device event in the saturated reps")
+        print(f"capture {label}: {wall:.1f} s, trace "
+              f"{os.path.getsize(path) / 2**20:.1f} MiB with {len(events)} "
+              f"device events; the saturated tier's timed reps "
+              f"({s['blocks']} chained blocks, graph replays): busy "
+              f"{s['device_busy_us_per_block']:.2f} us a block in a window of "
+              f"{s['window_us_per_block']:.2f} us, idle share "
+              f"{s['device_idle_share']:.2%}, kernels (us a block) "
+              + ", ".join(f"{k[:40]} {v:.2f}" for k, v in
+                          list(s["kernel_us_per_block"].items())[:4])
+              + f"; saturated p50 {rec['saturated']['p50_ms']:.4f} ms")
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2164,7 +2426,10 @@ def main() -> int:
             config,
             registry,
         )
+        from gpuaudiobench_tpu_torch.harness import graph as hgraph
         from gpuaudiobench_tpu_torch.harness import output, overlap
+        from gpuaudiobench_tpu_torch.harness import profiler as hprofiler
+        from gpuaudiobench_tpu_torch.harness import streaming
         from gpuaudiobench_tpu_torch.models import modal as models_modal
         from gpuaudiobench_tpu_torch.models import session as models_session
         from gpuaudiobench_tpu_torch.ops import conv as cops
@@ -2261,16 +2526,19 @@ def main() -> int:
     def counts():
         return launch_counts(*modules)
 
+    def reset():
+        reset_counts(*modules)
+
     launches = {k: 0 for k in counts()}
     with TwinCalls({"modal": ops, "iir": iops, "conv": cops, "rndmem": rops,
                     "dwg": dops, "fdtd": fops, "sol": sops}) as twins:
-        reset_counts(*modules)
+        reset()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = bench.main()
         wall = time.perf_counter() - t0
-        launches["modal_bank"] = ops.KERNEL_LAUNCHES["modal_bank"]
+        launches["modal_bank"] = counts()["modal_bank"]
         lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
         for ln in lines:
             print(f"bench: {ln}")
@@ -2281,10 +2549,17 @@ def main() -> int:
             fail(f"bench validation: {rec.get('validation')}")
         if rec.get("kernel_launches", 0) <= 0 or launches["modal_bank"] <= 0:
             fail("the main path launched no kernel")
+        if rec["kernel_launches"] != launches["modal_bank"]:
+            fail(f"bench reports {rec['kernel_launches']} launches, the "
+                 f"counts {launches['modal_bank']}")
+        if rec.get("chain_form") != "cuda-graph":
+            fail(f"bench: chain form {rec.get('chain_form')!r}")
         print(f"main path: {wall:.1f} s, {launches['modal_bank']} kernel "
-              "launches, validation passed")
+              f"launches ({hgraph.REPLAYED_LAUNCHES['modal_bank']} of them "
+              f"in {hgraph.CHAIN_REPLAYS['chain']} chain graph replays), "
+              "validation passed")
 
-        reset_counts(*modules)
+        reset()
         t0 = time.perf_counter()
         res_rel = res_path(torch, ops, models_modal, device)
         launches["modal_res"] = ops.KERNEL_LAUNCHES["modal_res"]
@@ -2297,7 +2572,7 @@ def main() -> int:
               f"{list(RES_SPOT_TRACKS)}")
 
         for label, argv, kernels in CLI_RUNS:
-            reset_counts(*modules)
+            reset()
             for k, n in cli_path(torch, cli, counts, label, argv,
                                  kernels)[0].items():
                 launches[k] += n
@@ -2306,9 +2581,6 @@ def main() -> int:
 
         # Pinned staging, DAW-sim pacing and the overlapped-infeed tier.
         t0 = time.perf_counter()
-        def reset():
-            reset_counts(*modules)
-
         p50_0199 = datacopy_phase(cli)
         dawsim_phase(cli, counts, reset, launches, p50_0199)
         overlap_phase(cli, counts, reset, launches)
@@ -2319,7 +2591,7 @@ def main() -> int:
         # PartConv, DAWSessionMix, the CSV writer, the sync-free chains.
         t0 = time.perf_counter()
         session_phase(torch, cli, output, registry, config, models_session,
-                      counts, reset, launches, device)
+                      hgraph, counts, reset, launches, device)
         print(f"PartConv, DAWSessionMix and CSV: "
               f"{time.perf_counter() - t0:.1f} s")
 
@@ -2329,12 +2601,27 @@ def main() -> int:
                      counts, reset, device)
         print(f"NeuralAmp and NeuralAmpLSTM: "
               f"{time.perf_counter() - t0:.1f} s")
+
+        # The chain as one CUDA graph against the loop.
+        t0 = time.perf_counter()
+        graph_phase(torch, registry, config, hgraph, streaming, device)
+        lstm_nested_capture(torch, registry, config, hgraph, streaming,
+                            device)
+        print(f"chain graphs against loops: {time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")
 
     t0 = time.perf_counter()
     calibrate(calibrate_peaks, roofline, card)
     print(f"calibration: {time.perf_counter() - t0:.1f} s")
+
+    # The profiler sessions come last: nothing is timed after one.
+    t0 = time.perf_counter()
+    with TwinCalls({"modal": ops}) as twins:
+        capture_run(torch, cli, hprofiler, counts, reset, launches)
+    if twins.calls:
+        fail(f"a plain twin ran {twins.calls} times on the --capture path")
+    print(f"--capture run: {time.perf_counter() - t0:.1f} s")
 
     # Last of the checks: nothing is timed after a profiler session, which
     # slows the process's later launches (PERF.md §6).

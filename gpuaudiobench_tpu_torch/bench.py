@@ -15,7 +15,9 @@ value = saturated rep-median ms/block (pipeline_depth chained blocks
 between two host synchronisations); vs_baseline > 1 means faster than
 the reference's PC platform (i7-12700 + RTX 4070, p50 = 3.168 ms,
 BASELINE.md tab4 "Modal, 1,000,000 modes"). kernel_launches counts the
-launches of the hand-written CUDA kernel during this run.
+launches of the hand-written CUDA kernel during this run, those of the
+saturated tier's graph replays included. On the GPU each depth's chain
+is one CUDA graph (``metadata.chainForm``, ``harness/streaming.py``).
 
 Usage: python -m gpuaudiobench_tpu_torch.bench
 """
@@ -35,6 +37,7 @@ def main(n_tracks: int = 1024, n_runs: int = 30, warmup: int = 5,
     # Keyword knobs exist so tests can run the same code path at toy
     # sizes on the CPU; the defaults are the headline configuration.
     from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.harness.graph import REPLAYED_LAUNCHES
     from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
     from gpuaudiobench_tpu_torch.ops import modal as modal_ops
     from gpuaudiobench_tpu_torch.registry import create_benchmark
@@ -51,16 +54,20 @@ def main(n_tracks: int = 1024, n_runs: int = 30, warmup: int = 5,
         verification="spot",
         pipeline_depth=pipeline_depth,
     )
-    launches0 = modal_ops.KERNEL_LAUNCHES["modal_bank"]
+    def launches():
+        return (modal_ops.KERNEL_LAUNCHES["modal_bank"]
+                + REPLAYED_LAUNCHES["modal_bank"])
+
+    launches0 = launches()
     bench = create_benchmark("ModalFilterBank", cfg, torch_dev)
     bench.setup()
     result = run_benchmark(bench, cfg, verbose=False)
-    launches = modal_ops.KERNEL_LAUNCHES["modal_bank"] - launches0
     ident = {
         "backend": "torch-cuda" if torch_dev.type == "cuda" else "torch-cpu",
         "device_name": identity["device_name"],
         "power_limit": identity["power_limit"],
-        "kernel_launches": launches,
+        "kernel_launches": launches() - launches0,
+        "chain_form": result.metadata.get("chainForm"),
     }
     if result.validation is not None and not result.validation.passed:
         print(json.dumps({

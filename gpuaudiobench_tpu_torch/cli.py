@@ -7,7 +7,8 @@ A cut-down counterpart of ``gpuaudiobench_tpu/cli.py`` with the same
 ``parse_args`` / ``run`` / ``main`` shape and the flags the ported
 benchmarks and tiers read, DAW-sim pacing (``--dawsim``,
 ``--dawsim-mode``, ``--dawsim-jitter-us``), the overlapped-infeed tier
-(``--overlapDepth``, ``--overlapReps``), the datacopy pool
+(``--overlapDepth``, ``--overlapReps``), the profiler trace
+(``--capture``, ``--captureDir``), the datacopy pool
 (``--transferMiB``), PartConv's, DAWSessionMix's and NeuralAmp's knobs
 and the output flags (``--csvSchema``, ``--latenciesFile``,
 ``--category``) among them.
@@ -70,6 +71,7 @@ VALUE_FLAGS = {
     "--neuralampDtype": ("neuralamp_dtype", str),
     "--csvSchema": ("csv_schema", str),
     "--latenciesFile": ("latencies_file", str),
+    "--captureDir": ("capture_dir", str),
     "--poolMiB": ("rndmem_pool_mb", int),
     "--transferMiB": ("transfer_mib", int),
     "--dwgMinLen": ("dwg_min_length", int),
@@ -90,6 +92,7 @@ SWITCHES = {
     "--json": ("json_output", True),
     "--quiet": ("quiet", True),
     "--dawsim": ("dawsim", True),
+    "--capture": ("capture", True),
     "--no-device-timing": ("device_timing", False),
     "--noSaturatedMarginal": ("saturated_marginal", False),
     "--modalRenorm": ("modal_renorm", True),
@@ -98,8 +101,6 @@ SWITCHES = {
 # Flags of the reference's CLI that the port has not ported, with the
 # ROADMAP.md item that ports them.
 UNPORTED_FLAGS = {
-    "--capture": "queue 1, item 4",
-    "--captureDir": "queue 1, item 4",
     "--dataParallel": "queue 1, item 18",
     "--mesh": "queue 1, item 18",
     "--compilationCacheDir": "'Not ported' (XLA only)",
@@ -132,6 +133,9 @@ def print_help() -> None:
     print("  --latenciesFile [file]   Raw latency dump (default: "
           "<temp dir>/<name>_latencies.txt)")
     print("  --verification [mode]    none | spot | full (default: full)")
+    print("  --capture                Write a torch.profiler trace of each run")
+    print("  --captureDir [dir]       Profiler trace directory for --capture "
+          "(default: <temp dir>/tpuaudiobench_trace)")
     print("  --dawsim                 Pace iterations at the audio buffer rate")
     print("  --dawsim-mode [mode]     spin | sleep (default: spin)")
     print("  --dawsim-jitter-us [us]  Schedule jitter in microseconds")

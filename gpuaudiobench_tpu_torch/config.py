@@ -51,8 +51,12 @@ class BenchConfig:
     dawsim: bool = False
     dawsim_mode: str = "spin"  # "spin" | "sleep"
     dawsim_jitter_us: float = 0.0
-    # Runner tiers not ported yet: asking for one raises (runner.py).
+    # A torch.profiler trace of the run (the Metal --capture /
+    # MTLCaptureManager analog, harness/profiler.py), written to
+    # capture_dir ("" = <temp dir>/tpuaudiobench_trace).
     capture: bool = False
+    capture_dir: str = ""
+    # Runner tiers not ported yet: asking for one raises (runner.py).
     data_parallel: int = 1
     # Overlapped-infeed pass (harness/overlap.py): overlap_depth blocks
     # with the input upload double-buffered against compute, beside the

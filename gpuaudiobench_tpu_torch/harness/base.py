@@ -135,8 +135,21 @@ class Benchmark:
         ``(step_fn, carry)`` where ``step_fn(carry) -> (carry', probe)``
         runs ONE block on device-resident data, carrying state where the
         benchmark has it, and ``probe`` is a (1,) tensor
-        (``streaming.probe``). None = unsupported."""
+        (``streaming.probe``). None = unsupported.
+
+        On a CUDA device the saturated tier captures ``depth`` steps as
+        one CUDA graph (``harness/graph.py:ChainGraph``) unless
+        ``stream_capturable`` is False. A capturable step never waits for
+        the device (no ``.item()``, no read to the host, no branch on a
+        tensor's value), allocates the same shapes on every call, and
+        keeps its Python state (a ring head, a phase) in the carry, where
+        only the step advances it: the graph fixes every Python value as
+        the capture saw it."""
         return None
+
+    # Whether stream_body's step obeys the capture rules above; a body
+    # that does not runs the saturated tier as a loop of host launches.
+    stream_capturable: bool = True
 
     def overlap_body(self):
         """Optional overlapped-infeed hook (overlap_depth): return

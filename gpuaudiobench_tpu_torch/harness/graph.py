@@ -18,15 +18,68 @@ The function must not write its inputs, must not wait for the device
 same shapes on every call. A capture that breaks a rule raises; nothing
 falls back to running the function eagerly. On the CPU there is no
 graph, and the constructor raises.
+
+``ChainGraph`` captures a whole saturated chain: ``depth`` chained calls
+of a benchmark's stream step, the counterpart of the reference's one
+``lax.scan`` executable a depth (``harness/streaming.py``). A kernel
+wrapper counts its launch with ``count_launch``: under a chain's capture
+the call records the launch, which every replay then makes, so the
+chain adds its recorded launches to ``REPLAYED_LAUNCHES`` once a replay.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import collections
+import ctypes
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 WARMUP_CALLS = 2
+
+# Kernel launches made by chain replays, by the wrappers' kernel names,
+# and the replays themselves (chip_smoke.py reads both: a kernel's
+# launches on a path are its wrapper's count plus its replayed count).
+REPLAYED_LAUNCHES: Dict[str, int] = collections.defaultdict(int)
+CHAIN_REPLAYS: Dict[str, int] = {"chain": 0}
+# The launch tally of the chain being captured, if one is.
+_RECORDING: List[Dict[str, int]] = []
+
+
+def count_launch(counts: Dict[str, int], key: str) -> None:
+    """Count one launch of kernel ``key`` in its wrapper's ``counts``; a
+    call inside a chain's capture records the launch instead, in that
+    chain's tally, and each replay of the chain makes it."""
+    if _RECORDING:
+        _RECORDING[-1][key] += 1
+    else:
+        counts[key] += 1
+
+
+def reset_replay_counts() -> None:
+    REPLAYED_LAUNCHES.clear()
+    CHAIN_REPLAYS["chain"] = 0
+
+
+def _tensors(carry) -> List[torch.Tensor]:
+    """The tensors of a carry (a tensor, or nested tuples and lists of
+    tensors and Python values), in order."""
+    if isinstance(carry, torch.Tensor):
+        return [carry]
+    if isinstance(carry, (tuple, list)):
+        return [t for c in carry for t in _tensors(c)]
+    return []
+
+
+def _rebuild(carry, tensors):
+    """``carry`` with its tensors taken in order from the iterator
+    ``tensors``; every other value as it is."""
+    if isinstance(carry, torch.Tensor):
+        return next(tensors)
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(_rebuild(c, tensors) for c in carry)
+    return carry
 
 
 class CapturedBlock:
@@ -84,3 +137,96 @@ class CapturedBlock:
         if self.counts is not None:
             self.counts[self.key] += 1
         return self.outputs
+
+
+def _graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
+    """The node count of a captured graph (``cuGraphGetNodes`` on its
+    ``cudaGraph_t``, the same handle as a ``CUgraph``)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                               ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUDA error {err}")
+    return count.value
+
+
+class ChainGraph:
+    """``depth`` chained calls of ``step_fn`` from ``carry``, captured as
+    one CUDA graph: ``run()`` replays it and returns the ``(depth,)``
+    stacked probes on the host, a read that waits for the device.
+
+    ``step_fn(carry) -> (carry', probe)`` obeys the capture rules of
+    ``Benchmark.stream_body``. The graph owns a snapshot of the entry
+    carry's tensors, taken at construction, and each replay begins with a
+    captured copy of it into tensors of the graph's pool: so every replay
+    gives the probes a loop of ``depth`` steps gives from a fresh clone
+    of the entry carry, whatever the step writes in place, and a Python
+    value of the carry (PartConv's ring head) advances from its entry
+    value through the ``depth`` captured steps. The capture is warmed on
+    a side stream first (``WARMUP_CALLS`` chains: cuBLAS handles, cuFFT
+    plans, the kernels' cached attributes and the FDTD receiver buckets),
+    and a capture that fails raises, naming ``name``.
+
+    ``pool`` lets graphs that never run at once share memory
+    (``torch.cuda.graph_pool_handle()``). ``captured`` holds the kernel
+    launches the capture recorded, by wrapper name; ``capture_s``,
+    ``instantiate_s`` and ``nodes`` describe the capture.
+    """
+
+    def __init__(self, step_fn: Callable, carry, depth: int,
+                 pool=None, name: str = ""):
+        entry = _tensors(carry)
+        devices = {t.device for t in entry}
+        if len(devices) != 1 or next(iter(devices)).type != "cuda":
+            raise ValueError(
+                f"ChainGraph: {name or 'the chain'}'s carry must lie on one "
+                f"CUDA device, got {sorted(str(d) for d in devices)}")
+        if depth < 1:
+            raise ValueError(f"ChainGraph: depth {depth} < 1")
+        device = next(iter(devices))
+        self.entry = [t.clone() for t in entry]
+
+        def chain():
+            c = _rebuild(carry, iter([t.clone() for t in self.entry]))
+            probes = []
+            for _ in range(depth):
+                c, p = step_fn(c)
+                probes.append(p)
+            return torch.cat(probes)
+
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_CALLS):
+                chain()
+        current.wait_stream(side)
+        torch.cuda.synchronize(device)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.captured: Dict[str, int] = collections.defaultdict(int)
+        t0 = time.perf_counter()
+        _RECORDING.append(self.captured)
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.probes = chain()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"ChainGraph: capturing {depth} blocks of "
+                f"{name or 'the chain'} failed: {e}") from e
+        finally:
+            _RECORDING.pop()
+        self.capture_s = time.perf_counter() - t0
+        self.nodes = _graph_nodes(self.graph)
+        t0 = time.perf_counter()
+        self.graph.instantiate()
+        torch.cuda.synchronize(device)
+        self.instantiate_s = time.perf_counter() - t0
+
+    def run(self) -> torch.Tensor:
+        """One replay; the stacked probes on the host."""
+        self.graph.replay()
+        CHAIN_REPLAYS["chain"] += 1
+        for key, n in self.captured.items():
+            REPLAYED_LAUNCHES[key] += n
+        return self.probes.cpu()

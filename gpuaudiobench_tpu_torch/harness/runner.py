@@ -1,6 +1,6 @@
 """Iteration runner: warmup -> timed loop (DAW-sim paced when asked) ->
 device tier -> saturated pass -> overlapped-infeed pass -> statistics ->
-validation.
+validation, all inside a ``torch.profiler`` trace under ``capture``.
 
 PyTorch counterpart of ``gpuaudiobench_tpu/harness/runner.py`` (port of
 GPUABenchmark::runWithIteration, cuda/bench_base.cu:59-118). Timing is
@@ -8,24 +8,34 @@ wall clock around one iteration that ends in a copy of the output to
 the host, which waits for the device: the reference's measurement
 boundary around transfer, launch, sync and transfer back.
 
-On CUDA, warmup also absorbs the kernels' build and first load, and the
-metadata gains the ``roofline`` section (``roofline_section``).
+On CUDA, warmup also absorbs the kernels' build and first load, the
+saturated tier runs each depth's chain as one CUDA graph where the body
+is capturable (``metadata.chainForm``: "cuda-graph" or "loop"), and the
+metadata gains the ``roofline`` section (``roofline_section``). Each
+tier runs inside a ``torch.profiler.record_function`` range named after
+the reference's phase ("warmup", "timed", "device-timing", "saturated",
+"overlap", "validate"), so a ``capture`` trace shows where each begins
+and ends.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.harness.base import Benchmark, BenchmarkResult
 from gpuaudiobench_tpu_torch.harness.dawsim import deadline_miss_rate
 from gpuaudiobench_tpu_torch.harness.device_timing import measure_device_times
 from gpuaudiobench_tpu_torch.harness.overlap import measure_overlap
+from gpuaudiobench_tpu_torch.harness.profiler import capture_trace, trace_dir
 from gpuaudiobench_tpu_torch.harness.statistics import calculate_statistics
 from gpuaudiobench_tpu_torch.harness.streaming import (
+    chain_form,
     measure_saturated,
     measure_saturated_marginal,
 )
@@ -37,7 +47,6 @@ def _refuse_unported(cfg: BenchConfig) -> None:
     """Tiers of the reference runner that this package does not have
     yet: asking for one raises instead of skipping it silently."""
     unported = [
-        (cfg.capture, "profiler capture (capture)", "queue 1, item 4"),
         (cfg.data_parallel > 1, "data-parallel sharding (data_parallel)",
          "queue 1, item 18"),
     ]
@@ -89,6 +98,15 @@ def run_benchmark(
 ) -> BenchmarkResult:
     cfg = cfg or benchmark.cfg
     _refuse_unported(cfg)
+    capture = (capture_trace(trace_dir(cfg.capture_dir), benchmark.device,
+                             benchmark.name)
+               if cfg.capture else contextlib.nullcontext())
+    with capture:
+        return _run(benchmark, cfg, verbose)
+
+
+def _run(benchmark: Benchmark, cfg: BenchConfig,
+         verbose: bool) -> BenchmarkResult:
     result = BenchmarkResult(
         benchmark_name=benchmark.name,
         buffer_size=benchmark.buffer_size,
@@ -101,8 +119,9 @@ def run_benchmark(
     if cfg.warmup > 0:
         if verbose:
             print(f"Running {cfg.warmup} warmup iterations...")
-        for _ in range(cfg.warmup):
-            benchmark.iterate()
+        with record_function("warmup"):
+            for _ in range(cfg.warmup):
+                benchmark.iterate()
         if verbose:
             print("Warmup complete, starting timed iterations...")
 
@@ -115,26 +134,30 @@ def run_benchmark(
         result.dawsim_pacer = daw.pacer
         daw.reset()
     latencies = []
-    for _ in range(cfg.n_runs):
-        if daw is not None:
-            daw.wait()
-        t0 = time.perf_counter()
-        benchmark.iterate()
-        latencies.append((time.perf_counter() - t0) * 1000.0)
+    with record_function("timed"):
+        for _ in range(cfg.n_runs):
+            if daw is not None:
+                daw.wait()
+            t0 = time.perf_counter()
+            benchmark.iterate()
+            latencies.append((time.perf_counter() - t0) * 1000.0)
     result.latencies = latencies
     result.statistics = calculate_statistics(latencies)
 
     # Device tier: CUDA events around device_iterate() on resident
     # buffers (harness/device_timing.py).
     if cfg.device_timing:
-        dev_latencies, method = measure_device_times(benchmark, cfg)
+        with record_function("device-timing"):
+            dev_latencies, method = measure_device_times(benchmark, cfg)
         if dev_latencies:
             result.device_latencies = dev_latencies
             result.device_statistics = calculate_statistics(dev_latencies)
             result.device_timing_method = method
 
     # Saturated/streaming pass: per-block cost with the launch queue kept
-    # full (pipeline_depth chained blocks, state carried).
+    # full (pipeline_depth chained blocks, state carried), each depth's
+    # chain one CUDA graph where the body is capturable.
+    form = None
     if cfg.pipeline_depth > 1:
         body = benchmark.stream_body()
         if body is None:
@@ -143,19 +166,23 @@ def run_benchmark(
                       "(round-trip is the workload); skipping saturated pass.")
         else:
             step_fn, carry = body
+            form = chain_form(benchmark.device, benchmark.stream_capturable)
             result.pipeline_depth = cfg.pipeline_depth
-            if cfg.saturated_marginal and cfg.pipeline_depth >= 4:
-                sat, marg, lo = measure_saturated_marginal(
-                    step_fn, carry, cfg.pipeline_depth, cfg.saturated_reps,
-                )
-                result.saturated_lo_depth = lo
-                result.saturated_marginal_latencies = marg
-                result.saturated_marginal_statistics = (
-                    calculate_statistics(marg))
-            else:
-                sat = measure_saturated(
-                    step_fn, carry, cfg.pipeline_depth, cfg.saturated_reps,
-                )
+            with record_function("saturated"):
+                if cfg.saturated_marginal and cfg.pipeline_depth >= 4:
+                    sat, marg, lo = measure_saturated_marginal(
+                        step_fn, carry, cfg.pipeline_depth,
+                        cfg.saturated_reps, form=form, name=benchmark.name,
+                    )
+                    result.saturated_lo_depth = lo
+                    result.saturated_marginal_latencies = marg
+                    result.saturated_marginal_statistics = (
+                        calculate_statistics(marg))
+                else:
+                    sat = measure_saturated(
+                        step_fn, carry, cfg.pipeline_depth,
+                        cfg.saturated_reps, form=form, name=benchmark.name,
+                    )
             result.saturated_latencies = sat
             result.saturated_statistics = calculate_statistics(sat)
 
@@ -169,9 +196,11 @@ def run_benchmark(
                       "upload; skipping overlapped-infeed pass.")
         else:
             step_fn, host_blocks, carry = body
-            ser, ovl = measure_overlap(step_fn, host_blocks, carry,
-                                       cfg.overlap_depth, cfg.overlap_reps,
-                                       benchmark.device)
+            with record_function("overlap"):
+                ser, ovl = measure_overlap(step_fn, host_blocks, carry,
+                                           cfg.overlap_depth,
+                                           cfg.overlap_reps,
+                                           benchmark.device)
             result.overlap_depth = cfg.overlap_depth
             result.overlap_serial_latencies = ser
             result.overlap_latencies = ovl
@@ -189,8 +218,11 @@ def run_benchmark(
         result.deadline_miss_rate = deadline_miss_rate(
             latencies, cfg.buffer_size, cfg.fs)
 
-    result.validation = benchmark.validate()
+    with record_function("validate"):
+        result.validation = benchmark.validate()
     result.metadata = benchmark.metadata()
+    if form is not None:
+        result.metadata["chainForm"] = form
     roofline = roofline_section(benchmark, result)
     if roofline is not None:
         result.metadata["roofline"] = roofline

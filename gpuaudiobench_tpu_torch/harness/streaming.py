@@ -8,12 +8,22 @@ output. The probes are stacked and copied to the host in ONE read,
 which waits for the device (the counterpart of
 ``np.asarray(chained(carry))``), so the wall time covers all the work.
 
-The chain here is a Python loop that launches every block from the host;
-capturing the depth in one CUDA graph (the counterpart of the
-reference's single ``lax.scan`` executable) is left for a later change.
+A chain takes one of two forms (``chain_form``):
+
+* ``"cuda-graph"``, on a CUDA device for a capturable body: each depth's
+  chain is one ``harness.graph.ChainGraph``, captured and instantiated
+  before any timing and replayed once a rep, the counterpart of the
+  reference's one ``lax.scan`` executable a depth. A replay starts from a
+  copy of the entry carry, as every ``chained(carry)`` call of the
+  reference does. A capture that fails raises.
+* ``"loop"``, on the CPU and for a body its benchmark declares
+  uncapturable (``Benchmark.stream_capturable``): ``run_chained``, a
+  Python loop that launches every block from the host and hands the
+  same carry to every rep (a body that writes its carry in place starts
+  the next rep where the last one ended).
 
 PyTorch runs eagerly, so nothing can hoist a loop-invariant block: every
-``step_fn`` call launches its kernels.
+``step_fn`` call launches its kernels, and a graph records them all.
 """
 
 from __future__ import annotations
@@ -22,6 +32,9 @@ import time
 from typing import Callable, List, Tuple
 
 import torch
+from torch.profiler import record_function
+
+from gpuaudiobench_tpu_torch.harness.graph import ChainGraph
 
 
 def probe(y: torch.Tensor) -> torch.Tensor:
@@ -39,6 +52,12 @@ def probe(y: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(y), dtype=torch.float32).reshape(1)
 
 
+def chain_form(device: torch.device, capturable: bool) -> str:
+    """``"cuda-graph"`` for a capturable body on a CUDA device, else
+    ``"loop"``."""
+    return "cuda-graph" if device.type == "cuda" and capturable else "loop"
+
+
 def run_chained(step_fn: Callable, carry, depth: int) -> torch.Tensor:
     """Run ``depth`` chained blocks from ``carry``; returns the stacked
     probes on the host, which waits for the device."""
@@ -54,10 +73,13 @@ def measure_saturated(
     carry,
     depth: int,
     reps: int = 5,
+    form: str = "loop",
+    name: str = "",
 ) -> List[float]:
     """Per-block wall latencies (ms) over ``reps`` runs of a
-    ``depth``-block chain, after one untimed warm pass."""
-    return measure_saturated_multi(step_fn, carry, [depth], reps)[0]
+    ``depth``-block chain of ``form``, after one untimed warm pass."""
+    return measure_saturated_multi(step_fn, carry, [depth], reps, form,
+                                   name)[0]
 
 
 def measure_saturated_marginal(
@@ -66,6 +88,8 @@ def measure_saturated_marginal(
     depth: int,
     reps: int = 5,
     lo_depth: int = 0,
+    form: str = "loop",
+    name: str = "",
 ) -> Tuple[List[float], List[float], int]:
     """Amortized AND marginal per-block cost from one interleaved
     two-depth measurement: ``(amortized_ms, marginal_ms, lo_depth)``.
@@ -82,7 +106,7 @@ def measure_saturated_marginal(
     if lo >= depth:
         raise ValueError(f"lo_depth ({lo}) must be < depth ({depth})")
     per_lo, per_hi = measure_saturated_multi(
-        step_fn, carry, [lo, depth], reps
+        step_fn, carry, [lo, depth], reps, form, name
     )
     marginal = [
         (h * depth - l * lo) / (depth - lo)
@@ -91,24 +115,45 @@ def measure_saturated_marginal(
     return per_hi, marginal, lo
 
 
+def chains(step_fn: Callable, carry, depths: List[int], form: str,
+           name: str = "") -> List[Callable[[], torch.Tensor]]:
+    """One chain a depth, each a call that runs it and returns its probes
+    on the host. ``"cuda-graph"``: the graphs are captured here, sharing
+    one memory pool (they never run at once); ``"loop"``: ``run_chained``
+    on ``carry``."""
+    if form == "loop":
+        return [lambda d=d: run_chained(step_fn, carry, d) for d in depths]
+    if form != "cuda-graph":
+        raise ValueError(f"invalid chain form: {form!r}")
+    pool = torch.cuda.graph_pool_handle()
+    return [ChainGraph(step_fn, carry, d, pool, name).run for d in depths]
+
+
 def measure_saturated_multi(
     step_fn: Callable,
     carry,
     depths: List[int],
     reps: int = 5,
+    form: str = "loop",
+    name: str = "",
 ) -> List[List[float]]:
     """Per-block wall latencies (ms) for SEVERAL chain depths, timed
     round-robin WITHIN each rep (d1, d2, d1, d2, ...) so drift over the
-    window cancels in depth-differencing consumers. One untimed warm
-    pass per depth comes before any timing. Returns one latency list per
-    depth, in the order of ``depths``."""
-    for d in depths:
-        run_chained(step_fn, carry, d)
+    window cancels in depth-differencing consumers. Every depth's chain
+    is built (a graph captured and instantiated) and run once untimed
+    before any timing; ``name`` names the benchmark in a failed
+    capture's error. The timed reps run inside a ``record_function``
+    range, "saturated-reps", which a ``--capture`` trace shows. Returns
+    one latency list per depth, in the order of ``depths``."""
+    runs = chains(step_fn, carry, depths, form, name)
+    for run in runs:
+        run()
 
     out: List[List[float]] = [[] for _ in depths]
-    for _ in range(max(1, reps)):
-        for i, d in enumerate(depths):
-            t0 = time.perf_counter()
-            run_chained(step_fn, carry, d)
-            out[i].append((time.perf_counter() - t0) / d * 1000.0)
+    with record_function("saturated-reps"):
+        for _ in range(max(1, reps)):
+            for i, (run, d) in enumerate(zip(runs, depths)):
+                t0 = time.perf_counter()
+                run()
+                out[i].append((time.perf_counter() - t0) / d * 1000.0)
     return out

@@ -66,6 +66,10 @@ class NeuralAmpBenchmark(StandardBufferBenchmark):
         super().__init__(cfg, device)
         self.arch = arch
         self.name = "NeuralAmp" if arch == "tcn" else "NeuralAmpLSTM"
+        # The LSTM's block is already one replay of a graph of its own
+        # (lstm_runner), so its chain stays a loop of one host call a
+        # ~9 ms block (ROADMAP.md §3).
+        self.stream_capturable = arch == "tcn"
         self._tiers = {}
 
     def setup(self) -> None:

@@ -34,6 +34,8 @@ from typing import Dict
 
 import torch
 
+from gpuaudiobench_tpu_torch.harness.graph import count_launch
+
 EDGE_MODES = ("clamp", "bleed")
 
 # Launches of the CUDA kernel, by name, counted by the wrapper where it
@@ -114,7 +116,7 @@ def conv1d_direct(x: torch.Tensor, ir: torch.Tensor,
             int(edge_mode == "bleed"), stream)
     if err != 0:
         raise RuntimeError(f"conv1d_direct_launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES["conv1d"] += 1
+    count_launch(KERNEL_LAUNCHES, "conv1d")
     return out
 
 

@@ -42,6 +42,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from gpuaudiobench_tpu_torch.harness.graph import count_launch
+
 MIX_FACTOR = 0.5  # benchmark_constants.cuh WAVEGUIDE_MIX_FACTOR
 
 # Launches of the CUDA kernel, counted by the wrapper where it launches
@@ -231,5 +233,5 @@ def dwg_block(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl,
             sc.update_blocks, stream)
     if err != 0:
         raise RuntimeError(f"dwg_block_launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES["dwg_block"] += 1
+    count_launch(KERNEL_LAUNCHES, "dwg_block")
     return out, fwd, bwd

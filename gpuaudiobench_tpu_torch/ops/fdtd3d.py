@@ -53,6 +53,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from gpuaudiobench_tpu_torch.harness.graph import count_launch
+
 # Physics constants (bench_fdtd3d.cuh:145-174).
 ROOM = 50  # reference default; --fdtdRoom makes it configurable
 GRID_N = ROOM + 2  # +2 ghost/boundary cells
@@ -433,7 +435,7 @@ def _launch(x, name: str, key: str, *args) -> None:
         err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
-    KERNEL_LAUNCHES[key] += 1
+    count_launch(KERNEL_LAUNCHES, key)
 
 
 def _on_cuda(x, fn: str) -> None:

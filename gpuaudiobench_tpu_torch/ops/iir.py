@@ -41,6 +41,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from gpuaudiobench_tpu_torch.harness.graph import count_launch
+
 # Launches of each CUDA kernel, counted by its wrapper where it launches
 # it (chip_smoke.py reads them to prove the main path used the kernels).
 KERNEL_LAUNCHES: Dict[str, int] = {
@@ -205,7 +207,7 @@ def _launch(kernel: str, fn_name: str, x: torch.Tensor, state: torch.Tensor,
             *ints, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
-    KERNEL_LAUNCHES[kernel] += 1
+    count_launch(KERNEL_LAUNCHES, kernel)
     return y, z_out
 
 

@@ -44,6 +44,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from gpuaudiobench_tpu_torch.harness.graph import count_launch
+
 # Launches of each kernel, by name, counted where the wrappers launch
 # them: "modal_bank" the rotation (modal_bank, modal_folded_step),
 # "modal_res" the resonator (modal_bank with algorithm "res",
@@ -284,7 +286,7 @@ def _launch(algorithm: str, tables, amp: Optional[torch.Tensor], s0, s1,
             sched.modes_per_thread, sched.grid, sched.passes, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
-    KERNEL_LAUNCHES["modal_res" if res else "modal_bank"] += 1
+    count_launch(KERNEL_LAUNCHES, "modal_res" if res else "modal_bank")
     return out, s0_o, s1_o
 
 

@@ -30,6 +30,8 @@ from typing import Dict
 
 import torch
 
+from gpuaudiobench_tpu_torch.harness.graph import count_launch
+
 # Launches of the CUDA kernel, counted by the wrapper where it launches
 # it (chip_smoke.py reads it to prove the main path used it).
 KERNEL_LAUNCHES: Dict[str, int] = {"rndmem_gather": 0}
@@ -105,5 +107,5 @@ def rndmem_gather(pool: torch.Tensor, playheads: torch.Tensor,
             pool.shape[0], playheads.shape[0], samples, stream)
     if err != 0:
         raise RuntimeError(f"rndmem_gather_launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES["rndmem_gather"] += 1
+    count_launch(KERNEL_LAUNCHES, "rndmem_gather")
     return out

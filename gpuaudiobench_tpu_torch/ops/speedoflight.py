@@ -42,6 +42,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from gpuaudiobench_tpu_torch.harness.graph import count_launch
+
 # FMA chain constants (the JAX module's). m pulls toward the fixed point
 # c/(1-m) = 2, so values stay O(1) at any chain length.
 FMA_M = 0.9995
@@ -118,7 +120,7 @@ def _launch(name: str, x: torch.Tensor, k: int) -> torch.Tensor:
                      stream)
     if err != 0:
         raise RuntimeError(f"{name}_launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES[name] += 1
+    count_launch(KERNEL_LAUNCHES, name)
     return out
 
 

@@ -34,15 +34,19 @@ computes its golden at setup). Prints one JSON line with:
 
 * ``card``: nvidia-smi's name and power limit, and its SM clock and power
   draw sampled while a long chain of blocks runs;
+* ``chain_form``: "cuda-graph" (each chain one CUDA graph, replayed, as
+  the saturated tier runs it) or "loop" (a body its benchmark declares
+  uncapturable: NeuralAmpLSTM);
 * ``chain_wall_ms_per_block``: the unprofiled wall per block of a
   ``--depth``-block chain (median of 3), as the saturated tier times it;
 * ``roundtrip_wall_ms``: the unprofiled wall of one round trip
   (``iterate()``: upload, kernels, copy back), median of ``ROUNDTRIPS``;
 * ``chain`` and ``roundtrip``: per-kernel and per-copy device time per
-  block from ``torch.profiler`` over ``TRACE_BLOCKS`` chained blocks and
-  over ``ROUNDTRIPS`` round trips, the device-busy time per block (the
-  union of the kernels' and copies' intervals), and the device's idle
-  share of the traced window (first device event to last);
+  block from ``torch.profiler`` over one chain of ``TRACE_BLOCKS`` blocks
+  (one graph replay, or the loop) and over ``ROUNDTRIPS`` round trips,
+  the device-busy time per block (the union of the kernels' and copies'
+  intervals), and the device's idle share of the traced window (first
+  device event to last; ``harness.profiler.summarize``);
 * ``device_tier``: the device tier's p50 of ``device_iterate()`` (CUDA
   events behind the spin, as the runner takes it), the same event pair
   without the spin (which also times the host's enqueue), and the
@@ -67,7 +71,8 @@ from gpuaudiobench_tpu_torch.harness.device_timing import (
     MAX_RUNS,
     event_device_times,
 )
-from gpuaudiobench_tpu_torch.harness.streaming import run_chained
+from gpuaudiobench_tpu_torch.harness.profiler import device_events, summarize
+from gpuaudiobench_tpu_torch.harness.streaming import chain_form, chains
 from gpuaudiobench_tpu_torch.registry import create_benchmark
 from gpuaudiobench_tpu_torch.utils import device as dev
 
@@ -76,9 +81,9 @@ TRACE_BLOCKS = 128
 ROUNDTRIPS = 20
 
 
-def _sample_under_load(step, carry, blocks: int, delay_s: float) -> str:
+def _sample_under_load(run_chain, chains_run: int, delay_s: float) -> str:
     """SM clock and power draw, read by nvidia-smi from another thread
-    ``delay_s`` into a chain of ``blocks`` blocks."""
+    ``delay_s`` into ``chains_run`` chains run back to back."""
     reading: List[str] = []
 
     def sample():
@@ -87,46 +92,10 @@ def _sample_under_load(step, carry, blocks: int, delay_s: float) -> str:
 
     th = threading.Thread(target=sample)
     th.start()
-    run_chained(step, carry, blocks)
+    for _ in range(chains_run):
+        run_chain()
     th.join()
     return reading[0]
-
-
-def _device_events(prof) -> List[Tuple[str, float, float]]:
-    """(name, start_us, end_us) of every event the profiler saw on the
-    device (kernels and copies)."""
-    out = []
-    for e in prof.events():
-        if "CUDA" in str(getattr(e, "device_type", "")):
-            out.append((e.name, e.time_range.start, e.time_range.end))
-    return out
-
-
-def _summarize(events, blocks: int) -> Dict[str, object]:
-    if not events:
-        return {"error": "the profiler saw no device time"}
-    per_kernel: Dict[str, float] = {}
-    for name, a, b in events:
-        per_kernel[name] = per_kernel.get(name, 0.0) + (b - a)
-    busy, cur_a, cur_b = 0.0, None, None
-    for _, a, b in sorted(events, key=lambda x: x[1]):
-        if cur_b is None or a > cur_b:
-            if cur_b is not None:
-                busy += cur_b - cur_a
-            cur_a, cur_b = a, b
-        else:
-            cur_b = max(cur_b, b)
-    busy += cur_b - cur_a
-    window = max(b for _, _, b in events) - min(a for _, a, _ in events)
-    return {
-        "blocks": blocks,
-        "kernel_us_per_block": {
-            k: v / blocks for k, v in sorted(per_kernel.items(),
-                                             key=lambda kv: -kv[1])},
-        "device_busy_us_per_block": busy / blocks,
-        "window_us_per_block": window / blocks,
-        "device_idle_share": 1.0 - busy / window if window > 0 else 0.0,
-    }
 
 
 def device_tier(bench, runs: int = MAX_RUNS) -> Dict[str, float]:
@@ -144,7 +113,7 @@ def device_tier(bench, runs: int = MAX_RUNS) -> Dict[str, float]:
         for _ in range(runs):
             bench.device_iterate()
         torch.cuda.synchronize()
-    events = _device_events(prof)
+    events = device_events(prof)
     if not events:
         raise RuntimeError("the profiler saw no device time")
     return {"gated_p50_ms": gated, "ungated_p50_ms": ungated,
@@ -200,30 +169,34 @@ def main(argv: Optional[List[str]] = None) -> int:
     bench = create_benchmark(name, cfg, device)
     bench.setup()  # builds the kernels and runs one round trip
     step, carry = bench.stream_body()
-    run_chained(step, carry, 16)
+    form = chain_form(device, bench.stream_capturable)
+    trace_blocks = min(TRACE_BLOCKS, depth)
+    run_depth, run_trace = chains(step, carry, [depth, trace_blocks], form,
+                                  name)
+    run_depth()
 
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        run_chained(step, carry, depth)
+        run_depth()
         walls.append((time.perf_counter() - t0) * 1000.0 / depth)
-    under_load = _sample_under_load(step, carry, 4 * depth, 1.0)
+    under_load = _sample_under_load(run_depth, 4, 1.0)
     trips = []
     for _ in range(ROUNDTRIPS):
         t0 = time.perf_counter()
         bench.iterate()
         trips.append((time.perf_counter() - t0) * 1000.0)
 
-    trace_blocks = min(TRACE_BLOCKS, depth)
+    run_trace()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_chained(step, carry, trace_blocks)
-    chain = _summarize(_device_events(prof), trace_blocks)
+        run_trace()
+    chain = summarize(device_events(prof), trace_blocks)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(ROUNDTRIPS):
             bench.iterate()
-    roundtrip = _summarize(_device_events(prof), ROUNDTRIPS)
+    roundtrip = summarize(device_events(prof), ROUNDTRIPS)
     tier = device_tier(bench)
 
     print(json.dumps({
@@ -232,6 +205,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "card": {"name_power_limit": dev.nvidia_smi("name,power.limit"),
                  "sm_clock_power_draw_under_load": under_load},
         "depth": depth,
+        "chain_form": form,
         "chain_wall_ms_per_block": statistics.median(walls),
         "chain_wall_ms_per_block_reps": walls,
         "roundtrip_wall_ms": statistics.median(trips),

@@ -42,6 +42,11 @@ def _json(lines):
     return json.loads("\n".join(lines[start:end + 1]))
 
 
+# The port's JSON keys the reference's lacks (ROADMAP.md §3): the
+# saturated tier's chain form, "cuda-graph" or "loop" (the CPU's).
+PORT_ADDITIONS = {"metadata.chainForm"}
+
+
 def _paths(d, prefix=""):
     out = set()
     for k, v in d.items():
@@ -61,7 +66,9 @@ def test_iir_json_keys_are_a_subset_of_the_reference(extra):
     rc_j, jlines = _run(lambda a: jax_cli.main(a), argv)
     assert rc_j == 0
     theirs = _json(jlines)
-    assert _paths(ours) <= _paths(theirs), _paths(ours) - _paths(theirs)
+    mine = _paths(ours) - PORT_ADDITIONS
+    assert mine <= _paths(theirs), mine - _paths(theirs)
+    assert ours["metadata"]["chainForm"] == "loop"
     assert ours["benchmark"] == "IIRFilter"
     assert ours["validation"]["status"] == "SUCCESS"
     assert ours["device_statistics"]["method"] == "wall"  # the CPU's label
@@ -149,8 +156,9 @@ def test_unported_flag_exits_1_naming_roadmap(flag):
 
 # The flags the port refused until they were ported (pinned staging, the
 # datacopy family, DAW-sim and the overlapped infeed; then the CSV writer,
-# PartConv and DAWSessionMix; then NeuralAmp's): each now runs a toy
-# benchmark and reaches the configuration under the reference's field.
+# PartConv and DAWSessionMix; then NeuralAmp's; then the profiler
+# capture): each now runs a toy benchmark and reaches the configuration
+# under the reference's field.
 RETIRED_REFUSALS = {
     "--dawsim": ([], {"dawsim": True}),
     "--dawsim-mode": (["sleep"], {"dawsim_mode": "sleep"}),
@@ -168,6 +176,8 @@ RETIRED_REFUSALS = {
     "--neuralampChannels": (["16"], {"neuralamp_channels": 16}),
     "--neuralampLayers": (["3"], {"neuralamp_layers": 3}),
     "--neuralampDtype": (["bf16"], {"neuralamp_dtype": "bf16"}),
+    "--capture": ([], {"capture": True}),
+    "--captureDir": (["trace"], {"capture_dir": "trace"}),
 }
 # The benchmark each retired flag runs (gain where it is not named).
 RETIRED_RUNS = {"--transferMiB": "datacopy5050", "--category":
@@ -180,7 +190,7 @@ RETIRED_RUNS = {"--transferMiB": "datacopy5050", "--category":
 
 
 @pytest.mark.parametrize("flag", sorted(RETIRED_REFUSALS))
-def test_retired_refusal_flag_now_runs(flag):
+def test_retired_refusal_flag_now_runs(flag, tmp_path):
     values, fields = RETIRED_REFUSALS[flag]
     name = RETIRED_RUNS.get(flag, "gain")
     argv = ["--nTracks", "8", "--nRuns", "2", "--warmup", "1", "--json",
@@ -201,6 +211,8 @@ def test_retired_refusal_flag_now_runs(flag):
         argv.append("--dawsim")
     if flag == "--overlapReps":
         argv += ["--overlapDepth", "4"]
+    if flag == "--capture":
+        argv += ["--captureDir", str(tmp_path)]
     cfg, names, err = cli.parse_args(argv)
     jcfg, jnames, jerr = jax_cli.parse_args(argv)
     assert err is None and jerr is None and names == jnames == [name]
@@ -218,6 +230,8 @@ def test_retired_refusal_flag_now_runs(flag):
         assert rec["overlapped"]["reps"] == cfg.overlap_reps
     if flag == "--transferMiB":
         assert rec["metadata"]["inputFloats"] == 131072
+    if cfg.capture:
+        assert (tmp_path / "gain.trace.json").stat().st_size > 0
     if name == "PartConv":
         assert rec["metadata"]["formResolved"] == cfg.partconv_form
         assert rec["metadata"]["hDtype"] == cfg.partconv_h_dtype
@@ -488,7 +502,9 @@ def test_slice_json_keys_are_a_subset_of_the_reference(name):
     assert ours["benchmark"] == theirs["benchmark"] == name
     assert ours["configuration"] == theirs["configuration"]
     ours.pop("saturated")  # asked of the port only
-    assert _paths(ours) <= _paths(theirs), _paths(ours) - _paths(theirs)
+    assert ours["metadata"]["chainForm"] == "loop"
+    mine = _paths(ours) - PORT_ADDITIONS
+    assert mine <= _paths(theirs), mine - _paths(theirs)
 
 
 @pytest.mark.parametrize("category", ["transfer", "basic", "dsp", "physical",

@@ -1382,3 +1382,148 @@ def test_captured_block_raises_when_the_capture_fails(cuda):
 
     with pytest.raises(RuntimeError, match="CapturedBlock"):
         CapturedBlock(syncs, [torch.ones(8, device=cuda)])
+
+
+# The saturated chain as one CUDA graph (harness/graph.py:ChainGraph): on
+# every capturable stream body at a toy size, a replay's probes equal the
+# loop's from the same entry carry (bit for bit, or, for a body that runs
+# cuBLAS or cuFFT, within its benchmark's tolerance of the peak probe),
+# and two replays each other.
+CHAIN_TOY = dict(n_tracks=8, buffer_size=64, verification="none",
+                 device_timing=False, rndmem_pool_mb=8, sol_fma_k=16,
+                 sol_fma_mib=1, sol_stream_mib=1, sol_matmul_dim=128,
+                 ir_length=300, neuralamp_channels=16, neuralamp_layers=3,
+                 fdtd_room=8, partconv_tail_chunk=2)
+CHAIN_BODIES = [
+    ("NoOp", {}), ("gain", {}), ("GainStats", {}), ("FFT1D", {}),
+    ("IIRFilter", {}), ("IIRFilter", {"iir_form": "blockstate"}),
+    ("BiquadChain", {}), ("Conv1D", {}), ("Conv1D", {"conv_edge_mode":
+                                                     "bleed"}),
+    ("Conv1D_accel", {}), ("ModalFilterBank", {}),
+    ("ModalFilterBank", {"modal_renorm": True}), ("DWG1DNaive", {}),
+    ("DWG1DAccel", {}), ("FDTD3D", {}),
+    ("FDTD3D", {"fdtd_per_track_receivers": True}),
+    ("FDTD3D", {"fdtd_room": 66, "buffer_size": 4}), ("RndMemRead", {}),
+    ("PartConv", {}), ("PartConv", {"partconv_form": "ring"}),
+    ("PartConv", {"partconv_form": "nupols"}),
+    ("PartConv", {"partconv_h_dtype": "f16"}), ("DAWSessionMix", {}),
+    ("NeuralAmp", {}), ("NeuralAmp", {"neuralamp_dtype": "bf16"}),
+    ("NeuralAmp", {"neuralamp_dtype": "int8"}), ("SOL_VPU", {}),
+    ("SOL_VMEM", {}), ("SOL_HBM", {}), ("SOL_MXU_bf16", {}),
+    ("SOL_MXU_f32", {}), ("SOL_MXU_int8", {}),
+]
+CHAIN_LIBRARY_BODIES = ("FFT1D", "Conv1D_accel", "PartConv", "DAWSessionMix",
+                        "NeuralAmp", "SOL_MXU_bf16", "SOL_MXU_f32",
+                        "SOL_MXU_int8")
+CHAIN_DEPTH = 6
+
+
+def _clone_carry(carry):
+    if isinstance(carry, torch.Tensor):
+        return carry.clone()
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(_clone_carry(c) for c in carry)
+    return carry
+
+
+def _body(device, name, knobs):
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.registry import create_benchmark
+
+    b = create_benchmark(name, BenchConfig(**{**CHAIN_TOY, **knobs}), device)
+    b.setup()
+    return b
+
+
+@pytest.mark.parametrize("name,knobs", CHAIN_BODIES)
+def test_chain_graph_probes_equal_the_loops(cuda, name, knobs):
+    from gpuaudiobench_tpu_torch.harness.graph import ChainGraph
+    from gpuaudiobench_tpu_torch.harness.streaming import run_chained
+
+    b = _body(cuda, name, knobs)
+    assert b.stream_capturable
+    step, carry = b.stream_body()
+    loop = run_chained(step, _clone_carry(carry), CHAIN_DEPTH)
+    g = ChainGraph(step, carry, CHAIN_DEPTH, name=name)
+    first, second = g.run(), g.run()
+    assert torch.equal(first, second)
+    assert first.shape == (CHAIN_DEPTH,) and g.nodes > 0
+    if name in CHAIN_LIBRARY_BODIES:
+        assert ((first - loop).abs().max()
+                <= b.tolerance * loop.abs().max()), (first, loop)
+    else:
+        assert torch.equal(first, loop), (first, loop)
+
+
+def test_chain_graph_raises_when_the_capture_fails(cuda):
+    """A step that waits for the device (``.item()``) cannot be captured:
+    the constructor raises, naming the chain, and nothing runs the loop
+    instead."""
+    from gpuaudiobench_tpu_torch.harness.graph import ChainGraph
+
+    def syncs(x):
+        return x, (x * float(x.sum().item())).sum().reshape(1)
+
+    with pytest.raises(RuntimeError, match="ChainGraph: capturing 3 blocks "
+                       "of toy failed"):
+        ChainGraph(syncs, torch.ones(8, device=cuda), 3, name="toy")
+
+
+def test_chain_graph_launches_are_captured_times_replays(cuda):
+    """The wrapper counts the warm chains' launches; the capture records
+    one a block, and each replay adds them to REPLAYED_LAUNCHES."""
+    from gpuaudiobench_tpu_torch.harness import graph
+
+    b = _body(cuda, "IIRFilter", {})
+    step, carry = b.stream_body()
+    eager = iops.KERNEL_LAUNCHES["iir_biquad"]
+    replayed = graph.REPLAYED_LAUNCHES["iir_biquad"]
+    replays = graph.CHAIN_REPLAYS["chain"]
+    g = graph.ChainGraph(step, carry, 4, name="IIRFilter")
+    assert dict(g.captured) == {"iir_biquad": 4}
+    assert (iops.KERNEL_LAUNCHES["iir_biquad"]
+            == eager + graph.WARMUP_CALLS * 4)
+    for _ in range(3):
+        g.run()
+    assert graph.REPLAYED_LAUNCHES["iir_biquad"] == replayed + 12
+    assert graph.CHAIN_REPLAYS["chain"] == replays + 3
+    assert iops.KERNEL_LAUNCHES["iir_biquad"] == eager + graph.WARMUP_CALLS * 4
+
+
+@pytest.mark.parametrize("name,form", [("gain", "cuda-graph"),
+                                       ("PartConv", "cuda-graph"),
+                                       ("NeuralAmpLSTM", "loop")])
+def test_runner_chain_form_on_the_card(cuda, name, form):
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
+    from gpuaudiobench_tpu_torch.registry import create_benchmark
+
+    cfg = BenchConfig(**{**CHAIN_TOY, "n_runs": 2, "warmup": 1,
+                         "pipeline_depth": 8, "saturated_reps": 2})
+    b = create_benchmark(name, cfg, cuda)
+    b.setup()
+    res = run_benchmark(b, cfg, verbose=False)
+    assert res.metadata["chainForm"] == form
+    assert len(res.saturated_marginal_latencies) == 2
+
+
+def test_capture_trace_holds_device_events(cuda, tmp_path):
+    """One --capture session writes a trace whose saturated reps hold the
+    gain kernels (the elementwise op and the probe), replayed from the
+    chain's graphs. Last in the file: a profiler session slows later
+    launches."""
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.harness import profiler
+    from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
+    from gpuaudiobench_tpu_torch.registry import create_benchmark
+
+    cfg = BenchConfig(**{**CHAIN_TOY, "n_runs": 2, "warmup": 1,
+                         "pipeline_depth": 8, "saturated_reps": 2,
+                         "capture": True, "capture_dir": str(tmp_path)})
+    b = create_benchmark("gain", cfg, cuda)
+    b.setup()
+    run_benchmark(b, cfg, verbose=False)
+    path = str(tmp_path / "gain.trace.json")
+    assert profiler.trace_events(path)
+    reps = profiler.trace_events(path, "saturated-reps")
+    assert reps and profiler.summarize(reps, 2 * 10)["device_busy_us_per_block"] > 0

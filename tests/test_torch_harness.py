@@ -14,6 +14,7 @@ from gpuaudiobench_tpu.harness import statistics as jax_statistics
 from gpuaudiobench_tpu.harness import validation as jax_validation
 from gpuaudiobench_tpu_torch import config as tconfig
 from gpuaudiobench_tpu_torch import profile_block
+from gpuaudiobench_tpu_torch.harness import profiler
 from gpuaudiobench_tpu_torch.harness import statistics as tstatistics
 from gpuaudiobench_tpu_torch.harness import streaming
 from gpuaudiobench_tpu_torch.harness import validation as tvalidation
@@ -42,14 +43,21 @@ def modal(port_cfg):
     return b
 
 
+# The port's defaults that are recorded divergences (ROADMAP.md §3): the
+# trace directory is <temp dir>/tpuaudiobench_trace ("" resolves to it,
+# harness/profiler.py:trace_dir), the reference's /tmp/tpuaudiobench_trace.
+DIVERGENT_DEFAULTS = {"capture_dir": ""}
+
+
 def test_config_fields_match_the_reference():
     """Every knob of the port's BenchConfig is the reference's, with its
-    default."""
+    default (or its recorded divergence)."""
     ref = {f.name: f for f in dataclasses.fields(jax_config.BenchConfig)}
     ours = {f.name for f in dataclasses.fields(tconfig.BenchConfig)}
     for f in dataclasses.fields(tconfig.BenchConfig):
         assert f.name in ref, f.name
-        assert f.default == ref[f.name].default, f.name
+        want = DIVERGENT_DEFAULTS.get(f.name, ref[f.name].default)
+        assert f.default == want, f.name
         assert f.type == ref[f.name].type, f.name
     # the RndMem, DWG and FDTD knobs
     assert {"rndmem_pool_mb", "rndmem_min_loop", "rndmem_max_loop",
@@ -192,7 +200,6 @@ def test_run_benchmark_single_depth_when_marginal_off(modal, port_cfg):
 
 
 @pytest.mark.parametrize("knob", [
-    {"capture": True},
     {"data_parallel": 2},
 ])
 def test_runner_refuses_unported_tiers(modal, port_cfg, knob):
@@ -204,18 +211,23 @@ def test_runner_refuses_unported_tiers(modal, port_cfg, knob):
     {"overlap_depth": 2},
     {"dawsim": True},
     {"overlap_depth": 4},
+    {"capture": True},
 ])
-def test_runner_runs_the_ported_tiers(port_cfg, knob):
-    """The tiers the runner refused before DAW-sim and the overlapped
-    infeed were ported: each runs on gain and fills its fields."""
+def test_runner_runs_the_ported_tiers(port_cfg, knob, tmp_path):
+    """The tiers the runner refused before DAW-sim, the overlapped infeed
+    and the profiler capture were ported: each runs on gain and fills its
+    fields (the capture its trace file)."""
     from gpuaudiobench_tpu_torch.models.gain import GainBenchmark
 
-    cfg = port_cfg.replace(overlap_reps=2, **knob)
+    cfg = port_cfg.replace(overlap_reps=2, capture_dir=str(tmp_path),
+                           **knob)
     b = GainBenchmark(cfg, CPU)
     b.setup()
     res = run_benchmark(b, cfg, verbose=False)
     assert res.validation.passed
-    if cfg.dawsim:
+    if cfg.capture:
+        assert (tmp_path / "gain.trace.json").stat().st_size > 0
+    elif cfg.dawsim:
         assert res.deadline_miss_rate is not None
         assert res.dawsim_pacer in ("native", "python")
     else:
@@ -264,12 +276,12 @@ def test_device_helpers_on_cpu():
 
 def test_profile_summary_takes_the_union_of_device_intervals():
     events = [("k1", 0.0, 10.0), ("k2", 5.0, 12.0), ("k1", 20.0, 30.0)]
-    s = profile_block._summarize(events, blocks=2)
+    s = profiler.summarize(events, blocks=2)
     assert s["kernel_us_per_block"] == {"k1": 10.0, "k2": 3.5}
     assert s["device_busy_us_per_block"] == 11.0  # (12 + 10) / 2
     assert s["window_us_per_block"] == 15.0
     assert s["device_idle_share"] == pytest.approx(8.0 / 30.0)
-    assert "error" in profile_block._summarize([], blocks=2)
+    assert "error" in profiler.summarize([], blocks=2)
 
 
 def test_profile_needs_cuda(monkeypatch):

@@ -167,4 +167,5 @@ def test_bench_main_json_has_every_root_key():
     assert rec["backend"] == "torch-cpu" and rec["device_name"] == "cpu"
     assert rec["power_limit"] is None
     assert rec["kernel_launches"] == 0  # the CPU runs the plain twin
+    assert rec["chain_form"] == "loop"  # no CUDA graph on the CPU
     assert 0 <= rec["validation_max_error"] <= 1e-4
