@@ -181,20 +181,43 @@ nonzero:
    peak memory, and both forms' saturated and marginal p50 in turns.
    Then whether a chain of NeuralAmpLSTM blocks, each its own graph's
    replay, captures (the body is declared a loop either way).
-15. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+15. The surfaces above the harness, still with the plain twins counted
+   and every launch count reset per path: the soak tool
+   (``gpuaudiobench_tpu_torch.tools.soak``) on the modal bank at
+   1,048,576 modes onto 32 tracks for 20 s of audio, IIRFilter at 65,536
+   tracks for 10 s, DWG1DNaive at 32,768 for 5 s (probe RMS 0 by
+   construction, state RMS live) and PartConv ring and nupols at 1,536 x
+   48,000 taps for 3 s each, every report printed, each in its chain
+   form (``SOAKS``: a continuing CUDA graph, or the loop where the
+   carry's Python values advance over a second: nupols), its kernel
+   launched once a block; continuity (``CONTINUITY``): 3 seconds of the
+   modal, DWG, ring and nupols soaks' forms (``soak.Seconds``) against
+   282 eager steps from a clone of the entry carry, carry and probes bit
+   for bit; checkpoint/resume on the modal soak, 3 s straight against
+   1 s, a checkpoint and 2 s resumed in a fresh process, the
+   checkpoints' leaves bit for bit; the capacity tool on FDTD3D's field
+   form over rooms 16-128 (quantum 2, depth 8, 5 reps, no golden),
+   printed beside ``tools/fdtd_stages``' 108-109, one ``--confirmOnly``
+   in a fresh process, the ledger and the table with its flag column;
+   overlap64 on gain and IIRFilter (the best tier a measured one); and
+   the web UI on a free port: the catalog, a gain job at 65,536 tracks
+   run to done with its phases, ``/api/hardware`` naming the card and
+   ``/api/export.csv`` equal to ``csv_from_json_results`` of
+   ``/api/export.json``.
+16. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-16. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
+17. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
    profiler session writes a trace that must hold ``modal_bank`` device
    events; the busy time a block and idle share of its saturated tier's
    timed reps (graph replays), read from the trace.
-17. ``torch.profiler`` names the kernels of one call of each cascade
+18. ``torch.profiler`` names the kernels of one call of each cascade
    wrapper at 1,000 x 96: the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. The profiler sessions run
    after everything timed (a session slows the process's later launches).
-18. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+19. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -213,6 +236,7 @@ import sys
 import tempfile
 import time
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN_SHAPE = (1048576, 512, 32)
 # (12288, 512, 12) is ModalFilterBank's CLI path at 12 tracks. The
 # persistent grid's edges: (2048, 64, 32) has fewer tiles than SMs,
@@ -571,6 +595,53 @@ GRAPH_PATHS = [
 ]
 GRAPH_LIBRARY_BODIES = ("DAWSessionMix", "PartConv")
 GRAPH_REPS = 7
+# The surfaces above the harness (phase 15). Soaks: (label, the soak's
+# argv after the seconds and the report path, seconds, kernels that must
+# launch, the chain form). PartConv's ring head has period ceil(48000 /
+# 512) = 94 blocks, one second, so its carry leaves a second as it came
+# and the ring continues as one graph; the nupols phase has period K = 8,
+# which 94 is not a multiple of, so nupols runs the loop.
+SOAKS = [
+    ("ModalFilterBank 1M modes onto 32 tracks",
+     ["ModalFilterBank", "1024"], 20, ["modal_bank"], "cuda-graph"),
+    ("IIRFilter, 65536 tracks", ["IIRFilter", "65536"], 10, ["iir_biquad"],
+     "cuda-graph"),
+    ("DWG1DNaive, 32768 waveguides", ["DWG1DNaive", "32768"], 5,
+     ["dwg_block"], "cuda-graph"),
+] + [(f"PartConv {form}, 1536 x 48000 taps",
+      ["PartConv", "1536", "--set", "ir_length=48000", "--set",
+       f"partconv_form={form}"], 3, [], chain)
+     for form, chain in (("ring", "cuda-graph"), ("nupols", "loop"))]
+# Continuity: (label, benchmark, knobs, the form) -- 3 seconds of the
+# soak's form against 282 eager steps from a clone of the entry carry,
+# carry and probes bit for bit.
+CONTINUITY = [
+    ("ModalFilterBank 1M modes", "ModalFilterBank", {"n_tracks": 1024},
+     "cuda-graph"),
+    ("DWG1DNaive, 32768 waveguides", "DWG1DNaive", {"n_tracks": 32768},
+     "cuda-graph"),
+] + [(f"PartConv {form}, 1536 x 48000 taps", "PartConv",
+      {"n_tracks": 1536, "ir_length": 48000, "partconv_form": form},
+      "cuda-graph" if form == "ring" else "loop")
+     for form in ("ring", "nupols")]
+CONTINUITY_SECONDS = 3
+# Checkpoint continuity on the modal headline: 3 s straight against 1 s,
+# a checkpoint, and 2 s resumed in a fresh process.
+RESUME_SOAK = ["ModalFilterBank", "1024"]
+# The capacity search of FDTD3D's field form (per-track receivers) over
+# rooms 16-128, quantum 2, at a small depth and rep count and without
+# the host golden; tools/fdtd_stages puts the form's deadline room
+# at 108-109 behind a spin.
+CAPACITY_ARGS = ["--benchmark", "FDTD3D", "--set",
+                 "fdtd_per_track_receivers=true", "--nRuns", "2",
+                 "--warmup", "1", "--pipelineDepth", "8", "--satReps", "5",
+                 "--verification", "none"]
+CAPACITY_SEARCH = ["--lo", "16", "--hi", "128", "--quantum", "2"]
+FDTD_FIELD_DEADLINE_ROOM = "108-109"
+OVERLAP64_ARGS = ["--reps", "3", "--workloads", "gain,IIRFilter"]
+# The web UI's job: gain at 65,536 tracks.
+UI_JOB = {"bufferSize": 512, "nTracks": 65536, "nRuns": 10, "warmup": 2,
+          "verification": "spot"}
 # The --capture run (after the calibration: a profiler session slows the
 # process's later short launches): the modal headline cell on a short
 # tier; its trace must hold modal_bank events inside the timed reps of
@@ -2253,15 +2324,6 @@ def neural_phase(torch, cli, registry, config, overlap, roofline, na, counts,
     sync_free(torch, registry, config, device, NEURAL_SYNC_FREE_PATHS)
 
 
-def clone_carry(torch, carry):
-    """A copy of a stream carry: its tensors cloned, the rest as it is."""
-    if isinstance(carry, torch.Tensor):
-        return carry.clone()
-    if isinstance(carry, (tuple, list)):
-        return type(carry)(clone_carry(torch, c) for c in carry)
-    return carry
-
-
 def chain_expectation(argv):
     """(chains, replays) of one CLI run's saturated tier: two depths (the
     marginal's depth // 4 and the depth), each built and run once untimed
@@ -2289,7 +2351,7 @@ def graph_phase(torch, registry, config, hgraph, streaming, device):
         if not b.stream_capturable:
             fail(f"graph {label}: the body is declared uncapturable")
         step, carry = b.stream_body()
-        loop = streaming.run_chained(step, clone_carry(torch, carry), depth)
+        loop = streaming.run_chained(step, hgraph.clone_carry(carry), depth)
         lo = max(1, depth // 4)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2312,7 +2374,7 @@ def graph_phase(torch, registry, config, hgraph, streaming, device):
             agree = (f"within {rel:.3g} of the loop's peak probe (tolerance "
                      f"{b.tolerance:g}; cuBLAS / cuFFT)")
         runs = {"cuda-graph": {lo: g_lo.run, depth: g_hi.run}}
-        loop_carry = clone_carry(torch, carry)
+        loop_carry = hgraph.clone_carry(carry)
         runs["loop"] = {d: (lambda d=d: streaming.run_chained(
             step, loop_carry, d)) for d in (lo, depth)}
         walls = {f: {lo: [], depth: []} for f in runs}
@@ -2353,7 +2415,7 @@ def lstm_nested_capture(torch, registry, config, hgraph, streaming, device):
     b = registry.create_benchmark("NeuralAmpLSTM", cfg, device)
     b.setup()
     step, carry = b.stream_body()
-    loop = streaming.run_chained(step, clone_carry(torch, carry), 2)
+    loop = streaming.run_chained(step, hgraph.clone_carry(carry), 2)
     try:
         g = hgraph.ChainGraph(step, carry, 2, name="NeuralAmpLSTM")
     except RuntimeError as e:
@@ -2367,6 +2429,336 @@ def lstm_nested_capture(torch, registry, config, hgraph, streaming, device):
           f"graph, captured as one graph ({g.nodes} nodes); probes "
           f"{'bit for bit' if torch.equal(got, loop) else 'NOT equal to'} "
           "the loop's")
+
+
+def run_quiet(fn, argv, label):
+    """``fn(argv)`` with its output captured, then printed under
+    ``label``; fails unless it returns 0. Returns the output lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"{label}: {ln}")
+    if rc != 0:
+        fail(f"{label}: returned {rc}")
+    return lines
+
+
+def report_row(text, metric):
+    """The value cell of a markdown report's ``| metric | value |`` row."""
+    for ln in text.splitlines():
+        cells = [c.strip() for c in ln.strip().strip("|").split("|")]
+        if len(cells) == 2 and cells[0] == metric:
+            return cells[1]
+    fail(f"the report has no row {metric!r}")
+
+
+def soak_phase(soak, counts, reset, launches, tmpdir, smi):
+    """The soaks of SOAKS through the soak tool's ``main``, each report
+    printed; each must run its form, its kernels and, but for DWG, a live
+    probe."""
+    import math
+
+    for label, args, seconds, kernels, form in SOAKS:
+        t0 = time.perf_counter()
+        md = os.path.join(tmpdir, "soak.md")
+        reset()
+        run_quiet(soak.main, [str(seconds), md] + args, f"soak {label}")
+        n = counts()
+        text = open(md).read()
+        for ln in text.splitlines():
+            if ln.startswith("|") or ln.startswith("#"):
+                print(f"soak {label} report: {ln}")
+        got = report_row(text, "chain form")
+        if got != form:
+            fail(f"soak {label}: chain form {got!r}, not {form!r}")
+        first, last = (float(v) for v in report_row(
+            text, "state RMS first / last (carry integrity)").split(" / "))
+        probe_last = float(report_row(
+            text, "probe RMS first / last (output liveness)").split(" / ")[1])
+        if not (math.isfinite(first) and math.isfinite(last) and last > 0):
+            fail(f"soak {label}: state RMS {first} / {last}")
+        if not args[0].startswith("DWG") and not probe_last > 0:
+            fail(f"soak {label}: probe RMS {probe_last}")
+        for k in kernels:
+            if n[k] < seconds * 94:
+                fail(f"soak {label}: {k} launched {n[k]} times for "
+                     f"{seconds * 94} blocks")
+        for k, v in n.items():
+            launches[k] += v
+        print(f"soak {label}: {seconds} s of audio, form {got}, "
+              f"launches {({k: n[k] for k in kernels})}, "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def continuity_phase(torch, soak, registry, config, hgraph, counts, reset,
+                     launches, device):
+    """Each CONTINUITY body: 3 seconds of the soak's form
+    (``soak.Seconds``) against 282 eager steps from a clone of the entry
+    carry, carry (tensors and Python values) and probes bit for bit."""
+    import numpy as np
+
+    for label, name, knobs, form in CONTINUITY:
+        t0 = time.perf_counter()
+        cfg = config.BenchConfig(verification="none", device_timing=False,
+                                 **knobs)
+        b = registry.create_benchmark(name, cfg, device)
+        b.setup()
+        step, carry = b.stream_body()
+        blocks = -(-cfg.fs // cfg.buffer_size)
+        entry = hgraph.clone_carry(carry)
+        reset()
+        sec = soak.Seconds(step, carry, blocks, device, b.stream_capturable,
+                           name)
+        if sec.form != form:
+            fail(f"continuity {label}: form {sec.form!r}, not {form!r}")
+        probes = np.concatenate([sec.run()
+                                 for _ in range(CONTINUITY_SECONDS)])
+        for k, v in counts().items():
+            launches[k] += v
+        c, eager = entry, []
+        for _ in range(CONTINUITY_SECONDS * blocks):
+            c, p = step(c)
+            eager.append(p)
+        eager = torch.cat(eager).cpu().numpy()
+        got = hgraph.leaves(sec.carry())
+        want = hgraph.leaves(c)
+        same = len(got) == len(want) and all(
+            torch.equal(a, w) if isinstance(a, torch.Tensor) else a == w
+            for a, w in zip(got, want))
+        if not same:
+            fail(f"continuity {label}: the carry after {CONTINUITY_SECONDS} "
+                 f"seconds ({sec.form}) differs from the eager loop's")
+        if not np.array_equal(probes, eager):
+            fail(f"continuity {label}: probes differ from the eager loop's "
+                 f"by {np.abs(probes - eager).max():.3g}")
+        print(f"continuity {label}: {CONTINUITY_SECONDS} seconds as "
+              f"{sec.form} ({'Python values advance' if sec.advancing else 'no Python value advances'} "
+              f"over a second) against {CONTINUITY_SECONDS * blocks} eager "
+              f"steps from a clone: carry ({len(got)} leaves) and probes bit "
+              f"for bit; {time.perf_counter() - t0:.1f} s")
+        del b, step, carry, entry, sec, c
+        torch.cuda.empty_cache()
+
+
+def resume_phase(soak, checkpoint, tmpdir, smi):
+    """3 s of the modal soak straight against 1 s, a checkpoint and 2 s
+    resumed in a fresh process: the checkpoints' leaves bit for bit."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    straight, split = (os.path.join(tmpdir, f"{n}.npz")
+                       for n in ("straight", "split"))
+    md = os.path.join(tmpdir, "resume.md")
+    run_quiet(soak.main, ["3", md] + RESUME_SOAK
+              + ["--checkpoint", straight], "resume 3 s")
+    run_quiet(soak.main, ["1", md] + RESUME_SOAK + ["--checkpoint", split],
+              "resume 1 s")
+    proc = subprocess.run(
+        [sys.executable, "-m", "gpuaudiobench_tpu_torch.tools.soak", "2", md]
+        + RESUME_SOAK + ["--checkpoint", split, "--resume"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    for ln in (proc.stdout + proc.stderr).splitlines()[-12:]:
+        print(f"resume 2 s (fresh process): {ln}")
+    if proc.returncode != 0:
+        fail(f"resume: the resumed soak exited {proc.returncode}")
+    ha, hb = (checkpoint.read_header(p) for p in (straight, split))
+    with np.load(straight) as za, np.load(split) as zb:
+        keys = [k for k in za.files if k.startswith("leaf_")]
+        if keys != [k for k in zb.files if k.startswith("leaf_")]:
+            fail("resume: the checkpoints hold different leaves")
+        diff = [k for k in keys if not np.array_equal(za[k], zb[k])]
+    if diff:
+        fail(f"resume: leaves {diff} differ between 3 s straight and 1 s + "
+             "a resumed 2 s")
+    print(f"resume: modal headline, 3 s straight against 1 s, a checkpoint "
+          f"and 2 s resumed in a fresh process: {len(keys)} leaves bit for "
+          f"bit ({ha['extra']['soak_seconds']} and "
+          f"{hb['extra']['soak_seconds']} soak s); "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def capacity_phase(capacity, ledger, merge, counts, reset, launches,
+                   tmpdir, smi):
+    """The capacity search of FDTD3D's field form, printed beside
+    ``tools/fdtd_stages``' deadline room, its confirmation in a fresh
+    process, the ledger and the rendered table with its flag column."""
+    t0 = time.perf_counter()
+    search_json, confirm_json, ledger_json, md = (
+        os.path.join(tmpdir, n) for n in
+        ("search.json", "confirm.json", "ledger.json", "capacity.md"))
+    reset()
+    run_quiet(capacity.main, CAPACITY_ARGS + CAPACITY_SEARCH
+              + ["--json", search_json], "capacity")
+    n = counts()
+    if n["fdtd3d_field"] <= 0:
+        fail("capacity: fdtd3d_field was not launched")
+    for k, v in n.items():
+        launches[k] += v
+    rec = json.load(open(search_json))
+    cap = rec["capacity"]
+    if cap is None or rec.get("stopped"):
+        fail(f"capacity: no capacity ({rec.get('stopped')})")
+    # Only a probe that ran and missed may bound the search: a probe or
+    # a confirmation that raised fails the phase.
+    errors = [d for d in rec["probes"] + [rec["confirmation"] or {}]
+              if "error" in d]
+    if errors or rec["wall_class"] != "deadline":
+        fail(f"capacity: wall {rec['wall_class']!r}, failed probes "
+             f"{[(d['value'], d['error']) for d in errors]}")
+    print(f"capacity FDTD3D field form (per-track receivers): room {cap} "
+          f"at the 10.667 ms deadline by the saturated p99 "
+          f"({len(rec['probes'])} probes, wall {rec['wall_class']}); "
+          f"tools/fdtd_stages, the kernel behind a spin: "
+          f"{FDTD_FIELD_DEADLINE_ROOM}; {time.perf_counter() - t0:.1f} s "
+          f"[{smi}]")
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gpuaudiobench_tpu_torch.tools.capacity"]
+        + CAPACITY_ARGS + ["--confirmOnly", str(cap), "--json",
+                           confirm_json],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    for ln in (proc.stdout + proc.stderr).splitlines()[-8:]:
+        print(f"capacity confirm (fresh process): {ln}")
+    if proc.returncode not in (0, 1) or not os.path.exists(confirm_json):
+        fail(f"capacity confirm exited {proc.returncode}")
+    conf = json.load(open(confirm_json))
+    # Exit 1 passes only as a clean deadline miss.
+    if conf.get("stopped") or any("error" in c for c in conf["confirms"]):
+        fail(f"capacity confirm failed: {conf.get('stopped')} "
+             f"{[c.get('error') for c in conf['confirms']]}")
+    run_quiet(ledger.main, [ledger_json, search_json, confirm_json],
+              "capacity ledger")
+    run_quiet(merge.main, [md, ledger_json], "capacity merge")
+    text = open(md).read()
+    if "| flag |" not in text:
+        fail("capacity: the table has no flag column")
+    for ln in text.splitlines():
+        print(f"capacity table: {ln}")
+    row = json.load(open(ledger_json))
+    print(f"capacity confirm: room {cap} "
+          f"{'sustains' if proc.returncode == 0 else 'MISSES'} in a fresh "
+          f"process; device p50 > sat p50: {row['device_over_saturated']}; "
+          f"{time.perf_counter() - t1:.1f} s [{smi}]")
+
+
+def overlap64_phase(overlap64, counts, reset, launches, tmpdir, smi):
+    """The buffer-64 attribution on gain and IIRFilter, its table printed;
+    the best tier of each row a measured one."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmpdir, "overlap64")
+    reset()
+    run_quiet(overlap64.main, [out] + OVERLAP64_ARGS, "overlap64")
+    n = counts()
+    if n["iir_biquad"] <= 0:
+        fail("overlap64: iir_biquad was not launched")
+    for k, v in n.items():
+        launches[k] += v
+    rows = json.load(open(out + ".json"))["rows"]
+    for r in rows:
+        if r.get("best_tier") not in overlap64.MEASURED_TIERS:
+            fail(f"overlap64 {r['benchmark']}: best tier "
+                 f"{r.get('best_tier')!r}")
+        unmeasured = [k for k in overlap64.COMPONENTS if r.get(k) is None]
+        errors = {k: v for k, v in r.items() if k.endswith("_error")}
+        if unmeasured or errors:
+            fail(f"overlap64 {r['benchmark']}: unmeasured {unmeasured}, "
+                 f"errors {errors}")
+    for ln in open(out + ".md").read().splitlines():
+        if ln.startswith("|") or ln.startswith("#"):
+            print(f"overlap64 table: {ln}")
+    print(f"overlap64: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def webui_phase(torch, webui_server, output, tmpdir, smi):
+    """The web UI on a free port: the catalog, one gain job at 65,536
+    tracks run to done with its phases, the hardware panel naming the
+    card, and /api/export.csv equal to csv_from_json_results of
+    /api/export.json."""
+    import threading
+    import urllib.request
+
+    t0 = time.perf_counter()
+    httpd = webui_server.serve(
+        port=0, presets_path=os.path.join(tmpdir, "presets.json"),
+        device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return r.read()
+
+    try:
+        cat = json.loads(get("/api/benchmarks"))
+        names = [b["name"] for b in cat["benchmarks"]]
+        if "gain" not in names or "MultiChipSuite" in names:
+            fail(f"webui: catalog {names}")
+        req = urllib.request.Request(
+            base + "/api/run", method="POST",
+            data=json.dumps({"benchmarks": ["gain"],
+                             "params": UI_JOB}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            job_id = json.loads(r.read())["job_id"]
+        deadline = time.time() + 300
+        while True:
+            job = json.loads(get(f"/api/job?id={job_id}"))
+            if job["status"] in ("done", "error") or time.time() > deadline:
+                break
+            time.sleep(0.5)
+        if job["status"] != "done" or job["errors"]:
+            fail(f"webui: job {job['status']} {job['errors']}")
+        (res,) = job["results"]
+        if res["validation"]["status"] != "SUCCESS":
+            fail(f"webui: validation {res['validation']}")
+        dev_stats = res.get("device_statistics") or {}
+        if dev_stats.get("method") != "cuda-events":
+            fail(f"webui: device tier {dev_stats}")
+        hw = json.loads(get("/api/hardware"))
+        if hw.get("device_kind") != torch.cuda.get_device_name(0):
+            fail(f"webui: hardware {hw}")
+        exported = json.loads(get("/api/export.json"))["results"]
+        csv = get("/api/export.csv").decode()
+        if csv != output.csv_from_json_results(exported):
+            fail("webui: /api/export.csv differs from csv_from_json_results "
+                 "of /api/export.json")
+        print(f"webui: {len(names)} benchmarks offered; gain at "
+              f"{UI_JOB['nTracks']} tracks done, phases {job['phases']}, "
+              f"p50 {res['statistics']['p50_ms']:.4f} ms, device p50 "
+              f"{dev_stats['median_ms']:.4f} ms; hardware "
+              f"{hw['device_kind']}, capability {hw.get('compute_capability')}, "
+              f"power limit {hw.get('power_limit')}; /api/export.csv equals "
+              f"csv_from_json_results of /api/export.json "
+              f"({len(csv.splitlines())} lines); "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    finally:
+        httpd.shutdown()
+        httpd.job_runner.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+
+def surfaces_phase(torch, tools, checkpoint, webui_server, output, registry,
+                   config, hgraph, counts, reset, launches, device, smi):
+    """Phase 15: the soaks, continuity, checkpoint/resume, the capacity
+    search and ledger, overlap64 and the web UI."""
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_surfaces_")
+    try:
+        soak_phase(tools.soak, counts, reset, launches, tmpdir, smi)
+        continuity_phase(torch, tools.soak, registry, config, hgraph,
+                         counts, reset, launches, device)
+        resume_phase(tools.soak, checkpoint, tmpdir, smi)
+        capacity_phase(tools.capacity, tools.build_capacity_ledger,
+                       tools.merge_capacity, counts, reset, launches,
+                       tmpdir, smi)
+        overlap64_phase(tools.overlap64_attrib, counts, reset, launches,
+                        tmpdir, smi)
+        webui_phase(torch, webui_server, output, tmpdir, smi)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 def capture_run(torch, cli, hprofiler, counts, reset, launches):
@@ -2426,6 +2818,8 @@ def main() -> int:
             config,
             registry,
         )
+        from gpuaudiobench_tpu_torch import tools
+        from gpuaudiobench_tpu_torch.harness import checkpoint
         from gpuaudiobench_tpu_torch.harness import graph as hgraph
         from gpuaudiobench_tpu_torch.harness import output, overlap
         from gpuaudiobench_tpu_torch.harness import profiler as hprofiler
@@ -2440,9 +2834,17 @@ def main() -> int:
         from gpuaudiobench_tpu_torch.ops import neuralamp as na
         from gpuaudiobench_tpu_torch.ops import rndmem as rops
         from gpuaudiobench_tpu_torch.ops import speedoflight as sops
+        from gpuaudiobench_tpu_torch.tools import (  # noqa: F401
+            build_capacity_ledger,
+            capacity,
+            merge_capacity,
+            overlap64_attrib,
+            soak,
+        )
         from gpuaudiobench_tpu_torch.utils import build
         from gpuaudiobench_tpu_torch.utils import device as dev
         from gpuaudiobench_tpu_torch.utils import roofline
+        from gpuaudiobench_tpu_torch.webui import server as webui_server
     except ImportError as e:
         fail(f"the port's package is not importable here ({e}); run from "
              "the root of a checkout")
@@ -2608,6 +3010,14 @@ def main() -> int:
         lstm_nested_capture(torch, registry, config, hgraph, streaming,
                             device)
         print(f"chain graphs against loops: {time.perf_counter() - t0:.1f} s")
+
+        # The surfaces above the harness.
+        t0 = time.perf_counter()
+        surfaces_phase(torch, tools, checkpoint, webui_server, output,
+                       registry, config, hgraph, counts, reset, launches,
+                       device, smi)
+        print(f"soaks, continuity, capacity, overlap64 and web UI: "
+              f"{time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")
 

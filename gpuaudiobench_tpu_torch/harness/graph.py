@@ -21,10 +21,13 @@ graph, and the constructor raises.
 
 ``ChainGraph`` captures a whole saturated chain: ``depth`` chained calls
 of a benchmark's stream step, the counterpart of the reference's one
-``lax.scan`` executable a depth (``harness/streaming.py``). A kernel
-wrapper counts its launch with ``count_launch``: under a chain's capture
-the call records the launch, which every replay then makes, so the
-chain adds its recorded launches to ``REPLAYED_LAUNCHES`` once a replay.
+``lax.scan`` executable a depth (``harness/streaming.py``). Its
+continuing form carries the state from replay to replay instead, the
+counterpart of the soak's ``one_second`` scan whose exit carry is the
+next call's entry carry (``tools/soak.py``). A kernel wrapper counts its
+launch with ``count_launch``: under a chain's capture the call records
+the launch, which every replay then makes, so the chain adds its
+recorded launches to ``REPLAYED_LAUNCHES`` once a replay.
 """
 
 from __future__ import annotations
@@ -62,24 +65,38 @@ def reset_replay_counts() -> None:
     CHAIN_REPLAYS["chain"] = 0
 
 
+def leaves(carry) -> list:
+    """The leaves of a carry (a tensor, or nested tuples and lists of
+    tensors and Python values), in order: its tensors and Python values."""
+    if isinstance(carry, (tuple, list)):
+        return [leaf for c in carry for leaf in leaves(c)]
+    return [carry]
+
+
+def rebuild(carry, values):
+    """``carry`` with every leaf taken in order from the iterator
+    ``values``."""
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(rebuild(c, values) for c in carry)
+    return next(values)
+
+
 def _tensors(carry) -> List[torch.Tensor]:
-    """The tensors of a carry (a tensor, or nested tuples and lists of
-    tensors and Python values), in order."""
-    if isinstance(carry, torch.Tensor):
-        return [carry]
-    if isinstance(carry, (tuple, list)):
-        return [t for c in carry for t in _tensors(c)]
-    return []
+    """The tensors of a carry, in order."""
+    return [leaf for leaf in leaves(carry) if isinstance(leaf, torch.Tensor)]
 
 
-def _rebuild(carry, tensors):
-    """``carry`` with its tensors taken in order from the iterator
-    ``tensors``; every other value as it is."""
-    if isinstance(carry, torch.Tensor):
-        return next(tensors)
-    if isinstance(carry, (tuple, list)):
-        return type(carry)(_rebuild(c, tensors) for c in carry)
-    return carry
+def python_values(carry) -> list:
+    """The leaves of a carry that are not tensors (a ring head, a phase),
+    in order. A graph fixes them as its capture saw them."""
+    return [leaf for leaf in leaves(carry)
+            if not isinstance(leaf, torch.Tensor)]
+
+
+def clone_carry(carry):
+    """``carry`` with every tensor cloned."""
+    return rebuild(carry, iter([leaf.clone() if isinstance(leaf, torch.Tensor)
+                                else leaf for leaf in leaves(carry)]))
 
 
 class CapturedBlock:
@@ -151,6 +168,23 @@ def _graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
     return count.value
 
 
+class AdvancingCarry(ValueError):
+    """A continuing chain's body moves a Python value of its carry within
+    the chain: a replay would run every later chain with the values its
+    capture saw."""
+
+
+def check_continues(entry, exit_, depth: int, name: str = "") -> None:
+    """Raise ``AdvancingCarry`` where a chain of ``depth`` steps leaves the
+    carry's Python values (``exit_``) other than it found them
+    (``entry``)."""
+    if python_values(exit_) != python_values(entry):
+        raise AdvancingCarry(
+            f"ChainGraph: {name or 'the chain'}'s Python values go from "
+            f"{python_values(entry)} to {python_values(exit_)} in {depth} "
+            "blocks; a continuing graph would replay the first ones")
+
+
 class ChainGraph:
     """``depth`` chained calls of ``step_fn`` from ``carry``, captured as
     one CUDA graph: ``run()`` replays it and returns the ``(depth,)``
@@ -168,6 +202,17 @@ class ChainGraph:
     plans, the kernels' cached attributes and the FDTD receiver buckets),
     and a capture that fails raises, naming ``name``.
 
+    ``continuing=True`` makes the continuing form: the graph owns static
+    copies of the carry's tensors (``carry()``), each replay runs the
+    ``depth`` steps from them, and the captured tail copies the exit
+    carry back into them, so a replay starts where the last one ended:
+    ``n`` replays give the state and the probes of a loop of ``n *
+    depth`` steps. The warm-up runs on the static copies and restores
+    them after from ``carry``, which no chain writes. A body whose Python
+    values leave the chain other than they entered it raises
+    ``AdvancingCarry`` (``check_continues``) in the warm-up, before
+    anything is captured; ``carry`` is then as it was.
+
     ``pool`` lets graphs that never run at once share memory
     (``torch.cuda.graph_pool_handle()``). ``captured`` holds the kernel
     launches the capture recorded, by wrapper name; ``capture_s``,
@@ -175,7 +220,7 @@ class ChainGraph:
     """
 
     def __init__(self, step_fn: Callable, carry, depth: int,
-                 pool=None, name: str = ""):
+                 pool=None, name: str = "", continuing: bool = False):
         entry = _tensors(carry)
         devices = {t.device for t in entry}
         if len(devices) != 1 or next(iter(devices)).type != "cuda":
@@ -185,23 +230,41 @@ class ChainGraph:
         if depth < 1:
             raise ValueError(f"ChainGraph: depth {depth} < 1")
         device = next(iter(devices))
-        self.entry = [t.clone() for t in entry]
+        self._entry_carry = clone_carry(carry)
+        self.entry = _tensors(self._entry_carry)
 
         def chain():
-            c = _rebuild(carry, iter([t.clone() for t in self.entry]))
+            c = (self._entry_carry if continuing
+                 else clone_carry(self._entry_carry))
             probes = []
             for _ in range(depth):
                 c, p = step_fn(c)
                 probes.append(p)
+            if continuing:
+                check_continues(carry, c, depth, name)
+                exit_ = _tensors(c)
+                # A static tensor handed on to another leaf (a swap) is
+                # read before any copy writes it.
+                moved = [t.clone() if t is not s
+                         and any(t is e for e in self.entry) else t
+                         for s, t in zip(self.entry, exit_)]
+                for s, t in zip(self.entry, moved):
+                    if t is not s:
+                        s.copy_(t)
             return torch.cat(probes)
 
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
-                chain()
-        current.wait_stream(side)
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_CALLS):
+                    chain()
+                if continuing:  # back to the caller's carry, never written
+                    for s, t in zip(self.entry, entry):
+                        s.copy_(t)
+        finally:
+            current.wait_stream(side)
         torch.cuda.synchronize(device)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.captured: Dict[str, int] = collections.defaultdict(int)
@@ -222,6 +285,12 @@ class ChainGraph:
         self.graph.instantiate()
         torch.cuda.synchronize(device)
         self.instantiate_s = time.perf_counter() - t0
+
+    def carry(self):
+        """The carry a replay starts from: the entry carry's structure and
+        Python values over the graph's own tensors (the static copies of
+        the continuing form, which each replay advances in place)."""
+        return self._entry_carry
 
     def run(self) -> torch.Tensor:
         """One replay; the stacked probes on the host."""

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch.profiler import record_function
@@ -95,18 +95,30 @@ def run_benchmark(
     benchmark: Benchmark,
     cfg: Optional[BenchConfig] = None,
     verbose: bool = True,
+    progress_cb: Optional[Callable[[str], None]] = None,
 ) -> BenchmarkResult:
+    """``progress_cb``, when given, is called with the name of each tier
+    as it starts ("warmup", "timed", "device-timing", "saturated",
+    "overlap", "validate"), the reference's phases; an exception in it is
+    ignored (the web UI shows the phase of a running job)."""
     cfg = cfg or benchmark.cfg
     _refuse_unported(cfg)
     capture = (capture_trace(trace_dir(cfg.capture_dir), benchmark.device,
                              benchmark.name)
                if cfg.capture else contextlib.nullcontext())
     with capture:
-        return _run(benchmark, cfg, verbose)
+        return _run(benchmark, cfg, verbose, progress_cb)
 
 
-def _run(benchmark: Benchmark, cfg: BenchConfig,
-         verbose: bool) -> BenchmarkResult:
+def _run(benchmark: Benchmark, cfg: BenchConfig, verbose: bool,
+         progress_cb: Optional[Callable[[str], None]]) -> BenchmarkResult:
+    def phase(name: str) -> None:
+        if progress_cb is not None:
+            try:
+                progress_cb(name)
+            except Exception:  # noqa: BLE001 - progress is best-effort
+                pass
+
     result = BenchmarkResult(
         benchmark_name=benchmark.name,
         buffer_size=benchmark.buffer_size,
@@ -117,6 +129,7 @@ def _run(benchmark: Benchmark, cfg: BenchConfig,
     # Warmup (bench_base.cu:70-81). An exception here propagates: a
     # failing iteration is a fault, not noise to be timed around.
     if cfg.warmup > 0:
+        phase("warmup")
         if verbose:
             print(f"Running {cfg.warmup} warmup iterations...")
         with record_function("warmup"):
@@ -134,6 +147,7 @@ def _run(benchmark: Benchmark, cfg: BenchConfig,
         result.dawsim_pacer = daw.pacer
         daw.reset()
     latencies = []
+    phase("timed")
     with record_function("timed"):
         for _ in range(cfg.n_runs):
             if daw is not None:
@@ -147,6 +161,7 @@ def _run(benchmark: Benchmark, cfg: BenchConfig,
     # Device tier: CUDA events around device_iterate() on resident
     # buffers (harness/device_timing.py).
     if cfg.device_timing:
+        phase("device-timing")
         with record_function("device-timing"):
             dev_latencies, method = measure_device_times(benchmark, cfg)
         if dev_latencies:
@@ -168,6 +183,7 @@ def _run(benchmark: Benchmark, cfg: BenchConfig,
             step_fn, carry = body
             form = chain_form(benchmark.device, benchmark.stream_capturable)
             result.pipeline_depth = cfg.pipeline_depth
+            phase("saturated")
             with record_function("saturated"):
                 if cfg.saturated_marginal and cfg.pipeline_depth >= 4:
                     sat, marg, lo = measure_saturated_marginal(
@@ -196,6 +212,7 @@ def _run(benchmark: Benchmark, cfg: BenchConfig,
                       "upload; skipping overlapped-infeed pass.")
         else:
             step_fn, host_blocks, carry = body
+            phase("overlap")
             with record_function("overlap"):
                 ser, ovl = measure_overlap(step_fn, host_blocks, carry,
                                            cfg.overlap_depth,
@@ -218,6 +235,7 @@ def _run(benchmark: Benchmark, cfg: BenchConfig,
         result.deadline_miss_rate = deadline_miss_rate(
             latencies, cfg.buffer_size, cfg.fs)
 
+    phase("validate")
     with record_function("validate"):
         result.validation = benchmark.validate()
     result.metadata = benchmark.metadata()

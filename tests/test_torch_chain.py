@@ -63,8 +63,7 @@ def test_entry_carry_rule_gives_equal_reps():
     entry = (torch.ones(4), 0)
     reps = []
     for _ in range(3):
-        fresh = graph._rebuild(entry, iter(
-            [t.clone() for t in graph._tensors(entry)]))
+        fresh = graph.clone_carry(entry)
         reps.append(streaming.run_chained(_inplace_step, fresh, 3))
     assert all(torch.equal(r, reps[0]) for r in reps)
     assert reps[0].tolist() == [8.0, 20.0, 48.0]
@@ -77,7 +76,9 @@ def test_carry_tensors_and_rebuild_keep_the_structure():
     ts = graph._tensors(carry)
     assert [t is u for t, u in zip(ts, (a, b, c))] == [True] * 3
     new = [t + 1 for t in ts]
-    out = graph._rebuild(carry, iter(new))
+    it = iter(new)
+    out = graph.rebuild(carry, iter([next(it) if isinstance(x, torch.Tensor)
+                                     else x for x in graph.leaves(carry)]))
     assert out[1][1:] == (7, None) and out[2][1] == "ring"
     assert isinstance(out[2], list)
     assert out[0] is new[0] and out[1][0] is new[1] and out[2][0] is new[2]

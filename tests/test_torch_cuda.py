@@ -1455,6 +1455,94 @@ def test_chain_graph_probes_equal_the_loops(cuda, name, knobs):
         assert torch.equal(first, loop), (first, loop)
 
 
+def _leaves_equal(a, b):
+    from gpuaudiobench_tpu_torch.harness.graph import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("name,knobs", CHAIN_BODIES)
+def test_continuing_graph_equals_the_loop(cuda, name, knobs):
+    """The continuing form (the soak's): 3 replays give the carry and the
+    probes of 3 * depth eager steps from a clone of the entry carry, bit
+    for bit, the cuBLAS / cuFFT bodies' too; a body whose Python values
+    come back changed after a chain is refused before anything is
+    captured."""
+    from gpuaudiobench_tpu_torch.harness.graph import (
+        AdvancingCarry,
+        ChainGraph,
+        python_values,
+    )
+
+    b = _body(cuda, name, knobs)
+    step, carry = b.stream_body()
+    c, eager = _clone_carry(carry), []
+    for _ in range(3 * CHAIN_DEPTH):
+        c, p = step(c)
+        eager.append(p)
+        if len(eager) == CHAIN_DEPTH:
+            advances = python_values(c) != python_values(carry)
+    eager = torch.cat(eager).cpu()
+    if advances:
+        with pytest.raises(AdvancingCarry, match="Python values"):
+            ChainGraph(step, carry, CHAIN_DEPTH, name=name, continuing=True)
+        return
+    g = ChainGraph(step, carry, CHAIN_DEPTH, name=name, continuing=True)
+    got = torch.cat([g.run() for _ in range(3)])
+    assert torch.equal(got, eager), (got, eager)
+    assert _leaves_equal(g.carry(), c)
+
+
+def test_continuing_graph_hands_a_swapped_carry_on(cuda):
+    """A step that hands one carry tensor on as another leaf (PartConv's
+    input becoming ``prev``; a swap) continues as the loop does."""
+    from gpuaudiobench_tpu_torch.harness.graph import ChainGraph
+
+    def swap(carry):
+        a, b = carry
+        return (b + 1.0, a), (a - b).sum().reshape(1)
+
+    entry = (torch.arange(4.0, device=cuda), torch.zeros(4, device=cuda))
+    c, eager = _clone_carry(entry), []
+    for _ in range(9):
+        c, p = swap(c)
+        eager.append(p)
+    g = ChainGraph(swap, entry, 3, name="swap", continuing=True)
+    got = torch.cat([g.run() for _ in range(3)])
+    assert torch.equal(got, torch.cat(eager).cpu())
+    assert _leaves_equal(g.carry(), c)
+    assert torch.equal(entry[0], torch.arange(4.0, device=cuda))  # untouched
+
+
+def test_soak_reexcites_the_graphs_carry(cuda):
+    """The soak's graph form: re-excitation writes the graph's static
+    carry in place, and the next replay starts from it, as the loop's
+    next block does."""
+    from gpuaudiobench_tpu_torch.tools import soak
+
+    b = _body(cuda, "ModalFilterBank", {})
+    step, carry = b.stream_body()
+    entry = _clone_carry(carry)
+    sec = soak.Seconds(step, carry, CHAIN_DEPTH, cuda, name="modal")
+    assert sec.form == "cuda-graph"
+    sec.run()
+    soak.reexcite(sec.carry(), entry)
+    got = sec.run()
+    c = _clone_carry(entry)
+    for _ in range(CHAIN_DEPTH):
+        c, _ = step(c)
+    soak.reexcite(c, entry)
+    eager = []
+    for _ in range(CHAIN_DEPTH):
+        c, p = step(c)
+        eager.append(p)
+    assert torch.equal(torch.from_numpy(got), torch.cat(eager).cpu())
+    assert _leaves_equal(sec.carry(), c)
+
+
 def test_chain_graph_raises_when_the_capture_fails(cuda):
     """A step that waits for the device (``.item()``) cannot be captured:
     the constructor raises, naming the chain, and nothing runs the loop

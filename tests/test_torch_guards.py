@@ -48,7 +48,11 @@ BLOCKED_JAX = textwrap.dedent("""
     for mod in ("models.datatransfer", "harness.dawsim", "harness.overlap",
                 "utils.native", "ops.partconv", "models.partconv",
                 "models.session", "harness.graph", "ops.neuralamp",
-                "models.neuralamp"):
+                "models.neuralamp", "harness.checkpoint", "tools.soak",
+                "tools.capacity", "tools.build_capacity_ledger",
+                "tools.merge_capacity", "tools.overlap64_attrib",
+                "webui.params", "webui.server", "webui.__main__",
+                "utils.published"):
         assert "gpuaudiobench_tpu_torch." + mod in names, mod
 
     import torch
@@ -138,6 +142,22 @@ BLOCKED_JAX = textwrap.dedent("""
     assert open(csv).read().startswith("benchmark,fs,bufferSize")
     import shutil
     shutil.rmtree(tmp)
+    from gpuaudiobench_tpu_torch.tools import capacity, soak
+    from gpuaudiobench_tpu_torch.webui import server
+    tmp = tempfile.mkdtemp()
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert soak.main(["1", os.path.join(tmp, "s.md"), "gain", "8",
+                          "--set", "fs=4096", "--checkpoint",
+                          os.path.join(tmp, "s.npz"), "--device", "cpu"]) == 0
+        assert capacity.main(["--benchmark", "gain", "--device", "cpu",
+                              "--confirmOnly", "8", "--nRuns", "1",
+                              "--pipelineDepth", "4", "--satReps", "2",
+                              "--bufferSize", "64", "--fs", "1000"]) == 0
+    httpd = server.serve(port=0, presets_path=os.path.join(tmp, "p.json"),
+                         device="cpu")
+    httpd.job_runner.shutdown()
+    httpd.server_close()
+    shutil.rmtree(tmp)
     from gpuaudiobench_tpu_torch.ops import modal as tops
     tabs = [torch.rand(960) for _ in range(5)]
     out, _, _ = tops.modal_bank(*tabs, 16, 12, algorithm="res")
@@ -153,6 +173,107 @@ def test_port_runs_with_jax_blocked():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert r.stdout.split()[-2] == "OK" and int(r.stdout.split()[-1]) >= 37
+
+
+def _periodic_step(period):
+    """A stream body whose carry holds a Python int that advances one a
+    block modulo ``period`` (PartConv's ring head, the nupols phase)."""
+    def step(carry):
+        x, head = carry
+        return (x * 0.5, (head + 1) % period), x.sum().reshape(1)
+    return step
+
+
+def _second(step, carry, blocks=94):
+    for _ in range(blocks):
+        carry, _ = step(carry)
+    return carry
+
+
+class _RefusingChain:
+    """Stands in for ``ChainGraph`` on the CPU: raises ``AdvancingCarry``
+    from ``check_continues`` over one eager second, as the real graph's
+    warm-up does before it captures, and otherwise records that a graph
+    was built."""
+
+    built = []
+
+    def __init__(self, step_fn, carry, depth, name="", continuing=False):
+        from gpuaudiobench_tpu_torch.harness import graph
+
+        assert continuing
+        graph.check_continues(
+            carry, _second(step_fn, graph.clone_carry(carry), depth), depth,
+            name)
+        self.built.append(name)
+
+
+@pytest.mark.parametrize("period", [8, 3, 95])
+def test_soak_never_replays_a_graph_over_advancing_python_values(
+        period, monkeypatch):
+    """A second whose carry's Python values come back other than they
+    went in makes the continuing graph refuse before it captures, and the
+    soak runs the loop on a CUDA device too, from the caller's carry."""
+    from gpuaudiobench_tpu_torch.harness import graph
+    from gpuaudiobench_tpu_torch.tools import soak
+
+    step, carry = _periodic_step(period), (torch.ones(4), 0)
+    with pytest.raises(graph.AdvancingCarry, match="Python values"):
+        graph.check_continues(carry, _second(step, carry), 94)
+    _RefusingChain.built = []
+    monkeypatch.setattr(soak, "ChainGraph", _RefusingChain)
+    sec = soak.Seconds(step, carry, 94, torch.device("cuda"),
+                       capturable=True)
+    assert sec.advancing and sec.form == "loop" and sec._graph is None
+    assert _RefusingChain.built == []
+    # It runs the loop, carrying the int from call to call.
+    sec.run()
+    assert sec.carry()[1] == 94 % period
+
+
+@pytest.mark.parametrize("period", [1, 2, 47, 94])
+def test_soak_takes_the_graph_where_the_values_come_back(period,
+                                                         monkeypatch):
+    """A period dividing the second's 94 blocks leaves the values as they
+    came: on a CUDA device the soak builds the continuing graph (the real
+    ``ChainGraph`` refuses CPU tensors); the CPU runs the loop."""
+    from gpuaudiobench_tpu_torch.harness import graph
+    from gpuaudiobench_tpu_torch.tools import soak
+
+    step, carry = _periodic_step(period), (torch.ones(4), 0)
+    graph.check_continues(carry, _second(step, carry), 94)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        soak.Seconds(step, carry, 94, torch.device("cuda"), capturable=True)
+    _RefusingChain.built = []
+    monkeypatch.setattr(soak, "ChainGraph", _RefusingChain)
+    sec = soak.Seconds(step, carry, 94, torch.device("cuda"), name="toy")
+    assert sec.form == "cuda-graph" and sec.advancing is False
+    assert _RefusingChain.built == ["toy"]
+    for dev, capturable in ((CPU, True), (torch.device("cuda"), False)):
+        sec = soak.Seconds(step, carry, 94, dev, capturable=capturable)
+        assert sec.advancing is None and sec.form == "loop"
+
+
+@pytest.mark.parametrize("form,advancing", [("ring", False),
+                                            ("nupols", True)])
+def test_partconv_python_values_over_a_second(form, advancing):
+    """At 48,000 taps the ring head's period is 94 partitions, one
+    second of 512-sample blocks; the nupols phase's is K = 8."""
+    from gpuaudiobench_tpu_torch.harness import graph
+    from gpuaudiobench_tpu_torch.tools import soak
+
+    cfg = BenchConfig(n_tracks=1, ir_length=48000, partconv_form=form,
+                      verification="none", device_timing=False)
+    b = registry.create_benchmark("PartConv", cfg, CPU)
+    b.setup()
+    step, carry = b.stream_body()
+    exit_ = _second(step, graph.clone_carry(carry))
+    if advancing:
+        with pytest.raises(graph.AdvancingCarry):
+            graph.check_continues(carry, exit_, 94, "PartConv")
+    else:
+        graph.check_continues(carry, exit_, 94, "PartConv")
+    assert soak.Seconds(step, carry, 94, CPU).form == "loop"
 
 
 def test_no_source_mentions_jax():
