@@ -204,20 +204,34 @@ nonzero:
    run to done with its phases, ``/api/hardware`` naming the card and
    ``/api/export.csv`` equal to ``csv_from_json_results`` of
    ``/api/export.json``.
-16. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+16. The multi-device layer on one card (``parallel/``): NCCL's version,
+   an all_reduce and an all_gather on cuda:0 in a one-rank NCCL group,
+   each equal to its input; MultiChipSuite through the CLI at ``--mesh
+   1,1,1`` at its defaults (128 tracks x 512, 4,096 modes, IR 33) and at
+   65,536 tracks x 1,048,576 modes (``MULTICHIP_RUNS``), each validated
+   against ``suite_reference`` at 1e-4 of the peak, its chain one CUDA
+   graph, ``iir_biquad`` and ``modal_bank`` launched exactly 3 and 1
+   times a step it ran (``multichip_launches``), its collective
+   inventory empty; ICIBandwidth at 10 and 100 MiB, its one-rank ring (a
+   device copy) bit for bit the input rolled; ``--mesh 2,1,1`` exiting 1
+   with "needs 2 devices; 1 available" on one card (with two cards or
+   more, ``--mesh 2,1,1`` and ``1,2,1`` over NCCL instead); the sharded
+   FDTD, PartConv, TCN and LSTM blocks on one rank against the
+   single-device paths on the card (``SHARDED_*``).
+17. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-17. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
+18. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
    profiler session writes a trace that must hold ``modal_bank`` device
    events; the busy time a block and idle share of its saturated tier's
    timed reps (graph replays), read from the trace.
-18. ``torch.profiler`` names the kernels of one call of each cascade
+19. ``torch.profiler`` names the kernels of one call of each cascade
    wrapper at 1,000 x 96: the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. The profiler sessions run
    after everything timed (a session slows the process's later launches).
-19. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+20. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -650,6 +664,31 @@ CAPTURE_CLI = ["--benchmark", "ModalFilterBank", "--nTracks", "1024",
                "--nRuns", "5", "--warmup", "1", "--pipelineDepth", "512",
                "--saturatedReps", "3", "--verification", "spot", "--json",
                "--capture"]
+
+# The multi-device layer on one card (phase 16). MultiChipSuite through the
+# CLI at --mesh 1,1,1: at its defaults (128 tracks x 512, 4,096 modes, IR
+# 33) and at the headline bank's 1,048,576 modes over 65,536 tracks; each
+# run's step launches the entry biquad, one stage biquad a microbatch and
+# the partial bank (MULTICHIP_STEP_LAUNCHES).
+MULTICHIP_CLI = ["--benchmark", "MultiChipSuite", "--nRuns", "10",
+                 "--warmup", "2", "--pipelineDepth", "32", "--saturatedReps",
+                 "5", "--json"]
+MULTICHIP_RUNS = [("MultiChipSuite 1,1,1 defaults", []),
+                  ("MultiChipSuite 1,1,1 65,536 x 1,048,576 modes",
+                   ["--nTracks", "65536", "--modalModes", "1048576"])]
+MULTICHIP_STEP_LAUNCHES = {"iir_biquad": 3, "modal_bank": 1}
+ICI_CLI = ["--benchmark", "ICIBandwidth", "--nRuns", "10", "--warmup", "2",
+           "--json"]
+ICI_MIB = (10, 100)
+MULTI_RANK_MESHES = ("2,1,1", "1,2,1")
+# The sharded blocks on one rank against the single-device paths on the
+# card: FDTD at the JAX grid, PartConv shift at PARTCONV_CLI's width, the
+# TCN and LSTM at NeuralAmp's defaults; tolerances of the peak (FDTD:
+# absolute, FDTD3D's).
+SHARDED_FDTD = (128, 128)  # tracks, samples
+SHARDED_PARTCONV = (1536, 48000, 512, 3)  # tracks, taps, block, blocks
+SHARDED_NEURAL = (128, 512, 128, 10)  # tracks, samples, C or H, TCN layers
+SHARDED_TOL = {"fdtd": 5e-3, "partconv": 1e-3, "tcn": 1e-5, "lstm": 1e-5}
 
 
 def fail(msg: str) -> None:
@@ -2694,8 +2733,10 @@ def webui_phase(torch, webui_server, output, tmpdir, smi):
     try:
         cat = json.loads(get("/api/benchmarks"))
         names = [b["name"] for b in cat["benchmarks"]]
-        if "gain" not in names or "MultiChipSuite" in names:
-            fail(f"webui: catalog {names}")
+        if (not {"gain", "MultiChipSuite", "ICIBandwidth"} <= set(names)
+                or "multichip" not in cat["categories"]):
+            fail(f"webui: catalog {names}, categories "
+                 f"{sorted(cat['categories'])}")
         req = urllib.request.Request(
             base + "/api/run", method="POST",
             data=json.dumps({"benchmarks": ["gain"],
@@ -2759,6 +2800,207 @@ def surfaces_phase(torch, tools, checkpoint, webui_server, output, registry,
         webui_phase(torch, webui_server, output, tmpdir, smi)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+def multichip_launches(argv):
+    """The steps of one MultiChipSuite CLI run: (eager, replayed). One in
+    the set-up, the warm-up and timed runs, the device tier's warm run
+    and its min(runs, 20) timed runs, and each chain graph's two eager
+    warm-up chains; the replays of the saturated tier's chains."""
+    flag = {argv[i]: int(argv[i + 1]) for i in range(len(argv) - 1)
+            if argv[i] in ("--nRuns", "--warmup")}
+    runs, warm = flag["--nRuns"], flag["--warmup"]
+    blocks, replays = chain_expectation(argv)
+    eager = 1 + warm + runs + 1 + min(runs, 20) + 2 * blocks
+    return eager, blocks * (replays // 2)
+
+
+def nccl_one_rank(torch):
+    """NCCL's version, then an all_reduce and an all_gather on cuda:0 in a
+    one-rank NCCL group, each equal to its input."""
+    import datetime
+
+    import torch.distributed as dist
+
+    print(f"nccl {'.'.join(map(str, torch.cuda.nccl.version()))}")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0),
+            timeout=datetime.timedelta(seconds=120))
+        try:
+            x = torch.randn(1 << 20, device="cuda:0")
+            summed = x.clone()
+            dist.all_reduce(summed)
+            parts = [torch.empty_like(x)]
+            dist.all_gather(parts, x)
+            torch.cuda.synchronize()
+            if not (torch.equal(summed, x) and torch.equal(parts[0], x)):
+                fail("one-rank NCCL: all_reduce or all_gather changed its "
+                     "input")
+        finally:
+            dist.destroy_process_group()
+    print("nccl one-rank group on cuda:0: all_reduce and all_gather of 4 MiB "
+          "equal their input")
+
+
+def sharded_blocks_phase(torch, fops, na, pc, ranks, device):
+    """The four sharded blocks of ``parallel/`` on one rank on the card
+    (every collective the identity) against the single-device paths on
+    the card: the FDTD field kernel, ``partconv_block``, ``tcn_block`` and
+    the LSTM's graph block."""
+    import numpy as np
+
+    g = np.random.default_rng(5)
+    cuda = device
+
+    def worst(pairs, kind):
+        tol = SHARDED_TOL[kind]
+        err = 0.0
+        for o, r in pairs:
+            peak = 1.0 if kind == "fdtd" else float(np.abs(r).max())
+            err = max(err, float(np.abs(o - r).max()) / peak)
+        if not err <= tol:
+            fail(f"sharded {kind} on one rank: {err:.3g} > {tol:g}")
+        return err
+
+    t0 = time.perf_counter()
+    tracks, s = SHARDED_FDTD
+    x = g.uniform(-1, 1, (tracks, s)).astype(np.float32)
+    ours = ranks.fdtd_blocks(x, device=cuda.type)
+    want, *_ = fops.fdtd3d_block_field(torch.from_numpy(x).to(cuda),
+                                       *fops.zero_fields(device=cuda))
+    err = worst([(ours, want.cpu().numpy())], "fdtd")
+    print(f"sharded FDTD on one rank, grid {fops.GRID_N}, {tracks} x {s}: "
+          f"{err:.3g} absolute from the field kernel, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    tracks, taps, b, blocks = SHARDED_PARTCONV
+    ir = (g.standard_normal((tracks, taps)) * 0.01).astype(np.float32)
+    xs = [g.standard_normal((tracks, b)).astype(np.float32)
+          for _ in range(blocks)]
+    ours = ranks.partconv_blocks(ir, xs, device=cuda.type)
+    h_re, h_im = pc.partition_spectra(torch.from_numpy(ir).to(cuda), b)
+    f_re = f_im = torch.zeros_like(h_re)
+    prev, refs = torch.zeros((tracks, b), device=cuda), []
+    for xb in xs:
+        xb = torch.from_numpy(xb).to(cuda)
+        y, f_re, f_im = pc.partconv_block(xb, prev, f_re, f_im, h_re, h_im)
+        prev = xb
+        refs.append(y.cpu().numpy())
+    del h_re, h_im, f_re, f_im
+    err = worst(zip(ours, refs), "partconv")
+    print(f"sharded PartConv shift on one rank, {tracks} x {taps} taps, "
+          f"{blocks} blocks: {err:.3g} of the peak from partconv_block, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    tracks, s, width, layers = SHARDED_NEURAL
+    xs = [g.uniform(-1, 1, (tracks, s)).astype(np.float32) for _ in range(2)]
+    t0 = time.perf_counter()
+    params = na.init_params(42, width, layers)
+    ours, _ = ranks.tcn_blocks(params, layers, xs, device=cuda.type)
+    cp = na.cast_params(params, "f32", cuda)
+    tails, refs = na.init_tails(tracks, width, layers, device=cuda), []
+    for xb in xs:
+        y, tails = na.tcn_block(torch.from_numpy(xb).to(cuda), tails, cp,
+                                layers)
+        refs.append(y.cpu().numpy())
+    err = worst(zip(ours, refs), "tcn")
+    print(f"sharded TCN on one rank, C = {width}, L = {layers}, {tracks} "
+          f"tracks, 2 blocks: {err:.3g} of the peak from tcn_block, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    params = na.init_lstm_params(42, width)
+    ours, _, _ = ranks.lstm_blocks(params, xs, device=cuda.type)
+    cp = na.cast_lstm_params(params, "f32", cuda)
+    h = c = torch.zeros((tracks, width), device=cuda)
+    run = na.lstm_runner(cp, "f32", torch.from_numpy(xs[0]).to(cuda), h, c)
+    refs = []
+    for xb in xs:
+        y, h, c = (t.clone() for t in run(torch.from_numpy(xb).to(cuda), h,
+                                          c))
+        refs.append(y.cpu().numpy())
+    err = worst(zip(ours, refs), "lstm")
+    print(f"sharded LSTM on one rank, H = {width}, {tracks} tracks, 2 "
+          f"blocks: {err:.3g} of the peak from the LSTM's graph block, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def multichip_phase(torch, cli, registry, config, counts, reset, launches,
+                    smi, fops, na, pc, ranks, device):
+    """Phase 16: NCCL on one rank, MultiChipSuite and ICIBandwidth through
+    the CLI at --mesh 1,1,1, the refusal of a mesh larger than the cards
+    (or, with two cards or more, meshes of two ranks over NCCL), and the
+    sharded blocks on one rank against the single-device paths."""
+    import numpy as np
+
+    nccl_one_rank(torch)
+    for label, extra in MULTICHIP_RUNS:
+        argv = MULTICHIP_CLI + extra
+        reset()
+        n, rec = cli_path(torch, cli, counts, label, argv,
+                          list(MULTICHIP_STEP_LAUNCHES))
+        md = rec["metadata"]
+        if md.get("chainForm") != "cuda-graph" or md.get(
+                "collectiveInventory") != []:
+            fail(f"{label}: chain form {md.get('chainForm')!r}, inventory "
+                 f"{md.get('collectiveInventory')!r}")
+        eager, replayed = multichip_launches(argv)
+        for k, per_step in MULTICHIP_STEP_LAUNCHES.items():
+            if n[k] != per_step * (eager + replayed):
+                fail(f"{label}: {k} launched {n[k]} times, not "
+                     f"{per_step} x ({eager} eager + {replayed} replayed "
+                     "steps)")
+            launches[k] += n[k]
+        if any(v for k, v in n.items() if k not in MULTICHIP_STEP_LAUNCHES):
+            fail(f"{label}: launched {n}")
+        print(f"{label}: {md['tracks']} tracks x {md['samples']}, "
+              f"{md['modes']} modes, max error "
+              f"{rec['validation']['max_error']:.3g} of the golden's peak "
+              f"(1e-4), round trip p50 {rec['statistics']['p50_ms']:.4f} / "
+              f"p99 {rec['statistics']['p99_ms']:.4f} ms, device p50 "
+              f"{rec['device_statistics']['median_ms']:.4f} ms, saturated "
+              f"p50 {rec['saturated']['p50_ms']:.4f} ms on {smi}")
+    for mib in ICI_MIB:
+        label = f"ICIBandwidth 1,1,1 {mib} MiB"
+        reset()
+        rec, wall = cli_json(cli, label, ICI_CLI + ["--transferMiB",
+                                                    str(mib)])
+        if any(counts().values()):
+            fail(f"{label}: launched {counts()}")
+        b = registry.create_benchmark("ICIBandwidth", config.BenchConfig(
+            transfer_mib=mib, n_runs=1, warmup=0), device)
+        b.setup()
+        if not np.array_equal(b.host_output, np.roll(b.host_input, 1, 0)):
+            fail(f"{label}: the ring is not the input rolled by one rank")
+        del b
+        print(f"{label}: {wall:.1f} s, the ring on one rank is a device "
+              f"copy of the chunk (no collective), bit for bit; round trip p50 "
+              f"{rec['statistics']['p50_ms']:.4f} / p99 "
+              f"{rec['statistics']['p99_ms']:.4f} ms, device p50 "
+              f"{rec['device_statistics']['median_ms']:.4f} ms (copy + "
+              f"sum) on {smi}")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        rc, lines = quiet_main(cli, MULTICHIP_CLI + ["--mesh", "2,1,1"])
+        want = f"needs 2 devices; {cards} available"
+        if rc != 1 or not any(want in ln for ln in lines):
+            fail(f"--mesh 2,1,1 on {cards} card: exit {rc}, "
+                 f"{lines[-3:]}")
+        print(f"--mesh 2,1,1 on {cards} card exits 1: "
+              f"{next(ln for ln in lines if want in ln)}")
+        print("multi-rank meshes: not run, 1 card")
+    else:
+        for mesh in MULTI_RANK_MESHES:
+            rec, wall = cli_json(cli, f"MultiChipSuite --mesh {mesh}",
+                                 MULTICHIP_CLI + ["--mesh", mesh])
+            print(f"MultiChipSuite --mesh {mesh} over NCCL on {cards} cards: "
+                  f"{wall:.1f} s, max error "
+                  f"{rec['validation']['max_error']:.3g}, collectives a step "
+                  f"{len(rec['metadata']['collectiveInventory'])}")
+    sharded_blocks_phase(torch, fops, na, pc, ranks, device)
 
 
 def capture_run(torch, cli, hprofiler, counts, reset, launches):
@@ -2832,8 +3074,10 @@ def main() -> int:
         from gpuaudiobench_tpu_torch.ops import iir as iops
         from gpuaudiobench_tpu_torch.ops import modal as ops
         from gpuaudiobench_tpu_torch.ops import neuralamp as na
+        from gpuaudiobench_tpu_torch.ops import partconv as pc
         from gpuaudiobench_tpu_torch.ops import rndmem as rops
         from gpuaudiobench_tpu_torch.ops import speedoflight as sops
+        from gpuaudiobench_tpu_torch.parallel import ranks
         from gpuaudiobench_tpu_torch.tools import (  # noqa: F401
             build_capacity_ledger,
             capacity,
@@ -3017,6 +3261,13 @@ def main() -> int:
                        registry, config, hgraph, counts, reset, launches,
                        device, smi)
         print(f"soaks, continuity, capacity, overlap64 and web UI: "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # The multi-device layer on one card.
+        t0 = time.perf_counter()
+        multichip_phase(torch, cli, registry, config, counts, reset,
+                        launches, smi, fops, na, pc, ranks, device)
+        print(f"NCCL, MultiChipSuite, ICIBandwidth and the sharded blocks: "
               f"{time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")

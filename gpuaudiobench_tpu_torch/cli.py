@@ -11,7 +11,8 @@ benchmarks and tiers read, DAW-sim pacing (``--dawsim``,
 (``--capture``, ``--captureDir``), the datacopy pool
 (``--transferMiB``), PartConv's, DAWSessionMix's and NeuralAmp's knobs
 and the output flags (``--csvSchema``, ``--latenciesFile``,
-``--category``) among them.
+``--category``) among them, and the device mesh of MultiChipSuite and
+ICIBandwidth (``--mesh dp,tp,sp``).
 Without ``--json`` each benchmark's summary is printed, then its latency
 file and, with ``--outputfile``, its CSV row are written; with ``--json``
 the JSON goes to ``--outputfile`` or stdout. A flag the reference knows
@@ -21,14 +22,26 @@ be ported. The run is on the GPU: ``main(argv)`` takes
 ``device="cuda"``; only a caller that passes ``device="cpu"`` (the
 tests) gets the CPU. A benchmark that raises is reported and the suite
 goes on, but the exit code is 1.
+
+A ``--mesh`` of n > 1 ranks, for a run that holds MultiChipSuite or
+ICIBandwidth, runs the whole run on n ranks (``parallel/launch.py:spmd``:
+NCCL with rank r on ``cuda:r``, or gloo on the CPU), every rank through
+the same tiers in lock step. Only rank 0's output is printed, and only
+rank 0 writes the JSON, CSV, latency and trace files. A mesh larger than
+the devices there are runs in this process, where the benchmarks' set-up
+refuses it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import sys
 import traceback
 from typing import List, Optional
+
+import numpy as np
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.registry import (
@@ -87,6 +100,7 @@ VALUE_FLAGS = {
     "--overlapDepth": ("overlap_depth", int),
     "--overlapReps": ("overlap_reps", int),
     "--seed": ("seed", int),
+    "--mesh": ("mesh", str),
 }
 SWITCHES = {
     "--json": ("json_output", True),
@@ -101,8 +115,7 @@ SWITCHES = {
 # Flags of the reference's CLI that the port has not ported, with the
 # ROADMAP.md item that ports them.
 UNPORTED_FLAGS = {
-    "--dataParallel": "queue 1, item 18",
-    "--mesh": "queue 1, item 18",
+    "--dataParallel": "queue 1, item 18b",
     "--compilationCacheDir": "'Not ported' (XLA only)",
     "--no-compilationCache": "'Not ported' (XLA only)",
 }
@@ -185,6 +198,10 @@ def print_help() -> None:
     print("                           the serial twin (n blocks per rep)")
     print("  --overlapReps [n]        Overlap-tier repetitions (default: 5)")
     print("  --seed [n]               Test-data seed (default: 42)")
+    print("  --mesh [dp,tp,sp]        Device mesh for MultiChipSuite /")
+    print("                           ICIBandwidth (default 1,1,1; n > 1 "
+          "ranks: NCCL")
+    print("                           on n cards, gloo on the CPU)")
     print("  --no-device-timing       Skip the device tier (CUDA events)")
     print("  --quiet                  Suppress progress output (results only)")
     print()
@@ -215,6 +232,8 @@ def print_help() -> None:
           "--neuralampDtype bf16 --json")
     print("  python -m gpuaudiobench_tpu_torch.cli --category neural "
           "--pipelineDepth 16 --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark MultiChipSuite "
+          "--mesh 2,1,1 --json")
     print("  python -m gpuaudiobench_tpu_torch.cli    (RndMemRead, 128 tracks)")
 
 
@@ -320,7 +339,83 @@ def parse_args(argv: List[str]):
     return cfg, names, None
 
 
+# The longest a multi-rank run may take, and any collective in it wait.
+SPMD_TIMEOUT_S = 3600.0
+
+
+def mesh_ranks(cfg: BenchConfig, names: List[str], device: str) -> int:
+    """The ranks a run takes: the mesh's, where it holds a benchmark that
+    reads ``--mesh`` and the devices suffice, else 1 (a bad or too large
+    mesh is then refused by the benchmarks' set-up)."""
+    from gpuaudiobench_tpu_torch.parallel.mesh import (
+        available_devices,
+        parse_mesh,
+    )
+    from gpuaudiobench_tpu_torch.utils import device as dev
+
+    if not any(n in CATEGORIES["multichip"] for n in names):
+        return 1
+    try:
+        n = int(np.prod(parse_mesh(cfg.mesh)))
+    except ValueError:
+        return 1
+    return n if 1 < n <= available_devices(dev.device(device)) else 1
+
+
+def rank_run(cfg: BenchConfig, names: List[str], device: str):
+    """One rank's share of a multi-rank run (``launch.spmd`` calls it):
+    (exit code, printed output). Ranks other than 0 write no file."""
+    import torch.distributed as dist
+
+    from gpuaudiobench_tpu_torch.parallel.launch import BACKENDS, rank_device
+
+    rank = dist.get_rank()
+    if rank:
+        cfg = cfg.replace(output_file="", write_latencies=False,
+                          capture=False)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        print(f"SPMD: {dist.get_world_size()} ranks over {BACKENDS[device]}, "
+              f"mesh {cfg.mesh}")
+        rc = _run(cfg, names, rank_device(device))
+    return rc, buf.getvalue()
+
+
+def rank_json(name: str, cfg: BenchConfig, device: str,
+              progress_cb=None) -> dict:
+    """One benchmark through the runner to its JSON record, as the web UI
+    runs it: on the calling rank's device (``launch.spmd`` returns rank
+    0's record), or in the process on one rank."""
+    from gpuaudiobench_tpu_torch.harness.output import generate_json_results
+    from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
+    from gpuaudiobench_tpu_torch.parallel.launch import rank_device
+    from gpuaudiobench_tpu_torch.utils import device as dev
+
+    torch_dev = rank_device(device)
+    dev.fp32_convolutions(torch_dev)
+    bench = create_benchmark(name, cfg, torch_dev)
+    bench.setup()
+    result = run_benchmark(bench, cfg, verbose=False, progress_cb=progress_cb)
+    payload = generate_json_results(result, cfg, torch_dev)
+    bench.cleanup()
+    return payload
+
+
 def run(cfg: BenchConfig, names: List[str], device: str = "cuda") -> int:
+    from gpuaudiobench_tpu_torch.utils import device as dev
+
+    ranks = mesh_ranks(cfg, names, device)
+    if ranks > 1:
+        from gpuaudiobench_tpu_torch.parallel.launch import spmd
+
+        rc, text = spmd(rank_run, ranks, device, cfg, names, device,
+                        timeout_s=SPMD_TIMEOUT_S)
+        print(text, end="")
+        return rc
+    return _run(cfg, names, dev.device(device))
+
+
+def _run(cfg: BenchConfig, names: List[str], torch_dev) -> int:
     from gpuaudiobench_tpu_torch.harness.output import (
         generate_json_results,
         print_results,
@@ -330,7 +425,7 @@ def run(cfg: BenchConfig, names: List[str], device: str = "cuda") -> int:
     from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
     from gpuaudiobench_tpu_torch.utils import device as dev
 
-    torch_dev = dev.device(device)
+    dev.fp32_convolutions(torch_dev)
     ident = dev.gpu_identity(torch_dev)
     print("GPU Audio Benchmark (PyTorch port)")
     print(f"Device: {ident['device_name']} [{torch_dev.type}], "

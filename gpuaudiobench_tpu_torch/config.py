@@ -56,8 +56,12 @@ class BenchConfig:
     # capture_dir ("" = <temp dir>/tpuaudiobench_trace).
     capture: bool = False
     capture_dir: str = ""
-    # Runner tiers not ported yet: asking for one raises (runner.py).
+    # --dataParallel, not ported yet: above 1 the runner raises.
     data_parallel: int = 1
+    # The device mesh of MultiChipSuite and ICIBandwidth, "dp,tp,sp"
+    # (parallel/mesh.py); more than one rank runs every rank in lock step
+    # under parallel/launch.py:spmd.
+    mesh: str = "1,1,1"
     # Overlapped-infeed pass (harness/overlap.py): overlap_depth blocks
     # with the input upload double-buffered against compute, beside the
     # serial twin, overlap_reps times (0/1 = off).

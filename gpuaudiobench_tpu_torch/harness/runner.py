@@ -48,7 +48,7 @@ def _refuse_unported(cfg: BenchConfig) -> None:
     yet: asking for one raises instead of skipping it silently."""
     unported = [
         (cfg.data_parallel > 1, "data-parallel sharding (data_parallel)",
-         "queue 1, item 18"),
+         "queue 1, item 18b"),
     ]
     for asked, tier, item in unported:
         if asked:

@@ -17,6 +17,8 @@
         --nTracks 128 --depth 64 [--neuralampDtype bf16]
     python -m gpuaudiobench_tpu_torch.profile_block --benchmark NeuralAmpLSTM \
         --nTracks 128 --depth 16
+    python -m gpuaudiobench_tpu_torch.profile_block --benchmark MultiChipSuite \
+        --nTracks 65536 --modalModes 1048576 --depth 64
 
 With no arguments it profiles the main cell of ``bench`` (ModalFilterBank,
 1,048,576 modes, 512-sample blocks, 32 tracks). The flags are the CLI's
@@ -166,6 +168,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     name, cfg, depth = _parse(sys.argv[1:] if argv is None else argv)
     device = dev.device("cuda")
+    dev.fp32_convolutions(device)  # as the CLI runs (MultiChipSuite's FIR)
     bench = create_benchmark(name, cfg, device)
     bench.setup()  # builds the kernels and runs one round trip
     step, carry = bench.stream_body()

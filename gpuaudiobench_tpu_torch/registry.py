@@ -1,11 +1,10 @@
 """Benchmark registry: the reference's names -> factories.
 
 PyTorch counterpart of ``gpuaudiobench_tpu/registry.py`` (registration
-order of cuda/main.cu:84-100), with its suite categories. Only the
-ported benchmarks have a factory; every other name raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it
-(``UNPORTED_BENCHMARKS``). The descriptions are the reference's, for
-``--help``.
+order of cuda/main.cu:84-100), with its suite categories. Every name has
+a factory; a name without one would raise ``NotImplementedError`` naming
+the ROADMAP.md item that ports it (``UNPORTED_BENCHMARKS``, empty now).
+The descriptions are the reference's, for ``--help``.
 """
 
 from __future__ import annotations
@@ -52,10 +51,7 @@ CATEGORIES = {
 
 # The names without a factory here, with the ROADMAP.md item that ports
 # them.
-UNPORTED_BENCHMARKS = {
-    "MultiChipSuite": "queue 1, item 18",
-    "ICIBandwidth": "queue 1, item 18",
-}
+UNPORTED_BENCHMARKS: Dict[str, str] = {}
 
 
 BENCHMARK_DESCRIPTIONS = {
@@ -110,6 +106,10 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
     from gpuaudiobench_tpu_torch.models.gainstats import GainStatsBenchmark
     from gpuaudiobench_tpu_torch.models.iir import IIRBenchmark
     from gpuaudiobench_tpu_torch.models.modal import ModalFilterBankBenchmark
+    from gpuaudiobench_tpu_torch.models.multichip_bench import (
+        ICIBandwidthBenchmark,
+        MultiChipSuiteBenchmark,
+    )
     from gpuaudiobench_tpu_torch.models.neuralamp import NeuralAmpBenchmark
     from gpuaudiobench_tpu_torch.models.noop import NoOpBenchmark
     from gpuaudiobench_tpu_torch.models.partconv import PartConvBenchmark
@@ -142,6 +142,8 @@ def _factories() -> Dict[str, Callable[[BenchConfig, torch.device], Benchmark]]:
         "NeuralAmp": NeuralAmpBenchmark,
         "NeuralAmpLSTM": functools.partial(NeuralAmpBenchmark, arch="lstm"),
         "DAWSessionMix": DAWSessionMixBenchmark,
+        "MultiChipSuite": MultiChipSuiteBenchmark,
+        "ICIBandwidth": ICIBandwidthBenchmark,
         "SOL_VPU": SolVpuFmaBenchmark,
         "SOL_VMEM": SolVmemBenchmark,
         "SOL_HBM": SolHbmStreamBenchmark,

@@ -66,6 +66,14 @@ def upload(src, dev: torch.device) -> torch.Tensor:
     return to_device(src, dev)
 
 
+def fp32_convolutions(dev: torch.device) -> None:
+    """On a CUDA device, float32 convolutions in full FP32 from here on
+    (cuDNN's default is TF32; float32 matmuls are full FP32 by default):
+    MultiChipSuite's FIR refuses TF32."""
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def from_device(t: torch.Tensor) -> np.ndarray:
     """Device -> host copy (cudaMemcpy D2H); waits for the device."""
     return t.cpu().numpy()

@@ -12,10 +12,11 @@ Every slider, select, default and mapping is the reference's, except:
 
 * the impl labels, and the descriptions that named the TPU's parts
   (XLA, VMEM, the MXU, the profiler's device tier), name the card's;
-* the device mesh (``mesh``, MultiChipSuite and ICIBandwidth) and
-  ``dataParallel`` are not offered: a request naming them is refused
-  with ROADMAP.md queue 1, item 18, as the CLI refuses ``--mesh`` and
-  ``--dataParallel`` (``UNPORTED_PARAMS``).
+* ``dataParallel`` is not offered: a request naming it is refused with
+  ROADMAP.md queue 1, item 18b, as the CLI refuses ``--dataParallel``
+  (``UNPORTED_PARAMS``). The device mesh (``mesh``, MultiChipSuite and
+  ICIBandwidth) is, and a mesh of more than one rank runs as the CLI
+  runs it (``parallel/launch.py:spmd``).
 """
 
 from __future__ import annotations
@@ -27,8 +28,7 @@ from gpuaudiobench_tpu_torch.config import BenchConfig
 # Parameter ids of the reference's UI that the port does not take, with
 # the ROADMAP.md item that ports them.
 UNPORTED_PARAMS = {
-    "mesh": "queue 1, item 18",
-    "dataParallel": "queue 1, item 18",
+    "dataParallel": "queue 1, item 18b",
 }
 
 
@@ -394,6 +394,14 @@ def benchmark_params(name: str) -> List[Dict[str, Any]]:
                 "Network depth; receptive field = 2*(2^L - 1) + 1 samples",
             ))
         return out
+    if name in ("MultiChipSuite", "ICIBandwidth"):
+        return [
+            select(
+                "mesh", "Device Mesh (dp,tp,sp)", d.mesh,
+                _opts(["1,1,1", "2,1,1", "2,2,1", "2,2,2", "4,2,1", "8,1,1"]),
+                "Mesh axis sizes; product must not exceed visible devices",
+            ),
+        ]
     return []
 
 
@@ -438,6 +446,7 @@ _FIELD_MAP = {
     "solMatmulDim": ("sol_matmul_dim", int),
     "seed": ("seed", int),
     "fs": ("fs", int),
+    "mesh": ("mesh", str),
 }
 
 

@@ -21,7 +21,10 @@ Design points:
     invalidate the capture.
   * Only ported benchmarks are offered; a run naming another, or a
     parameter the port lacks (``params.UNPORTED_PARAMS``), is refused
-    with the ROADMAP.md item that ports it.
+    with the ROADMAP.md item that ports it. A ``mesh`` of more than one
+    rank runs the benchmark as the CLI does (``cli.mesh_ranks``,
+    ``cli.rank_json`` under ``parallel/launch.py:spmd``); such a job
+    reports its "setup" phase only.
   * Presets persist server-side as JSON (the localStorage analog,
     app.js:831-872) so they survive across browsers/machines.
   * Results accumulate per session and export as the harness's own
@@ -206,11 +209,12 @@ class JobRunner:
             params = dict(job["params"])
             per_bench = dict(job.get("benchmark_params") or {})
 
-        from gpuaudiobench_tpu_torch.harness.output import (
-            generate_json_results,
+        from gpuaudiobench_tpu_torch.cli import (
+            SPMD_TIMEOUT_S,
+            mesh_ranks,
+            rank_json,
         )
-        from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
-        from gpuaudiobench_tpu_torch.registry import create_benchmark
+        from gpuaudiobench_tpu_torch.parallel.launch import spmd
 
         def set_phase(p: str) -> None:
             # Stage-boundary progress (runner progress_cb): a long tier
@@ -233,12 +237,16 @@ class JobRunner:
                 cfg = apply_params(
                     BenchConfig(), {**params, **per_bench.get(name, {})}
                 )
-                bench = create_benchmark(name, cfg, self.device)
-                bench.setup()
-                result = run_benchmark(bench, cfg, verbose=False,
-                                       progress_cb=set_phase)
-                payload = generate_json_results(result, cfg, self.device)
-                bench.cleanup()
+                ranks = mesh_ranks(cfg, [name], self.device.type)
+                if ranks > 1:
+                    # A mesh of ranks runs as the CLI runs it; the ranks
+                    # report no phases.
+                    payload = spmd(rank_json, ranks, self.device.type, name,
+                                   cfg, self.device.type,
+                                   timeout_s=SPMD_TIMEOUT_S)
+                else:
+                    payload = rank_json(name, cfg, self.device.type,
+                                        progress_cb=set_phase)
                 with self._lock:
                     job["results"].append(payload)
                     self.results.append(payload)

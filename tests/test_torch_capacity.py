@@ -257,8 +257,9 @@ def test_parse_overrides_checks_the_ports_config():
         "fdtd_per_track_receivers": True, "fdtd_room": 64,
         "partconv_form": "ring", "dawsim_jitter_us": 2.5,
         "modal_num_modes": 4096}
-    with pytest.raises(SystemExit, match="unknown BenchConfig field 'mesh'"):
-        capacity.parse_overrides(["mesh=2,1,1"])
+    with pytest.raises(SystemExit,
+                       match="unknown BenchConfig field 'compilation_cache'"):
+        capacity.parse_overrides(["compilation_cache=false"])
     with pytest.raises(SystemExit):
         capacity.parse_overrides(["fdtd_room"])
 

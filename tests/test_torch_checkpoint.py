@@ -62,6 +62,8 @@ STREAMS = [
                    "neuralamp_dtype": "int8"}),
     ("NeuralAmpLSTM", {"neuralamp_channels": 16}),
     ("NeuralAmpLSTM", {"neuralamp_channels": 16, "neuralamp_dtype": "bf16"}),
+    ("MultiChipSuite", {}),
+    ("ICIBandwidth", {"transfer_mib": 1}),
 ]
 
 

@@ -124,9 +124,10 @@ def test_help_names_every_ported_flag_and_benchmark():
 @pytest.mark.parametrize("name", ["NeuralAmpLSTM", "NeuralAmp",
                                   "MultiChipSuite"])
 def test_unported_benchmark_exits_1_naming_roadmap(name):
-    """MultiChipSuite is still to be ported: it exits 1 naming its ROADMAP
-    item. NeuralAmp and NeuralAmpLSTM are ported (item 15): their cases
-    run a toy CPU config, validate and exit 0."""
+    """A benchmark still to be ported exits 1 naming its ROADMAP item.
+    None is left: NeuralAmp and NeuralAmpLSTM (item 15) and
+    MultiChipSuite (item 18a) run a toy CPU config, validate and exit
+    0."""
     argv = ["--benchmark", name, "--nRuns", "1"]
     if name in registry.UNPORTED_BENCHMARKS:
         rc, lines = _run(cli.main, argv, device="cpu")
@@ -307,14 +308,16 @@ def test_benchmark_filter_selects_like_the_reference():
 
 
 def test_filter_run_goes_on_past_a_failure_and_exits_1():
-    """A filter that selects an unported benchmark and a ported one runs
-    the ported one and still exits 1 (the reference's suite
-    resilience)."""
+    """A filter that selects a benchmark whose set-up fails (MultiChipSuite
+    with modes that do not fold onto 32 tracks) and one that runs runs
+    the second and still exits 1 (the reference's suite resilience)."""
     rc, lines = _run(cli.main, ["--benchmarkFilter",
                                 "=MultiChipSuite,=IIRFilter",
+                                "--modalModes", "1000",
                                 "--no-device-timing"] + TOY, device="cpu")
     assert rc == 1
-    assert any("MultiChipSuite" in ln and "ROADMAP" in ln for ln in lines)
+    assert any("Benchmark MultiChipSuite failed" in ln
+               and "divisible by 32" in ln for ln in lines)
     assert _json(lines)["benchmark"] == "IIRFilter"
 
 
@@ -413,7 +416,8 @@ def test_help_marks_the_ported_benchmarks():
                       "NeuralAmp", "NeuralAmpLSTM", "SOL_VPU", "SOL_VMEM", "SOL_HBM",
                       "SOL_MXU_bf16", "SOL_MXU_f32", "SOL_MXU_int8",
                       "datacopy0199", "datacopy2080", "datacopy5050",
-                      "datacopy8020", "datacopy9901"}
+                      "datacopy8020", "datacopy9901", "MultiChipSuite",
+                      "ICIBandwidth"}
 
 
 @pytest.mark.parametrize("argv,want", [
@@ -520,9 +524,9 @@ def test_category_selects_like_the_reference(category):
                                            ("multichip", "queue 1, item 18")])
 def test_category_of_unported_benchmarks_exits_1_naming_roadmap(category,
                                                                 item):
-    """multichip holds benchmarks still to be ported: it exits 1 naming
-    their item. neural's two (item 15) are ported: the category runs both
-    on the CPU at toy size and exits 0."""
+    """A category that holds a benchmark still to be ported exits 1
+    naming its item. None is left: neural's two (item 15) and
+    multichip's two (item 18a) run on the CPU at toy size and exit 0."""
     assert jax_cli.parse_args(["--category", category])[2] is None
     if any(n in registry.UNPORTED_BENCHMARKS
            for n in registry.CATEGORIES[category]):

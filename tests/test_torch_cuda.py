@@ -1410,11 +1410,12 @@ CHAIN_BODIES = [
     ("NeuralAmp", {}), ("NeuralAmp", {"neuralamp_dtype": "bf16"}),
     ("NeuralAmp", {"neuralamp_dtype": "int8"}), ("SOL_VPU", {}),
     ("SOL_VMEM", {}), ("SOL_HBM", {}), ("SOL_MXU_bf16", {}),
-    ("SOL_MXU_f32", {}), ("SOL_MXU_int8", {}),
+    ("SOL_MXU_f32", {}), ("SOL_MXU_int8", {}), ("MultiChipSuite", {}),
+    ("ICIBandwidth", {"transfer_mib": 1}),
 ]
 CHAIN_LIBRARY_BODIES = ("FFT1D", "Conv1D_accel", "PartConv", "DAWSessionMix",
                         "NeuralAmp", "SOL_MXU_bf16", "SOL_MXU_f32",
-                        "SOL_MXU_int8")
+                        "SOL_MXU_int8", "MultiChipSuite")
 CHAIN_DEPTH = 6
 
 
@@ -1429,7 +1430,9 @@ def _clone_carry(carry):
 def _body(device, name, knobs):
     from gpuaudiobench_tpu_torch.config import BenchConfig
     from gpuaudiobench_tpu_torch.registry import create_benchmark
+    from gpuaudiobench_tpu_torch.utils.device import fp32_convolutions
 
+    fp32_convolutions(device)  # as the CLI runs (MultiChipSuite's FIR)
     b = create_benchmark(name, BenchConfig(**{**CHAIN_TOY, **knobs}), device)
     b.setup()
     return b
@@ -1615,3 +1618,108 @@ def test_capture_trace_holds_device_events(cuda, tmp_path):
     assert profiler.trace_events(path)
     reps = profiler.trace_events(path, "saturated-reps")
     assert reps and profiler.summarize(reps, 2 * 10)["device_busy_us_per_block"] > 0
+
+
+# MultiChipSuite on one rank (mesh 1,1,1) on the card: its step runs the
+# biquad and modal kernels and F.conv1d's FP32 FIR; held against the same
+# benchmark on the CPU (the plain twins and F.conv1d) at 1e-5 of the
+# peak, and the sharded blocks of parallel/ on one rank against their
+# single-device blocks on the card at 1e-5 of the peak (FDTD: 5e-3
+# absolute, FDTD3D's tolerance, against the field kernel).
+MULTICHIP_CFG = dict(n_tracks=256, buffer_size=512, n_runs=1, warmup=0,
+                     write_latencies=False, device_timing=False)
+
+
+def test_multichip_suite_on_the_card_matches_the_cpu(cuda):
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.registry import create_benchmark
+    from gpuaudiobench_tpu_torch.utils.device import fp32_convolutions
+
+    fp32_convolutions(cuda)
+    cfg = BenchConfig(**MULTICHIP_CFG)
+    before = (iops.KERNEL_LAUNCHES["iir_biquad"],
+              tops.KERNEL_LAUNCHES["modal_bank"])
+    card = create_benchmark("MultiChipSuite", cfg, cuda)
+    card.setup()  # one step: the entry biquad, 2 microbatch stages, 1 bank
+    assert (iops.KERNEL_LAUNCHES["iir_biquad"] - before[0],
+            tops.KERNEL_LAUNCHES["modal_bank"] - before[1]) == (3, 1)
+    cpu = create_benchmark("MultiChipSuite", cfg, torch.device("cpu"))
+    cpu.setup()
+    got, want = card.host_output, cpu.host_output
+    assert got.shape == want.shape == (256, 512)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert card.validate().passed
+    assert card.metadata()["collectiveInventory"] == []
+
+
+def test_multichip_suite_refuses_tf32_convolutions(cuda, monkeypatch):
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.registry import create_benchmark
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    b = create_benchmark("MultiChipSuite", BenchConfig(**MULTICHIP_CFG),
+                         cuda)
+    with pytest.raises(RuntimeError, match="TF32"):
+        b.setup()
+
+
+def _block_inputs(kind):
+    from gpuaudiobench_tpu_torch.ops import neuralamp as na
+
+    g = np.random.default_rng(5)
+    if kind == "fdtd":
+        return (g.uniform(-1, 1, (16, 32)).astype(np.float32),)
+    if kind == "partconv":
+        return (g.standard_normal((4, 1024)).astype(np.float32),
+                [g.standard_normal((4, 128)).astype(np.float32)
+                 for _ in range(10)])
+    xs = [g.uniform(-1, 1, (8, 64)).astype(np.float32) for _ in range(2)]
+    if kind == "tcn":
+        return (na.init_params(42, 32, 4), 4, xs)
+    return (na.init_lstm_params(42, 32), xs)
+
+
+@pytest.mark.parametrize("kind", ["fdtd", "partconv", "tcn", "lstm"])
+def test_one_rank_sharded_blocks_match_the_single_device_blocks(cuda, kind):
+    from gpuaudiobench_tpu_torch.ops import neuralamp as na
+    from gpuaudiobench_tpu_torch.ops import partconv as pc
+    from gpuaudiobench_tpu_torch.parallel import ranks
+
+    inputs = _block_inputs(kind)
+    ours = ranks.BLOCKS[kind](*inputs, device="cuda")
+    if kind == "fdtd":
+        x = torch.from_numpy(inputs[0]).to(cuda)
+        want, *_ = fops.fdtd3d_block_field(x, *fops.zero_fields(device=cuda))
+        want = want.cpu().numpy()
+        assert np.abs(ours - want).max() <= 5e-3
+        return
+    if kind == "partconv":
+        ir, xs = inputs
+        h_re, h_im = pc.partition_spectra(torch.from_numpy(ir).to(cuda), 128)
+        f_re = f_im = torch.zeros_like(h_re)
+        prev = torch.zeros((4, 128), device=cuda)
+        for o, x in zip(ours, xs):
+            x = torch.from_numpy(x).to(cuda)
+            y, f_re, f_im = pc.partconv_block(x, prev, f_re, f_im, h_re, h_im)
+            prev = x
+            y = y.cpu().numpy()
+            assert np.abs(o - y).max() <= 1e-5 * np.abs(y).max()
+        return
+    if kind == "tcn":
+        params, layers, xs = inputs
+        cp = na.cast_params(params, "f32", cuda)
+        tails = na.init_tails(8, 32, layers, device=cuda)
+        for o, x in zip(ours[0], xs):
+            y, tails = na.tcn_block(torch.from_numpy(x).to(cuda), tails, cp,
+                                    layers)
+            y = y.cpu().numpy()
+            assert np.abs(o - y).max() <= 1e-5 * np.abs(y).max()
+        return
+    params, xs = inputs
+    cp = na.cast_lstm_params(params, "f32", cuda)
+    h = c = torch.zeros((8, 32), device=cuda)
+    run = na.lstm_runner(cp, "f32", torch.from_numpy(xs[0]).to(cuda), h, c)
+    for o, x in zip(ours[0], xs):
+        y, h, c = (t.clone() for t in run(torch.from_numpy(x).to(cuda), h, c))
+        y = y.cpu().numpy()
+        assert np.abs(o - y).max() <= 1e-5 * np.abs(y).max()

@@ -81,8 +81,10 @@ def test_apply_params_maps_as_the_reference(name):
 
 
 def test_field_map_is_the_references_but_item_18():
+    """All of the reference's parameters but dataParallel (item 18b);
+    mesh is ported (item 18a)."""
     assert set(ref_params._FIELD_MAP) - set(params._FIELD_MAP) == \
-        set(params.UNPORTED_PARAMS) == {"mesh", "dataParallel"}
+        set(params.UNPORTED_PARAMS) == {"dataParallel"}
     for pid, spec in params._FIELD_MAP.items():
         assert ref_params._FIELD_MAP[pid] == spec, pid
 
@@ -90,9 +92,18 @@ def test_field_map_is_the_references_but_item_18():
 @pytest.mark.parametrize("pid,value", [("mesh", "1,1,1"),
                                        ("dataParallel", 1)])
 def test_mesh_and_data_parallel_are_refused_naming_item_18(pid, value):
-    with pytest.raises(ValueError, match=f"{pid} is not ported.*item 18"):
-        params.apply_params(BenchConfig(), {pid: value})
-    assert params.benchmark_params("MultiChipSuite") == []
+    """dataParallel is refused naming item 18b; mesh is taken (item 18a)
+    and offered for the multichip benchmarks, as the reference offers
+    it."""
+    if pid in params.UNPORTED_PARAMS:
+        with pytest.raises(ValueError, match=f"{pid} is not ported.*item 18b"):
+            params.apply_params(BenchConfig(), {pid: value})
+        return
+    assert params.apply_params(BenchConfig(), {pid: "2,2,1"}).mesh == "2,2,1"
+    for name in ("MultiChipSuite", "ICIBandwidth"):
+        assert params.benchmark_params(name) == \
+            ref_params.benchmark_params(name)
+        assert [p["id"] for p in params.benchmark_params(name)] == ["mesh"]
 
 
 def test_apply_params_rejects_unknown_and_invalid():
@@ -190,7 +201,7 @@ def test_benchmarks_catalog(ui_server):
     cat = _get_json(ui_server, "/api/benchmarks")
     names = [b["name"] for b in cat["benchmarks"]]
     assert names == ported_benchmarks()
-    assert "dsp" in cat["categories"] and "multichip" not in cat["categories"]
+    assert "dsp" in cat["categories"] and "multichip" in cat["categories"]
     conv = next(b for b in cat["benchmarks"] if b["name"] == "Conv1D")
     assert any(p["id"] == "irLength" for p in conv["params"])
     assert any(p["id"] == "bufferSize" for p in cat["global_params"])
@@ -253,14 +264,31 @@ def test_run_rejects_bad_requests(ui_server):
 
 
 @pytest.mark.parametrize("body", [
-    {"benchmarks": ["MultiChipSuite", "gain"], "params": SMALL},
-    {"category": "multichip"},
+    {"benchmarks": ["MultiChipSuite", "gain"],
+     "params": dict(SMALL, mesh="2,1,1")},
+    {"category": "multichip", "params": dict(SMALL, transferMiB=1)},
     {"benchmarks": ["gain"], "params": dict(SMALL, mesh="1,1,1")},
     {"benchmarks": ["gain"], "params": dict(SMALL, dataParallel=1)},
 ])
 def test_unported_requests_are_refused_naming_item_18(ui_server, body):
+    """Only dataParallel is refused now, naming item 18b. The multichip
+    benchmarks and the mesh run (item 18a): a mesh of 2 ranks as the CLI
+    runs it, on gloo ranks."""
     code, resp = _post_json(ui_server, "/api/run", body, expect_ok=False)
-    assert code == 400 and "item 18" in resp["error"]
+    if "dataParallel" in body.get("params", {}):
+        assert code == 400 and "item 18b" in resp["error"]
+        return
+    assert code == 202, resp
+    job = _wait_job(ui_server, resp["job_id"])
+    assert job["status"] == "done" and job["errors"] == [], job["errors"]
+    names = body.get("benchmarks") or ["MultiChipSuite", "ICIBandwidth"]
+    assert [r["benchmark"] for r in job["results"]] == names
+    for r in job["results"]:
+        assert r["validation"]["status"] == "SUCCESS"
+        if r["benchmark"] == "MultiChipSuite":
+            mesh = body["params"].get("mesh", "1,1,1")
+            assert r["metadata"]["mesh"] == dict(
+                zip(("dp", "tp", "sp"), map(int, mesh.split(","))))
 
 
 def test_presets_roundtrip(ui_server):
