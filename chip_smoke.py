@@ -218,20 +218,32 @@ nonzero:
    more, ``--mesh 2,1,1`` and ``1,2,1`` over NCCL instead); the sharded
    FDTD, PartConv, TCN and LSTM blocks on one rank against the
    single-device paths on the card (``SHARDED_*``).
-17. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+17. ``--dataParallel`` on one card: each of the 21 names the dp axis
+   shards through the CLI at a small size (``DP_CLI``: the CLI's 128
+   tracks x 512, 3 runs, depth 8; ``DP_NARROW``), once without the flag
+   and once with
+   ``--dataParallel 1``, still with the plain twins counted: both
+   validate, and the second run's host arrays are the first's bit for
+   bit, with the same ``metadata.chainForm`` and the same kernel launch
+   counts; the modal headline (1,048,576 modes onto 32 tracks,
+   ``DP_HEADLINE``) the same way; ``--dataParallel 2`` exiting 1 with
+   "needs 2 devices; 1 available" on one card (with two cards or more,
+   ``DP_MULTI_RANK`` over NCCL at ``--dataParallel 2`` instead, each
+   validated).
+18. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-18. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
+19. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
    profiler session writes a trace that must hold ``modal_bank`` device
    events; the busy time a block and idle share of its saturated tier's
    timed reps (graph replays), read from the trace.
-19. ``torch.profiler`` names the kernels of one call of each cascade
+20. ``torch.profiler`` names the kernels of one call of each cascade
    wrapper at 1,000 x 96: the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. The profiler sessions run
    after everything timed (a session slows the process's later launches).
-20. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+21. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -689,6 +701,30 @@ SHARDED_FDTD = (128, 128)  # tracks, samples
 SHARDED_PARTCONV = (1536, 48000, 512, 3)  # tracks, taps, block, blocks
 SHARDED_NEURAL = (128, 512, 128, 10)  # tracks, samples, C or H, TCN layers
 SHARDED_TOL = {"fdtd": 5e-3, "partconv": 1e-3, "tcn": 1e-5, "lstm": 1e-5}
+
+# --dataParallel on one card (phase 17): the 21 names the dp axis shards,
+# each through the CLI at a small size (the CLI's 128 tracks x 512;
+# RndMemRead from a 64 MiB pool; NeuralAmp and NeuralAmpLSTM at 16 tracks,
+# whose f64 host goldens take seconds at 128) with and without
+# --dataParallel 1, which must give the same host arrays bit for bit, the
+# same chain form and the same launches; then the modal headline
+# (1,048,576 modes onto 32 tracks) the same way, and --dataParallel 2,
+# which one card refuses. With two cards or more, DP_MULTI_RANK over NCCL
+# instead.
+DP_NAMES = ["NoOp", "gain", "GainStats", "datacopy0199", "datacopy2080",
+            "datacopy5050", "datacopy8020", "datacopy9901", "FFT1D",
+            "IIRFilter", "Conv1D", "Conv1D_accel", "ModalFilterBank",
+            "DWG1DNaive", "DWG1DAccel", "RndMemRead", "BiquadChain",
+            "PartConv", "NeuralAmp", "NeuralAmpLSTM", "DAWSessionMix"]
+DP_CLI = ["--nRuns", "3", "--warmup", "1", "--pipelineDepth", "8",
+          "--saturatedReps", "3", "--verification", "spot", "--poolMiB",
+          "64", "--json"]
+DP_NARROW = {"NeuralAmp": ["--nTracks", "16"],
+             "NeuralAmpLSTM": ["--nTracks", "16"]}
+DP_HEADLINE = ["--benchmark", "ModalFilterBank", "--nTracks", "1024",
+               "--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
+               "--saturatedReps", "3", "--verification", "spot", "--json"]
+DP_MULTI_RANK = ["gain", "IIRFilter", "ModalFilterBank", "DAWSessionMix"]
 
 
 def fail(msg: str) -> None:
@@ -3003,6 +3039,118 @@ def multichip_phase(torch, cli, registry, config, counts, reset, launches,
     sharded_blocks_phase(torch, fops, na, pc, ranks, device)
 
 
+@contextlib.contextmanager
+def kept_benchmarks(cli):
+    """Keeps every benchmark the CLI creates, in order (``cli`` looks
+    ``create_benchmark`` up by name)."""
+    made = []
+    real = cli.create_benchmark
+
+    def keep(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    cli.create_benchmark = keep
+    try:
+        yield made
+    finally:
+        cli.create_benchmark = real
+
+
+def host_arrays(bench):
+    import numpy as np
+
+    return {k: v for k, v in vars(bench).items()
+            if k.startswith("host_") and isinstance(v, np.ndarray)}
+
+
+def dp_twin_runs(torch, cli, counts, reset, launches, label, argv):
+    """``argv`` through the CLI without and with ``--dataParallel 1``:
+    both validate, and the second's host arrays, chain form and launch
+    counts are the first's. Adds the launches; returns the two runs'
+    walls and the first's JSON."""
+    import numpy as np
+
+    runs = []
+    for extra in ([], ["--dataParallel", "1"]):
+        reset()
+        with kept_benchmarks(cli) as made:
+            rec, wall = cli_json(cli, f"{label} {' '.join(extra)}",
+                                 argv + extra)
+        n = counts()
+        for k, v in n.items():
+            launches[k] += v
+        runs.append((rec, wall, n, host_arrays(made[0])))
+        del made
+    (rec0, w0, n0, h0), (rec1, w1, n1, h1) = runs
+    form0 = rec0["metadata"].get("chainForm")
+    form1 = rec1["metadata"].get("chainForm")
+    if form0 != form1:
+        fail(f"{label}: chain form {form1!r} under --dataParallel 1, "
+             f"{form0!r} without")
+    if n0 != n1:
+        fail(f"{label}: launches {n1} under --dataParallel 1, {n0} without")
+    if sorted(h0) != sorted(h1) or not all(
+            np.array_equal(h0[k], h1[k]) for k in h0):
+        bad = [k for k in h0 if k not in h1 or not np.array_equal(h0[k],
+                                                                  h1[k])]
+        fail(f"{label}: --dataParallel 1 changed {bad}")
+    if "collectiveInventory" in rec1["metadata"]:
+        fail(f"{label}: a one-rank run lists collectives")
+    return w0, w1, rec0, n0
+
+
+def data_parallel_phase(torch, cli, counts, reset, launches, smi):
+    """Phase 17: every sharded name with and without --dataParallel 1 on
+    one card, the modal headline the same way, and --dataParallel 2
+    refused on one card (run over NCCL with two cards or more)."""
+    total = [0.0, 0.0]
+    for name in DP_NAMES:
+        w0, w1, rec, n = dp_twin_runs(torch, cli, counts, reset, launches,
+                                      name, ["--benchmark", name] + DP_CLI
+                                      + DP_NARROW.get(name, []))
+        total[0] += w0
+        total[1] += w1
+        form = rec["metadata"].get("chainForm")
+        print(f"dp1 {name}: bit for bit with and without --dataParallel 1, "
+              f"chain {form}, launches "
+              + (", ".join(f"{k} {v}" for k, v in n.items() if v) or "none")
+              + f", round trip p50 {rec['statistics']['p50_ms']:.4f} ms, "
+              f"{w0:.1f} / {w1:.1f} s")
+    print(f"dp1 21 names: {total[0]:.1f} s without the flag, {total[1]:.1f} "
+          f"s with it, on {smi}")
+    w0, w1, rec, n = dp_twin_runs(torch, cli, counts, reset, launches,
+                                  "ModalFilterBank 1M modes", DP_HEADLINE)
+    if n["modal_bank"] <= 0:
+        fail("dp1 headline: modal_bank was not launched")
+    print(f"dp1 ModalFilterBank 1,048,576 modes onto 32 tracks: bit for bit "
+          f"with and without --dataParallel 1, modal_bank {n['modal_bank']} "
+          f"launches both times, validation max error "
+          f"{rec['validation']['max_error']:.3g}, saturated p50 "
+          f"{rec['saturated']['p50_ms']:.4f} ms, {w0:.1f} / {w1:.1f} s on "
+          f"{smi}")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        rc, lines = quiet_main(cli, ["--benchmark", "gain",
+                                     "--dataParallel", "2", "--json"])
+        want = f"needs 2 devices; {cards} available"
+        if rc != 1 or not any(want in ln for ln in lines):
+            fail(f"--dataParallel 2 on {cards} card: exit {rc}, "
+                 f"{lines[-3:]}")
+        print(f"--dataParallel 2 on {cards} card exits 1: "
+              f"{next(ln for ln in lines if want in ln)}")
+        print("multi-rank --dataParallel: not run, 1 card")
+        return
+    for name in DP_MULTI_RANK:
+        rec, wall = cli_json(cli, f"{name} --dataParallel 2",
+                             ["--benchmark", name, "--dataParallel", "2"]
+                             + DP_CLI)
+        print(f"{name} --dataParallel 2 over NCCL on {cards} cards: "
+              f"{wall:.1f} s, max error {rec['validation']['max_error']:.3g}"
+              f", collectives a round trip "
+              f"{rec['metadata']['collectiveInventory']}")
+
+
 def capture_run(torch, cli, hprofiler, counts, reset, launches):
     """The CLI with --capture on the modal headline cell: one session
     writes a trace holding modal_bank device events; the timed reps of its
@@ -3269,6 +3417,11 @@ def main() -> int:
                         launches, smi, fops, na, pc, ranks, device)
         print(f"NCCL, MultiChipSuite, ICIBandwidth and the sharded blocks: "
               f"{time.perf_counter() - t0:.1f} s")
+
+        # --dataParallel on one card.
+        t0 = time.perf_counter()
+        data_parallel_phase(torch, cli, counts, reset, launches, smi)
+        print(f"--dataParallel: {time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")
 

@@ -11,8 +11,9 @@ benchmarks and tiers read, DAW-sim pacing (``--dawsim``,
 (``--capture``, ``--captureDir``), the datacopy pool
 (``--transferMiB``), PartConv's, DAWSessionMix's and NeuralAmp's knobs
 and the output flags (``--csvSchema``, ``--latenciesFile``,
-``--category``) among them, and the device mesh of MultiChipSuite and
-ICIBandwidth (``--mesh dp,tp,sp``).
+``--category``) among them, the device mesh of MultiChipSuite and
+ICIBandwidth (``--mesh dp,tp,sp``) and data-parallel sharding
+(``--dataParallel n``).
 Without ``--json`` each benchmark's summary is printed, then its latency
 file and, with ``--outputfile``, its CSV row are written; with ``--json``
 the JSON goes to ``--outputfile`` or stdout. A flag the reference knows
@@ -23,13 +24,14 @@ be ported. The run is on the GPU: ``main(argv)`` takes
 tests) gets the CPU. A benchmark that raises is reported and the suite
 goes on, but the exit code is 1.
 
-A ``--mesh`` of n > 1 ranks, for a run that holds MultiChipSuite or
-ICIBandwidth, runs the whole run on n ranks (``parallel/launch.py:spmd``:
-NCCL with rank r on ``cuda:r``, or gloo on the CPU), every rank through
-the same tiers in lock step. Only rank 0's output is printed, and only
-rank 0 writes the JSON, CSV, latency and trace files. A mesh larger than
-the devices there are runs in this process, where the benchmarks' set-up
-refuses it.
+A ``--dataParallel n`` of n > 1, or a ``--mesh`` of n > 1 ranks for a
+run that holds MultiChipSuite or ICIBandwidth, runs the whole run on n
+ranks (``parallel/launch.py:spmd``: NCCL with rank r on ``cuda:r``, or
+gloo on the CPU), every rank through the same tiers in lock step. Only
+rank 0's output is printed, and only rank 0 writes the JSON, CSV,
+latency and trace files. More ranks than the devices there are run in
+this process, where the benchmarks' set-up refuses them ("needs n
+devices; m available").
 """
 
 from __future__ import annotations
@@ -101,6 +103,7 @@ VALUE_FLAGS = {
     "--overlapReps": ("overlap_reps", int),
     "--seed": ("seed", int),
     "--mesh": ("mesh", str),
+    "--dataParallel": ("data_parallel", int),
 }
 SWITCHES = {
     "--json": ("json_output", True),
@@ -112,10 +115,9 @@ SWITCHES = {
     "--modalRenorm": ("modal_renorm", True),
     "--fdtdPerTrackReceivers": ("fdtd_per_track_receivers", True),
 }
-# Flags of the reference's CLI that the port has not ported, with the
-# ROADMAP.md item that ports them.
+# Flags of the reference's CLI that the port does not take, with what
+# ROADMAP.md says of them.
 UNPORTED_FLAGS = {
-    "--dataParallel": "queue 1, item 18b",
     "--compilationCacheDir": "'Not ported' (XLA only)",
     "--no-compilationCache": "'Not ported' (XLA only)",
 }
@@ -202,6 +204,7 @@ def print_help() -> None:
     print("                           ICIBandwidth (default 1,1,1; n > 1 "
           "ranks: NCCL")
     print("                           on n cards, gloo on the CPU)")
+    print("  --dataParallel [n]       Shard tracks over n devices (default: 1)")
     print("  --no-device-timing       Skip the device tier (CUDA events)")
     print("  --quiet                  Suppress progress output (results only)")
     print()
@@ -234,6 +237,8 @@ def print_help() -> None:
           "--pipelineDepth 16 --json")
     print("  python -m gpuaudiobench_tpu_torch.cli --benchmark MultiChipSuite "
           "--mesh 2,1,1 --json")
+    print("  python -m gpuaudiobench_tpu_torch.cli --benchmark "
+          "ModalFilterBank --dataParallel 2 --json")
     print("  python -m gpuaudiobench_tpu_torch.cli    (RndMemRead, 128 tracks)")
 
 
@@ -344,21 +349,25 @@ SPMD_TIMEOUT_S = 3600.0
 
 
 def mesh_ranks(cfg: BenchConfig, names: List[str], device: str) -> int:
-    """The ranks a run takes: the mesh's, where it holds a benchmark that
-    reads ``--mesh`` and the devices suffice, else 1 (a bad or too large
-    mesh is then refused by the benchmarks' set-up)."""
+    """The ranks a run takes: ``--dataParallel``'s above 1, or the mesh's
+    where the run holds a benchmark that reads ``--mesh``; either only
+    where the devices suffice, else 1 (too many ranks, or a bad mesh, are
+    then refused by the benchmarks' set-up)."""
     from gpuaudiobench_tpu_torch.parallel.mesh import (
         available_devices,
         parse_mesh,
     )
     from gpuaudiobench_tpu_torch.utils import device as dev
 
-    if not any(n in CATEGORIES["multichip"] for n in names):
+    if cfg.data_parallel > 1:
+        n = cfg.data_parallel
+    elif not any(n in CATEGORIES["multichip"] for n in names):
         return 1
-    try:
-        n = int(np.prod(parse_mesh(cfg.mesh)))
-    except ValueError:
-        return 1
+    else:
+        try:
+            n = int(np.prod(parse_mesh(cfg.mesh)))
+        except ValueError:
+            return 1
     return n if 1 < n <= available_devices(dev.device(device)) else 1
 
 
@@ -375,8 +384,10 @@ def rank_run(cfg: BenchConfig, names: List[str], device: str):
                           capture=False)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
+        layout = (f"dataParallel {cfg.data_parallel}"
+                  if cfg.data_parallel > 1 else f"mesh {cfg.mesh}")
         print(f"SPMD: {dist.get_world_size()} ranks over {BACKENDS[device]}, "
-              f"mesh {cfg.mesh}")
+              f"{layout}")
         rc = _run(cfg, names, rank_device(device))
     return rc, buf.getvalue()
 

@@ -56,7 +56,10 @@ class BenchConfig:
     # capture_dir ("" = <temp dir>/tpuaudiobench_trace).
     capture: bool = False
     capture_dir: str = ""
-    # --dataParallel, not ported yet: above 1 the runner raises.
+    # --dataParallel: above 1, the run goes over that many ranks
+    # (parallel/launch.py:spmd), each holding one shard of the axis its
+    # benchmark declares (harness/base.py:setup_sharding) on a one-axis
+    # ("dp",) mesh; the benchmarks without such an axis refuse it.
     data_parallel: int = 1
     # The device mesh of MultiChipSuite and ICIBandwidth, "dp,tp,sp"
     # (parallel/mesh.py); more than one rank runs every rank in lock step

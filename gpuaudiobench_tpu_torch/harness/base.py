@@ -17,6 +17,17 @@ performBenchmarkIteration / validate) map to:
 
 Every benchmark holds the ``torch.device`` it runs on; nothing uses a
 global default device.
+
+Under ``--dataParallel N`` (N > 1) every rank of an N-rank process
+group runs the same benchmark (``parallel/launch.py:spmd``) on its
+shard of one axis, which ``setup_sharding`` declares: ``put_sharded``
+and ``put_spec`` place the rank's slice of the host array on its device,
+``put_replicated`` the whole array, and ``to_host`` reads a sharded
+output back whole, gathered over the ranks, as the JAX package's
+``np.asarray`` of a sharded array does. The host arrays (the seeded
+input, the goldens) stay whole on every rank. Each rank runs the hand
+kernel on its shard: unlike the JAX package's ``resolve_impl``, nothing
+switches to the plain twin under sharding.
 """
 
 from __future__ import annotations
@@ -24,11 +35,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.harness.statistics import LatencyStats
 from gpuaudiobench_tpu_torch.harness.validation import ValidationData
+from gpuaudiobench_tpu_torch.utils import device as dev
 
 
 @dataclasses.dataclass
@@ -91,6 +104,126 @@ class Benchmark:
         self.buffer_size = cfg.buffer_size
         self.track_count = cfg.n_tracks
         self._allocations: Dict[str, int] = {}
+        # The ("dp",) mesh of --dataParallel N > 1 (setup_sharding), and
+        # whether set-up declared an axis or refused the flag: the runner
+        # refuses a benchmark that did neither, so the flag never
+        # silently does nothing.
+        self._mesh = None
+        self._dp_ready = False
+
+    # -- data-parallel sharding (--dataParallel: one shard a rank) ---------
+    def setup_sharding(self, axis_size: int, axis_label: str = "nTracks") -> None:
+        """Declare the benchmark's data-parallel axis; call from setup()
+        with the size of the axis that shards over the dp mesh. Under
+        N > 1 ranks the saturated chain is a loop (collectives inside a
+        captured graph are not tried)."""
+        self._dp_ready = True
+        self._mesh = None
+        n = self.cfg.data_parallel
+        if n > 1:
+            if axis_size % n != 0:
+                raise ValueError(
+                    f"{axis_label} ({axis_size}) must be divisible by "
+                    f"--dataParallel ({n})"
+                )
+            from gpuaudiobench_tpu_torch.parallel.mesh import dp_mesh
+
+            self._mesh = dp_mesh(n, self.device)
+            self.stream_capturable = False
+
+    def reject_data_parallel(self, reason: str) -> None:
+        """Benchmarks with no shardable dp axis call this from setup():
+        under --dataParallel it raises ``reason`` (their own message);
+        otherwise it records that the flag was consciously refused."""
+        if self.cfg.data_parallel > 1:
+            raise ValueError(reason)
+        self._dp_ready = True
+
+    @property
+    def dp_ranks(self) -> int:
+        """The ranks the dp axis spans (1 when unsharded)."""
+        return 1 if self._mesh is None else self._mesh.size
+
+    @property
+    def dp_rank(self) -> int:
+        return 0 if self._mesh is None else self._mesh.axis_index("dp")
+
+    def dp_slice(self, n: int) -> slice:
+        """This rank's part of an axis of ``n`` (the whole when
+        unsharded)."""
+        k = n // self.dp_ranks
+        return slice(self.dp_rank * k, (self.dp_rank + 1) * k)
+
+    def shard(self, a: np.ndarray, axis: int = 0) -> np.ndarray:
+        """This rank's slice of host array ``a`` along ``axis``."""
+        if self._mesh is None:
+            return a
+        index = [slice(None)] * a.ndim
+        index[axis] = self.dp_slice(a.shape[axis])
+        return a[tuple(index)]
+
+    def put_sharded(self, host_array: np.ndarray, axis: int = 0) -> torch.Tensor:
+        """H2D copy of this rank's slice along ``axis`` (the whole array
+        when unsharded)."""
+        return dev.to_device(self.shard(host_array, axis), self.device)
+
+    def put_replicated(self, a: np.ndarray) -> torch.Tensor:
+        """H2D copy of the whole array, on every rank."""
+        return dev.to_device(a, self.device)
+
+    def put_spec(self, a: np.ndarray, *axes) -> torch.Tensor:
+        """Placement by a PartitionSpec on the dp mesh: "dp" or None per
+        axis, at most one "dp"."""
+        dims = [i for i, ax in enumerate(axes) if ax == "dp"]
+        if len(dims) > 1 or any(ax not in ("dp", None) for ax in axes):
+            raise ValueError(f"put_spec: unsupported spec {axes}")
+        return (self.put_sharded(a, dims[0]) if dims
+                else self.put_replicated(a))
+
+    def dp_psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the dp ranks, on every rank (one counted
+        ``psum``; ``t`` itself when unsharded)."""
+        if self._mesh is None:
+            return t
+        from gpuaudiobench_tpu_torch.parallel.collectives import psum
+
+        return psum(t, self._mesh, "dp")
+
+    def to_host(self, t: torch.Tensor, axis: int = 0) -> np.ndarray:
+        """The whole host array of ``t``, sharded on ``axis`` over dp:
+        the ranks' shards gathered along it in rank order (every rank
+        gets the whole; the gather is the round trip's read-back, so
+        ``collectives.COLLECTIVES`` does not count it)."""
+        if self._mesh is None:
+            return dev.from_device(t)
+        from gpuaudiobench_tpu_torch.parallel.collectives import unshard
+
+        dims = [None] * t.dim()
+        dims[axis] = "dp"
+        return dev.from_device(unshard(t, self._mesh, dims))
+
+    def to_host_parts(self, parts) -> List[np.ndarray]:
+        """Several outputs in ONE device-to-host copy: ``parts`` is a list
+        of (tensor, dp axis), the axis None for a tensor every rank holds
+        whole. Each rank's tensors go into one flat buffer, the buffers
+        are gathered as rows (one a rank), and each output is cut out of
+        the rows and joined along its axis: a fused or interleaved
+        buffer is never joined end to end."""
+        flat = torch.cat([t.reshape(-1) for t, _ in parts])
+        rows = self.to_host(flat[None])
+        ranks, out, at = rows.shape[0], [], 0
+        for t, axis in parts:
+            n, shape = t.numel(), tuple(t.shape)
+            if axis is None:
+                out.append(rows[0, at:at + n].reshape(shape))
+            else:
+                a = np.moveaxis(rows[:, at:at + n].reshape((ranks,) + shape),
+                                0, axis)
+                whole = list(shape)
+                whole[axis] *= ranks
+                out.append(a.reshape(whole))
+            at += n
+        return out
 
     def resolve_impl(self) -> str:
         """``"cuda-kernel"`` (the hand kernel) exactly on a CUDA device,

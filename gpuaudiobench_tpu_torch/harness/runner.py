@@ -16,6 +16,15 @@ tier runs inside a ``torch.profiler.record_function`` range named after
 the reference's phase ("warmup", "timed", "device-timing", "saturated",
 "overlap", "validate"), so a ``capture`` trace shows where each begins
 and ends.
+
+Under ``data_parallel`` > 1 every rank runs every tier in the same
+order (a rank that skipped a collective would leave the others
+waiting): the device tier times the rank's own device, the round trip
+includes the gather of the output, validation reads the whole host
+output, the overlapped-infeed tier is skipped as the reference skips
+it, and ``metadata.collectiveInventory`` lists the collectives the first
+timed round trip issued (``parallel.collectives.COLLECTIVES``), where
+the JAX package writes its interconnect model.
 """
 
 from __future__ import annotations
@@ -39,22 +48,9 @@ from gpuaudiobench_tpu_torch.harness.streaming import (
     measure_saturated,
     measure_saturated_marginal,
 )
+from gpuaudiobench_tpu_torch.parallel.collectives import COLLECTIVES
 from gpuaudiobench_tpu_torch.utils.native import make_dawsim
 from gpuaudiobench_tpu_torch.utils.roofline import roofline_metrics
-
-
-def _refuse_unported(cfg: BenchConfig) -> None:
-    """Tiers of the reference runner that this package does not have
-    yet: asking for one raises instead of skipping it silently."""
-    unported = [
-        (cfg.data_parallel > 1, "data-parallel sharding (data_parallel)",
-         "queue 1, item 18b"),
-    ]
-    for asked, tier, item in unported:
-        if asked:
-            raise NotImplementedError(
-                f"{tier} is not ported to the PyTorch runner yet; "
-                f"see ROADMAP.md {item}")
 
 
 def roofline_section(benchmark: Benchmark, result: BenchmarkResult):
@@ -102,7 +98,11 @@ def run_benchmark(
     "overlap", "validate"), the reference's phases; an exception in it is
     ignored (the web UI shows the phase of a running job)."""
     cfg = cfg or benchmark.cfg
-    _refuse_unported(cfg)
+    if cfg.data_parallel > 1 and not benchmark._dp_ready:
+        raise ValueError(
+            f"{benchmark.name} does not support --dataParallel "
+            "(no sharded axis declared in setup)"
+        )
     capture = (capture_trace(trace_dir(cfg.capture_dir), benchmark.device,
                              benchmark.name)
                if cfg.capture else contextlib.nullcontext())
@@ -147,14 +147,18 @@ def _run(benchmark: Benchmark, cfg: BenchConfig, verbose: bool,
         result.dawsim_pacer = daw.pacer
         daw.reset()
     latencies = []
+    inventory = None
     phase("timed")
     with record_function("timed"):
         for _ in range(cfg.n_runs):
             if daw is not None:
                 daw.wait()
+            mark = len(COLLECTIVES)
             t0 = time.perf_counter()
             benchmark.iterate()
             latencies.append((time.perf_counter() - t0) * 1000.0)
+            if inventory is None:
+                inventory = [dict(c) for c in COLLECTIVES[mark:]]
     result.latencies = latencies
     result.statistics = calculate_statistics(latencies)
 
@@ -204,7 +208,12 @@ def _run(benchmark: Benchmark, cfg: BenchConfig, verbose: bool,
 
     # Overlapped-infeed pass: the input upload double-buffered against
     # compute, beside its serial twin in the same reps.
-    if cfg.overlap_depth > 1:
+    if cfg.overlap_depth > 1 and cfg.data_parallel > 1:
+        if verbose:
+            print("Note: overlapped-infeed pass is single-device "
+                  "(uploads target one chip's HBM); skipping under "
+                  "--dataParallel.")
+    elif cfg.overlap_depth > 1:
         body = benchmark.overlap_body()
         if body is None:
             if verbose:
@@ -241,6 +250,8 @@ def _run(benchmark: Benchmark, cfg: BenchConfig, verbose: bool,
     result.metadata = benchmark.metadata()
     if form is not None:
         result.metadata["chainForm"] = form
+    if benchmark.dp_ranks > 1:
+        result.metadata["collectiveInventory"] = inventory or []
     roofline = roofline_section(benchmark, result)
     if roofline is not None:
         result.metadata["roofline"] = roofline

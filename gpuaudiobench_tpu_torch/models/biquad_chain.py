@@ -26,9 +26,8 @@ from gpuaudiobench_tpu_torch.models.common import (
     StandardBufferBenchmark,
     expand_rows,
 )
-from gpuaudiobench_tpu_torch.models.iir import iir_reference, read_back
+from gpuaudiobench_tpu_torch.models.iir import iir_reference
 from gpuaudiobench_tpu_torch.ops.iir import iir_cascade, iir_cascade_chain
-from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import biquad_lowpass_coefficients
 
 NUM_STAGES = 10  # kernels_extra.metal caps the chain at 10
@@ -66,9 +65,9 @@ class BiquadChainBenchmark(StandardBufferBenchmark):
                 f"{self.name}: need coeffs ({NUM_STAGES}, 5) and states "
                 f"{want}, got {coeffs.shape} {states.shape}")
         self.stage_coeffs = [tuple(np.float32(c) for c in row) for row in coeffs]
-        self._coeffs_dev = dev.to_device(coeffs, self.device)
+        self._coeffs_dev = self.put_replicated(coeffs)
         self._entry_states = states.copy()
-        self._states_dev = dev.to_device(states, self.device)
+        self._states_dev = self.put_spec(states, None, "dp")
 
         rows = self.checked_tracks(states.shape)
         y = self.host_input if rows is None else self.host_input[rows]
@@ -86,7 +85,8 @@ class BiquadChainBenchmark(StandardBufferBenchmark):
     def iterate(self) -> None:
         x = self.put_input(self.host_input)
         y, zs = iir_cascade(x, self._coeffs_dev, self._states_dev)
-        self.host_output, self.host_states = read_back(y, zs)
+        self.host_output, self.host_states = self.to_host_parts(
+            [(y, 0), (zs, 1)])
 
     def device_iterate(self) -> None:
         iir_cascade(self._resident_input, self._coeffs_dev, self._states_dev)
@@ -122,7 +122,7 @@ class BiquadChainBenchmark(StandardBufferBenchmark):
         # round trip's block, and output and states must agree to 1e-6.
         y, zs = iir_cascade_chain(self._resident_input, self._coeffs_dev,
                                   self._states_dev)
-        chain_y, chain_zs = read_back(y, zs)
+        chain_y, chain_zs = self.to_host_parts([(y, 0), (zs, 1)])
         v.merge_failure(compare_abs(
             self.host_output, chain_y, self.chain_tolerance, mode=mode,
             limit=limit, label=f"{self.name} systolic vs chain output"))

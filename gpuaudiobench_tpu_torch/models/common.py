@@ -2,8 +2,10 @@
 float32 buffer pair with seeded +-1 uniform input.
 
 PyTorch counterpart of ``gpuaudiobench_tpu/models/common.py`` (the
-reference's BufferSet, cuda/bench_base.cuh:50-74), without its
-data-parallel helpers: the port runs on one device.
+reference's BufferSet, cuda/bench_base.cuh:50-74). The track axis is the
+data-parallel axis: under ``--dataParallel`` each rank's device holds its
+slice of the tracks (``Benchmark.put_sharded``), and ``to_host`` reads an
+output back whole.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from gpuaudiobench_tpu_torch.harness.validation import (
     compare_abs,
     spot_indices,
 )
-from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import generate_random_audio
 
 
@@ -68,8 +69,8 @@ class StandardBufferBenchmark(Benchmark):
         return data.reshape(self.track_count, self.buffer_size)
 
     def put_input(self, host_array: np.ndarray) -> torch.Tensor:
-        """H2D copy of one input block."""
-        return dev.to_device(host_array, self.device)
+        """H2D copy of one input block, the track axis dp-sharded."""
+        return self.put_sharded(host_array)
 
     def set_input(self, host_input: np.ndarray) -> None:
         """Take ``host_input`` as the input block and keep a resident
@@ -88,6 +89,7 @@ class StandardBufferBenchmark(Benchmark):
         self.track_alloc("deviceOutput", nbytes)
 
     def setup_standard_buffers(self) -> None:
+        self.setup_sharding(self.track_count)
         self.set_input(self.make_input())
 
     def overlap_blocks(self):

@@ -14,6 +14,15 @@ verification it is computed for the tracks the spot check reads only
 Edge modes: "clamp" (the default) keeps the window inside each track;
 "bleed" reads the flat track-major buffer, reaching back across as many
 earlier tracks as the IR needs, as the golden and the CUDA reference do.
+
+Under ``--dataParallel`` each rank holds its tracks and their IRs. In
+bleed mode the window of a rank's first tracks reaches into the tracks
+of earlier ranks: ceil((L - 1) / S) of them, the halo, which may span
+several ranks. Each rank takes the last min(halo, its tracks) tracks of
+every rank in one ``all_gather``, prepends the halo to its block (zeros
+before the first track) with zero IRs, runs the kernel and drops the
+halo's rows. Clamp mode needs no halo. (The JAX package's XLA bleed pads
+one track only and misses its golden where L - 1 > S.)
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from gpuaudiobench_tpu_torch.models.common import (
     expand_rows,
 )
 from gpuaudiobench_tpu_torch.ops.conv import conv1d_direct
-from gpuaudiobench_tpu_torch.utils import device as dev
+from gpuaudiobench_tpu_torch.parallel import collectives as col
 from gpuaudiobench_tpu_torch.utils.data import conv1d_impulse_responses
 
 DEFAULT_IR_LENGTH = 1024  # bench_conv1d.cuh:11
@@ -87,7 +96,14 @@ class Conv1DBenchmark(StandardBufferBenchmark):
                 f"bank, got {ir.dtype} {ir.shape}")
         self.ir = ir
         self.ir_length = ir.shape[1]
-        self._ir_dev = dev.to_device(ir, self.device)
+        self._ir_dev = self.put_sharded(ir)
+        # The tracks of earlier ranks a bleed window reaches, and the IR
+        # bank with zero rows for them.
+        self._halo = 0
+        if self.edge_mode == "bleed" and self.dp_ranks > 1:
+            self._halo = -(-(self.ir_length - 1) // self.buffer_size)
+            self._ir_halo = torch.cat([self._ir_dev.new_zeros(
+                (self._halo, self.ir_length)), self._ir_dev])
         self.track_alloc("irBank", ir.nbytes)
         self.golden = None
         self.iterate()
@@ -95,11 +111,27 @@ class Conv1DBenchmark(StandardBufferBenchmark):
     def _run(self, x: torch.Tensor) -> torch.Tensor:
         # The wrapper launches the kernel on CUDA tensors; only CPU
         # tensors take its plain twin.
+        if self._halo:
+            xh = torch.cat([self._halo_tracks(x), x])
+            return conv1d_direct(xh, self._ir_halo, "bleed")[self._halo:]
         return conv1d_direct(x, self._ir_dev, self.edge_mode)
+
+    def _halo_tracks(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``_halo`` tracks before this rank's first, zeros before
+        track 0: every rank's last min(halo, tracks a rank) tracks,
+        gathered, hold them."""
+        h = self._halo
+        k = min(h, x.shape[0])
+        tails = col.all_gather(x[-k:], self._mesh, "dp", 0)
+        prev = tails[:self.dp_rank * k][-h:]
+        if prev.shape[0] < h:
+            prev = torch.cat([x.new_zeros((h - prev.shape[0], x.shape[1])),
+                              prev])
+        return prev
 
     def iterate(self) -> None:
         x = self.put_input(self.host_input)
-        self.host_output = dev.from_device(self._run(x))
+        self.host_output = self.to_host(self._run(x))
 
     def device_iterate(self) -> None:
         self._run(self._resident_input)

@@ -35,7 +35,6 @@ from gpuaudiobench_tpu_torch.models.common import (
 )
 from gpuaudiobench_tpu_torch.models.conv1d import conv1d_reference
 from gpuaudiobench_tpu_torch.ops.conv import conv1d_fft, precompute_ir_spectra
-from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import conv1d_impulse_responses
 
 DEFAULT_IR_LENGTH = 512  # bench_conv1d_accel.cuh:506
@@ -74,8 +73,8 @@ class Conv1DAccelBenchmark(StandardBufferBenchmark):
         self.ir = ir
         self.ir_length = ir.shape[1]
         self.fft_size = next_pow2(self.ir_length + self.buffer_size - 1)
-        self._ir_spec_dev = precompute_ir_spectra(
-            dev.to_device(ir, self.device), self.fft_size)
+        self._ir_spec_dev = precompute_ir_spectra(self.put_sharded(ir),
+                                                  self.fft_size)
         self.track_alloc("irSpectra",
                          self.track_count * (self.fft_size // 2 + 1) * 8)
         self.golden = None
@@ -87,7 +86,9 @@ class Conv1DAccelBenchmark(StandardBufferBenchmark):
 
     def iterate(self) -> None:
         y = self._run(self.put_input(self.host_input))
-        self.host_output = dev.from_device(y.t().contiguous()).ravel()
+        # Interleaved out[T*i + t]: the (S, T) transpose, gathered along
+        # its track axis.
+        self.host_output = self.to_host(y.t().contiguous(), axis=1).ravel()
 
     def device_iterate(self) -> None:
         self._run(self._resident_input)

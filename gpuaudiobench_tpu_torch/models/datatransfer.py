@@ -1,8 +1,7 @@
 """datacopy*: host<->device transfer benchmarks at five input/output
 ratios (cuda/bench_datatransfer.cu).
 
-PyTorch counterpart of ``gpuaudiobench_tpu/models/datatransfer.py``,
-without its data-parallel sharding (the port runs on one device). The
+PyTorch counterpart of ``gpuaudiobench_tpu/models/datatransfer.py``. The
 pool is ``transfer_mib`` MiB of floats (10 by default,
 bench_datatransfer.cuh:703 BASE_BUFFER_SIZE; the poster's tab5 used 100
 MiB); per ratio the input is ratio_in of the pool, uploaded every
@@ -17,6 +16,14 @@ upload copies from it; the read-back stays pageable, as in the JAX
 package. ``metadata()["transferMemoryClass"]`` records which path the
 uploads took and, on a CUDA device, an A/B of pinned against pageable
 copies in both directions.
+
+Under ``--dataParallel N`` each rank uploads its 1/N of the input floats
+and writes its 1/N of the output floats; both counts must divide by N.
+Output shard r copies the input floats [r O/N, (r + 1) O/N), which lie on
+other ranks' input shards wherever the input and output sizes differ:
+every rank takes the whole input by one ``all_gather`` of the shards
+before it writes its slice. The input is staged in pinned memory only on
+one rank, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.harness.base import Benchmark
 from gpuaudiobench_tpu_torch.harness.validation import ValidationData, compare_abs
 from gpuaudiobench_tpu_torch.ops.elementwise import data_transfer_op
+from gpuaudiobench_tpu_torch.parallel import collectives as col
 from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import generate_uniform01
 
@@ -71,22 +79,43 @@ class DataTransferBenchmark(Benchmark):
         self._transfer_class = None
 
     def setup(self) -> None:
+        # dp shards the flat transfer over the ranks; both portions must
+        # split evenly.
+        self.setup_sharding(self.input_size, "input floats")
+        if self.cfg.data_parallel > 1 and \
+                self.output_size % self.cfg.data_parallel != 0:
+            raise ValueError(
+                f"output floats ({self.output_size}) must be divisible "
+                f"by --dataParallel ({self.cfg.data_parallel})"
+            )
         self.host_input = generate_uniform01(self.input_size, self.cfg.seed)
         self.track_alloc("inputBuffers", self.input_size * 4 * 2)
         self.track_alloc("outputBuffers", self.output_size * 4 * 2)
-        self._pinned_input = dev.stage_pinned(self.host_input, self.device)
-        self._resident_input = dev.to_device(self.host_input, self.device)
+        if self.cfg.data_parallel <= 1:
+            self._pinned_input = dev.stage_pinned(self.host_input,
+                                                  self.device)
+        self._resident_input = self.put_sharded(self.host_input)
         self.golden = transfer_golden(self.host_input, self.output_size)
         self.iterate()
 
+    def _transfer(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's output floats from its input shard ``x``."""
+        if self._mesh is None:
+            return data_transfer_op(x, self.output_size)
+        whole = col.all_gather(x, self._mesh, "dp", 0)
+        part = self.dp_slice(self.output_size)
+        return data_transfer_op(whole, self.output_size, part.start,
+                                part.stop)
+
     def iterate(self) -> None:
-        src = (self._pinned_input if self._pinned_input is not None
-               else self.host_input)
-        y = data_transfer_op(dev.upload(src, self.device), self.output_size)
-        self.host_output = dev.from_device(y)
+        if self._pinned_input is not None:
+            x = dev.upload(self._pinned_input, self.device)
+        else:
+            x = self.put_sharded(self.host_input)
+        self.host_output = self.to_host(self._transfer(x))
 
     def device_iterate(self) -> None:
-        data_transfer_op(self._resident_input, self.output_size)
+        self._transfer(self._resident_input)
 
     def overlap_body(self):
         """The upload is the workload here: the purest serial against
@@ -130,8 +159,8 @@ class DataTransferBenchmark(Benchmark):
                 "d2h_bytes": self.output_size * 4}
 
     def _transfer_class_ab(self) -> dict:
-        """Which memory the uploads came from and, on a CUDA device, the
-        median of ``AB_REPS`` wall times of each copy of the input's bytes,
+        """Which memory the uploads came from and, on a CUDA device with
+        the input staged (one rank), the median of ``AB_REPS`` wall times of each copy of the input's bytes,
         each ending in a synchronize: H2D from the pageable array and
         from the pinned buffer, D2H of a fresh device buffer (made before
         the clock starts) into pageable memory and, non_blocking, into a
@@ -141,7 +170,7 @@ class DataTransferBenchmark(Benchmark):
             "h2d_path_used": ("pinned" if self._pinned_input is not None
                               else "pageable"),
         }
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self._pinned_input is None:
             return info
         sync = torch.cuda.synchronize
 

@@ -24,6 +24,11 @@ pair, and the in-tap pair never reaches the out-tap pair; see the JAX
 module), so the rails carry the evidence. The stream carries the plain
 rails (fwd, bwd); the JAX package's Pallas stream carries its arc
 kernel's aligned form instead.
+
+Under ``--dataParallel`` each rank holds its waveguides (parameters and
+rails, after the partition) and the whole input block, runs the kernel
+on them, and one ``psum`` a block sums the ranks' mono outputs. The
+rails stay sharded and are read back whole, in the same one copy.
 """
 
 from __future__ import annotations
@@ -35,7 +40,6 @@ from gpuaudiobench_tpu_torch.harness.base import Benchmark
 from gpuaudiobench_tpu_torch.harness.streaming import probe
 from gpuaudiobench_tpu_torch.harness.validation import ValidationData, compare_abs
 from gpuaudiobench_tpu_torch.ops.dwg import dwg_block
-from gpuaudiobench_tpu_torch.utils import device as dev
 
 REFLECTION = 0.99
 DAMPING = 0.9999
@@ -122,6 +126,7 @@ class DWGBenchmark(Benchmark):
         # all draws, as the JAX benchmark orders its rows.
         order = np.argsort(lengths < self.buffer_size, kind="stable")
         params = {k: v[order] for k, v in params.items()}
+        self.setup_sharding(n_wg, "waveguides (nTracks)")
         zero = np.zeros((n_wg, self._max_len), np.float32)
         self.load_state(host_input, params, zero, zero)
 
@@ -154,29 +159,26 @@ class DWGBenchmark(Benchmark):
         self.host_bwd = self._start_bwd
         self.track_alloc("delayRails", fwd.nbytes * 4)  # fwd+bwd, host+dev
         self.track_alloc("ioBuffers", self.buffer_size * 4 * 4)
-        self._consts = [dev.to_device(getattr(self, k), self.device)
-                        for k in PARAMS]
-        self._resident_input = dev.to_device(self.host_input, self.device)
+        self._consts = [self.put_sharded(getattr(self, k)) for k in PARAMS]
+        self._resident_input = self.put_replicated(self.host_input)
         # Rails for the device tier, updated in place run after run.
-        self._timing_rails = (dev.to_device(self._start_fwd, self.device),
-                              dev.to_device(self._start_bwd, self.device))
+        self._timing_rails = (self.put_sharded(self._start_fwd),
+                              self.put_sharded(self._start_bwd))
         self.host_output = None
         self._invocations = 0
         self.iterate()
 
     def _run(self, x, fwd, bwd):
-        return dwg_block(x, fwd, bwd, *self._consts)
+        out, fwd, bwd = dwg_block(x, fwd, bwd, *self._consts)
+        return self.dp_psum(out), fwd, bwd
 
     def iterate(self) -> None:
-        x = dev.to_device(self.host_input, self.device)
-        fwd = dev.to_device(self.host_fwd, self.device)
-        bwd = dev.to_device(self.host_bwd, self.device)
+        x = self.put_replicated(self.host_input)
+        fwd = self.put_sharded(self.host_fwd)
+        bwd = self.put_sharded(self.host_bwd)
         out, fwd, bwd = self._run(x, fwd, bwd)
-        buf = dev.from_device(torch.cat([out, fwd.reshape(-1), bwd.reshape(-1)]))
-        s, rails = self.buffer_size, self.track_count * self._max_len
-        self.host_output = buf[:s]
-        self.host_fwd = buf[s:s + rails].reshape(self.track_count, self._max_len)
-        self.host_bwd = buf[s + rails:].reshape(self.track_count, self._max_len)
+        self.host_output, self.host_fwd, self.host_bwd = self.to_host_parts(
+            [(out, None), (fwd, 0), (bwd, 0)])
         self._invocations += 1
 
     def device_iterate(self) -> None:
@@ -190,9 +192,8 @@ class DWGBenchmark(Benchmark):
             out, fwd, bwd = run(x, fwd, bwd)
             return (x, fwd, bwd), probe(out)
 
-        return step, (self._resident_input,
-                      dev.to_device(self.host_fwd, self.device),
-                      dev.to_device(self.host_bwd, self.device))
+        return step, (self._resident_input, self.put_sharded(self.host_fwd),
+                      self.put_sharded(self.host_bwd))
 
     def overlap_body(self):
         """Input upload double-buffered against the rail update; the
@@ -205,8 +206,8 @@ class DWGBenchmark(Benchmark):
             return out, (fwd, bwd)
 
         return (step, [self.host_input, np.negative(self.host_input)],
-                (dev.to_device(self.host_fwd, self.device),
-                 dev.to_device(self.host_bwd, self.device)))
+                (self.put_sharded(self.host_fwd),
+                 self.put_sharded(self.host_bwd)))
 
     def validate(self) -> ValidationData:
         if self.cfg.verification == "none":

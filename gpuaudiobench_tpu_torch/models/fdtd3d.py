@@ -144,6 +144,11 @@ class FDTD3DBenchmark(Benchmark):
         self._receiver = op.receiver_pos(self._room)
 
     def setup(self) -> None:
+        self.reject_data_parallel(
+            "FDTD3D has no data-parallel axis (one shared acoustic "
+            "field); multi-chip FDTD uses domain decomposition -- see "
+            "parallel/fdtd_sharded.py (tests/test_multichip.py)"
+        )
         t, s = self.track_count, self.buffer_size
         self.load_data(generate_random_audio(t * s, self.cfg.seed).reshape(t, s))
 

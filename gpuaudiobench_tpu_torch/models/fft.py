@@ -17,7 +17,6 @@ from gpuaudiobench_tpu_torch.config import BenchConfig
 from gpuaudiobench_tpu_torch.harness.validation import ValidationData, compare_complex
 from gpuaudiobench_tpu_torch.models.common import StandardBufferBenchmark
 from gpuaudiobench_tpu_torch.ops.fft import FFT_SIZE, rfft_interleaved
-from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import generate_random_audio
 
 
@@ -36,6 +35,7 @@ class FFTBenchmark(StandardBufferBenchmark):
         data = generate_random_audio(t * n, self.cfg.seed).reshape(t, n)
         self.host_input = np.zeros((t, self.fft_size), np.float32)
         self.host_input[:, :n] = data
+        self.setup_sharding(t)
         self._resident_input = self.put_input(self.host_input)
         self.track_alloc("inputBuffers", self.host_input.nbytes * 2)
         self.track_alloc("outputBuffers", t * self.bins * 8 * 2)
@@ -48,7 +48,7 @@ class FFTBenchmark(StandardBufferBenchmark):
 
     def iterate(self) -> None:
         x = self.put_input(self.host_input)
-        buf = dev.from_device(rfft_interleaved(x, self.fft_size))
+        buf = self.to_host(rfft_interleaved(x, self.fft_size))
         self.host_re = buf[..., 0]
         self.host_im = buf[..., 1]
 

@@ -10,7 +10,6 @@ import numpy as np
 
 from gpuaudiobench_tpu_torch.models.common import StandardBufferBenchmark
 from gpuaudiobench_tpu_torch.ops.elementwise import gain_op
-from gpuaudiobench_tpu_torch.utils import device as dev
 
 GAIN_VALUE = 2.0  # benchmark_constants.cuh:6 (GAIN_VALUE)
 
@@ -26,7 +25,7 @@ class GainBenchmark(StandardBufferBenchmark):
 
     def iterate(self) -> None:
         x = self.put_input(self.host_input)
-        self.host_output = dev.from_device(gain_op(x, GAIN_VALUE))
+        self.host_output = self.to_host(gain_op(x, GAIN_VALUE))
 
     def device_iterate(self) -> None:
         gain_op(self._resident_input, GAIN_VALUE)

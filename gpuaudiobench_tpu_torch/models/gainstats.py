@@ -16,7 +16,6 @@ import torch
 from gpuaudiobench_tpu_torch.harness.validation import ValidationData, compare_abs
 from gpuaudiobench_tpu_torch.models.common import StandardBufferBenchmark
 from gpuaudiobench_tpu_torch.ops.elementwise import gain_stats_op
-from gpuaudiobench_tpu_torch.utils import device as dev
 
 GAINSTATS_GAIN = 0.5  # benchmark_constants.cuh:7 (the CUDA value)
 NSTATS = 2
@@ -44,10 +43,13 @@ class GainStatsBenchmark(StandardBufferBenchmark):
         self.iterate()
 
     def iterate(self) -> None:
-        buf = dev.from_device(_fused(self.put_input(self.host_input)))
-        n = self.total_elements()
-        self.host_output = buf[:n].reshape(self.track_count, self.buffer_size)
-        self.host_stats = buf[n:].reshape(self.track_count, NSTATS)
+        # One read-back of the fused buffer; under --dataParallel its rows
+        # (one a rank) are split into output and stats before joining.
+        rows = self.to_host(_fused(self.put_input(self.host_input))[None])
+        n = self.total_elements() // self.dp_ranks
+        self.host_output = rows[:, :n].reshape(self.track_count,
+                                               self.buffer_size)
+        self.host_stats = rows[:, n:].reshape(self.track_count, NSTATS)
 
     def device_iterate(self) -> None:
         gain_stats_op(self._resident_input, GAINSTATS_GAIN)

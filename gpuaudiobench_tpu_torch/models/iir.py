@@ -30,7 +30,6 @@ from gpuaudiobench_tpu_torch.models.common import (
     expand_rows,
 )
 from gpuaudiobench_tpu_torch.ops import iir as iir_ops
-from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import biquad_lowpass_coefficients
 
 
@@ -48,13 +47,6 @@ def iir_reference(x: np.ndarray, coeffs, state: np.ndarray):
         z2 = z1
         z1 = w
     return y, np.stack([z1, z2], axis=1)
-
-
-def read_back(y: torch.Tensor, state: torch.Tensor):
-    """Output and state to the host in ONE device-to-host copy."""
-    buf = dev.from_device(torch.cat([y.reshape(-1), state.reshape(-1)]))
-    n = y.numel()
-    return buf[:n].reshape(y.shape), buf[n:].reshape(state.shape)
 
 
 class IIRBenchmark(StandardBufferBenchmark):
@@ -91,16 +83,15 @@ class IIRBenchmark(StandardBufferBenchmark):
                 f"{self.name}: need coeffs (5,) and state "
                 f"({self.track_count}, 2), got {coeffs.shape} {state.shape}")
         self.coeffs = tuple(np.float32(c) for c in coeffs)
-        self._coeffs_dev = dev.to_device(coeffs, self.device)
+        self._coeffs_dev = self.put_replicated(coeffs)
         self._start_state = state.copy()
-        self._state_dev = dev.to_device(state, self.device)
+        self._state_dev = self.put_sharded(state)
         # The setup state, frozen for the device tier and the stream:
         # the wrappers never write their input state.
         self._timing_state = self._state_dev
         if self._block_m is not None:
             taps, u = iir_ops.blockstate_tables(self.coeffs, self._block_m)
-            taps_d = dev.to_device(taps, self.device)
-            u_d = dev.to_device(u, self.device)
+            taps_d, u_d = self.put_replicated(taps), self.put_replicated(u)
 
             def filt(x, c, z):
                 return iir_ops.iir_biquad_blockstate(x, c, taps_d, u_d, z)
@@ -114,7 +105,8 @@ class IIRBenchmark(StandardBufferBenchmark):
     def iterate(self) -> None:
         x = self.put_input(self.host_input)
         y, self._state_dev = self._filter(x, self._coeffs_dev, self._state_dev)
-        self.host_output, self.host_state = read_back(y, self._state_dev)
+        self.host_output, self.host_state = self.to_host_parts(
+            [(y, 0), (self._state_dev, 0)])
         self._invocations += 1
 
     def device_iterate(self) -> None:

@@ -10,6 +10,16 @@ Relative tolerance 1e-4 against the float64-accumulated NumPy golden.
 The host data is the reference's, generated from the same seeded
 MT19937 stream in the same order, so both packages synthesize the same
 bank from the same seed.
+
+Under ``--dataParallel N`` each rank synthesizes its slice of the padded
+modes, Mp / N from mode r * Mp / N, through the same kernel, and the
+ranks' folded outputs are summed by one ``psum`` a block. The fold is
+out[m % T_out], so a rank's slice is padded with zero-amplitude modes
+(amplitude and state 0, unit rotation) at its head up to its first
+mode's place in the fold, and at its tail to a multiple of T_out: its
+local fold then lines up with the global one, and the kernel, which
+takes only a T_out dividing its mode count, takes it. A zero-amplitude
+mode adds exactly nothing; the psum changes only the order of the sum.
 """
 
 from __future__ import annotations
@@ -143,6 +153,7 @@ class ModalFilterBankBenchmark(Benchmark):
     def setup(self) -> None:
         g = np.random.Generator(np.random.MT19937(self.cfg.seed))
         m, mp = self.num_modes, self.padded_modes
+        self.setup_sharding(mp, "modes (padded)")
         amp = np.zeros(mp, np.float32)
         freq = np.zeros(mp, np.float32)
         self.phase = np.zeros(mp, np.float32)  # generated but unused (Metal parity)
@@ -171,7 +182,7 @@ class ModalFilterBankBenchmark(Benchmark):
                 f"expected {self.padded_modes} modes, got "
                 f"{params['amp'].shape}")
         self.params = params
-        self._dev = params_from_numpy(params, self.device)
+        self._dev = params_from_numpy(self._local_modes(params), self.device)
         self.track_alloc("modeParams", self.num_modes * NUM_MODE_PARAMS * 4)
         self.track_alloc("outputBuffer", self.output_tracks * self.buffer_size * 4)
         # The golden iterates the full bank on the host, so skip it when
@@ -185,12 +196,29 @@ class ModalFilterBankBenchmark(Benchmark):
         self.host_output = None
         self.iterate()
 
+    def _local_modes(self, params: Dict[str, np.ndarray]):
+        """This rank's slice of the mode tables, padded with zero-amplitude
+        modes to line up with the global fold (the tables themselves when
+        unsharded)."""
+        if self._mesh is None:
+            return params
+        part = self.dp_slice(self.padded_modes)
+        head = part.start % self.output_tracks
+        tail = -(head + part.stop - part.start) % self.output_tracks
+        fill = {"cos_w": 1.0}  # a unit rotation; everything else 0
+        return {k: np.concatenate([
+            np.full(head, fill.get(k, 0.0), np.float32), params[k][part],
+            np.full(tail, fill.get(k, 0.0), np.float32)])
+            for k in PARAM_NAMES}
+
     def _run(self):
         # The wrapper launches the kernel on CUDA tensors; only CPU
         # tensors take its plain twin.
         d = self._dev
-        return modal_bank(d["amp"], d["cos_w"], d["sin_w"], d["state_re"],
-                          d["state_im"], self.buffer_size, self.output_tracks)
+        out, re, im = modal_bank(d["amp"], d["cos_w"], d["sin_w"],
+                                 d["state_re"], d["state_im"],
+                                 self.buffer_size, self.output_tracks)
+        return self.dp_psum(out), re, im
 
     def iterate(self) -> None:
         # Mode params stay on the device across iterations (Metal
@@ -212,11 +240,12 @@ class ModalFilterBankBenchmark(Benchmark):
         d, s, t = self._dev, self.buffer_size, self.output_tracks
         re0 = d["amp"] * d["state_re"]
         im0 = d["amp"] * d["state_im"]
+        psum = self.dp_psum
 
         def step(carry):
             cos_c, sin_c, re, im = carry
             out_sn, re2, im2 = modal_folded_step(cos_c, sin_c, re, im, s, t)
-            return (cos_c, sin_c, re2, im2), probe(out_sn)
+            return (cos_c, sin_c, re2, im2), probe(psum(out_sn))
 
         if self.cfg.modal_renorm:
             step = _renorm_wrap(step, re0, im0)

@@ -99,10 +99,9 @@ class MultiChipSuiteBenchmark(Benchmark):
     tolerance = 1e-4  # relative to the golden's peak
 
     def setup(self) -> None:
-        if self.cfg.data_parallel > 1:
-            raise ValueError(
-                "MultiChipSuite parallelism is set with --mesh dp,tp,sp, "
-                "not --dataParallel")
+        self.reject_data_parallel(
+            "MultiChipSuite parallelism is set with --mesh dp,tp,sp, "
+            "not --dataParallel")
         self._impl = self.resolve_impl()  # raises for impl xla on CUDA
         shape = parse_mesh(self.cfg.mesh)
         self.mesh_shape = shape
@@ -215,10 +214,9 @@ class ICIBandwidthBenchmark(Benchmark):
     tolerance = 0.0  # exact
 
     def setup(self) -> None:
-        if self.cfg.data_parallel > 1:
-            raise ValueError(
-                "ICIBandwidth spans all --mesh devices; --dataParallel "
-                "does not apply")
+        self.reject_data_parallel(
+            "ICIBandwidth spans all --mesh devices; --dataParallel "
+            "does not apply")
         shape = parse_mesh(self.cfg.mesh)
         self.n_devices = int(np.prod(shape))
         self.mesh = build_mesh((self.n_devices,), ("ici",), self.device)

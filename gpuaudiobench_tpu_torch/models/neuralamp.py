@@ -28,6 +28,9 @@ peak, at the JAX package's tolerances (TOLERANCE). Set-up refuses TF32
 matmuls: the f32 mode runs in full FP32, where the JAX package's runs at
 ``Precision.HIGH``. ``load_state`` takes a JAX stream's tails or (h, c)
 and its block count.
+
+Under ``--dataParallel`` each rank holds its tracks' state (axis 0 of
+every leaf) and the whole weights.
 """
 
 from __future__ import annotations
@@ -46,7 +49,6 @@ from gpuaudiobench_tpu_torch.models.common import (
 )
 from gpuaudiobench_tpu_torch.ops import neuralamp as na
 from gpuaudiobench_tpu_torch.ops.speedoflight import INT_MM_MULTIPLE
-from gpuaudiobench_tpu_torch.utils import device as dev
 
 # Relative to the golden's peak (the JAX package's table and margins).
 TOLERANCE = {
@@ -91,7 +93,7 @@ class NeuralAmpBenchmark(StandardBufferBenchmark):
         self.tolerance = TOLERANCE[(self.arch, self.dtype)]
         self.setup_standard_buffers()
 
-        t, c = self.track_count, self.channels
+        t, c = self.track_count // self.dp_ranks, self.channels
         if self.arch == "tcn":
             self.params_np = na.init_params(cfg.seed, c, self.layers)
             self._params = na.cast_params(self.params_np, self.dtype,
@@ -108,8 +110,8 @@ class NeuralAmpBenchmark(StandardBufferBenchmark):
         self.track_alloc("weights", weights)
         self._set_state(state)
         self._invocations = 0
-        self.track_alloc("state", sum(s.numel() * s.element_size()
-                                      for s in state))
+        self.track_alloc("state", self.dp_ranks * sum(
+            s.numel() * s.element_size() for s in state))
         self.iterate()
 
     def _set_state(self, state) -> None:
@@ -124,12 +126,13 @@ class NeuralAmpBenchmark(StandardBufferBenchmark):
         float dtype; the LSTM's (h, c)) and the number of blocks it has
         run; the next ``iterate`` continues from it and the golden counts
         from ``invocations``."""
-        want = [tuple(s.shape) for s in self._timing_state]
+        want = [(s.shape[0] * self.dp_ranks,) + tuple(s.shape[1:])
+                for s in self._timing_state]
         got = [tuple(np.shape(a)) for a in state]
         if got != want:
             raise ValueError(f"{self.name}: state shapes {got}, want {want}")
         self._set_state(tuple(
-            dev.to_device(np.array(a, np.float32), self.device).to(s.dtype)
+            self.put_sharded(np.array(a, np.float32)).to(s.dtype)
             for a, s in zip(state, self._timing_state)))
         self._invocations = int(invocations)
 
@@ -159,7 +162,7 @@ class NeuralAmpBenchmark(StandardBufferBenchmark):
     def iterate(self) -> None:
         x = self.put_input(self.host_input)
         y, self._state = self._tier("iterate", self._state)(x, self._state)
-        self.host_output = dev.from_device(y)
+        self.host_output = self.to_host(y)
         self._invocations += 1
 
     def device_iterate(self) -> None:

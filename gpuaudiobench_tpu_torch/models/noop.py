@@ -10,7 +10,6 @@ from __future__ import annotations
 
 from gpuaudiobench_tpu_torch.models.common import StandardBufferBenchmark
 from gpuaudiobench_tpu_torch.ops.elementwise import copy_op
-from gpuaudiobench_tpu_torch.utils import device as dev
 
 
 class NoOpBenchmark(StandardBufferBenchmark):
@@ -24,7 +23,7 @@ class NoOpBenchmark(StandardBufferBenchmark):
 
     def iterate(self) -> None:
         x = self.put_input(self.host_input)
-        self.host_output = dev.from_device(copy_op(x))
+        self.host_output = self.to_host(copy_op(x))
 
     def device_iterate(self) -> None:
         copy_op(self._resident_input)

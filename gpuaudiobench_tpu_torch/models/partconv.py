@@ -24,6 +24,10 @@ FFT path, relative to the golden's peak at 1e-3 (the Conv1D_accel FFT
 class, bench_conv1d_accel.cu:310). ``load_state`` takes a JAX stream's
 state (NumPy leaves) and its block count, so the two packages can be run
 from one mid-stream state.
+
+Under ``--dataParallel`` each rank holds its tracks: their IRs' spectra
+and every track-major leaf of the state; the ring head and the nupols
+phase are the same on every rank.
 """
 
 from __future__ import annotations
@@ -50,7 +54,6 @@ from gpuaudiobench_tpu_torch.ops.partconv import (
     ring_aligned_spectra,
     state_to_device,
 )
-from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import reverb_impulse_responses
 
 DEFAULT_IR_LENGTH = 48000  # 1.0 s at the default 48 kHz
@@ -107,7 +110,7 @@ class PartConvBenchmark(StandardBufferBenchmark):
         self._form = form
 
         t, b = self.track_count, self.buffer_size
-        ir_dev = dev.to_device(self.ir, self.device)
+        ir_dev = self.put_sharded(self.ir)
         if form == "nupols":
             k, m = cfg.partconv_tail_chunk, self.nupols_tail
             (hh_re, hh_im), (ht_re, ht_im) = nupols_spectra(ir_dev, b, k)
@@ -138,12 +141,18 @@ class PartConvBenchmark(StandardBufferBenchmark):
             h = tuple(a.to(torch.float16) for a in h)
         self._h = h
         self._invocations = 0
-        self._set_state(state_to_device(state_np, self.device))
-        self.track_alloc("irSpectra", sum(a.numel() * a.element_size()
-                                          for a in self._h))
+        self._set_state(self._state_to_device(state_np))
+        self.track_alloc("irSpectra", self.dp_ranks * sum(
+            a.numel() * a.element_size() for a in self._h))
         self._fdl_bytes = fdl_bytes
         self.track_alloc("fdl", fdl_bytes)
         self.iterate()
+
+    def _state_to_device(self, state):
+        """A state of NumPy leaves and ints on the device, each array this
+        rank's tracks (axis 0)."""
+        return state_to_device(tuple(self.shard(np.asarray(a)) if np.ndim(a)
+                                     else a for a in state), self.device)
 
     def _set_state(self, state) -> None:
         """``state`` becomes the entry state (never written) and, as
@@ -167,15 +176,14 @@ class PartConvBenchmark(StandardBufferBenchmark):
         if h is not None:
             if len(h) != len(self._h):
                 raise ValueError(f"{self.name}: need {len(self._h)} H planes")
-            self._h = tuple(torch.from_numpy(np.array(a)).to(self.device)
-                            for a in h)
-        self._set_state(state_to_device(state, self.device))
+            self._h = tuple(self.put_sharded(np.array(a)) for a in h)
+        self._set_state(self._state_to_device(state))
         self._invocations = int(invocations)
 
     def iterate(self) -> None:
         x = self.put_input(self.host_input)
         y, self._state = self._block(x, self._state, self._h)
-        self.host_output = dev.from_device(y)
+        self.host_output = self.to_host(y)
         self._invocations += 1
 
     def device_iterate(self) -> None:

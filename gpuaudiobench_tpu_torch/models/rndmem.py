@@ -14,6 +14,9 @@ them on the device instead.
 Validation gathers the golden with the playheads the last iteration used,
 at 1e-6 absolute (bench_rndmem.cu:106), as the JAX benchmark does.
 
+Under ``--dataParallel`` the pool is replicated on every rank and the
+playheads and the output's track axis are sharded.
+
 The pool carries no ``POOL_PAD``: the JAX package pads its device pool
 only because the Pallas kernel fetches whole tile-rounded rows past the
 window. The port's kernel reads the window alone (and clamps the start,
@@ -29,7 +32,6 @@ from gpuaudiobench_tpu_torch.harness.base import Benchmark
 from gpuaudiobench_tpu_torch.harness.streaming import probe
 from gpuaudiobench_tpu_torch.harness.validation import ValidationData, compare_abs
 from gpuaudiobench_tpu_torch.ops.rndmem import rndmem_gather
-from gpuaudiobench_tpu_torch.utils import device as dev
 from gpuaudiobench_tpu_torch.utils.data import generate_uniform01
 
 
@@ -59,6 +61,7 @@ class RndMemBenchmark(Benchmark):
 
     def setup(self) -> None:
         t = self.track_count
+        self.setup_sharding(t)
         pool = generate_uniform01(self.pool_elems, self.cfg.seed)
         g = np.random.Generator(np.random.MT19937(self.cfg.seed))
         starts = g.integers(0, self.sample_buffer_end, t)
@@ -85,7 +88,7 @@ class RndMemBenchmark(Benchmark):
                 raise ValueError(f"{self.name}: {label} must be ({t},), got "
                                  f"{np.shape(a)}")
         self.host_pool = pool
-        self._pool_dev = dev.to_device(pool, self.device)
+        self._pool_dev = self.put_replicated(pool)
         self.track_alloc("samplePool", pool.nbytes * 2)  # host + device
         self.track_alloc("outputBuffer", t * self.buffer_size * 4 * 2)
         self.playheads_start = np.asarray(starts).astype(np.int64)
@@ -96,9 +99,10 @@ class RndMemBenchmark(Benchmark):
         self.iterate()
 
     def iterate(self) -> None:
-        self._ph_dev = dev.to_device(self.playheads, self.device)
+        self._ph_dev = self.put_sharded(self.playheads)
         out = rndmem_gather(self._pool_dev, self._ph_dev, self.buffer_size)
-        self.host_output = dev.from_device(out).ravel()  # (S, T) interleaved
+        # (S, T) interleaved, gathered along its track axis.
+        self.host_output = self.to_host(out, axis=1).ravel()
         self.last_playheads = self.playheads.copy()
         self._update_playheads()
 
@@ -114,8 +118,8 @@ class RndMemBenchmark(Benchmark):
 
     def stream_body(self):
         pool, s = self._pool_dev, self.buffer_size
-        starts = dev.to_device(self.playheads_start, self.device)
-        ends = dev.to_device(self.playheads_end, self.device)
+        starts = self.put_sharded(self.playheads_start)
+        ends = self.put_sharded(self.playheads_end)
 
         def step(ph):
             out = rndmem_gather(pool, ph, s)
@@ -123,7 +127,7 @@ class RndMemBenchmark(Benchmark):
             ph2 = torch.where(ph2 >= ends, starts, ph2).to(torch.int32)
             return ph2, probe(out)
 
-        return step, dev.to_device(self.playheads, self.device)
+        return step, self.put_sharded(self.playheads)
 
     def validate(self) -> ValidationData:
         s = self.buffer_size

@@ -18,6 +18,14 @@ Validation is the reference's full-replay golden (``session_reference``):
 the f32 EQ replayed block by block, the reverb as one f64 linear
 convolution of the bus history, the replay clamped at P + settle + 8
 blocks, relative to the golden's peak at 1e-3.
+
+Under ``--dataParallel`` each rank holds its strips: their input, EQ
+state (axis 1), sends and pans (axis 1 of pan2). Both sums over the
+tracks, the send bus and the dry stereo mix, go into one (3, B) ``psum``
+a block, the one collective of the graph; the reverb, its delay line and
+the previous bus block are replicated, every rank running the same
+reverb on the same bus. ``metadata.collectiveInventory`` lists the psum
+where the JAX package writes its interconnect model.
 """
 
 from __future__ import annotations
@@ -105,14 +113,19 @@ def session_reference(
 
 
 def session_block(x, coeffs, eq_states, send, pan2, prev, fre, fim,
-                  h_re, h_im):
+                  h_re, h_im, psum=None):
     """One session block: (mix (2, B), eq', bus block (2, B), fre', fim').
-    The inputs are not written."""
+    The inputs are not written. With the tracks sharded, ``psum`` sums
+    the send bus and the dry mix over the ranks, in one call."""
     y, eq2 = iir_cascade(x, coeffs, eq_states)
     bus = torch.einsum("t,tb->b", send, y)
+    dry = torch.einsum("ct,tb->cb", pan2, y)
+    if psum is not None:
+        both = psum(torch.cat([bus[None], dry]))
+        bus, dry = both[0], both[1:]
     xbus = torch.stack([bus, bus])
     rev, fre2, fim2 = partconv_block(xbus, prev, fre, fim, h_re, h_im)
-    mix = torch.einsum("ct,tb->cb", pan2, y) + WET_GAIN * rev
+    mix = dry + WET_GAIN * rev
     return mix, eq2, xbus, fre2, fim2
 
 
@@ -138,15 +151,15 @@ class DAWSessionMixBenchmark(StandardBufferBenchmark):
             for k in range(self.eq_stages)
         ]
         coeffs = np.array(self.stage_coeffs, np.float32)
-        self._coeffs_dev = dev.to_device(coeffs, self.device)
+        self._coeffs_dev = self.put_replicated(coeffs)
         self.send_np, self.pan2_np = session_mix_params(
             self.track_count, cfg.seed)
-        self._send = dev.to_device(self.send_np, self.device)
-        self._pan2 = dev.to_device(self.pan2_np, self.device)
+        self._send = self.put_spec(self.send_np, "dp")
+        self._pan2 = self.put_spec(self.pan2_np, None, "dp")
 
         # Stereo reverb bus: 2-track partitioned convolution.
         self.ir = reverb_impulse_responses(2, self.ir_length, cfg.seed)
-        self._h = partition_spectra(dev.to_device(self.ir, self.device),
+        self._h = partition_spectra(self.put_replicated(self.ir),
                                     self.buffer_size)
 
         t, b = self.track_count, self.buffer_size
@@ -164,9 +177,10 @@ class DAWSessionMixBenchmark(StandardBufferBenchmark):
         """(eq, prev, fre, fim) as NumPy arrays -> the entry state on the
         device (``_timing``, for the device tier and the stream) and
         iterate's state, which is the same tensors (no block writes
-        them)."""
-        self._timing = tuple(dev.to_device(np.array(a, np.float32),
-                                           self.device) for a in state)
+        them); the EQ state's tracks (axis 1) sharded."""
+        eq, *rest = (np.array(a, np.float32) for a in state)
+        self._timing = (self.put_spec(eq, None, "dp"),
+                        *(self.put_replicated(a) for a in rest))
         self._eq, self._prev, self._fre, self._fim = self._timing
 
     def load_state(self, state: Sequence[np.ndarray], invocations: int,
@@ -182,20 +196,21 @@ class DAWSessionMixBenchmark(StandardBufferBenchmark):
         if got != want:
             raise ValueError(f"{self.name}: state shapes {got}, want {want}")
         if h is not None:
-            self._h = tuple(dev.to_device(np.array(a, np.float32),
-                                          self.device) for a in h)
+            self._h = tuple(self.put_replicated(np.array(a, np.float32))
+                            for a in h)
         self._set_state(state)
         self._invocations = int(invocations)
 
     def _step(self, x, eq, prev, fre, fim):
         return session_block(x, self._coeffs_dev, eq, self._send,
-                             self._pan2, prev, fre, fim, *self._h)
+                             self._pan2, prev, fre, fim, *self._h,
+                             psum=self.dp_psum if self._mesh else None)
 
     def iterate(self) -> None:
         x = self.put_input(self.host_input)
         mix, self._eq, self._prev, self._fre, self._fim = self._step(
             x, self._eq, self._prev, self._fre, self._fim)
-        self.host_output = dev.from_device(mix)
+        self.host_output = dev.from_device(mix)  # whole on every rank
         self._invocations += 1
 
     def device_iterate(self) -> None:

@@ -50,6 +50,12 @@ class _SolBenchmark(Benchmark):
         self.host_output = None
         self.golden = None
 
+    def _reject_dp(self) -> None:
+        self.reject_data_parallel(
+            f"{self.name} measures single-chip peaks; --dataParallel "
+            "does not apply (use ICIBandwidth for the interconnect)"
+        )
+
     def validate(self) -> ValidationData:
         return compare_abs(
             self.host_output, self.golden, self.tolerance,
@@ -79,6 +85,7 @@ class SolVpuFmaBenchmark(_SolBenchmark):
         return sol.fma_chain
 
     def setup(self) -> None:
+        self._reject_dp()
         self._impl = self.resolve_impl()
         self._fn = self._kernel()
         self.k = self.cfg.sol_fma_k
@@ -163,6 +170,7 @@ class SolHbmStreamBenchmark(_SolBenchmark):
     tolerance = 0.0  # 2x is exact in f32
 
     def setup(self) -> None:
+        self._reject_dp()
         rows = _rows(self.cfg.sol_stream_mib)
         self.host_input = generate_random_audio(
             rows * _WIDTH, self.cfg.seed).reshape(rows, _WIDTH)
@@ -232,6 +240,7 @@ class SolMxuBenchmark(_SolBenchmark):
         return host.to(self.device, copy=True)
 
     def setup(self) -> None:
+        self._reject_dp()
         d = self.cfg.sol_matmul_dim
         a = generate_random_audio(d * d, self.cfg.seed).reshape(d, d)
         b = generate_random_audio(d * d, self.cfg.seed + 1).reshape(d, d)

@@ -15,7 +15,7 @@ has no Pallas kernel: these are plain PyTorch, as they were plain XLA.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,16 +37,19 @@ def gain_stats_op(x: torch.Tensor,
     return gain * x, stats
 
 
-def data_transfer_op(x: torch.Tensor, out_size: int) -> torch.Tensor:
+def data_transfer_op(x: torch.Tensor, out_size: int, lo: int = 0,
+                     hi: Optional[int] = None) -> torch.Tensor:
     """out[i] = x[i] for i < len(x), else 0.5 + 0.5*sin(i*0.001), in
-    float32; x is the 1-D input portion. The result is a fresh tensor
-    even where it only copies x. The index i is one float32 iota over the
-    whole output, sliced: past 2^24 it rounds to the nearest float32, as
-    ``np.arange(n, dtype=np.float32)`` and the reference's iota do."""
+    float32, for i in [lo, hi) (hi None: out_size); x is the 1-D input
+    portion. The result is a fresh tensor even where it only copies x.
+    The index i is the float32 of an int32 iota: past 2^24 it rounds to
+    the nearest float32, as ``np.arange(n, dtype=np.float32)`` and the
+    reference's iota do."""
+    hi = out_size if hi is None else hi
     in_size = x.shape[0]
-    if out_size <= in_size:
-        return x[:out_size].clone()
-    idx = torch.arange(out_size, dtype=torch.int32, device=x.device)
-    idx = idx.to(torch.float32)[in_size:]
-    synth = 0.5 + 0.5 * torch.sin(idx * 0.001)
-    return torch.cat([x, synth])
+    if hi <= in_size:
+        return x[lo:hi].clone()
+    start = max(lo, in_size)
+    idx = torch.arange(start, hi, dtype=torch.int32, device=x.device)
+    synth = 0.5 + 0.5 * torch.sin(idx.to(torch.float32) * 0.001)
+    return torch.cat([x[lo:start], synth])

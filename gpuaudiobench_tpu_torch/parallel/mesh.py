@@ -121,24 +121,33 @@ class Mesh:
         return self._groups[axis]
 
 
-def check_devices(shape: Sequence[int], device: torch.device) -> None:
+def check_devices(shape: Sequence[int], device: torch.device,
+                  flag: str = "--mesh") -> None:
     """Raises the JAX package's message for a mesh of more ranks than
-    ``available_devices``."""
+    ``available_devices``, naming the ``flag`` that asked for it."""
     n = int(np.prod(shape))
     have = available_devices(device)
     if have < n:
         raise ValueError(
-            f"--mesh {'x'.join(map(str, shape))} needs {n} devices; "
+            f"{flag} {'x'.join(map(str, shape))} needs {n} devices; "
             f"{have} available"
         )
 
 
 def build_mesh(shape: Sequence[int], axis_names: Sequence[str],
-               device: torch.device) -> Mesh:
+               device: torch.device, flag: str = "--mesh") -> Mesh:
     """The calling rank's mesh on ``device``'s type (``check_devices``
     first)."""
-    check_devices(shape, device)
+    check_devices(shape, device, flag)
     return Mesh(shape, axis_names)
+
+
+def dp_mesh(n: int, device: torch.device) -> Mesh:
+    """The one-axis ("dp",) mesh of ``--dataParallel n``: every rank of
+    the process group, each holding one shard. More ranks than devices
+    raise, where the JAX package's ``dp_sharding`` takes
+    ``jax.devices()[:n]`` and builds a smaller mesh."""
+    return build_mesh((n,), ("dp",), device, "--dataParallel")
 
 
 def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
@@ -154,4 +163,5 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
 
 
 __all__ = ["AXES", "CPU_DEVICES", "Mesh", "_factor3", "available_devices",
-           "build_mesh", "check_devices", "make_mesh", "parse_mesh"]
+           "build_mesh", "check_devices", "dp_mesh", "make_mesh",
+           "parse_mesh"]

@@ -97,6 +97,53 @@ def cli_runs(argvs: Sequence[List[str]], device: str = "cpu") -> List[tuple]:
     return out
 
 
+def _shard_shapes(bench) -> Dict[str, tuple]:
+    """The shapes of the device tensors that show a benchmark's shard on
+    this rank: the input block, RndMemRead's playheads, the modal bank's
+    amplitudes and the DWG's lengths (those it has)."""
+    tensors = {"_resident_input": getattr(bench, "_resident_input", None),
+               "_ph_dev": getattr(bench, "_ph_dev", None),
+               "_dev.amp": getattr(bench, "_dev", {}).get("amp"),
+               "_consts.0": (getattr(bench, "_consts", None) or [None])[0]}
+    return {k: tuple(t.shape) for k, t in tensors.items()
+            if isinstance(t, torch.Tensor)}
+
+
+def dp_runs(cases: Sequence[tuple], device: str = "cpu") -> List:
+    """Each (name, config fields) of ``cases`` through the runner with
+    ``data_parallel`` the process group's size (one rank: this process):
+    (its JSON record, every ``host_*`` array of the benchmark, whole, and
+    each rank's ``_shard_shapes``), or the message of the
+    ``ValueError`` its set-up raised."""
+    import torch.distributed as dist
+
+    from gpuaudiobench_tpu_torch.config import BenchConfig
+    from gpuaudiobench_tpu_torch.harness.output import generate_json_results
+    from gpuaudiobench_tpu_torch.harness.runner import run_benchmark
+    from gpuaudiobench_tpu_torch.registry import create_benchmark
+
+    dev = rank_device(device)
+    out = []
+    for name, fields in cases:
+        cfg = BenchConfig(**fields).replace(data_parallel=_world())
+        try:
+            bench = create_benchmark(name, cfg, dev)
+            bench.setup()
+        except ValueError as e:
+            out.append(str(e))
+            continue
+        result = run_benchmark(bench, cfg, verbose=False)
+        host = {k: v for k, v in vars(bench).items()
+                if k.startswith("host_") and isinstance(v, np.ndarray)}
+        shapes = [_shard_shapes(bench)]
+        if dist.is_initialized():
+            shapes = [None] * dist.get_world_size()
+            dist.all_gather_object(shapes, _shard_shapes(bench))
+        out.append((generate_json_results(result, cfg, dev), host, shapes))
+        bench.cleanup()
+    return out
+
+
 def skip_collective(skipper: int) -> None:
     """Every rank but ``skipper`` joins an all-reduce: the others wait for
     it until their process group's timeout."""

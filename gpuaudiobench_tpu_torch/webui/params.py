@@ -8,15 +8,12 @@ select / switch / number), and every control maps onto a real
 the CLI surface stay one config system. ``apply_params`` is the single
 params-dict -> BenchConfig funnel, shared by /api/run and the tests.
 
-Every slider, select, default and mapping is the reference's, except:
-
-* the impl labels, and the descriptions that named the TPU's parts
-  (XLA, VMEM, the MXU, the profiler's device tier), name the card's;
-* ``dataParallel`` is not offered: a request naming it is refused with
-  ROADMAP.md queue 1, item 18b, as the CLI refuses ``--dataParallel``
-  (``UNPORTED_PARAMS``). The device mesh (``mesh``, MultiChipSuite and
-  ICIBandwidth) is, and a mesh of more than one rank runs as the CLI
-  runs it (``parallel/launch.py:spmd``).
+Every slider, select, default and mapping is the reference's, except
+the impl labels, and the descriptions that named the TPU's parts (XLA,
+VMEM, the MXU, the profiler's device tier), which name the card's. The
+device mesh (``mesh``, MultiChipSuite and ICIBandwidth) and
+``dataParallel`` are taken, and more than one rank runs as the CLI runs
+it (``parallel/launch.py:spmd``).
 """
 
 from __future__ import annotations
@@ -24,13 +21,6 @@ from __future__ import annotations
 from typing import Any, Dict, List
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
-
-# Parameter ids of the reference's UI that the port does not take, with
-# the ROADMAP.md item that ports them.
-UNPORTED_PARAMS = {
-    "dataParallel": "queue 1, item 18b",
-}
-
 
 def slider(
     pid: str,
@@ -447,18 +437,15 @@ _FIELD_MAP = {
     "seed": ("seed", int),
     "fs": ("fs", int),
     "mesh": ("mesh", str),
+    "dataParallel": ("data_parallel", int),
 }
 
 
 def apply_params(cfg: BenchConfig, params: Dict[str, Any]) -> BenchConfig:
     """Fold a UI params dict into a BenchConfig; raises ValueError on
-    unknown or unported ids or values the config rejects."""
+    unknown ids or values the config rejects."""
     updates: Dict[str, Any] = {}
     for pid, raw in (params or {}).items():
-        if pid in UNPORTED_PARAMS:
-            raise ValueError(
-                f"parameter {pid} is not ported to the PyTorch UI yet; see "
-                f"ROADMAP.md {UNPORTED_PARAMS[pid]}")
         if pid not in _FIELD_MAP:
             raise ValueError(f"unknown parameter: {pid}")
         field, typ = _FIELD_MAP[pid]

@@ -19,12 +19,12 @@ Design points:
     the server is built. While the job thread captures a CUDA graph
     (the saturated tier), an unsafe CUDA call from another thread would
     invalidate the capture.
-  * Only ported benchmarks are offered; a run naming another, or a
-    parameter the port lacks (``params.UNPORTED_PARAMS``), is refused
-    with the ROADMAP.md item that ports it. A ``mesh`` of more than one
-    rank runs the benchmark as the CLI does (``cli.mesh_ranks``,
-    ``cli.rank_json`` under ``parallel/launch.py:spmd``); such a job
-    reports its "setup" phase only.
+  * Only ported benchmarks are offered; a run naming another is refused
+    with the ROADMAP.md item that ports it. A ``mesh`` or a
+    ``dataParallel`` of more than one rank runs the benchmark as the CLI
+    does (``cli.mesh_ranks``, ``cli.rank_json`` under
+    ``parallel/launch.py:spmd``); such a job reports its "setup" phase
+    only.
   * Presets persist server-side as JSON (the localStorage analog,
     app.js:831-872) so they survive across browsers/machines.
   * Results accumulate per session and export as the harness's own

@@ -202,9 +202,34 @@ def test_run_benchmark_single_depth_when_marginal_off(modal, port_cfg):
 @pytest.mark.parametrize("knob", [
     {"data_parallel": 2},
 ])
-def test_runner_refuses_unported_tiers(modal, port_cfg, knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_benchmark(modal, port_cfg.replace(**knob), verbose=False)
+def test_runner_refuses_unported_tiers(port_cfg, knob):
+    """The runner refused data_parallel until --dataParallel was ported.
+    Now it runs every tier on 2 gloo ranks, here the modal bank with its
+    one psum a block, and refuses only a benchmark that declared no
+    sharded axis, with the JAX runner's message."""
+    from gpuaudiobench_tpu_torch.parallel import ranks
+    from gpuaudiobench_tpu_torch.parallel.launch import spmd
+
+    fields = {f.name: getattr(port_cfg, f.name)
+              for f in dataclasses.fields(tconfig.BenchConfig)}
+    fields.update(pipeline_depth=4, saturated_reps=2)
+    [(rec, _, _)] = spmd(ranks.dp_runs, knob["data_parallel"], "cpu",
+                         [("ModalFilterBank", fields)], timeout_s=300)
+    assert rec["validation"]["status"] == "SUCCESS"
+    assert rec["metadata"]["chainForm"] == "loop"
+    assert [c["kind"] for c in rec["metadata"]["collectiveInventory"]] == [
+        "psum"]
+
+    class Opaque(Benchmark):
+        name = "opaque"
+
+        def setup(self):
+            pass
+
+    cfg = port_cfg.replace(**knob)
+    with pytest.raises(ValueError, match="opaque does not support "
+                       r"--dataParallel \(no sharded axis declared"):
+        run_benchmark(Opaque(cfg, CPU), cfg, verbose=False)
 
 
 @pytest.mark.parametrize("knob", [

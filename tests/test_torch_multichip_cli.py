@@ -3,7 +3,7 @@
 the JAX CLI's JSON on the conftest's 8-device CPU mesh: every run
 validates, the JSON keys are the reference's but the documented ones,
 the collective inventory of a step is the reference's by kind and bytes,
-and ``--dataParallel`` is refused naming its ROADMAP item. A mesh of
+and ``--dataParallel`` runs, but not on these two, which refuse it. A mesh of
 more than one rank spawns gloo ranks (``parallel/launch.py:spmd``: one
 spawn a ``main`` run, its timeout ``cli.SPMD_TIMEOUT_S``; the batched
 launch's ``SPAWN_TIMEOUT_S``).
@@ -156,6 +156,19 @@ def test_cli_inventory_is_the_step_inventory(cli_runs):
 
 
 def test_data_parallel_is_refused_naming_item_18b():
-    rc, lines = _run(cli.main, ["--benchmark", "MultiChipSuite",
-                                "--dataParallel", "2"], device="cpu")
-    assert rc == 1 and lines[-1].endswith("ROADMAP.md queue 1, item 18b")
+    """--dataParallel was refused naming ROADMAP item 18b until it was
+    ported. Now the run goes over 2 gloo ranks: gain validates on them,
+    and MultiChipSuite refuses the flag with its own message (its
+    parallelism is --mesh), so the run exits 1."""
+    rc, lines = _run(cli.main, ["--benchmarkFilter", "=MultiChipSuite,=gain",
+                                "--dataParallel", "2"] + CLI_TOY,
+                     device="cpu")
+    assert rc == 1
+    assert lines[0] == "SPMD: 2 ranks over gloo, dataParallel 2"
+    assert ("Benchmark MultiChipSuite failed: ValueError: MultiChipSuite "
+            "parallelism is set with --mesh dp,tp,sp, not --dataParallel"
+            ) in lines
+    [gain] = _json(lines)
+    assert gain["benchmark"] == "gain"
+    assert gain["validation"]["status"] == "SUCCESS"
+    assert gain["metadata"]["collectiveInventory"] == []

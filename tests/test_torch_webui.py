@@ -2,10 +2,9 @@
 package's (``gpuaudiobench_tpu/webui``), on the CPU.
 
 * For each ported name, the parameter schemas and the ``apply_params``
-  mappings are the reference's, apart from the listed divergences: the
-  device mesh and ``dataParallel`` are not offered and a request naming
-  them is refused with ROADMAP.md queue 1, item 18; labels and
-  descriptions name the card's parts.
+  mappings are the reference's, apart from the labels and descriptions,
+  which name the card's parts. The device mesh and ``dataParallel`` are
+  taken, and more than one rank runs on gloo ranks.
 * Over real HTTP against the stdlib server on an ephemeral port, with
   jobs on the CPU (``device="cpu"``): the reference's end-to-end checks,
   a job's phases read from the record its progress hook keeps (not from
@@ -81,10 +80,9 @@ def test_apply_params_maps_as_the_reference(name):
 
 
 def test_field_map_is_the_references_but_item_18():
-    """All of the reference's parameters but dataParallel (item 18b);
-    mesh is ported (item 18a)."""
-    assert set(ref_params._FIELD_MAP) - set(params._FIELD_MAP) == \
-        set(params.UNPORTED_PARAMS) == {"dataParallel"}
+    """All of the reference's parameters: mesh (item 18a) and, since
+    items 18b and 18c, dataParallel too."""
+    assert set(ref_params._FIELD_MAP) == set(params._FIELD_MAP)
     for pid, spec in params._FIELD_MAP.items():
         assert ref_params._FIELD_MAP[pid] == spec, pid
 
@@ -92,12 +90,14 @@ def test_field_map_is_the_references_but_item_18():
 @pytest.mark.parametrize("pid,value", [("mesh", "1,1,1"),
                                        ("dataParallel", 1)])
 def test_mesh_and_data_parallel_are_refused_naming_item_18(pid, value):
-    """dataParallel is refused naming item 18b; mesh is taken (item 18a)
-    and offered for the multichip benchmarks, as the reference offers
-    it."""
-    if pid in params.UNPORTED_PARAMS:
-        with pytest.raises(ValueError, match=f"{pid} is not ported.*item 18b"):
-            params.apply_params(BenchConfig(), {pid: value})
+    """Both are taken now: dataParallel (items 18b and 18c) as the
+    reference maps it; mesh (item 18a), offered for the multichip
+    benchmarks, as the reference offers it."""
+    if pid == "dataParallel":
+        for v in (value, 4):
+            ours = params.apply_params(BenchConfig(), {pid: v})
+            theirs = ref_params.apply_params(JaxConfig(), {pid: v})
+            assert ours.data_parallel == theirs.data_parallel == v
         return
     assert params.apply_params(BenchConfig(), {pid: "2,2,1"}).mesh == "2,2,1"
     for name in ("MultiChipSuite", "ICIBandwidth"):
@@ -268,16 +268,14 @@ def test_run_rejects_bad_requests(ui_server):
      "params": dict(SMALL, mesh="2,1,1")},
     {"category": "multichip", "params": dict(SMALL, transferMiB=1)},
     {"benchmarks": ["gain"], "params": dict(SMALL, mesh="1,1,1")},
-    {"benchmarks": ["gain"], "params": dict(SMALL, dataParallel=1)},
+    {"benchmarks": ["gain"], "params": dict(SMALL, dataParallel=2)},
 ])
 def test_unported_requests_are_refused_naming_item_18(ui_server, body):
-    """Only dataParallel is refused now, naming item 18b. The multichip
-    benchmarks and the mesh run (item 18a): a mesh of 2 ranks as the CLI
-    runs it, on gloo ranks."""
+    """Nothing of item 18 is refused now. The multichip benchmarks and
+    the mesh run (item 18a), and dataParallel (items 18b and 18c): a mesh
+    of 2 ranks, or gain over 2 data-parallel ranks, as the CLI runs it,
+    on gloo ranks."""
     code, resp = _post_json(ui_server, "/api/run", body, expect_ok=False)
-    if "dataParallel" in body.get("params", {}):
-        assert code == 400 and "item 18b" in resp["error"]
-        return
     assert code == 202, resp
     job = _wait_job(ui_server, resp["job_id"])
     assert job["status"] == "done" and job["errors"] == [], job["errors"]
