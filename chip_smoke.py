@@ -230,20 +230,37 @@ nonzero:
    "needs 2 devices; 1 available" on one card (with two cards or more,
    ``DP_MULTI_RANK`` over NCCL at ``--dataParallel 2`` instead, each
    validated).
-18. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+18. The repo-level surfaces of the port, each through its ``main(argv)``
+   on the card (``SURFACE_TOOLS``, ``SATREPS``, ``EXAMPLES``): the tab4
+   sweep at 1,024, 102,400 and 1,048,576 modes, the tab6 sweep at its six
+   track counts (32 to 65,536) on the 512 MiB pool, tab5 at 100 MiB
+   (``--skip1gib``), the DAW-sim campaign (tab7 / tab8: the 1M bank,
+   NoOp, datacopy0199 at 100 MiB, pacer off / sleep / spin), the
+   low-latency sweep of ModalFilterBank, IIRFilter and FDTD3D at 64 and
+   512 samples, 101 saturated reps on the modal headline, each exiting 0
+   with every row validated, its kernels launched and its rows printed
+   beside the published numbers; ``tools.report`` over the satreps JSON
+   (the card's name and power limit on the page) and
+   ``tools.compare_runs`` of it against itself; the six examples at
+   their defaults, each printing its proof, with the exact kernel
+   launches its blocks make (``multichip_synth``'s counted in its rank's
+   process and printed); ``tools.doctor`` healthy. Before the main paths
+   (beside phase 3), the bell example's 375 blocks (2,048 decaying modes
+   onto one track) against the twin at every block.
+19. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-19. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
+20. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
    profiler session writes a trace that must hold ``modal_bank`` device
    events; the busy time a block and idle share of its saturated tier's
    timed reps (graph replays), read from the trace.
-20. ``torch.profiler`` names the kernels of one call of each cascade
+21. ``torch.profiler`` names the kernels of one call of each cascade
    wrapper at 1,000 x 96: the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. The profiler sessions run
    after everything timed (a session slows the process's later launches).
-21. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+22. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -253,6 +270,7 @@ none, or when the port's package is not beside this script.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -725,6 +743,46 @@ DP_HEADLINE = ["--benchmark", "ModalFilterBank", "--nTracks", "1024",
                "--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
                "--saturatedReps", "3", "--verification", "spot", "--json"]
 DP_MULTI_RANK = ["gain", "IIRFilter", "ModalFilterBank", "DAWSessionMix"]
+
+# The repo-level surfaces (phase 18): the poster-table campaigns, the
+# results tools and the six audio examples, each through its
+# ``main(argv)`` on the card. The campaigns at fewer runs than their
+# defaults, to bound the phase's time; every point and every workload of
+# their tables at full width.
+SURFACE_TOOLS = [
+    ("modal_sweep", "tab4", ["--nRuns", "5", "--satReps", "5"],
+     ["modal_bank"]),
+    ("rndmem_sweep", "tab6", ["--nRuns", "3", "--satReps", "5"],
+     ["rndmem_gather"]),
+    ("transfer_tab5", "tab5", ["--mib", "100", "--skip1gib", "--nRuns", "5",
+                               "--overlapDepth", "4", "--overlapReps", "2"],
+     []),
+    ("dawsim_campaign", "tab7/tab8", ["--nRuns", "10"], ["modal_bank"]),
+    ("lowlatency_sweep", "lowlatency",
+     ["--benchmarks", "ModalFilterBank,IIRFilter,FDTD3D", "--buffers",
+      "64,512", "--nRuns", "3", "--satReps", "3"],
+     ["modal_bank", "iir_biquad", "fdtd3d_div"]),
+]
+SATREPS = ["101", "--benchmarks", "ModalFilterBank", "--", "--nTracks",
+           "1024"]
+# (example, its proof line, the kernel launches its defaults make): the
+# bell's 375 blocks, 188 after the strike and 188 resumed; the room's 93
+# blocks; the hall's 281 dry blocks; the chord's 6 bells x 281 blocks and
+# its 281 EQ blocks; the mesh's one-rank reference and its one rank's
+# render, 187 blocks each (counted in the rank's process, printed).
+EXAMPLES = [
+    ("streaming_synth", "checkpoint/resume bit-exact: True",
+     {"modal_bank": 563}),
+    ("room_impulse", "(stable)", {"fdtd3d_div": 93}),
+    ("reverb", "streamed convolution matches offline: True",
+     {"modal_bank": 281}),
+    ("ampsim", "streamed inference matches offline: True", {}),
+    ("session", "streamed session matches offline: True",
+     {"modal_bank": 1686, "iir_cascade": 281}),
+    ("multichip_synth", "matches one-rank render: True",
+     {"modal_bank": 374}),
+]
+BELL = (2048, 4.0)  # the bell example's modes and seconds
 
 
 def fail(msg: str) -> None:
@@ -3151,6 +3209,207 @@ def data_parallel_phase(torch, cli, counts, reset, launches, smi):
               f"{rec['metadata']['collectiveInventory']}")
 
 
+def bell_vs_twin(torch, ops, device):
+    """The bell example's stream (2,048 decaying modes onto one track, the
+    strike between two launches at the checkpoint block) on the card,
+    each of its 375 blocks against the plain twin on the host run from the
+    kernel's own input state, at OUT_RTOL of the output's peak and
+    STATE_ATOL on the states. Returns the largest absolute output error."""
+    from gpuaudiobench_tpu_torch.examples import streaming_synth as ex
+
+    modes, seconds = BELL
+    amp, cos_w, sin_w, re0, im0 = ex.bell_modes(modes)
+    n_blocks, half = ex.blocks_for(seconds)
+    kick = ex.strike(amp)
+    stream, carry = ex.make_stream(amp, cos_w, sin_w, re0, im0, device)
+    host = ex.make_stream(amp, cos_w, sin_w, re0, im0,
+                          torch.device("cpu"))[0]
+    worst = worst_abs = 0.0
+    for b in range(n_blocks):
+        if b == half:
+            carry = ex.kicked(carry, kick)
+        entry = [t.cpu() for t in carry]
+        out, *carry = ops.modal_folded_step(stream.cos_w, stream.sin_w,
+                                            *carry, 512, 1)
+        want, *states = ops.modal_folded_step_plain(host.cos_w, host.sin_w,
+                                                    *entry, 512, 1)
+        err = (out.cpu() - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        st = max((k.cpu() - w).abs().max().item()
+                 for k, w in zip(carry, states))
+        if rel > OUT_RTOL or st > STATE_ATOL:
+            fail(f"bell block {b}: output {rel:.3g} of the peak, states "
+                 f"{st:.3g} from the twin")
+        worst, worst_abs = max(worst, rel), max(worst_abs, err)
+    print(f"modal_bank bell {modes} modes x {n_blocks} blocks (|rotation| "
+          f"< 1, T_out 1, strike at block {half}) vs twin: max error "
+          f"{worst_abs:.3g}, {worst:.3g} of a block's peak")
+    return worst_abs
+
+
+def surfaces_tool(mod, label, argv, out, counts, reset, launches, kernels):
+    """One campaign's ``main(argv)`` on the card, its report at ``out``:
+    exit 0 and every kernel of ``kernels`` launched; adds the launches.
+    Returns the report's payload."""
+    reset()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    n = counts()
+    if rc != 0:
+        print(buf.getvalue()[-3000:])
+        fail(f"{label}: {mod.__name__} returned {rc}")
+    for k in kernels:
+        if n[k] <= 0:
+            fail(f"{label}: {k} was not launched")
+    for k, v in n.items():
+        launches[k] += v
+    with open(out + ".json") as f:
+        payload = json.load(f)
+    print(f"{label}: {mod.__name__.rsplit('.', 1)[1]} in "
+          f"{time.perf_counter() - t0:.1f} s on {payload['card']}; launches "
+          + (", ".join(f"{k} {v}" for k, v in n.items() if v) or "none"))
+    return payload
+
+
+def print_tables(tables):
+    """The tab4-tab8 and low-latency rows beside the published numbers."""
+    from gpuaudiobench_tpu_torch.tools.campaign import fmt
+
+    for r in tables["tab4"]["rows"]:
+        print(f"tab4 {r['modes']} modes: round trip p50 "
+              f"{r['roundtrip_p50_ms']:.4f} / p95 {r['roundtrip_p95_ms']:.4f}"
+              f" ms (PC {r['pc_p50_ms']}, AS {r['as_p50_ms']}), saturated "
+              f"{r['saturated_p50_ms']:.4f} (depth {r['depth']}), device "
+              f"{r['device_p50_ms']:.4f} [{r['device_method']}], "
+              f"{r['validation']}")
+    for r in tables["tab6"]["rows"]:
+        print(f"tab6 {r['tracks']} tracks: round trip p50 "
+              f"{r['roundtrip_p50_ms']:.4f} / p95 {r['roundtrip_p95_ms']:.4f}"
+              f" ms (PC {r['pc_p50_ms']}, AS {r['as_p50_ms']}), saturated "
+              f"{r['saturated_p50_ms']:.4f} (depth {r['depth']}), marginal "
+              f"{fmt(r['marginal_p50_ms'], 4)}, device "
+              f"{r['device_p50_ms']:.4f}, {r['validation']}")
+    for r in tables["tab5"]["rows"]:
+        print(f"tab5 {r['benchmark']} 100 MiB: round trip p50 "
+              f"{r['roundtrip_p50_ms']:.4f} / p95 {r['roundtrip_p95_ms']:.4f}"
+              f" ms (PC {r['pc_ms']}, AS {r['as_ms']}, AS unified "
+              f"{r['as_unified_ms']}), serial {r['serial_ms']:.4f} / "
+              f"overlapped {r['overlapped_ms']:.4f} ms a block, H2D pinned "
+              f"{r['h2d_pinned_ms']} / pageable {r['h2d_pageable_ms']}, D2H "
+              f"pinned {r['d2h_pinned_ms']} / pageable {r['d2h_pageable_ms']}"
+              f" ms, {r['h2d_path']}, {r['validation']}")
+    for r in tables["tab7/tab8"]["rows"]:
+        pub = (f"tab7 PC {' / '.join(map(str, r['pc_tab7']))}; "
+               if r["pc_tab7"] else "")
+        print(f"tab7/8 {r['workload']}, {r['mode']}"
+              f"{' (' + r['pacer'] + ')' if r['pacer'] else ''}: p50 "
+              f"{r['p50_ms']:.4f} / p95 {r['p95_ms']:.4f} / max "
+              f"{r['max_ms']:.4f} ms, x{r['multiplier']:.3f}, miss "
+              f"{r['miss_rate_percent']:.1f} % ({pub}tab8 x"
+              f"{r['pc_multiplier']} PC / x{r['as_multiplier']} AS), "
+              f"{r['validation']}")
+    for r in tables["lowlatency"]["rows"]:
+        cells = ", ".join(
+            f"buf {c['buffer']} {c['saturated_p50_ms']:.4f} ms "
+            f"{'meets' if c['meets'] else 'MISSES'} {c['deadline_ms']:.3f}"
+            for c in r["cells"])
+        print(f"lowlatency {r['workload']} (depth {r['depth']}): {cells}")
+
+
+def surfaces_port_phase(torch, counts, reset, launches, smi):
+    """Phase 18: the repo-level surfaces of the port on the card."""
+    from gpuaudiobench_tpu_torch.tools import (
+        compare_runs,
+        doctor,
+        report,
+        satreps_campaign,
+    )
+
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_surfaces_")
+    try:
+        tables = {}
+        for name, label, flags, kernels in SURFACE_TOOLS:
+            out = os.path.join(tmpdir, name)
+            argv = (flags + ["--out", out] if name == "transfer_tab5"
+                    else [out] + flags)
+            mod = importlib.import_module(
+                f"gpuaudiobench_tpu_torch.tools.{name}")
+            tables[label] = surfaces_tool(mod, label, argv, out, counts,
+                                          reset, launches, kernels)
+        print_tables(tables)
+
+        # 101 saturated reps on the modal headline, through the CLI.
+        md, js = (os.path.join(tmpdir, f"satreps.{e}") for e in ("md", "json"))
+        reset()
+        t0 = time.perf_counter()
+        lines = run_quiet(satreps_campaign.main,
+                          [SATREPS[0], md, js] + SATREPS[1:], "satreps")
+        n = counts()
+        if n["modal_bank"] <= 0:
+            fail("satreps: modal_bank was not launched")
+        for k, v in n.items():
+            launches[k] += v
+        with open(js) as f:
+            rec = json.load(f)
+        rows = satreps_campaign.rows_of([rec])
+        if len(rows) != 1 or rows[0]["reps"] != 101:
+            fail(f"satreps: rows {rows}")
+        r = rows[0]
+        print(f"satreps ModalFilterBank 1M modes, {r['reps']} reps of depth "
+              f"{r['depth']}: p50 {r['p50_ms']:.4f} / p95 {r['p95_ms']:.4f} "
+              f"/ p99 {r['p99_ms']:.4f} / max {r['max_ms']:.4f} ms, "
+              f"{r['above_p99']} above the p99, validation "
+              f"{rec['validation']['status']}, {time.perf_counter() - t0:.1f}"
+              f" s ({len(lines)} lines)")
+
+        # The report and the A/B over the phase's own JSON.
+        page = os.path.join(tmpdir, "report.html")
+        run_quiet(report.main, [js, "-o", page], "report")
+        html = open(page).read()
+        ident = rec["device"]
+        for want in (ident["kind"], ident.get("power_limit"),
+                     "ModalFilterBank",
+                     "vs published baselines"):
+            if not want or want not in html:
+                fail(f"report: {want!r} missing from the page")
+        lines = run_quiet(compare_runs.main, [js, js, "--all"],
+                          "compare_runs")
+        if not any("0 regressed" in ln for ln in lines):
+            fail("compare_runs: a run against itself regressed")
+
+        # The six examples at their defaults, each with its proof.
+        for name, proof, want in EXAMPLES:
+            reset()
+            t0 = time.perf_counter()
+            mod = importlib.import_module(
+                f"gpuaudiobench_tpu_torch.examples.{name}")
+            lines = run_quiet(mod.main, ["--out",
+                                         os.path.join(tmpdir, name + ".wav")],
+                              name)
+            if not any(proof in ln for ln in lines):
+                fail(f"{name}: no {proof!r} in its output")
+            n = counts()
+            if name == "multichip_synth":  # launched in the rank's process
+                line = next(ln for ln in lines
+                            if ln.startswith("kernel launches:"))
+                n["modal_bank"] += int(line.split()[3])
+            got = {k: v for k, v in n.items() if v}
+            if got != want:
+                fail(f"{name}: launches {got}, expected {want}")
+            for k, v in n.items():
+                launches[k] += v
+            print(f"example {name}: {time.perf_counter() - t0:.1f} s, "
+                  f"launches {got or 'none'}")
+
+        lines = run_quiet(doctor.main, [], "doctor")
+        if not any("doctor: healthy" in ln for ln in lines):
+            fail("doctor: not healthy")
+        print(f"repo-level surfaces on {smi}: passed")
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
 def capture_run(torch, cli, hprofiler, counts, reset, launches):
     """The CLI with --capture on the modal headline cell: one session
     writes a trace holding modal_bank device events; the timed reps of its
@@ -3259,6 +3518,8 @@ def main() -> int:
     modal_err = {"modal_bank": max(e[0] for e in errs),
                  "modal_res": max(e[1] for e in errs)}
     modal_times = time_main_shape(torch, ops, device)
+    modal_err["modal_bank"] = max(modal_err["modal_bank"],
+                                  bell_vs_twin(torch, ops, device))
 
     t0 = time.perf_counter()
     iir_err = {}
@@ -3422,6 +3683,12 @@ def main() -> int:
         t0 = time.perf_counter()
         data_parallel_phase(torch, cli, counts, reset, launches, smi)
         print(f"--dataParallel: {time.perf_counter() - t0:.1f} s")
+
+        # The repo-level surfaces: campaigns, results tools, examples.
+        t0 = time.perf_counter()
+        surfaces_port_phase(torch, counts, reset, launches, smi)
+        print(f"campaigns, results tools and examples: "
+              f"{time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")
 

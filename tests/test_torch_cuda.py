@@ -1723,3 +1723,74 @@ def test_one_rank_sharded_blocks_match_the_single_device_blocks(cuda, kind):
         y, h, c = (t.clone() for t in run(torch.from_numpy(x).to(cuda), h, c))
         y = y.cpu().numpy()
         assert np.abs(o - y).max() <= 1e-5 * np.abs(y).max()
+
+
+# -- the examples' paths on the card (gpuaudiobench_tpu_torch/examples) ----
+#
+# The bell: the first caller of the rotation kernel with |rotation| < 1,
+# at T_out = 1 and M = 2,048, where modal_schedule halves the modes a
+# thread. Every one of its 375 blocks (4 s) within OUT_RTOL / STATE_ATOL
+# of the plain twin run from the kernel's own input state, the strike
+# landing between two launches at the checkpoint block; the whole stream
+# within 1e-4 of the peak (the benchmark's modal bar) of a stream that
+# only the twin ran; and the example's checkpoint/resume bit for bit on
+# the card. The room: the example's first 8 blocks against the twin's,
+# within 1e-5 of the peak (the FDTD kernels' bar above).
+
+
+def test_bell_blocks_match_plain_twin(cuda, tmp_path):
+    from gpuaudiobench_tpu_torch.examples import streaming_synth as ex
+
+    amp, cos_w, sin_w, re0, im0 = ex.bell_modes(2048)
+    n_blocks, half = ex.blocks_for(4.0)
+    assert n_blocks == 375
+    kick = ex.strike(amp)
+    stream, carry = ex.make_stream(amp, cos_w, sin_w, re0, im0, cuda)
+    twin = ex.make_stream(amp, cos_w, sin_w, re0, im0,
+                          torch.device("cpu"))[0]
+    plain = twin.carry0
+    before = tops.KERNEL_LAUNCHES["modal_bank"]
+    got, alone = [], []
+    for b in range(n_blocks):
+        if b == half:
+            carry, plain = ex.kicked(carry, kick), ex.kicked(plain, kick)
+        entry = [t.cpu() for t in carry]
+        out, *carry = tops.modal_folded_step(stream.cos_w, stream.sin_w,
+                                             *carry, 512, 1)
+        want, *wstate = tops.modal_folded_step_plain(
+            twin.cos_w, twin.sin_w, *entry, 512, 1)
+        out = out.cpu()
+        assert (out - want).abs().max() <= OUT_RTOL * want.abs().max()
+        for k, w in zip(carry, wstate):
+            assert (k.cpu() - w).abs().max() <= STATE_ATOL
+        got.append(out[:, 0])
+        o, *plain = tops.modal_folded_step_plain(twin.cos_w, twin.sin_w,
+                                                 *plain, 512, 1)
+        alone.append(o[:, 0])
+    assert tops.KERNEL_LAUNCHES["modal_bank"] == before + n_blocks
+    got, alone = torch.cat(got), torch.cat(alone)
+    assert (got - alone).abs().max() <= 1e-4 * alone.abs().max()
+    audio, resumed = ex.render(4.0, 2048, 220.0,
+                               str(tmp_path / "bell.state.npz"), cuda)
+    assert resumed
+    assert np.array_equal(audio, got.numpy())
+
+
+def test_room_impulse_blocks_match_plain_twin(cuda):
+    from gpuaudiobench_tpu_torch.examples import room_impulse as ex
+
+    before = fops.KERNEL_LAUNCHES["fdtd3d_div"]
+    got = ex.render(8, cuda)
+    assert fops.KERNEL_LAUNCHES["fdtd3d_div"] == before + 8
+    p, div = fops.zero_fields_div(fops.GRID_N, cuda)
+    x = torch.zeros((1, 512), device=cuda)
+    x[0, 0] = 1.0
+    want = []
+    for k in range(8):
+        out, p, div = fops.fdtd3d_block_div_plain(
+            x if k == 0 else torch.zeros_like(x), p, div)
+        want.append(out[0].cpu().numpy())
+    want = np.concatenate(want)
+    assert np.abs(want).max() > 0
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert ex.physics(got)[0] == 21
