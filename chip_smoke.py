@@ -247,20 +247,42 @@ nonzero:
    process and printed); ``tools.doctor`` healthy. Before the main paths
    (beside phase 3), the bell example's 375 blocks (2,048 decaying modes
    onto one track) against the twin at every block.
-19. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+19. The last repo-level surfaces (``DRIVER_RUNS``, ``REGEN``,
+   ``REMEASURE``, ``OVERLAP_CAMPAIGN``, ``LATENCY_ATTRIB``): the native
+   driver built from ``csrc/gpubench_main.cc`` (``utils/native.py``), its
+   ``--list`` the registry's 30 names, ModalFilterBank at its defaults and
+   IIRFilter at 65,536 tracks through the driver, through ``python -m``
+   and through ``cli.main`` in this process (each validated on this card,
+   the driver's JSON with the in-process run's keys, timed against
+   ``python -m``), ``tools.json_to_csv`` of each equal to
+   ``csv_from_json_results``; ``tools.regen_artifacts`` over
+   ModalFilterBank, IIRFilter and FDTD3D (JSON, CSV, RESULTS.md,
+   report.html naming the card and its power limit; ``render_results
+   --check`` passes); ``tools.remeasure_rows`` of IIRFilter at 11
+   saturated reps (the row replaced, the others byte-equal); the overlap
+   campaign on its 13 names (each validated, its speedup printed);
+   ``tools.readme_headline`` into a copy of README.md with the port's
+   sentinels (``--check`` passes, the JAX block byte-equal); the latency
+   attribution (A, B and the device p50 a workload); the mesh ladder
+   (1,1,1 of both benchmarks validated, the rest printed as skipped). The
+   driver's and ``python -m``'s launches are made in their own processes
+   and not counted.
+20. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-20. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
+21. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
    profiler session writes a trace that must hold ``modal_bank`` device
    events; the busy time a block and idle share of its saturated tier's
    timed reps (graph replays), read from the trace.
-21. ``torch.profiler`` names the kernels of one call of each cascade
-   wrapper at 1,000 x 96: the chain wrapper must launch the chain kernel
+22. ``torch.profiler`` names the kernels of each cascade wrapper's calls
+   at 1,000 x 96 (``PROFILE_CALLS`` a wrapper, each wrapper in a
+   ``record_function`` range of one session, read from its Chrome trace):
+   the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. The profiler sessions run
    after everything timed (a session slows the process's later launches).
-22. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+23. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -339,6 +361,7 @@ CASCADE_EDGES = [(16, 1000, 96), (10, 33, 4), (1, 640, 128), (10, 1001, 45),
                  (16, 77, 7), (2, 129, 30)]
 IIR_SOURCE = "gpuaudiobench_tpu_torch/csrc/iir.cu"
 PROFILE_SESSIONS = 3  # chain_kernel_names: sessions for one trace
+PROFILE_CALLS = 8  # chain_kernel_names: calls of each wrapper a session
 IIR_REPLACES = {
     "iir_biquad": "gpuaudiobench_tpu/ops/iir.py:49",
     "iir_biquad_blockstate": "gpuaudiobench_tpu/ops/iir.py:407",
@@ -784,6 +807,28 @@ EXAMPLES = [
 ]
 BELL = (2048, 4.0)  # the bell example's modes and seconds
 
+# The last repo-level surfaces (phase 19): the native driver's runs (each
+# also through ``python -m`` and in-process, with the same argv), the
+# regen run's filter and sizes, the remeasured row, and the overlap and
+# latency-attribution campaigns' sizes.
+DRIVER_COMMON = ["--nRuns", "5", "--pipelineDepth", "64", "--saturatedReps",
+                 "3", "--verification", "spot", "--json"]
+DRIVER_RUNS = [
+    ("ModalFilterBank", ["--benchmark", "ModalFilterBank"] + DRIVER_COMMON,
+     ["modal_bank"]),
+    ("IIRFilter 65536", ["--benchmark", "IIRFilter", "--nTracks", "65536"]
+     + DRIVER_COMMON, ["iir_biquad"]),
+]
+REGEN = ["--benchmarkFilter", "/ModalFilterBank|IIRFilter|FDTD3D/",
+         "--nRuns", "5", "--pipelineDepth", "64"]
+REGEN_KERNELS = ["modal_bank", "iir_biquad", "fdtd3d_div"]
+REMEASURE = ["IIRFilter", "--satReps", "11", "--nRuns", "5",
+             "--pipelineDepth", "64"]
+OVERLAP_CAMPAIGN = ["--depth", "16", "--reps", "2"]
+OVERLAP_KERNELS = ["conv1d", "rndmem_gather", "iir_biquad", "dwg_block",
+                   "iir_cascade"]
+LATENCY_ATTRIB = ["--reps", "5"]
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -1185,45 +1230,66 @@ def compare_cascade_edges(torch, iops, device):
 
 
 def chain_kernel_names(torch, iops, device):
-    """Each cascade wrapper, called once under torch.profiler at 1,000 x
-    96, K = 10, launches its own kernel and no other: the chain wrapper
-    the chain kernel (its coefficients' copy to the constant bank is a
-    memcpy), the systolic wrapper the systolic kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    """Each cascade wrapper, called PROFILE_CALLS times at 1,000 x 96,
+    K = 10, inside a ``record_function`` range of its own in one
+    torch.profiler session, launches its own kernel and no other: the
+    chain wrapper the chain kernel (its coefficients' copy to the
+    constant bank is a memcpy), the systolic wrapper the systolic kernel.
+    The device events of each range are read from the session's Chrome
+    trace, as ``--capture``'s are."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from gpuaudiobench_tpu_torch.harness.profiler import device_events
+    from gpuaudiobench_tpu_torch.harness.profiler import trace_events
 
     x, c, z = iir_inputs(torch, 1000, 96, device, stages=IIR_STAGES)
-    seen = {}
-    for name, fn, want in (
-            ("iir_cascade_chain", iops.iir_cascade_chain, "iir_cascade_chain_kernel"),
-            ("iir_cascade", iops.iir_cascade, "iir_cascade_systolic_kernel")):
+    wrappers = (
+        ("iir_cascade_chain", iops.iir_cascade_chain, "iir_cascade_chain_kernel"),
+        ("iir_cascade", iops.iir_cascade, "iir_cascade_systolic_kernel"))
+    for _, fn, _ in wrappers:
         fn(x, c, z)
-        torch.cuda.synchronize()
-        # A session whose trace came back without a single device event
-        # (seen on the H100 in about 1 of 180 one-call sessions,
-        # tools/profiler_sessions.py; the cause is not known, PERF.md §7)
-        # is taken again, up to PROFILE_SESSIONS times;
-        # a trace with device events is judged as it is.
-        for _ in range(PROFILE_SESSIONS):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn(x, c, z)
-                torch.cuda.synchronize()
-            names = [e[0] for e in device_events(prof)]
-            if names:
+    torch.cuda.synchronize()
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_proof_")
+    path = os.path.join(tmpdir, "proof.trace.json")
+    try:
+        # One-call sessions came back with no device event, and after a
+        # --capture session most of a process's later ones did too
+        # (PERF.md §7); a session of PROFILE_CALLS calls a wrapper is
+        # taken again, up to PROFILE_SESSIONS times, only when a range
+        # holds no kernel at all, and a range with kernels is judged as
+        # it is.
+        for session in range(PROFILE_SESSIONS):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for name, fn, _ in wrappers:
+                    with record_function(name):
+                        for _ in range(PROFILE_CALLS):
+                            fn(x, c, z)
+                        torch.cuda.synchronize()
+            prof.export_chrome_trace(path)
+            seen = {}
+            for name, _, _ in wrappers:
+                names = [e[0] for e in trace_events(path, name)]
+                kernels = sorted({n for n in names if not n.startswith(
+                    ("Memcpy", "Memset"))})
+                seen[name] = (kernels, sorted(set(names) - set(kernels)))
+            if all(k for k, _ in seen.values()):
                 break
-            print(f"profiler: {name}: a session recorded no device event")
-        kernels = sorted({n for n in names
-                          if not n.startswith(("Memcpy", "Memset"))})
+            print(f"profiler: session {session + 1} saw no kernel in "
+                  + ", ".join(n for n, (k, _) in seen.items() if not k))
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    for name, _, want in wrappers:
+        kernels = seen[name][0]
         if not kernels:
-            fail(f"{name}: the profiler saw no kernel (its events: "
-                 f"{[(e.name[:48], str(e.device_type)) for e in prof.events()]})")
+            fail(f"{name}: the profiler saw no kernel in {PROFILE_SESSIONS} "
+                 "sessions")
         if not all(want in n for n in kernels):
             fail(f"{name} launched {kernels}, not {want} alone")
-        seen[name] = (kernels, sorted(set(names) - set(kernels)))
-    print("profiler: " + "; ".join(
-        f"{name} launched {[n[:72] for n in k]}" + (f", copies {c}" if c else "")
-        for name, (k, c) in seen.items()))
+    print(f"profiler ({session + 1} session(s), {PROFILE_CALLS} calls a "
+          "wrapper): " + "; ".join(
+              f"{name} launched {[n[:72] for n in k]}"
+              + (f", copies {c}" if c else "")
+              for name, (k, c) in seen.items()))
 
 
 def time_iir(torch, iops, device):
@@ -3410,6 +3476,239 @@ def surfaces_port_phase(torch, counts, reset, launches, smi):
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
 
+def key_paths(d, prefix=""):
+    """Every key path of a JSON object, nested objects included."""
+    out = set()
+    for k, v in d.items():
+        out.add(prefix + k)
+        if isinstance(v, dict):
+            out |= key_paths(v, prefix + k + ".")
+    return out
+
+
+def counted(label, fn, argv, counts, reset, launches, kernels):
+    """``fn(argv)`` with its output captured: exit 0 and each of
+    ``kernels`` launched; adds the launches. Returns (the output lines,
+    the launches, the wall seconds)."""
+    reset()
+    t0 = time.perf_counter()
+    lines = run_quiet(fn, argv, label)
+    wall = time.perf_counter() - t0
+    n = counts()
+    for k in kernels:
+        if n[k] <= 0:
+            fail(f"{label}: {k} was not launched")
+    for k, v in n.items():
+        launches[k] += v
+    return lines, {k: v for k, v in n.items() if v}, wall
+
+
+def driver_runs(torch, cli, output, tmpdir, counts, reset, launches):
+    """The native driver: built from the package's source, --list the
+    registry, then each of DRIVER_RUNS through the driver, ``python -m``
+    and ``cli.main`` in this process: each exits 0 and validates on this
+    card, the driver's JSON has the in-process run's keys, and
+    ``tools.json_to_csv`` of it is ``csv_from_json_results``; each run's
+    wall through the driver is printed beside ``python -m``'s."""
+    from gpuaudiobench_tpu_torch.registry import list_benchmarks
+    from gpuaudiobench_tpu_torch.tools import json_to_csv
+    from gpuaudiobench_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    exe = str(native.build_driver())
+    print(f"driver: built {os.path.basename(exe)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    r = subprocess.run([exe, "--list"], capture_output=True, text=True,
+                       env=env, timeout=120)
+    names = r.stdout.splitlines()[2:]
+    if r.returncode != 0 or names != list_benchmarks() or len(names) != 30:
+        fail(f"driver --list: rc {r.returncode}, {len(names)} names "
+             f"{r.stderr[-2000:]}")
+    card = torch.cuda.get_device_name(0)
+    for i, (label, argv, kernels) in enumerate(DRIVER_RUNS):
+        recs, times = {}, {}
+        for how in ("driver", "python -m"):
+            path = os.path.join(tmpdir, f"{how[0]}_{i}.json")
+            cmd = ([exe] if how == "driver" else
+                   [sys.executable, "-m", "gpuaudiobench_tpu_torch.cli"])
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd + argv + ["--outputfile", path],
+                               capture_output=True, text=True, env=env,
+                               timeout=600)
+            times[how] = time.perf_counter() - t0
+            if r.returncode != 0:
+                print(r.stdout[-3000:], r.stderr[-3000:])
+                fail(f"{how} {label}: exit {r.returncode}")
+            with open(path) as f:
+                recs[how] = json.load(f)
+        path = os.path.join(tmpdir, f"i_{i}.json")
+        counted(f"cli.main {label}", cli.main, argv + ["--outputfile", path],
+                counts, reset, launches, kernels)
+        with open(path) as f:
+            inproc = json.load(f)
+        for how, rec in recs.items():
+            if rec["validation"]["status"] != "SUCCESS":
+                fail(f"{how} {label}: validation {rec['validation']}")
+            if rec["device"]["kind"] != card:
+                fail(f"{how} {label}: device {rec['device']}")
+            if key_paths(rec) != key_paths(inproc):
+                fail(f"{how} {label}: keys differ from cli.main's: "
+                     f"{sorted(key_paths(rec) ^ key_paths(inproc))}")
+        src = os.path.join(tmpdir, f"d_{i}.json")
+        csv = src[:-5] + ".csv"
+        run_quiet(json_to_csv.main, [src, csv], "json_to_csv")
+        with open(csv) as f:
+            if f.read() != output.csv_from_json_results([recs["driver"]]):
+                fail(f"json_to_csv {label}: not csv_from_json_results")
+        d = recs["driver"]
+        print(f"driver {label}: {times['driver']:.2f} s (python -m "
+              f"{times['python -m']:.2f} s), validation "
+              f"{d['validation']['status']} ({d['validation']['max_error']:.3g}"
+              f") on {d['device']['kind']}, {d['device']['power_limit']}, "
+              f"saturated p50 {d['saturated']['p50_ms']:.4f} ms, chain "
+              f"{d['metadata'].get('chainForm')}, device p50 "
+              f"{d['device_statistics']['median_ms']:.4f} ms; keys equal "
+              f"the in-process run's; json_to_csv equal")
+
+
+def last_surfaces_phase(torch, cli, output, counts, reset, launches, smi,
+                        bench_rec):
+    """Phase 19: the native driver, json_to_csv, regen_artifacts,
+    render_results, remeasure_rows, readme_headline, the overlap campaign,
+    the latency attribution and the mesh ladder on the card."""
+    from gpuaudiobench_tpu_torch.tools import (
+        latency_attrib,
+        mesh_scaling,
+        overlap_campaign,
+        readme_headline,
+        regen_artifacts,
+        remeasure_rows,
+        render_results,
+    )
+
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_last_")
+    try:
+        t0 = time.perf_counter()
+        driver_runs(torch, cli, output, tmpdir, counts, reset, launches)
+        print(f"driver runs: {time.perf_counter() - t0:.1f} s")
+
+        art = os.path.join(tmpdir, "artifacts")
+        _, n, wall = counted("regen_artifacts", regen_artifacts.main,
+                             ["--out", art] + REGEN, counts, reset, launches,
+                             REGEN_KERNELS)
+        js = os.path.join(art, "RESULTS.json")
+        md = os.path.join(art, "RESULTS.md")
+        if render_results.main([md, "--check"]) != 0:
+            fail("regen_artifacts: render_results --check drifted")
+        with open(js) as f:
+            suite = json.load(f)
+        with open(os.path.join(art, "report.html")) as f:
+            page = f.read()
+        ident = suite[0]["device"]
+        for want in (ident["kind"], ident["power_limit"]):
+            if want not in page:
+                fail(f"regen_artifacts: {want!r} missing from report.html")
+        print(f"regen_artifacts: {wall:.1f} s, rows "
+              + ", ".join(f"{r['benchmark']} {r['validation']['status']}"
+                          for r in suite)
+              + f"; RESULTS.{{json,csv,md}} and report.html on "
+              f"{ident['kind']}, {ident['power_limit']}; --check passed; "
+              f"launches {n}")
+
+        before = [json.dumps(r, indent=2) for r in suite]
+        _, n, wall = counted("remeasure_rows", remeasure_rows.main,
+                             [js] + REMEASURE, counts, reset, launches,
+                             ["iir_biquad"])
+        with open(js) as f:
+            after = json.load(f)
+        for r, old in zip(after, before):
+            if r["benchmark"] == REMEASURE[0]:
+                if r["saturated"]["reps"] != 11 or json.dumps(
+                        r, indent=2) == old:
+                    fail(f"remeasure_rows: {r['benchmark']} not replaced "
+                         f"(reps {r['saturated']['reps']})")
+            elif json.dumps(r, indent=2) != old:
+                fail(f"remeasure_rows: {r['benchmark']} changed")
+        row = next(r for r in after if r["benchmark"] == REMEASURE[0])
+        print(f"remeasure_rows {REMEASURE[0]}: {wall:.1f} s, reps 11, "
+              f"saturated p50 {row['saturated']['p50_ms']:.4f} ms, "
+              f"validation {row['validation']['status']}, the other rows "
+              f"byte-equal; launches {n}")
+
+        base = os.path.join(art, "overlap")
+        _, n, wall = counted("overlap_campaign", overlap_campaign.main,
+                             [base + ".md"] + OVERLAP_CAMPAIGN, counts, reset,
+                             launches, OVERLAP_KERNELS)
+        with open(base + ".json") as f:
+            ov = json.load(f)
+        if len(ov["rows"]) != 13 or ov["skipped"]:
+            fail(f"overlap_campaign: {len(ov['rows'])} rows, skipped "
+                 f"{ov['skipped']}")
+        print(f"overlap_campaign: {wall:.1f} s on {ov['card']}, launches "
+              f"{n}; speedups "
+              + ", ".join(f"{r['name']} {r['speedup']:.2f}x ({r['serial']:.4f}"
+                          f" -> {r['overlapped']:.4f} ms, {r['validation']},"
+                          f" h2d {r['h2d_path'] or '-'})" for r in ov["rows"]))
+
+        with open(os.path.join(art, "bench.json"), "w") as f:
+            json.dump(bench_rec, f)
+        readme = os.path.join(tmpdir, "README.md")
+        with open(os.path.join(HERE, "README.md")) as f:
+            original = f.read()
+        with open(readme, "w") as f:
+            f.write(original + f"\n{readme_headline.BEGIN}\n"
+                    f"{readme_headline.END}\n")
+        for argv in ([readme, "--artifacts", art],
+                     [readme, "--artifacts", art, "--check"]):
+            run_quiet(readme_headline.main, argv, "readme_headline")
+        with open(readme) as f:
+            text = f.read()
+        jax_block = original[original.index("<!-- headline:begin -->"):
+                             original.index("<!-- headline:end -->")]
+        if jax_block not in text or text.count(jax_block) != 1:
+            fail("readme_headline: the JAX headline block changed")
+        block = text[text.index(readme_headline.BEGIN):]
+        if ident["power_limit"] not in block or "faster" not in block:
+            fail(f"readme_headline: {block}")
+        print("readme_headline: " + " ".join(block.splitlines()[1:-1]))
+
+        base = os.path.join(tmpdir, "latency_attrib")
+        _, n, wall = counted("latency_attrib", latency_attrib.main,
+                             [base + ".md"] + LATENCY_ATTRIB, counts, reset,
+                             launches, ["iir_biquad", "dwg_block"])
+        with open(base + ".json") as f:
+            la = json.load(f)
+        for r in la["rows"]:
+            print(f"latency_attrib {r['benchmark']}: A {r['A_ms']:.4f} ms, "
+                  f"B {r['B_ms']:.6f} ms a block, device p50 "
+                  f"{r['device_p50_ms']:.6f} ms [{r['device_method']}], "
+                  f"chain {r['chain_form']}, points {r['points']}")
+        print(f"latency_attrib: {wall:.1f} s, launches {n}")
+
+        base = os.path.join(tmpdir, "mesh_scaling")
+        _, n, wall = counted("mesh_scaling", mesh_scaling.main, [base + ".md"],
+                             counts, reset, launches,
+                             ["iir_biquad", "modal_bank"])
+        with open(base + ".json") as f:
+            ms = json.load(f)
+        ran = {(r["benchmark"], r["mesh"]): r for r in ms["rows"]}
+        for name in ("MultiChipSuite", "ICIBandwidth"):
+            r = ran.get((name, "1,1,1"))
+            if r is None or r["validation"] != "passed":
+                fail(f"mesh_scaling: {name} 1,1,1 {r}")
+        for r in ms["rows"]:
+            print(f"mesh_scaling {r['benchmark']} {r['mesh']}: p50 "
+                  f"{r['p50_ms']:.4f} ms, collectives {r['collectives']}, "
+                  f"{r['validation']}")
+        for line in ms["skipped"]:
+            print(f"mesh_scaling {line}")
+        print(f"mesh_scaling: {wall:.1f} s on {ms['card']}, launches {n}")
+        print(f"the last repo-level surfaces on {smi}: passed")
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
 def capture_run(torch, cli, hprofiler, counts, reset, launches):
     """The CLI with --capture on the modal headline cell: one session
     writes a trace holding modal_bank device events; the timed reps of its
@@ -3609,6 +3908,7 @@ def main() -> int:
                  f"counts {launches['modal_bank']}")
         if rec.get("chain_form") != "cuda-graph":
             fail(f"bench: chain form {rec.get('chain_form')!r}")
+        bench_rec = rec
         print(f"main path: {wall:.1f} s, {launches['modal_bank']} kernel "
               f"launches ({hgraph.REPLAYED_LAUNCHES['modal_bank']} of them "
               f"in {hgraph.CHAIN_REPLAYS['chain']} chain graph replays), "
@@ -3688,6 +3988,14 @@ def main() -> int:
         t0 = time.perf_counter()
         surfaces_port_phase(torch, counts, reset, launches, smi)
         print(f"campaigns, results tools and examples: "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # The last repo-level surfaces: the native driver, the generated
+        # artifacts and docs, the overlap, latency and mesh campaigns.
+        t0 = time.perf_counter()
+        last_surfaces_phase(torch, cli, output, counts, reset, launches, smi,
+                            bench_rec)
+        print(f"native driver, artifacts and campaigns: "
               f"{time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")

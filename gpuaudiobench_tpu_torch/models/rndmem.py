@@ -9,7 +9,8 @@ contiguous samples from its playhead into an interleaved (S, T) output
 (``ops.rndmem.rndmem_gather``); the playheads then advance on the host by
 bufferSize, wrapping from a track's loop end back to its start (loop
 lengths 1000-48000, bench_rndmem.cu:151-186). The stream body advances
-them on the device instead.
+them on the device instead. The overlapped-infeed tier uploads a block's
+playheads while the last block's gather runs (``overlap_body``).
 
 Validation gathers the golden with the playheads the last iteration used,
 at 1e-6 absolute (bench_rndmem.cu:106), as the JAX benchmark does.
@@ -111,6 +112,20 @@ class RndMemBenchmark(Benchmark):
         ph = self.playheads.astype(np.int64) + self.buffer_size
         wrapped = np.where(ph >= self.playheads_end, self.playheads_start, ph)
         self.playheads = wrapped.astype(np.int32)
+
+    def overlap_body(self):
+        """The per-block host traffic here is the playhead array (the
+        reference advances the playheads on the host every iteration,
+        bench_rndmem.cu:176-186): the overlap tier uploads block k+1's
+        playheads while block k's gather runs. The two host blocks are
+        this block's playheads and the next's."""
+        pool, s = self._pool_dev, self.buffer_size
+        ph1 = self.playheads.copy()
+        ph2 = self.playheads.astype(np.int64) + s
+        ph2 = np.where(ph2 >= self.playheads_end, self.playheads_start,
+                       ph2).astype(np.int32)
+        return (lambda ph, c: (rndmem_gather(pool, ph, s), c),
+                [ph1, ph2], ())
 
     def device_iterate(self) -> None:
         # The last iteration's playheads, already on the device.

@@ -3,7 +3,8 @@ result whole (rank 0's is what ``spmd`` returns): the collectives on
 meshes of the process group, one suite step, and the sharded blocks
 streamed over a few blocks. On one rank they run in the calling process,
 with no process group (a one-rank mesh needs none). ``device`` is "cuda"
-(rank r on ``cuda:r``) or "cpu"; inputs are whole host arrays.
+(rank r on ``cuda:r``; the default) or "cpu", which a caller names;
+inputs are whole host arrays.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def collectives_check(shapes: Sequence[Sequence[int]], x: np.ndarray,
-                      device: str = "cpu") -> List[Dict[str, np.ndarray]]:
+                      device: str = "cuda") -> List[Dict[str, np.ndarray]]:
     """For each (dp, tp, sp) mesh of the process group: ``x`` sharded over
     all three axes (one axis a dimension), then along each axis its tiled
     all_gather, psum, ring ppermute and open-chain ppermute, whole, and
@@ -82,7 +83,7 @@ def collectives_check(shapes: Sequence[Sequence[int]], x: np.ndarray,
     return out
 
 
-def cli_runs(argvs: Sequence[List[str]], device: str = "cpu") -> List[tuple]:
+def cli_runs(argvs: Sequence[List[str]], device: str = "cuda") -> List[tuple]:
     """Each CLI argument list of ``argvs`` as one rank of a multi-rank CLI
     run (``cli.rank_run``), in one launch: (exit code, rank 0's printed
     output) each. Each ``--mesh`` must have the process group's ranks."""
@@ -109,7 +110,7 @@ def _shard_shapes(bench) -> Dict[str, tuple]:
             if isinstance(t, torch.Tensor)}
 
 
-def dp_runs(cases: Sequence[tuple], device: str = "cpu") -> List:
+def dp_runs(cases: Sequence[tuple], device: str = "cuda") -> List:
     """Each (name, config fields) of ``cases`` through the runner with
     ``data_parallel`` the process group's size (one rank: this process):
     (its JSON record, every ``host_*`` array of the benchmark, whole, and
@@ -154,7 +155,7 @@ def skip_collective(skipper: int) -> None:
 
 
 def suite_check(cases: Sequence[tuple], seed: int = 42,
-                device: str = "cpu") -> List[tuple]:
+                device: str = "cuda") -> List[tuple]:
     """For each (mesh shape, (tracks, samples, modes, ir_len)) of
     ``cases``, on a mesh of the process group: one suite step on
     ``suite_step_example_args``' inputs, (its output whole, the
@@ -177,7 +178,7 @@ def _to(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev, copy=True)
 
 
-def fdtd_blocks(x: np.ndarray, device: str = "cpu") -> np.ndarray:
+def fdtd_blocks(x: np.ndarray, device: str = "cuda") -> np.ndarray:
     """One sharded FDTD block over a one-axis mesh ("sp") of the process
     group."""
     dev = rank_device(device)
@@ -186,7 +187,7 @@ def fdtd_blocks(x: np.ndarray, device: str = "cpu") -> np.ndarray:
 
 
 def partconv_blocks(ir: np.ndarray, xs: Sequence[np.ndarray],
-                    device: str = "cpu") -> List[np.ndarray]:
+                    device: str = "cuda") -> List[np.ndarray]:
     """The partition-sharded shift-form PartConv over a one-axis mesh
     ("tp") of the process group, streamed over the blocks ``xs`` from a
     silent delay line: each block's output."""
@@ -210,7 +211,7 @@ def partconv_blocks(ir: np.ndarray, xs: Sequence[np.ndarray],
 
 
 def tcn_blocks(params: Dict[str, np.ndarray], layers: int,
-               xs: Sequence[np.ndarray], device: str = "cpu"):
+               xs: Sequence[np.ndarray], device: str = "cuda"):
     """The channel-sharded f32 TCN over a one-axis mesh ("tp") of the
     process group, streamed over ``xs`` from zero tails: (each block's
     output, the last tails whole)."""
@@ -230,7 +231,7 @@ def tcn_blocks(params: Dict[str, np.ndarray], layers: int,
 
 
 def lstm_blocks(params: Dict[str, np.ndarray], xs: Sequence[np.ndarray],
-                device: str = "cpu"):
+                device: str = "cuda"):
     """The hidden-sharded f32 LSTM over a one-axis mesh ("tp") of the
     process group, streamed over ``xs`` from a zero state: (each block's
     output, the last h and c whole)."""
@@ -254,7 +255,7 @@ BLOCKS = {"fdtd": fdtd_blocks, "partconv": partconv_blocks,
           "tcn": tcn_blocks, "lstm": lstm_blocks}
 
 
-def blocks_check(cases: Sequence[tuple], device: str = "cpu") -> list:
+def blocks_check(cases: Sequence[tuple], device: str = "cuda") -> list:
     """Each (kind, args) of ``cases`` through ``BLOCKS[kind](*args)`` on
     the process group, in one launch."""
     return [BLOCKS[kind](*args, device=device) for kind, args in cases]
@@ -264,3 +265,12 @@ def _world() -> int:
     import torch.distributed as dist
 
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def json_runs(cases: Sequence[tuple], device: str = "cuda") -> List[dict]:
+    """Each (benchmark name, config) of ``cases`` through
+    ``cli.rank_json`` on the process group, in one launch: each one's
+    JSON record (the benchmarks read the mesh from their config)."""
+    from gpuaudiobench_tpu_torch import cli
+
+    return [cli.rank_json(name, cfg, device) for name, cfg in cases]

@@ -1,17 +1,31 @@
-"""ctypes binding of the native harness core (``native/gpuab_native.cc``).
+"""ctypes binding of the native harness core (``csrc/gpuab_native.cc``)
+and the native command-line driver (``csrc/gpubench_main.cc``).
 
 PyTorch-package counterpart of ``gpuaudiobench_tpu/utils/native.py``.
-The C++ source is the suite's own, used as it is; the port binds its
-statistics and its DAW-load pacer. It is built with
+The harness core's C++ source is the suite's own (``native/gpuab_native.cc``),
+kept byte for byte as the package's copy, so an installed port builds it
+from its own files; the port binds its statistics and its DAW-load
+pacer. It is built with
 
     g++ -O2 -std=c++17 -fPIC -shared -o build/torch_kernels/gpuab_native-<hash>.so \\
-        native/gpuab_native.cc
+        gpuaudiobench_tpu_torch/csrc/gpuab_native.cc
 
 at first use, into the kernels' build directory (``utils/build.py``); the
 file name carries a hash of the source and the flags, so an edited source
 never loads a stale library. ``make_dawsim`` takes the native pacer and
 falls back to the Python one (``harness/dawsim.py``) where the build or
 the load fails; the pacer in use names itself in ``pacer``.
+
+``build_driver`` builds the native driver, an executable that embeds
+the interpreter running this module (``sys.executable``) and forwards
+its argv to ``gpuaudiobench_tpu_torch.cli.main``:
+
+    python -m gpuaudiobench_tpu_torch.utils.native   # builds, prints its path
+
+It compiles with g++ and the ``python3-config --includes`` and
+``--ldflags --embed`` of that interpreter's installation into
+``build/torch_kernels/gpubench-<hash>``; a failed build raises (there is
+no fallback to ``python -m``).
 """
 
 from __future__ import annotations
@@ -22,6 +36,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import tempfile
 from pathlib import Path
 from typing import Sequence
@@ -29,8 +45,13 @@ from typing import Sequence
 from gpuaudiobench_tpu_torch.harness.statistics import LatencyStats
 from gpuaudiobench_tpu_torch.utils.build import BUILD_DIR
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "gpuab_native.cc"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCE = CSRC / "gpuab_native.cc"
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
+DRIVER_SOURCE = CSRC / "gpubench_main.cc"
+DRIVER_CXX_FLAGS = ("-O2", "-std=c++17")
+# The directory holding the package: the driver puts it first on sys.path.
+PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 
 
 class _GpuabStats(ctypes.Structure):
@@ -53,33 +74,100 @@ def library_path() -> Path:
     return BUILD_DIR / f"gpuab_native-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the source unless its keyed library exists. Raises
-    ``RuntimeError`` when there is no g++, no source, or the build fails."""
-    if not SOURCE.is_file():
-        raise RuntimeError(f"native source not found: {SOURCE}")
-    lib = library_path()
-    if lib.is_file():
-        return lib
+def _compile(source: Path, out: Path, before: Sequence[str],
+             after: Sequence[str] = ()) -> Path:
+    """``g++ <before> -o <out> <source> <after>`` unless ``out`` exists.
+    Raises ``RuntimeError`` when there is no g++, no source, or the build
+    fails."""
+    if not source.is_file():
+        raise RuntimeError(f"native source not found: {source}")
+    if out.is_file():
+        return out
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError("g++ not found on PATH")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Build to a temporary name and rename, so a concurrent or cut-off
-    # build never leaves a half-written library under the final name.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    # build never leaves a half-written file under the final name.
+    fd, tmp = tempfile.mkstemp(suffix=out.suffix, dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)],
+        proc = subprocess.run([cxx, *before, "-o", tmp, str(source), *after],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
+        os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return lib
+    return out
+
+
+def build() -> Path:
+    """Compile the source unless its keyed library exists. Raises
+    ``RuntimeError`` when there is no g++, no source, or the build fails."""
+    return _compile(SOURCE, library_path(), CXX_FLAGS)
+
+
+def python_config() -> str:
+    """The ``python3-config`` of the running interpreter's installation
+    (its ``BINDIR``: the base installation's, under a virtual
+    environment). Raises ``RuntimeError`` where there is none."""
+    bindir = Path(sysconfig.get_config_var("BINDIR") or "")
+    version = sysconfig.get_config_var("VERSION") or ""
+    for name in (f"python{version}-config", "python3-config"):
+        if (bindir / name).is_file():
+            return str(bindir / name)
+    raise RuntimeError(f"no python{version}-config or python3-config in "
+                       f"{bindir}: the driver needs the interpreter's "
+                       "development files")
+
+
+def _c_string(text: str) -> str:
+    return '"' + text.replace("\\", "\\\\").replace('"', '\\"') + '"'
+
+
+@functools.lru_cache(maxsize=None)
+def driver_flags() -> tuple:
+    """(compile flags, link flags) of the driver: ``python3-config
+    --includes``, the interpreter and the package root as defines, and
+    ``--ldflags --embed`` with an rpath to the library directory and the
+    interpreter's ``LINKFORSHARED`` (extension modules resolve CPython's
+    symbols in the executable)."""
+    cfg = python_config()
+
+    def query(*args):
+        proc = subprocess.run([cfg, *args], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cfg} {' '.join(args)} failed "
+                               f"({proc.returncode}): {proc.stderr}")
+        return proc.stdout.split()
+
+    compile_flags = (*DRIVER_CXX_FLAGS, *query("--includes"),
+                     f"-DGPUBENCH_PYTHON={_c_string(sys.executable)}",
+                     f"-DGPUBENCH_ROOT={_c_string(str(PACKAGE_ROOT))}")
+    link = query("--ldflags", "--embed")
+    libdir = sysconfig.get_config_var("LIBDIR")
+    if libdir:
+        link.append(f"-Wl,-rpath,{libdir}")
+    link += (sysconfig.get_config_var("LINKFORSHARED") or "").split()
+    return compile_flags, tuple(link)
+
+
+def driver_path() -> Path:
+    """Where the driver builds to: keyed on its source and its flags."""
+    compile_flags, link = driver_flags()
+    h = hashlib.sha256(DRIVER_SOURCE.read_bytes())
+    h.update(" ".join(compile_flags + link).encode())
+    return BUILD_DIR / f"gpubench-{h.hexdigest()[:16]}"
+
+
+def build_driver() -> Path:
+    """Compile the native driver unless its keyed executable exists; its
+    path. Raises ``RuntimeError`` where it cannot."""
+    compile_flags, link = driver_flags()
+    return _compile(DRIVER_SOURCE, driver_path(), compile_flags, link)
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,3 +249,12 @@ def make_dawsim(buffer_size: int, fs: int, mode: str, jitter_us: float,
         from gpuaudiobench_tpu_torch.harness.dawsim import DAWSimulator
 
         return DAWSimulator(buffer_size, fs, mode, jitter_us, seed)
+
+
+def main() -> int:
+    print(build_driver())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -135,8 +135,8 @@ def runs():
     """{id: (one-rank run, 8-rank run)}: the one-rank runs in this
     process, the 8-rank ones in one launch."""
     cases = [(name, fields) for _, name, fields in CASES]
-    one = ranks.dp_runs(cases)
-    many = spmd(ranks.dp_runs, RANKS, "cpu", cases,
+    one = ranks.dp_runs(cases, device="cpu")
+    many = spmd(ranks.dp_runs, RANKS, "cpu", cases, "cpu",
                 timeout_s=SPAWN_TIMEOUT_S)
     return dict(zip(IDS, zip(one, many)))
 

@@ -47,11 +47,11 @@ def runs():
     """{(ranks, id): (one-rank run, run on that many ranks)}, and
     {ranks: the indivisible case's error}."""
     cases = [(name, fields) for _, name, fields in ALL]
-    one = ranks.dp_runs(cases)
+    one = ranks.dp_runs(cases, device="cpu")
     out, errors = {}, {}
     for n in MESHES:
         *many, err = spmd(ranks.dp_runs, n, "cpu",
-                          cases + [INDIVISIBLE[1:]],
+                          cases + [INDIVISIBLE[1:]], "cpu",
                           timeout_s=SPAWN_TIMEOUT_S)
         out.update({(n, cid): pair for cid, pair in zip(IDS, zip(one,
                                                                   many))})

@@ -6,6 +6,7 @@ what its kernel does not take, and raises for what is not ported."""
 import dataclasses
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -63,7 +64,11 @@ BLOCKED_JAX = textwrap.dedent("""
                 "tools.compare_runs", "tools.doctor",
                 "examples.streaming_synth", "examples.room_impulse",
                 "examples.reverb", "examples.ampsim", "examples.session",
-                "examples.multichip_synth"):
+                "examples.multichip_synth", "tools.json_to_csv",
+                "tools.render_results", "tools.remeasure_rows",
+                "tools.regen_artifacts", "tools.readme_headline",
+                "tools.overlap_campaign", "tools.latency_attrib",
+                "tools.mesh_scaling"):
         assert "gpuaudiobench_tpu_torch." + mod in names, mod
 
     import torch
@@ -296,6 +301,15 @@ def test_no_source_mentions_jax():
                 assert not any(
                     w.split(".")[0] in ("jax", "jaxlib", "gpuaudiobench_tpu")
                     for w in words[1:2]), f"{f}: {line}"
+    # The package's C++ sources (the native driver embeds CPython): no
+    # jax, and no module of the JAX package by its dotted name.
+    sources = sorted((PKG / "csrc").glob("*.cc"))
+    assert {f.name for f in sources} >= {"gpubench_main.cc",
+                                         "gpuab_native.cc"}
+    for f in sources:
+        for line in f.read_text().splitlines():
+            assert not re.search(r"\bjax(lib)?\b|\bgpuaudiobench_tpu\.",
+                                 line, re.IGNORECASE), f"{f}: {line}"
 
 
 @pytest.fixture

@@ -214,7 +214,7 @@ def test_runner_refuses_unported_tiers(port_cfg, knob):
               for f in dataclasses.fields(tconfig.BenchConfig)}
     fields.update(pipeline_depth=4, saturated_reps=2)
     [(rec, _, _)] = spmd(ranks.dp_runs, knob["data_parallel"], "cpu",
-                         [("ModalFilterBank", fields)], timeout_s=300)
+                         [("ModalFilterBank", fields)], "cpu", timeout_s=300)
     assert rec["validation"]["status"] == "SUCCESS"
     assert rec["metadata"]["chainForm"] == "loop"
     assert [c["kind"] for c in rec["metadata"]["collectiveInventory"]] == [

@@ -168,7 +168,7 @@ def test_a_rank_that_raises_fails_the_launch_with_its_traceback():
     with pytest.raises(RuntimeError,
                        match=r"(?s)rank [01] of 2 failed.*mesh 3x1x1 != 2"):
         spmd(ranks.collectives_check, 2, "cpu", [(3, 1, 1)], _x((2, 1, 1)),
-             timeout_s=SPAWN_TIMEOUT_S)
+             "cpu", timeout_s=SPAWN_TIMEOUT_S)
 
 
 def test_spmd_refuses_cuda_ranks_without_the_cards():

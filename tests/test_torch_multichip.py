@@ -59,10 +59,10 @@ def steps():
     out = {}
     for world, shapes in STEP_MESHES.items():
         res = spmd(ranks.suite_check, world, "cpu",
-                   [(s, _sizes(s)) for s in shapes],
+                   [(s, _sizes(s)) for s in shapes], 42, "cpu",
                    timeout_s=SPAWN_TIMEOUT_S)
         out.update(zip(shapes, res))
-    out[(1, 1, 1)] = ranks.suite_check([((1, 1, 1), TOY)])[0]
+    out[(1, 1, 1)] = ranks.suite_check([((1, 1, 1), TOY)], device="cpu")[0]
     return out
 
 

@@ -84,7 +84,7 @@ def cli_runs():
              "1,1,8": ["--benchmark", "MultiChipSuite"]}
     res = spmd(ranks.cli_runs, 8, "cpu",
                [argv + ["--mesh", mesh] + CLI_TOY
-                for mesh, argv in batch.items()],
+                for mesh, argv in batch.items()], "cpu",
                timeout_s=SPAWN_TIMEOUT_S)
     for mesh, (rc, text) in zip(batch, res):
         out[mesh] = (rc, text.splitlines())

@@ -97,7 +97,7 @@ def port():
     for world in WORLDS:
         kinds = _kinds(world)
         res = spmd(ranks.blocks_check, world, "cpu",
-                   [(k, inputs[k]) for k in kinds],
+                   [(k, inputs[k]) for k in kinds], "cpu",
                    timeout_s=SPAWN_TIMEOUT_S)
         out.update({(world, k): r for k, r in zip(kinds, res)})
     return inputs, out
@@ -246,6 +246,6 @@ def test_one_rank_blocks_run_without_a_process_group():
     """On one rank the sharded blocks are their single-device blocks' math
     (every collective the identity): bit for bit for PartConv's output."""
     inputs = _inputs()
-    ys = ranks.partconv_blocks(*inputs["partconv"])
+    ys = ranks.partconv_blocks(*inputs["partconv"], device="cpu")
     for o, r in zip(ys, _single("partconv", inputs["partconv"])):
         np.testing.assert_array_equal(o, r)
