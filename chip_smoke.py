@@ -11,7 +11,11 @@ nonzero:
 1. Toolchain: torch, CUDA, nvcc, triton (optional) and the card's
    nvidia-smi name and power limit.
 2. Build: the CUDA kernels from ``gpuaudiobench_tpu_torch/csrc``, one
-   nvcc per source, all started together.
+   nvcc per source, all started together, and beside them with g++ the
+   ``gpuab`` operator library (``csrc/torch_ops.cc``, linked to the
+   kernels once they exist; the modal rotation, IIR scan, systolic
+   cascade, Conv1D and FDTD divergence kernels are reached through it in
+   every phase) and the native runner (``csrc/native_runner.cc``).
 3. The two modal kernels (rotation and Gordon-Smith resonator) vs their
    plain twins on the card, under every contract of the modal bank, with
    the states chained over 2 blocks, at ten shapes up to the main path's
@@ -267,22 +271,33 @@ nonzero:
    (1,1,1 of both benchmarks validated, the rest printed as skipped). The
    driver's and ``python -m``'s launches are made in their own processes
    and not counted.
-20. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+20. The native runner (``NATIVE_*``): the eight programs of
+   ``tools.export_programs`` (the JAX exporter's names and shapes)
+   exported on the card as AOTInductor packages, one process each, all
+   started together, and each run by ``native_runner`` in its own process
+   with ``--runs 20``: each exits 0, its warm-up checksum within 1e-4 of
+   max(|checksum|, 1) of the same port function's in this process on the
+   same LCG inputs (whose kernels must launch), a runner process maps no
+   libpython (its ``/proc/<pid>/maps``, during its runs); each program's
+   export and compile seconds, load ms, the runner's p50 and p95 beside
+   the same round trip's in this process, and the modal headline's
+   saturated p50 beside PR 23's.
+21. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-21. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
+22. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
    profiler session writes a trace that must hold ``modal_bank`` device
    events; the busy time a block and idle share of its saturated tier's
    timed reps (graph replays), read from the trace.
-22. ``torch.profiler`` names the kernels of each cascade wrapper's calls
+23. ``torch.profiler`` names the kernels of each cascade wrapper's calls
    at 1,000 x 96 (``PROFILE_CALLS`` a wrapper, each wrapper in a
    ``record_function`` range of one session, read from its Chrome trace):
    the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. The profiler sessions run
    after everything timed (a session slows the process's later launches).
-23. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+24. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -296,11 +311,13 @@ import importlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN_SHAPE = (1048576, 512, 32)
@@ -825,6 +842,21 @@ REGEN_KERNELS = ["modal_bank", "iir_biquad", "fdtd3d_div"]
 REMEASURE = ["IIRFilter", "--satReps", "11", "--nRuns", "5",
              "--pipelineDepth", "64"]
 OVERLAP_CAMPAIGN = ["--depth", "16", "--reps", "2"]
+# The native runner (phase 20): runs a program, the kernels each
+# program's port function launches, the checksum's tolerance relative to
+# max(|checksum|, 1), and the modal headline's saturated p50 in PR 23 (on
+# the H100 80GB HBM3 at 700 W), when the kernel was called through ctypes.
+NATIVE_RUNS = 20
+NATIVE_MAPS_RUNS = 20000
+NATIVE_RTOL = 1e-4
+NATIVE_EXPORT_TIMEOUT = 300
+NATIVE_RUN_TIMEOUT = 120
+NATIVE_KERNELS = {"modal_pallas": ["modal_bank"],
+                  "fdtd3d_pallas": ["fdtd3d_div"], "gain": [],
+                  "iirfilter": ["iir_biquad"], "modal": ["modal_bank"],
+                  "conv1d": ["conv1d"], "partconv": [],
+                  "session": ["iir_cascade"]}
+NATIVE_PR23_HEADLINE_MS = 0.1209
 OVERLAP_KERNELS = ["conv1d", "rndmem_gather", "iir_biquad", "dwg_block",
                    "iir_cascade"]
 LATENCY_ATTRIB = ["--reps", "5"]
@@ -3709,6 +3741,185 @@ def last_surfaces_phase(torch, cli, output, counts, reset, launches, smi,
         shutil.rmtree(tmpdir, ignore_errors=True)
 
 
+def percentile(values, p):
+    """The native runner's percentile: the sorted value at p * (n - 1)."""
+    v = sorted(values)
+    return v[int(p * (len(v) - 1))] if v else 0.0
+
+
+def runner_lines(text):
+    """The native runner's result lines: checksum, load ms, p50 and p95."""
+    def grab(pattern):
+        m = re.search(pattern, text)
+        if m is None:
+            return None
+        return float(m.group(1))
+
+    return {"checksum": grab(r"checksum (-?[0-9.e+-]+|nan|-?inf)\)"),
+            "load_ms": grab(r"load: ([0-9.]+) ms"),
+            "p50": grab(r"p50: ([0-9.]+) ms"), "p95": grab(r"p95: ([0-9.]+) ms")}
+
+
+def in_process(torch, ep, name, device):
+    """A program's port function in this process on the card, on the
+    runner's LCG inputs made in Python: (its checksum, the round-trip
+    latencies of NATIVE_RUNS timed calls, each a call, a synchronisation
+    and the copy of output 0 to the host)."""
+    module, spec = ep.make_program(name, device)
+    inputs = ep.lcg_inputs(spec, device)
+
+    def round_trip():
+        out = ep.first_output(module(*inputs))
+        torch.cuda.synchronize()
+        return out.cpu()
+
+    host = round_trip()
+    lat = []
+    for _ in range(NATIVE_RUNS):
+        t0 = time.perf_counter()
+        round_trip()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return ep.checksum(host), lat
+
+
+def libraries_mapped(pid):
+    """The file names of the shared objects mapped by process ``pid``."""
+    with open(f"/proc/{pid}/maps") as f:
+        return {os.path.basename(line.split()[-1]) for line in f
+                if line.rstrip().endswith(".so") or ".so." in line}
+
+
+def native_phase(torch, counts, reset, launches, runner_job, bench_rec, smi):
+    """Phase 20: the eight programs of ``tools.export_programs`` exported
+    on the card (one process each, all started together) and run by the
+    native runner (``csrc/native_runner.cc``), each in its own process with
+    ``--runs NATIVE_RUNS``: each exits 0 with its warm-up checksum within
+    NATIVE_RTOL of the same port function's in this process on the same
+    LCG inputs, and the kernels' operators launched by those in-process
+    runs. A runner process maps no libpython. Each program's export and
+    compile seconds, load ms, and the runner's p50 and p95 beside the same
+    round trip's in this process."""
+    from gpuaudiobench_tpu_torch.ops import gpuab
+    from gpuaudiobench_tpu_torch.tools import export_programs as ep
+
+    device = torch.device("cuda")
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    procs = []
+    try:
+        # One core's worth of threads a process: eight compile at once.
+        env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="1",
+                   OMP_NUM_THREADS="1",
+                   TORCHINDUCTOR_CACHE_DIR=os.path.join(tmpdir, "inductor"))
+        t0 = time.perf_counter()
+        for name in ep.NAMES:
+            log = open(os.path.join(tmpdir, f"{name}.log"), "w+")
+            procs.append((name, log, subprocess.Popen(
+                [sys.executable, "-m",
+                 "gpuaudiobench_tpu_torch.tools.export_programs", "--out",
+                 tmpdir, name], cwd=HERE, env=env, stdout=log,
+                stderr=subprocess.STDOUT)))
+
+        # While they compile: each port function in this process, its
+        # checksum, and the kernels it launches.
+        want = {}
+        for name in ep.NAMES:
+            reset()
+            module, spec = ep.make_program(name, device)
+            out = ep.first_output(module(*ep.lcg_inputs(spec, device)))
+            torch.cuda.synchronize()
+            want[name] = ep.checksum(out)
+            n = counts()
+            for k in NATIVE_KERNELS[name]:
+                if n[k] <= 0:
+                    fail(f"native {name}: {k} was not launched in process")
+            for k, v in n.items():
+                launches[k] += v
+        exe = str(runner_job.result())
+        lib = gpuab.library_path()
+
+        exported = {}
+        for name, log, proc in procs:
+            try:
+                rc = proc.wait(timeout=NATIVE_EXPORT_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                fail(f"native export {name}: no result in "
+                     f"{NATIVE_EXPORT_TIMEOUT} s")
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if rc != 0:
+                print(text[-3000:])
+                fail(f"native export {name}: exit {rc}")
+            m = re.search(r"export ([0-9.]+) s, compile ([0-9.]+) s", text)
+            exported[name] = (float(m.group(1)), float(m.group(2)))
+        procs = []
+        print(f"native export: the eight programs in "
+              f"{time.perf_counter() - t0:.1f} s (one process each, together)")
+
+        # No libpython in a runner process: read its maps during its runs.
+        name = "modal_pallas"
+        args = [exe, "--package", os.path.join(tmpdir, f"{name}.pt2"),
+                "--spec", os.path.join(tmpdir, f"{name}.spec"), "--ops", lib]
+        proc = subprocess.Popen(args + ["--runs", str(NATIVE_MAPS_RUNS)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            for line in proc.stdout:
+                if line.startswith("warmup:"):
+                    break
+            mapped = libraries_mapped(proc.pid)
+        finally:
+            proc.kill()
+            proc.communicate()
+        python_libs = sorted(m for m in mapped if "python" in m)
+        if python_libs:
+            fail(f"native runner maps {python_libs}")
+        for want_lib in ("libtorch_cuda.so", os.path.basename(lib)):
+            if want_lib not in mapped:
+                fail(f"native runner: {want_lib} not mapped")
+        print(f"native runner: {len(mapped)} shared objects mapped, no "
+              f"libpython; {os.path.basename(lib)} and libtorch_cuda.so "
+              "among them")
+
+        for name in ep.NAMES:
+            args = [exe, "--package", os.path.join(tmpdir, f"{name}.pt2"),
+                    "--spec", os.path.join(tmpdir, f"{name}.spec"), "--ops",
+                    lib, "--runs", str(NATIVE_RUNS)]
+            r = subprocess.run(args, capture_output=True, text=True,
+                               timeout=NATIVE_RUN_TIMEOUT)
+            got = runner_lines(r.stdout)
+            if r.returncode != 0 or None in got.values():
+                print(r.stdout[-2000:], r.stderr[-3000:])
+                fail(f"native runner {name}: exit {r.returncode}")
+            tol = NATIVE_RTOL * max(abs(want[name]), 1.0)
+            if not abs(got["checksum"] - want[name]) <= tol:
+                fail(f"native runner {name}: checksum {got['checksum']!r}, "
+                     f"in process {want[name]!r}")
+            reset()
+            _, lat = in_process(torch, ep, name, device)
+            for k, v in counts().items():
+                launches[k] += v
+            exp_s, comp_s = exported[name]
+            print(f"native {name}: export {exp_s:.2f} s, compile "
+                  f"{comp_s:.2f} s, load {got['load_ms']:.1f} ms; runner "
+                  f"p50 {got['p50']:.4f} ms, p95 {got['p95']:.4f} ms; in "
+                  f"process p50 {percentile(lat, 0.5):.4f} ms, p95 "
+                  f"{percentile(lat, 0.95):.4f} ms; checksum "
+                  f"{got['checksum']:.6f} (in process {want[name]:.6f})")
+        print(f"native: modal headline saturated p50 "
+              f"{bench_rec['saturated_rep_p50_ms']} ms through the operator "
+              f"(PR 23, through ctypes: {NATIVE_PR23_HEADLINE_MS} ms); the "
+              f"eight programs on {smi}: passed")
+    finally:
+        for _, log, proc in procs:
+            proc.kill()
+            proc.wait()
+            log.close()
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
 def capture_run(torch, cli, hprofiler, counts, reset, launches):
     """The CLI with --capture on the modal headline cell: one session
     writes a trace holding modal_bank device events; the timed reps of its
@@ -3791,8 +4002,10 @@ def main() -> int:
             overlap64_attrib,
             soak,
         )
+        from gpuaudiobench_tpu_torch.ops import gpuab
         from gpuaudiobench_tpu_torch.utils import build
         from gpuaudiobench_tpu_torch.utils import device as dev
+        from gpuaudiobench_tpu_torch.utils import native
         from gpuaudiobench_tpu_torch.utils import roofline
         from gpuaudiobench_tpu_torch.webui import server as webui_server
     except ImportError as e:
@@ -3805,12 +4018,21 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: the blockstate twin needs full FP32")
 
+    # The operator library's object and the native runner compile with g++
+    # beside the kernels' nvcc; the library links once the kernels exist.
     t0 = time.perf_counter()
+    jobs = ThreadPoolExecutor(max_workers=2)
+    ops_job = jobs.submit(native.compile_ops)
+    runner_job = jobs.submit(native.build_runner)
+    jobs.shutdown(wait=False)
     libs = build.build_all(["modal_bank", "iir", "conv1d", "rndmem", "dwg",
                             "fdtd3d", "speedoflight"])
-    for mod in (ops, iops, cops, rops, dops, fops, sops):
+    ops_job.result()
+    gpuab.load()
+    for mod in (ops, iops, rops, dops, fops, sops):
         mod._lib()
-    print(f"build: {', '.join(p.name for p in libs)} in "
+    print(f"build: {', '.join(p.name for p in libs)}, "
+          f"{os.path.basename(gpuab.library_path())} in "
           f"{time.perf_counter() - t0:.2f} s")
 
     errs = [compare(torch, ops, shape, device) for shape in SHAPES]
@@ -3997,6 +4219,12 @@ def main() -> int:
                             bench_rec)
         print(f"native driver, artifacts and campaigns: "
               f"{time.perf_counter() - t0:.1f} s")
+
+        # The eight exported programs through the native runner.
+        t0 = time.perf_counter()
+        native_phase(torch, counts, reset, launches, runner_job, bench_rec,
+                     smi)
+        print(f"native runner: {time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")
 

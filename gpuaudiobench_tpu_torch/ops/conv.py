@@ -29,12 +29,11 @@ On a CUDA tensor it launches the kernel or raises; it never falls back.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict
 
 import torch
 
-from gpuaudiobench_tpu_torch.harness.graph import count_launch
+from gpuaudiobench_tpu_torch.ops import gpuab
 
 EDGE_MODES = ("clamp", "bleed")
 
@@ -88,35 +87,17 @@ def _check(x: torch.Tensor, ir: torch.Tensor, edge_mode: str) -> torch.device:
     return x.device
 
 
-def _lib() -> ctypes.CDLL:
-    from gpuaudiobench_tpu_torch.utils.build import load
-
-    lib = load("conv1d")
-    if lib.conv1d_direct_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv1d_direct_launch.argtypes = [p] * 3 + [i] * 4 + [p]
-        lib.conv1d_direct_launch.restype = i
-    return lib
-
-
 def conv1d_direct(x: torch.Tensor, ir: torch.Tensor,
                   edge_mode: str = "clamp") -> torch.Tensor:
     """Direct per-track FIR, the contract of the JAX ``conv1d_direct``
-    (with the golden's bleed): x (T, S), ir (T, L) -> (T, S)."""
+    (with the golden's bleed): x (T, S), ir (T, L) -> (T, S). The kernel
+    runs through ``torch.ops.gpuab.conv1d_direct_launch``
+    (``ops/gpuab.py``)."""
     dev = _check(x, ir, edge_mode)
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return conv1d_direct_plain(x, ir, edge_mode)
-    lib = _lib()
-    out = torch.empty_like(x)
-    t, s = x.shape
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.conv1d_direct_launch(
-            x.data_ptr(), ir.data_ptr(), out.data_ptr(), t, s, ir.shape[1],
-            int(edge_mode == "bleed"), stream)
-    if err != 0:
-        raise RuntimeError(f"conv1d_direct_launch failed: CUDA error {err}")
-    count_launch(KERNEL_LAUNCHES, "conv1d")
+    out = gpuab.load().conv1d_direct_launch(x, ir, edge_mode == "bleed")
+    gpuab.launched(KERNEL_LAUNCHES, "conv1d")
     return out
 
 

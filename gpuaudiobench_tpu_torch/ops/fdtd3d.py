@@ -28,6 +28,10 @@ sample n, and out[t, n] = p[rcv(t)] * 0.1 after its last substep.
 
 A wrapper runs the twin only because its tensors lie on the CPU. On a
 CUDA tensor it launches a kernel or raises; it never falls back. The
+divergence form's two kernels are reached through the
+``torch.ops.gpuab.fdtd_div_{cluster,planes}_launch`` operators
+(``ops/gpuab.py``), which an exported program calls too; the field form
+through ctypes. The
 input fields are never written. Which kernel runs is decided before the
 launch by ``fdtd_schedule(n, form)``, pure host code, as a route,
 "cluster" or "planes". In the divergence form a room whose (p,
@@ -54,6 +58,7 @@ import numpy as np
 import torch
 
 from gpuaudiobench_tpu_torch.harness.graph import count_launch
+from gpuaudiobench_tpu_torch.ops import gpuab
 
 # Physics constants (bench_fdtd3d.cuh:145-174).
 ROOM = 50  # reference default; --fdtdRoom makes it configurable
@@ -330,8 +335,20 @@ def fdtd3d_block_div_plain(x, p, div, source: Cell = SOURCE,
                            receiver: Cell = RECEIVER):
     """The divergence form of ``fdtd3d_block_pallas_div``:
     (out (T, S), p', div'), div' zero off the interior."""
-    tracks, s = x.shape
-    src = source_row(x)
+    n = p.shape[0]
+    return fdtd3d_div_from_source(source_row(x), p, div, x.shape[0],
+                                  flat_cell(source, n), flat_cell(receiver, n))
+
+
+def fdtd3d_div_from_source(src, p, div, tracks: int, src_cell: int,
+                           rcv_cell: int):
+    """``fdtd3d_block_div_plain`` from the source row ``src`` (S,) and the
+    flat source and receiver cells: the CPU implementation of the
+    ``gpuab`` FDTD operators (``ops/gpuab.py``), which take those."""
+    n = p.shape[0]
+    source = tuple(int(c) for c in np.unravel_index(src_cell, (n, n, n)))
+    receiver = tuple(int(c) for c in np.unravel_index(rcv_cell, (n, n, n)))
+    s = src.shape[0]
     inner = (slice(1, -1),) * 3
     p = p.clone()
     d = torch.zeros_like(div)
@@ -444,16 +461,20 @@ def _on_cuda(x, fn: str) -> None:
                          f"tensors, got {x.device}")
 
 
-def _div_cluster(x, p, div, n, source, receiver, plan: FdtdPlan):
-    tracks, s = x.shape
-    p_out, div_out = _empty((n, n, n), x), _empty((n, n, n), x)
-    out = _empty((tracks, s), x)
-    _launch(x, "fdtd_div_cluster_launch", "fdtd3d_div",
-            source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
-            p_out.data_ptr(), div_out.data_ptr(), out.data_ptr(), n, s,
-            flat_cell(source, n), tracks, flat_cell(receiver, n), K1, K2, C6,
-            ABSORB, F_OUTPUT_SCALE, range_starts(plan), plan.blocks)
-    return out, p_out, div_out
+def _div_op(x, p, div, n, source, receiver, plan: FdtdPlan):
+    """The divergence form on ``plan``'s route, through
+    ``torch.ops.gpuab.fdtd_div_{cluster,planes}_launch`` (the CPU twin
+    while a CPU program is traced): (out, p', div'). The schedule's
+    ranges go in as ints, which an export bakes into the program."""
+    name = ("fdtd_div_cluster_launch" if plan.route == "cluster"
+            else "fdtd_div_planes_launch")
+    out = getattr(gpuab.load(), name)(
+        source_row(x), p, div, x.shape[0], flat_cell(source, n),
+        flat_cell(receiver, n), K1, K2, C6, ABSORB, F_OUTPUT_SCALE,
+        list(range_starts(plan)))
+    gpuab.launched(KERNEL_LAUNCHES, "fdtd3d_div" if plan.route == "cluster"
+                   else "fdtd3d_div_coop")
+    return out
 
 
 def _plane_scratch(n, x):
@@ -463,20 +484,6 @@ def _plane_scratch(n, x):
     flags = torch.empty((n * PLANE_FLAG_STRIDE,), dtype=torch.int32,
                         device=x.device)
     return xch, flags
-
-
-def _div_coop(x, p, div, n, source, receiver, plan: FdtdPlan):
-    tracks, s = x.shape
-    p_out, div_out = _empty((n, n, n), x), _empty((n, n, n), x)
-    out = _empty((tracks, s), x)
-    xch, flags = _plane_scratch(n, x)
-    _launch(x, "fdtd_div_planes_launch", "fdtd3d_div_coop",
-            source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
-            p_out.data_ptr(), div_out.data_ptr(), out.data_ptr(),
-            xch.data_ptr(), flags.data_ptr(), n, s, flat_cell(source, n),
-            tracks, flat_cell(receiver, n), K1, K2, C6, ABSORB,
-            F_OUTPUT_SCALE, range_starts(plan), plan.blocks)
-    return out, p_out, div_out
 
 
 # The receivers' buckets of the last few receivers tensors, by id: (the
@@ -543,12 +550,9 @@ def fdtd3d_block_div(x, p, div, source: Cell = SOURCE,
     """Divergence-form block: (out (T, S), p', div'); the grid size rides
     p.shape (room + 2 ghost cells)."""
     n = _check_div(x, p, div, source, receiver, "fdtd3d_block_div")
-    if x.device.type == "cpu":
+    if not gpuab.use_op(x.device):
         return fdtd3d_block_div_plain(x, p, div, source, receiver)
-    plan = fdtd_schedule(n, "div")
-    if plan.route == "cluster":
-        return _div_cluster(x, p, div, n, source, receiver, plan)
-    return _div_coop(x, p, div, n, source, receiver, plan)
+    return _div_op(x, p, div, n, source, receiver, fdtd_schedule(n, "div"))
 
 
 def fdtd3d_block_field(x, p, vx, vy, vz, source: Cell = SOURCE,
@@ -576,7 +580,7 @@ def fdtd3d_block_div_cluster(x, p, div, source: Cell = SOURCE,
     plan = fdtd_schedule(n, "div")
     if plan.route != "cluster":
         raise ValueError(f"{fn}: an {n}^3 grid does not fit a cluster")
-    return _div_cluster(x, p, div, n, source, receiver, plan)
+    return _div_op(x, p, div, n, source, receiver, plan)
 
 
 def fdtd3d_block_div_coop(x, p, div, source: Cell = SOURCE,
@@ -586,7 +590,7 @@ def fdtd3d_block_div_coop(x, p, div, source: Cell = SOURCE,
     fn = "fdtd3d_block_div_coop"
     n = _check_div(x, p, div, source, receiver, fn)
     _on_cuda(x, fn)
-    return _div_coop(x, p, div, n, source, receiver, plane_schedule(n))
+    return _div_op(x, p, div, n, source, receiver, plane_schedule(n))
 
 
 def cluster_probe(blocks: int, smem_bytes: int, syncs: int, device) -> None:

@@ -1,0 +1,150 @@
+"""The ``gpuab`` operators: the hand-written kernels as PyTorch ops.
+
+``csrc/torch_ops.cc`` registers one operator for each C entry that the
+exported programs reach (``tools/export_programs.py``), with functional
+schemas: the operator allocates its outputs and scratch and returns them.
+
+* ``modal_bank_launch`` (``csrc/modal_bank.cu``, the rotation kernel):
+  (out, re', im'), out (T_out, S) with ``track_major`` else (S, T_out),
+  the states empty (0,) tensors unless ``keep_states``.
+* ``iir_biquad_launch`` and ``iir_cascade_launch`` (``csrc/iir.cu``, the
+  scan kernel and the systolic cascade): (y, states').
+* ``conv1d_direct_launch`` (``csrc/conv1d.cu``): out.
+* ``fdtd_div_cluster_launch`` and ``fdtd_div_planes_launch``
+  (``csrc/fdtd3d.cu``, the divergence form's two routes): (out, p', div')
+  from the source row, the schedule's ranges as ``int[] starts``.
+
+The schedule each takes is computed by its ops module, as before the ops
+existed; an export bakes it into the program as constants. ``load``
+builds the library (``utils/native.py:build_ops``) and loads it once a
+process, then registers each operator's shapes (``register_fake``, for
+tracing) and its plain twin as its CPU implementation, so that a CPU
+program can be traced, exported and run in a Python process. The twins
+exist only in Python: a process without Python that loads the library
+(``csrc/native_runner.cc``) has no CPU implementation of the operators,
+and a CUDA tensor reaches only the kernel.
+
+A wrapper in ``ops/*.py`` calls an operator on a CUDA tensor, and on a
+CPU tensor only while a program is being traced (``torch.export``); an
+eager call on a CPU tensor runs the twin directly. ``launched`` counts a
+launch in the wrapper's ``KERNEL_LAUNCHES`` unless it is being traced.
+"""
+
+from __future__ import annotations
+
+import functools
+import threading
+from typing import Dict
+
+import torch
+
+from gpuaudiobench_tpu_torch.harness.graph import count_launch
+
+OPS = ("modal_bank_launch", "iir_biquad_launch", "iir_cascade_launch",
+       "conv1d_direct_launch", "fdtd_div_cluster_launch",
+       "fdtd_div_planes_launch")
+
+_LOCK = threading.Lock()
+
+
+def tracing() -> bool:
+    """Whether a program is being traced (``torch.export``, ``torch.compile``)."""
+    return torch.compiler.is_compiling()
+
+
+def use_op(device: torch.device) -> bool:
+    """Whether a wrapper calls its operator for a tensor on ``device``: on
+    CUDA always, on the CPU while tracing."""
+    return device.type == "cuda" or tracing()
+
+
+def launched(counts: Dict[str, int], key: str) -> None:
+    """Count one launch of ``key`` (``harness.graph.count_launch``), unless
+    the call is being traced and so launched nothing."""
+    if not tracing():
+        count_launch(counts, key)
+
+
+@functools.lru_cache(maxsize=None)
+def _loaded() -> str:
+    from gpuaudiobench_tpu_torch.utils import native
+
+    path = str(native.build_ops())
+    torch.ops.load_library(path)
+    _register()
+    return path
+
+
+def load():
+    """``torch.ops.gpuab``, its library built and loaded and its fake and
+    CPU implementations registered, once a process. Raises
+    ``RuntimeError`` where the library cannot be built or loaded (there is
+    no other route to the kernels)."""
+    with _LOCK:
+        _loaded()
+    return torch.ops.gpuab
+
+
+def library_path() -> str:
+    """The path of the loaded library (``load`` first)."""
+    with _LOCK:
+        return _loaded()
+
+
+def _register() -> None:
+    from gpuaudiobench_tpu_torch.ops import conv, fdtd3d, iir, modal
+
+    def fake_modal(cos_w, sin_w, amp, re, im, buffer_size, output_tracks,
+                   track_major, keep_states, *_schedule):
+        shape = ((output_tracks, buffer_size) if track_major
+                 else (buffer_size, output_tracks))
+        states = ((re.new_empty(re.shape), im.new_empty(im.shape))
+                  if keep_states else (re.new_empty(0), im.new_empty(0)))
+        return (re.new_empty(shape), *states)
+
+    def cpu_modal(cos_w, sin_w, amp, re, im, buffer_size, output_tracks,
+                  track_major, keep_states, *_schedule):
+        if amp is not None:
+            out, re2, im2 = modal.modal_bank_plain(
+                amp, cos_w, sin_w, re, im, buffer_size, output_tracks)
+            out = out.t()
+        else:
+            out, re2, im2 = modal.modal_folded_step_plain(
+                cos_w, sin_w, re, im, buffer_size, output_tracks)
+        out = (out.t() if track_major else out).contiguous()
+        if not keep_states:
+            re2, im2 = re.new_empty(0), im.new_empty(0)
+        return out, re2, im2
+
+    def fake_pair(x, coeffs, state, *_schedule):
+        return x.new_empty(x.shape), state.new_empty(state.shape)
+
+    def cpu_biquad(x, coeffs, state):
+        return iir.iir_biquad_plain(x, coeffs, state)
+
+    def cpu_cascade(x, coeffs, states, *_schedule):
+        return iir.iir_cascade_plain(x, coeffs, states)
+
+    def fake_conv(x, ir, bleed):
+        return x.new_empty(x.shape)
+
+    def cpu_conv(x, ir, bleed):
+        return conv.conv1d_direct_plain(x, ir, "bleed" if bleed else "clamp")
+
+    def fake_fdtd(src, p, div, tracks, *_rest):
+        return (p.new_empty((tracks, src.shape[0])), p.new_empty(p.shape),
+                div.new_empty(div.shape))
+
+    def cpu_fdtd(src, p, div, tracks, src_cell, rcv_cell, *_rest):
+        return fdtd3d.fdtd3d_div_from_source(src, p, div, tracks, src_cell,
+                                             rcv_cell)
+
+    for name, fake, cpu in (
+            ("modal_bank_launch", fake_modal, cpu_modal),
+            ("iir_biquad_launch", fake_pair, cpu_biquad),
+            ("iir_cascade_launch", fake_pair, cpu_cascade),
+            ("conv1d_direct_launch", fake_conv, cpu_conv),
+            ("fdtd_div_cluster_launch", fake_fdtd, cpu_fdtd),
+            ("fdtd_div_planes_launch", fake_fdtd, cpu_fdtd)):
+        torch.library.register_fake(f"gpuab::{name}", fake)
+        torch.library.impl(f"gpuab::{name}", "CPU", cpu)

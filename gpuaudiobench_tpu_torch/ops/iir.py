@@ -17,7 +17,10 @@ against on the card):
 * ``iir_cascade_plain``: a chain of single-stage plain biquads.
 
 Four wrappers of the hand-written CUDA kernels (``csrc/iir.cu``), each
-with the contract of its Pallas kernel:
+with the contract of its Pallas kernel. The first and the third reach
+their kernels through the ``torch.ops.gpuab`` operators
+(``ops/gpuab.py``), which an exported program calls too; the other two
+through ctypes:
 
 * ``iir_biquad`` (``iir_biquad_pallas``),
 * ``iir_biquad_blockstate`` (``iir_biquad_blockstate_pallas``),
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from gpuaudiobench_tpu_torch.harness.graph import count_launch
+from gpuaudiobench_tpu_torch.ops import gpuab
 
 # Launches of each CUDA kernel, counted by its wrapper where it launches
 # it (chip_smoke.py reads them to prove the main path used the kernels).
@@ -218,10 +222,11 @@ def iir_biquad(x: torch.Tensor, coeffs: torch.Tensor,
     dev = _check("iir_biquad", x, [("x", x, (tracks, s)),
                                    ("coeffs", coeffs, (5,)),
                                    ("state", state, (tracks, 2))])
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return iir_biquad_plain(x, coeffs, state)
-    return _launch("iir_biquad", "iir_biquad_launch", x, state,
-                   (x, coeffs, state), (tracks, s))
+    out = gpuab.load().iir_biquad_launch(x, coeffs, state)
+    gpuab.launched(KERNEL_LAUNCHES, "iir_biquad")
+    return out
 
 
 def iir_biquad_blockstate(x: torch.Tensor, coeffs: torch.Tensor,
@@ -359,14 +364,16 @@ def iir_cascade(x: torch.Tensor, coeffs: torch.Tensor,
     """Same contract as ``iir_cascade_pallas`` (the systolic kernel):
     x (T, S), coeffs (K, 5), states (K, T, 2) -> (y, states')."""
     tracks, s, k, dev = _cascade_args("iir_cascade", x, coeffs, states)
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return iir_cascade_plain(x, coeffs, states)
-    _check_depth("iir_cascade", k)
+    if dev.type == "cuda":
+        _check_depth("iir_cascade", k)
     sc = cascade_schedule(tracks, s, k)
-    return _launch("iir_cascade", "iir_cascade_launch", x, states,
-                   (x, coeffs, states),
-                   (tracks, s, k, sc.grid, sc.steady[1], sc.drain[1],
-                    sc.chunks))
+    out = gpuab.load().iir_cascade_launch(x, coeffs, states, sc.grid,
+                                          sc.steady[1], sc.drain[1],
+                                          sc.chunks)
+    gpuab.launched(KERNEL_LAUNCHES, "iir_cascade")
+    return out
 
 
 def iir_cascade_chain(x: torch.Tensor, coeffs: torch.Tensor,

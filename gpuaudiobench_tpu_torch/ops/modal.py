@@ -20,7 +20,9 @@ Plain PyTorch twins keep the f32 op order of the JAX functions:
   block, q' = q - eps*y, y' = y + eps*q', y' folded.
 
 Wrappers of the hand-written CUDA kernels (``csrc/modal_bank.cu``) keep
-the Pallas contracts:
+the Pallas contracts; the rotation kernel is reached through the
+``torch.ops.gpuab.modal_bank_launch`` operator (``ops/gpuab.py``), which
+an exported program calls too, the resonator through ctypes:
 
 * ``modal_bank`` -> (out (T_out, S), re, im): one block per round trip;
   the input states come back unchanged (Metal parity,
@@ -45,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from gpuaudiobench_tpu_torch.harness.graph import count_launch
+from gpuaudiobench_tpu_torch.ops import gpuab
 
 # Launches of each kernel, by name, counted where the wrappers launch
 # them: "modal_bank" the rotation (modal_bank, modal_folded_step),
@@ -252,42 +255,57 @@ def _schedule(lib, algorithm: str, m: int, t_out: int,
     return sched
 
 
-def _launch(algorithm: str, tables, amp: Optional[torch.Tensor], s0, s1,
-            buffer_size: int, output_tracks: int, keep_states: bool,
-            track_major: bool):
-    """Launch the rotation kernel (tables = (cos_w, sin_w), states
-    (re, im)) or the resonator kernel (``algorithm="res"``, tables =
-    (eps,), states (y, q)) on the current stream; returns (out, s0', s1')
-    with s0', s1' None unless ``keep_states``."""
+def _launch_res(eps, y, q, buffer_size: int, output_tracks: int,
+                keep_states: bool, track_major: bool):
+    """Launch the resonator kernel on (eps, y, q) on the current stream;
+    returns (out, y', q') with y', q' None unless ``keep_states``."""
     lib = _lib()
-    m = s0.shape[0]
-    dev = s0.device
-    sched = _schedule(lib, algorithm, m, output_tracks, dev)
+    m = y.shape[0]
+    dev = y.device
+    sched = _schedule(lib, "res", m, output_tracks, dev)
     partials = torch.empty((sched.n_partials, buffer_size, output_tracks),
                            dtype=torch.float32, device=dev)
     shape = ((output_tracks, buffer_size) if track_major
              else (buffer_size, output_tracks))
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    s0_o = torch.empty_like(s0) if keep_states else None
-    s1_o = torch.empty_like(s1) if keep_states else None
+    y_o = torch.empty_like(y) if keep_states else None
+    q_o = torch.empty_like(q) if keep_states else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    res = algorithm == "res"
-    fn_name = "modal_res_launch" if res else "modal_bank_launch"
-    ins = [ptr(t) for t in tables] + ([] if res else [ptr(amp)])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(
-            *ins, ptr(s0), ptr(s1), ptr(s0_o), ptr(s1_o),
+        err = lib.modal_res_launch(
+            ptr(eps), ptr(y), ptr(q), ptr(y_o), ptr(q_o),
             partials.data_ptr(), out.data_ptr(),
             m, buffer_size, output_tracks, int(track_major),
             sched.modes_per_thread, sched.grid, sched.passes, stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
-    count_launch(KERNEL_LAUNCHES, "modal_res" if res else "modal_bank")
-    return out, s0_o, s1_o
+        raise RuntimeError(f"modal_res_launch failed: CUDA error {err}")
+    count_launch(KERNEL_LAUNCHES, "modal_res")
+    return out, y_o, q_o
+
+
+def _launch_rotation(cos_w, sin_w, amp: Optional[torch.Tensor], re, im,
+                     buffer_size: int, output_tracks: int, keep_states: bool,
+                     track_major: bool) -> Tensors:
+    """The rotation kernel through ``torch.ops.gpuab.modal_bank_launch``
+    (the CPU twin while a CPU program is traced, which takes no
+    schedule); returns (out, re', im'), the states empty (0,) tensors
+    unless ``keep_states``."""
+    ops = gpuab.load()
+    if re.device.type == "cuda":
+        sched = _schedule(_lib(), "rotation", re.shape[0], output_tracks,
+                          re.device)
+        geometry = (sched.modes_per_thread, sched.grid, sched.passes)
+    else:
+        geometry = (0, 0, 0)
+    out = ops.modal_bank_launch(cos_w, sin_w, amp, re, im, buffer_size,
+                                output_tracks, track_major, keep_states,
+                                *geometry)
+    gpuab.launched(KERNEL_LAUNCHES, "modal_bank")
+    return out
 
 
 def modal_bank(amp, cos_w, sin_w, state_re, state_im,
@@ -301,19 +319,17 @@ def modal_bank(amp, cos_w, sin_w, state_re, state_im,
         raise ValueError(f"modal bank: invalid algorithm {algorithm!r}")
     dev = _check((amp, cos_w, sin_w, state_re, state_im),
                  buffer_size, output_tracks)
-    if dev.type == "cpu":
+    if algorithm == "res" and dev.type == "cuda":
+        eps, y0, q0 = res_init(cos_w, sin_w, amp * state_re, amp * state_im)
+        out, _, _ = _launch_res(eps, y0, q0, buffer_size, output_tracks,
+                                keep_states=False, track_major=True)
+    elif algorithm == "rotation" and gpuab.use_op(dev):
+        out, _, _ = _launch_rotation(cos_w, sin_w, amp, state_re, state_im,
+                                     buffer_size, output_tracks,
+                                     keep_states=False, track_major=True)
+    else:
         out, _, _ = modal_bank_plain(amp, cos_w, sin_w, state_re, state_im,
                                      buffer_size, output_tracks, algorithm)
-        return out, state_re, state_im
-    if algorithm == "res":
-        eps, y0, q0 = res_init(cos_w, sin_w, amp * state_re, amp * state_im)
-        out, _, _ = _launch("res", (eps,), None, y0, q0, buffer_size,
-                            output_tracks, keep_states=False,
-                            track_major=True)
-    else:
-        out, _, _ = _launch("rotation", (cos_w, sin_w), amp, state_re,
-                            state_im, buffer_size, output_tracks,
-                            keep_states=False, track_major=True)
     return out, state_re, state_im
 
 
@@ -323,12 +339,12 @@ def modal_folded_step(cos_w, sin_w, re_f, im_f,
     amp-prefolded states, (out (S, T_out), re', im') with the rotated
     states, so blocks chain."""
     dev = _check((cos_w, sin_w, re_f, im_f), buffer_size, output_tracks)
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return modal_folded_step_plain(cos_w, sin_w, re_f, im_f,
                                        buffer_size, output_tracks)
-    return _launch("rotation", (cos_w, sin_w), None, re_f, im_f,
-                   buffer_size, output_tracks, keep_states=True,
-                   track_major=False)
+    return _launch_rotation(cos_w, sin_w, None, re_f, im_f, buffer_size,
+                            output_tracks, keep_states=True,
+                            track_major=False)
 
 
 def modal_res_step(eps, y, q, buffer_size: int,
@@ -339,5 +355,5 @@ def modal_res_step(eps, y, q, buffer_size: int,
     dev = _check((eps, y, q), buffer_size, output_tracks)
     if dev.type == "cpu":
         return modal_res_step_plain(eps, y, q, buffer_size, output_tracks)
-    return _launch("res", (eps,), None, y, q, buffer_size, output_tracks,
-                   keep_states=True, track_major=False)
+    return _launch_res(eps, y, q, buffer_size, output_tracks,
+                       keep_states=True, track_major=False)

@@ -20,12 +20,25 @@ the load fails; the pacer in use names itself in ``pacer``.
 the interpreter running this module (``sys.executable``) and forwards
 its argv to ``gpuaudiobench_tpu_torch.cli.main``:
 
-    python -m gpuaudiobench_tpu_torch.utils.native   # builds, prints its path
+    python -m gpuaudiobench_tpu_torch.utils.native   # builds, prints the paths
+
+(the driver, the native runner and the ``gpuab`` operator library, below).
 
 It compiles with g++ and the ``python3-config --includes`` and
 ``--ldflags --embed`` of that interpreter's installation into
 ``build/torch_kernels/gpubench-<hash>``; a failed build raises (there is
 no fallback to ``python -m``).
+
+``build_ops`` builds the ``gpuab`` operator library (``csrc/torch_ops.cc``)
+and ``build_runner`` the native runner (``csrc/native_runner.cc``), which
+loads an AOTInductor package and runs it with no interpreter in the
+process. Both compile with g++ against PyTorch's headers
+(``torch.utils.cpp_extension.include_paths()``) and link its libraries
+(``library_paths()``, with an rpath), never libpython. Where this PyTorch
+is built for CUDA they define ``GPUAB_WITH_CUDA``: the library then holds
+the CUDA implementations and links the kernels' libraries
+(``utils/build.py``), and the runner links ``torch_cuda``. Elsewhere the
+library holds the operators' schemas alone and the runner runs on the CPU.
 """
 
 from __future__ import annotations
@@ -40,7 +53,7 @@ import sys
 import sysconfig
 import tempfile
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence
 
 from gpuaudiobench_tpu_torch.harness.statistics import LatencyStats
 from gpuaudiobench_tpu_torch.utils.build import BUILD_DIR
@@ -52,6 +65,12 @@ DRIVER_SOURCE = CSRC / "gpubench_main.cc"
 DRIVER_CXX_FLAGS = ("-O2", "-std=c++17")
 # The directory holding the package: the driver puts it first on sys.path.
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
+OPS_SOURCE = CSRC / "torch_ops.cc"
+RUNNER_SOURCE = CSRC / "native_runner.cc"
+# The kernel sources whose C entries the operator library calls.
+OPS_KERNELS = ("modal_bank", "iir", "conv1d", "fdtd3d")
+# PyTorch's headers warn under C++17; its own extensions build as C++20.
+TORCH_CXX_FLAGS = ("-O2", "-std=c++20", "-fPIC")
 
 
 class _GpuabStats(ctypes.Structure):
@@ -170,6 +189,100 @@ def build_driver() -> Path:
     return _compile(DRIVER_SOURCE, driver_path(), compile_flags, link)
 
 
+def _key(name: str, suffix: str, *parts) -> Path:
+    """``BUILD_DIR/<name>-<hash><suffix>``, the hash over ``parts`` (bytes
+    or text)."""
+    h = hashlib.sha256()
+    for part in parts:
+        h.update(part if isinstance(part, bytes) else str(part).encode())
+        h.update(b"\0")
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}{suffix}"
+
+
+def with_cuda() -> bool:
+    """Whether the operator library and the runner are built with their
+    CUDA parts: where this PyTorch is built for CUDA."""
+    import torch
+
+    return torch.version.cuda is not None
+
+
+@functools.lru_cache(maxsize=None)
+def torch_flags(cuda: bool) -> tuple:
+    """(compile flags, link flags) against this PyTorch: its headers, the
+    C++ ABI it was built with, its libraries with an rpath; with ``cuda``
+    the toolkit's headers (beside nvcc), ``GPUAB_WITH_CUDA`` and the CUDA
+    libraries."""
+    import torch
+    from torch.utils import cpp_extension
+
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    compile_flags = [*TORCH_CXX_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={abi}"]
+    compile_flags += [f"-I{p}" for p in cpp_extension.include_paths()]
+    link = []
+    for p in cpp_extension.library_paths():
+        link += [f"-L{p}", f"-Wl,-rpath,{p}"]
+    link += ["-Wl,--no-as-needed", "-ltorch", "-ltorch_cpu", "-lc10"]
+    if cuda:
+        from gpuaudiobench_tpu_torch.utils.build import nvcc_path
+
+        cuda_home = Path(nvcc_path()).resolve().parents[1]
+        compile_flags += ["-DGPUAB_WITH_CUDA", f"-I{cuda_home / 'include'}"]
+        link += ["-ltorch_cuda", "-lc10_cuda"]
+    return tuple(compile_flags), tuple(link)
+
+
+def ops_object_path(cuda: bool) -> Path:
+    compile_flags, _ = torch_flags(cuda)
+    return _key("gpuab_ops", ".o", OPS_SOURCE.read_bytes(), *compile_flags)
+
+
+def compile_ops(cuda: Optional[bool] = None) -> Path:
+    """Compile ``csrc/torch_ops.cc`` to an object (the slow part of
+    ``build_ops``: it needs no kernel library, so it can run beside nvcc)."""
+    cuda = with_cuda() if cuda is None else cuda
+    compile_flags, _ = torch_flags(cuda)
+    return _compile(OPS_SOURCE, ops_object_path(cuda), ["-c", *compile_flags])
+
+
+def build_ops(cuda: Optional[bool] = None) -> Path:
+    """The ``gpuab`` operator library: ``compile_ops``, then a link against
+    PyTorch and, with CUDA, the kernels' libraries (built first, by name
+    through an rpath to the build directory); keyed on the object and the
+    libraries, so a rebuilt kernel relinks it. Raises ``RuntimeError``
+    where it cannot."""
+    from gpuaudiobench_tpu_torch.utils import build as kernels
+
+    cuda = with_cuda() if cuda is None else cuda
+    obj = compile_ops(cuda)
+    _, link = torch_flags(cuda)
+    link = list(link)
+    if cuda:
+        libs = kernels.build_all(list(OPS_KERNELS))
+        link[:0] = [f"-L{BUILD_DIR}", f"-Wl,-rpath,{BUILD_DIR}",
+                    *(f"-l:{lib.name}" for lib in libs)]
+    out = _key("gpuab_ops", ".so", obj.name, *link)
+    return _compile(obj, out, ["-shared"], link)
+
+
+def runner_path(cuda: Optional[bool] = None) -> Path:
+    """Where the runner builds to: keyed on its source and its flags."""
+    cuda = with_cuda() if cuda is None else cuda
+    compile_flags, link = torch_flags(cuda)
+    return _key("native_runner", "", RUNNER_SOURCE.read_bytes(),
+                *compile_flags, *link)
+
+
+def build_runner(cuda: Optional[bool] = None) -> Path:
+    """Compile the native runner unless its keyed executable exists; its
+    path. It links libtorch (and its CUDA libraries with ``cuda``) and
+    ``-ldl``, no libpython. Raises ``RuntimeError`` where it cannot."""
+    cuda = with_cuda() if cuda is None else cuda
+    compile_flags, link = torch_flags(cuda)
+    return _compile(RUNNER_SOURCE, runner_path(cuda), compile_flags,
+                    [*link, "-ldl"])
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library, once a process. Raises
@@ -253,6 +366,8 @@ def make_dawsim(buffer_size: int, fs: int, mode: str, jitter_us: float,
 
 def main() -> int:
     print(build_driver())
+    print(build_runner())
+    print(build_ops())
     return 0
 
 

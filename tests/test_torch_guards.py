@@ -68,7 +68,7 @@ BLOCKED_JAX = textwrap.dedent("""
                 "tools.render_results", "tools.remeasure_rows",
                 "tools.regen_artifacts", "tools.readme_headline",
                 "tools.overlap_campaign", "tools.latency_attrib",
-                "tools.mesh_scaling"):
+                "tools.mesh_scaling", "ops.gpuab", "tools.export_programs"):
         assert "gpuaudiobench_tpu_torch." + mod in names, mod
 
     import torch

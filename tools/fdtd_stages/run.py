@@ -162,9 +162,41 @@ def build(out: Path):
 
 
 def use(lib):
-    """Routes the ops module's launches to ``lib``."""
+    """Routes the ops module's ctypes launches (the field form's) to
+    ``lib``; the divergence form's wrappers launch through the ``gpuab``
+    operators, which link the shipped library (``div_on``)."""
     fops.bind(lib)
     fops._lib = lambda: lib
+
+
+def div_on(lib, route, x, p, div, src, rcv):
+    """The divergence form's block on ``route`` ("cluster" or "planes")
+    launched from ``lib`` (a build of this directory, e.g. the profiled
+    one) by its C entry: (out, p', div')."""
+    n = p.shape[0]
+    plan = (fops.fdtd_schedule(n, "div") if route == "cluster"
+            else fops.plane_schedule(n))
+    tracks, s = x.shape
+    p_out, div_out = torch.empty_like(p), torch.empty_like(div)
+    out = torch.empty((tracks, s), device=x.device)
+    scratch = []
+    if route != "cluster":
+        xch = torch.empty(2 * (n + 2) * fops.plane_stride(n), device=x.device)
+        flags = torch.empty(n * fops.PLANE_FLAG_STRIDE, dtype=torch.int32,
+                            device=x.device)
+        scratch = [xch.data_ptr(), flags.data_ptr()]
+    entry = ("fdtd_div_cluster_launch" if route == "cluster"
+             else "fdtd_div_planes_launch")
+    err = getattr(lib, entry)(
+        fops.source_row(x).data_ptr(), p.data_ptr(), div.data_ptr(),
+        p_out.data_ptr(), div_out.data_ptr(), out.data_ptr(), *scratch, n, s,
+        fops.flat_cell(src, n), tracks, fops.flat_cell(rcv, n), fops.K1,
+        fops.K2, fops.C6, fops.ABSORB, fops.F_OUTPUT_SCALE,
+        fops.range_starts(plan), plan.blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    return out, p_out, div_out
 
 
 def bind_designs(lib):
@@ -728,14 +760,14 @@ def div_part(libs, dev, max_mhz):
         return run
 
     runs = [("cluster kernel", 16 * 32, profiled(
-                lambda: fops.fdtd3d_block_div_cluster(x, *zd, src, rcv))),
+                lambda: div_on(prof_lib, "cluster", x, *zd, src, rcv))),
             ("two-phase field design", 16 * 32, field("two-phase", prof_lib))]
     for room in PLANE_PROFILE:
         m, psrc, prcv = geometry(room)
         zr = fops.zero_fields_div(m, dev)
         runs.append((f"plane kernel room {room}", m * 32, profiled(
-            lambda zr=zr, psrc=psrc, prcv=prcv: fops.fdtd3d_block_div_coop(
-                x, *zr, psrc, prcv))))
+            lambda zr=zr, psrc=psrc, prcv=prcv: div_on(
+                prof_lib, "planes", x, *zr, psrc, prcv))))
     for form, nwarps, fn in runs:
         prof.zero_()
         if prof_lib.fdtd_prof_set(prof.data_ptr()) != 0:
