@@ -13,9 +13,11 @@ nonzero:
 2. Build: the CUDA kernels from ``gpuaudiobench_tpu_torch/csrc``, one
    nvcc per source, all started together, and beside them with g++ the
    ``gpuab`` operator library (``csrc/torch_ops.cc``, linked to the
-   kernels once they exist; the modal rotation, IIR scan, systolic
-   cascade, Conv1D and FDTD divergence kernels are reached through it in
-   every phase) and the native runner (``csrc/native_runner.cc``).
+   kernels once they exist; every kernel is reached through one of its
+   14 operators in every phase, each of which must have its CUDA
+   implementation) and the native runner (``csrc/native_runner.cc``).
+   Phases 3-9 compare under a dispatch mode that counts the ``gpuab``
+   operators (``GpuabDispatches``): all 14 must be dispatched there.
 3. The two modal kernels (rotation and Gordon-Smith resonator) vs their
    plain twins on the card, under every contract of the modal bank, with
    the states chained over 2 blocks, at ten shapes up to the main path's
@@ -157,7 +159,8 @@ nonzero:
    elementwise ops; the LSTM block one CUDA graph replay), still with the
    plain twins counted (none may run): the CLI on NeuralAmp at the JAX
    package's widths (C = 128, L = 10) in f32, bf16 and int8 at 128 tracks
-   and in f32 at 256 (``NEURAL_CLI``: 10 runs, depth 64, 5 reps), and on
+   and in int8 at C = 12 (its GEMMs zero-padded to 16; ``NEURAL_CLI``: 10
+   runs, depth 64, 5 reps), and on
    NeuralAmpLSTM (H = 128) in f32 and bf16 at 128 (``LSTM_CLI``: 5 runs,
    depth 16), each validated in full against its f64 golden, with its
    device, saturated and round-trip p50 and its max error, its cost-model
@@ -169,7 +172,8 @@ nonzero:
    bit for bit the serial ones; one LSTM block replayed through its graph
    bit for bit the same block run eagerly on the card, in f32 and bf16,
    with the CUDA-event times of both; and 64 chained stream blocks of
-   each of the six paths under ``torch.cuda.set_sync_debug_mode("error")``.
+   each of the six paths (the TCN in f32 at 256 tracks among them) under
+   ``torch.cuda.set_sync_debug_mode("error")``.
 14. The saturated chain as one CUDA graph (``harness.graph.ChainGraph``)
    against the loop of host launches, on ``GRAPH_PATHS``: the modal bank
    at 1,048,576 modes onto 32 tracks, IIRFilter at 65,536 and
@@ -282,22 +286,30 @@ nonzero:
    export and compile seconds, load ms, the runner's p50 and p95 beside
    the same round trip's in this process, and the modal headline's
    saturated p50 beside PR 23's.
-21. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
+21. ``torch.export`` of one small step per operator of queue 1's item
+   21b (``EXPORT_OPS``: the resonator, the block-state kernel, the chain
+   cascade, the gather, the DWG block, the FDTD field form's plane kernel
+   and the two FMA chains), each through its wrapper on the card: the
+   program holds the operator as a node, its module runs on the card and
+   dispatches the operator once, and its outputs (and the DWG rails it
+   writes in place) equal the eager wrapper's bit for bit. No AOTInductor
+   compile here.
+22. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
    132 x 128 B x nvidia-smi's ``clocks.max.sm``.
-22. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
+23. ``--capture`` on the modal headline cell (``CAPTURE_CLI``): one
    profiler session writes a trace that must hold ``modal_bank`` device
    events; the busy time a block and idle share of its saturated tier's
    timed reps (graph replays), read from the trace.
-23. ``torch.profiler`` names the kernels of each cascade wrapper's calls
+24. ``torch.profiler`` names the kernels of each cascade wrapper's calls
    at 1,000 x 96 (``PROFILE_CALLS`` a wrapper, each wrapper in a
    ``record_function`` range of one session, read from its Chrome trace):
    the chain wrapper must launch the chain kernel
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. The profiler sessions run
    after everything timed (a session slows the process's later launches).
-24. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+25. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -611,10 +623,13 @@ SESSION_OVERLAP_RUNS = [
 ]
 # NeuralAmp and NeuralAmpLSTM (phase 13) at the JAX package's default
 # widths (C = H = 128, L = 10; gpuaudiobench_tpu/config.py:81-83): the TCN
-# at 128 tracks in each dtype and at 256 in f32 (its certified capacity,
-# docs/RESULTS_r4_capacity.md:10) on PartConv's tier; the LSTM, whose block
-# is one graph replay of 512 dependent steps, at 128 tracks on a shallower
-# one. Full verification against the f64 goldens.
+# at 128 tracks in each dtype on PartConv's tier, and int8 at C = 12 (no
+# multiple of 8: its GEMMs zero-padded to 16); the LSTM, whose block is
+# one graph replay of 512 dependent steps, at 128 tracks on a shallower
+# one. Full verification against the f64 goldens. The TCN at 256 tracks
+# in f32 (its certified capacity, docs/RESULTS_r4_capacity.md:10) runs
+# only its sync-free chain: its CLI run and golden were cut to keep the
+# script inside its time limit.
 NEURAL_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "64",
               "--saturatedReps", "5", "--json"]
 LSTM_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "16",
@@ -626,7 +641,10 @@ NEURAL_RUNS = [
     (f"{name} {dtype}, {tracks} tracks",
      ["--benchmark", name, "--nTracks", str(tracks), "--neuralampDtype",
       dtype] + (LSTM_CLI if name == "NeuralAmpLSTM" else NEURAL_CLI))
-    for name, dtype, tracks in NEURAL_PATHS]
+    for name, dtype, tracks in NEURAL_PATHS if tracks == 128] + [
+    ("NeuralAmp int8, 128 tracks, C = 12",
+     ["--benchmark", "NeuralAmp", "--nTracks", "128", "--neuralampDtype",
+      "int8", "--neuralampChannels", "12"] + NEURAL_CLI)]
 NEURAL_OVERLAP_RUNS = [
     ("NeuralAmp f32, 128 tracks", ["--benchmark", "NeuralAmp"], []),
     ("NeuralAmpLSTM f32, 128 tracks", ["--benchmark", "NeuralAmpLSTM"],
@@ -857,6 +875,12 @@ NATIVE_KERNELS = {"modal_pallas": ["modal_bank"],
                   "conv1d": ["conv1d"], "partconv": [],
                   "session": ["iir_cascade"]}
 NATIVE_PR23_HEADLINE_MS = 0.1209
+# The operators that queue 1's item 21b added (phase 21 exports a step of
+# each); the six before them are phase 20's programs'.
+EXPORT_OPS = ("modal_res_launch", "iir_blockstate_launch",
+              "iir_cascade_chain_launch", "rndmem_gather_launch",
+              "dwg_block_launch", "fdtd_field_planes_launch",
+              "fma_chain_launch", "fma_vmem_launch")
 OVERLAP_KERNELS = ["conv1d", "rndmem_gather", "iir_biquad", "dwg_block",
                    "iir_cascade"]
 LATENCY_ATTRIB = ["--reps", "5"]
@@ -2501,8 +2525,8 @@ def lstm_graph_check(torch, registry, config, na, device):
 
 def neural_phase(torch, cli, registry, config, overlap, roofline, na, counts,
                  reset, device):
-    """Phase 13: NeuralAmp in f32, bf16 and int8 at 128 tracks and f32 at
-    256, NeuralAmpLSTM in f32 and bf16 at 128, each validated against its
+    """Phase 13: NeuralAmp in f32, bf16 and int8 at 128 tracks and int8 at
+    C = 12, NeuralAmpLSTM in f32 and bf16 at 128, each validated against its
     f64 golden with matmulPrecision "highest", every LSTM block a graph
     replay (``ops.neuralamp.GRAPH_REPLAYS``); the overlap tier on both,
     the overlapped loop bit for bit the serial one, the graphed LSTM block
@@ -2525,6 +2549,9 @@ def neural_phase(torch, cli, registry, config, overlap, roofline, na, counts,
         if md.get("matmulPrecision") != "highest":
             fail(f"{label}: matmulPrecision {md.get('matmulPrecision')!r}")
         replays = n["lstm_block"]
+        if "--neuralampChannels" in argv and md.get("channels") != int(
+                argv[argv.index("--neuralampChannels") + 1]):
+            fail(f"{label}: ran at {md.get('channels')} channels")
         if lstm:
             want = lstm_replays_expected(argv)
             if md.get("blockForm") != "cuda-graph" or replays != want:
@@ -3920,6 +3947,127 @@ def native_phase(torch, counts, reset, launches, runner_job, bench_rec, smi):
         shutil.rmtree(tmpdir, ignore_errors=True)
 
 
+class GpuabDispatches:
+    """Counts, by name, the ``gpuab`` operators dispatched while it is
+    entered (a ``TorchDispatchMode``, made on first use): the proof that a
+    phase reached its kernels through ``torch.ops.gpuab``."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace == "gpuab":
+                    name = func._schema.name.split("::", 1)[1]
+                    seen[name] = seen.get(name, 0) + 1
+                return func(*args, **(kwargs or {}))
+
+        self._mode_type = Mode
+
+    def __enter__(self):
+        self._mode = self._mode_type()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def export_steps(torch, ops, iops, rops, dops, fops, sops, device):
+    """(operator, label, step, inputs, mutated input indices) of one small
+    step per operator that queue 1's item 21b added (EXPORT_OPS), on the
+    card."""
+    import numpy as np
+
+    m, s, t = 4096, 64, 32
+    tabs = make_inputs(torch, m, seed=7, device=device)
+    res = ops.res_init(tabs["cos_w"], tabs["sin_w"], tabs["amp"] * tabs["re"],
+                       tabs["amp"] * tabs["im"])
+    x, c1, z1 = iir_inputs(torch, 256, 128, device)
+    taps, u = blockstate_tables(torch, iops, c1, 128, 16, device)
+    xk, ck, zk = iir_inputs(torch, 256, 128, device, stages=IIR_STAGES)
+    g = np.random.Generator(np.random.MT19937(17))
+    pool = torch.from_numpy(g.random(1 << 20, dtype=np.float32)).to(device)
+    ph = torch.from_numpy(g.integers(-1000, (1 << 20) + 1000, 256).astype(
+        np.int32)).to(device)
+    n, src, rcv = fdtd_geometry(fops, 8)
+    _, xs = sol_inputs(torch, 64, 1024, device)
+    return [
+        ("modal_res_launch", f"modal_res_step M={m} S={s} T_out={t}",
+         lambda e, y, q: ops.modal_res_step(e, y, q, s, t), list(res), ()),
+        ("iir_blockstate_launch", "iir_biquad_blockstate 256x128 m=16",
+         iops.iir_biquad_blockstate, [x, c1, taps, u, z1], ()),
+        ("iir_cascade_chain_launch", f"iir_cascade_chain 256x128 "
+         f"K={IIR_STAGES}", iops.iir_cascade_chain, [xk, ck, zk], ()),
+        ("rndmem_gather_launch", "rndmem_gather 256x512 from 4 MiB",
+         lambda p, h: rops.rndmem_gather(p, h, 512), [pool, ph], ()),
+        ("dwg_block_launch", "dwg_block 1000x512 Lmax 1100",
+         dops.dwg_block, dwg_inputs(torch, 1000, 512, 1100, None, False,
+                                    device), (1, 2)),
+        ("fdtd_field_planes_launch", "fdtd3d_block_field room 8, 16x64",
+         lambda xx, p, vx, vy, vz: fops.fdtd3d_block_field(
+             xx, p, vx, vy, vz, src, rcv),
+         [fdtd_x(torch, 16, 64, device), *fops.zero_fields(n, device)], ()),
+        ("fma_chain_launch", "fma_chain 64x1024 k=64",
+         lambda xx: sops.fma_chain(xx, 64), [xs], ()),
+        ("fma_vmem_launch", "fma_vmem 64x1024 k=64",
+         lambda xx: sops.fma_vmem(xx, 64), [xs], ()),
+    ]
+
+
+def export_ops_phase(torch, ops, iops, rops, dops, fops, sops, device):
+    """Phase 21: ``torch.export`` of one small step per operator that item
+    21b added, on the card: the program holds the operator as a node, its
+    module runs on the card, and its outputs (and the DWG rails it writes
+    in place) equal the eager wrapper's bit for bit. No AOTInductor
+    compile (phase 20 compiles the JAX exporter's eight programs)."""
+
+    class Step(torch.nn.Module):
+        def __init__(self, fn):
+            super().__init__()
+            self.fn = fn
+
+        def forward(self, *args):
+            return self.fn(*args)
+
+    def as_tuple(out):
+        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+    steps = export_steps(torch, ops, iops, rops, dops, fops, sops, device)
+    if sorted(op for op, *_ in steps) != sorted(EXPORT_OPS):
+        fail("export phase: the steps do not cover EXPORT_OPS")
+    for op, label, fn, inputs, mutated in steps:
+        t0 = time.perf_counter()
+        prog = torch.export.export(Step(fn), tuple(t.clone() for t in inputs))
+        export_s = time.perf_counter() - t0
+        if f"gpuab.{op}" not in str(prog.graph):
+            fail(f"export {label}: the program holds no gpuab.{op} node")
+        nodes = sum(1 for nd in prog.graph.nodes if nd.op == "call_function")
+        eager_in = [t.clone() for t in inputs]
+        exported_in = [t.clone() for t in inputs]
+        want = as_tuple(fn(*eager_in))
+        with GpuabDispatches(torch) as seen:
+            got = as_tuple(prog.module()(*exported_in))
+        torch.cuda.synchronize()
+        if seen.seen.get(op, 0) != 1:
+            fail(f"export {label}: the exported module dispatched "
+                 f"{seen.seen}")
+        pairs = list(zip(got, want)) + [(exported_in[i], eager_in[i])
+                                        for i in mutated]
+        if len(got) != len(want) or not all(
+                a.shape == b.shape and torch.equal(a, b) for a, b in pairs):
+            fail(f"export {label}: the exported program differs from the "
+                 "eager call")
+        if not all(torch.isfinite(a).all() for a in got):
+            fail(f"export {label}: non-finite output")
+        print(f"export {label}: {op} one of {nodes} nodes, exported in "
+              f"{export_s:.2f} s, run on the card bit for bit the eager "
+              "wrapper's" + (" (outputs and the rails written in place)"
+                             if mutated else ""))
+
+
 def capture_run(torch, cli, hprofiler, counts, reset, launches):
     """The CLI with --capture on the modal headline cell: one session
     writes a trace holding modal_bank device events; the timed reps of its
@@ -4029,13 +4177,24 @@ def main() -> int:
                             "fdtd3d", "speedoflight"])
     ops_job.result()
     gpuab.load()
-    for mod in (ops, iops, rops, dops, fops, sops):
+    for mod in (ops, iops, fops):  # the schedule and capacity queries
         mod._lib()
+    no_cuda = [name for name in gpuab.OPS
+               if not torch._C._dispatch_has_kernel_for_dispatch_key(
+                   f"gpuab::{name}", "CUDA")]
+    if len(gpuab.OPS) != 14 or no_cuda:
+        fail(f"the gpuab library has {len(gpuab.OPS)} operators, without a "
+             f"CUDA implementation: {no_cuda}")
     print(f"build: {', '.join(p.name for p in libs)}, "
-          f"{os.path.basename(gpuab.library_path())} in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{os.path.basename(gpuab.library_path())} ({len(gpuab.OPS)} "
+          f"operators) in {time.perf_counter() - t0:.2f} s")
 
-    errs = [compare(torch, ops, shape, device) for shape in SHAPES]
+    # Every kernel-vs-twin comparison below runs under a dispatch mode
+    # that counts the gpuab operators: all 14 must be reached through
+    # them (the timings run outside it).
+    dispatched = GpuabDispatches(torch)
+    with dispatched:
+        errs = [compare(torch, ops, shape, device) for shape in SHAPES]
     modal_err = {"modal_bank": max(e[0] for e in errs),
                  "modal_res": max(e[1] for e in errs)}
     modal_times = time_main_shape(torch, ops, device)
@@ -4044,11 +4203,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     iir_err = {}
-    for tracks, s in IIR_SHAPES:
-        for k, v in compare_iir(torch, iops, tracks, s, device).items():
-            iir_err[k] = max(iir_err.get(k, 0.0), v)
-    for k, v in compare_cascade_edges(torch, iops, device).items():
-        iir_err[k] = max(iir_err[k], v)
+    with dispatched:
+        for tracks, s in IIR_SHAPES:
+            for k, v in compare_iir(torch, iops, tracks, s, device).items():
+                iir_err[k] = max(iir_err.get(k, 0.0), v)
+        for k, v in compare_cascade_edges(torch, iops, device).items():
+            iir_err[k] = max(iir_err[k], v)
     iir_times = time_iir(torch, iops, device)
     b_ms, b_by = iir_bounds(128)["iir_cascade_chain"]
     ms = iir_times["iir_cascade_chain"][0]
@@ -4057,28 +4217,32 @@ def main() -> int:
     print(f"IIR kernels vs twins: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    conv_err = max(compare_conv(torch, cops, shape, device)
-                   for shape in CONV_SHAPES)
+    with dispatched:
+        conv_err = max(compare_conv(torch, cops, shape, device)
+                       for shape in CONV_SHAPES)
     conv_times = time_conv(torch, cops, device)
     print(f"conv1d kernel vs twin: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    pool, ph, rndmem_err = compare_rndmem(torch, rops, device)
+    with dispatched:
+        pool, ph, rndmem_err = compare_rndmem(torch, rops, device)
     rndmem_times = time_rndmem(torch, rops, pool, ph)
     del pool, ph
     print(f"rndmem_gather kernel vs twin: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    dwg_err = max(compare_dwg(torch, dops, shape, device)
-                  for shape in DWG_SHAPES)
+    with dispatched:
+        dwg_err = max(compare_dwg(torch, dops, shape, device)
+                      for shape in DWG_SHAPES)
     dwg_times = time_dwg(torch, dops, device)
     print(f"dwg_block kernel vs twin: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     fdtd_err = {k: 0.0 for k in FDTD_REPLACES}
-    for room, s in FDTD_SHAPES:
-        for k, v in compare_fdtd(torch, fops, room, s, device).items():
-            fdtd_err[k] = max(fdtd_err[k], v)
+    with dispatched:
+        for room, s in FDTD_SHAPES:
+            for k, v in compare_fdtd(torch, fops, room, s, device).items():
+                fdtd_err[k] = max(fdtd_err[k], v)
     fdtd_times, _ = time_fdtd(torch, fops, device)
     for key in (FDTD_FIELD_82_KEY, FDTD_BIG_KEY):
         b_ms, b_by = fdtd_bounds()[key]
@@ -4087,9 +4251,15 @@ def main() -> int:
     print(f"fdtd kernels vs twins: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    sol_err = compare_sol(torch, sops, device)
+    with dispatched:
+        sol_err = compare_sol(torch, sops, device)
     sol_times = time_sol(torch, sops, device)
     print(f"speed-of-light kernels vs twin: {time.perf_counter() - t0:.1f} s")
+    missing = sorted(set(gpuab.OPS) - set(dispatched.seen))
+    if missing:
+        fail(f"the kernel-vs-twin phases reached no {missing} operator")
+    print("kernels vs twins through torch.ops.gpuab: "
+          + ", ".join(f"{k} {dispatched.seen[k]}" for k in gpuab.OPS))
 
     card = torch.cuda.get_device_name(0)
     _, peak_source = roofline.resolve_peaks(card)
@@ -4225,6 +4395,11 @@ def main() -> int:
         native_phase(torch, counts, reset, launches, runner_job, bench_rec,
                      smi)
         print(f"native runner: {time.perf_counter() - t0:.1f} s")
+
+        # A step of each operator of item 21b, exported and run on the card.
+        t0 = time.perf_counter()
+        export_ops_phase(torch, ops, iops, rops, dops, fops, sops, device)
+        print(f"exported operator steps: {time.perf_counter() - t0:.1f} s")
         if twins.calls:
             fail(f"a plain twin ran {twins.calls} times on the main paths")
 

@@ -392,6 +392,22 @@ def rank_run(cfg: BenchConfig, names: List[str], device: str):
     return rc, buf.getvalue()
 
 
+class RankZeroPhases:
+    """A ``progress_cb`` that ``launch.spmd`` can hand to its ranks: rank 0
+    puts each phase on ``queue`` (a queue of the "spawn" context, which
+    the caller reads); the other ranks run the same tiers and report
+    none."""
+
+    def __init__(self, queue) -> None:
+        self.queue = queue
+
+    def __call__(self, phase: str) -> None:
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self.queue.put(phase)
+
+
 def rank_json(name: str, cfg: BenchConfig, device: str,
               progress_cb=None) -> dict:
     """One benchmark through the runner to its JSON record, as the web UI

@@ -48,7 +48,6 @@ from gpuaudiobench_tpu_torch.models.common import (
     check_full_fp32,
 )
 from gpuaudiobench_tpu_torch.ops import neuralamp as na
-from gpuaudiobench_tpu_torch.ops.speedoflight import INT_MM_MULTIPLE
 
 # Relative to the golden's peak (the JAX package's table and margins).
 TOLERANCE = {
@@ -86,10 +85,6 @@ class NeuralAmpBenchmark(StandardBufferBenchmark):
                 f"{self.dtype} (int8 is TCN-only: the LSTM's per-sample "
                 "GEMMs are issue-bound, not compute-bound, so the "
                 "integer path has nothing to win)")
-        if self.dtype == "int8" and self.channels % INT_MM_MULTIPLE:
-            raise ValueError(
-                f"{self.name}: int8 needs --neuralampChannels a multiple of "
-                f"{INT_MM_MULTIPLE} (torch._int_mm), got {self.channels}")
         self.tolerance = TOLERANCE[(self.arch, self.dtype)]
         self.setup_standard_buffers()
 

@@ -18,7 +18,10 @@ waveguide g and sample n (writePos 0):
   (fwd[g, p], bwd[g, (p + L/2) % L]), p < min(L, S), walks its chain of
   samples p, p + L, ... in one thread, threads laid along the row; the
   out-tap pairs walk in mono blocks that sum the output in a fixed order.
-  ``dwg_schedule`` is its launch geometry.
+  ``dwg_schedule`` is its launch geometry. It launches them through the
+  ``torch.ops.gpuab.dwg_block_launch`` operator (``ops/gpuab.py``), which
+  an exported program calls too; the operator writes the rails in place
+  (its schema marks them mutated), as the kernel does.
 * ``dwg_block_plain`` is its twin: a loop over samples with a gather and
   a scatter on all rows, as the JAX ``dwg_block`` runs it.
 * ``dwg_mono_in_order`` is the kernel's mono output in NumPy, summed in
@@ -28,13 +31,14 @@ Both update the given rails in place and return ``(out (S,), fwd, bwd)``;
 a caller that needs the starting rails clones them first. Lengths must lie in [1, Lmax] (the kernel leaves a row outside
 that range untouched; the benchmark checks its lengths on the host).
 
-``dwg_block`` runs the twin only because its tensors lie on the CPU. On a
-CUDA tensor it launches the kernel or raises; it never falls back.
+``dwg_block`` runs the twin only because its tensors lie on the CPU (and
+calls the operator, whose CPU implementation is the twin, while a CPU
+program is traced). On a CUDA tensor it launches the kernel or raises; it
+never falls back.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Dict, Tuple
@@ -42,7 +46,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from gpuaudiobench_tpu_torch.harness.graph import count_launch
+from gpuaudiobench_tpu_torch.ops import gpuab
 
 MIX_FACTOR = 0.5  # benchmark_constants.cuh WAVEGUIDE_MIX_FACTOR
 
@@ -196,17 +200,6 @@ def _check(x, fwd, bwd, ints, floats) -> torch.device:
     return x.device
 
 
-def _lib() -> ctypes.CDLL:
-    from gpuaudiobench_tpu_torch.utils.build import load
-
-    lib = load("dwg")
-    if lib.dwg_block_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dwg_block_launch.argtypes = [p] * 11 + [i] * 6 + [p]
-        lib.dwg_block_launch.restype = i
-    return lib
-
-
 def dwg_block(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl,
               damp) -> Triple:
     """One block of G waveguides, rails updated in place: returns (out
@@ -214,24 +207,13 @@ def dwg_block(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl,
     ints = [("lengths", lengths), ("in_taps", in_taps), ("out_taps", out_taps)]
     floats = [("gains", gains), ("refl", refl), ("damp", damp)]
     dev = _check(x, fwd, bwd, ints, floats)
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return dwg_block_plain(x, fwd, bwd, lengths, in_taps, out_taps, gains,
                                refl, damp)
-    lib = _lib()
     g, lmax = fwd.shape
-    s = x.shape[0]
-    sc = dwg_schedule(g, s, lmax)
-    group_sums = torch.empty((sc.groups, s), dtype=torch.float32, device=dev)
-    out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dwg_block_launch(
-            x.data_ptr(), fwd.data_ptr(), bwd.data_ptr(), lengths.data_ptr(),
-            in_taps.data_ptr(), out_taps.data_ptr(), gains.data_ptr(),
-            refl.data_ptr(), damp.data_ptr(), group_sums.data_ptr(),
-            out.data_ptr(), g, lmax, s, sc.segments, sc.groups,
-            sc.update_blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"dwg_block_launch failed: CUDA error {err}")
-    count_launch(KERNEL_LAUNCHES, "dwg_block")
+    sc = dwg_schedule(g, x.shape[0], lmax)
+    out = gpuab.load().dwg_block_launch(
+        x, fwd, bwd, lengths, in_taps, out_taps, gains, refl, damp,
+        sc.segments, sc.groups, sc.update_blocks)
+    gpuab.launched(KERNEL_LAUNCHES, "dwg_block")
     return out, fwd, bwd

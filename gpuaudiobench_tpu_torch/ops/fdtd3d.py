@@ -26,13 +26,20 @@ sample n, and out[t, n] = p[rcv(t)] * 0.1 after its last substep.
   twins: the sample loop of the JAX functions, whole-grid tensor ops per
   substep in the order of their expressions.
 
-A wrapper runs the twin only because its tensors lie on the CPU. On a
-CUDA tensor it launches a kernel or raises; it never falls back. The
-divergence form's two kernels are reached through the
-``torch.ops.gpuab.fdtd_div_{cluster,planes}_launch`` operators
-(``ops/gpuab.py``), which an exported program calls too; the field form
-through ctypes. The
-input fields are never written. Which kernel runs is decided before the
+A wrapper runs the twin only because its tensors lie on the CPU (and
+calls the operator, whose CPU implementation is the twin, while a CPU
+program is traced). On a CUDA tensor it launches a kernel or raises; it
+never falls back. The kernels are reached through the
+``torch.ops.gpuab.fdtd_div_{cluster,planes}_launch`` and
+``fdtd_field_planes_launch`` operators (``ops/gpuab.py``), which an
+exported program calls too; a program with per-track receivers does not
+trace, as their buckets are read on the host. The library's ctypes
+handle (``_lib``, ``bind``) serves the capacity and shared-memory queries
+(``fdtd_*_capacity``, ``fdtd_*_smem``, ``fdtd_cluster_occupancy``) and
+the cluster-barrier probe (``cluster_probe``, a measurement, not a kernel
+of any benchmark); ``bind`` also declares the launch entries for the
+builds of ``tools/fdtd_stages``. The input fields are never written.
+Which kernel runs is decided before the
 launch by ``fdtd_schedule(n, form)``, pure host code, as a route,
 "cluster" or "planes". In the divergence form a room whose (p,
 div) fits in one thread-block cluster's shared memory (rooms up to 65;
@@ -57,7 +64,6 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from gpuaudiobench_tpu_torch.harness.graph import count_launch
 from gpuaudiobench_tpu_torch.ops import gpuab
 
 # Physics constants (bench_fdtd3d.cuh:145-174).
@@ -310,12 +316,27 @@ def fdtd3d_block_field_plain(x, p, vx, vy, vz, source: Cell = SOURCE,
     """The JAX ``fdtd3d_block`` (or, with ``receivers``,
     ``fdtd3d_block_multircv``): (out (T, S), p', vx', vy', vz')."""
     n = p.shape[0]
-    tracks, s = x.shape
-    src = source_row(x)
+    return fdtd3d_field_from_source(source_row(x), p, vx, vy, vz, x.shape[0],
+                                    flat_cell(source, n),
+                                    flat_cell(receiver, n), receivers)
+
+
+def _cell(flat: int, n: int) -> Cell:
+    return tuple(int(c) for c in np.unravel_index(flat, (n, n, n)))
+
+
+def fdtd3d_field_from_source(src, p, vx, vy, vz, tracks: int,
+                             src_cell: int, rcv_cell: int,
+                             receivers: Optional[torch.Tensor] = None):
+    """``fdtd3d_block_field_plain`` from the source row ``src`` (S,) and
+    the flat source and receiver cells: the CPU implementation of the
+    ``gpuab`` field operator (``ops/gpuab.py``), which takes those."""
+    n = p.shape[0]
+    source, s = _cell(src_cell, n), src.shape[0]
     p, vx, vy, vz = p.clone(), vx.clone(), vy.clone(), vz.clone()
     boundary = boundary_mask(n, p.device)
     cells = (receivers.to(torch.int64) if receivers is not None else
-             torch.tensor([flat_cell(receiver, n)], device=p.device))
+             torch.tensor([rcv_cell], device=p.device))
     taps = torch.empty((s, cells.shape[0]), dtype=torch.float32,
                        device=p.device)
     for smp in range(s):
@@ -346,8 +367,7 @@ def fdtd3d_div_from_source(src, p, div, tracks: int, src_cell: int,
     flat source and receiver cells: the CPU implementation of the
     ``gpuab`` FDTD operators (``ops/gpuab.py``), which take those."""
     n = p.shape[0]
-    source = tuple(int(c) for c in np.unravel_index(src_cell, (n, n, n)))
-    receiver = tuple(int(c) for c in np.unravel_index(rcv_cell, (n, n, n)))
+    source, receiver = _cell(src_cell, n), _cell(rcv_cell, n)
     s = src.shape[0]
     inner = (slice(1, -1),) * 3
     p = p.clone()
@@ -406,6 +426,8 @@ def _check(x, fields, source: Cell, receiver: Cell,
 
 
 def _lib() -> ctypes.CDLL:
+    """The kernels' library for its queries and the barrier probe (the
+    kernels launch through the ``gpuab`` operators)."""
     from gpuaudiobench_tpu_torch.utils.build import load
 
     return bind(load("fdtd3d"))
@@ -413,8 +435,10 @@ def _lib() -> ctypes.CDLL:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the argument and result types of csrc/fdtd3d.cu's C interface
-    on a loaded library (once); returns it."""
-    if lib.fdtd_div_planes_launch.argtypes is None:
+    on a loaded library (once); returns it. The launch entries are
+    declared for the builds of ``tools/fdtd_stages``, which launch them
+    alone."""
+    if lib.fdtd_planes_capacity.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ip = ctypes.POINTER(ctypes.c_int)
         sig = {
@@ -443,18 +467,6 @@ def _empty(n_shape, like):
     return torch.empty(n_shape, dtype=torch.float32, device=like.device)
 
 
-def _launch(x, name: str, key: str, *args) -> None:
-    """Calls ``lib.<name>(*args, stream)`` on x's device; raises on a
-    nonzero CUDA error, else counts the launch under ``key``."""
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {err}")
-    count_launch(KERNEL_LAUNCHES, key)
-
-
 def _on_cuda(x, fn: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: a route-specific launcher takes CUDA "
@@ -479,7 +491,8 @@ def _div_op(x, p, div, n, source, receiver, plan: FdtdPlan):
 
 def _plane_scratch(n, x):
     """Scratch of a plane kernel, written before it is read: two parities
-    of n + 2 plane slots, and a flag a block."""
+    of n + 2 plane slots, and a flag a block (the operators allocate
+    their own; this is for the C entries launched alone)."""
     xch = _empty((2 * (n + 2) * plane_stride(n),), x)
     flags = torch.empty((n * PLANE_FLAG_STRIDE,), dtype=torch.int32,
                         device=x.device)
@@ -514,24 +527,28 @@ def _receiver_buckets(receivers: torch.Tensor, n: int):
     return entry[3], entry[4]
 
 
-def _field_planes(x, p, vx, vy, vz, n, source, receiver, receivers,
-                  plan: FdtdPlan):
-    tracks, s = x.shape
-    outs = [_empty(t.shape, x) for t in (p, vx, vy, vz)]
-    out = _empty((tracks, s), x)
-    xch, flags = _plane_scratch(n, x)
-    rows = order = starts = None
+def _field_op(x, p, vx, vy, vz, n, source, receiver, receivers,
+              plan: FdtdPlan):
+    """The field form on ``plan``'s planes through
+    ``torch.ops.gpuab.fdtd_field_planes_launch`` (the CPU twin while a CPU
+    program is traced): (out, p', vx', vy', vz'). The per-track
+    receivers' plane buckets go in beside them, their plane starts as
+    ints."""
+    order = starts = None
     if receivers is not None:
+        if gpuab.tracing():
+            raise NotImplementedError(
+                "fdtd3d_block_field: per-track receivers are bucketed by "
+                "plane on the host (receiver_csr), so a program holding "
+                "them cannot be traced")
         order, starts = _receiver_buckets(receivers, n)
-        rows, order = receivers.data_ptr(), order.data_ptr()
-    _launch(x, "fdtd_field_planes_launch", "fdtd3d_field",
-            source_row(x).data_ptr(), p.data_ptr(), vx.data_ptr(),
-            vy.data_ptr(), vz.data_ptr(), *(t.data_ptr() for t in outs),
-            out.data_ptr(), xch.data_ptr(), flags.data_ptr(), rows, order,
-            starts, n, s, flat_cell(source, n), tracks,
-            flat_cell(receiver, n), K1, K2, ABSORB, F_OUTPUT_SCALE,
-            range_starts(plan), plan.blocks)
-    return (out, *outs)
+        starts = list(starts)
+    out = gpuab.load().fdtd_field_planes_launch(
+        source_row(x), p, vx, vy, vz, receivers, order, starts, x.shape[0],
+        flat_cell(source, n), flat_cell(receiver, n), K1, K2, ABSORB,
+        F_OUTPUT_SCALE, list(range_starts(plan)))
+    gpuab.launched(KERNEL_LAUNCHES, "fdtd3d_field")
+    return out
 
 
 def _check_div(x, p, div, source, receiver, fn):
@@ -563,11 +580,11 @@ def fdtd3d_block_field(x, p, vx, vy, vz, source: Cell = SOURCE,
     cell outside the grid raises."""
     n = _check_field(x, p, vx, vy, vz, source, receiver, receivers,
                      "fdtd3d_block_field")
-    if x.device.type == "cpu":
+    if not gpuab.use_op(x.device):
         return fdtd3d_block_field_plain(x, p, vx, vy, vz, source, receiver,
                                         receivers)
-    return _field_planes(x, p, vx, vy, vz, n, source, receiver, receivers,
-                         fdtd_schedule(n, "field"))
+    return _field_op(x, p, vx, vy, vz, n, source, receiver, receivers,
+                     fdtd_schedule(n, "field"))
 
 
 def fdtd3d_block_div_cluster(x, p, div, source: Cell = SOURCE,

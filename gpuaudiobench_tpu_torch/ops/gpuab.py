@@ -1,18 +1,30 @@
 """The ``gpuab`` operators: the hand-written kernels as PyTorch ops.
 
-``csrc/torch_ops.cc`` registers one operator for each C entry that the
-exported programs reach (``tools/export_programs.py``), with functional
-schemas: the operator allocates its outputs and scratch and returns them.
+``csrc/torch_ops.cc`` registers one operator for each C entry of a
+kernel of the package, 14 in all (``OPS``); every wrapper in ``ops/*.py``
+launches its kernel through one. Each allocates its outputs and scratch
+and returns them, but ``dwg_block_launch``, which updates its rails in
+place (``Tensor(a!)``), as its wrapper always has:
 
-* ``modal_bank_launch`` (``csrc/modal_bank.cu``, the rotation kernel):
-  (out, re', im'), out (T_out, S) with ``track_major`` else (S, T_out),
-  the states empty (0,) tensors unless ``keep_states``.
-* ``iir_biquad_launch`` and ``iir_cascade_launch`` (``csrc/iir.cu``, the
-  scan kernel and the systolic cascade): (y, states').
+* ``modal_bank_launch`` and ``modal_res_launch`` (``csrc/modal_bank.cu``,
+  the rotation and the resonator): (out, states'), out (T_out, S) with
+  ``track_major`` else (S, T_out), the states empty (0,) tensors unless
+  ``keep_states``.
+* ``iir_biquad_launch``, ``iir_blockstate_launch``, ``iir_cascade_launch``
+  and ``iir_cascade_chain_launch`` (``csrc/iir.cu``, the scan, the
+  block-state kernel, the systolic and the chain cascade): (y, states').
 * ``conv1d_direct_launch`` (``csrc/conv1d.cu``): out.
+* ``rndmem_gather_launch`` (``csrc/rndmem.cu``): out (samples, T).
+* ``dwg_block_launch`` (``csrc/dwg.cu``): the mono out (S,), fwd and bwd
+  written in place.
 * ``fdtd_div_cluster_launch`` and ``fdtd_div_planes_launch``
-  (``csrc/fdtd3d.cu``, the divergence form's two routes): (out, p', div')
-  from the source row, the schedule's ranges as ``int[] starts``.
+  (``csrc/fdtd3d.cu``, the divergence form's two routes): (out, p',
+  div') from the source row, the schedule's ranges as ``int[] starts``;
+  ``fdtd_field_planes_launch``, the field form's plane kernel: (out, p',
+  vx', vy', vz'), with the per-track receivers' plane buckets as
+  ``rcv_order`` and ``int[]? rcv_starts``.
+* ``fma_chain_launch`` and ``fma_vmem_launch``
+  (``csrc/speedoflight.cu``): the chain's result.
 
 The schedule each takes is computed by its ops module, as before the ops
 existed; an export bakes it into the program as constants. ``load``
@@ -40,9 +52,12 @@ import torch
 
 from gpuaudiobench_tpu_torch.harness.graph import count_launch
 
-OPS = ("modal_bank_launch", "iir_biquad_launch", "iir_cascade_launch",
-       "conv1d_direct_launch", "fdtd_div_cluster_launch",
-       "fdtd_div_planes_launch")
+OPS = ("modal_bank_launch", "modal_res_launch", "iir_biquad_launch",
+       "iir_blockstate_launch", "iir_cascade_launch",
+       "iir_cascade_chain_launch", "conv1d_direct_launch",
+       "rndmem_gather_launch", "dwg_block_launch", "fdtd_div_cluster_launch",
+       "fdtd_div_planes_launch", "fdtd_field_planes_launch",
+       "fma_chain_launch", "fma_vmem_launch")
 
 _LOCK = threading.Lock()
 
@@ -92,7 +107,15 @@ def library_path() -> str:
 
 
 def _register() -> None:
-    from gpuaudiobench_tpu_torch.ops import conv, fdtd3d, iir, modal
+    from gpuaudiobench_tpu_torch.ops import (
+        conv,
+        dwg,
+        fdtd3d,
+        iir,
+        modal,
+        rndmem,
+        speedoflight,
+    )
 
     def fake_modal(cos_w, sin_w, amp, re, im, buffer_size, output_tracks,
                    track_major, keep_states, *_schedule):
@@ -116,8 +139,28 @@ def _register() -> None:
             re2, im2 = re.new_empty(0), im.new_empty(0)
         return out, re2, im2
 
+    def fake_res(eps, y, q, buffer_size, output_tracks, track_major,
+                 keep_states, *_schedule):
+        return fake_modal(None, None, None, y, q, buffer_size,
+                          output_tracks, track_major, keep_states)
+
+    def cpu_res(eps, y, q, buffer_size, output_tracks, track_major,
+                keep_states, *_schedule):
+        out, y2, q2 = modal.modal_res_step_plain(eps, y, q, buffer_size,
+                                                 output_tracks)
+        out = out.t().contiguous() if track_major else out
+        if not keep_states:
+            y2, q2 = y.new_empty(0), q.new_empty(0)
+        return out, y2, q2
+
     def fake_pair(x, coeffs, state, *_schedule):
         return x.new_empty(x.shape), state.new_empty(state.shape)
+
+    def fake_blockstate(x, coeffs, taps, u, state):
+        return x.new_empty(x.shape), state.new_empty(state.shape)
+
+    def cpu_blockstate(x, coeffs, taps, u, state):
+        return iir.iir_biquad_blockstate_plain(x, coeffs, taps, u, state)
 
     def cpu_biquad(x, coeffs, state):
         return iir.iir_biquad_plain(x, coeffs, state)
@@ -131,6 +174,20 @@ def _register() -> None:
     def cpu_conv(x, ir, bleed):
         return conv.conv1d_direct_plain(x, ir, "bleed" if bleed else "clamp")
 
+    def fake_rndmem(pool, playheads, samples):
+        return pool.new_empty((samples, playheads.shape[0]))
+
+    def cpu_rndmem(pool, playheads, samples):
+        return rndmem.rndmem_gather_plain(pool, playheads, samples)
+
+    def fake_dwg(x, fwd, bwd, *_rest):
+        return x.new_empty(x.shape)
+
+    def cpu_dwg(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl, damp,
+                *_schedule):
+        return dwg.dwg_block_plain(x, fwd, bwd, lengths, in_taps, out_taps,
+                                   gains, refl, damp)[0]
+
     def fake_fdtd(src, p, div, tracks, *_rest):
         return (p.new_empty((tracks, src.shape[0])), p.new_empty(p.shape),
                 div.new_empty(div.shape))
@@ -139,12 +196,36 @@ def _register() -> None:
         return fdtd3d.fdtd3d_div_from_source(src, p, div, tracks, src_cell,
                                              rcv_cell)
 
+    def fake_field(src, p, vx, vy, vz, receivers, rcv_order, rcv_starts,
+                   tracks, *_rest):
+        return (p.new_empty((tracks, src.shape[0])),
+                *(f.new_empty(f.shape) for f in (p, vx, vy, vz)))
+
+    def cpu_field(src, p, vx, vy, vz, receivers, rcv_order, rcv_starts,
+                  tracks, src_cell, rcv_cell, *_rest):
+        return fdtd3d.fdtd3d_field_from_source(src, p, vx, vy, vz, tracks,
+                                               src_cell, rcv_cell, receivers)
+
+    def fake_fma(x, k, m, c):
+        return x.new_empty(x.shape)
+
+    def cpu_fma(x, k, m, c):
+        return speedoflight.fma_chain_plain(x, k, m, c)
+
     for name, fake, cpu in (
             ("modal_bank_launch", fake_modal, cpu_modal),
+            ("modal_res_launch", fake_res, cpu_res),
             ("iir_biquad_launch", fake_pair, cpu_biquad),
+            ("iir_blockstate_launch", fake_blockstate, cpu_blockstate),
             ("iir_cascade_launch", fake_pair, cpu_cascade),
+            ("iir_cascade_chain_launch", fake_pair, cpu_cascade),
             ("conv1d_direct_launch", fake_conv, cpu_conv),
+            ("rndmem_gather_launch", fake_rndmem, cpu_rndmem),
+            ("dwg_block_launch", fake_dwg, cpu_dwg),
             ("fdtd_div_cluster_launch", fake_fdtd, cpu_fdtd),
-            ("fdtd_div_planes_launch", fake_fdtd, cpu_fdtd)):
+            ("fdtd_div_planes_launch", fake_fdtd, cpu_fdtd),
+            ("fdtd_field_planes_launch", fake_field, cpu_field),
+            ("fma_chain_launch", fake_fma, cpu_fma),
+            ("fma_vmem_launch", fake_fma, cpu_fma)):
         torch.library.register_fake(f"gpuab::{name}", fake)
         torch.library.impl(f"gpuab::{name}", "CPU", cpu)

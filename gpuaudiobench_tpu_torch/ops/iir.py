@@ -17,10 +17,11 @@ against on the card):
 * ``iir_cascade_plain``: a chain of single-stage plain biquads.
 
 Four wrappers of the hand-written CUDA kernels (``csrc/iir.cu``), each
-with the contract of its Pallas kernel. The first and the third reach
-their kernels through the ``torch.ops.gpuab`` operators
-(``ops/gpuab.py``), which an exported program calls too; the other two
-through ctypes:
+with the contract of its Pallas kernel, each reaching its kernel through
+a ``torch.ops.gpuab`` operator (``ops/gpuab.py``), which an exported
+program calls too. The library's ctypes handle (``_lib``) serves only
+the queries the wrappers check against: ``iir_max_stages`` and the warps
+a block of each cascade kernel.
 
 * ``iir_biquad`` (``iir_biquad_pallas``),
 * ``iir_biquad_blockstate`` (``iir_biquad_blockstate_pallas``),
@@ -30,8 +31,10 @@ through ctypes:
   port's chain wrapper runs the chain kernel at every track count, on
   the route ``chain_schedule`` picks).
 
-A wrapper runs the plain twin only because its tensors lie on the CPU.
-On a CUDA tensor it launches its kernel or raises; it never falls back.
+A wrapper runs the plain twin only because its tensors lie on the CPU
+(and calls its operator, whose CPU implementation is the twin, while a
+CPU program is traced). On a CUDA tensor it launches its kernel or
+raises; it never falls back.
 New states always go to fresh tensors: the input state is never written.
 """
 
@@ -44,7 +47,6 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from gpuaudiobench_tpu_torch.harness.graph import count_launch
 from gpuaudiobench_tpu_torch.ops import gpuab
 
 # Launches of each CUDA kernel, counted by its wrapper where it launches
@@ -172,8 +174,8 @@ def _lib() -> ctypes.CDLL:
     from gpuaudiobench_tpu_torch.utils.build import load
 
     lib = load("iir")
-    if lib.iir_biquad_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
+    if lib.iir_max_stages.argtypes is None:
+        i = ctypes.c_int
         lib.iir_cascade_warps.argtypes = []
         lib.iir_cascade_warps.restype = i
         lib.iir_chain_warps.argtypes = []
@@ -186,33 +188,7 @@ def _lib() -> ctypes.CDLL:
                     f"schedules {want}")
         lib.iir_max_stages.argtypes = []
         lib.iir_max_stages.restype = i
-        lib.iir_biquad_launch.argtypes = [p] * 5 + [i] * 2 + [p]
-        lib.iir_biquad_launch.restype = i
-        lib.iir_cascade_launch.argtypes = [p] * 5 + [i] * 7 + [p]
-        lib.iir_cascade_launch.restype = i
-        lib.iir_cascade_chain_launch.argtypes = [p] * 5 + [i] * 6 + [p]
-        lib.iir_cascade_chain_launch.restype = i
-        lib.iir_blockstate_launch.argtypes = [p] * 7 + [i] * 3 + [p]
-        lib.iir_blockstate_launch.restype = i
     return lib
-
-
-def _launch(kernel: str, fn_name: str, x: torch.Tensor, state: torch.Tensor,
-            inputs, ints) -> Pair:
-    """Allocate y and the new state, launch ``fn_name`` on the current
-    stream, count the launch under ``kernel``."""
-    lib = _lib()
-    y = torch.empty_like(x)
-    z_out = torch.empty_like(state)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, fn_name)(
-            *(t.data_ptr() for t in inputs), y.data_ptr(), z_out.data_ptr(),
-            *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
-    count_launch(KERNEL_LAUNCHES, kernel)
-    return y, z_out
 
 
 def iir_biquad(x: torch.Tensor, coeffs: torch.Tensor,
@@ -241,12 +217,13 @@ def iir_biquad_blockstate(x: torch.Tensor, coeffs: torch.Tensor,
         ("taps", taps, (m, m)), ("u", u, (m, 2)),
         ("state", state, (tracks, 2))])
     _check_block_m(s, m)
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return iir_biquad_blockstate_plain(x, coeffs, taps, u, state)
-    if m > 128:
+    if dev.type == "cuda" and m > 128:
         raise ValueError(f"the CUDA blockstate kernel takes m <= 128, got {m}")
-    return _launch("iir_biquad_blockstate", "iir_blockstate_launch", x, state,
-                   (x, coeffs, taps, u, state), (tracks, s, m))
+    out = gpuab.load().iir_blockstate_launch(x, coeffs, taps, u, state)
+    gpuab.launched(KERNEL_LAUNCHES, "iir_biquad_blockstate")
+    return out
 
 
 # Warps per block of the systolic cascade kernel (csrc/iir.cu kCsWarps;
@@ -329,7 +306,9 @@ class ChainSchedule:
 
 
 def chain_schedule(tracks: int, s: int, x_ptr: int = 0) -> ChainSchedule:
-    """The chain cascade's schedule for (tracks, S) with x at x_ptr."""
+    """The chain cascade's schedule for (tracks, S) with x at x_ptr (while
+    a program is traced x has no address yet: its operator then applies
+    the same rule to the pointer it launches on)."""
     if tracks < 1 or s < 1:
         raise ValueError(f"chain_schedule: tracks {tracks} and S {s} must "
                          "both be >= 1")
@@ -384,13 +363,18 @@ def iir_cascade_chain(x: torch.Tensor, coeffs: torch.Tensor,
     give the same bits)."""
     tracks, s, k, dev = _cascade_args("iir_cascade_chain", x, coeffs,
                                       states)
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return iir_cascade_plain(x, coeffs, states)
-    _check_depth("iir_cascade_chain", k)
-    sc = chain_schedule(tracks, s, x.data_ptr())
-    out = _launch("iir_cascade_chain", "iir_cascade_chain_launch", x, states,
-                  (x, coeffs, states),
-                  (tracks, s, k, CHAIN_ROUTES.index(sc.route), sc.grid,
-                   sc.chunks))
-    CHAIN_ROUTE_LAUNCHES[sc.route] += 1
+    if dev.type == "cuda":
+        _check_depth("iir_cascade_chain", k)
+    if gpuab.tracing():
+        sc, route = chain_schedule(tracks, s), -1
+    else:
+        sc = chain_schedule(tracks, s, x.data_ptr())
+        route = CHAIN_ROUTES.index(sc.route)
+    out = gpuab.load().iir_cascade_chain_launch(x, coeffs, states, route,
+                                                sc.grid, sc.chunks)
+    gpuab.launched(KERNEL_LAUNCHES, "iir_cascade_chain")
+    if route >= 0:
+        CHAIN_ROUTE_LAUNCHES[sc.route] += 1
     return out

@@ -20,9 +20,12 @@ Plain PyTorch twins keep the f32 op order of the JAX functions:
   block, q' = q - eps*y, y' = y + eps*q', y' folded.
 
 Wrappers of the hand-written CUDA kernels (``csrc/modal_bank.cu``) keep
-the Pallas contracts; the rotation kernel is reached through the
-``torch.ops.gpuab.modal_bank_launch`` operator (``ops/gpuab.py``), which
-an exported program calls too, the resonator through ctypes:
+the Pallas contracts; the rotation and the resonator kernel are reached
+through the ``torch.ops.gpuab.modal_{bank,res}_launch`` operators
+(``ops/gpuab.py``), which an exported program calls too. The library's
+ctypes handle (``_lib``) serves only the schedule's queries:
+``modal_bank_capacity``, ``modal_bank_warps`` and
+``modal_bank_max_modes_per_thread``.
 
 * ``modal_bank`` -> (out (T_out, S), re, im): one block per round trip;
   the input states come back unchanged (Metal parity,
@@ -33,8 +36,10 @@ an exported program calls too, the resonator through ctypes:
 * ``modal_res_step`` -> (out (S, T_out), y', q'): the resonator's
   streaming step (replaces ``_modal_kernel_res``).
 
-A wrapper runs the plain twin only because its tensors lie on the CPU.
-On a CUDA tensor it launches the kernel or raises; it never falls back.
+A wrapper runs the plain twin only because its tensors lie on the CPU
+(and calls the operator, whose CPU implementation is the twin, while a
+CPU program is traced). On a CUDA tensor it launches the kernel or
+raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -46,7 +51,6 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from gpuaudiobench_tpu_torch.harness.graph import count_launch
 from gpuaudiobench_tpu_torch.ops import gpuab
 
 # Launches of each kernel, by name, counted where the wrappers launch
@@ -154,17 +158,13 @@ def _lib() -> ctypes.CDLL:
     from gpuaudiobench_tpu_torch.utils.build import load
 
     lib = load("modal_bank")
-    if lib.modal_bank_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
+    if lib.modal_bank_capacity.argtypes is None:
+        i = ctypes.c_int
         for fn in (lib.modal_bank_warps, lib.modal_bank_max_modes_per_thread):
             fn.argtypes = []
             fn.restype = i
         lib.modal_bank_capacity.argtypes = [i]
         lib.modal_bank_capacity.restype = i
-        lib.modal_bank_launch.argtypes = [p] * 9 + [i] * 7 + [p]
-        lib.modal_bank_launch.restype = i
-        lib.modal_res_launch.argtypes = [p] * 7 + [i] * 7 + [p]
-        lib.modal_res_launch.restype = i
     return lib
 
 
@@ -255,36 +255,27 @@ def _schedule(lib, algorithm: str, m: int, t_out: int,
     return sched
 
 
+def _geometry(algorithm: str, m: int, output_tracks: int,
+              dev: torch.device) -> Tuple[int, int, int]:
+    """(modes a thread, grid, passes) of the kernel's schedule on a CUDA
+    device; zeros on the CPU, whose twin (while a CPU program is traced)
+    takes no schedule."""
+    if dev.type != "cuda":
+        return 0, 0, 0
+    sched = _schedule(_lib(), algorithm, m, output_tracks, dev)
+    return sched.modes_per_thread, sched.grid, sched.passes
+
+
 def _launch_res(eps, y, q, buffer_size: int, output_tracks: int,
-                keep_states: bool, track_major: bool):
-    """Launch the resonator kernel on (eps, y, q) on the current stream;
-    returns (out, y', q') with y', q' None unless ``keep_states``."""
-    lib = _lib()
-    m = y.shape[0]
-    dev = y.device
-    sched = _schedule(lib, "res", m, output_tracks, dev)
-    partials = torch.empty((sched.n_partials, buffer_size, output_tracks),
-                           dtype=torch.float32, device=dev)
-    shape = ((output_tracks, buffer_size) if track_major
-             else (buffer_size, output_tracks))
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
-    y_o = torch.empty_like(y) if keep_states else None
-    q_o = torch.empty_like(q) if keep_states else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.modal_res_launch(
-            ptr(eps), ptr(y), ptr(q), ptr(y_o), ptr(q_o),
-            partials.data_ptr(), out.data_ptr(),
-            m, buffer_size, output_tracks, int(track_major),
-            sched.modes_per_thread, sched.grid, sched.passes, stream)
-    if err != 0:
-        raise RuntimeError(f"modal_res_launch failed: CUDA error {err}")
-    count_launch(KERNEL_LAUNCHES, "modal_res")
-    return out, y_o, q_o
+                keep_states: bool, track_major: bool) -> Tensors:
+    """The resonator kernel on (eps, y, q) through
+    ``torch.ops.gpuab.modal_res_launch``; returns (out, y', q'), the
+    states empty (0,) tensors unless ``keep_states``."""
+    out = gpuab.load().modal_res_launch(
+        eps, y, q, buffer_size, output_tracks, track_major, keep_states,
+        *_geometry("res", y.shape[0], output_tracks, y.device))
+    gpuab.launched(KERNEL_LAUNCHES, "modal_res")
+    return out
 
 
 def _launch_rotation(cos_w, sin_w, amp: Optional[torch.Tensor], re, im,
@@ -294,16 +285,10 @@ def _launch_rotation(cos_w, sin_w, amp: Optional[torch.Tensor], re, im,
     (the CPU twin while a CPU program is traced, which takes no
     schedule); returns (out, re', im'), the states empty (0,) tensors
     unless ``keep_states``."""
-    ops = gpuab.load()
-    if re.device.type == "cuda":
-        sched = _schedule(_lib(), "rotation", re.shape[0], output_tracks,
-                          re.device)
-        geometry = (sched.modes_per_thread, sched.grid, sched.passes)
-    else:
-        geometry = (0, 0, 0)
-    out = ops.modal_bank_launch(cos_w, sin_w, amp, re, im, buffer_size,
-                                output_tracks, track_major, keep_states,
-                                *geometry)
+    out = gpuab.load().modal_bank_launch(
+        cos_w, sin_w, amp, re, im, buffer_size, output_tracks, track_major,
+        keep_states, *_geometry("rotation", re.shape[0], output_tracks,
+                                re.device))
     gpuab.launched(KERNEL_LAUNCHES, "modal_bank")
     return out
 
@@ -319,7 +304,7 @@ def modal_bank(amp, cos_w, sin_w, state_re, state_im,
         raise ValueError(f"modal bank: invalid algorithm {algorithm!r}")
     dev = _check((amp, cos_w, sin_w, state_re, state_im),
                  buffer_size, output_tracks)
-    if algorithm == "res" and dev.type == "cuda":
+    if algorithm == "res" and gpuab.use_op(dev):
         eps, y0, q0 = res_init(cos_w, sin_w, amp * state_re, amp * state_im)
         out, _, _ = _launch_res(eps, y0, q0, buffer_size, output_tracks,
                                 keep_states=False, track_major=True)
@@ -353,7 +338,7 @@ def modal_res_step(eps, y, q, buffer_size: int,
     block, (out (S, T_out), y', q') with the advanced states, so blocks
     chain."""
     dev = _check((eps, y, q), buffer_size, output_tracks)
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return modal_res_step_plain(eps, y, q, buffer_size, output_tracks)
     return _launch_res(eps, y, q, buffer_size, output_tracks,
                        keep_states=True, track_major=False)

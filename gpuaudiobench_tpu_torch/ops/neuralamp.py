@@ -18,7 +18,13 @@ checks its shape rules).
   (``out_dtype=torch.float32``). int8 quantizes each layer's input to one
   per-tensor scale on the device and each tap to per-output-channel
   scales at set-up (``cast_params``); the tap matrices are stored
-  column-major, the layout cuBLAS's int8 GEMM runs fastest on.
+  column-major, the layout cuBLAS's int8 GEMM runs fastest on. Where C is
+  no multiple of 8 (``torch._int_mm`` on CUDA takes K and N in multiples
+  of 8), the tap matrices are zero-padded to the next multiple at set-up
+  and each layer's quantized input once a layer; the zero channels add
+  nothing to the int32 sums and leave the max-|x| scale as it is, and the
+  padded output channels are sliced away before the f32 epilogue. At
+  C % 8 == 0 nothing is padded.
 * The LSTM (``lstm_block``) is 512 dependent steps of a (T, H) x (H, 4H)
   GEMM and a few elementwise ops, with (h, c) carried in f32 and the
   gates in the order i, f, g, o. The input term x_t * w[0] + b of every
@@ -40,9 +46,13 @@ from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gpuaudiobench_tpu_torch.harness.graph import CapturedBlock
-from gpuaudiobench_tpu_torch.ops.speedoflight import matmul_int8
+from gpuaudiobench_tpu_torch.ops.speedoflight import (
+    INT_MM_MULTIPLE,
+    matmul_int8,
+)
 
 KERNEL = 3  # tap count per dilated layer (micro-TCN's standard k)
 
@@ -135,9 +145,10 @@ def cast_params(params: Dict[str, np.ndarray], dtype: str,
     """``init_params`` arrays as tensors on ``device`` for the compute
     dtype. bf16 casts the tap stacks and w_out. int8 quantizes each
     layer's tap stack per output channel (scale = max|w[:, :, d]| / 127,
-    ``w{l}`` int8 plus ``w{l}_s`` f32), each tap matrix stored
-    column-major (a (K, C_in, C_out) view of (K, C_out, C_in) memory);
-    w_out stays f32. w_in and the biases stay f32."""
+    ``w{l}`` int8 plus ``w{l}_s`` f32 (C,)), each tap matrix stored
+    column-major (a (K, C_in, C_out) view of (K, C_out, C_in) memory) and
+    zero-padded in C_in and C_out to ``int8_width(C)``; w_out stays f32.
+    w_in and the biases stay f32."""
     out = {}
     for k, v in params.items():
         if k.startswith("w") and k != "w_in" and dtype != "f32":
@@ -145,6 +156,8 @@ def cast_params(params: Dict[str, np.ndarray], dtype: str,
                 s = np.maximum(
                     np.abs(v).max(axis=(0, 1)), 1e-12) / np.float32(127.0)
                 q = np.clip(np.round(v / s), -127, 127).astype(np.int8)
+                pad = int8_width(q.shape[1]) - q.shape[1]
+                q = np.pad(q, ((0, 0), (0, pad), (0, pad)))
                 out[k] = _put(q.transpose(0, 2, 1), device).transpose(1, 2)
                 out[k + "_s"] = _put(s.astype(np.float32), device)
             elif dtype == "int8":  # w_out stays f32
@@ -154,6 +167,12 @@ def cast_params(params: Dict[str, np.ndarray], dtype: str,
         else:
             out[k] = _put(v, device)
     return out
+
+
+def int8_width(channels: int) -> int:
+    """The int8 GEMMs' K and N: ``channels`` rounded up to a multiple of
+    ``INT_MM_MULTIPLE``."""
+    return -(-channels // INT_MM_MULTIPLE) * INT_MM_MULTIPLE
 
 
 def quantize_activation(ext: torch.Tensor) -> Tuple[torch.Tensor,
@@ -182,16 +201,22 @@ def _tap(acc: torch.Tensor, seg: torch.Tensor, w: torch.Tensor
 
 def _int8_taps(ext: torch.Tensor, w: torch.Tensor, d: int, b: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The int32 sum of the K int8 tap products of one layer and the
-    activation scale."""
+    """The int32 sum of the K int8 tap products of one layer, (T, B, C),
+    and the activation scale. ``w`` is ``cast_params``' padded stack: the
+    quantized input is zero-padded to its width once, and the padded
+    output channels sliced away."""
     q, s_a = quantize_activation(ext)
     t, c = ext.shape[0], ext.shape[2]
+    width = w.shape[1]
+    if width != c:
+        q = F.pad(q, (0, width - c))
     acc_i = None
     for j in range(KERNEL):
-        seg = q[:, j * d:j * d + b].contiguous().view(t * b, c)
+        seg = q[:, j * d:j * d + b].contiguous().view(t * b, width)
         r = matmul_int8(seg, w[j])
         acc_i = r if acc_i is None else acc_i + r
-    return acc_i.view(t, b, -1), s_a
+    acc_i = acc_i.view(t, b, -1)
+    return (acc_i if width == c else acc_i[..., :c]), s_a
 
 
 def tcn_block(x: torch.Tensor, tails: Tuple[torch.Tensor, ...],

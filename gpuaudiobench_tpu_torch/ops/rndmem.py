@@ -15,22 +15,24 @@ clamp, so the pool carries no padding.
 
 * ``rndmem_gather(pool, playheads, samples)`` wraps the hand-written CUDA
   kernel (``csrc/rndmem.cu``), which replaces the Pallas
-  ``_rndmem_kernel``.
+  ``_rndmem_kernel``, through the ``torch.ops.gpuab.rndmem_gather_launch``
+  operator (``ops/gpuab.py``), which an exported program calls too.
 * ``rndmem_gather_plain`` is its twin: one advanced-indexing gather of
   the clamped windows, transposed.
 
-``rndmem_gather`` runs the twin only because its tensors lie on the CPU.
-On a CUDA tensor it launches the kernel or raises; it never falls back.
+``rndmem_gather`` runs the twin only because its tensors lie on the CPU
+(and calls the operator, whose CPU implementation is the twin, while a
+CPU program is traced). On a CUDA tensor it launches the kernel or
+raises; it never falls back.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict
 
 import torch
 
-from gpuaudiobench_tpu_torch.harness.graph import count_launch
+from gpuaudiobench_tpu_torch.ops import gpuab
 
 # Launches of the CUDA kernel, counted by the wrapper where it launches
 # it (chip_smoke.py reads it to prove the main path used it).
@@ -78,34 +80,13 @@ def _check(pool: torch.Tensor, playheads: torch.Tensor,
     return pool.device
 
 
-def _lib() -> ctypes.CDLL:
-    from gpuaudiobench_tpu_torch.utils.build import load
-
-    lib = load("rndmem")
-    if lib.rndmem_gather_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rndmem_gather_launch.argtypes = [p, p, p, ctypes.c_longlong,
-                                             i, i, p]
-        lib.rndmem_gather_launch.restype = i
-    return lib
-
-
 def rndmem_gather(pool: torch.Tensor, playheads: torch.Tensor,
                   samples: int) -> torch.Tensor:
     """The contract of the JAX ``rndmem_gather``: pool (P,) float32,
     playheads (T,) int32 -> (samples, T) interleaved."""
     dev = _check(pool, playheads, samples)
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return rndmem_gather_plain(pool, playheads, samples)
-    lib = _lib()
-    out = torch.empty((samples, playheads.shape[0]), dtype=torch.float32,
-                      device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rndmem_gather_launch(
-            pool.data_ptr(), playheads.data_ptr(), out.data_ptr(),
-            pool.shape[0], playheads.shape[0], samples, stream)
-    if err != 0:
-        raise RuntimeError(f"rndmem_gather_launch failed: CUDA error {err}")
-    count_launch(KERNEL_LAUNCHES, "rndmem_gather")
+    out = gpuab.load().rndmem_gather_launch(pool, playheads, samples)
+    gpuab.launched(KERNEL_LAUNCHES, "rndmem_gather")
     return out

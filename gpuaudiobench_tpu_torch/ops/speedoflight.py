@@ -23,12 +23,16 @@ serves both packages):
 
 ``fma_chain`` and ``fma_vmem`` wrap the hand-written CUDA kernels of
 ``csrc/speedoflight.cu``, which replace the Pallas ``_fma_kernel`` and
-``_fma_vmem_kernel``; each rounds once a pass (an FMA). Their plain twin
+``_fma_vmem_kernel``; each rounds once a pass (an FMA). They launch them
+through the ``torch.ops.gpuab.fma_{chain,vmem}_launch`` operators
+(``ops/gpuab.py``), which an exported program calls too. Their plain twin
 ``fma_chain_plain`` runs the same loop on a tensor (a multiply and an add,
 each rounded), for the CPU and for ``chip_smoke.py``'s comparison. The
-wrappers run the twin only because their tensor lies on the CPU; on a
-CUDA tensor they launch the kernel or raise. The stream and the matmuls
-are plain PyTorch, as the JAX package left them to XLA.
+wrappers run the twin only because their tensor lies on the CPU (and
+call the operator, whose CPU implementation is the twin, while a CPU
+program is traced); on a CUDA tensor they launch the kernel or raise. The
+stream and the matmuls are plain PyTorch, as the JAX package left them
+to XLA.
 
 The chain y <- y*m + c composed k times has the closed form
 y = x*m^k + c*(1 - m^k)/(1 - m) (``fma_golden``).
@@ -36,13 +40,12 @@ y = x*m^k + c*(1 - m^k)/(1 - m) (``fma_golden``).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict
 
 import numpy as np
 import torch
 
-from gpuaudiobench_tpu_torch.harness.graph import count_launch
+from gpuaudiobench_tpu_torch.ops import gpuab
 
 # FMA chain constants (the JAX module's). m pulls toward the fixed point
 # c/(1-m) = 2, so values stay O(1) at any chain length.
@@ -68,10 +71,12 @@ def fma_golden(x, k: int) -> np.ndarray:
             + c * (1.0 - mk) / (1.0 - m)).astype(np.float32)
 
 
-def fma_chain_plain(x: torch.Tensor, k: int) -> torch.Tensor:
-    """k passes of y*m + c over a copy of x (two roundings a pass)."""
-    m = float(np.float32(FMA_M))
-    c = float(np.float32(FMA_C))
+def fma_chain_plain(x: torch.Tensor, k: int, m: float = FMA_M,
+                    c: float = FMA_C) -> torch.Tensor:
+    """k passes of y*m + c over a copy of x (two roundings a pass), m and c
+    rounded to float32 first."""
+    m = float(np.float32(m))
+    c = float(np.float32(c))
     y = x.clone()
     for _ in range(k):
         y = y * m + c
@@ -95,44 +100,25 @@ def _check(x: torch.Tensor, k: int, label: str) -> torch.device:
     return x.device
 
 
-def _lib() -> ctypes.CDLL:
-    from gpuaudiobench_tpu_torch.utils.build import load
-
-    lib = load("speedoflight")
-    for fn in (lib.fma_chain_launch, lib.fma_vmem_launch):
-        if fn.argtypes is None:
-            p, f = ctypes.c_void_p, ctypes.c_float
-            fn.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, f, f, p]
-            fn.restype = ctypes.c_int
-    return lib
-
-
-def _launch(name: str, x: torch.Tensor, k: int) -> torch.Tensor:
+def _fma(name: str, x: torch.Tensor, k: int) -> torch.Tensor:
     dev = _check(x, k, name)
-    if dev.type == "cpu":
+    if not gpuab.use_op(dev):
         return fma_chain_plain(x, k)
-    launch = getattr(_lib(), f"{name}_launch")
-    out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(x.data_ptr(), out.data_ptr(), x.numel(), k,
-                     float(np.float32(FMA_M)), float(np.float32(FMA_C)),
-                     stream)
-    if err != 0:
-        raise RuntimeError(f"{name}_launch failed: CUDA error {err}")
-    count_launch(KERNEL_LAUNCHES, name)
+    out = getattr(gpuab.load(), f"{name}_launch")(
+        x, k, float(np.float32(FMA_M)), float(np.float32(FMA_C)))
+    gpuab.launched(KERNEL_LAUNCHES, name)
     return out
 
 
 def fma_chain(x: torch.Tensor, k: int) -> torch.Tensor:
     """k FMA passes over (rows, width) f32, the chains in registers."""
-    return _launch("fma_chain", x, k)
+    return _fma("fma_chain", x, k)
 
 
 def fma_vmem(x: torch.Tensor, k: int) -> torch.Tensor:
     """k FMA passes over (rows, width) f32, the carry through shared
     memory on every pass."""
-    return _launch("fma_vmem", x, k)
+    return _fma("fma_vmem", x, k)
 
 
 def stream_scale(x: torch.Tensor) -> torch.Tensor:

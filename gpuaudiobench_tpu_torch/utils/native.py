@@ -67,8 +67,10 @@ DRIVER_CXX_FLAGS = ("-O2", "-std=c++17")
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 OPS_SOURCE = CSRC / "torch_ops.cc"
 RUNNER_SOURCE = CSRC / "native_runner.cc"
-# The kernel sources whose C entries the operator library calls.
-OPS_KERNELS = ("modal_bank", "iir", "conv1d", "fdtd3d")
+# The kernel sources whose C entries the operator library calls: all of
+# them.
+OPS_KERNELS = ("modal_bank", "iir", "conv1d", "rndmem", "dwg", "fdtd3d",
+               "speedoflight")
 # PyTorch's headers warn under C++17; its own extensions build as C++20.
 TORCH_CXX_FLAGS = ("-O2", "-std=c++20", "-fPIC")
 

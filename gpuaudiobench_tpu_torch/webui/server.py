@@ -23,8 +23,11 @@ Design points:
     with the ROADMAP.md item that ports it. A ``mesh`` or a
     ``dataParallel`` of more than one rank runs the benchmark as the CLI
     does (``cli.mesh_ranks``, ``cli.rank_json`` under
-    ``parallel/launch.py:spmd``); such a job reports its "setup" phase
-    only.
+    ``parallel/launch.py:spmd``, from a helper thread that only waits for
+    the ranks); rank 0 puts each phase on a queue
+    (``cli.RankZeroPhases``), and the job thread records them as they
+    come, so a mesh job reports every phase and reads as live to the
+    stall check.
   * Presets persist server-side as JSON (the localStorage analog,
     app.js:831-872) so they survive across browsers/machines.
   * Results accumulate per session and export as the harness's own
@@ -209,12 +212,7 @@ class JobRunner:
             params = dict(job["params"])
             per_bench = dict(job.get("benchmark_params") or {})
 
-        from gpuaudiobench_tpu_torch.cli import (
-            SPMD_TIMEOUT_S,
-            mesh_ranks,
-            rank_json,
-        )
-        from gpuaudiobench_tpu_torch.parallel.launch import spmd
+        from gpuaudiobench_tpu_torch.cli import mesh_ranks, rank_json
 
         def set_phase(p: str) -> None:
             # Stage-boundary progress (runner progress_cb): a long tier
@@ -239,11 +237,7 @@ class JobRunner:
                 )
                 ranks = mesh_ranks(cfg, [name], self.device.type)
                 if ranks > 1:
-                    # A mesh of ranks runs as the CLI runs it; the ranks
-                    # report no phases.
-                    payload = spmd(rank_json, ranks, self.device.type, name,
-                                   cfg, self.device.type,
-                                   timeout_s=SPMD_TIMEOUT_S)
+                    payload = self._mesh_job(ranks, name, cfg, set_phase)
                 else:
                     payload = rank_json(name, cfg, self.device.type,
                                         progress_cb=set_phase)
@@ -267,6 +261,44 @@ class JobRunner:
                     if j["status"] in ("done", "error")]
             for jid in done[: max(0, len(done) - self.MAX_JOBS)]:
                 del self.jobs[jid]
+
+    def _mesh_job(self, ranks: int, name: str, cfg: BenchConfig,
+                  set_phase) -> Dict[str, Any]:
+        """``name`` over ``ranks`` spawned ranks, as the CLI runs it: a
+        helper thread waits in ``spmd`` while this (the job) thread
+        records each phase rank 0 puts on the queue, until the helper
+        puts None after the ranks have ended. Returns rank 0's record or
+        raises what ``spmd`` raised."""
+        from gpuaudiobench_tpu_torch.cli import (
+            SPMD_TIMEOUT_S,
+            RankZeroPhases,
+            rank_json,
+        )
+        from gpuaudiobench_tpu_torch.parallel.launch import spmd
+
+        phases = torch.multiprocessing.get_context("spawn").Queue()
+        dev = self.device.type
+        outcome: Dict[str, Any] = {}
+
+        def wait_for_ranks() -> None:
+            try:
+                outcome["payload"] = spmd(
+                    rank_json, ranks, dev, name, cfg, dev,
+                    RankZeroPhases(phases), timeout_s=SPMD_TIMEOUT_S)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                outcome["error"] = e
+            finally:
+                phases.put(None)
+
+        waiter = threading.Thread(target=wait_for_ranks, daemon=True)
+        waiter.start()
+        for phase in iter(phases.get, None):
+            set_phase(phase)
+        waiter.join()
+        phases.close()
+        if "error" in outcome:
+            raise outcome["error"]
+        return outcome["payload"]
 
 
 class PresetStore:

@@ -31,6 +31,7 @@ import torch
 from gpuaudiobench_tpu_torch.models.conv1d import conv1d_reference
 from gpuaudiobench_tpu_torch.models.dwg import dwg_reference
 from gpuaudiobench_tpu_torch.ops import dwg as dops
+from gpuaudiobench_tpu_torch.ops import gpuab
 from gpuaudiobench_tpu_torch.ops import fdtd3d as fops
 from gpuaudiobench_tpu_torch.ops import rndmem as rops
 from gpuaudiobench_tpu_torch.models.modal import modal_reference_gs
@@ -417,16 +418,16 @@ def test_iir_cascade_chain_entry_refuses_a_tma_route_it_cannot_take(
     x, c, z = _iir_inputs(64, s, cuda, k=3)
     if offset:
         x = _unaligned(x)
-    y, zo = torch.empty_like(x), torch.empty_like(z)
     sc = iops.chain_schedule(64, s, x.data_ptr())
     assert sc.route == "staged"
-    lib = iops._lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    args = [t.data_ptr() for t in (x, c, z, y, zo)] + [64, s, 3]
-    assert lib.iir_cascade_chain_launch(*args, 0, sc.grid, sc.chunks,
-                                        stream) != 0
-    assert lib.iir_cascade_chain_launch(*args, 1, sc.grid, sc.chunks,
-                                        stream) == 0
+    ops = gpuab.load()
+    with pytest.raises(RuntimeError, match="iir_cascade_chain_launch failed"):
+        ops.iir_cascade_chain_launch(x, c, z, 0, sc.grid, sc.chunks)
+    y, zo = ops.iir_cascade_chain_launch(x, c, z, 1, sc.grid, sc.chunks)
+    # Route -1 (a traced program's) takes the rule on this pointer.
+    y_rule, z_rule = ops.iir_cascade_chain_launch(x, c, z, -1, sc.grid,
+                                                  sc.chunks)
+    assert torch.equal(y_rule, y) and torch.equal(z_rule, zo)
     yp, zp = iops.iir_cascade_plain(x, c, z)
     assert (y - yp).abs().max().item() <= IIR_ATOL
     assert (zo - zp).abs().max().item() <= IIR_ATOL
@@ -730,18 +731,19 @@ def test_dwg_launch_refuses_a_schedule_that_misses_the_shape(cuda):
     x, fwd, bwd, *params = _dwg_exact_inputs(1000, 512, 1100, DWG_EDGE_512,
                                              False, cuda)
     sc = dops.dwg_schedule(1000, 512, 1100)
-    lib = dops._lib()
-    gs = torch.empty((sc.groups, 512), device=cuda)
-    out = torch.empty_like(x)
-    ptrs = [t.data_ptr() for t in [x, fwd, bwd] + params + [gs, out]]
-    stream = torch.cuda.current_stream().cuda_stream
+    ops = gpuab.load()
+    rails = (fwd.clone(), bwd.clone())
     for bad in ((sc.segments - 1, sc.groups, sc.update_blocks),
                 (sc.segments + 1, sc.groups, sc.update_blocks),
                 (sc.segments, sc.groups - 1, sc.update_blocks),
                 (sc.segments, sc.groups, sc.update_blocks - 1)):
-        assert lib.dwg_block_launch(*ptrs, 1000, 1100, 512, *bad, stream) != 0
-    assert lib.dwg_block_launch(*ptrs, 1000, 1100, 512, sc.segments,
-                                sc.groups, sc.update_blocks, stream) == 0
+        with pytest.raises(RuntimeError, match="dwg_block_launch failed"):
+            ops.dwg_block_launch(x, fwd, bwd, *params, *bad)
+    torch.cuda.synchronize()
+    # Refused before the launch: the rails are untouched.
+    assert torch.equal(fwd, rails[0]) and torch.equal(bwd, rails[1])
+    ops.dwg_block_launch(x, fwd, bwd, *params, sc.segments, sc.groups,
+                         sc.update_blocks)
     torch.cuda.synchronize()
 
 
@@ -1120,9 +1122,6 @@ def test_fdtd_field_plane_launch_refuses_what_it_cannot_carry(cuda):
     src, rcv = fops.source_pos(8), fops.receiver_pos(8)
     x = _fdtd_x(tracks, s, cuda)
     fields = fops.zero_fields(n, cuda)
-    outs = [torch.empty_like(f) for f in fields]
-    out = torch.empty((tracks, s), device=cuda)
-    xch, flags = fops._plane_scratch(n, x)
     cells = _field_receivers(n, src, tracks, cuda)
     order, rstarts = fops._receiver_buckets(cells, n)
     starts = list(fops.range_starts(fops.plane_schedule(n, "field")))
@@ -1131,25 +1130,23 @@ def test_fdtd_field_plane_launch_refuses_what_it_cannot_carry(cuda):
                   + starts[2:]]
     bad_rows = [rows[:-1] + [tracks - 1], [1] + rows[1:],
                 [0, rows[2] + 1, rows[2]] + rows[3:]]
+    ops = gpuab.load()
 
     def launch(st, rs, per_track=True):
-        arr = (ctypes.c_int * len(st))(*st)
-        rarr = (ctypes.c_int * len(rs))(*rs) if per_track else None
-        return lib.fdtd_field_planes_launch(
-            fops.source_row(x).data_ptr(), *(f.data_ptr() for f in fields),
-            *(o.data_ptr() for o in outs), out.data_ptr(), xch.data_ptr(),
-            flags.data_ptr(), cells.data_ptr() if per_track else None,
-            order.data_ptr() if per_track else None, rarr, n, s,
-            fops.flat_cell(src, n), tracks, fops.flat_cell(rcv, n), fops.K1,
-            fops.K2, fops.ABSORB, fops.F_OUTPUT_SCALE, arr, n,
-            torch.cuda.current_stream(cuda).cuda_stream)
+        return ops.fdtd_field_planes_launch(
+            fops.source_row(x), *fields, cells if per_track else None,
+            order if per_track else None, rs if per_track else None, tracks,
+            fops.flat_cell(src, n), fops.flat_cell(rcv, n), fops.K1,
+            fops.K2, fops.ABSORB, fops.F_OUTPUT_SCALE, st)
 
-    assert launch(starts, rows) == 0
-    assert launch(starts, rows, per_track=False) == 0
+    launch(starts, rows)
+    launch(starts, rows, per_track=False)
     for st in bad_planes:
-        assert launch(st, rows) != 0, st
+        with pytest.raises(RuntimeError, match="field_planes_launch failed"):
+            launch(st, rows)
     for rs in bad_rows:
-        assert launch(starts, rs) != 0, rs
+        with pytest.raises(RuntimeError, match="field_planes_launch failed"):
+            launch(starts, rs)
     torch.cuda.synchronize()
     # 132 planes: no build takes 17,424 cells a block (19 a thread); a
     # plan that asks for them anyway is refused before the launch
@@ -1161,8 +1158,8 @@ def test_fdtd_field_plane_launch_refuses_what_it_cannot_carry(cuda):
     src, rcv = (65, 65, 13), (104, 40, 65)
     before = dict(fops.KERNEL_LAUNCHES)
     with pytest.raises(RuntimeError, match="fdtd_field_planes_launch failed"):
-        fops._field_planes(x, *fops.zero_fields(n, cuda), n, src, rcv, None,
-                           big)
+        fops._field_op(x, *fops.zero_fields(n, cuda), n, src, rcv, None,
+                       big)
     with pytest.raises(ValueError, match="no plane kernel"):
         fops.fdtd3d_block_field(x, *fops.zero_fields(n, cuda), src, rcv)
     torch.cuda.synchronize()

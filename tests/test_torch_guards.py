@@ -68,7 +68,8 @@ BLOCKED_JAX = textwrap.dedent("""
                 "tools.render_results", "tools.remeasure_rows",
                 "tools.regen_artifacts", "tools.readme_headline",
                 "tools.overlap_campaign", "tools.latency_attrib",
-                "tools.mesh_scaling", "ops.gpuab", "tools.export_programs"):
+                "tools.mesh_scaling", "ops.gpuab", "tools.export_programs",
+                "tools.binding_ab"):
         assert "gpuaudiobench_tpu_torch." + mod in names, mod
 
     import torch

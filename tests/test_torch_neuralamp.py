@@ -185,9 +185,48 @@ def test_int8_refused_for_the_lstm_with_the_references_reason():
     assert str(ours.value) == str(ref.value)
 
 
-def test_int8_needs_channels_a_multiple_of_8():
-    with pytest.raises(ValueError, match="multiple of 8"):
-        _port("tcn", "int8", neuralamp_channels=12)
+def _int8_taps_unpadded(ext, w, d, b):
+    """The int8 taps as they ran before the padding existed (C % 8 == 0):
+    one GEMM a tap on the unpadded operands."""
+    q, s_a = na.quantize_activation(ext)
+    t, c = ext.shape[0], ext.shape[2]
+    acc = None
+    for j in range(na.KERNEL):
+        r = torch._int_mm(q[:, j * d:j * d + b].contiguous().view(t * b, c),
+                          w[j])
+        acc = r if acc is None else acc + r
+    return acc.view(t, b, -1), s_a
+
+
+@pytest.mark.parametrize("channels", [12, 20, 16])
+def test_int8_takes_any_channel_count(channels, monkeypatch):
+    """The JAX package runs int8 at any C; the port zero-pads its int8
+    GEMMs' K and N to the next multiple of 8. At C = 12 and 20 the port's
+    TCN tracks the JAX benchmark's within its 5e-2 over 3 blocks and
+    validates; at C = 16 nothing is padded and every block is the unpadded
+    path's bit for bit."""
+    ours, ref = (_port("tcn", "int8", neuralamp_channels=channels),
+                 _ref("tcn", "int8", neuralamp_channels=channels))
+    width = -(-channels // 8) * 8
+    assert ours._params["w0"].shape == (na.KERNEL, width, width)
+    assert ours._params["w0_s"].shape == (channels,)
+    outs = [ours.host_output.copy()]
+    for i in range(3):
+        if i:
+            ours.iterate()
+            ref.iterate()
+            outs.append(ours.host_output.copy())
+        assert _rel(ours.host_output, ref.host_output) <= ours.tolerance, i
+    v = ours.validate()
+    assert v.passed, v.messages[:3]
+    assert v.max_error <= ours.tolerance
+    if channels % 8 == 0:
+        monkeypatch.setattr(na, "_int8_taps", _int8_taps_unpadded)
+        before = _port("tcn", "int8", neuralamp_channels=channels)
+        for i in range(3):
+            if i:
+                before.iterate()
+            assert np.array_equal(before.host_output, outs[i]), i
 
 
 def test_setup_refuses_tf32_matmuls():

@@ -372,6 +372,40 @@ def test_post_cross_origin_guard(ui_server):
     assert _get_json(ui_server, "/api/jobs") is not None
 
 
+def test_mesh_job_reports_its_phases_and_never_stalls():
+    """A job of gain over 2 data-parallel gloo ranks: rank 0's phases
+    reach the job thread as they happen, so ``phases`` runs from setup to
+    validate in order, as the one-rank job's do, a phase after setup shows
+    while the job runs, and no poll reports it stalled (the threshold cut
+    to 20 s, beyond any quiet stretch of this job)."""
+    r = srv.JobRunner(torch.device("cpu"))
+    r.STALL_AFTER_S = 20
+    try:
+        job_id = r.submit(["gain"], dict(SMALL, pipelineDepth=8,
+                                         dataParallel=2))
+        deadline = time.time() + 300
+        running_phases = set()
+        while True:
+            job = r.get(job_id)
+            assert "stalled_seconds" not in job
+            assert "stalled_seconds" not in {
+                j["id"]: j for j in r.list_jobs()}[job_id]
+            if job["status"] == "running":
+                running_phases.add(job["phase"])
+            if job["status"] in ("done", "error"):
+                break
+            assert time.time() < deadline, "job did not finish"
+            time.sleep(0.05)
+        assert job["status"] == "done" and job["errors"] == []
+        (res,) = job["results"]
+        assert res["validation"]["status"] == "SUCCESS"
+        assert job["phases"] == ["gain:setup", "gain:warmup", "gain:timed",
+                                 "gain:saturated", "gain:validate"]
+        assert running_phases - {None, "setup"}
+    finally:
+        r.shutdown()
+
+
 def test_running_job_reports_stall():
     r = srv.JobRunner(torch.device("cpu"))
     try:
