@@ -14,10 +14,10 @@ nonzero:
    nvcc per source, all started together, and beside them with g++ the
    ``gpuab`` operator library (``csrc/torch_ops.cc``, linked to the
    kernels once they exist; every kernel is reached through one of its
-   14 operators in every phase, each of which must have its CUDA
+   15 operators in every phase, each of which must have its CUDA
    implementation) and the native runner (``csrc/native_runner.cc``).
    Phases 3-9 compare under a dispatch mode that counts the ``gpuab``
-   operators (``GpuabDispatches``): all 14 must be dispatched there.
+   operators (``GpuabDispatches``): all 15 must be dispatched there.
 3. The two modal kernels (rotation and Gordon-Smith resonator) vs their
    plain twins on the card, under every contract of the modal bank, with
    the states chained over 2 blocks, at ten shapes up to the main path's
@@ -75,7 +75,14 @@ nonzero:
    kernel at room 50, of the plane kernel and the field kernel at room
    82 and of the plane kernel at room 128, 128 tracks x 512 samples (the
    field form with per-track receivers), and of the cluster barrier
-   alone.
+   alone. Then the per-track receivers off the grid (``FDTD_OFF_GRID``):
+   the kernel that buckets them by plane on the card vs its twin at room
+   50 with 128 and 65,536 tracks and at rooms 1 and 137 (the cells and
+   plane starts bit for bit, each plane's rows as a set), and the field
+   kernel reading them bit for bit its twin over 2 blocks at rooms 8
+   (the cells [503, -1, 7, 100] and [0, 1040, -1009, 12]) and 50 (128
+   cells over [-2 n^3, 2 n^3)); CUDA-event times of the bucketing kernel
+   and its twin at room 50, 128 and 65,536 tracks.
 9. The two speed-of-light kernels (``fma_chain``, ``fma_vmem``) vs their
    plain twin within 1e-4 absolute and vs the closed form within 5e-4, at
    37 x 1,000 (k = 24), 64 x 1,024 (k = 130) and each SOL benchmark's
@@ -99,15 +106,18 @@ nonzero:
    65,536 tracks and at the CLI's defaults (no ``--benchmark``: 128
    tracks, 100 runs, full verification), DWG1DNaive and DWG1DAccel at
    32,768 waveguides, and FDTD3D at room 50 with 128 tracks, with and
-   without ``--fdtdPerTrackReceivers`` (with it the field kernel must
-   launch; without it the cluster kernel, not the plane kernel), and at
+   without ``--fdtdPerTrackReceivers`` (with it the field kernel and the
+   receivers' bucketing kernel must launch; without it the cluster
+   kernel, not the plane kernel), and at
    room 82 x 64 samples (the plane kernel); each
    validates against the NumPy golden; then the CLI on the six SOL
    benchmarks at their defaults
    (``fma_chain`` must launch on SOL_VPU, ``fma_vmem`` on SOL_VMEM). On
    every CLI path the JSON's ``metadata.roofline`` must name its
    ``peak_source`` and ``basis``, and no share of a peak may pass 105 %.
-   The DWG, FDTD and SOL paths run fewer round trips and a shallower
+   The paths at the CLI's depth of 512 run 5 round trips and 5
+   saturated reps (``CLI_COMMON``); the DWG, FDTD and SOL paths fewer
+   round trips and a shallower
    saturated tier (``DWG_CLI``, ``FDTD_CLI``): a DWG round trip at 32,768
    waveguides moves ~1 GB of rails through pageable memory and its host
    golden replays every iteration, and one FDTD block takes milliseconds
@@ -116,7 +126,7 @@ nonzero:
    ~2.5 ms).
 11. Pinned staging, DAW-sim pacing and the overlapped-infeed tier, still
    with the plain twins counted (none may run): the CLI on the five
-   datacopy benchmarks at ``--transferMiB 100`` (30 runs, full
+   datacopy benchmarks at ``--transferMiB 100`` (10 runs, full
    verification), each validated, uploading from pinned memory (else it
    fails), its p50/p95 beside the PC's tab5 row and its
    ``transferMemoryClass`` A/B (pinned against pageable, H2D and D2H);
@@ -140,7 +150,7 @@ nonzero:
    ring and nupols (``--partconvTailChunk 8``) forms and shift with f16
    spectra (``PARTCONV_CLI``: 10 runs, depth 64, 5 reps), each printed
    against its cost-model bound, and the shift / ring A/B; DAWSessionMix
-   at 65,536 strips (4 EQ stages, 48,000 taps; ``SESSION_CLI``: 5 runs)
+   at 65,536 strips (4 EQ stages, 48,000 taps; ``SESSION_CLI``: 2 runs)
    and with 16 stages at 128, the systolic cascade launched exactly once
    a session block; each validated against its NumPy golden, its
    roofline shares at most 105 %. The PartConv shift and the 65,536-strip
@@ -155,11 +165,11 @@ nonzero:
    both session paths after a warm pass, under
    ``torch.cuda.set_sync_debug_mode("error")``: none may wait for the
    device.
-13. NeuralAmp and NeuralAmpLSTM (no kernel of the 14: cuBLAS GEMMs and
+13. NeuralAmp and NeuralAmpLSTM (no kernel of the 15: cuBLAS GEMMs and
    elementwise ops; the LSTM block one CUDA graph replay), still with the
    plain twins counted (none may run): the CLI on NeuralAmp at the JAX
    package's widths (C = 128, L = 10) in f32, bf16 and int8 at 128 tracks
-   and in int8 at C = 12 (its GEMMs zero-padded to 16; ``NEURAL_CLI``: 10
+   and in int8 at C = 12 (its GEMMs zero-padded to 16; ``NEURAL_CLI``: 5
    runs, depth 64, 5 reps), and on
    NeuralAmpLSTM (H = 128) in f32 and bf16 at 128 (``LSTM_CLI``: 5 runs,
    depth 16), each validated in full against its f64 golden, with its
@@ -237,7 +247,9 @@ nonzero:
    ``DP_HEADLINE``) the same way; ``--dataParallel 2`` exiting 1 with
    "needs 2 devices; 1 available" on one card (with two cards or more,
    ``DP_MULTI_RANK`` over NCCL at ``--dataParallel 2`` instead, each
-   validated).
+   validated); and NeuralAmp in int8 (``DP_INT8``) on 2 gloo ranks on
+   the CPU (started beside phase 2's build) against its one-rank run:
+   bit for bit, one ``pmax`` of the activation scale a layer.
 18. The repo-level surfaces of the port, each through its ``main(argv)``
    on the card (``SURFACE_TOOLS``, ``SATREPS``, ``EXAMPLES``): the tab4
    sweep at 1,024, 102,400 and 1,048,576 modes, the tab6 sweep at its six
@@ -278,8 +290,10 @@ nonzero:
 20. The native runner (``NATIVE_*``): the eight programs of
    ``tools.export_programs`` (the JAX exporter's names and shapes)
    exported on the card as AOTInductor packages, one process each, all
-   started together, and each run by ``native_runner`` in its own process
-   with ``--runs 20``: each exits 0, its warm-up checksum within 1e-4 of
+   started together after phase 9 and compiling beside phases 10-19 at
+   the lowest CPU priority (``NativeExports``), and each run by
+   ``native_runner`` in its own process with ``--runs 20``: each exits 0,
+   its warm-up checksum within 1e-4 of
    max(|checksum|, 1) of the same port function's in this process on the
    same LCG inputs (whose kernels must launch), a runner process maps no
    libpython (its ``/proc/<pid>/maps``, during its runs); each program's
@@ -287,13 +301,15 @@ nonzero:
    the same round trip's in this process, and the modal headline's
    saturated p50 beside PR 23's.
 21. ``torch.export`` of one small step per operator of queue 1's item
-   21b (``EXPORT_OPS``: the resonator, the block-state kernel, the chain
-   cascade, the gather, the DWG block, the FDTD field form's plane kernel
-   and the two FMA chains), each through its wrapper on the card: the
-   program holds the operator as a node, its module runs on the card and
-   dispatches the operator once, and its outputs (and the DWG rails it
-   writes in place) equal the eager wrapper's bit for bit. No AOTInductor
-   compile here.
+   21b and of the receivers' bucketing (``EXPORT_OPS``: the resonator,
+   the block-state kernel, the chain cascade, the gather, the DWG block,
+   the FDTD field form's plane kernel, with the broadcast receiver and
+   with per-track receivers off the grid (an input of the program), the
+   bucketing and the two FMA chains), each through its wrapper on the
+   card: the program holds its operators as nodes, its module runs on
+   the card and dispatches each once, and its outputs (and the DWG rails
+   it writes in place) equal the eager wrapper's bit for bit. No
+   AOTInductor compile here.
 22. Calibration: ``gpuaudiobench_tpu_torch.calibrate_peaks`` into a
    temporary file; fails unless all six peaks are there, none above 105 %
    of its data-sheet value, and the shared-memory rate not above 105 % of
@@ -309,7 +325,9 @@ nonzero:
    alone (its coefficients' copy to the constant bank is a memcpy), the
    systolic wrapper the systolic kernel alone. The profiler sessions run
    after everything timed (a session slows the process's later launches).
-25. A ``{"kernels": [...]}`` line (14 kernels), the nvidia-smi line, and
+25. A ``{"kernels": [...]}`` line (15 kernels: the 14 of the ported
+   Pallas kernels and, beside the field kernel, the receivers'
+   bucketing), the nvidia-smi line, and
    last the ``{"ok": true, "device": {...}}`` line.
 
 Needs one CUDA device; exits 1 without printing a result when there is
@@ -318,6 +336,7 @@ none, or when the port's package is not beside this script.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import importlib
 import io
@@ -446,9 +465,22 @@ FDTD_FIELD_82_KEY = "fdtd3d_field room 82"
 FDTD_SHAPES = [(8, 64), (50, 512), (82, 32), (128, 32)]
 FDTD_RTOL = 1e-5
 FDTD_SOURCE = "gpuaudiobench_tpu_torch/csrc/fdtd3d.cu"
+# The bucketing kernel replaces no Pallas kernel of its own: it serves the
+# field kernel's per-track receivers, so it goes under the field form's.
 FDTD_REPLACES = {"fdtd3d_div": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:149",
                  "fdtd3d_field": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:77",
+                 "fdtd3d_receiver_buckets":
+                     "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:77",
                  "fdtd3d_div_coop": "gpuaudiobench_tpu/ops/fdtd3d_pallas.py:149"}
+# Per-track receivers off the grid: the bucketing kernel vs its twin at
+# (tracks, room) (the main path's 128 at room 50, 65,536 there, a few in
+# the smallest room and the largest a build takes), and the field kernel
+# vs its twin on (room, cells); None: 128 cells drawn over
+# [-2 n^3, 2 n^3).
+FDTD_BUCKETS = [(128, 50), (65536, 50), (5, 1), (1000, 137)]
+FDTD_OFF_GRID = [(8, [503, -1, 7, 100]), (8, [0, 1040, -1009, 12]),
+                 (50, None)]
+FDTD_BUCKETS_WIDE = 65536
 
 # The speed-of-light kernels (csrc/speedoflight.cu), (rows, width, k):
 # kernel vs twin within 1e-4 absolute (one rounding a pass against two:
@@ -474,8 +506,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
 # The CLI runs of the IIR slice: (label, argv, kernels that must launch).
-CLI_COMMON = ["--nRuns", "30", "--warmup", "5", "--pipelineDepth", "512",
-              "--verification", "spot", "--json"]
+CLI_COMMON = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "512",
+              "--saturatedReps", "5", "--verification", "spot", "--json"]
 CLI_RUNS = [
     ("IIRFilter scan, 65536 tracks",
      ["--benchmark", "IIRFilter", "--nTracks", "65536"] + CLI_COMMON,
@@ -507,8 +539,8 @@ CLI_RUNS = [
      for name in ("FFT1D", "gain", "GainStats", "NoOp")]
 # Fewer round trips and a shallower saturated tier for the DWG and FDTD
 # paths (see the docstring).
-DWG_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
-           "--saturatedReps", "5", "--verification", "spot", "--json"]
+DWG_CLI = ["--nRuns", "2", "--warmup", "1", "--pipelineDepth", "64",
+           "--saturatedReps", "3", "--verification", "spot", "--json"]
 FDTD_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "32",
             "--saturatedReps", "5", "--verification", "spot", "--json"]
 # Room 82 on the plane kernel: 64-sample blocks (its NumPy golden
@@ -540,27 +572,27 @@ CLI_RUNS += [
      ["--benchmark", "FDTD3D"] + FDTD_CLI, ["fdtd3d_div"]),
     ("FDTD3D room 50, 128 tracks, per-track receivers",
      ["--benchmark", "FDTD3D", "--fdtdPerTrackReceivers"] + FDTD_CLI,
-     ["fdtd3d_field"]),
+     ["fdtd3d_field", "fdtd3d_receiver_buckets"]),
     ("FDTD3D room 82, 128 tracks x 64",
      ["--benchmark", "FDTD3D"] + FDTD_ROOM82, ["fdtd3d_div_coop"]),
 ] + [(f"{name}, the defaults", ["--benchmark", name] + SOL_CLI,
       SOL_KERNELS.get(name, [])) for name in SOL_NAMES]
 
 # The pinned-staging, DAW-sim and overlapped-infeed phase. The datacopy
-# family at the poster's 100 MiB pool, 30 round trips, full verification;
+# family at the poster's 100 MiB pool, 10 round trips, full verification;
 # the PC rows (i7-12700 + RTX 4070, BASELINE.md) beside each: tab5 p50 /
 # p95 ms, tab7 p50 / p95 ms (1M modes; pacing off, sleep, spin) and
 # tab8's DAW-sim p50 multiplier for 100 MiB I/O 1/99.
 DATACOPY_NAMES = ["datacopy0199", "datacopy2080", "datacopy5050",
                   "datacopy8020", "datacopy9901"]
-DATACOPY_CLI = ["--transferMiB", "100", "--nRuns", "30", "--warmup", "5",
+DATACOPY_CLI = ["--transferMiB", "100", "--nRuns", "10", "--warmup", "2",
                 "--verification", "full", "--json"]
 TAB5_PC = {"datacopy0199": (10.06, 11.82), "datacopy2080": (9.84, 11.68),
            "datacopy5050": (9.57, 11.5), "datacopy8020": (9.37, 11.1),
            "datacopy9901": (9.09, 10.59)}
 # ModalFilterBank at bench's shape: 1,048,576 modes onto 32 tracks.
 DAWSIM_MODAL = ["--benchmark", "ModalFilterBank", "--nTracks", "1024",
-                "--nRuns", "30", "--warmup", "5", "--verification", "spot",
+                "--nRuns", "10", "--warmup", "2", "--verification", "spot",
                 "--json"]
 DAWSIM_MODES = {"off": [], "sleep": ["--dawsim", "--dawsim-mode", "sleep"],
                 "spin": ["--dawsim", "--dawsim-mode", "spin"]}
@@ -612,8 +644,8 @@ PARTCONV_FORMS = {"shift": [], "ring": ["--partconvForm", "ring"],
                   "nupols": ["--partconvForm", "nupols",
                              "--partconvTailChunk", "8"],
                   "shift f16": ["--partconvHDtype", "f16"]}
-SESSION_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
-               "--saturatedReps", "5", "--verification", "spot"]
+SESSION_CLI = ["--nRuns", "2", "--warmup", "1", "--pipelineDepth", "64",
+               "--saturatedReps", "3", "--verification", "spot"]
 SESSION_WIDE = ["--benchmark", "DAWSessionMix", "--nTracks", "65536"]
 SESSION_K16 = ["--benchmark", "DAWSessionMix", "--sessionEqStages", "16"]
 # The overlapped-infeed tier on both at those widths.
@@ -630,7 +662,7 @@ SESSION_OVERLAP_RUNS = [
 # in f32 (its certified capacity, docs/RESULTS_r4_capacity.md:10) runs
 # only its sync-free chain: its CLI run and golden were cut to keep the
 # script inside its time limit.
-NEURAL_CLI = ["--nRuns", "10", "--warmup", "2", "--pipelineDepth", "64",
+NEURAL_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
               "--saturatedReps", "5", "--json"]
 LSTM_CLI = ["--nRuns", "5", "--warmup", "1", "--pipelineDepth", "16",
             "--saturatedReps", "5", "--json"]
@@ -801,6 +833,13 @@ DP_HEADLINE = ["--benchmark", "ModalFilterBank", "--nTracks", "1024",
                "--nRuns", "5", "--warmup", "1", "--pipelineDepth", "64",
                "--saturatedReps", "3", "--verification", "spot", "--json"]
 DP_MULTI_RANK = ["gain", "IIRFilter", "ModalFilterBank", "DAWSessionMix"]
+# int8 NeuralAmp on DP_INT8_RANKS gloo ranks on the CPU against its
+# one-rank run (the activation scale is the whole batch's): config fields.
+DP_INT8 = dict(buffer_size=64, n_tracks=16, n_runs=2, warmup=1,
+               write_latencies=False, pipeline_depth=4, saturated_reps=2,
+               neuralamp_dtype="int8", neuralamp_channels=12,
+               neuralamp_layers=4)
+DP_INT8_RANKS = 2
 
 # The repo-level surfaces (phase 18): the poster-table campaigns, the
 # results tools and the six audio examples, each through its
@@ -815,7 +854,7 @@ SURFACE_TOOLS = [
     ("transfer_tab5", "tab5", ["--mib", "100", "--skip1gib", "--nRuns", "5",
                                "--overlapDepth", "4", "--overlapReps", "2"],
      []),
-    ("dawsim_campaign", "tab7/tab8", ["--nRuns", "10"], ["modal_bank"]),
+    ("dawsim_campaign", "tab7/tab8", ["--nRuns", "4"], ["modal_bank"]),
     ("lowlatency_sweep", "lowlatency",
      ["--benchmarks", "ModalFilterBank,IIRFilter,FDTD3D", "--buffers",
       "64,512", "--nRuns", "3", "--satReps", "3"],
@@ -880,7 +919,7 @@ NATIVE_PR23_HEADLINE_MS = 0.1209
 EXPORT_OPS = ("modal_res_launch", "iir_blockstate_launch",
               "iir_cascade_chain_launch", "rndmem_gather_launch",
               "dwg_block_launch", "fdtd_field_planes_launch",
-              "fma_chain_launch", "fma_vmem_launch")
+              "fma_chain_launch", "fma_vmem_launch", "fdtd_receiver_buckets")
 OVERLAP_KERNELS = ["conv1d", "rndmem_gather", "iir_biquad", "dwg_block",
                    "iir_cascade"]
 LATENCY_ATTRIB = ["--reps", "5"]
@@ -1801,8 +1840,9 @@ def compare_fdtd(torch, fops, room, s, device, tracks=128):
     if len(set(want_t[0][:, -1].tolist())) < 2:
         fail(f"fdtd room {room}: every per-track receiver read the same")
     torch.cuda.synchronize()
-    for k in routes:
-        want = 2 if "div" in k else 4
+    # the field route's per-track calls bucket their receivers: 2
+    for k in list(routes) + ["fdtd3d_receiver_buckets"]:
+        want = 2 if "div" in k or "buckets" in k else 4
         if fops.KERNEL_LAUNCHES[k] - before[k] != want:
             fail(f"{k}: expected {want} launches")
     print(f"compare fdtd room {room} S={s}: ok  {', '.join(sorted(routes))} "
@@ -1810,6 +1850,113 @@ def compare_fdtd(torch, fops, room, s, device, tracks=128):
           f"receivers, one on the source cell, and broadcast), div vs field "
           f"{cross:.3g}")
     return {k: 0.0 for k in routes}
+
+
+def off_grid_cells(torch, tracks, n, device, seed=5):
+    """``tracks`` receiver cells drawn over [-2 n^3, 2 n^3)."""
+    import numpy as np
+
+    g = np.random.Generator(np.random.MT19937(seed))
+    return torch.from_numpy(g.integers(-2 * n ** 3, 2 * n ** 3, tracks)
+                            .astype(np.int32)).to(device)
+
+
+def compare_fdtd_receivers(torch, fops, device):
+    """Per-track receivers off the grid: the bucketing kernel vs its twin
+    at FDTD_BUCKETS (the cells and the plane starts bit for bit, each
+    plane's rows as a set: the kernel's order within a plane is its
+    atomics'), and the field kernel reading FDTD_OFF_GRID's cells bit for
+    bit its twin over 2 blocks. Returns the bucketing kernel's max |cells
+    - twin's| (0)."""
+    before = fops.KERNEL_LAUNCHES["fdtd3d_receiver_buckets"]
+    for tracks, room in FDTD_BUCKETS:
+        n = fops.grid_n(room)
+        rcv = off_grid_cells(torch, tracks, n, device)
+        cells, order, starts = fops.receiver_buckets(rcv, n)
+        want = fops.receiver_buckets_plain(rcv, n)
+        if not (torch.equal(cells, want[0]) and torch.equal(starts,
+                                                            want[2])):
+            fail(f"receiver buckets {tracks} tracks room {room}: cells or "
+                 "plane starts differ from the twin's")
+        cuts = want[2].tolist()
+        got_o, want_o = order.tolist(), want[1].tolist()
+        if any(sorted(got_o[cuts[b]:cuts[b + 1]])
+               != sorted(want_o[cuts[b]:cuts[b + 1]]) for b in range(n)):
+            fail(f"receiver buckets {tracks} tracks room {room}: a plane's "
+                 "rows differ from the twin's")
+    torch.cuda.synchronize()
+    if (fops.KERNEL_LAUNCHES["fdtd3d_receiver_buckets"] - before
+            != len(FDTD_BUCKETS)):
+        fail("fdtd3d_receiver_buckets: expected one launch a case")
+    for room, given in FDTD_OFF_GRID:
+        n, src, rcv = fdtd_geometry(fops, room)
+        cells = (off_grid_cells(torch, 128, n, device, seed=7)
+                 if given is None else
+                 torch.tensor(given, dtype=torch.int32, device=device))
+        x = fdtd_x(torch, cells.numel(), 24, device)
+        got, want = fops.zero_fields(n, device), fops.zero_fields(n, device)
+        for blk in range(2):
+            got = fops.fdtd3d_block_field(x, *got, src, rcv, receivers=cells)
+            want = fops.fdtd3d_block_field_plain(x, *want, src, rcv,
+                                                 receivers=cells)
+            fdtd_same(torch, f"fdtd3d_field off-grid room {room} block "
+                      f"{blk}", got, want)
+            got, want = got[1:], want[1:]
+    torch.cuda.synchronize()
+    print(f"compare fdtd receivers off the grid: ok  the bucketing kernel's "
+          f"cells and plane starts bit for bit its twin's, each plane's rows "
+          f"the same set, at {FDTD_BUCKETS} (tracks, room); the field kernel "
+          f"on them bit for bit its twin at rooms "
+          f"{sorted({r for r, _ in FDTD_OFF_GRID})} over 2 blocks")
+    return 0.0
+
+
+BUCKET_CALLS = 10  # calls a timed rep of the bucketing kernel
+
+
+def time_receiver_buckets(torch, fops, device):
+    """Device times (ms a call) of the bucketing kernel and its twin at
+    room 50 with FDTD_MAIN's tracks (the main path's line of receivers)
+    and FDTD_BUCKETS_WIDE (cells off the grid): CUDA events around
+    BUCKET_CALLS calls behind a ~1 ms spin (so they time the device, not
+    the launches), median of 11 reps, in turns kernel, twin, kernel:
+    {tracks: (ms, plain_ms)}."""
+    from gpuaudiobench_tpu_torch.harness.device_timing import (
+        event_device_times,
+    )
+
+    room, _, tracks = FDTD_MAIN
+    n, src, _ = fdtd_geometry(fops, room)
+
+    def per_call(fn):
+        def body():
+            for _ in range(BUCKET_CALLS):
+                fn(cells, n)
+        times = sorted(event_device_times(body, 11))
+        return times[len(times) // 2] / BUCKET_CALLS
+
+    out = {}
+    for t in (tracks, FDTD_BUCKETS_WIDE):
+        cells = (fdtd_receivers(torch, fops, n, src, t, device) if t == tracks
+                 else off_grid_cells(torch, t, n, device))
+        k1 = per_call(fops.receiver_buckets)
+        p1 = per_call(fops.receiver_buckets_plain)
+        k2 = per_call(fops.receiver_buckets)
+        print(f"time fdtd3d_receiver_buckets room {room}, {t} tracks (CUDA "
+              f"events behind a spin, {BUCKET_CALLS} calls, median of 11): "
+              f"kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us, plain twin "
+              f"{p1 * 1e3:.2f} us")
+        out[t] = (min(k1, k2), p1)
+    return out
+
+
+def receiver_buckets_bound(tracks: int, room: int):
+    """The bucketing kernel's least time: the receivers read once and the
+    cells, the order (a row a track) and the n + 1 plane starts written
+    once, all int32; its integer work (a wrap, a clamp and a divide a
+    track, twice) is negligible beside it, counted at the FP32 rate."""
+    n = room + 2
+    return bound(4 * (3 * tracks + n + 1), 8 * tracks)
 
 
 # Where each kernel is timed: (room, samples, tracks), {kernel key: the
@@ -1872,6 +2019,8 @@ def fdtd_bounds():
         for key, name in keys.items():
             out[name] = cost_bound(fdtd3d_cost(room, s, tracks,
                                                "field" in key))
+    room, _, tracks = FDTD_MAIN
+    out["fdtd3d_receiver_buckets"] = receiver_buckets_bound(tracks, room)
     return out
 
 
@@ -2025,7 +2174,8 @@ class TwinCalls:
              "conv": ("conv1d_direct_plain",),
              "rndmem": ("rndmem_gather_plain",),
              "dwg": ("dwg_block_plain",),
-             "fdtd": ("fdtd3d_block_div_plain", "fdtd3d_block_field_plain"),
+             "fdtd": ("fdtd3d_block_div_plain", "fdtd3d_block_field_plain",
+                      "receiver_buckets_plain"),
              "sol": ("fma_chain_plain",)}
 
     def __init__(self, modules):
@@ -2540,7 +2690,7 @@ def neural_phase(torch, cli, registry, config, overlap, roofline, na, counts,
         reset()
         na.GRAPH_REPLAYS["lstm_block"] = 0
 
-    launches = {k: 0 for k in ncounts()}  # none of the 14 may launch
+    launches = {k: 0 for k in ncounts()}  # none of the 15 may launch
     for label, argv in NEURAL_RUNS:
         lstm = "NeuralAmpLSTM" in argv
         nreset()
@@ -3283,10 +3433,62 @@ def dp_twin_runs(torch, cli, counts, reset, launches, label, argv):
     return w0, w1, rec0, n0
 
 
-def data_parallel_phase(torch, cli, counts, reset, launches, smi):
+def dp_int8_ranks():
+    """The int8 NeuralAmp run (``DP_INT8``) on DP_INT8_RANKS gloo ranks on
+    the CPU: rank 0's ``ranks.dp_runs`` result. ``main`` starts it beside
+    the build, whose nvcc processes leave the host cores to spare, and
+    ``dp_int8_phase`` reads it."""
+    from gpuaudiobench_tpu_torch.parallel import ranks
+    from gpuaudiobench_tpu_torch.parallel.launch import spmd
+
+    t0 = time.perf_counter()
+    [many] = spmd(ranks.dp_runs, DP_INT8_RANKS, "cpu",
+                  [("NeuralAmp", dict(DP_INT8))], "cpu", timeout_s=300)
+    return many, time.perf_counter() - t0
+
+
+def dp_int8_phase(smi, job):
+    """int8 NeuralAmp (``DP_INT8``) on DP_INT8_RANKS gloo ranks on the CPU
+    (``job``: the future of ``dp_int8_ranks``) against its one-rank run in
+    this process: both validate, the host arrays are bit for bit the same
+    (each layer's activation scale is the whole batch's), and a round trip
+    issues one pmax of a float a layer."""
+    import numpy as np
+
+    from gpuaudiobench_tpu_torch.parallel import ranks
+
+    t0 = time.perf_counter()
+    [one] = ranks.dp_runs([("NeuralAmp", dict(DP_INT8))], device="cpu")
+    try:
+        many, ranks_s = job.result()
+    except Exception as e:  # the ranks' traceback, as spmd raised it
+        fail(f"dp int8 on {DP_INT8_RANKS} gloo ranks: {e}")
+    for run in (one, many):
+        if isinstance(run, str) or run[0]["validation"]["status"] != "SUCCESS":
+            fail(f"dp int8: {run if isinstance(run, str) else run[0]['validation']}")
+    h1, hn = one[1], many[1]
+    if sorted(h1) != sorted(hn) or not all(np.array_equal(h1[k], hn[k])
+                                           for k in h1):
+        fail(f"dp int8: {DP_INT8_RANKS} ranks differ from one rank")
+    inv = [(c["kind"], c["axis_n"], c["bytes"])
+           for c in many[0]["metadata"]["collectiveInventory"]]
+    if inv != [("pmax", DP_INT8_RANKS, 4)] * DP_INT8["neuralamp_layers"]:
+        fail(f"dp int8: collectives a round trip {inv}")
+    print(f"dp int8 NeuralAmp C={DP_INT8['neuralamp_channels']} "
+          f"L={DP_INT8['neuralamp_layers']}, {DP_INT8['n_tracks']} tracks on "
+          f"{DP_INT8_RANKS} gloo ranks (CPU): bit for bit the one-rank run, "
+          f"max error {many[0]['validation']['max_error']:.6g}, "
+          f"{len(inv)} pmax of 4 B a round trip; the ranks {ranks_s:.1f} s "
+          f"(beside the build), the one-rank run "
+          f"{time.perf_counter() - t0:.1f} s, beside {smi}")
+
+
+def data_parallel_phase(torch, cli, counts, reset, launches, smi, dp_job):
     """Phase 17: every sharded name with and without --dataParallel 1 on
-    one card, the modal headline the same way, and --dataParallel 2
-    refused on one card (run over NCCL with two cards or more)."""
+    one card, the modal headline the same way, int8 NeuralAmp on gloo
+    ranks against one rank (``dp_int8_phase``, the ranks' ``dp_job``),
+    and --dataParallel 2 refused on one card (run over NCCL with two
+    cards or more)."""
     total = [0.0, 0.0]
     for name in DP_NAMES:
         w0, w1, rec, n = dp_twin_runs(torch, cli, counts, reset, launches,
@@ -3312,6 +3514,7 @@ def data_parallel_phase(torch, cli, counts, reset, launches, smi):
           f"{rec['validation']['max_error']:.3g}, saturated p50 "
           f"{rec['saturated']['p50_ms']:.4f} ms, {w0:.1f} / {w1:.1f} s on "
           f"{smi}")
+    dp_int8_phase(smi, dp_job)
     cards = torch.cuda.device_count()
     if cards < 2:
         rc, lines = quiet_main(cli, ["--benchmark", "gain",
@@ -3568,7 +3771,8 @@ def driver_runs(torch, cli, output, tmpdir, counts, reset, launches):
     and ``cli.main`` in this process: each exits 0 and validates on this
     card, the driver's JSON has the in-process run's keys, and
     ``tools.json_to_csv`` of it is ``csv_from_json_results``; each run's
-    wall through the driver is printed beside ``python -m``'s."""
+    wall through the driver is printed beside ``python -m``'s (the four
+    processes run together, beside the in-process runs)."""
     from gpuaudiobench_tpu_torch.registry import list_benchmarks
     from gpuaudiobench_tpu_torch.tools import json_to_csv
     from gpuaudiobench_tpu_torch.utils import native
@@ -3585,27 +3789,39 @@ def driver_runs(torch, cli, output, tmpdir, counts, reset, launches):
         fail(f"driver --list: rc {r.returncode}, {len(names)} names "
              f"{r.stderr[-2000:]}")
     card = torch.cuda.get_device_name(0)
+
+    def one(i, how, argv):
+        path = os.path.join(tmpdir, f"{how[0]}_{i}.json")
+        cmd = ([exe] if how == "driver" else
+               [sys.executable, "-m", "gpuaudiobench_tpu_torch.cli"])
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd + argv + ["--outputfile", path],
+                           capture_output=True, text=True, env=env,
+                           timeout=600)
+        return r, path, time.perf_counter() - t0
+
+    # Every run's driver and python -m processes together, beside the
+    # in-process runs.
+    pool = ThreadPoolExecutor(max_workers=2 * len(DRIVER_RUNS))
+    jobs = {(i, how): pool.submit(one, i, how, argv)
+            for i, (_, argv, _) in enumerate(DRIVER_RUNS)
+            for how in ("driver", "python -m")}
+    pool.shutdown(wait=False)
     for i, (label, argv, kernels) in enumerate(DRIVER_RUNS):
+        path = os.path.join(tmpdir, f"i_{i}.json")
+        counted(f"cli.main {label}", cli.main, argv + ["--outputfile", path],
+                counts, reset, launches, kernels)
+    for i, (label, argv, kernels) in enumerate(DRIVER_RUNS):
+        with open(os.path.join(tmpdir, f"i_{i}.json")) as f:
+            inproc = json.load(f)
         recs, times = {}, {}
         for how in ("driver", "python -m"):
-            path = os.path.join(tmpdir, f"{how[0]}_{i}.json")
-            cmd = ([exe] if how == "driver" else
-                   [sys.executable, "-m", "gpuaudiobench_tpu_torch.cli"])
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd + argv + ["--outputfile", path],
-                               capture_output=True, text=True, env=env,
-                               timeout=600)
-            times[how] = time.perf_counter() - t0
+            r, path, times[how] = jobs[i, how].result()
             if r.returncode != 0:
                 print(r.stdout[-3000:], r.stderr[-3000:])
                 fail(f"{how} {label}: exit {r.returncode}")
             with open(path) as f:
                 recs[how] = json.load(f)
-        path = os.path.join(tmpdir, f"i_{i}.json")
-        counted(f"cli.main {label}", cli.main, argv + ["--outputfile", path],
-                counts, reset, launches, kernels)
-        with open(path) as f:
-            inproc = json.load(f)
         for how, rec in recs.items():
             if rec["validation"]["status"] != "SUCCESS":
                 fail(f"{how} {label}: validation {rec['validation']}")
@@ -3816,9 +4032,48 @@ def libraries_mapped(pid):
                 if line.rstrip().endswith(".so") or ".so." in line}
 
 
-def native_phase(torch, counts, reset, launches, runner_job, bench_rec, smi):
+class NativeExports:
+    """Phase 20's eight exports (``tools.export_programs``), one process
+    each, all started together once the kernels' timings are done (after
+    phase 9) and compiling beside phases 10-19 at the lowest CPU priority,
+    one compile thread each, so that the host-bound phases keep their
+    cores. ``stop`` kills any still running and removes their directory;
+    it runs at exit too, whatever phase failed."""
+
+    def __init__(self):
+        from gpuaudiobench_tpu_torch.tools import export_programs as ep
+
+        self.tmpdir = tempfile.mkdtemp(prefix="chip_smoke_native_")
+        env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="1",
+                   OMP_NUM_THREADS="1",
+                   TORCHINDUCTOR_CACHE_DIR=os.path.join(self.tmpdir,
+                                                        "inductor"))
+        self.procs = []
+        atexit.register(self.stop)
+        self.t0 = time.perf_counter()
+        for name in ep.NAMES:
+            log = open(os.path.join(self.tmpdir, f"{name}.log"), "w+")
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "gpuaudiobench_tpu_torch.tools.export_programs", "--out",
+                 self.tmpdir, name], cwd=HERE, env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+            os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+            self.procs.append((name, log, proc))
+
+    def stop(self):
+        for _, log, proc in self.procs:
+            proc.kill()
+            proc.wait()
+            log.close()
+        self.procs = []
+        shutil.rmtree(self.tmpdir, ignore_errors=True)
+
+
+def native_phase(torch, counts, reset, launches, runner_job, bench_rec, smi,
+                 exports):
     """Phase 20: the eight programs of ``tools.export_programs`` exported
-    on the card (one process each, all started together) and run by the
+    on the card (``exports``, started after phase 9) and run by the
     native runner (``csrc/native_runner.cc``), each in its own process with
     ``--runs NATIVE_RUNS``: each exits 0 with its warm-up checksum within
     NATIVE_RTOL of the same port function's in this process on the same
@@ -3830,22 +4085,9 @@ def native_phase(torch, counts, reset, launches, runner_job, bench_rec, smi):
     from gpuaudiobench_tpu_torch.tools import export_programs as ep
 
     device = torch.device("cuda")
-    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_native_")
-    procs = []
+    tmpdir, procs = exports.tmpdir, exports.procs
+    t_phase = time.perf_counter()
     try:
-        # One core's worth of threads a process: eight compile at once.
-        env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="1",
-                   OMP_NUM_THREADS="1",
-                   TORCHINDUCTOR_CACHE_DIR=os.path.join(tmpdir, "inductor"))
-        t0 = time.perf_counter()
-        for name in ep.NAMES:
-            log = open(os.path.join(tmpdir, f"{name}.log"), "w+")
-            procs.append((name, log, subprocess.Popen(
-                [sys.executable, "-m",
-                 "gpuaudiobench_tpu_torch.tools.export_programs", "--out",
-                 tmpdir, name], cwd=HERE, env=env, stdout=log,
-                stderr=subprocess.STDOUT)))
-
         # While they compile: each port function in this process, its
         # checksum, and the kernels it launches.
         want = {}
@@ -3881,9 +4123,10 @@ def native_phase(torch, counts, reset, launches, runner_job, bench_rec, smi):
                 fail(f"native export {name}: exit {rc}")
             m = re.search(r"export ([0-9.]+) s, compile ([0-9.]+) s", text)
             exported[name] = (float(m.group(1)), float(m.group(2)))
-        procs = []
-        print(f"native export: the eight programs in "
-              f"{time.perf_counter() - t0:.1f} s (one process each, together)")
+        exports.procs = []
+        print(f"native export: the eight programs started "
+              f"{t_phase - exports.t0:.1f} s before this phase, all done "
+              f"{time.perf_counter() - t_phase:.1f} s into it")
 
         # No libpython in a runner process: read its maps during its runs.
         name = "modal_pallas"
@@ -3940,11 +4183,7 @@ def native_phase(torch, counts, reset, launches, runner_job, bench_rec, smi):
               f"(PR 23, through ctypes: {NATIVE_PR23_HEADLINE_MS} ms); the "
               f"eight programs on {smi}: passed")
     finally:
-        for _, log, proc in procs:
-            proc.kill()
-            proc.wait()
-            log.close()
-        shutil.rmtree(tmpdir, ignore_errors=True)
+        exports.stop()
 
 
 class GpuabDispatches:
@@ -3975,6 +4214,16 @@ class GpuabDispatches:
         return self._mode.__exit__(*exc)
 
 
+def canonical_buckets(torch, buckets, n):
+    """(cells, starts, the rows sorted by (plane, row)) of the bucketing
+    kernel's outputs: the same bits whatever order its atomics gave the
+    rows of a plane."""
+    cells, order, starts = buckets
+    plane = cells.long()[order.long()] // (n * n)
+    key = plane * cells.numel() + order.long()
+    return cells, starts, torch.sort(key).values
+
+
 def export_steps(torch, ops, iops, rops, dops, fops, sops, device):
     """(operator, label, step, inputs, mutated input indices) of one small
     step per operator that queue 1's item 21b added (EXPORT_OPS), on the
@@ -3993,6 +4242,8 @@ def export_steps(torch, ops, iops, rops, dops, fops, sops, device):
     ph = torch.from_numpy(g.integers(-1000, (1 << 20) + 1000, 256).astype(
         np.int32)).to(device)
     n, src, rcv = fdtd_geometry(fops, 8)
+    off_grid = torch.tensor([503, -1, 7, 100, 0, 1040, -1009, 12] * 2,
+                            dtype=torch.int32, device=device)
     _, xs = sol_inputs(torch, 64, 1024, device)
     return [
         ("modal_res_launch", f"modal_res_step M={m} S={s} T_out={t}",
@@ -4010,6 +4261,15 @@ def export_steps(torch, ops, iops, rops, dops, fops, sops, device):
          lambda xx, p, vx, vy, vz: fops.fdtd3d_block_field(
              xx, p, vx, vy, vz, src, rcv),
          [fdtd_x(torch, 16, 64, device), *fops.zero_fields(n, device)], ()),
+        ("fdtd_field_planes_launch", "fdtd3d_block_field room 8, 16x64, "
+         "16 per-track receivers off the grid",
+         lambda xx, p, vx, vy, vz, r: fops.fdtd3d_block_field(
+             xx, p, vx, vy, vz, src, rcv, receivers=r),
+         [fdtd_x(torch, 16, 64, device), *fops.zero_fields(n, device),
+          off_grid], (), ("fdtd_receiver_buckets",)),
+        ("fdtd_receiver_buckets", "receiver_buckets room 8, 16 tracks",
+         lambda r: canonical_buckets(torch, fops.receiver_buckets(r, n), n),
+         [off_grid], ()),
         ("fma_chain_launch", "fma_chain 64x1024 k=64",
          lambda xx: sops.fma_chain(xx, 64), [xs], ()),
         ("fma_vmem_launch", "fma_vmem 64x1024 k=64",
@@ -4036,14 +4296,17 @@ def export_ops_phase(torch, ops, iops, rops, dops, fops, sops, device):
         return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
     steps = export_steps(torch, ops, iops, rops, dops, fops, sops, device)
-    if sorted(op for op, *_ in steps) != sorted(EXPORT_OPS):
+    if {op for op, *_ in steps} != set(EXPORT_OPS):
         fail("export phase: the steps do not cover EXPORT_OPS")
-    for op, label, fn, inputs, mutated in steps:
+    for op, label, fn, inputs, mutated, *also in steps:
         t0 = time.perf_counter()
         prog = torch.export.export(Step(fn), tuple(t.clone() for t in inputs))
         export_s = time.perf_counter() - t0
-        if f"gpuab.{op}" not in str(prog.graph):
-            fail(f"export {label}: the program holds no gpuab.{op} node")
+        names = (op, *(also[0] if also else ()))
+        for name in names:
+            if f"gpuab.{name}" not in str(prog.graph):
+                fail(f"export {label}: the program holds no gpuab.{name} "
+                     "node")
         nodes = sum(1 for nd in prog.graph.nodes if nd.op == "call_function")
         eager_in = [t.clone() for t in inputs]
         exported_in = [t.clone() for t in inputs]
@@ -4051,7 +4314,7 @@ def export_ops_phase(torch, ops, iops, rops, dops, fops, sops, device):
         with GpuabDispatches(torch) as seen:
             got = as_tuple(prog.module()(*exported_in))
         torch.cuda.synchronize()
-        if seen.seen.get(op, 0) != 1:
+        if any(seen.seen.get(name, 0) != 1 for name in names):
             fail(f"export {label}: the exported module dispatched "
                  f"{seen.seen}")
         pairs = list(zip(got, want)) + [(exported_in[i], eager_in[i])
@@ -4062,7 +4325,8 @@ def export_ops_phase(torch, ops, iops, rops, dops, fops, sops, device):
                  "eager call")
         if not all(torch.isfinite(a).all() for a in got):
             fail(f"export {label}: non-finite output")
-        print(f"export {label}: {op} one of {nodes} nodes, exported in "
+        print(f"export {label}: {' and '.join(names)} of {nodes} nodes, "
+              f"exported in "
               f"{export_s:.2f} s, run on the card bit for bit the eager "
               "wrapper's" + (" (outputs and the rails written in place)"
                              if mutated else ""))
@@ -4168,10 +4432,12 @@ def main() -> int:
 
     # The operator library's object and the native runner compile with g++
     # beside the kernels' nvcc; the library links once the kernels exist.
+    # Phase 17's int8 gloo ranks run on the CPU beside them.
     t0 = time.perf_counter()
-    jobs = ThreadPoolExecutor(max_workers=2)
+    jobs = ThreadPoolExecutor(max_workers=3)
     ops_job = jobs.submit(native.compile_ops)
     runner_job = jobs.submit(native.build_runner)
+    dp_job = jobs.submit(dp_int8_ranks)  # phase 17 reads it
     jobs.shutdown(wait=False)
     libs = build.build_all(["modal_bank", "iir", "conv1d", "rndmem", "dwg",
                             "fdtd3d", "speedoflight"])
@@ -4182,7 +4448,7 @@ def main() -> int:
     no_cuda = [name for name in gpuab.OPS
                if not torch._C._dispatch_has_kernel_for_dispatch_key(
                    f"gpuab::{name}", "CUDA")]
-    if len(gpuab.OPS) != 14 or no_cuda:
+    if len(gpuab.OPS) != 15 or no_cuda:
         fail(f"the gpuab library has {len(gpuab.OPS)} operators, without a "
              f"CUDA implementation: {no_cuda}")
     print(f"build: {', '.join(p.name for p in libs)}, "
@@ -4190,7 +4456,7 @@ def main() -> int:
           f"operators) in {time.perf_counter() - t0:.2f} s")
 
     # Every kernel-vs-twin comparison below runs under a dispatch mode
-    # that counts the gpuab operators: all 14 must be reached through
+    # that counts the gpuab operators: all 15 must be reached through
     # them (the timings run outside it).
     dispatched = GpuabDispatches(torch)
     with dispatched:
@@ -4243,7 +4509,18 @@ def main() -> int:
         for room, s in FDTD_SHAPES:
             for k, v in compare_fdtd(torch, fops, room, s, device).items():
                 fdtd_err[k] = max(fdtd_err[k], v)
+    with dispatched:
+        fdtd_err["fdtd3d_receiver_buckets"] = compare_fdtd_receivers(
+            torch, fops, device)
     fdtd_times, _ = time_fdtd(torch, fops, device)
+    bucket_times = time_receiver_buckets(torch, fops, device)
+    fdtd_times["fdtd3d_receiver_buckets"] = bucket_times[FDTD_MAIN[2]]
+    for tracks, (ms, _) in bucket_times.items():
+        b_ms, b_by = receiver_buckets_bound(tracks, FDTD_MAIN[0])
+        print(f"time fdtd3d_receiver_buckets {tracks} tracks: {ms * 1e3:.2f}"
+              f" us against its bound {b_ms * 1e3:.4f} us ({b_by}), "
+              f"{ms / fdtd_times['fdtd3d_field'][0]:.3%} of the field "
+              f"kernel's block at room {FDTD_MAIN[0]}")
     for key in (FDTD_FIELD_82_KEY, FDTD_BIG_KEY):
         b_ms, b_by = fdtd_bounds()[key]
         print(f"time {key}: {fdtd_times[key][0]:.4f} ms against its bound "
@@ -4260,6 +4537,9 @@ def main() -> int:
         fail(f"the kernel-vs-twin phases reached no {missing} operator")
     print("kernels vs twins through torch.ops.gpuab: "
           + ", ".join(f"{k} {dispatched.seen[k]}" for k in gpuab.OPS))
+
+    # Phase 20's exports compile from here on, beside phases 10-19.
+    exports = NativeExports()
 
     card = torch.cuda.get_device_name(0)
     _, peak_source = roofline.resolve_peaks(card)
@@ -4373,7 +4653,8 @@ def main() -> int:
 
         # --dataParallel on one card.
         t0 = time.perf_counter()
-        data_parallel_phase(torch, cli, counts, reset, launches, smi)
+        data_parallel_phase(torch, cli, counts, reset, launches, smi,
+                            dp_job)
         print(f"--dataParallel: {time.perf_counter() - t0:.1f} s")
 
         # The repo-level surfaces: campaigns, results tools, examples.
@@ -4393,7 +4674,7 @@ def main() -> int:
         # The eight exported programs through the native runner.
         t0 = time.perf_counter()
         native_phase(torch, counts, reset, launches, runner_job, bench_rec,
-                     smi)
+                     smi, exports)
         print(f"native runner: {time.perf_counter() - t0:.1f} s")
 
         # A step of each operator of item 21b, exported and run on the card.

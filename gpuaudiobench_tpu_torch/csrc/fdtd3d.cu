@@ -119,8 +119,11 @@
 // plane's p exactly as their owner does, so the faces never travel; the
 // faces in y and z stay in the plane (in registers up to 7 cells a
 // thread, room 82; in shared memory above, with one more __syncthreads a
-// substep). The receivers are bucketed by plane on the host
-// (ops/fdtd3d.py:receiver_csr). It replaced a grid-stride cooperative
+// substep). The per-track receivers are bucketed by plane on the device,
+// by fdtd_receiver_buckets_kernel launched before it on the stream (the
+// host reference is ops/fdtd3d.py:receiver_csr), and read as the JAX
+// package's gather reads them: a cell outside the grid is wrapped once if
+// negative, then clamped. It replaced a grid-stride cooperative
 // kernel with a grid barrier a substep (1.40-1.43 us of ~3.6 at room 50;
 // PERF.md), which lives on, measured, in tools/fdtd_stages, beside a
 // cluster form (four fields in shared memory, two hand-offs a substep)
@@ -758,25 +761,89 @@ fdtd_div_planes_kernel(Grid g, const float* __restrict__ src,
 // The largest n whose plane a build holds (139^2 <= 19 x 1,024 cells).
 constexpr int kMaxPlanes = 139;
 
-// The rows of out each block writes, as ops/fdtd3d.py:receiver_csr gives
-// them: block b writes rows order[j], j in [start[b], start[b + 1]) (row j
-// itself when order is null: the broadcast receiver's plane owns them
-// all). Taken as a __grid_constant__ parameter, like Ranges.
-struct RcvPlanes {
-    int start[kMaxPlanes + 1];
-};
+// ---- the per-track receivers, bucketed by plane -------------------------
+//
+// Not a port of a Pallas kernel: the JAX package reads its per-track
+// receivers through XLA (ops/fdtd3d.py:fdtd3d_block_multircv, p.ravel()
+// [rcv]), and the field plane kernel writes each row of out from the block
+// that owns its cell's plane, so it needs the rows bucketed by plane. One
+// block of kBucketThreads, on the stream before the field kernel, with no
+// host read of the receivers (a CUDA graph captures it): it normalizes
+// each cell as XLA's gather does (a negative cell wrapped once by n^3,
+// then clamped to [0, n^3 - 1]), counts the rows of each plane with
+// shared-memory atomics, scans the counts in one warp into the plane
+// starts (n + 1 ints) and places each row at its plane's cursor. Bound by
+// launch latency at the benchmark's 128 tracks; at 65,536 by one SM's
+// shared-memory atomics and scattered stores. Aggregating each warp's
+// atomics over its lanes of one plane (__match_any_sync) ran slower at
+// every count, even with all rows in one plane. The order within a plane
+// is the atomics' and changes from run to run; no output bit depends on
+// it, each row being written once, by its own cell's plane.
+constexpr int kBucketThreads = 1024;
+constexpr int kBucketBinsPerLane = (kMaxPlanes + 1 + 31) / 32;
 
-// Rows of out for sample smp that block b writes, from its plane's p
-// (own: cell l of the plane at own[l]); src_pre holds the source cell's
-// value from before the injection of sample smp + 1.
-__device__ void plane_receivers(const Grid& g, const RcvPlanes& rcv,
+__device__ __forceinline__ int normalized_cell(int r, int cells) {
+    const int c = r < 0 ? r + cells : r;
+    return min(max(c, 0), cells - 1);
+}
+
+__global__ void __launch_bounds__(kBucketThreads, 1)
+fdtd_receiver_buckets_kernel(const int* __restrict__ receivers, int tracks,
+                             int n, int* __restrict__ cells,
+                             int* __restrict__ order,
+                             int* __restrict__ starts) {
+    __shared__ int count[kMaxPlanes + 1];
+    const int nn = n * n, total = nn * n, tid = threadIdx.x;
+    for (int b = tid; b <= n; b += kBucketThreads) count[b] = 0;
+    __syncthreads();
+    for (int t = tid; t < tracks; t += kBucketThreads) {
+        const int c = normalized_cell(receivers[t], total);
+        cells[t] = c;
+        atomicAdd(&count[c / nn], 1);
+    }
+    __syncthreads();
+    if (tid < 32) {  // the exclusive scan, kBucketBinsPerLane bins a lane
+        int local[kBucketBinsPerLane], sum = 0;
+#pragma unroll
+        for (int i = 0; i < kBucketBinsPerLane; ++i) {
+            const int b = tid * kBucketBinsPerLane + i;
+            local[i] = b < n ? count[b] : 0;
+            sum += local[i];
+        }
+        int incl = sum;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, incl, off);
+            if (tid >= off) incl += v;
+        }
+        int run = incl - sum;
+#pragma unroll
+        for (int i = 0; i < kBucketBinsPerLane; ++i) {
+            const int b = tid * kBucketBinsPerLane + i;
+            if (b <= n) {
+                count[b] = run;  // now plane b's cursor
+                starts[b] = run;
+            }
+            run += local[i];
+        }
+    }
+    __syncthreads();
+    for (int t = tid; t < tracks; t += kBucketThreads) {
+        order[atomicAdd(&count[cells[t] / nn], 1)] = t;
+    }
+}
+
+// Rows of out for sample smp that block b writes, order[j] for j in [lo,
+// hi) (row j itself when order is null), from its plane's p (own: cell l
+// of the plane at own[l]); src_pre holds the source cell's value from
+// before the injection of sample smp + 1.
+__device__ void plane_receivers(const Grid& g, int lo, int hi,
                                 const int* order, int b, int smp,
                                 const float* own, const float* src_pre,
                                 float* out) {
     const bool injected = smp + 1 < g.s;
     const int base = b * g.n * g.n;
-    for (int j = rcv.start[b] + threadIdx.x; j < rcv.start[b + 1];
-         j += kClusterThreads) {
+    for (int j = lo + threadIdx.x; j < hi; j += kClusterThreads) {
         const int t = order ? order[j] : j;
         const int cell = g.rcv_rows ? g.rcv_rows[t] : g.rcv_cell;
         const float v = injected && cell == g.src_cell ? *src_pre
@@ -813,11 +880,24 @@ __device__ void plane_receivers(const Grid& g, const RcvPlanes& rcv,
 // updated: they go to the outputs as they came in. kWait and kExchange
 // false are measurements (tools/fdtd_stages): no waits for the
 // neighbours' flags; no exchange either (the +-n^2 neighbours read from
-// the block's own plane).
+// the block's own plane). The rows of out block b writes: with per-track
+// receivers (g.rcv_rows, normalized), order[j] for j in [rcv_starts[b],
+// rcv_starts[b + 1]), both in device memory as
+// fdtd_receiver_buckets_kernel wrote them; with the broadcast receiver
+// (order and rcv_starts null), every row in the plane of g.rcv_cell. The
+// two bounds are read once, in the prologue. Builds up to
+// kRowsInRegistersMaxCpt cells a thread, which do not spill, hold them in
+// registers; read again at each sample from shared memory, they cost
+// ~0.2 ms of a 3.5 ms block at room 50, as each sample's reads of order
+// and the cells then wait on them. The builds above keep them in shared
+// memory: held in registers there, they add spills that cost 0.3-0.5 ms
+// of a 6.5 ms block at room 82 (tools.receivers_ab).
+constexpr int kRowsInRegistersMaxCpt = 3;
+
 template <int CPT, bool kRegFaces, bool kWait = true, bool kExchange = true>
 __global__ void __launch_bounds__(kClusterThreads, 1)
-fdtd_field_planes_kernel(Grid g, const __grid_constant__ RcvPlanes rcv,
-                         const int* __restrict__ order,
+fdtd_field_planes_kernel(Grid g, const int* __restrict__ order,
+                         const int* __restrict__ rcv_starts,
                          const float* __restrict__ src,
                          const float* __restrict__ p_in,
                          const float* __restrict__ vx_in,
@@ -847,6 +927,19 @@ fdtd_field_planes_kernel(Grid g, const __grid_constant__ RcvPlanes rcv,
     const float absorb = opaque(g.absorb);
     const uint32_t pre_a = smem_u32(src_pre);
     const int iters = (nn + kClusterThreads - 1) / kClusterThreads;
+    constexpr bool kRowRegs = CPT <= kRowsInRegistersMaxCpt;
+    int* const rows = reinterpret_cast<int*>(smem);  // without kRowRegs
+    int rcv_lo = 0, rcv_hi = 0;  // the rows of out this block writes
+    if (rcv_starts != nullptr) {
+        rcv_lo = rcv_starts[b];
+        rcv_hi = rcv_starts[b + 1];
+    } else if (g.rcv_cell / nn == b) {
+        rcv_hi = g.tracks;
+    }
+    if (!kRowRegs && tid == 0) {
+        rows[0] = rcv_lo;
+        rows[1] = rcv_hi;
+    }
 
     // The prologue: the fields of the thread's cells, the faces no cell
     // owns copied through, the input plane published, the flag reset.
@@ -907,7 +1000,9 @@ fdtd_field_planes_kernel(Grid g, const __grid_constant__ RcvPlanes rcv,
         const float* cur = q ? buf0 : buf1;
         const bool send = k + 1 < substeps;
         if (k > 0 && k % 3 == 0) {
-            plane_receivers(g, rcv, order, b, k / 3 - 1, cur, src_pre, out);
+            plane_receivers(g, kRowRegs ? rcv_lo : rows[0],
+                            kRowRegs ? rcv_hi : rows[1], order, b, k / 3 - 1,
+                            cur, src_pre, out);
             FDTD_MARK(4);
         }
         const int inj = (k % 3 == 2 && k / 3 + 1 < g.s) ? src_i : -1;
@@ -1013,7 +1108,9 @@ fdtd_field_planes_kernel(Grid g, const __grid_constant__ RcvPlanes rcv,
         FDTD_MARK(3);
     }
     const float* fin = (substeps & 1) ? buf1 : buf0;
-    plane_receivers(g, rcv, order, b, g.s - 1, fin, src_pre, out);
+    plane_receivers(g, kRowRegs ? rcv_lo : rows[0],
+                    kRowRegs ? rcv_hi : rows[1], order, b, g.s - 1, fin,
+                    src_pre, out);
     FDTD_MARK(4);
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
@@ -1212,10 +1309,10 @@ bool bad_shape(int n, int s, int tracks, int src_cell) {
            src_cell >= n * n * n;
 }
 
-using FieldPlanesKernel = void (*)(Grid, RcvPlanes, const int*, const float*,
+using FieldPlanesKernel = void (*)(Grid, const int*, const int*,
                                    const float*, const float*, const float*,
-                                   const float*, float*, float*, float*,
-                                   float*, float*, float*, int*);
+                                   const float*, const float*, float*, float*,
+                                   float*, float*, float*, float*, int*);
 
 // The field plane kernel keeps the upper faces' replicas in registers
 // (kRegFaces) up to this many cells a thread, and vy and vz in shared
@@ -1250,32 +1347,11 @@ long long field_planes_smem(int n, bool reg_faces) {
     return 4 * (8LL + (reg_faces ? 2 : 3) * plane_slots(n));
 }
 
-// The rows of out each block writes: from rcv_starts (n + 1 ints, host
-// memory, from 0 to `tracks` in order) for per-track receivers; for the
-// broadcast receiver (rcv_starts null), every row to its cell's plane.
-bool receiver_planes(int n, int tracks, int rcv_cell, const int* rcv_starts,
-                     RcvPlanes* r) {
-    if (n > kMaxPlanes) return false;
-    *r = RcvPlanes{};
-    if (rcv_starts == nullptr) {
-        if (rcv_cell < 0 || rcv_cell >= n * n * n) return false;
-        for (int b = 0; b <= n; ++b) {
-            r->start[b] = b <= rcv_cell / (n * n) ? 0 : tracks;
-        }
-        return true;
-    }
-    if (rcv_starts[0] != 0 || rcv_starts[n] != tracks) return false;
-    for (int b = 0; b <= n; ++b) {
-        if (b > 0 && rcv_starts[b] < rcv_starts[b - 1]) return false;
-        r->start[b] = rcv_starts[b];
-    }
-    return true;
-}
-
 // One cooperative launch of a field plane build (`kernel`, `smem` bytes a
 // block) on the schedule's planes; the arguments as
 // fdtd_field_planes_launch's. Refuses (cudaErrorInvalidValue) ranges that
-// are not the planes or rows that do not cover out, and
+// are not the planes, per-track receivers without their buckets, a
+// broadcast receiver outside the grid, and
 // (cudaErrorCooperativeLaunchTooLarge) a grid the card cannot hold at
 // once, before launching anything.
 int field_planes_launch(FieldPlanesKernel kernel, long long smem,
@@ -1288,13 +1364,12 @@ int field_planes_launch(FieldPlanesKernel kernel, long long smem,
                         int tracks, int rcv_cell, float k1, float k2,
                         float absorb, float out_scale, const int* starts,
                         int blocks, cudaStream_t stream) {
-    RcvPlanes rcv;
     const bool per_track = rcv_rows != nullptr;
-    if (bad_shape(n, s, tracks, src_cell) ||
+    if (bad_shape(n, s, tracks, src_cell) || n > kMaxPlanes ||
         !plane_ranges(n, starts, blocks) || kernel == nullptr ||
         per_track != (order != nullptr) ||
         per_track != (rcv_starts != nullptr) ||
-        !receiver_planes(n, tracks, rcv_cell, rcv_starts, &rcv)) {
+        (!per_track && (rcv_cell < 0 || rcv_cell >= n * n * n))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err;
@@ -1306,9 +1381,9 @@ int field_planes_launch(FieldPlanesKernel kernel, long long smem,
     }
     Grid g = make_grid(n, s, src_cell, tracks, rcv_cell, rcv_rows, k1, k2,
                        0.f, absorb, out_scale);
-    void* args[] = {&g,     &rcv,   &order,  &src,    &p_in,   &vx_in,
-                    &vy_in, &vz_in, &p_out,  &vx_out, &vy_out, &vz_out,
-                    &out,   &xch,   &flags};
+    void* args[] = {&g,     &order, &rcv_starts, &src,    &p_in,
+                    &vx_in, &vy_in, &vz_in,      &p_out,  &vx_out,
+                    &vy_out, &vz_out, &out,      &xch,    &flags};
     err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
                                       dim3(kClusterThreads), args,
                                       static_cast<size_t>(smem), stream);
@@ -1369,16 +1444,16 @@ int fdtd_div_planes_launch(const float* src, const float* p_in,
 // read only; p_out, vx_out, vy_out, vz_out receive the fields; out
 // (tracks, s); xch (2 (n + 2) plane_stride(n) floats) and flags (n
 // kFlagStride ints) scratch, neither read before the kernel writes it.
-// Per-track receivers: rcv_rows (tracks,) flat cells and order (tracks,)
-// the rows by plane, both device memory, and rcv_starts (n + 1 ints, host
-// memory): block b writes rows order[j], j in [rcv_starts[b],
-// rcv_starts[b + 1]), each of whose cells lies in plane b
-// (ops/fdtd3d.py:receiver_csr). All three null: every row reads
+// Per-track receivers: rcv_rows (tracks,) flat cells in the grid, order
+// (tracks,) the rows by plane and rcv_starts (n + 1) the planes' starts,
+// all three device memory, as fdtd_receiver_buckets_launch writes them:
+// block b writes rows order[j], j in [rcv_starts[b], rcv_starts[b + 1]),
+// each of whose cells lies in plane b. All three null: every row reads
 // rcv_cell. Returns the launch's error (0 on success):
-// cudaErrorInvalidValue when the ranges are not the planes, the rows do
-// not cover out or no build takes n^2 cells a block,
-// cudaErrorCooperativeLaunchTooLarge when the card cannot hold the blocks
-// at once.
+// cudaErrorInvalidValue when the ranges are not the planes, only some of
+// the three are given, the broadcast cell lies outside the grid or no
+// build takes n^2 cells a block, cudaErrorCooperativeLaunchTooLarge when
+// the card cannot hold the blocks at once.
 int fdtd_field_planes_launch(const float* src, const float* p_in,
                              const float* vx_in, const float* vy_in,
                              const float* vz_in, float* p_out, float* vx_out,
@@ -1397,6 +1472,26 @@ int fdtd_field_planes_launch(const float* src, const float* p_in,
         xch, flags, rcv_rows, order, rcv_starts, n, s, src_cell, tracks,
         rcv_cell, k1, k2, absorb, out_scale, starts, blocks,
         static_cast<cudaStream_t>(stream));
+}
+
+// The per-track receivers (tracks,) of an n^3 grid bucketed by x-plane for
+// fdtd_field_planes_launch, in one launch of one block on `stream`:
+// cells (tracks,) the normalized cells (a negative cell wrapped once by
+// n^3, then clamped to [0, n^3 - 1]), order (tracks,) the rows grouped by
+// their cell's plane, starts (n + 1) plane b's rows at order[starts[b],
+// starts[b + 1]); all device memory, none read before the kernel writes
+// it. Returns the launch's error (0 on success): cudaErrorInvalidValue
+// for no tracks or n outside [1, kMaxPlanes].
+int fdtd_receiver_buckets_launch(const int* receivers, int tracks, int n,
+                                 int* cells, int* order, int* starts,
+                                 void* stream) {
+    if (tracks <= 0 || n < 1 || n > kMaxPlanes) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    fdtd_receiver_buckets_kernel<<<1, kBucketThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        receivers, tracks, n, cells, order, starts);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // The dynamic shared memory a block of the field plane kernel takes for an

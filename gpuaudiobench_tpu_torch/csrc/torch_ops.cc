@@ -15,9 +15,12 @@
 //
 // The launch geometry comes from the caller, as ops/*.py computes it (the
 // modal schedule, the cascade's step ranges, the chain's route, the DWG
-// segments, the FDTD route's ranges and receiver buckets): an export
-// bakes it into the program as constants, and the C entries refuse one
-// that does not cover the shape. A nonzero return raises.
+// segments, the FDTD route's ranges): an export bakes it into the program
+// as constants, and the C entries refuse one that does not cover the
+// shape. The FDTD per-track receivers' plane buckets are data, not
+// geometry: an operator of their own computes them on the card
+// (fdtd_receiver_buckets), so a program takes its receivers as an input.
+// A nonzero return raises.
 //
 // Built by g++ (utils/native.py:build_ops) against PyTorch's headers. With
 // GPUAB_WITH_CUDA the CUDA implementations are compiled in and the library
@@ -99,6 +102,9 @@ int fdtd_field_planes_launch(const float* src, const float* p_in,
                              float k1, float k2, float absorb,
                              float out_scale, const int* starts, int blocks,
                              void* stream);
+int fdtd_receiver_buckets_launch(const int* receivers, int tracks, int n,
+                                 int* cells, int* order, int* starts,
+                                 void* stream);
 int fma_chain_launch(const float* x, float* out, long long n, int k, float m,
                      float c, void* stream);
 int fma_vmem_launch(const float* x, float* out, long long n, int k, float m,
@@ -426,36 +432,62 @@ Tensor dwg_block_cuda(const Tensor& x, Tensor& fwd, Tensor& bwd,
   return y;
 }
 
-// The field form's plane kernel: (out, p', vx', vy', vz'). With
-// receivers, rcv_order (both int32 on the card) and rcv_starts (n + 1
-// host ints: ops/fdtd3d.py:receiver_csr) track t reads its own cell;
-// without them every track reads rcv_cell.
+// The per-track receivers bucketed by x-plane of an n^3 grid, on the
+// card: (cells, order, starts), int32 (T,), (T,) and (n + 1,), as
+// fdtd_field_planes_launch takes them (ops/fdtd3d.py:receiver_csr is the
+// host reference). No receiver value raises: a cell outside the grid is
+// wrapped once if negative, then clamped to the grid.
+std::tuple<Tensor, Tensor, Tensor> fdtd_receiver_buckets_cuda(
+    const Tensor& receivers, int64_t n) {
+  const char* op = "gpuab::fdtd_receiver_buckets";
+  check_input(receivers, receivers, op, "receivers", at::kInt);
+  TORCH_CHECK(receivers.dim() == 1 && receivers.size(0) > 0, op,
+              ": receivers must be (tracks,), got ", receivers.sizes());
+  c10::cuda::CUDAGuard guard(receivers.device());
+  Tensor cells = at::empty_like(receivers);
+  Tensor order = at::empty_like(receivers);
+  Tensor starts = at::empty({n + 1}, receivers.options());
+  raise_on(fdtd_receiver_buckets_launch(
+               in_i(receivers), as_int(receivers.size(0), op, "tracks"),
+               as_int(n, op, "n"), cells.mutable_data_ptr<int>(),
+               order.mutable_data_ptr<int>(), starts.mutable_data_ptr<int>(),
+               stream_of(receivers)),
+           op);
+  return {cells, order, starts};
+}
+
+// The field form's plane kernel: (out, p', vx', vy', vz'). With rcv_cells,
+// rcv_order and rcv_starts (fdtd_receiver_buckets' outputs, on the card)
+// track t reads its own cell; without them every track reads rcv_cell.
 std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor> fdtd_field_planes_cuda(
     const Tensor& src, const Tensor& p, const Tensor& vx, const Tensor& vy,
-    const Tensor& vz, const std::optional<Tensor>& receivers,
+    const Tensor& vz, const std::optional<Tensor>& rcv_cells,
     const std::optional<Tensor>& rcv_order,
-    at::OptionalIntArrayRef rcv_starts, int64_t tracks, int64_t src_cell,
-    int64_t rcv_cell, double k1, double k2, double absorb, double out_scale,
-    at::IntArrayRef starts) {
+    const std::optional<Tensor>& rcv_starts, int64_t tracks,
+    int64_t src_cell, int64_t rcv_cell, double k1, double k2, double absorb,
+    double out_scale, at::IntArrayRef starts) {
   const char* op = "gpuab::fdtd_field_planes_launch";
   check_input(src, p, op, "src");
   for (const Tensor* t : {&p, &vx, &vy, &vz}) {
     check_input(*t, p, op, "a field");
   }
-  const bool per_track = receivers.has_value();
+  const int64_t n = p.size(0);
+  const bool per_track = rcv_cells.has_value();
   TORCH_CHECK(per_track == rcv_order.has_value() &&
                   per_track == rcv_starts.has_value(),
-              op, ": receivers, rcv_order and rcv_starts come together");
+              op, ": rcv_cells, rcv_order and rcv_starts come together");
   if (per_track) {
-    check_input(*receivers, p, op, "receivers", at::kInt);
+    check_input(*rcv_cells, p, op, "rcv_cells", at::kInt);
     check_input(*rcv_order, p, op, "rcv_order", at::kInt);
+    check_input(*rcv_starts, p, op, "rcv_starts", at::kInt);
+    TORCH_CHECK(rcv_cells->numel() == tracks && rcv_order->numel() == tracks,
+                op, ": rcv_cells and rcv_order need ", tracks, " entries");
+    TORCH_CHECK(rcv_starts->numel() == n + 1, op, ": rcv_starts needs ",
+                n + 1, " entries, got ", rcv_starts->numel());
   }
   TORCH_CHECK(starts.size() >= 2, op, ": starts needs blocks + 1 entries");
   c10::cuda::CUDAGuard guard(p.device());
-  const int64_t n = p.size(0);
   std::vector<int> cuts = host_ints(starts, op, "a start");
-  std::vector<int> rcv_cuts;
-  if (per_track) rcv_cuts = host_ints(*rcv_starts, op, "a receiver start");
   Tensor p_o = at::empty_like(p);
   Tensor vx_o = at::empty_like(vx);
   Tensor vy_o = at::empty_like(vy);
@@ -469,9 +501,9 @@ std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor> fdtd_field_planes_cuda(
                in(src), in(p), in(vx), in(vy), in(vz), out(p_o), out(vx_o),
                out(vy_o), out(vz_o), out(y), out(xch),
                flags.mutable_data_ptr<int>(),
-               per_track ? in_i(*receivers) : nullptr,
+               per_track ? in_i(*rcv_cells) : nullptr,
                per_track ? in_i(*rcv_order) : nullptr,
-               per_track ? rcv_cuts.data() : nullptr, as_int(n, op, "n"),
+               per_track ? in_i(*rcv_starts) : nullptr, as_int(n, op, "n"),
                as_int(src.size(0), op, "S"), as_int(src_cell, op, "src_cell"),
                as_int(tracks, op, "tracks"), as_int(rcv_cell, op, "rcv_cell"),
                static_cast<float>(k1), static_cast<float>(k2),
@@ -549,10 +581,13 @@ TORCH_LIBRARY(gpuab, m) {
       "int update_blocks) -> Tensor");
   m.def(
       "fdtd_field_planes_launch(Tensor src, Tensor p, Tensor vx, Tensor vy, "
-      "Tensor vz, Tensor? receivers, Tensor? rcv_order, int[]? rcv_starts, "
+      "Tensor vz, Tensor? rcv_cells, Tensor? rcv_order, Tensor? rcv_starts, "
       "int tracks, int src_cell, int rcv_cell, float k1, float k2, "
       "float absorb, float out_scale, int[] starts) -> "
       "(Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def(
+      "fdtd_receiver_buckets(Tensor receivers, int n) -> "
+      "(Tensor, Tensor, Tensor)");
   for (const char* name : {"fma_chain_launch", "fma_vmem_launch"}) {
     const std::string schema =
         std::string(name) + "(Tensor x, int k, float m, float c) -> Tensor";
@@ -574,6 +609,7 @@ TORCH_LIBRARY_IMPL(gpuab, CUDA, m) {
   m.impl("rndmem_gather_launch", &rndmem_gather_cuda);
   m.impl("dwg_block_launch", &dwg_block_cuda);
   m.impl("fdtd_field_planes_launch", &fdtd_field_planes_cuda);
+  m.impl("fdtd_receiver_buckets", &fdtd_receiver_buckets_cuda);
   m.impl("fma_chain_launch", &fma_chain_cuda);
   m.impl("fma_vmem_launch", &fma_vmem_cuda);
 }

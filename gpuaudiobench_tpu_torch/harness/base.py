@@ -189,6 +189,15 @@ class Benchmark:
 
         return psum(t, self._mesh, "dp")
 
+    def dp_pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` over the dp ranks, on every rank
+        (one counted ``pmax``; ``t`` itself when unsharded)."""
+        if self._mesh is None:
+            return t
+        from gpuaudiobench_tpu_torch.parallel.collectives import pmax
+
+        return pmax(t, self._mesh, "dp")
+
     def to_host(self, t: torch.Tensor, axis: int = 0) -> np.ndarray:
         """The whole host array of ``t``, sharded on ``axis`` over dp:
         the ranks' shards gathered along it in rank order (every rank

@@ -30,7 +30,9 @@ matmuls: the f32 mode runs in full FP32, where the JAX package's runs at
 and its block count.
 
 Under ``--dataParallel`` each rank holds its tracks' state (axis 0 of
-every leaf) and the whole weights.
+every leaf) and the whole weights. int8's activation scale is the whole
+batch's: each layer's max |x| is reduced over the ranks (one ``pmax`` a
+layer a block), so N ranks give the one-rank run's bits.
 """
 
 from __future__ import annotations
@@ -137,7 +139,12 @@ class NeuralAmpBenchmark(StandardBufferBenchmark):
         resident input and ``state``."""
         if self.arch == "tcn":
             params, layers, dtype = self._params, self.layers, self.dtype
-            return lambda x, s: na.tcn_block(x, s, params, layers, dtype)
+            # int8 on dp ranks: one pmax of a float a layer, so every rank
+            # quantizes with the whole tensor's scale.
+            reduce = (self.dp_pmax if self.dp_ranks > 1 and dtype == "int8"
+                      else None)
+            return lambda x, s: na.tcn_block(x, s, params, layers, dtype,
+                                             reduce)
         run = na.lstm_runner(self._params, self.dtype, self._resident_input,
                              *state)
 

@@ -20,20 +20,25 @@ sample n, and out[t, n] = p[rcv(t)] * 0.1 after its last substep.
   vx', vy', vz'): the field form, which replaces the Pallas
   ``_fdtd_kernel`` (``fdtd3d_block_pallas``). With ``receivers``, an
   int32 (T,) tensor of flat cells, track t reads its own cell, as the JAX
-  ``fdtd3d_block_multircv`` (XLA only there) does; without, every track
-  reads the one ``receiver`` cell.
+  ``fdtd3d_block_multircv`` (XLA only there) does, a cell outside the
+  grid read as its gather reads it (``normalize_receivers``); without,
+  every track reads the one ``receiver`` cell.
 * ``fdtd3d_block_div_plain`` and ``fdtd3d_block_field_plain`` are their
   twins: the sample loop of the JAX functions, whole-grid tensor ops per
   substep in the order of their expressions.
+* ``receiver_buckets(receivers, n)`` -> (cells, order, starts): the
+  per-track receivers normalized and bucketed by x-plane for the field
+  kernel, by a kernel of their own on the device (``receiver_buckets_plain``
+  its twin, ``receiver_csr`` the NumPy reference of the buckets).
 
 A wrapper runs the twin only because its tensors lie on the CPU (and
 calls the operator, whose CPU implementation is the twin, while a CPU
 program is traced). On a CUDA tensor it launches a kernel or raises; it
 never falls back. The kernels are reached through the
 ``torch.ops.gpuab.fdtd_div_{cluster,planes}_launch`` and
-``fdtd_field_planes_launch`` operators (``ops/gpuab.py``), which an
-exported program calls too; a program with per-track receivers does not
-trace, as their buckets are read on the host. The library's ctypes
+``fdtd_field_planes_launch`` operators (``ops/gpuab.py``), and the
+per-track receivers' buckets through ``fdtd_receiver_buckets``; an
+exported program calls them too. The library's ctypes
 handle (``_lib``, ``bind``) serves the capacity and shared-memory queries
 (``fdtd_*_capacity``, ``fdtd_*_smem``, ``fdtd_cluster_occupancy``) and
 the cluster-barrier probe (``cluster_probe``, a measurement, not a kernel
@@ -49,7 +54,8 @@ cooperative launch of a block a plane that hands the planes on through
 L2 (``plane_schedule``; ``fdtd3d_div_coop``). The field form takes its
 plane kernel at every room (``plane_schedule(n, "field")``;
 ``fdtd3d_field``), with the per-track receivers bucketed by plane on the
-host (``receiver_csr``). The route-specific launchers
+device just before it (``fdtd3d_receiver_buckets``). The route-specific
+launchers
 ``fdtd3d_block_div_{cluster,coop}`` take CUDA tensors only; they let the
 tests and ``chip_smoke.py`` hold one route against the other at a room
 both can serve (the plane kernels serve every room from n = 3).
@@ -96,9 +102,11 @@ F_OUTPUT_SCALE = float(np.float32(OUTPUT_SCALE))
 # Launches of each CUDA kernel, counted by its wrapper where it launches
 # it (chip_smoke.py reads them to prove the main path used the kernels):
 # the divergence form's cluster kernel under the form's name, its plane
-# kernel with "_coop"; the field form's one kernel.
+# kernel with "_coop"; the field form's one kernel, and the kernel that
+# buckets its per-track receivers.
 KERNEL_LAUNCHES: Dict[str, int] = {"fdtd3d_div": 0, "fdtd3d_div_coop": 0,
-                                   "fdtd3d_field": 0}
+                                   "fdtd3d_field": 0,
+                                   "fdtd3d_receiver_buckets": 0}
 
 # The cluster route (csrc/fdtd3d.cu): blocks of 1,024 threads, at most
 # 16 in a cluster (a non-portable size on sm_90), each with at most the
@@ -116,6 +124,9 @@ MAX_CELLS_PER_THREAD = 19
 PLANE_FLAG_STRIDE = 32
 FIELD_REG_FACES_MAX_CPT = 7
 FIELD_MAX_CELLS_PER_THREAD = 17
+# The largest grid whose planes the field kernel's launcher and the
+# bucketing kernel take (csrc/fdtd3d.cu:kMaxPlanes).
+FIELD_MAX_PLANES = 139
 FORMS = ("div", "field")
 
 
@@ -220,18 +231,42 @@ def fdtd_schedule(n: int, form: str) -> FdtdPlan:
 
 
 def range_starts(plan: FdtdPlan):
-    """The plan's ranges as csrc/fdtd3d.cu takes them: blocks + 1 C ints,
+    """The plan's ranges as csrc/fdtd3d.cu takes them: blocks + 1 ints,
     block b owning [starts[b], starts[b + 1])."""
-    starts = [lo for lo, _ in plan.ranges] + [plan.ranges[-1][1]]
-    return (ctypes.c_int * len(starts))(*starts)
+    return [lo for lo, _ in plan.ranges] + [plan.ranges[-1][1]]
+
+
+def normalize_receivers(receivers: torch.Tensor, n: int) -> torch.Tensor:
+    """The flat cells (int64) that per-track receivers read in an n^3
+    grid, as the JAX package's ``p.ravel()[rcv]`` reads them: a negative
+    cell wrapped once by n^3, then every cell clamped to [0, n^3 - 1]."""
+    cells = n ** 3
+    r = receivers.to(torch.int64)
+    return torch.where(r < 0, r + cells, r).clamp(0, cells - 1)
+
+
+def receiver_buckets_plain(receivers: torch.Tensor, n: int):
+    """The twin of the bucketing kernel (``receiver_buckets``): (cells,
+    order, starts), int32 (T,), (T,) and (n + 1,): the normalized cells,
+    the rows sorted by their cell's x-plane (stably) and plane b's rows
+    at order[starts[b]:starts[b + 1]] (``receiver_csr`` on tensors)."""
+    cells = normalize_receivers(receivers, n)
+    plane = cells // (n * n)
+    order = torch.argsort(plane, stable=True)
+    starts = torch.searchsorted(plane[order],
+                                torch.arange(n + 1, device=plane.device))
+    return (cells.to(torch.int32), order.to(torch.int32),
+            starts.to(torch.int32))
 
 
 def receiver_csr(cells, n: int):
     """The per-track receivers bucketed by plane, as the field plane
-    kernel takes them: (order, starts), order the rows (int32) sorted by
-    their cell's x-plane (stably), starts (n + 1 ints) such that plane b's
-    block writes rows order[starts[b]:starts[b + 1]]. Raises on a cell
-    outside the n^3 grid."""
+    kernel takes them, in NumPy (the host reference of the bucketing
+    kernel): (order, starts), order the rows (int32) sorted by their
+    cell's x-plane (stably), starts (n + 1 ints) such that plane b's
+    block writes rows order[starts[b]:starts[b + 1]]. Takes normalized
+    cells (``normalize_receivers``); raises on a cell outside the n^3
+    grid."""
     cells = np.asarray(cells, np.int64)
     if cells.size and (cells.min() < 0 or cells.max() >= n ** 3):
         raise ValueError(f"receiver_csr: a receiver cell lies outside the "
@@ -335,8 +370,8 @@ def fdtd3d_field_from_source(src, p, vx, vy, vz, tracks: int,
     source, s = _cell(src_cell, n), src.shape[0]
     p, vx, vy, vz = p.clone(), vx.clone(), vy.clone(), vz.clone()
     boundary = boundary_mask(n, p.device)
-    cells = (receivers.to(torch.int64) if receivers is not None else
-             torch.tensor([rcv_cell], device=p.device))
+    cells = (normalize_receivers(receivers, n) if receivers is not None
+             else torch.tensor([rcv_cell], device=p.device))
     taps = torch.empty((s, cells.shape[0]), dtype=torch.float32,
                        device=p.device)
     for smp in range(s):
@@ -443,8 +478,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ip = ctypes.POINTER(ctypes.c_int)
         sig = {
             "fdtd_div_planes_launch": [p] * 8 + [i] * 5 + [f] * 5 + [ip, i, p],
-            "fdtd_field_planes_launch": ([p] * 14 + [ip] + [i] * 5 + [f] * 4
+            "fdtd_field_planes_launch": ([p] * 15 + [i] * 5 + [f] * 4
                                          + [ip, i, p]),
+            "fdtd_receiver_buckets_launch": [p, i, i, p, p, p, p],
             "fdtd_field_planes_capacity": [i],
             "fdtd_div_cluster_launch": [p] * 6 + [i] * 5 + [f] * 5 + [ip, i, p],
             "fdtd_planes_capacity": [i],
@@ -463,10 +499,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _empty(n_shape, like):
-    return torch.empty(n_shape, dtype=torch.float32, device=like.device)
-
-
 def _on_cuda(x, fn: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: a route-specific launcher takes CUDA "
@@ -483,70 +515,49 @@ def _div_op(x, p, div, n, source, receiver, plan: FdtdPlan):
     out = getattr(gpuab.load(), name)(
         source_row(x), p, div, x.shape[0], flat_cell(source, n),
         flat_cell(receiver, n), K1, K2, C6, ABSORB, F_OUTPUT_SCALE,
-        list(range_starts(plan)))
+        range_starts(plan))
     gpuab.launched(KERNEL_LAUNCHES, "fdtd3d_div" if plan.route == "cluster"
                    else "fdtd3d_div_coop")
     return out
 
 
-def _plane_scratch(n, x):
-    """Scratch of a plane kernel, written before it is read: two parities
-    of n + 2 plane slots, and a flag a block (the operators allocate
-    their own; this is for the C entries launched alone)."""
-    xch = _empty((2 * (n + 2) * plane_stride(n),), x)
-    flags = torch.empty((n * PLANE_FLAG_STRIDE,), dtype=torch.int32,
-                        device=x.device)
-    return xch, flags
-
-
-# The receivers' buckets of the last few receivers tensors, by id: (the
-# tensor, held so that its id is not reused, its version, n, order on its
-# device, the plane starts as C ints). A block function is called with the
-# same receivers block after block; bucketing them reads them to the host,
-# which waits for the device, so that happens once a tensor, not once a
-# call.
-_RECEIVER_BUCKETS: Dict[int, tuple] = {}
-_RECEIVER_BUCKETS_KEPT = 8
-
-
-def _receiver_buckets(receivers: torch.Tensor, n: int):
-    """(order, starts) of ``receiver_csr`` for a receivers tensor, order
-    on its device and starts as n + 1 C ints."""
-    hit = _RECEIVER_BUCKETS.get(id(receivers))
-    if (hit is not None and hit[0] is receivers
-            and hit[1] == receivers._version and hit[2] == n):
-        return hit[3], hit[4]
-    order, starts = receiver_csr(receivers.cpu().numpy(), n)
-    entry = (receivers, receivers._version, n,
-             torch.from_numpy(order).to(receivers.device),
-             (ctypes.c_int * len(starts))(*starts))
-    _RECEIVER_BUCKETS.pop(id(receivers), None)
-    if len(_RECEIVER_BUCKETS) >= _RECEIVER_BUCKETS_KEPT:
-        _RECEIVER_BUCKETS.pop(next(iter(_RECEIVER_BUCKETS)))
-    _RECEIVER_BUCKETS[id(receivers)] = entry
-    return entry[3], entry[4]
+def receiver_buckets(receivers: torch.Tensor, n: int):
+    """(cells, order, starts) of per-track receivers in an n^3 grid, as
+    the field plane kernel takes them (``receiver_buckets_plain``): on a
+    CUDA tensor one launch of the bucketing kernel through
+    ``torch.ops.gpuab.fdtd_receiver_buckets``, on the stream, with no host
+    read of the receivers (so a CUDA graph captures it); on a CPU tensor
+    the twin (the operator while a CPU program is traced)."""
+    fn = "receiver_buckets"
+    if (receivers.dtype != torch.int32 or receivers.dim() != 1
+            or receivers.shape[0] == 0 or not receivers.is_contiguous()):
+        raise ValueError(f"{fn}: receivers must be a contiguous int32 "
+                         f"(tracks,) tensor, got {receivers.dtype} "
+                         f"{tuple(receivers.shape)}")
+    if not 1 <= n <= FIELD_MAX_PLANES:
+        raise ValueError(f"{fn}: no bucketing kernel for an {n}^3 grid")
+    if receivers.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for {receivers.device}")
+    if not gpuab.use_op(receivers.device):
+        return receiver_buckets_plain(receivers, n)
+    out = gpuab.load().fdtd_receiver_buckets(receivers, n)
+    gpuab.launched(KERNEL_LAUNCHES, "fdtd3d_receiver_buckets")
+    return out
 
 
 def _field_op(x, p, vx, vy, vz, n, source, receiver, receivers,
               plan: FdtdPlan):
     """The field form on ``plan``'s planes through
     ``torch.ops.gpuab.fdtd_field_planes_launch`` (the CPU twin while a CPU
-    program is traced): (out, p', vx', vy', vz'). The per-track
-    receivers' plane buckets go in beside them, their plane starts as
-    ints."""
-    order = starts = None
-    if receivers is not None:
-        if gpuab.tracing():
-            raise NotImplementedError(
-                "fdtd3d_block_field: per-track receivers are bucketed by "
-                "plane on the host (receiver_csr), so a program holding "
-                "them cannot be traced")
-        order, starts = _receiver_buckets(receivers, n)
-        starts = list(starts)
+    program is traced): (out, p', vx', vy', vz'). Per-track receivers are
+    bucketed by plane on the device first (``receiver_buckets``), and
+    their normalized cells, order and plane starts go in as tensors."""
+    buckets = ((None, None, None) if receivers is None
+               else receiver_buckets(receivers, n))
     out = gpuab.load().fdtd_field_planes_launch(
-        source_row(x), p, vx, vy, vz, receivers, order, starts, x.shape[0],
+        source_row(x), p, vx, vy, vz, *buckets, x.shape[0],
         flat_cell(source, n), flat_cell(receiver, n), K1, K2, ABSORB,
-        F_OUTPUT_SCALE, list(range_starts(plan)))
+        F_OUTPUT_SCALE, range_starts(plan))
     gpuab.launched(KERNEL_LAUNCHES, "fdtd3d_field")
     return out
 
@@ -576,8 +587,9 @@ def fdtd3d_block_field(x, p, vx, vy, vz, source: Cell = SOURCE,
                        receiver: Cell = RECEIVER,
                        receivers: Optional[torch.Tensor] = None):
     """Field-form block: (out (T, S), p', vx', vy', vz'); ``receivers``
-    (int32 (T,) flat cells) gives each track its own receiver; a receiver
-    cell outside the grid raises."""
+    (int32 (T,) flat cells) gives each track its own receiver, a cell
+    outside the grid read as the JAX package reads it (a negative cell
+    wrapped once by n^3, then clamped to the grid)."""
     n = _check_field(x, p, vx, vy, vz, source, receiver, receivers,
                      "fdtd3d_block_field")
     if not gpuab.use_op(x.device):

@@ -1,7 +1,7 @@
 """The ``gpuab`` operators: the hand-written kernels as PyTorch ops.
 
 ``csrc/torch_ops.cc`` registers one operator for each C entry of a
-kernel of the package, 14 in all (``OPS``); every wrapper in ``ops/*.py``
+kernel of the package, 15 in all (``OPS``); every wrapper in ``ops/*.py``
 launches its kernel through one. Each allocates its outputs and scratch
 and returns them, but ``dwg_block_launch``, which updates its rails in
 place (``Tensor(a!)``), as its wrapper always has:
@@ -21,8 +21,10 @@ place (``Tensor(a!)``), as its wrapper always has:
   (``csrc/fdtd3d.cu``, the divergence form's two routes): (out, p',
   div') from the source row, the schedule's ranges as ``int[] starts``;
   ``fdtd_field_planes_launch``, the field form's plane kernel: (out, p',
-  vx', vy', vz'), with the per-track receivers' plane buckets as
-  ``rcv_order`` and ``int[]? rcv_starts``.
+  vx', vy', vz'), with the per-track receivers' plane buckets as the
+  tensors ``rcv_cells``, ``rcv_order`` and ``rcv_starts``, which
+  ``fdtd_receiver_buckets`` (the bucketing kernel) computes from the
+  receivers on the device: (cells, order, starts).
 * ``fma_chain_launch`` and ``fma_vmem_launch``
   (``csrc/speedoflight.cu``): the chain's result.
 
@@ -57,7 +59,7 @@ OPS = ("modal_bank_launch", "modal_res_launch", "iir_biquad_launch",
        "iir_cascade_chain_launch", "conv1d_direct_launch",
        "rndmem_gather_launch", "dwg_block_launch", "fdtd_div_cluster_launch",
        "fdtd_div_planes_launch", "fdtd_field_planes_launch",
-       "fma_chain_launch", "fma_vmem_launch")
+       "fma_chain_launch", "fma_vmem_launch", "fdtd_receiver_buckets")
 
 _LOCK = threading.Lock()
 
@@ -196,15 +198,23 @@ def _register() -> None:
         return fdtd3d.fdtd3d_div_from_source(src, p, div, tracks, src_cell,
                                              rcv_cell)
 
-    def fake_field(src, p, vx, vy, vz, receivers, rcv_order, rcv_starts,
+    def fake_field(src, p, vx, vy, vz, rcv_cells, rcv_order, rcv_starts,
                    tracks, *_rest):
         return (p.new_empty((tracks, src.shape[0])),
                 *(f.new_empty(f.shape) for f in (p, vx, vy, vz)))
 
-    def cpu_field(src, p, vx, vy, vz, receivers, rcv_order, rcv_starts,
+    def cpu_field(src, p, vx, vy, vz, rcv_cells, rcv_order, rcv_starts,
                   tracks, src_cell, rcv_cell, *_rest):
         return fdtd3d.fdtd3d_field_from_source(src, p, vx, vy, vz, tracks,
-                                               src_cell, rcv_cell, receivers)
+                                               src_cell, rcv_cell, rcv_cells)
+
+    def fake_buckets(receivers, n):
+        return (receivers.new_empty(receivers.shape),
+                receivers.new_empty(receivers.shape),
+                receivers.new_empty((n + 1,)))
+
+    def cpu_buckets(receivers, n):
+        return fdtd3d.receiver_buckets_plain(receivers, n)
 
     def fake_fma(x, k, m, c):
         return x.new_empty(x.shape)
@@ -226,6 +236,7 @@ def _register() -> None:
             ("fdtd_div_planes_launch", fake_fdtd, cpu_fdtd),
             ("fdtd_field_planes_launch", fake_field, cpu_field),
             ("fma_chain_launch", fake_fma, cpu_fma),
-            ("fma_vmem_launch", fake_fma, cpu_fma)):
+            ("fma_vmem_launch", fake_fma, cpu_fma),
+            ("fdtd_receiver_buckets", fake_buckets, cpu_buckets)):
         torch.library.register_fake(f"gpuab::{name}", fake)
         torch.library.impl(f"gpuab::{name}", "CPU", cpu)

@@ -16,7 +16,9 @@ checks its shape rules).
   (TF32 off); the JAX package's f32 mode is ``Precision.HIGH``. bf16
   keeps activations and tails in bf16 and sums every product in f32
   (``out_dtype=torch.float32``). int8 quantizes each layer's input to one
-  per-tensor scale on the device and each tap to per-output-channel
+  per-tensor scale on the device (on dp ranks, the max |x| of the whole
+  sharded tensor: each rank's max reduced over the ranks, as XLA reduces
+  the JAX package's) and each tap to per-output-channel
   scales at set-up (``cast_params``); the tap matrices are stored
   column-major, the layout cuBLAS's int8 GEMM runs fastest on. Where C is
   no multiple of 8 (``torch._int_mm`` on CUDA takes K and N in multiples
@@ -42,7 +44,7 @@ package's, in NumPy.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +57,9 @@ from gpuaudiobench_tpu_torch.ops.speedoflight import (
 )
 
 KERNEL = 3  # tap count per dilated layer (micro-TCN's standard k)
+
+# A reduction of a 0-d tensor over the ranks that shard it (``pmax``).
+MaxReduce = Callable[[torch.Tensor], torch.Tensor]
 
 # LSTM blocks run as graph replays, counted where the replay is issued
 # (chip_smoke.py reads the count to prove the main path replayed graphs).
@@ -175,12 +180,18 @@ def int8_width(channels: int) -> int:
     return -(-channels // INT_MM_MULTIPLE) * INT_MM_MULTIPLE
 
 
-def quantize_activation(ext: torch.Tensor) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+def quantize_activation(ext: torch.Tensor,
+                        reduce_max: Optional[MaxReduce] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 values, f32 scale) of one layer input: one per-tensor scale
-    max(|ext|) / 127 kept on the device, round half to even, clip."""
+    max(|ext|) / 127 kept on the device, round half to even, clip.
+    ``reduce_max`` takes the local max to the max over every shard of the
+    tensor (``Benchmark.dp_pmax``; None: ``ext`` is the whole tensor)."""
     ext32 = ext.float()
-    s_a = torch.clamp_min(ext32.abs().amax(), 1e-12) / 127.0
+    peak = ext32.abs().amax()
+    if reduce_max is not None:
+        peak = reduce_max(peak)
+    s_a = torch.clamp_min(peak, 1e-12) / 127.0
     q = torch.clamp(torch.round(ext32 / s_a), -127, 127).to(torch.int8)
     return q, s_a
 
@@ -199,13 +210,15 @@ def _tap(acc: torch.Tensor, seg: torch.Tensor, w: torch.Tensor
     return torch.baddbmm(acc, seg, wb, out_dtype=F32, out=out)
 
 
-def _int8_taps(ext: torch.Tensor, w: torch.Tensor, d: int, b: int
+def _int8_taps(ext: torch.Tensor, w: torch.Tensor, d: int, b: int,
+               reduce_max: Optional[MaxReduce] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int32 sum of the K int8 tap products of one layer, (T, B, C),
-    and the activation scale. ``w`` is ``cast_params``' padded stack: the
-    quantized input is zero-padded to its width once, and the padded
-    output channels sliced away."""
-    q, s_a = quantize_activation(ext)
+    and the activation scale (``quantize_activation``'s, with
+    ``reduce_max``). ``w`` is ``cast_params``' padded stack: the quantized
+    input is zero-padded to its width once, and the padded output channels
+    sliced away."""
+    q, s_a = quantize_activation(ext, reduce_max)
     t, c = ext.shape[0], ext.shape[2]
     width = w.shape[1]
     if width != c:
@@ -221,11 +234,13 @@ def _int8_taps(ext: torch.Tensor, w: torch.Tensor, d: int, b: int
 
 def tcn_block(x: torch.Tensor, tails: Tuple[torch.Tensor, ...],
               params: Dict[str, torch.Tensor], layers: int,
-              dtype: str = "f32"
+              dtype: str = "f32", reduce_max: Optional[MaxReduce] = None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """One streamed block of TCN inference: x (T, B) f32, tails the
     (T, (K-1)*2^l, C) carried layer inputs, params from ``cast_params``.
-    Returns (y (T, B) f32, tails'). The inputs are not written."""
+    Returns (y (T, B) f32, tails'). The inputs are not written. In int8,
+    ``reduce_max`` reduces each layer's activation max over the shards of
+    the tracks (``quantize_activation``); None on one rank."""
     act = activation_dtype(dtype)
     t, b = x.shape
     h = torch.tanh(x[..., None] * params["w_in"] + params["b_in"]).to(act)
@@ -236,7 +251,8 @@ def tcn_block(x: torch.Tensor, tails: Tuple[torch.Tensor, ...],
         ext = torch.cat([tails[l], h], dim=1)  # (T, B + ctx, C)
         new_tails.append(ext[:, -ctx:].clone())
         if dtype == "int8":
-            acc_i, s_a = _int8_taps(ext, params[f"w{l}"], d, b)
+            acc_i, s_a = _int8_taps(ext, params[f"w{l}"], d, b,
+                                    reduce_max)
             acc = (acc_i.float() * (s_a * params[f"w{l}_s"])
                    + params[f"b{l}"])
         else:

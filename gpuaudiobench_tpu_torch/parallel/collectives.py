@@ -1,13 +1,15 @@
 """The collectives of the JAX package's SPMD programs, on a ``Mesh``.
 
 Counterparts of ``jax.lax.all_gather(..., tiled=True)``, ``psum``,
-``ppermute`` and ``axis_index`` inside ``shard_map``, with their
+``pmax``, ``ppermute`` and ``axis_index`` inside ``shard_map``, with their
 semantics, over ``torch.distributed`` on the axis's process group (NCCL
 on CUDA devices, gloo on the CPU):
 
 * ``all_gather(x, mesh, axis, dim)``: the axis's shards of ``x``
   concatenated along ``dim`` in axis order.
 * ``psum(x, mesh, axis)``: the sum over the axis, on every member.
+* ``pmax(x, mesh, axis)``: the elementwise max over the axis, on every
+  member (exact, so every member holds the same bits).
 * ``ppermute(x, mesh, axis, perm)``: ``perm`` pairs (source, destination)
   of axis indices; a member that is no pair's destination gets zeros (an
   open chain's first member does). It runs as one
@@ -18,7 +20,7 @@ On a one-member axis each returns its input and communicates nothing.
 Every collective that communicates is counted in ``COLLECTIVES``, one
 record a call (the counterpart of the kernels' ``KERNEL_LAUNCHES``):
 its kind, axis, axis size and bytes, where the bytes are those of the
-whole gathered output (all_gather), of the summed tensor (psum), or
+whole gathered output (all_gather), of the reduced tensor (psum, pmax), or
 shipped by each member (ppermute), as the JAX package's collective
 inventory counts them (``parallel/ici_model.py``).
 """
@@ -57,14 +59,23 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
     return out
 
 
-def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+def _all_reduce(kind: str, op, x: torch.Tensor, mesh: Mesh,
+                axis: str) -> torch.Tensor:
     n = mesh.axis_size(axis)
     if n == 1:
         return x
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=mesh.group(axis))
-    _record("psum", axis, n, out)
+    dist.all_reduce(out, op=op, group=mesh.group(axis))
+    _record(kind, axis, n, out)
     return out
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    return _all_reduce("psum", dist.ReduceOp.SUM, x, mesh, axis)
+
+
+def pmax(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    return _all_reduce("pmax", dist.ReduceOp.MAX, x, mesh, axis)
 
 
 def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
@@ -121,5 +132,5 @@ def unshard(local: torch.Tensor, mesh: Mesh,
     return out
 
 
-__all__ = ["COLLECTIVES", "all_gather", "axis_index", "ppermute", "psum",
-           "ring", "unshard"]
+__all__ = ["COLLECTIVES", "all_gather", "axis_index", "pmax", "ppermute",
+           "psum", "ring", "unshard"]

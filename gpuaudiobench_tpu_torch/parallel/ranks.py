@@ -55,7 +55,8 @@ def collectives_check(shapes: Sequence[Sequence[int]], x: np.ndarray,
     all three axes (one axis a dimension), then along each axis its tiled
     all_gather, psum, ring ppermute and open-chain ppermute, whole, and
     each rank's (dp, tp, sp) indices; ``"records"`` the collectives that
-    communicated."""
+    communicated. Then, apart, ``"pmax <axis>"``: each axis's pmax of the
+    shard, whole, and ``"pmax records"`` the pmaxes that communicated."""
     dev = rank_device(device)
     out = []
     for shape in shapes:
@@ -79,6 +80,12 @@ def collectives_check(shapes: Sequence[Sequence[int]], x: np.ndarray,
                            device=dev)
         res["axis_index"] = _host(col.unshard(idx, mesh, AXES + (None,)))
         res["records"] = [dict(c) for c in col.COLLECTIVES[mark:]]
+        mark = len(col.COLLECTIVES)
+        for dim, axis in enumerate(AXES):
+            rest = tuple(None if d == dim else a for d, a in enumerate(AXES))
+            res[f"pmax {axis}"] = _host(col.unshard(
+                col.pmax(local, mesh, axis), mesh, rest))
+        res["pmax records"] = [dict(c) for c in col.COLLECTIVES[mark:]]
         out.append(res)
     return out
 

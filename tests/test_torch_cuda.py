@@ -956,7 +956,8 @@ def test_fdtd_cluster_probe_runs_and_is_schedulable(cuda):
     plan = fops.fdtd_schedule(n, "div")
     assert fops.cluster_occupancy(plan.blocks, plan.smem_bytes, cuda) >= 1
     lib = fops._lib()
-    starts = fops.range_starts(plan)
+    cuts = fops.range_starts(plan)
+    starts = (ctypes.c_int * len(cuts))(*cuts)
     assert lib.fdtd_cluster_smem(n, starts, plan.blocks) == plan.smem_bytes
     assert lib.fdtd_cluster_occupancy(n, starts, plan.blocks) >= 1
     fops.cluster_probe(plan.blocks, plan.smem_bytes, 64, cuda)
@@ -991,7 +992,8 @@ def test_fdtd_plane_kernel_matches_twin_bit_for_bit(cuda, room, s):
     assert _same(got, twin)
     assert got[1][0].abs().max().item() > 0
     assert {k: v - before[k] for k, v in fops.KERNEL_LAUNCHES.items()} \
-        == {"fdtd3d_div": 0, "fdtd3d_div_coop": 2, "fdtd3d_field": 0}
+        == {"fdtd3d_div": 0, "fdtd3d_div_coop": 2, "fdtd3d_field": 0,
+            "fdtd3d_receiver_buckets": 0}
 
 
 def test_fdtd_plane_kernel_is_deterministic(cuda):
@@ -1087,7 +1089,8 @@ def test_fdtd_field_plane_kernel_matches_twin_bit_for_bit(cuda, room, s,
     got = _field_chain(fops.fdtd3d_block_field, x, n, src, rcv, cuda, cells)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in fops.KERNEL_LAUNCHES.items()} \
-        == {"fdtd3d_div": 0, "fdtd3d_div_coop": 0, "fdtd3d_field": 2}
+        == {"fdtd3d_div": 0, "fdtd3d_div_coop": 0, "fdtd3d_field": 2,
+            "fdtd3d_receiver_buckets": 2 if per_track else 0}
     twin = _field_chain(fops.fdtd3d_block_field_plain, x, n, src, rcv, cuda,
                         cells)
     torch.cuda.synchronize()
@@ -1107,11 +1110,13 @@ def test_fdtd_field_plane_kernel_is_deterministic(cuda):
 
 
 def test_fdtd_field_plane_launch_refuses_what_it_cannot_carry(cuda):
-    """The C launcher takes only the schedule's planes, rows of out that
-    cover every track in order, and grids a build takes: it refuses the
-    others before launching anything, and the wrapper then raises and
-    counts no launch. Its shared memory is the schedule's, and the card
-    holds its grid, at rooms on both layouts."""
+    """The C launcher takes only the schedule's planes and grids a build
+    takes, and the operator only receivers' buckets of the shapes the
+    bucketing kernel gives (n + 1 plane starts, a cell and a row a
+    track, int32 on the card): it refuses the others before launching
+    anything, and the wrapper then raises and counts no launch. Its
+    shared memory is the schedule's, and the card holds its grid, at
+    rooms on both layouts."""
     lib = fops._lib()
     for room in (8, 50, 82, 83, 128):
         n = fops.grid_n(room)
@@ -1123,30 +1128,36 @@ def test_fdtd_field_plane_launch_refuses_what_it_cannot_carry(cuda):
     x = _fdtd_x(tracks, s, cuda)
     fields = fops.zero_fields(n, cuda)
     cells = _field_receivers(n, src, tracks, cuda)
-    order, rstarts = fops._receiver_buckets(cells, n)
-    starts = list(fops.range_starts(fops.plane_schedule(n, "field")))
-    rows = list(rstarts)
+    rows = fops.receiver_buckets(cells, n)
+    starts = fops.range_starts(fops.plane_schedule(n, "field"))
     bad_planes = [starts[:-1] + [starts[-1] - 1], [0, starts[1] + 1]
                   + starts[2:]]
-    bad_rows = [rows[:-1] + [tracks - 1], [1] + rows[1:],
-                [0, rows[2] + 1, rows[2]] + rows[3:]]
+    cut, order, rcv_starts = rows
+    bad_rows = [(cut, order, rcv_starts[:-1].clone()),
+                (cut, order[:-1].clone(), rcv_starts),
+                (cut.cpu(), order, rcv_starts),
+                (cut, order.to(torch.int64), rcv_starts),
+                (cut, None, rcv_starts)]
     ops = gpuab.load()
 
-    def launch(st, rs, per_track=True):
+    def launch(st, rs):
         return ops.fdtd_field_planes_launch(
-            fops.source_row(x), *fields, cells if per_track else None,
-            order if per_track else None, rs if per_track else None, tracks,
+            fops.source_row(x), *fields, *rs, tracks,
             fops.flat_cell(src, n), fops.flat_cell(rcv, n), fops.K1,
             fops.K2, fops.ABSORB, fops.F_OUTPUT_SCALE, st)
 
     launch(starts, rows)
-    launch(starts, rows, per_track=False)
+    launch(starts, (None, None, None))
     for st in bad_planes:
         with pytest.raises(RuntimeError, match="field_planes_launch failed"):
             launch(st, rows)
     for rs in bad_rows:
-        with pytest.raises(RuntimeError, match="field_planes_launch failed"):
+        with pytest.raises(RuntimeError, match="fdtd_field_planes_launch"):
             launch(starts, rs)
+    with pytest.raises(RuntimeError, match="fdtd_receiver_buckets"):
+        ops.fdtd_receiver_buckets(cells.to(torch.int64), n)
+    with pytest.raises(RuntimeError, match="fdtd_receiver_buckets failed"):
+        ops.fdtd_receiver_buckets(cells, 140)  # more planes than a build
     torch.cuda.synchronize()
     # 132 planes: no build takes 17,424 cells a block (19 a thread); a
     # plan that asks for them anyway is refused before the launch
@@ -1164,6 +1175,99 @@ def test_fdtd_field_plane_launch_refuses_what_it_cannot_carry(cuda):
         fops.fdtd3d_block_field(x, *fops.zero_fields(n, cuda), src, rcv)
     torch.cuda.synchronize()
     assert fops.KERNEL_LAUNCHES == before
+
+
+# -- the per-track receivers bucketed on the card ----------------------
+#
+# The bucketing kernel against its twin (receiver_buckets_plain): the
+# normalized cells and the plane starts bit for bit, each plane's rows as
+# a set (the kernel's order within a plane is its shared-memory atomics'),
+# at the benchmark's 128 tracks and at 65,536, room 50, cells drawn over
+# [-2 n^3, 2 n^3), and at a few tracks in the smallest and the largest
+# grid.
+BUCKET_CASES = [(128, 52), (65536, 52), (5, 3), (1000, 139)]
+
+
+def _off_grid_cells(tracks, n, device, seed=5):
+    g = np.random.Generator(np.random.MT19937(seed))
+    cells = g.integers(-2 * n ** 3, 2 * n ** 3, tracks).astype(np.int32)
+    return torch.from_numpy(cells).to(device)
+
+
+@pytest.mark.parametrize("tracks,n", BUCKET_CASES)
+def test_fdtd_receiver_buckets_match_twin(cuda, tracks, n):
+    rcv = _off_grid_cells(tracks, n, cuda)
+    before = fops.KERNEL_LAUNCHES["fdtd3d_receiver_buckets"]
+    cells, order, starts = fops.receiver_buckets(rcv, n)
+    torch.cuda.synchronize()
+    assert fops.KERNEL_LAUNCHES["fdtd3d_receiver_buckets"] == before + 1
+    want = fops.receiver_buckets_plain(rcv.cpu(), n)
+    assert torch.equal(cells.cpu(), want[0])
+    assert torch.equal(starts.cpu(), want[2])
+    got_order, want_order = order.cpu().tolist(), want[1].tolist()
+    cuts = want[2].tolist()
+    for b in range(n):
+        assert (sorted(got_order[cuts[b]:cuts[b + 1]])
+                == sorted(want_order[cuts[b]:cuts[b + 1]])), b
+    assert sorted(got_order) == list(range(tracks))
+
+
+# The field kernel on receivers off the grid (the two sets given at room
+# 8, then edges and random cells at room 50), bit for bit the twin over 2
+# blocks: each row read from the cell the JAX package's gather reads.
+FIELD_OFF_GRID = [(8, [503, -1, 7, 100]), (8, [0, 1040, -1009, 12]),
+                  (50, None)]
+
+
+@pytest.mark.parametrize("room,cells", FIELD_OFF_GRID)
+def test_fdtd_field_kernel_reads_off_grid_receivers_as_the_twin(cuda, room,
+                                                                cells):
+    n, src, rcv = (fops.grid_n(room), fops.source_pos(room),
+                   fops.receiver_pos(room))
+    if cells is None:
+        rcvs = _off_grid_cells(128, n, cuda)
+        rcvs[:4] = torch.tensor([n ** 3 + 40, -1, -n ** 3 - 9, n ** 3 - 1])
+    else:
+        rcvs = torch.tensor(cells, dtype=torch.int32, device=cuda)
+    x = _fdtd_x(rcvs.numel(), 24, cuda)
+    got = _field_chain(fops.fdtd3d_block_field, x, n, src, rcv, cuda, rcvs)
+    twin = _field_chain(fops.fdtd3d_block_field_plain, x, n, src, rcv, cuda,
+                        rcvs)
+    torch.cuda.synchronize()
+    assert _same(got, twin)
+
+
+def test_fdtd_field_block_captures_with_receivers_never_seen(cuda):
+    """A field block with a receivers tensor no call has seen captures
+    into a CUDA graph (nothing reads the receivers on the host), its
+    replay gives the eager block's bits, and a replay after the
+    receivers are changed in place reads the new cells."""
+    room = 50
+    n, src, rcv = (fops.grid_n(room), fops.source_pos(room),
+                   fops.receiver_pos(room))
+    x = _fdtd_x(128, 16, cuda)
+    fields = fops.zero_fields(n, cuda)
+    fields[0][26, 26, 6] = 1.0  # a ringing room
+    first = _field_receivers(n, src, 128, cuda)
+    second = _off_grid_cells(128, n, cuda, seed=9)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):  # warm-up, on other receivers
+        fops.fdtd3d_block_field(x, *fields, src, rcv, receivers=second)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    fresh = first.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fops.fdtd3d_block_field(x, *fields, src, rcv, receivers=fresh)
+    for cells in (first, second):
+        fresh.copy_(cells)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = fops.fdtd3d_block_field_plain(x, *fields, src, rcv,
+                                             receivers=cells)
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert len(set(out[0][:, -1].tolist())) > 1
 
 
 # The speed-of-light kernels (rows, width, k): against the twin within

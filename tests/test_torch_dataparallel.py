@@ -23,7 +23,13 @@ every tier in lock step. Checked for each case:
 * ``metadata.collectiveInventory`` lists the collectives a round trip
   issued: one psum of the (T_out, S), (S,) and (3, B) bus tensors for
   ModalFilterBank, DWG and DAWSessionMix, one all_gather for the
-  datacopy family and Conv1D's bleed halo, none for the rest.
+  datacopy family and Conv1D's bleed halo, one pmax of a float a layer
+  for int8 NeuralAmp (its activation scale), none for the rest.
+
+NeuralAmp in int8 (C = 12, padded to 16, and C = 16) is held to its own
+tolerance against the JAX package, and bit for bit to the one-rank run;
+a further test runs it on 2 and 4 ranks too, against the JAX package's
+max error at the same data_parallel.
 """
 
 from __future__ import annotations
@@ -45,8 +51,9 @@ TOY = dict(buffer_size=64, n_tracks=16, n_runs=2, warmup=1,
            write_latencies=False, pipeline_depth=4, saturated_reps=2)
 # (id, name, config fields): the 21 names the JAX package shards, two
 # IIR forms and three Conv1D windows (bleed at L = 33 <= S and at the
-# default L = 1,024, whose 16-track halo spans several ranks). The
-# datacopy pools are the smallest whose portions 2, 4 and 8 ranks divide.
+# default L = 1,024, whose 16-track halo spans several ranks), and
+# NeuralAmp in int8 at C = 12 and 16. The datacopy pools are the smallest
+# whose portions 2, 4 and 8 ranks divide.
 CASES = [(n, n, dict(TOY)) for n in (
     "NoOp", "gain", "GainStats", "IIRFilter", "BiquadChain", "FFT1D",
     "Conv1D", "Conv1D_accel", "ModalFilterBank", "DWG1DNaive",
@@ -59,6 +66,12 @@ CASES = [(n, n, dict(TOY)) for n in (
     ("PartConv", "PartConv", dict(TOY, ir_length=256)),
     ("NeuralAmp", "NeuralAmp", dict(TOY, neuralamp_channels=16,
                                     neuralamp_layers=4)),
+    ("NeuralAmp-int8-C12", "NeuralAmp", dict(
+        TOY, neuralamp_dtype="int8", neuralamp_channels=12,
+        neuralamp_layers=4)),
+    ("NeuralAmp-int8-C16", "NeuralAmp", dict(
+        TOY, neuralamp_dtype="int8", neuralamp_channels=16,
+        neuralamp_layers=4)),
     ("NeuralAmpLSTM", "NeuralAmpLSTM", dict(TOY, neuralamp_channels=16)),
     ("DAWSessionMix", "DAWSessionMix", dict(TOY, ir_length=256)),
     ("datacopy5050", "datacopy5050", dict(TOY, transfer_mib=1)),
@@ -81,6 +94,9 @@ TOLERANCE = {
     "PartConv": (1e-3, "rel"), "NeuralAmp": (1e-4, "rel"),
     "NeuralAmpLSTM": (1e-4, "rel"), "DAWSessionMix": (1e-3, "rel"),
 }
+# NeuralAmp's tolerance in int8 (models/neuralamp.py:TOLERANCE): one
+# rounding step of an int8 activation moves an output by ~1e-4 of the peak.
+INT8_TOLERANCE = (5e-2, "rel")
 # The state arrays' own tolerances, where a benchmark validates them.
 STATE_TOLERANCE = {"host_stats": 1e-4, "host_state": 1e-3,
                    "host_states": 1e-3}
@@ -98,7 +114,9 @@ ROUND_TRIPS = 1 + TOY["warmup"] + TOY["n_runs"]
 SKIP_HOST = ("host_input", "host_pool")
 
 
-def tolerance(name: str):
+def tolerance(name: str, fields: dict = None):
+    if (fields or {}).get("neuralamp_dtype") == "int8":
+        return INT8_TOLERANCE
     return TOLERANCE.get(name, (1e-5, "abs"))  # datacopy*: 1e-5
 
 
@@ -113,12 +131,12 @@ def within(got, want, tol, kind) -> float:
     return err / (tol * scale)
 
 
-def jax_host(name: str, fields: dict) -> dict:
-    """The JAX benchmark's host arrays at data_parallel=8 after
+def jax_host(name: str, fields: dict, ranks: int = RANKS) -> dict:
+    """The JAX benchmark's host arrays at data_parallel=``ranks`` after
     ``ROUND_TRIPS`` round trips (its set-up makes the first)."""
     known = {f.name for f in dataclasses.fields(JaxConfig)}
     cfg = JaxConfig(**{k: v for k, v in fields.items() if k in known},
-                    data_parallel=RANKS, device_timing=False)
+                    data_parallel=ranks, device_timing=False)
     b = jax_create(name, cfg)
     b.setup()
     for _ in range(ROUND_TRIPS - 1):
@@ -127,7 +145,7 @@ def jax_host(name: str, fields: dict) -> dict:
     v = b.validate()
     host = {k: np.asarray(v_) for k, v_ in vars(b).items()
             if k.startswith("host_") and isinstance(v_, np.ndarray)}
-    return {"passed": v.passed, "host": host}
+    return {"passed": v.passed, "max_error": v.max_error, "host": host}
 
 
 @pytest.fixture(scope="module")
@@ -178,7 +196,7 @@ def test_matches_the_jax_package_at_dp8(runs, jax_runs, cid):
     assert theirs["passed"]
     shared = set(ours) & set(theirs["host"])
     assert {"host_output", "host_re"} & shared, sorted(ours)
-    tol, kind = tolerance(name)
+    tol, kind = tolerance(name, fields)
     for k in sorted(shared):
         want = theirs["host"][k]
         assert ours[k].shape == want.shape, k
@@ -254,6 +272,54 @@ def test_collective_inventory_lists_a_round_trips_collectives(runs, cid):
         halo = -(-(fields.get("ir_length", 1024) - 1) // s)
         want = [("all_gather", "dp", RANKS,
                  RANKS * min(halo, t // RANKS) * s * 4)]
+    elif fields.get("neuralamp_dtype") == "int8":
+        # one float a layer: the activation's max |x| over the ranks
+        want = [("pmax", "dp", RANKS, 4)] * fields["neuralamp_layers"]
     else:
         want = []
     assert inv == want
+
+
+# int8 NeuralAmp quantizes each layer's input with the whole batch's
+# scale: on 2, 4 and 8 ranks its output is the one-rank run's bit for
+# bit, its max error against the golden is the JAX package's at the same
+# data_parallel (within INT8_MAX_ERROR_ATOL: the two packages' f32
+# epilogues may round an output's last bit apart), and a round trip
+# issues one pmax a layer.
+INT8_IDS = [c[0] for c in CASES if c[2].get("neuralamp_dtype") == "int8"]
+INT8_WORLDS = (2, 4)
+INT8_MAX_ERROR_ATOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def int8_runs(runs):
+    """{world: {id: run}} of the int8 cases at INT8_WORLDS ranks (one
+    launch a world) and, from ``runs``, at RANKS."""
+    cases = [(name, fields) for cid, name, fields in CASES
+             if cid in INT8_IDS]
+    out = {RANKS: {cid: runs[cid][1] for cid in INT8_IDS}}
+    for world in INT8_WORLDS:
+        got = spmd(ranks.dp_runs, world, "cpu", cases, "cpu",
+                   timeout_s=SPAWN_TIMEOUT_S)
+        out[world] = dict(zip(INT8_IDS, got))
+    return out
+
+
+@pytest.mark.parametrize("world", INT8_WORLDS + (RANKS,))
+@pytest.mark.parametrize("cid", INT8_IDS)
+def test_int8_quantizes_with_the_whole_batchs_scale(runs, int8_runs, cid,
+                                                    world):
+    _, name, fields = _case(cid)
+    one, many = runs[cid][0], int8_runs[world][cid]
+    assert not isinstance(many, str), many
+    for k, v in outputs(one[1]).items():
+        assert np.array_equal(v, many[1][k]), k
+    rec = many[0]
+    assert rec["validation"]["status"] == "SUCCESS"
+    theirs = jax_host(name, fields, world)
+    assert theirs["passed"]
+    assert abs(rec["validation"]["max_error"]
+               - theirs["max_error"]) <= INT8_MAX_ERROR_ATOL
+    inv = [(c["kind"], c["axis_n"], c["bytes"])
+           for c in rec["metadata"]["collectiveInventory"]]
+    assert inv == [("pmax", world, 4)] * fields["neuralamp_layers"]

@@ -17,7 +17,11 @@ export_programs.py``) and its ``gpuab`` operators (``ops/gpuab.py``,
 * the operator library builds on the CPU with its six schemas, its CPU
   implementations are the twins, and a CPU program calls the operators;
 * the ``modal`` program, exported and compiled by AOTInductor, equals the
-  eager twin in this process (``aoti_load_package``).
+  eager twin in this process (``aoti_load_package``);
+* a field step with per-track receivers exports: the program holds the
+  bucketing and the field operators and takes the receivers as an input,
+  and equals the eager call bit for bit, receivers off the grid among
+  them.
 """
 
 import dataclasses
@@ -257,6 +261,43 @@ def test_exported_cpu_program_calls_the_operator(name, op):
     assert f"gpuab.{op}.default" in targets
     assert len(targets) < 40  # the kernel is one node, not a sample loop
     assert {m: dict(m.KERNEL_LAUNCHES) for m in before} == before
+
+
+class _FieldStep(torch.nn.Module):
+    """One field-form block with per-track receivers, the receivers an
+    input of the program."""
+
+    def __init__(self, room):
+        super().__init__()
+        self.src = fdtd3d.source_pos(room)
+        self.rcv = fdtd3d.receiver_pos(room)
+
+    def forward(self, x, p, vx, vy, vz, receivers):
+        return fdtd3d.fdtd3d_block_field(x, p, vx, vy, vz, self.src,
+                                         self.rcv, receivers=receivers)
+
+
+def test_per_track_field_step_exports(rng):
+    gpuab.load()
+    n = fdtd3d.grid_n(ROOM)
+    x = torch.from_numpy(rng.standard_normal((4, 16), np.float32))
+    fields = fdtd3d.zero_fields(n)
+    fields[0][3, 4, 5] = 0.5  # a ringing room
+    rcv = torch.tensor([503, -1, 7, 100], dtype=torch.int32)
+    before = dict(fdtd3d.KERNEL_LAUNCHES)
+    prog = torch.export.export(_FieldStep(ROOM), (x, *fields, rcv))
+    targets = [str(nd.target) for nd in prog.graph.nodes
+               if nd.op == "call_function"]
+    assert "gpuab.fdtd_receiver_buckets.default" in targets
+    assert "gpuab.fdtd_field_planes_launch.default" in targets
+    assert len(targets) < 40
+    assert fdtd3d.KERNEL_LAUNCHES == before
+    for cells in ([503, -1, 7, 100], [0, 1040, -1009, 12], [12, 7, 3, 900]):
+        r = torch.tensor(cells, dtype=torch.int32)
+        got = prog.module()(x, *fields, r)
+        want = _FieldStep(ROOM)(x, *fields, r)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), cells
+    assert fdtd3d.KERNEL_LAUNCHES == before
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,9 @@ ringing room. Tolerances, absolute:
 * the field twin against the JAX ``fdtd3d_block`` and
   ``fdtd3d_block_pallas``, and with per-track receivers against
   ``fdtd3d_block_multircv``: 1e-6 (the same float32 updates; the
-  reference's bar, tests/test_pallas_ops.py:33);
+  reference's bar, tests/test_pallas_ops.py:33), receivers off the grid
+  among them (read as XLA's gather reads them: a negative cell wrapped
+  once, then clamped);
 * the divergence twin against ``fdtd3d_block_pallas_div`` (div' too) and
   against the field twin: 1e-5 (the divergence form reassociates the
   update; the reference's bar, tests/test_benchmarks.py:189);
@@ -164,6 +166,70 @@ def test_per_track_receivers_match_jax_multircv(rng, room, s):
         for a, b in zip(ours, theirs):
             _close(a, b, FIELD_ATOL)
     assert len(set(out[:, -1].tolist())) > 1  # the tracks differ
+
+
+# Receivers off the grid: the two sets given at room 8 (n^3 = 1,000) and
+# one built from n^3 (past the end, -1, wrapped and still negative, the
+# last cell).
+OFF_GRID = {"a": lambda n3: [503, -1, 7, 100],
+            "b": lambda n3: [0, 1040, -1009, 12],
+            "edges": lambda n3: [n3 + 40, -1, -n3 - 9, n3 - 1]}
+
+
+@pytest.mark.parametrize("cells", sorted(OFF_GRID))
+@pytest.mark.parametrize("room,s", CASES)
+def test_off_grid_receivers_read_as_jax_multircv(rng, room, s, cells):
+    """No receiver value raises: ``fdtd3d_block_field`` (its CPU twin
+    here) reads each cell as the JAX ``fdtd3d_block_multircv`` gathers it,
+    over 2 blocks, within FIELD_ATOL."""
+    n, src, rcv = _geometry(room)
+    flat = np.array(OFF_GRID[cells](n ** 3), np.int32)
+    x = _x(rng, s, flat.size)
+    ours = op.zero_fields(n)
+    theirs = tuple(np.asarray(f) for f in ours)
+    for _ in range(2):
+        out, *ours = op.fdtd3d_block_field(_t(x), *ours, src, rcv,
+                                           receivers=_t(flat))
+        ref, *theirs = jop.fdtd3d_block_multircv(x, *theirs, flat, source=src)
+        _close(out, ref, FIELD_ATOL)
+        for a, b in zip(ours, theirs):
+            _close(a, b, FIELD_ATOL)
+
+
+@pytest.mark.parametrize("room", [8, 14, 128])
+def test_normalized_receivers_are_jax_gathers(room):
+    """``normalize_receivers`` is the cell ``jnp`` indexing reads: a
+    negative index wrapped once, then clamped to the array."""
+    import jax.numpy as jnp
+
+    n3 = op.grid_n(room) ** 3
+    raw = np.array([0, 1, n3 - 1, n3, n3 + 7, 10 * n3, -1, -n3, -n3 - 1,
+                    -5 * n3, 2 ** 31 - 1, -2 ** 31], np.int64).astype(
+                        np.int32)
+    want = np.asarray(jnp.arange(n3, dtype=jnp.int32)[jnp.asarray(raw)])
+    got = op.normalize_receivers(_t(raw), op.grid_n(room))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_receiver_buckets_wrapper_on_cpu_is_the_twin():
+    n = op.grid_n(8)
+    rcv = _t(np.array([503, -1, 7, 100, 0, 1040, -1009, 12], np.int32))
+    launches = dict(op.KERNEL_LAUNCHES)
+    cells, order, starts = op.receiver_buckets(rcv, n)
+    assert op.KERNEL_LAUNCHES == launches
+    for g, w in zip((cells, order, starts),
+                    op.receiver_buckets_plain(rcv, n)):
+        assert torch.equal(g, w)
+    assert cells.tolist() == [503, 999, 7, 100, 0, 999, 0, 12]
+    ref_order, ref_starts = op.receiver_csr(cells.numpy(), n)
+    assert order.tolist() == ref_order.tolist()
+    assert starts.tolist() == ref_starts
+    for bad in (rcv.to(torch.int64), rcv[None], rcv[::2], rcv[:0]):
+        with pytest.raises(ValueError, match="contiguous int32"):
+            op.receiver_buckets(bad, n)
+    with pytest.raises(ValueError, match="no bucketing kernel"):
+        op.receiver_buckets(rcv, op.FIELD_MAX_PLANES + 1)
 
 
 @pytest.mark.parametrize("room", [8, 14, 50, 128])

@@ -1,7 +1,9 @@
 """The eight kernels that became ``gpuab`` operators last (``ops/gpuab.py``,
 ``csrc/torch_ops.cc``): the modal resonator, the IIR block-state kernel and
 chain cascade, the RndMem gather, the DWG block, the FDTD field form's
-plane kernel and the two speed-of-light chains. On the CPU, for each:
+plane kernel and the two speed-of-light chains; and the kernel that
+buckets the field form's per-track receivers by plane on the card
+(``fdtd_receiver_buckets``). On the CPU, for each:
 
 * ``torch.library.opcheck`` of its operator on CPU tensors (schema, the
   mutated arguments, the fake against the CPU implementation, the
@@ -21,6 +23,11 @@ plane kernel and the two speed-of-light chains. On the CPU, for each:
   states 1e-5 (``tests/test_torch_modal_res.py``), the chains 1e-5
   (``tests/test_torch_speedoflight.py``). Pallas kernels run in interpret
   mode, as the JAX package's own tests run them.
+
+The per-track field step takes receivers off the grid too, which both
+packages read as XLA's gather does, and its program takes the receivers
+as an input; the bucketing operator's CPU implementation gives
+``receiver_csr``'s buckets on the normalized cells.
 
 The library builds here with g++ against PyTorch's headers, without its
 CUDA part: every operator has its schema, its fake and its CPU twin.
@@ -220,6 +227,8 @@ def _field_case(rng, per_track: bool) -> Case:
     fields = tuple(np.asarray(f) for f in fdtd3d.zero_fields(n))
     xs, ys, zs = fdtd3d.receiver_line(tracks, n)
     flat = ((xs.astype(np.int64) * n + ys) * n + zs).astype(np.int32)
+    # two tracks off the grid: one past its end, one negative
+    flat[1], flat[4] = n ** 3 + 40, -3
     plan = fdtd3d.plane_schedule(n, "field")
 
     def step(xx, p, vx, vy, vz, *rows):
@@ -234,13 +243,12 @@ def _field_case(rng, per_track: bool) -> Case:
                                   receiver=rcv)
 
     def op_args(xx, p, vx, vy, vz, *rows):
-        order, starts = fdtd3d.receiver_csr(flat, n)
-        extra = ((rows[0], torch.from_numpy(order), starts) if rows
+        extra = (fdtd3d.receiver_buckets_plain(rows[0], n) if rows
                  else (None, None, None))
         return (fdtd3d.source_row(xx), p, vx, vy, vz, *extra, tracks,
                 fdtd3d.flat_cell(src, n), fdtd3d.flat_cell(rcv, n),
                 fdtd3d.K1, fdtd3d.K2, fdtd3d.ABSORB, fdtd3d.F_OUTPUT_SCALE,
-                list(fdtd3d.range_starts(plan)))
+                fdtd3d.range_starts(plan))
 
     def check(got, want):
         for g, w in zip(got, want):
@@ -292,7 +300,11 @@ def _tuple(out):
 
 
 def test_the_library_has_all_fourteen_operators(ops):
-    assert len(gpuab.OPS) == 14 and len(set(gpuab.OPS)) == 14
+    """The fourteen launch operators, and the receivers' bucketing."""
+    launch = [name for name in gpuab.OPS if name.endswith("_launch")]
+    assert len(launch) == 14 and len(set(launch)) == 14
+    assert len(gpuab.OPS) == 15 and len(set(gpuab.OPS)) == 15
+    assert set(gpuab.OPS) - set(launch) == {"fdtd_receiver_buckets"}
     assert set(NEW_OPS) <= set(gpuab.OPS)
     for name in gpuab.OPS:
         qualified = f"gpuab::{name}"
@@ -326,16 +338,21 @@ class _Step(torch.nn.Module):
         return self.fn(*args)
 
 
-# Per-track receivers are bucketed by plane on the host (the wrapper reads
-# them once), so a program holding them does not trace; the broadcast
-# receiver does.
-EXPORT_CASES = sorted(set(CASES) - {"fdtd_field_receivers"})
+# Per-track receivers are bucketed by plane by an operator of their own,
+# so a program holding them traces like the broadcast receiver's.
+EXPORT_CASES = sorted(CASES)
 
 
 def test_export_refuses_per_track_receivers(ops, rng):
+    """What the field step refuses eagerly it refuses while traced:
+    receivers that are no int32 (tracks,) tensor (their values are never
+    refused: ``test_export_equals_the_eager_call`` exports two off the
+    grid)."""
     c = CASES["fdtd_field_receivers"](rng)
-    with pytest.raises(NotImplementedError, match="bucketed by plane"):
-        torch.export.export(_Step(c.step), tuple(_t(a) for a in c.inputs))
+    inputs = [_t(a) for a in c.inputs]
+    for bad in (inputs[-1].to(torch.int64), inputs[-1][:-1].clone()):
+        with pytest.raises(ValueError, match="receivers must be int32"):
+            torch.export.export(_Step(c.step), tuple(inputs[:-1] + [bad]))
 
 
 @pytest.mark.parametrize("case", EXPORT_CASES)
@@ -378,6 +395,54 @@ def test_wrapper_matches_the_jax_function(rng, case):
     assert [dict(m.KERNEL_LAUNCHES) for m in MODULES] == before
 
 
+# Receivers of 7 tracks in an 8^3 grid: in the grid, past its end, and
+# negative (wrapped once, then clamped), several to one plane.
+BUCKET_RECEIVERS = [100, 511, 512, -1, -600, 7, 130]
+
+
+def test_receiver_buckets_opcheck(ops):
+    torch.library.opcheck(ops.fdtd_receiver_buckets.default,
+                          (torch.tensor(BUCKET_RECEIVERS, dtype=torch.int32),
+                           8))
+
+
+@pytest.mark.parametrize("tracks,n", [(7, 8), (1, 3), (300, 10)])
+def test_receiver_buckets_are_receiver_csrs(ops, rng, tracks, n):
+    """The CPU implementation of ``fdtd_receiver_buckets``: the cells as
+    ``normalize_receivers`` reads them, and plane by plane the rows
+    ``receiver_csr`` buckets there (as sets: the kernel's order within a
+    plane is its atomics')."""
+    raw = (np.array(BUCKET_RECEIVERS, np.int32) if tracks == 7 else
+           rng.integers(-2 * n ** 3, 2 * n ** 3, tracks).astype(np.int32))
+    if tracks == 7:
+        n = 8
+    rcv = torch.from_numpy(raw)
+    cells, order, starts = ops.fdtd_receiver_buckets(rcv, n)
+    assert all(t.dtype == torch.int32 for t in (cells, order, starts))
+    want_cells = fdtd3d.normalize_receivers(rcv, n)
+    assert torch.equal(cells, want_cells.to(torch.int32))
+    ref_order, ref_starts = fdtd3d.receiver_csr(want_cells.numpy(), n)
+    assert starts.tolist() == ref_starts
+    for b in range(n):
+        lo, hi = ref_starts[b], ref_starts[b + 1]
+        assert (sorted(order[lo:hi].tolist())
+                == sorted(ref_order[lo:hi].tolist())), b
+    assert sorted(order.tolist()) == list(range(tracks))
+
+
+def test_receiver_buckets_export_equals_the_eager_call(ops):
+    rcv = torch.tensor(BUCKET_RECEIVERS, dtype=torch.int32)
+    before = dict(fdtd3d.KERNEL_LAUNCHES)
+    prog = torch.export.export(
+        _Step(lambda r: fdtd3d.receiver_buckets(r, 8)), (rcv,))
+    assert fdtd3d.KERNEL_LAUNCHES == before
+    assert "gpuab.fdtd_receiver_buckets" in str(prog.graph)
+    got = prog.module()(rcv.clone())
+    for g, w in zip(got, fdtd3d.receiver_buckets(rcv, 8)):
+        assert torch.equal(g, w)
+    assert fdtd3d.KERNEL_LAUNCHES == before  # eager on the CPU: the twin
+
+
 def test_no_ops_module_launches_a_kernel_through_ctypes():
     """Every kernel launch goes through an operator: no ``ops/*.py`` calls
     a C launch entry on a ctypes handle (``lib.<name>_launch(...)``,
@@ -399,6 +464,17 @@ def test_no_ops_module_launches_a_kernel_through_ctypes():
     assert not hasattr(fdtd3d, "_launch")
     for mod in (rndmem, dwg, speedoflight):
         assert not hasattr(mod, "_lib"), mod.__name__
+
+
+def test_receivers_ab_needs_the_card(capsys):
+    """The receivers' A/B tool measures on the card only: here its worker
+    refuses and it exits 1 naming the reason."""
+    from gpuaudiobench_tpu_torch.tools import receivers_ab
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is here")
+    assert receivers_ab.main([]) == 1
+    assert "CUDA requested" in capsys.readouterr().err
 
 
 def test_binding_ab_needs_the_card(capsys):

@@ -676,16 +676,17 @@ def test_chip_smoke_counts_twin_calls_and_restores_them():
     counts = cs.launch_counts(*modules)
     assert set(counts) == {"modal_bank", "modal_res", "conv1d",
                            "rndmem_gather", "dwg_block", "fdtd3d_div",
-                           "fdtd3d_field", "fdtd3d_div_coop", "fma_chain",
-                           "fma_vmem",
+                           "fdtd3d_field", "fdtd3d_receiver_buckets",
+                           "fdtd3d_div_coop", "fma_chain", "fma_vmem",
                            *iops.KERNEL_LAUNCHES}
     assert not any(counts.values())
 
 
 def test_chip_smoke_lists_every_twin_and_kernel():
     """Every plain twin of a ported kernel is counted on the main paths,
-    and the kernels line has a row for each of the 14 kernels (the 13
-    ported ones, the FDTD divergence form on two routes)."""
+    and the kernels line has a row for each of the 15 kernels (the 13
+    ported ones, the FDTD divergence form on two routes, and the kernel
+    that buckets the field form's per-track receivers)."""
     cs = _chip_smoke()
     mods = _slice_ops()
     assert set(mods) == set(cs.TwinCalls.NAMES)
@@ -698,8 +699,9 @@ def test_chip_smoke_lists_every_twin_and_kernel():
     text = (REPO / "chip_smoke.py").read_text()
     for name in kernels:
         assert f'"{name}"' in text, name
-    assert len(kernels) == 14
+    assert len(kernels) == 15
     assert set(cs.FDTD_REPLACES) == {"fdtd3d_div", "fdtd3d_field",
+                                     "fdtd3d_receiver_buckets",
                                      "fdtd3d_div_coop"}
     assert set(cs.SOL_REPLACES) == {"fma_chain", "fma_vmem"}
     for replaces in (cs.RNDMEM_REPLACES, cs.DWG_REPLACES,

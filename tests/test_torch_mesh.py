@@ -5,9 +5,9 @@ the conftest's 8-device CPU mesh.
 
 The port's side runs on gloo ranks spawned by ``launch.spmd`` (one spawn
 a world size, every spawn with a hard timeout). Collectives move data
-without arithmetic but psum's additions, so all_gather, ppermute and the
-axis indices are held bit for bit, psum within 1e-6 of the peak (the
-sum's order may differ).
+without arithmetic but psum's additions, so all_gather, pmax, ppermute
+and the axis indices are held bit for bit, psum within 1e-6 of the peak
+(the sum's order may differ).
 """
 
 import time
@@ -59,6 +59,7 @@ def test_one_rank_mesh_needs_no_process_group():
     col.COLLECTIVES.clear()
     assert col.all_gather(x, m, "sp", 1) is x
     assert col.psum(x, m, "tp") is x
+    assert col.pmax(x, m, "tp") is x
     assert col.ppermute(x, m, "dp", col.ring(1)) is x
     assert col.unshard(x, m, ("dp", "sp")) is x
     assert col.COLLECTIVES == []
@@ -147,6 +148,36 @@ def test_one_member_axes_are_the_identity_and_silent(port8, k):
     want = [(kind, a) for a, n in zip(AXES, shape) if n > 1
             for kind in ("all_gather", "psum", "ppermute", "ppermute")]
     assert kinds == want
+
+
+def _jax_pmax(shape, x):
+    jm = JaxMesh(np.asarray(jax.devices()[:8]).reshape(shape), AXES)
+    res = {}
+    for dim, axis in enumerate(AXES):
+        rest = P(*[None if d == dim else a for d, a in enumerate(AXES)])
+        res[f"pmax {axis}"] = np.asarray(jax.jit(shard_map(
+            lambda v, a=axis: jax.lax.pmax(v, a), mesh=jm,
+            in_specs=P(*AXES), out_specs=rest, check_vma=False))(x))
+    return res
+
+
+@pytest.mark.parametrize("k", range(len(MESHES8)))
+def test_pmax_equals_jax_lax_pmax_on_8_ranks(port8, k):
+    """``collectives.pmax`` along each axis of each mesh: bit for bit
+    ``jax.lax.pmax`` (a max is exact), its input on a one-member axis, and
+    one record of the shard's bytes for each axis of more than one
+    member."""
+    x, results = port8
+    shape, ours = MESHES8[k], results[k]
+    for key, want in _jax_pmax(shape, x).items():
+        np.testing.assert_array_equal(ours[key], want, err_msg=key)
+    for axis, n in zip(AXES, shape):
+        if n == 1:
+            np.testing.assert_array_equal(ours[f"pmax {axis}"], x)
+    shard = x.size // 8 * 4
+    want = [("pmax", a, n, shard) for a, n in zip(AXES, shape) if n > 1]
+    assert [(r["kind"], r["axis"], r["axis_n"], r["bytes"])
+            for r in ours["pmax records"]] == want
 
 
 def test_open_chain_gives_its_first_member_zeros(port8):

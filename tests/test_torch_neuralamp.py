@@ -185,10 +185,10 @@ def test_int8_refused_for_the_lstm_with_the_references_reason():
     assert str(ours.value) == str(ref.value)
 
 
-def _int8_taps_unpadded(ext, w, d, b):
+def _int8_taps_unpadded(ext, w, d, b, reduce_max=None):
     """The int8 taps as they ran before the padding existed (C % 8 == 0):
     one GEMM a tap on the unpadded operands."""
-    q, s_a = na.quantize_activation(ext)
+    q, s_a = na.quantize_activation(ext, reduce_max)
     t, c = ext.shape[0], ext.shape[2]
     acc = None
     for j in range(na.KERNEL):

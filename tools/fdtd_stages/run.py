@@ -72,7 +72,8 @@ The field form (``--part field``; ``--part div`` runs the above alone,
   rooms 50, 82 and 128; then the largest room whose block meets the
   10.667 ms deadline on the grid-stride kernel and on the route;
 * clock64() phase sums per warp of the plane kernel at rooms 50, 82 and
-  128.
+  128, launched from the profiled build by its C entry (``field_on``),
+  its receivers bucketed by that build's bucketing kernel.
 
 The designs that ship in no kernel live in ``stages.cu``. Needs one CUDA
 device, nvcc and cuobjdump (``$CUDA_HOME`` or ``/usr/local/cuda``).
@@ -162,11 +163,26 @@ def build(out: Path):
 
 
 def use(lib):
-    """Routes the ops module's ctypes launches (the field form's) to
-    ``lib``; the divergence form's wrappers launch through the ``gpuab``
-    operators, which link the shipped library (``div_on``)."""
+    """Routes the ops module's ctypes queries (capacities, shared memory,
+    the barrier probe) to ``lib``. Its wrappers launch through the
+    ``gpuab`` operators, which link the shipped library: a build of this
+    directory is launched by its C entries (``div_on``, ``field_on``)."""
     fops.bind(lib)
     fops._lib = lambda: lib
+
+
+def c_ints(values):
+    """A schedule's ints as the C entries take them."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+def plane_scratch(n, x):
+    """Scratch of a plane kernel launched by its C entry, written before
+    it is read: two parities of n + 2 plane slots, and a flag a block."""
+    xch = torch.empty(2 * (n + 2) * fops.plane_stride(n), device=x.device)
+    flags = torch.empty(n * fops.PLANE_FLAG_STRIDE, dtype=torch.int32,
+                        device=x.device)
+    return xch, flags
 
 
 def div_on(lib, route, x, p, div, src, rcv):
@@ -192,7 +208,7 @@ def div_on(lib, route, x, p, div, src, rcv):
         p_out.data_ptr(), div_out.data_ptr(), out.data_ptr(), *scratch, n, s,
         fops.flat_cell(src, n), tracks, fops.flat_cell(rcv, n), fops.K1,
         fops.K2, fops.C6, fops.ABSORB, fops.F_OUTPUT_SCALE,
-        fops.range_starts(plan), plan.blocks,
+        c_ints(fops.range_starts(plan)), plan.blocks,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
@@ -351,7 +367,7 @@ def plane_variant(lib, mode, x, p, div, n, src, rcv):
             *(o.data_ptr() for o in outs), xch.data_ptr(), flags.data_ptr(),
             n, s, fops.flat_cell(src, n), tracks, fops.flat_cell(rcv, n),
             fops.K1, fops.K2, fops.C6, fops.ABSORB, fops.F_OUTPUT_SCALE,
-            fops.range_starts(plan), plan.blocks, last, stream())
+            c_ints(fops.range_starts(plan)), plan.blocks, last, stream())
 
     if mode == "pair":
         err = launch("planes_pair_launch", PAIR_COOPERATIVE[0])
@@ -784,31 +800,59 @@ def div_part(libs, dev, max_mhz):
     return ok
 
 
+def buckets_on(lib, cells, n):
+    """(cells, order, starts) of per-track receivers from ``lib``'s
+    bucketing kernel, launched by its C entry; three Nones for the
+    broadcast receiver."""
+    if cells is None:
+        return None, None, None
+    out = (torch.empty_like(cells), torch.empty_like(cells),
+           torch.empty(n + 1, dtype=torch.int32, device=cells.device))
+    err = lib.fdtd_receiver_buckets_launch(
+        cells.data_ptr(), cells.numel(), n, *(t.data_ptr() for t in out),
+        stream())
+    if err != 0:
+        raise RuntimeError(f"fdtd_receiver_buckets_launch: CUDA error {err}")
+    return out
+
+
+def field_launch(lib, entry, lead, x, fields, n, src, rcv, cells):
+    """A field plane build of ``lib`` by its C entry ``entry`` (the
+    arguments of fdtd_field_planes_launch after ``lead``), its receivers
+    bucketed by ``lib``'s bucketing kernel: (out, p', vx', vy', vz')."""
+    tracks, s = x.shape
+    outs = [torch.empty_like(f) for f in fields]
+    out = torch.empty((tracks, s), device=x.device)
+    xch, flags = plane_scratch(n, x)
+    buckets = buckets_on(lib, cells, n)
+    plan = fops.plane_schedule(n)  # the planes; the layout is the build's
+    err = getattr(lib, entry)(
+        *lead, fops.source_row(x).data_ptr(),
+        *(f.data_ptr() for f in fields), *(o.data_ptr() for o in outs),
+        out.data_ptr(), xch.data_ptr(), flags.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in buckets), n, s,
+        fops.flat_cell(src, n), tracks, fops.flat_cell(rcv, n), fops.K1,
+        fops.K2, fops.ABSORB, fops.F_OUTPUT_SCALE,
+        c_ints(fops.range_starts(plan)), plan.blocks, stream())
+    if err != 0:
+        raise RuntimeError(f"{entry} {lead}: CUDA error {err}")
+    return (out, *outs)
+
+
 def field_variant(lib, reg_faces, mode, x, fields, n, src, rcv, cells):
     """A field plane build of stages.cu:field_planes_variant (the layout
     with the upper faces in registers or vy and vz in shared memory; mode
     1 without the waits, 2 without the exchange too): (out, p', vx', vy',
     vz')."""
-    tracks, s = x.shape
-    outs = [torch.empty_like(f) for f in fields]
-    out = torch.empty((tracks, s), device=x.device)
-    xch, flags = fops._plane_scratch(n, x)
-    rows = order = starts = None
-    if cells is not None:
-        order, starts = fops._receiver_buckets(cells, n)
-        rows, order = cells.data_ptr(), order.data_ptr()
-    plan = fops.plane_schedule(n)  # the planes; the layout is the build's
-    err = lib.field_planes_variant_launch(
-        int(reg_faces), mode, fops.source_row(x).data_ptr(),
-        *(f.data_ptr() for f in fields), *(o.data_ptr() for o in outs),
-        out.data_ptr(), xch.data_ptr(), flags.data_ptr(), rows, order,
-        starts, n, s, fops.flat_cell(src, n), tracks, fops.flat_cell(rcv, n),
-        fops.K1, fops.K2, fops.ABSORB, fops.F_OUTPUT_SCALE,
-        fops.range_starts(plan), plan.blocks, stream())
-    if err != 0:
-        raise RuntimeError(f"field plane build (registers {reg_faces}, mode "
-                           f"{mode}): CUDA error {err}")
-    return (out, *outs)
+    return field_launch(lib, "field_planes_variant_launch",
+                        (int(reg_faces), mode), x, fields, n, src, rcv, cells)
+
+
+def field_on(lib, x, fields, n, src, rcv, cells):
+    """The shipped field plane kernel as ``lib`` builds it (the profiled
+    build's clock64() phases), by its C entry: (out, p', vx', vy', vz')."""
+    return field_launch(lib, "fdtd_field_planes_launch", (), x, fields, n,
+                        src, rcv, cells)
 
 
 def field_cells(n, src, tracks, dev):
@@ -936,12 +980,8 @@ def field_part(libs, dev, max_mhz):
         prof.zero_()
         if prof_lib.fdtd_prof_set(prof.data_ptr()) != 0:
             raise RuntimeError("fdtd_prof_set failed")
-        use(prof_lib)
-        try:
-            ms = median_ms(lambda: fops.fdtd3d_block_field(
-                x, *z, src, rcv, receivers=cells), 3, 1)
-        finally:
-            use(plain)
+        ms = median_ms(lambda: field_on(prof_lib, x, list(z), n, src, rcv,
+                                        cells), 3, 1)
         nwarps = n * 32
         pr = prof[:nwarps * 8].view(-1, 8).cpu().numpy().astype(np.float64)
         pr /= max_mhz
