@@ -2215,12 +2215,16 @@ def launch_counts(*modules):
 
 
 def reset_counts(*modules):
-    from gpuaudiobench_tpu_torch.harness.graph import reset_replay_counts
+    from gpuaudiobench_tpu_torch.harness.graph import (
+        CHAIN_REPLAYS,
+        REPLAYED_LAUNCHES,
+    )
 
     for mod in modules:
         for k in mod.KERNEL_LAUNCHES:
             mod.KERNEL_LAUNCHES[k] = 0
-    reset_replay_counts()
+    REPLAYED_LAUNCHES.clear()
+    CHAIN_REPLAYS["chain"] = 0
 
 
 def quiet_main(cli, argv):
@@ -4355,9 +4359,9 @@ def capture_run(torch, cli, hprofiler, counts, reset, launches):
         if not any("modal_bank" in e[0] for e in events):
             fail(f"{label}: the trace holds no modal_bank event "
                  f"({len(events)} device events)")
-        timed = hprofiler.trace_events(path, "saturated-reps")
         blocks, replays = chain_expectation(argv)
-        s = hprofiler.summarize(timed, blocks * (replays // 2 - 1))
+        s = hprofiler.trace_summary(path, blocks * (replays // 2 - 1),
+                                    "saturated-reps")
         if "error" in s:
             fail(f"{label}: no device event in the saturated reps")
         print(f"capture {label}: {wall:.1f} s, trace "
@@ -4366,7 +4370,10 @@ def capture_run(torch, cli, hprofiler, counts, reset, launches):
               f"({s['blocks']} chained blocks, graph replays): busy "
               f"{s['device_busy_us_per_block']:.2f} us a block in a window of "
               f"{s['window_us_per_block']:.2f} us, idle share "
-              f"{s['device_idle_share']:.2%}, kernels (us a block) "
+              f"{s['device_idle_share']:.2%} over the reps' range ("
+              + ", ".join(f"{k or 'no span'} {v:.2f}" for k, v in
+                          s["idle_us_per_block_by_range"].items())
+              + " us a block idle), kernels (us a block) "
               + ", ".join(f"{k[:40]} {v:.2f}" for k, v in
                           list(s["kernel_us_per_block"].items())[:4])
               + f"; saturated p50 {rec['saturated']['p50_ms']:.4f} ms")

@@ -9,6 +9,9 @@ performBenchmarkIteration / validate) map to:
 * ``iterate()``    -- ONE measured iteration: device compute plus the
                       output's copy back to the host (which waits for the
                       device). This is the hot path timed by the runner.
+                      Every subclass's ``iterate`` runs inside one
+                      ``gpuab.iterate`` span (``harness/profiler.py``),
+                      the root of its round trip's spans.
 * ``device_iterate()`` -- device compute on resident buffers, enqueued
                       on the current stream; the caller waits (the
                       device tier records CUDA events around it).
@@ -33,12 +36,14 @@ switches to the plain twin under sharding.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from gpuaudiobench_tpu_torch.config import BenchConfig
+from gpuaudiobench_tpu_torch.harness.profiler import span
 from gpuaudiobench_tpu_torch.harness.statistics import LatencyStats
 from gpuaudiobench_tpu_torch.harness.validation import ValidationData
 from gpuaudiobench_tpu_torch.utils import device as dev
@@ -97,6 +102,21 @@ class Benchmark:
     """Base class for all benchmark workloads."""
 
     name: str = "Benchmark"
+
+    def __init_subclass__(cls, **kwargs):
+        """Wrap the subclass's own ``iterate`` in a ``gpuab.iterate``
+        span."""
+        super().__init_subclass__(**kwargs)
+        iterate = cls.__dict__.get("iterate")
+        if iterate is None:
+            return
+
+        @functools.wraps(iterate)
+        def spanned(self):
+            with span("gpuab.iterate"):
+                return iterate(self)
+
+        cls.iterate = spanned
 
     def __init__(self, cfg: BenchConfig, device: torch.device):
         self.cfg = cfg

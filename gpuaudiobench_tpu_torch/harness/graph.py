@@ -26,8 +26,11 @@ continuing form carries the state from replay to replay instead, the
 counterpart of the soak's ``one_second`` scan whose exit carry is the
 next call's entry carry (``tools/soak.py``). A kernel wrapper counts its
 launch with ``count_launch``: under a chain's capture the call records
-the launch, which every replay then makes, so the chain adds its
-recorded launches to ``REPLAYED_LAUNCHES`` once a replay.
+the launch, which every replay then makes. A chain's graph is a
+``ChainCUDAGraph``, whose ``replay()`` itself counts: one in
+``CHAIN_REPLAYS`` and the chain's recorded launches in
+``REPLAYED_LAUNCHES``, under a ``gpuab.replay`` span, whoever calls it.
+Each capture records its chain's depth and graph nodes in ``CHAINS``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from gpuaudiobench_tpu_torch.harness.profiler import span
+
 WARMUP_CALLS = 2
 
 # Kernel launches made by chain replays, by the wrappers' kernel names,
@@ -48,6 +53,10 @@ REPLAYED_LAUNCHES: Dict[str, int] = collections.defaultdict(int)
 CHAIN_REPLAYS: Dict[str, int] = {"chain": 0}
 # The launch tally of the chain being captured, if one is.
 _RECORDING: List[Dict[str, int]] = []
+# Every chain captured in this process, under its name: one entry a
+# capture, its ``depth`` (blocks), its graph's ``nodes`` and whether it is
+# ``continuing``.
+CHAINS: Dict[str, List[Dict[str, int]]] = collections.defaultdict(list)
 
 
 def count_launch(counts: Dict[str, int], key: str) -> None:
@@ -58,11 +67,6 @@ def count_launch(counts: Dict[str, int], key: str) -> None:
         _RECORDING[-1][key] += 1
     else:
         counts[key] += 1
-
-
-def reset_replay_counts() -> None:
-    REPLAYED_LAUNCHES.clear()
-    CHAIN_REPLAYS["chain"] = 0
 
 
 def leaves(carry) -> list:
@@ -168,6 +172,22 @@ def _graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
     return count.value
 
 
+class ChainCUDAGraph(torch.cuda.CUDAGraph):
+    """A chain's CUDA graph: each ``replay()`` runs under a
+    ``gpuab.replay`` span and counts itself in ``CHAIN_REPLAYS`` and the
+    launches its capture recorded (``captured``) in
+    ``REPLAYED_LAUNCHES``."""
+
+    captured: Dict[str, int]
+
+    def replay(self) -> None:
+        with span("gpuab.replay"):
+            super().replay()
+        CHAIN_REPLAYS["chain"] += 1
+        for key, n in self.captured.items():
+            REPLAYED_LAUNCHES[key] += n
+
+
 class AdvancingCarry(ValueError):
     """A continuing chain's body moves a Python value of its carry within
     the chain: a replay would run every later chain with the values its
@@ -266,8 +286,9 @@ class ChainGraph:
         finally:
             current.wait_stream(side)
         torch.cuda.synchronize(device)
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.graph = ChainCUDAGraph(keep_graph=True)
         self.captured: Dict[str, int] = collections.defaultdict(int)
+        self.graph.captured = self.captured
         t0 = time.perf_counter()
         _RECORDING.append(self.captured)
         try:
@@ -281,6 +302,8 @@ class ChainGraph:
             _RECORDING.pop()
         self.capture_s = time.perf_counter() - t0
         self.nodes = _graph_nodes(self.graph)
+        CHAINS[name].append({"depth": depth, "nodes": self.nodes,
+                             "continuing": continuing})
         t0 = time.perf_counter()
         self.graph.instantiate()
         torch.cuda.synchronize(device)
@@ -295,7 +318,4 @@ class ChainGraph:
     def run(self) -> torch.Tensor:
         """One replay; the stacked probes on the host."""
         self.graph.replay()
-        CHAIN_REPLAYS["chain"] += 1
-        for key, n in self.captured.items():
-            REPLAYED_LAUNCHES[key] += n
         return self.probes.cpu()

@@ -96,9 +96,8 @@ def conv1d_direct(x: torch.Tensor, ir: torch.Tensor,
     dev = _check(x, ir, edge_mode)
     if not gpuab.use_op(dev):
         return conv1d_direct_plain(x, ir, edge_mode)
-    out = gpuab.load().conv1d_direct_launch(x, ir, edge_mode == "bleed")
-    gpuab.launched(KERNEL_LAUNCHES, "conv1d")
-    return out
+    return gpuab.call("conv1d_direct_launch", x, ir, edge_mode == "bleed",
+                      counts=KERNEL_LAUNCHES, key="conv1d")
 
 
 def precompute_ir_spectra(ir: torch.Tensor, fft_size: int) -> torch.Tensor:

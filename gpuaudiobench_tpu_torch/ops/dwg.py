@@ -212,8 +212,7 @@ def dwg_block(x, fwd, bwd, lengths, in_taps, out_taps, gains, refl,
                                refl, damp)
     g, lmax = fwd.shape
     sc = dwg_schedule(g, x.shape[0], lmax)
-    out = gpuab.load().dwg_block_launch(
-        x, fwd, bwd, lengths, in_taps, out_taps, gains, refl, damp,
-        sc.segments, sc.groups, sc.update_blocks)
-    gpuab.launched(KERNEL_LAUNCHES, "dwg_block")
+    out = gpuab.call("dwg_block_launch", x, fwd, bwd, lengths, in_taps,
+                     out_taps, gains, refl, damp, sc.segments, sc.groups,
+                     sc.update_blocks, counts=KERNEL_LAUNCHES, key="dwg_block")
     return out, fwd, bwd

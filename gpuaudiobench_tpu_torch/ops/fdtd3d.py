@@ -512,13 +512,11 @@ def _div_op(x, p, div, n, source, receiver, plan: FdtdPlan):
     ranges go in as ints, which an export bakes into the program."""
     name = ("fdtd_div_cluster_launch" if plan.route == "cluster"
             else "fdtd_div_planes_launch")
-    out = getattr(gpuab.load(), name)(
-        source_row(x), p, div, x.shape[0], flat_cell(source, n),
+    return gpuab.call(
+        name, source_row(x), p, div, x.shape[0], flat_cell(source, n),
         flat_cell(receiver, n), K1, K2, C6, ABSORB, F_OUTPUT_SCALE,
-        range_starts(plan))
-    gpuab.launched(KERNEL_LAUNCHES, "fdtd3d_div" if plan.route == "cluster"
-                   else "fdtd3d_div_coop")
-    return out
+        range_starts(plan), counts=KERNEL_LAUNCHES,
+        key="fdtd3d_div" if plan.route == "cluster" else "fdtd3d_div_coop")
 
 
 def receiver_buckets(receivers: torch.Tensor, n: int):
@@ -540,9 +538,8 @@ def receiver_buckets(receivers: torch.Tensor, n: int):
         raise ValueError(f"{fn}: no kernel for {receivers.device}")
     if not gpuab.use_op(receivers.device):
         return receiver_buckets_plain(receivers, n)
-    out = gpuab.load().fdtd_receiver_buckets(receivers, n)
-    gpuab.launched(KERNEL_LAUNCHES, "fdtd3d_receiver_buckets")
-    return out
+    return gpuab.call("fdtd_receiver_buckets", receivers, n,
+                      counts=KERNEL_LAUNCHES, key="fdtd3d_receiver_buckets")
 
 
 def _field_op(x, p, vx, vy, vz, n, source, receiver, receivers,
@@ -554,12 +551,11 @@ def _field_op(x, p, vx, vy, vz, n, source, receiver, receivers,
     their normalized cells, order and plane starts go in as tensors."""
     buckets = ((None, None, None) if receivers is None
                else receiver_buckets(receivers, n))
-    out = gpuab.load().fdtd_field_planes_launch(
-        source_row(x), p, vx, vy, vz, *buckets, x.shape[0],
-        flat_cell(source, n), flat_cell(receiver, n), K1, K2, ABSORB,
-        F_OUTPUT_SCALE, range_starts(plan))
-    gpuab.launched(KERNEL_LAUNCHES, "fdtd3d_field")
-    return out
+    return gpuab.call(
+        "fdtd_field_planes_launch", source_row(x), p, vx, vy, vz, *buckets,
+        x.shape[0], flat_cell(source, n), flat_cell(receiver, n), K1, K2,
+        ABSORB, F_OUTPUT_SCALE, range_starts(plan), counts=KERNEL_LAUNCHES,
+        key="fdtd3d_field")
 
 
 def _check_div(x, p, div, source, receiver, fn):

@@ -40,8 +40,10 @@ and a CUDA tensor reaches only the kernel.
 
 A wrapper in ``ops/*.py`` calls an operator on a CUDA tensor, and on a
 CPU tensor only while a program is being traced (``torch.export``); an
-eager call on a CPU tensor runs the twin directly. ``launched`` counts a
-launch in the wrapper's ``KERNEL_LAUNCHES`` unless it is being traced.
+eager call on a CPU tensor runs the twin directly. It calls through
+``call``, which runs the operator inside a ``gpuab.op`` span
+(``harness/profiler.py``) and counts the launch in the wrapper's
+``KERNEL_LAUNCHES`` unless the call is being traced.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from typing import Dict
 import torch
 
 from gpuaudiobench_tpu_torch.harness.graph import count_launch
+from gpuaudiobench_tpu_torch.harness.profiler import span
 
 OPS = ("modal_bank_launch", "modal_res_launch", "iir_biquad_launch",
        "iir_blockstate_launch", "iir_cascade_launch",
@@ -75,11 +78,17 @@ def use_op(device: torch.device) -> bool:
     return device.type == "cuda" or tracing()
 
 
-def launched(counts: Dict[str, int], key: str) -> None:
-    """Count one launch of ``key`` (``harness.graph.count_launch``), unless
-    the call is being traced and so launched nothing."""
+def call(name: str, *args, counts: Dict[str, int], key: str):
+    """``torch.ops.gpuab.<name>(*args)`` inside a ``gpuab.op`` span, and
+    one launch of ``key`` counted in ``counts``
+    (``harness.graph.count_launch``) unless the call is being traced and
+    so launched nothing."""
+    op = getattr(load(), name)
+    with span("gpuab.op"):
+        out = op(*args)
     if not tracing():
         count_launch(counts, key)
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -200,9 +200,8 @@ def iir_biquad(x: torch.Tensor, coeffs: torch.Tensor,
                                    ("state", state, (tracks, 2))])
     if not gpuab.use_op(dev):
         return iir_biquad_plain(x, coeffs, state)
-    out = gpuab.load().iir_biquad_launch(x, coeffs, state)
-    gpuab.launched(KERNEL_LAUNCHES, "iir_biquad")
-    return out
+    return gpuab.call("iir_biquad_launch", x, coeffs, state,
+                      counts=KERNEL_LAUNCHES, key="iir_biquad")
 
 
 def iir_biquad_blockstate(x: torch.Tensor, coeffs: torch.Tensor,
@@ -221,9 +220,8 @@ def iir_biquad_blockstate(x: torch.Tensor, coeffs: torch.Tensor,
         return iir_biquad_blockstate_plain(x, coeffs, taps, u, state)
     if dev.type == "cuda" and m > 128:
         raise ValueError(f"the CUDA blockstate kernel takes m <= 128, got {m}")
-    out = gpuab.load().iir_blockstate_launch(x, coeffs, taps, u, state)
-    gpuab.launched(KERNEL_LAUNCHES, "iir_biquad_blockstate")
-    return out
+    return gpuab.call("iir_blockstate_launch", x, coeffs, taps, u, state,
+                      counts=KERNEL_LAUNCHES, key="iir_biquad_blockstate")
 
 
 # Warps per block of the systolic cascade kernel (csrc/iir.cu kCsWarps;
@@ -348,11 +346,9 @@ def iir_cascade(x: torch.Tensor, coeffs: torch.Tensor,
     if dev.type == "cuda":
         _check_depth("iir_cascade", k)
     sc = cascade_schedule(tracks, s, k)
-    out = gpuab.load().iir_cascade_launch(x, coeffs, states, sc.grid,
-                                          sc.steady[1], sc.drain[1],
-                                          sc.chunks)
-    gpuab.launched(KERNEL_LAUNCHES, "iir_cascade")
-    return out
+    return gpuab.call("iir_cascade_launch", x, coeffs, states, sc.grid,
+                      sc.steady[1], sc.drain[1], sc.chunks,
+                      counts=KERNEL_LAUNCHES, key="iir_cascade")
 
 
 def iir_cascade_chain(x: torch.Tensor, coeffs: torch.Tensor,
@@ -372,9 +368,9 @@ def iir_cascade_chain(x: torch.Tensor, coeffs: torch.Tensor,
     else:
         sc = chain_schedule(tracks, s, x.data_ptr())
         route = CHAIN_ROUTES.index(sc.route)
-    out = gpuab.load().iir_cascade_chain_launch(x, coeffs, states, route,
-                                                sc.grid, sc.chunks)
-    gpuab.launched(KERNEL_LAUNCHES, "iir_cascade_chain")
+    out = gpuab.call("iir_cascade_chain_launch", x, coeffs, states, route,
+                     sc.grid, sc.chunks, counts=KERNEL_LAUNCHES,
+                     key="iir_cascade_chain")
     if route >= 0:
         CHAIN_ROUTE_LAUNCHES[sc.route] += 1
     return out

@@ -271,11 +271,11 @@ def _launch_res(eps, y, q, buffer_size: int, output_tracks: int,
     """The resonator kernel on (eps, y, q) through
     ``torch.ops.gpuab.modal_res_launch``; returns (out, y', q'), the
     states empty (0,) tensors unless ``keep_states``."""
-    out = gpuab.load().modal_res_launch(
-        eps, y, q, buffer_size, output_tracks, track_major, keep_states,
-        *_geometry("res", y.shape[0], output_tracks, y.device))
-    gpuab.launched(KERNEL_LAUNCHES, "modal_res")
-    return out
+    return gpuab.call(
+        "modal_res_launch", eps, y, q, buffer_size, output_tracks,
+        track_major, keep_states,
+        *_geometry("res", y.shape[0], output_tracks, y.device),
+        counts=KERNEL_LAUNCHES, key="modal_res")
 
 
 def _launch_rotation(cos_w, sin_w, amp: Optional[torch.Tensor], re, im,
@@ -285,12 +285,11 @@ def _launch_rotation(cos_w, sin_w, amp: Optional[torch.Tensor], re, im,
     (the CPU twin while a CPU program is traced, which takes no
     schedule); returns (out, re', im'), the states empty (0,) tensors
     unless ``keep_states``."""
-    out = gpuab.load().modal_bank_launch(
-        cos_w, sin_w, amp, re, im, buffer_size, output_tracks, track_major,
-        keep_states, *_geometry("rotation", re.shape[0], output_tracks,
-                                re.device))
-    gpuab.launched(KERNEL_LAUNCHES, "modal_bank")
-    return out
+    return gpuab.call(
+        "modal_bank_launch", cos_w, sin_w, amp, re, im, buffer_size,
+        output_tracks, track_major, keep_states,
+        *_geometry("rotation", re.shape[0], output_tracks, re.device),
+        counts=KERNEL_LAUNCHES, key="modal_bank")
 
 
 def modal_bank(amp, cos_w, sin_w, state_re, state_im,

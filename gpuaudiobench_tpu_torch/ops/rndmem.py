@@ -87,6 +87,5 @@ def rndmem_gather(pool: torch.Tensor, playheads: torch.Tensor,
     dev = _check(pool, playheads, samples)
     if not gpuab.use_op(dev):
         return rndmem_gather_plain(pool, playheads, samples)
-    out = gpuab.load().rndmem_gather_launch(pool, playheads, samples)
-    gpuab.launched(KERNEL_LAUNCHES, "rndmem_gather")
-    return out
+    return gpuab.call("rndmem_gather_launch", pool, playheads, samples,
+                      counts=KERNEL_LAUNCHES, key="rndmem_gather")

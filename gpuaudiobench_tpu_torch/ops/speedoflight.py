@@ -104,10 +104,9 @@ def _fma(name: str, x: torch.Tensor, k: int) -> torch.Tensor:
     dev = _check(x, k, name)
     if not gpuab.use_op(dev):
         return fma_chain_plain(x, k)
-    out = getattr(gpuab.load(), f"{name}_launch")(
-        x, k, float(np.float32(FMA_M)), float(np.float32(FMA_C)))
-    gpuab.launched(KERNEL_LAUNCHES, name)
-    return out
+    return gpuab.call(f"{name}_launch", x, k, float(np.float32(FMA_M)),
+                      float(np.float32(FMA_C)), counts=KERNEL_LAUNCHES,
+                      key=name)
 
 
 def fma_chain(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -10,7 +10,8 @@ every benchmark's round trip does. ``stage_pinned`` places a host array
 in page-locked memory (the reference's cudaMallocHost path,
 cuda/bench_utils.cu:101-155) and ``upload`` copies such a buffer to the
 card without waiting: the datacopy family and the overlapped-infeed tier
-use them.
+use them. A copy to the device runs inside a ``gpuab.h2d`` span, one to
+the host inside a ``gpuab.d2h`` span (``harness/profiler.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from gpuaudiobench_tpu_torch.harness.profiler import span
 
 
 def device(name: str = "cuda") -> torch.device:
@@ -39,7 +42,9 @@ def device(name: str = "cuda") -> torch.device:
 def to_device(host_array: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host -> device copy (cudaMemcpy H2D). On the CPU too it is a copy,
     so an in-place update of the tensor never writes the host array."""
-    return torch.from_numpy(np.ascontiguousarray(host_array)).to(dev, copy=True)
+    with span("gpuab.h2d"):
+        return torch.from_numpy(np.ascontiguousarray(host_array)).to(
+            dev, copy=True)
 
 
 def stage_pinned(host_array: np.ndarray,
@@ -62,7 +67,8 @@ def upload(src, dev: torch.device) -> torch.Tensor:
     on the current stream without waiting, or of a numpy array through
     ``to_device``."""
     if isinstance(src, torch.Tensor):
-        return src.to(dev, non_blocking=True, copy=True)
+        with span("gpuab.h2d"):
+            return src.to(dev, non_blocking=True, copy=True)
     return to_device(src, dev)
 
 
@@ -76,7 +82,8 @@ def fp32_convolutions(dev: torch.device) -> None:
 
 def from_device(t: torch.Tensor) -> np.ndarray:
     """Device -> host copy (cudaMemcpy D2H); waits for the device."""
-    return t.cpu().numpy()
+    with span("gpuab.d2h"):
+        return t.cpu().numpy()
 
 
 def block(dev: torch.device) -> None:

@@ -1682,6 +1682,35 @@ def test_chain_graph_launches_are_captured_times_replays(cuda):
     assert iops.KERNEL_LAUNCHES["iir_biquad"] == eager + graph.WARMUP_CALLS * 4
 
 
+def test_a_chain_graph_replay_counts_itself(cuda):
+    """A replay of the chain's graph itself, not through ``run()``, adds
+    one replay and the captured launches, under one ``gpuab.replay`` span;
+    the capture records the chain's depth and nodes under its name."""
+    from gpuaudiobench_tpu_torch.harness import graph, profiler
+
+    b = _body(cuda, "IIRFilter", {})
+    step, carry = b.stream_body()
+    g = graph.ChainGraph(step, carry, 4, name="IIRFilter.replay",
+                         continuing=True)
+    assert graph.CHAINS["IIRFilter.replay"][-1] == {
+        "depth": 4, "nodes": g.nodes, "continuing": True}
+    replayed = graph.REPLAYED_LAUNCHES["iir_biquad"]
+    replays = graph.CHAIN_REPLAYS["chain"]
+    profiler.SPANS.reset()
+    profiler.enable()
+    try:
+        g.graph.replay()
+    finally:
+        profiler.disable()
+    torch.cuda.synchronize()
+    assert graph.CHAIN_REPLAYS["chain"] == replays + 1
+    assert graph.REPLAYED_LAUNCHES["iir_biquad"] == replayed + 4
+    assert [r.name for r in profiler.SPANS.records()] == ["gpuab.replay"]
+    g.run()
+    assert graph.CHAIN_REPLAYS["chain"] == replays + 2
+    assert graph.REPLAYED_LAUNCHES["iir_biquad"] == replayed + 8
+
+
 @pytest.mark.parametrize("name,form", [("gain", "cuda-graph"),
                                        ("PartConv", "cuda-graph"),
                                        ("NeuralAmpLSTM", "loop")])

@@ -669,10 +669,12 @@ def test_chip_smoke_counts_twin_calls_and_restores_them():
     from gpuaudiobench_tpu_torch.harness import graph
 
     graph.REPLAYED_LAUNCHES["conv1d"] += 5
+    graph.CHAIN_REPLAYS["chain"] += 1
     assert cs.launch_counts(*modules)["conv1d"] == (
         cops.KERNEL_LAUNCHES["conv1d"] + 5)
     cs.reset_counts(*modules)
     assert graph.REPLAYED_LAUNCHES.get("conv1d", 0) == 0
+    assert graph.CHAIN_REPLAYS["chain"] == 0
     counts = cs.launch_counts(*modules)
     assert set(counts) == {"modal_bank", "modal_res", "conv1d",
                            "rndmem_gather", "dwg_block", "fdtd3d_div",
